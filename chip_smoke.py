@@ -9,9 +9,11 @@ It needs a CUDA device and fails without one; it has no CPU path. Phases,
 each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc);
-3. each of the four kernels against its plain PyTorch version, in float32,
-   at the main path's shapes and at a ragged haloed shape, with times;
+2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
+   one process per source), with each kernel's registers and spills;
+3. each of the eight kernels against its plain PyTorch version, in float32,
+   at the main path's shapes and at a ragged haloed shape, with times and
+   the least time the card could take for the same work;
 4. the main path: the 256³ Centered-2 quasi-AB2 model (``bench.py``'s
    default configuration) for 100 timed steps after a warm-up, on the
    kernel path and on the plain path, held against each other and against
@@ -19,14 +21,23 @@ each of which raises on failure:
    against the plain path on the CPU;
 5. a few RK3 steps at 256³ (the tendency-only kernel);
 6. a few AB2 steps with the fused pressure correction and the fused matmul
-   Poisson solver, held against phase 4's path, and the solvers' times.
+   Poisson solver, held against phase 4's path, and the solvers' times;
+7. the WENO-5 paths at 256³ in ``bench.py``'s configurations: ``weno``
+   (two tracers, the science kernel) for 100 timed steps after a warm-up
+   and ``weno_mom`` (the momentum AB2 kernel), the WENO science model
+   (f-plane, BuoyancyTracer, tracers b and c) and RK3 ``weno`` (the tendency
+   and tracer kernels) for a few steps each, each on the kernel path and on
+   the plain path; plus a float64 16³ WENO science run of the kernel path
+   held against the plain path on the CPU.
 
 Each kernel's launch count is zeroed just before the run of the main path
-that goes through it (phase 4's kernel path for the fused AB2 kernel, phase
-5's RK3 run for the tendency kernel, phase 6's opt-in model for the other
-two) and read just after it; each must equal the launches that run makes.
-The line before the last is the JSON summary of the kernels, with those
-counts; the last line is the device record.
+that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
+phase 5's RK3 run for the Centered-2 tendency kernel, phase 6's opt-in
+model for the pressure and Poisson kernels, phase 7's ``weno``,
+``weno_mom`` and RK3 runs for the WENO kernels) and read just after it;
+each must equal the launches that run makes. The line before the last is
+the JSON summary of the kernels, with those counts; the last line is the
+device record.
 """
 
 from __future__ import annotations
@@ -71,6 +82,42 @@ def paired_times(torch, plain, kernel, reps):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+#: memory rate in bytes/s and float32 rate outside the tensor cores in
+#: FLOP/s (a fused multiply-add counts two)
+PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+#: operations per output point, counted from the CUDA sources (an add,
+#: multiply, divide, min, abs or select counts one, a fused multiply-add
+#: two), for the work each function must do at least once:
+#: Centered-2 tendency (``centered2.cu``, 34 per component), pressure
+#: correction (4 per component), and the WENO-5 face flux (``weno5.cu``:
+#: 135 for the face value, with the advecting velocity's average and the
+#: product 138 for momentum, 136 for a tracer)
+C2_TENDENCY_OPS = 102
+PRESSURE_OPS = 12
+WENO_FACE_OPS = 135
+#: a momentum point: 9 face fluxes and 9 differences, scales and sums
+WENO_MOMENTUM_OPS = 9 * (WENO_FACE_OPS + 3) + 27
+#: a tracer point: 3 face fluxes (the velocity is not averaged) and 9
+WENO_TRACER_OPS = 3 * (WENO_FACE_OPS + 1) + 9
+#: f-plane Coriolis on Gu and Gv, and the buoyancy average on Gw
+SCIENCE_OPS = 14 + 3
+#: q + a·G + b·G⁻ for one field
+AB2_OPS = 4
+
+
+def bound(nbytes, flops):
+    """The least time the card could take, in ms, and what sets it: the
+    bytes the function must move (each input read once, each output
+    written once) over the memory rate, or its operations over the float32
+    peak, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -82,7 +129,9 @@ def main():
     import oceananigans_torch as ot
     from oceananigans_torch.ops import _build, cuda_kernels as ck
     from oceananigans_torch.ops import cuda_poisson as cp
+    from oceananigans_torch.ops import cuda_weno as cw
     from oceananigans_torch.ops.operators import divergence_ccc
+    from oceananigans_torch.profile_step import config_kwargs, initial_state
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
@@ -102,21 +151,22 @@ def main():
     log(f"[2] kernel library ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             log(f"[2]   {line.strip()}")
 
     # ---- phase 3: kernels against their plain versions ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def grid_of(N, halo):
+    def grid_of(N, halo, dtype=f32):
         return ot.RectilinearGrid(
             size=N, extent=(1.0, 1.0, 1.0),
             topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
-            dtype=f32, device=dev)
+            dtype=dtype, device=dev)
 
     def filled_fields(grid, n):
         fs = []
-        for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C)[:n]:
+        for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C, ot.LOC_C)[:n]:
             a = torch.randn(grid.shape, generator=gen, device=dev, dtype=f32)
             fs.append(ot.fill_halo_regions(a, grid, loc=loc))
         return fs
@@ -203,12 +253,112 @@ def main():
                 lambda: cp.fused_middle_solve_plain(*margs),
                 lambda: cp.fused_middle_solve(*margs)),
         }
+        field = u.numel() * u.element_size()
+        # the output points: the interior x-rows
+        points = N[0] * N[1] * N[2]
+        Ny, Nz = N[1], N[2]
+        bounds = {
+            "centered2_ab2_update": bound(
+                12 * field, points * (C2_TENDENCY_OPS + 3 * AB2_OPS)),
+            "centered2_momentum_tendency": bound(
+                6 * field, points * C2_TENDENCY_OPS),
+            "pressure_correction": bound(7 * field, points * PRESSURE_OPS),
+            "fused_middle_solve": bound(
+                2 * x.numel() * x.element_size(),
+                4 * N[0] * Ny * Nz * (Ny + Nz)),
+        }
         for name, (plain, kernel) in timings.items():
             plain_ms, ms = paired_times(torch, plain, kernel, reps)
-            report[name].update(ms=ms, plain_ms=plain_ms)
+            bound_ms, bound_by = bounds[name]
+            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
             log(f"[3] {name} at {tuple(u.shape)}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
         del u, v, w, p, Gm, Gk, Gp, got, ref, x, margs, timings
+        torch.cuda.empty_cache()
+
+    #: the WENO-5 kernels against the plain versions: the WENO-Z weights
+    #: are nonlinear and the plain versions divide by volumes where the
+    #: kernels multiply by 1/spacing, so they agree to rounding of the
+    #: largest value, not bit for bit. Two runs on an H100 read 8.95e-7 of
+    #: it at the main shape and 2.5e-7 at the ragged one, each time; the
+    #: JAX package holds its own kernels to 3e-5 (tests/test_pallas_weno.py)
+    WENO_RTOL = 1e-5
+    weno_shapes = {"main": ((256, 256, 256), (3, 0, 0)),
+                   "ragged": ((30, 20, 40), (3, 3, 3))}
+    f_smoke = 1e-4
+    for shape_name, (N, halo) in weno_shapes.items():
+        grid = grid_of(N, halo)
+        u, v, w, c, d = filled_fields(grid, 5)
+        tr = {"c": c, "d": d}
+        Gm = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
+                                dtype=f32) for _ in range(5)]
+        a, b = 1.6e-4, -0.6e-4
+        Gk = [g.clone() for g in Gm]
+        Gp = [g.clone() for g in Gm]
+
+        def ab2(fn, G):
+            return fn(grid, u, v, w, *G[:3], a, b)
+
+        def science(fn, G):
+            out = fn(grid, u, v, w, tr, *G[:3], {"c": G[3], "d": G[4]}, a,
+                     b, f=f_smoke, buoyancy_tracer="d")
+            return [*out[:3], *out[3].values(), *out[4:7], *out[7].values()]
+
+        checks = {
+            "weno5_ab2_update": (
+                lambda: ab2(cw.weno5_ab2_update, Gk),
+                lambda: ab2(cw.weno5_ab2_update_plain, Gp)),
+            "weno5_momentum_tendency": (
+                lambda: cw.weno5_momentum_tendency(grid, u, v, w),
+                lambda: cw.weno5_momentum_tendency_plain(grid, u, v, w)),
+            "weno5_science_ab2_update": (
+                lambda: science(cw.weno5_science_ab2_update, Gk),
+                lambda: science(cw.weno5_science_ab2_update_plain, Gp)),
+            "weno5_tracer_tendencies": (
+                lambda: list(cw.weno5_tracer_tendencies(
+                    grid, u, v, w, tr).values()),
+                lambda: list(cw.weno5_tracer_tendencies_plain(
+                    grid, u, v, w, tr).values())),
+        }
+        for name, (kernel, plain) in checks.items():
+            # the AB2 kernels write G over G_prev: each side starts from
+            # its own copy of the same G_prev
+            for gk, gp, g0 in zip(Gk, Gp, Gm):
+                gk.copy_(g0)
+                gp.copy_(g0)
+            got = kernel()
+            ref = plain()
+            torch.cuda.synchronize()
+            check(name, shape_name, got, ref, WENO_RTOL)
+        if shape_name != "main":
+            continue
+        field = u.numel() * u.element_size()
+        points = N[0] * N[1] * N[2]
+        T = len(tr)
+        bounds = {
+            "weno5_ab2_update": bound(
+                12 * field, points * (WENO_MOMENTUM_OPS + 3 * AB2_OPS)),
+            "weno5_momentum_tendency": bound(
+                6 * field, points * WENO_MOMENTUM_OPS),
+            "weno5_science_ab2_update": bound(
+                4 * (3 + T) * field,
+                points * (WENO_MOMENTUM_OPS + SCIENCE_OPS
+                          + T * WENO_TRACER_OPS + (3 + T) * AB2_OPS)),
+            "weno5_tracer_tendencies": bound(
+                (3 + 2 * T) * field, points * T * WENO_TRACER_OPS),
+        }
+        reps = 10
+        for name, (kernel, plain) in checks.items():
+            plain_ms, ms = paired_times(torch, plain, kernel, reps)
+            bound_ms, bound_by = bounds[name]
+            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
+            log(f"[3] {name} at {tuple(u.shape)}, {T} tracers: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+        del u, v, w, c, d, tr, Gm, Gk, Gp, got, ref, checks
         torch.cuda.empty_cache()
 
     # ---- phase 4: the main path ----------------------------------------
@@ -216,7 +366,11 @@ def main():
                 "centered2_momentum_tendency":
                     ck.centered2_momentum_tendency,
                 "pressure_correction": ck.pressure_correction,
-                "fused_middle_solve": cp.fused_middle_solve}
+                "fused_middle_solve": cp.fused_middle_solve,
+                "weno5_ab2_update": cw.weno5_ab2_update,
+                "weno5_momentum_tendency": cw.weno5_momentum_tendency,
+                "weno5_science_ab2_update": cw.weno5_science_ab2_update,
+                "weno5_tracer_tendencies": cw.weno5_tracer_tendencies}
     launches = {}
 
     def zero_counts():
@@ -226,13 +380,6 @@ def main():
     N = 256
     dt = 1e-4
     grid = grid_of((N, N, N), (1, 0, 0))
-
-    def init(model):
-        return model.initial_state(
-            u=lambda x, y, z: 0.01 * torch.sin(8 * math.pi * x)
-            * torch.cos(6 * math.pi * y) * torch.cos(2 * math.pi * z),
-            v=lambda x, y, z: 0.01 * torch.cos(4 * math.pi * x)
-            * torch.sin(6 * math.pi * y))
 
     def run(model, state, steps):
         state = model.fill_state_halos(state)
@@ -250,7 +397,8 @@ def main():
 
     def finite(state):
         return all(bool(torch.isfinite(q).all())
-                   for q in (state.u, state.v, state.w, state.pressure))
+                   for q in (state.u, state.v, state.w, state.pressure,
+                             *state.tracers.values()))
 
     warm, steps = 5, 100
     step_ms = {}
@@ -262,7 +410,7 @@ def main():
             fused_kernels=fused)
         require(bool(model.fused_ab2) == (path == "kernel"),
                 f"{path} path selects fused_ab2={model.fused_ab2}")
-        state = run(model, init(model), warm)
+        state = run(model, initial_state(model), warm)
         torch.cuda.synchronize()
         holder = [state]
         step_ms[path] = time_ms(
@@ -334,7 +482,7 @@ def main():
     require(rk3.timestepper == "RungeKutta3" and rk3.fused_kernels,
             "default model is RK3 with fused kernels")
     zero_counts()
-    s = run(rk3, init(rk3), 3)
+    s = run(rk3, initial_state(rk3), 3)
     torch.cuda.synchronize()
     n_tend = launches["centered2_momentum_tendency"] = \
         ck.centered2_momentum_tendency.launches
@@ -353,13 +501,13 @@ def main():
     few = 10
     ref_model = ot.NonhydrostaticModel(
         grid=grid, timestepper="QuasiAdamsBashforth2")
-    s_ref = run(ref_model, init(ref_model), few)
+    s_ref = run(ref_model, initial_state(ref_model), few)
     opt = ot.NonhydrostaticModel(grid=grid,
                                  timestepper="QuasiAdamsBashforth2")
     opt.fused_correction = True
     opt.pressure_solver = ot.MatmulPoissonSolver(grid, fused=True)
     zero_counts()
-    s_opt = run(opt, init(opt), few)
+    s_opt = run(opt, initial_state(opt), few)
     torch.cuda.synchronize()
     for name in ("pressure_correction", "fused_middle_solve"):
         launches[name] = wrappers[name].launches
@@ -398,6 +546,137 @@ def main():
     log(f"[6] step times on {card}: kernel path {step_ms['kernel']:.3f} "
         f"ms/step, plain path {step_ms['plain']:.3f} ms/step")
 
+    del ref_model, s_ref, opt, s_opt, solvers, rhs
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the WENO-5 paths ----------------------------------------
+    def weno_model(config, fused, timestepper="QuasiAdamsBashforth2",
+                   grid=None):
+        if config == "weno_science":
+            kwargs, halo = dict(advection=ot.WENO(5),
+                                coriolis=ot.FPlane(f=1e-4),
+                                buoyancy=ot.BuoyancyTracer(),
+                                tracers=("b", "c")), (3, 0, 0)
+        else:
+            kwargs, halo = config_kwargs(config)
+        grid = grid or grid_of((N, N, N), halo)
+        return ot.NonhydrostaticModel(grid=grid, timestepper=timestepper,
+                                      fused_kernels=fused, **kwargs)
+
+    def rel_diff(grid, sk, sp):
+        """max|kernel − plain| over the interiors, relative to the largest
+        plain value, for the velocities and for the tracers."""
+        def rel(pairs):
+            diff = max(float(grid.interior(a - b.to(a.device)).abs().max())
+                       for a, b in pairs)
+            return diff / max(float(grid.interior(b).abs().max())
+                              for _, b in pairs)
+        vel = rel([(sk.u, sp.u), (sk.v, sp.v), (sk.w, sp.w)])
+        trc = (rel([(sk.tracers[n], sp.tracers[n]) for n in sk.tracers])
+               if sk.tracers else 0.0)
+        return vel, trc
+
+    #: the kernel and plain paths round the WENO fluxes and the update
+    #: differently every step, and the nonlinear WENO-Z weights carry the
+    #: difference on; relative to the largest value of each group of
+    #: fields. Two runs on an H100 read 8.724e-06 (velocities) and
+    #: 8.906e-06 (tracers) after the 105 `weno` steps, each time
+    WENO_PATH_RTOL = 3e-5
+    weno_runs = {
+        # name: (configuration, timestepper, warm-up, steps, kernels)
+        "weno": ("weno", "QuasiAdamsBashforth2", warm, steps,
+                 {"weno5_science_ab2_update": 1}),
+        "weno_mom": ("weno_mom", "QuasiAdamsBashforth2", 2, 20,
+                     {"weno5_ab2_update": 1}),
+        "weno_science": ("weno_science", "QuasiAdamsBashforth2", 2, 10,
+                         {"weno5_science_ab2_update": 1}),
+        "weno_rk3": ("weno", "RungeKutta3", 0, 3,
+                     {"weno5_momentum_tendency": 3,
+                      "weno5_tracer_tendencies": 3}),
+    }
+    weno_ms = {}
+    for run_name, (config, ts, n_warm, n_steps, per_step) in \
+            weno_runs.items():
+        finals = {}
+        for path, fused in (("kernel", "auto"), ("plain", False)):
+            model = weno_model(config, fused, ts)
+            zero_counts()
+            state = run(model, initial_state(model), n_warm)
+            torch.cuda.synchronize()
+            holder = [state]
+            ms = time_ms(torch, lambda: holder.__setitem__(
+                0, model.step(holder[0], dt, assume_filled=True)), n_steps)
+            weno_ms[run_name, path] = ms
+            finals[path] = (model, holder[0])
+            total = n_warm + n_steps
+            if path == "kernel":
+                counts = {k: wrappers[k].launches for k in per_step}
+                for name, per in per_step.items():
+                    n = counts[name]
+                    require(n == per * total,
+                            f"{run_name}: {name} launched {n} times in "
+                            f"{total} steps")
+                    if run_name != "weno_science":
+                        launches[name] = n
+                others = [k for k in wrappers if k not in per_step
+                          and wrappers[k].launches]
+                require(not others, f"{run_name}: unexpected launches of "
+                        f"{others}")
+            else:
+                require(all(fn.launches == 0 for fn in wrappers.values()),
+                        f"{run_name}: the plain path launches no kernel")
+            log(f"[7] {run_name} {path} path: {ms:.3f} ms/step at {N}^3 "
+                f"float32 ({n_warm} warm-up + {n_steps} timed steps, {ts})")
+        (mk, sk), (_, sp) = finals["kernel"], finals["plain"]
+        g7 = mk.grid
+        require(finite(sk) and finite(sp), f"{run_name}: fields are finite")
+        umax7 = interior_max(g7, sk)
+        div7 = max_div(g7, sk)
+        require(div7 <= 1e-5 * umax7 / dx,
+                f"{run_name}: max|div| {div7:.3e} <= 1e-5 max|u|/dx")
+        vel, trc = rel_diff(g7, sk, sp)
+        log(f"[7] {run_name}: kernel-path launches {counts} in "
+            f"{n_warm + n_steps} steps; max|u| {umax7:.4e}; max|div| "
+            f"{div7:.3e} (bound {1e-5 * umax7 / dx:.3e}); kernel vs plain "
+            f"path: velocities {vel:.3e}, tracers {trc:.3e} of the largest "
+            f"value (tolerance {WENO_PATH_RTOL})")
+        require(vel <= WENO_PATH_RTOL and trc <= WENO_PATH_RTOL,
+                f"{run_name}: kernel vs plain path {vel:.3e}, {trc:.3e}")
+        del finals, holder, state, sk, sp, mk
+        torch.cuda.empty_cache()
+
+    # a small float64 WENO science run: the kernel path on the card against
+    # the plain path on the CPU
+    f64 = {}
+    for device, fused in (("cuda", True), ("cpu", False)):
+        g16 = ot.RectilinearGrid(size=(16, 16, 16), extent=(1.0, 1.0, 1.0),
+                                 topology=(ot.Bounded, ot.Periodic,
+                                           ot.Periodic),
+                                 halo=(3, 0, 0), dtype=torch.float64,
+                                 device=device)
+        m16 = weno_model("weno_science", fused, grid=g16)
+        s16 = m16.initial_state(
+            u=lambda x, y, z: torch.sin(2 * math.pi * x)
+            * torch.cos(2 * math.pi * y),
+            v=lambda x, y, z: torch.cos(2 * math.pi * z) + 0 * x,
+            b=lambda x, y, z: 0.1 * torch.sin(2 * math.pi * z) + 0 * x,
+            c=lambda x, y, z: torch.cos(2 * math.pi * y) + 0 * x)
+        for _ in range(5):
+            s16 = m16.step(s16, 1e-3)
+        f64[device] = (m16, s16)
+    require(f64["cuda"][0].fused_ab2_weno_science,
+            "the float64 card run takes the WENO science kernel")
+    vel64, trc64 = rel_diff(f64["cuda"][0].grid, f64["cuda"][1],
+                            f64["cpu"][1])
+    require(vel64 <= 1e-12 and trc64 <= 1e-12,
+            f"float64 16^3 WENO science card vs CPU {vel64:.3e}, {trc64:.3e}")
+    log(f"[7] float64 16^3 WENO science, 5 AB2 steps: kernel path on the "
+        f"card vs plain path on the CPU: velocities {vel64:.3e}, tracers "
+        f"{trc64:.3e} of the largest value (tolerance 1e-12)")
+    log(f"[7] step times on {card}: " + ", ".join(
+        f"{name} {path} {ms:.3f} ms/step"
+        for (name, path), ms in weno_ms.items()))
+
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),
                "centered2_momentum_tendency": (
@@ -408,13 +687,25 @@ def main():
                    "oceananigans_tpu/ops/pallas_kernels.py:297"),
                "fused_middle_solve": (
                    "oceananigans_torch/csrc/poisson_middle.cu",
-                   "oceananigans_tpu/ops/pallas_poisson.py:101")}
+                   "oceananigans_tpu/ops/pallas_poisson.py:101"),
+               "weno5_ab2_update": ("oceananigans_torch/csrc/weno5.cu",
+                                    "oceananigans_tpu/ops/pallas_weno.py:603"),
+               "weno5_momentum_tendency": (
+                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_tpu/ops/pallas_weno.py:664"),
+               "weno5_science_ab2_update": (
+                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_tpu/ops/pallas_weno.py:528"),
+               "weno5_tracer_tendencies": (
+                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_tpu/ops/pallas_weno.py:783")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                "max_abs_err": report[name]["max_abs_err"],
-                "ms": report[name]["ms"],
-                "plain_ms": report[name]["plain_ms"]}
+                **{k: report[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name, (src, rep) in sources.items()]
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,36 @@
 """oceananigans_torch — the ocean dynamical core of ``oceananigans_tpu``
 ported to PyTorch, with its hot kernels hand-written in CUDA for Hopper.
 
-The first slice covers the nonhydrostatic main path: a ``RectilinearGrid``
-with regular spacing, ``NonhydrostaticModel`` with Centered(2) advection,
-quasi-AB2 or RK3 time stepping, halo fills, and the FFT or eigenbasis
-matmul Poisson projection. Devices are explicit: grids and models take
-``device=``, and nothing picks the GPU on its own.
+It covers the nonhydrostatic model on a ``RectilinearGrid`` with regular
+spacing: Centered(2) or WENO (orders 3 to 11) advection of momentum and
+tracers, f-plane, β-plane and constant Cartesian Coriolis, BuoyancyTracer
+and seawater buoyancy, quasi-AB2 or RK3 time stepping, halo fills, and the
+FFT or eigenbasis matmul Poisson projection. Grids and models run on the
+GPU unless they are given ``device="cpu"`` (or ``config.device`` is set to
+"cpu"); without a GPU, a grid built with no ``device=`` raises.
 
     grid = RectilinearGrid(size=(N, N, N), extent=(1, 1, 1),
                            topology=(Bounded, Periodic, Periodic),
-                           halo=(1, 0, 0), dtype="float32", device="cuda")
-    model = NonhydrostaticModel(grid=grid, timestepper="QuasiAdamsBashforth2")
-    state = model.initial_state(u=lambda x, y, z: ...)
+                           halo=(3, 0, 0), dtype="float32")
+    model = NonhydrostaticModel(grid=grid, advection=WENO(5),
+                                tracers=("T", "S"),
+                                timestepper="QuasiAdamsBashforth2")
+    state = model.initial_state(u=lambda x, y, z: ..., T=...)
     state = model.step(state, 1e-4)
 """
 
-from oceananigans_torch.advection import Centered
+from oceananigans_torch.advection import WENO, Centered
 from oceananigans_torch.boundary_conditions import (
     FieldBoundaryConditions, FluxBC, OpenBC, PeriodicBC, fill_halo_regions,
 )
+from oceananigans_torch.buoyancy import (
+    BuoyancyForce, BuoyancyTracer, LinearEquationOfState, SeawaterBuoyancy,
+    TEOS10EquationOfState,
+)
 from oceananigans_torch.config import config
+from oceananigans_torch.coriolis import (
+    BetaPlane, ConstantCartesianCoriolis, FPlane, NonTraditionalBetaPlane,
+)
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, interior, new_field, set_field,
 )
@@ -30,10 +41,12 @@ from oceananigans_torch.models import NonhydrostaticModel, NonhydrostaticState
 from oceananigans_torch.solvers import FFTPoissonSolver, MatmulPoissonSolver
 
 __all__ = [
-    "Bounded", "Center", "Centered", "FFTPoissonSolver", "Face",
-    "FieldBoundaryConditions", "Flat", "FluxBC", "LOC_C", "LOC_U", "LOC_V",
-    "LOC_W", "MatmulPoissonSolver", "NonhydrostaticModel",
-    "NonhydrostaticState", "OpenBC", "Periodic", "PeriodicBC",
-    "RectilinearGrid", "config", "fill_halo_regions", "interior",
-    "new_field", "set_field",
+    "BetaPlane", "Bounded", "BuoyancyForce", "BuoyancyTracer", "Center",
+    "Centered", "ConstantCartesianCoriolis", "FFTPoissonSolver", "FPlane",
+    "Face", "FieldBoundaryConditions", "Flat", "FluxBC", "LOC_C", "LOC_U",
+    "LOC_V", "LOC_W", "LinearEquationOfState", "MatmulPoissonSolver",
+    "NonTraditionalBetaPlane", "NonhydrostaticModel", "NonhydrostaticState",
+    "OpenBC", "Periodic", "PeriodicBC", "RectilinearGrid",
+    "SeawaterBuoyancy", "TEOS10EquationOfState", "WENO", "config",
+    "fill_halo_regions", "interior", "new_field", "set_field",
 ]

@@ -1,11 +1,24 @@
-"""Centered(2) advection: reconstruction and flux-form divergences.
+"""Advection schemes: reconstruction and flux-form divergences.
 
-Counterpart of the Centered(2) part of ``oceananigans_tpu/advection.py``.
-WENO, UpwindBiased and the other Centered orders come with the WENO slice
-(ROADMAP Queue 1 item 11).
+Counterpart of the regular-grid part of ``oceananigans_tpu/advection.py``:
+Centered(2) and WENO-Z of orders 3 to 11. Each reconstruction is a
+whole-tensor expression over shifted copies of its operand; upwinding is a
+``torch.where`` on the sign of the advecting velocity.
+
+Index convention (``ops/operators.py``): ``shift(a, n, axis)[i] = a[i+n]``.
+A reconstruction that lands on faces (``o = 0``) gives the value at face
+``i``, between centers ``i-1`` and ``i``; one that lands on centers
+(``o = 1``) gives the value at center ``i``, the same stencil shifted by +1.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP Queue 1 item
+11): ``UpwindBiased``, ``FluxFormAdvection``, ``BoundPreserving`` and
+``WENO(bounds=...)``, Centered orders above 2, and the stretched-grid
+coefficient tables (stretched grids themselves are not ported).
 """
 
 from __future__ import annotations
+
+import torch
 
 from oceananigans_torch.grids.base import Center, Face
 from oceananigans_torch.ops.operators import (
@@ -14,6 +27,8 @@ from oceananigans_torch.ops.operators import (
 )
 
 X, Y, Z = 0, 1, 2
+
+_LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 
 class Centered:
@@ -24,9 +39,8 @@ class Centered:
 
     def __init__(self, order: int = 2):
         if order != 2:
-            raise NotImplementedError(
-                f"Centered({order}) is not ported yet; only Centered(2) "
-                "(ROADMAP Queue 1 item 11 brings the other orders)")
+            raise NotImplementedError(f"Centered({order}) {_LATER}; only "
+                                      "Centered(2) is ported")
         self.order = order
 
     @property
@@ -48,14 +62,184 @@ class Centered:
         return f"Centered(order={self.order})"
 
 
+# WENO sub-stencil coefficients and ideal weights, left-biased at face i.
+# Sub-stencil r uses cells i-1-r .. i-1-r+(k-1) for order 2k-1; orders 9
+# and 11 are generated (ops/reconstruction_coefficients.py).
+_WENO_GAMMA = {
+    3: (1 / 3, 2 / 3),
+    5: (1 / 10, 6 / 10, 3 / 10),
+    7: (1 / 35, 12 / 35, 18 / 35, 4 / 35),
+}
+
+_WENO_Q = {
+    3: ({-2: -1 / 2, -1: 3 / 2},
+        {-1: 1 / 2, 0: 1 / 2}),
+    5: ({-3: 2 / 6, -2: -7 / 6, -1: 11 / 6},
+        {-2: -1 / 6, -1: 5 / 6, 0: 2 / 6},
+        {-1: 2 / 6, 0: 5 / 6, 1: -1 / 6}),
+    7: ({-4: -3 / 12, -3: 13 / 12, -2: -23 / 12, -1: 25 / 12},
+        {-3: 1 / 12, -2: -5 / 12, -1: 13 / 12, 0: 3 / 12},
+        {-2: -1 / 12, -1: 7 / 12, 0: 7 / 12, 1: -1 / 12},
+        {-1: 3 / 12, 0: 13 / 12, 1: -5 / 12, 2: 1 / 12}),
+}
+
+
+def _weno3_betas(s):
+    return ((s[-1] - s[-2]) ** 2,
+            (s[0] - s[-1]) ** 2)
+
+
+def _weno5_betas(s):
+    c1, c2 = 13.0 / 12.0, 0.25
+    b0 = (c1 * (s[-3] - 2 * s[-2] + s[-1]) ** 2
+          + c2 * (s[-3] - 4 * s[-2] + 3 * s[-1]) ** 2)
+    b1 = (c1 * (s[-2] - 2 * s[-1] + s[0]) ** 2
+          + c2 * (s[-2] - s[0]) ** 2)
+    b2 = (c1 * (s[-1] - 2 * s[0] + s[1]) ** 2
+          + c2 * (3 * s[-1] - 4 * s[0] + s[1]) ** 2)
+    return b0, b1, b2
+
+
+def _weno7_betas(s):
+    """Balsara & Shu (2000) indicators for k = 4: the two edge and the two
+    inner sub-stencils have mirrored quadratic forms."""
+    def beta_edge(a, b, c, d):
+        # most-upwind stencil, target face next to d
+        return (a * (547 * a - 3882 * b + 4642 * c - 1854 * d)
+                + b * (7043 * b - 17246 * c + 7042 * d)
+                + c * (11003 * c - 9402 * d)
+                + d * 2107 * d)
+
+    def beta_inner(a, b, c, d):
+        # one point downwind of the target face (face between c and d)
+        return (a * (267 * a - 1642 * b + 1602 * c - 494 * d)
+                + b * (2843 * b - 5966 * c + 1922 * d)
+                + c * (3443 * c - 2522 * d)
+                + d * 547 * d)
+
+    return (beta_edge(s[-4], s[-3], s[-2], s[-1]),
+            beta_inner(s[-3], s[-2], s[-1], s[0]),
+            beta_inner(s[1], s[0], s[-1], s[-2]),
+            beta_edge(s[2], s[1], s[0], s[-1]))
+
+
+_WENO_BETAS = {3: _weno3_betas, 5: _weno5_betas, 7: _weno7_betas}
+
+
+def _apply_stencil_shifted(shifts, stencil):
+    out = None
+    for n, c in sorted(stencil.items()):
+        term = c * shifts[n]
+        out = term if out is None else out + term
+    return out
+
+
+class WENO:
+    """WENO-Z reconstruction (Borges et al. 2008), orders 3 to 11. Orders
+    3/5/7 use the classic hand-derived smoothness indicators, orders 9/11
+    the generated quadratic forms."""
+
+    symmetric = False
+
+    def __init__(self, order: int = 5, epsilon: float = 1e-8, bounds=None):
+        if order % 2 == 0 or not 3 <= order <= 11:
+            raise ValueError(f"WENO order must be odd in 3..11, got {order}")
+        if bounds is not None:
+            raise NotImplementedError(
+                f"WENO(bounds=...), the bound-preserving tracer flux, "
+                f"{_LATER}")
+        self.order = order
+        self.epsilon = epsilon
+        self.bounds = None
+        if order in _WENO_Q:
+            self._qs = _WENO_Q[order]
+            self._gammas = _WENO_GAMMA[order]
+            self._beta_forms = None
+        else:
+            from oceananigans_torch.ops.reconstruction_coefficients import (
+                weno_beta_forms, weno_ideal_weights, weno_substencils,
+            )
+            self._qs = weno_substencils(order)
+            self._gammas = weno_ideal_weights(order)
+            self._beta_forms = tuple(
+                [[float(x) for x in row] for row in M]
+                for M in weno_beta_forms(order))
+
+    @property
+    def required_halo(self):
+        return (self.order + 1) // 2
+
+    def _betas_of(self, s):
+        if self._beta_forms is None:
+            return _WENO_BETAS[self.order](s)
+        # β_r = sᵀ M_r s over the sub-stencil values
+        k = self.required_halo
+        betas = []
+        for r, M in enumerate(self._beta_forms):
+            vals = [s[(-1 - r) + j] for j in range(k)]
+            b = 0.0
+            for m in range(k):
+                b = b + M[m][m] * vals[m] * vals[m]
+                for n in range(m + 1, k):
+                    if abs(M[m][n]) > 1e-14:
+                        b = b + 2.0 * M[m][n] * vals[m] * vals[n]
+            betas.append(b)
+        return tuple(betas)
+
+    @staticmethod
+    def _z_alphas(gammas, betas, eps):
+        """α_r = γ_r (1 + (τ/(β_r + ε))²). The ratio is capped (1e12 in
+        float32, 1e60 in float64): for a dimensional field β can reach 1e14
+        while ε = 1e-8, and the float32 square would overflow to inf and
+        the normalisation give inf/inf = NaN. Weights below the cap are
+        unchanged."""
+        tau = abs(betas[0] - betas[-1])
+        cap = 1e12 if tau.dtype == torch.float32 else 1e60
+        return [g * (1.0 + torch.clamp(tau / (b + eps), max=cap) ** 2)
+                for g, b in zip(gammas, betas)]
+
+    def _onesided(self, shifts, reflect):
+        s = {n: shifts[-1 - n] for n in shifts} if reflect else shifts
+        qs = [_apply_stencil_shifted(s, q) for q in self._qs]
+        alphas = self._z_alphas(self._gammas, self._betas_of(s),
+                                self.epsilon)
+        asum = alphas[0]
+        for al in alphas[1:]:
+            asum = asum + al
+        out = alphas[0] * qs[0]
+        for al, q in zip(alphas[1:], qs[1:]):
+            out = out + al * q
+        return out / asum
+
+    def biased(self, a, axis, o):
+        """The left- and right-biased reconstructions of ``a`` at faces
+        (o = 0) or centers (o = 1) along ``axis``."""
+        B = self.required_halo
+        shifts = {n: shift(a, n + o, axis) for n in range(-B, B)}
+        return (self._onesided(shifts, reflect=False),
+                self._onesided(shifts, reflect=True))
+
+    def __eq__(self, other):
+        return (type(self) is type(other) and self.order == other.order
+                and self.epsilon == other.epsilon)
+
+    def __hash__(self):
+        return hash(("WENO", self.order, self.epsilon))
+
+    def __repr__(self):
+        return f"WENO(order={self.order})"
+
+
 def UpwindBiased(*args, **kwargs):
-    raise NotImplementedError("UpwindBiased is not ported yet (ROADMAP "
-                              "Queue 1 item 11, the WENO slice)")
+    raise NotImplementedError(f"UpwindBiased {_LATER}")
 
 
-def WENO(*args, **kwargs):
-    raise NotImplementedError("WENO is not ported yet (ROADMAP Queue 1 "
-                              "item 11, the WENO slice)")
+def FluxFormAdvection(*args, **kwargs):
+    raise NotImplementedError(f"FluxFormAdvection {_LATER}")
+
+
+def BoundPreserving(*args, **kwargs):
+    raise NotImplementedError(f"BoundPreserving {_LATER}")
 
 
 def required_halo(scheme) -> int:
@@ -64,46 +248,68 @@ def required_halo(scheme) -> int:
     return scheme.required_halo
 
 
+def _face_value(scheme, U, a, axis, o):
+    """Reconstructed value of ``a`` at the flux location, upwinded on the
+    sign of the (already interpolated) advecting velocity ``U``; where U is
+    exactly 0, the mean of the two biased values."""
+    if scheme.symmetric:
+        return scheme.reconstruct(a, axis, o)
+    left, right = scheme.biased(a, axis, o)
+    return torch.where(U > 0, left,
+                       torch.where(U < 0, right, 0.5 * (left + right)))
+
+
 def div_Uc(grid, scheme, u, v, w, c):
     """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c)."""
-    fx = grid.Ax(Face, Center, Center) * u * scheme.reconstruct(c, X, 0)
-    fy = grid.Ay(Center, Face, Center) * v * scheme.reconstruct(c, Y, 0)
-    fz = grid.Az(Center, Center) * w * scheme.reconstruct(c, Z, 0)
+    if scheme is None:
+        return torch.zeros_like(c)
+    fx = grid.Ax(Face, Center, Center) * u * _face_value(scheme, u, c, X, 0)
+    fy = grid.Ay(Center, Face, Center) * v * _face_value(scheme, v, c, Y, 0)
+    fz = grid.Az(Center, Center) * w * _face_value(scheme, w, c, Z, 0)
     return (dx_c(fx) + dy_c(fy) + dz_c(fz)) / grid.V(Center, Center, Center)
 
 
 def div_vu(grid, scheme, u, v, w):
     """Momentum advection ∇·(𝐯u) at u's location (f,c,c)."""
+    if scheme is None:
+        return torch.zeros_like(u)
+    # x-flux at (c,c,c): ℑx_c(Ax u) advects u, landing on centers (o=1)
     Uadv = ix_c(grid.Ax(Face, Center, Center) * u)
-    fxx = Uadv * scheme.reconstruct(u, X, 1)
+    fxx = Uadv * _face_value(scheme, Uadv, u, X, 1)
+    # y-flux at (f,f,c) and z-flux at (f,c,f), landing on faces (o=0)
     Vadv = ix_f(grid.Ay(Center, Face, Center) * v)
-    fxy = Vadv * scheme.reconstruct(u, Y, 0)
+    fxy = Vadv * _face_value(scheme, Vadv, u, Y, 0)
     Wadv = ix_f(grid.Az(Center, Center) * w)
-    fxz = Wadv * scheme.reconstruct(u, Z, 0)
+    fxz = Wadv * _face_value(scheme, Wadv, u, Z, 0)
     return (dx_f(fxx) + dy_c(fxy) + dz_c(fxz)) / grid.V(Face, Center, Center)
 
 
 def div_vv(grid, scheme, u, v, w):
     """∇·(𝐯v) at v's location (c,f,c)."""
+    if scheme is None:
+        return torch.zeros_like(v)
     Uadv = iy_f(grid.Ax(Face, Center, Center) * u)
-    fyx = Uadv * scheme.reconstruct(v, X, 0)
+    fyx = Uadv * _face_value(scheme, Uadv, v, X, 0)
     Vadv = iy_c(grid.Ay(Center, Face, Center) * v)
-    fyy = Vadv * scheme.reconstruct(v, Y, 1)
+    fyy = Vadv * _face_value(scheme, Vadv, v, Y, 1)
     Wadv = iy_f(grid.Az(Center, Center) * w)
-    fyz = Wadv * scheme.reconstruct(v, Z, 0)
+    fyz = Wadv * _face_value(scheme, Wadv, v, Z, 0)
     return (dx_c(fyx) + dy_f(fyy) + dz_c(fyz)) / grid.V(Center, Face, Center)
 
 
 def div_vw(grid, scheme, u, v, w):
     """∇·(𝐯w) at w's location (c,c,f)."""
+    if scheme is None:
+        return torch.zeros_like(w)
     Uadv = iz_f(grid.Ax(Face, Center, Center) * u)
-    fzx = Uadv * scheme.reconstruct(w, X, 0)
+    fzx = Uadv * _face_value(scheme, Uadv, w, X, 0)
     Vadv = iz_f(grid.Ay(Center, Face, Center) * v)
-    fzy = Vadv * scheme.reconstruct(w, Y, 0)
+    fzy = Vadv * _face_value(scheme, Vadv, w, Y, 0)
     Wadv = iz_c(grid.Az(Center, Center) * w)
-    fzz = Wadv * scheme.reconstruct(w, Z, 1)
+    fzz = Wadv * _face_value(scheme, Wadv, w, Z, 1)
     return (dx_c(fzx) + dy_c(fzy) + dz_f(fzz)) / grid.V(Center, Center, Face)
 
 
-__all__ = ["Centered", "UpwindBiased", "WENO", "div_Uc", "div_vu",
-           "div_vv", "div_vw", "required_halo"]
+__all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
+           "UpwindBiased", "WENO", "div_Uc", "div_vu", "div_vv", "div_vw",
+           "required_halo"]

@@ -1,8 +1,10 @@
 """Global defaults, read only when grids and fields are constructed.
 
-Counterpart of ``oceananigans_tpu/config.py``. The device is never chosen
-automatically: the default is the CPU, and a GPU run names its device
-(``RectilinearGrid(..., device="cuda")``).
+Counterpart of ``oceananigans_tpu/config.py``. The default device is the
+GPU (``"cuda"``): a grid built without ``device=`` lives on the card, and on
+a machine without one its construction raises torch's own error. Nothing
+falls back to the CPU quietly; a CPU run asks for it
+(``RectilinearGrid(..., device="cpu")`` or ``config.device = "cpu"``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ class Config:
     float_type: str = "float32"
 
     #: default device of new grids
-    device: str = "cpu"
+    device: str = "cuda"
 
     #: default halo width
     halo: int = 3

@@ -1,35 +1,42 @@
-"""NonhydrostaticModel: incompressible dynamics with a pressure projection.
+"""NonhydrostaticModel: incompressible Boussinesq dynamics with a pressure
+projection.
 
-Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` for pure
-momentum advection on a regular ``RectilinearGrid``: Centered(2)
-advection, quasi-AB2 or RK3 time stepping, no tracers and no physics
-terms. The model is an ``nn.Module`` whose grid and pressure solver are
-submodules, so ``model.to(device)`` moves every constant they hold.
+Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
+``RectilinearGrid``: Centered(2) or WENO advection of momentum and tracers,
+Coriolis, buoyancy, quasi-AB2 or RK3 time stepping. The model is an
+``nn.Module`` whose grid and pressure solver are submodules, so
+``model.to(device)`` moves every constant they hold.
 
-The state is a dataclass of tensors. ``step`` returns a new state but
-reuses its argument's storage: halo fills write the halo rows of the
-velocities in place, and the fused AB2 path writes the new tendencies
-over the previous ones, as the JAX kernel aliases them. A caller that
-needs the old state afterwards keeps a copy.
+The state is a dataclass of tensors, with the tracers and their previous
+tendencies in dicts keyed by name in the model's tracer order. ``step``
+returns a new state but reuses its argument's storage: halo fills write the
+halo rows of the fields in place, and the fused AB2 kernels write the new
+tendencies over the previous ones, as the JAX kernels alias them. A caller
+that needs the old state afterwards keeps a copy.
 
 Fused kernels: with ``fused_kernels="auto"`` they run exactly when the
 model's device is a CUDA device, where the wrappers launch the
 hand-written kernels; with ``fused_kernels=True`` on the CPU the same code
-path runs the kernels' plain versions.
+paths run the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import torch
 
 from oceananigans_torch.advection import (
-    Centered, div_vu, div_vv, div_vw, required_halo,
+    WENO, Centered, div_Uc, div_vu, div_vv, div_vw, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions,
 )
+from oceananigans_torch.buoyancy import (
+    BuoyancyTracer, SeawaterBuoyancy, regularize_buoyancy,
+)
+from oceananigans_torch.coriolis import FORMULATIONS, FPlane
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
@@ -38,6 +45,10 @@ from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.ops.cuda_kernels import (
     centered2_ab2_update, centered2_momentum_tendency, fused_available,
     pressure_correction,
+)
+from oceananigans_torch.ops.cuda_weno import (
+    MAX_TRACERS, weno5_ab2_update, weno5_available, weno5_momentum_tendency,
+    weno5_science_ab2_update, weno5_tracer_tendencies,
 )
 from oceananigans_torch.ops.operators import (
     ddx_f, ddy_f, ddz_f, divergence_ccc,
@@ -49,12 +60,9 @@ from oceananigans_torch.timesteppers import (
 
 TIMESTEPPERS = ("QuasiAdamsBashforth2", "RungeKutta3")
 
-#: constructor arguments this slice does not take yet, and the ROADMAP
-#: Queue 1 item that brings each
+#: constructor arguments not ported yet, and the ROADMAP Queue 1 item that
+#: brings each
 _LATER = {
-    "tracers": "item 9 (science slice)",
-    "buoyancy": "item 9 (science slice)",
-    "coriolis": "item 9 (science slice)",
     "closure": "item 12 (closures and physics)",
     "forcing": "item 12 (closures and physics)",
     "background_fields": "item 12 (closures and physics)",
@@ -66,8 +74,8 @@ _LATER = {
 
 @dataclasses.dataclass
 class NonhydrostaticState:
-    """Prognostic and diagnostic fields. ``Gu``/``Gv``/``Gw`` hold the
-    previous tendencies that quasi-AB2 needs."""
+    """Prognostic and diagnostic fields. ``Gu``/``Gv``/``Gw`` and
+    ``Gtracers`` hold the previous tendencies that quasi-AB2 needs."""
     u: torch.Tensor
     v: torch.Tensor
     w: torch.Tensor
@@ -76,10 +84,16 @@ class NonhydrostaticState:
     Gu: torch.Tensor
     Gv: torch.Tensor
     Gw: torch.Tensor
+    tracers: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    Gtracers: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def velocities(self):
         return {"u": self.u, "v": self.v, "w": self.w}
+
+    def fields(self):
+        return {"u": self.u, "v": self.v, "w": self.w, **self.tracers}
 
 
 _replace = dataclasses.replace
@@ -96,8 +110,7 @@ class NonhydrostaticModel(torch.nn.Module):
                  fused_kernels="auto", timestepper="RungeKutta3",
                  device=None):
         super().__init__()
-        given = dict(tracers=tracers, buoyancy=buoyancy, coriolis=coriolis,
-                     closure=closure, forcing=forcing,
+        given = dict(closure=closure, forcing=forcing,
                      background_fields=background_fields,
                      particles=particles, stokes_drift=stokes_drift,
                      biogeochemistry=biogeochemistry)
@@ -113,11 +126,26 @@ class NonhydrostaticModel(torch.nn.Module):
                 "come with ROADMAP Queue 1 item 13")
         if advection is None:
             advection = Centered(2)
-        if not isinstance(advection, Centered):
+        if not isinstance(advection, (Centered, WENO)):
             raise NotImplementedError(f"advection {advection!r} is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
+        if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
+            raise NotImplementedError(
+                f"coriolis {coriolis!r} is not ported yet; the port has "
+                + ", ".join(c.__name__ for c in FORMULATIONS))
+        buoyancy = regularize_buoyancy(buoyancy)
+        if buoyancy is not None and not isinstance(
+                buoyancy.formulation, (BuoyancyTracer, SeawaterBuoyancy)):
+            raise NotImplementedError(
+                f"buoyancy {buoyancy.formulation!r} is not ported yet")
         if timestepper not in TIMESTEPPERS:
             raise ValueError(f"unknown timestepper {timestepper!r}")
+        if isinstance(tracers, str):
+            tracers = (tracers,)
+        tracers = tuple(tracers)
+        if buoyancy is not None:
+            tracers += tuple(t for t in buoyancy.required_tracers
+                             if t not in tracers)
         needed = required_halo(advection)
         for axis in range(3):
             H, N = grid.H[axis], grid.N[axis]
@@ -131,9 +159,13 @@ class NonhydrostaticModel(torch.nn.Module):
 
         self.grid = grid
         self.advection = advection
+        self.tracer_names = tracers
+        self.buoyancy = buoyancy
+        self.coriolis = coriolis
         self.timestepper = timestepper
         boundary_conditions = dict(boundary_conditions or {})
-        self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W}
+        self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W,
+                          **{t: LOC_C for t in tracers}}
         self.bcs = {name: regularize_field_boundary_conditions(
             boundary_conditions.get(name), grid, loc)
             for name, loc in self.locations.items()}
@@ -150,30 +182,72 @@ class NonhydrostaticModel(torch.nn.Module):
     def device(self) -> torch.device:
         return self.grid.device
 
+    # ------------------------------------------------------------------
+    # Dispatch gates. Only homogeneous boundary fluxes are ported and the
+    # unported physics raise, so the JAX model's conditions on closures,
+    # forcings, flux conditions and the like hold by construction.
+    # ------------------------------------------------------------------
     @property
     def fused_kernels(self):
-        """``"centered2"`` when the fused Centered-2 kernels run, else
+        """The kernel family that runs: ``"centered2"``, ``"weno5"`` or
         False; "auto" means: on a CUDA device."""
-        if not fused_available(self.grid, self.advection):
+        if fused_available(self.grid, self.advection):
+            tag = "centered2"
+        elif weno5_available(self.grid, self.advection):
+            tag = "weno5"
+        else:
             return False
         if self._fused_kernels == "auto":
             on = self.device.type == "cuda"
         else:
             on = bool(self._fused_kernels)
-        return "centered2" if on else False
+        return tag if on else False
+
+    @property
+    def _pure_advection(self) -> bool:
+        return (self.timestepper == "QuasiAdamsBashforth2"
+                and self.coriolis is None and self.buoyancy is None
+                and not self.tracer_names)
 
     @property
     def fused_ab2(self) -> bool:
-        """The tendency and the AB2 update run as one fused kernel."""
+        """The Centered-2 tendency and the AB2 update run as one kernel."""
+        return self._pure_advection and self.fused_kernels == "centered2"
+
+    @property
+    def fused_ab2_weno(self) -> bool:
+        """The WENO-5 tendency and the AB2 update run as one kernel."""
+        return self._pure_advection and self.fused_kernels == "weno5"
+
+    @property
+    def fused_ab2_science(self) -> bool:
+        """The Centered-2 science step as one kernel. Always False: that
+        kernel (``centered2_science_ab2_update``) is not ported yet, ROADMAP
+        Queue 2 item 1; the science configuration takes the Centered-2
+        tendency kernel and plain physics and tracer terms meanwhile."""
+        return False
+
+    @property
+    def fused_ab2_weno_science(self) -> bool:
+        """The WENO-5 science step (f-plane Coriolis, a BuoyancyTracer with
+        gravity along -z, at most MAX_TRACERS tracers) as one kernel."""
+        buoyancy_ok = self.buoyancy is None or (
+            isinstance(self.buoyancy.formulation, BuoyancyTracer)
+            and self.buoyancy.gravity_unit_vector == (0.0, 0.0, -1.0))
         return (self.timestepper == "QuasiAdamsBashforth2"
-                and self.fused_kernels == "centered2")
+                and self.fused_kernels == "weno5"
+                and not self.fused_ab2_weno
+                and (self.coriolis is None
+                     or type(self.coriolis) is FPlane)
+                and buoyancy_ok
+                and len(self.tracer_names) <= MAX_TRACERS)
 
     # ------------------------------------------------------------------
     # State construction
     # ------------------------------------------------------------------
     def initial_state(self, time=0.0, **field_values):
-        """A state from initial velocities (numbers, arrays or callables
-        ``f(x, y, z)`` of coordinate tensors), projected onto the
+        """A state from initial velocities and tracers (numbers, arrays or
+        callables ``f(x, y, z)`` of coordinate tensors), projected onto the
         divergence-free subspace."""
         g = self.grid
         unknown = set(field_values) - set(self.locations)
@@ -190,7 +264,9 @@ class NonhydrostaticModel(torch.nn.Module):
         state = NonhydrostaticState(
             u=mk("u"), v=mk("v"), w=mk("w"), pressure=new_field(g),
             clock=Clock.start(time, g.dtype),
-            Gu=new_field(g), Gv=new_field(g), Gw=new_field(g))
+            Gu=new_field(g), Gv=new_field(g), Gw=new_field(g),
+            tracers={t: mk(t) for t in self.tracer_names},
+            Gtracers={t: new_field(g) for t in self.tracer_names})
         state = self.fill_state_halos(state)
         state = self._pressure_correct(state, 1.0)
         return self.fill_state_halos(state)
@@ -199,9 +275,9 @@ class NonhydrostaticModel(torch.nn.Module):
     # Halo fills (in place)
     # ------------------------------------------------------------------
     def fill_state_halos(self, state):
-        for name, loc in self.locations.items():
-            fill_halo_regions(getattr(state, name), self.grid, self.bcs[name],
-                              loc)
+        for name, field in state.fields().items():
+            fill_halo_regions(field, self.grid, self.bcs[name],
+                              self.locations[name])
         return state
 
     def _fill_before_projection(self, state):
@@ -219,18 +295,48 @@ class NonhydrostaticModel(torch.nn.Module):
     # Tendencies and projection
     # ------------------------------------------------------------------
     def compute_tendencies(self, state):
+        """``(Gu, Gv, Gw, {name: Gc})``: advection, Coriolis and buoyancy of
+        the momentum, advection of each tracer."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
-        if self.fused_kernels == "centered2":
+        tracers = state.tracers
+        kernels = self.fused_kernels
+        if kernels == "centered2":
             Gu, Gv, Gw = centered2_momentum_tendency(g, u, v, w)
+        elif kernels == "weno5":
+            Gu, Gv, Gw = weno5_momentum_tendency(
+                g, u, v, w, epsilon=self.advection.epsilon)
         else:
             Gu = -div_vu(g, self.advection, u, v, w)
             Gv = -div_vv(g, self.advection, u, v, w)
             Gw = -div_vw(g, self.advection, u, v, w)
+        if self.coriolis is not None:
+            Gu = Gu - self.coriolis.x_f_cross_U(g, u, v, w)
+            Gv = Gv - self.coriolis.y_f_cross_U(g, u, v, w)
+            Gw = Gw - self.coriolis.z_f_cross_U(g, u, v, w)
+        if self.buoyancy is not None:
+            bx = self.buoyancy.x_contribution(g, tracers)
+            by = self.buoyancy.y_contribution(g, tracers)
+            bz = self.buoyancy.z_contribution(g, tracers)
+            Gu = Gu if bx is None else Gu + bx
+            Gv = Gv if by is None else Gv + by
+            Gw = Gw if bz is None else Gw + bz
         Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U)
         Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V)
         Gw = apply_flux_bcs(Gw, g, self.bcs["w"], LOC_W)
-        return Gu, Gv, Gw
+
+        fused = {}
+        if kernels == "weno5":
+            # one kernel for every tracer: the velocities are read once
+            fused = weno5_tracer_tendencies(g, u, v, w, tracers,
+                                            epsilon=self.advection.epsilon)
+        Gtracers = {}
+        for name in self.tracer_names:
+            Gc = fused.get(name)
+            if Gc is None:
+                Gc = -div_Uc(g, self.advection, u, v, w, tracers[name])
+            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C)
+        return Gu, Gv, Gw, Gtracers
 
     def _pressure_correct(self, state, dt):
         """Project the velocities: solve ∇²p = ∇·u / Δt and subtract Δt∇p.
@@ -266,42 +372,72 @@ class NonhydrostaticModel(torch.nn.Module):
         """3-stage Wray RK3 with a projection at every stage. ``dt`` is a
         0-d CPU tensor in the state's dtype."""
         Gu_prev, Gv_prev, Gw_prev = state.Gu, state.Gv, state.Gw
+        Gt_prev = state.Gtracers
         dtf = dt.item()
         for stage, (gamma, zeta) in enumerate(RK3_STAGES):
             if stage > 0 or not assume_filled:
                 state = self.fill_state_halos(state)
-            Gu, Gv, Gw = self.compute_tendencies(state)
+            Gu, Gv, Gw, Gt = self.compute_tendencies(state)
             stage_dt = (dt * (gamma + zeta)).item()
             state = _replace(
                 state,
                 u=state.u + dtf * (gamma * Gu + zeta * Gu_prev),
                 v=state.v + dtf * (gamma * Gv + zeta * Gv_prev),
-                w=state.w + dtf * (gamma * Gw + zeta * Gw_prev))
+                w=state.w + dtf * (gamma * Gw + zeta * Gw_prev),
+                tracers={n: state.tracers[n]
+                         + dtf * (gamma * Gt[n] + zeta * Gt_prev[n])
+                         for n in self.tracer_names})
             state = self._fill_before_projection(state)
             state = self._pressure_correct(state, stage_dt)
-            Gu_prev, Gv_prev, Gw_prev = Gu, Gv, Gw
+            Gu_prev, Gv_prev, Gw_prev, Gt_prev = Gu, Gv, Gw, Gt
         state = _replace(state, Gu=Gu_prev, Gv=Gv_prev, Gw=Gw_prev,
-                         clock=tick(state.clock, dt))
+                         Gtracers=Gt_prev, clock=tick(state.clock, dt))
         return self.fill_state_halos(state)
+
+    def ab2_update(self, state, dt, chi=0.1):
+        """The tendencies and the quasi-AB2 update of every prognostic
+        field, through the one fused kernel that applies or through
+        :meth:`compute_tendencies`; the first part of :meth:`ab2_step`."""
+        c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
+        a, b = (dt * c_now).item(), (dt * c_prev).item()
+        g = self.grid
+        if self.fused_ab2:
+            u, v, w, Gu, Gv, Gw = centered2_ab2_update(
+                g, state.u, state.v, state.w, state.Gu, state.Gv, state.Gw,
+                a, b)
+            return _replace(state, u=u, v=v, w=w, Gu=Gu, Gv=Gv, Gw=Gw)
+        if self.fused_ab2_weno:
+            u, v, w, Gu, Gv, Gw = weno5_ab2_update(
+                g, state.u, state.v, state.w, state.Gu, state.Gv, state.Gw,
+                a, b, epsilon=self.advection.epsilon)
+            return _replace(state, u=u, v=v, w=w, Gu=Gu, Gv=Gv, Gw=Gw)
+        if self.fused_ab2_weno_science:
+            u, v, w, tracers, Gu, Gv, Gw, Gt = weno5_science_ab2_update(
+                g, state.u, state.v, state.w, state.tracers,
+                state.Gu, state.Gv, state.Gw, state.Gtracers, a, b,
+                f=self.coriolis.f if self.coriolis is not None else 0.0,
+                buoyancy_tracer="b" if self.buoyancy is not None else None,
+                epsilon=self.advection.epsilon)
+            return _replace(state, u=u, v=v, w=w, tracers=tracers,
+                            Gu=Gu, Gv=Gv, Gw=Gw, Gtracers=Gt)
+        Gu, Gv, Gw, Gt = self.compute_tendencies(state)
+        dtf = dt.item()
+        return _replace(
+            state,
+            u=state.u + dtf * (c_now * Gu + c_prev * state.Gu),
+            v=state.v + dtf * (c_now * Gv + c_prev * state.Gv),
+            w=state.w + dtf * (c_now * Gw + c_prev * state.Gw),
+            tracers={n: state.tracers[n]
+                     + dtf * (c_now * Gt[n] + c_prev * state.Gtracers[n])
+                     for n in self.tracer_names},
+            Gu=Gu, Gv=Gv, Gw=Gw, Gtracers=Gt)
 
     def ab2_step(self, state, dt, chi=0.1, assume_filled=False):
         """Quasi-AB2 with an Euler first step. ``dt`` is a 0-d CPU tensor
         in the state's dtype."""
         if not assume_filled:
             state = self.fill_state_halos(state)
-        c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
-        if self.fused_ab2:
-            u, v, w, Gu, Gv, Gw = centered2_ab2_update(
-                self.grid, state.u, state.v, state.w,
-                state.Gu, state.Gv, state.Gw,
-                (dt * c_now).item(), (dt * c_prev).item())
-        else:
-            Gu, Gv, Gw = self.compute_tendencies(state)
-            dtf = dt.item()
-            u = state.u + dtf * (c_now * Gu + c_prev * state.Gu)
-            v = state.v + dtf * (c_now * Gv + c_prev * state.Gv)
-            w = state.w + dtf * (c_now * Gw + c_prev * state.Gw)
-        state = _replace(state, u=u, v=v, w=w, Gu=Gu, Gv=Gv, Gw=Gw)
+        state = self.ab2_update(state, dt, chi)
         state = self._fill_before_projection(state)
         state = self._pressure_correct(state, dt.item())
         state = _replace(state, clock=tick(state.clock, dt))
@@ -309,6 +445,8 @@ class NonhydrostaticModel(torch.nn.Module):
 
     def extra_repr(self):
         return (f"advection={self.advection!r}, "
+                f"tracers={self.tracer_names}, coriolis={self.coriolis!r}, "
+                f"buoyancy={self.buoyancy!r}, "
                 f"timestepper={self.timestepper!r}")
 
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``oceananigans_torch/csrc`` and load them.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` file into one shared
-library with a plain C interface, for Hopper (``sm_90a``), into
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for Hopper
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, in
 ``build/oceananigans_torch/`` beside the package (git ignores ``build/``).
 The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. It is loaded with
@@ -24,7 +25,7 @@ _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "oceananigans_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,10 @@ SIGNATURES = {
     "ot_c2_ab2": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
     "ot_pressure_correction": [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
     "ot_poisson_middle": [_P] * 8 + [_I] * 3 + [_P],
+    "ot_weno5_tendency": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_P],
+    "ot_weno5_tracers": [_P] * 5 + [_I] * 4 + [_D] * 4 + [_P],
+    "ot_weno5_ab2": [_P] * 9 + [_I] * 3 + [_D] * 6 + [_P],
+    "ot_weno5_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 7 + [_I] + [_P],
 }
 
 _lib = None
@@ -70,15 +75,31 @@ def load():
     sources, path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([_nvcc(), *FLAGS, "-c", "-o", str(obj),
+                              str(src)] for src, obj in zip(sources, objs))]
+        logs, failed = [], []
+        for cmd, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{logs[-1]}")
+        build_log = "".join(logs)
+        if not failed:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, path)
         (BUILD_DIR / "nvcc.log").write_text(build_log)
     lib = ctypes.CDLL(str(path))

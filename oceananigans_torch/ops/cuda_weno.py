@@ -1,0 +1,299 @@
+"""Hand-written CUDA kernels of the WENO-5 path, with their plain PyTorch
+versions.
+
+Counterpart of ``oceananigans_tpu/ops/pallas_weno.py``; all four kernels
+live in ``csrc/weno5.cu``:
+
+- ``weno5_ab2_update``: the WENO-5 momentum tendency fused with the
+  quasi-AB2 update, the AB2 path of pure momentum advection;
+- ``weno5_momentum_tendency``: the momentum tendency alone (RK3, and AB2
+  where no fused kernel applies);
+- ``weno5_science_ab2_update``: momentum, f-plane Coriolis, the buoyancy of
+  a BuoyancyTracer, the advection of up to :data:`MAX_TRACERS` tracers and
+  the AB2 update of every prognostic field, in one pass;
+- ``weno5_tracer_tendencies``: -∇·(𝐯c) of any number of tracers, reading
+  the velocities once for every :data:`MAX_TRACERS` of them.
+
+Each wrapper takes its plain version for tensors on the CPU and launches
+its kernel for tensors on a CUDA device; there is no fallback from one to
+the other. Each counts its kernel launches in its ``launches`` attribute.
+Fields are halo-extended ``(nx, ny, nz)`` tensors whose halos are filled;
+outputs cover x-rows ``[3, nx-3)``, and y/z neighbours wrap modulo the
+full extent. The plain versions are the port's own whole-tensor operators
+(``advection.div_vu/div_vv/div_vw/div_Uc`` with ``WENO(5)``, the
+``coriolis.FPlane`` and ``buoyancy.BuoyancyForce`` terms), cropped to those
+rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from oceananigans_torch.advection import (
+    WENO, div_Uc, div_vu, div_vv, div_vw,
+)
+from oceananigans_torch.ops import _build
+from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
+
+#: rows each side that a WENO-5 stencil reads
+H = 3
+#: the most tracers one launch of the science or tracer kernel takes
+#: (``kMaxTracers`` in ``csrc/weno5.cu``); the model takes the unfused
+#: route above it, as the JAX model does above its VMEM budget
+MAX_TRACERS = 8
+
+
+def weno5_available(grid, advection) -> bool:
+    """True when the kernels apply: a regular rectilinear grid, WENO(5)
+    advection without bounds, every axis with more than one cell, a halo of
+    at least 3 on x (outputs cover x-rows [3, nx-3)), and each of y and z
+    either with a halo of at least 3 or periodic without a halo. The TPU's
+    (8, 128) alignment rules do not apply on the GPU."""
+    from oceananigans_torch.grids.base import Periodic
+    from oceananigans_torch.grids.rectilinear import RectilinearGrid
+    if not (isinstance(grid, RectilinearGrid) and grid.regular):
+        return False
+    if not (type(advection) is WENO and advection.order == 5
+            and advection.bounds is None):
+        return False
+    if not all(n > 1 for n in grid.N) or grid.H[0] < H:
+        return False
+    return all(grid.H[axis] >= H
+               or (grid.axis_topo(axis) == Periodic and grid.H[axis] == 0)
+               for axis in (1, 2))
+
+
+def _inv_spacings(grid):
+    return tuple(float(n / L) for n, L in zip(grid.N,
+                                             (grid.Lx, grid.Ly, grid.Lz)))
+
+
+def _check_grid(name, grid, u):
+    if not weno5_available(grid, WENO(5)):
+        raise ValueError(f"{name}: no kernel for the layout of {grid!r} "
+                         "(see weno5_available)")
+    if tuple(u.shape) != tuple(grid.shape):
+        raise ValueError(f"{name}: fields must be grid-shaped {grid.shape}")
+
+
+def _pointers(tensors):
+    """A C array of the tensors' data pointers (kept alive by the caller
+    for the duration of the launch call)."""
+    return (ctypes.c_void_p * max(len(tensors), 1))(
+        *(t.data_ptr() for t in tensors))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _momentum_plain(grid, u, v, w, epsilon):
+    """[Gu, Gv, Gw] on x-rows [3, nx-3) from the whole-tensor WENO(5)
+    operators."""
+    sch = WENO(5, epsilon=epsilon)
+    return [-div(grid, sch, u, v, w)[H:-H] for div in (div_vu, div_vv,
+                                                       div_vw)]
+
+
+def _tracers_plain(grid, u, v, w, tracers, epsilon):
+    sch = WENO(5, epsilon=epsilon)
+    return [-div_Uc(grid, sch, u, v, w, c)[H:-H] for c in tracers]
+
+
+def _embed(g, like):
+    full = torch.zeros_like(like)
+    full[H:-H] = g
+    return full
+
+
+def weno5_momentum_tendency_plain(grid, u, v, w, epsilon=1e-8):
+    """Plain version of :func:`weno5_momentum_tendency`."""
+    return tuple(_embed(g, u) for g in _momentum_plain(grid, u, v, w,
+                                                       epsilon))
+
+
+def weno5_tracer_tendencies_plain(grid, u, v, w, tracers, epsilon=1e-8):
+    """Plain version of :func:`weno5_tracer_tendencies`."""
+    names = list(tracers)
+    gs = _tracers_plain(grid, u, v, w, [tracers[n] for n in names], epsilon)
+    return {n: _embed(g, u) for n, g in zip(names, gs)}
+
+
+def _ab2_plain(qs, gs, g_prevs, a, b):
+    """q' = q + a·G + b·G⁻ on rows [3, nx-3), with G written over G⁻ in
+    place; q' copies q's other rows."""
+    news = []
+    for q, g, gm in zip(qs, gs, g_prevs):
+        qn = q.clone()
+        qn[H:-H] = q[H:-H] + a * g + b * gm[H:-H]
+        gm[H:-H] = g
+        news.append(qn)
+    return news
+
+
+def weno5_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
+                           epsilon=1e-8):
+    """Plain version of :func:`weno5_ab2_update`, with the same in-place
+    write of G over G_prev."""
+    news = _ab2_plain((u, v, w), _momentum_plain(grid, u, v, w, epsilon),
+                      (Gu_prev, Gv_prev, Gw_prev), a, b)
+    return (*news, Gu_prev, Gv_prev, Gw_prev)
+
+
+def weno5_science_ab2_update_plain(grid, u, v, w, tracers, Gu_prev, Gv_prev,
+                                   Gw_prev, Gc_prev, a, b, f=0.0,
+                                   buoyancy_tracer=None, epsilon=1e-8):
+    """Plain version of :func:`weno5_science_ab2_update`: the model's own
+    Coriolis and buoyancy terms on top of the WENO(5) operators."""
+    from oceananigans_torch.buoyancy import BuoyancyForce, BuoyancyTracer
+    from oceananigans_torch.coriolis import FPlane
+    names = list(tracers)
+    gu, gv, gw = _momentum_plain(grid, u, v, w, epsilon)
+    if f != 0.0:
+        cor = FPlane(f=f)
+        gu = gu - cor.x_f_cross_U(grid, u, v, w)[H:-H]
+        gv = gv - cor.y_f_cross_U(grid, u, v, w)[H:-H]
+    if buoyancy_tracer is not None:
+        force = BuoyancyForce(BuoyancyTracer())
+        gw = gw + force.z_contribution(
+            grid, {"b": tracers[buoyancy_tracer]})[H:-H]
+    gcs = _tracers_plain(grid, u, v, w, [tracers[n] for n in names],
+                         epsilon)
+    news = _ab2_plain((u, v, w, *(tracers[n] for n in names)),
+                      (gu, gv, gw, *gcs),
+                      (Gu_prev, Gv_prev, Gw_prev,
+                       *(Gc_prev[n] for n in names)), a, b)
+    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
+            Gw_prev, {n: Gc_prev[n] for n in names})
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def weno5_momentum_tendency(grid, u, v, w, epsilon=1e-8):
+    """(Gu, Gv, Gw) = -∇·(𝐯 ⊗ 𝐯) with WENO-5 fluxes on x-rows [3, nx-3).
+    The outputs' x-halo rows are zero, their y/z halo rows junk that the
+    next fill overwrites."""
+    name = "weno5_momentum_tendency"
+    _check_grid(name, grid, u)
+    check_operands(name, (u, v, w), grid.shape)
+    if not on_cuda(u):
+        return weno5_momentum_tendency_plain(grid, u, v, w, epsilon)
+    G = tuple(torch.empty_like(u) for _ in range(3))
+    _build.launch("ot_weno5_tendency", u.dtype, u.device,
+                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  *(g.data_ptr() for g in G), *u.shape, *_inv_spacings(grid),
+                  float(epsilon))
+    weno5_momentum_tendency.launches += 1
+    return G
+
+
+def weno5_tracer_tendencies(grid, u, v, w, tracers, epsilon=1e-8):
+    """``{name: -∇·(𝐯c)}`` with WENO-5 fluxes on x-rows [3, nx-3) for each
+    tracer of the dict ``tracers``, zero on the other x-rows. One launch
+    takes up to :data:`MAX_TRACERS` tracers and reads u, v, w once for
+    them."""
+    name = "weno5_tracer_tendencies"
+    names = list(tracers)
+    _check_grid(name, grid, u)
+    check_operands(name, (u, v, w, *tracers.values()), grid.shape)
+    if not names:
+        return {}
+    if not on_cuda(u):
+        return weno5_tracer_tendencies_plain(grid, u, v, w, tracers, epsilon)
+    out = {n: torch.empty_like(u) for n in names}
+    for lo in range(0, len(names), MAX_TRACERS):
+        chunk = names[lo:lo + MAX_TRACERS]
+        cs = _pointers([tracers[n] for n in chunk])
+        gs = _pointers([out[n] for n in chunk])
+        _build.launch("ot_weno5_tracers", u.dtype, u.device,
+                      u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                      ctypes.addressof(cs), ctypes.addressof(gs), len(chunk),
+                      *u.shape, *_inv_spacings(grid), float(epsilon))
+        weno5_tracer_tendencies.launches += 1
+    return out
+
+
+def weno5_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
+                     epsilon=1e-8):
+    """Fused WENO-5 momentum tendency and quasi-AB2 update.
+
+    Returns ``(u', v', w', Gu, Gv, Gw)`` with ``u' = u + a·Gu + b·Gu_prev``
+    on x-rows [3, nx-3). Gu, Gv, Gw are written over Gu_prev, Gv_prev,
+    Gw_prev in place, as the JAX kernel aliases them, so their x-halo rows
+    keep the previous values; u', v', w' are new tensors whose x-halo rows
+    are copies of u's, where the JAX kernel leaves them unwritten.
+    """
+    name = "weno5_ab2_update"
+    _check_grid(name, grid, u)
+    check_operands(name, (u, v, w, Gu_prev, Gv_prev, Gw_prev), grid.shape)
+    if not on_cuda(u):
+        return weno5_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev,
+                                      Gw_prev, a, b, epsilon)
+    news = tuple(torch.empty_like(u) for _ in range(3))
+    _build.launch("ot_weno5_ab2", u.dtype, u.device,
+                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
+                  *(q.data_ptr() for q in news), *u.shape,
+                  *_inv_spacings(grid), float(epsilon), float(a), float(b))
+    weno5_ab2_update.launches += 1
+    return (*news, Gu_prev, Gv_prev, Gw_prev)
+
+
+def weno5_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
+                             Gw_prev, Gc_prev, a, b, f=0.0,
+                             buoyancy_tracer=None, epsilon=1e-8):
+    """One fused pass of the WENO-5 science step: momentum, f-plane
+    Coriolis (``f``), the buoyancy of the tracer named ``buoyancy_tracer``
+    (a BuoyancyTracer with gravity along -z), the advection of every tracer
+    and the quasi-AB2 update of all 3 + T fields. Same contract as
+    :func:`weno5_ab2_update`; returns ``(u', v', w', {c'}, Gu, Gv, Gw,
+    {Gc})`` with the dicts in the order of ``tracers``. Takes at most
+    :data:`MAX_TRACERS` tracers."""
+    name = "weno5_science_ab2_update"
+    names = list(tracers)
+    _check_grid(name, grid, u)
+    if len(names) > MAX_TRACERS:
+        raise ValueError(f"{name}: {len(names)} tracers, at most "
+                         f"{MAX_TRACERS}")
+    if set(Gc_prev) != set(names):
+        raise ValueError(f"{name}: Gc_prev has {sorted(Gc_prev)}, tracers "
+                         f"{sorted(names)}")
+    b_idx = -1 if buoyancy_tracer is None else names.index(buoyancy_tracer)
+    cs = [tracers[n] for n in names]
+    gcs = [Gc_prev[n] for n in names]
+    check_operands(name, (u, v, w, *cs, Gu_prev, Gv_prev, Gw_prev, *gcs),
+                   grid.shape)
+    if not on_cuda(u):
+        return weno5_science_ab2_update_plain(
+            grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b,
+            f, buoyancy_tracer, epsilon)
+    news = [torch.empty_like(u) for _ in range(3 + len(names))]
+    c_ptrs, g_ptrs, n_ptrs = (_pointers(cs), _pointers(gcs),
+                              _pointers(news[3:]))
+    _build.launch("ot_weno5_science_ab2", u.dtype, u.device,
+                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
+                  *(q.data_ptr() for q in news[:3]),
+                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                  ctypes.addressof(n_ptrs), len(names), *u.shape,
+                  *_inv_spacings(grid), float(epsilon), float(a), float(b),
+                  float(f), b_idx)
+    weno5_science_ab2_update.launches += 1
+    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
+            Gw_prev, dict(zip(names, gcs)))
+
+
+weno5_momentum_tendency.launches = 0
+weno5_tracer_tendencies.launches = 0
+weno5_ab2_update.launches = 0
+weno5_science_ab2_update.launches = 0
+
+__all__ = ["MAX_TRACERS", "weno5_ab2_update", "weno5_ab2_update_plain",
+           "weno5_available", "weno5_momentum_tendency",
+           "weno5_momentum_tendency_plain", "weno5_science_ab2_update",
+           "weno5_science_ab2_update_plain", "weno5_tracer_tendencies",
+           "weno5_tracer_tendencies_plain"]

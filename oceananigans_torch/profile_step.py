@@ -2,15 +2,24 @@
 
 Run from the root of the repository:
 
-    python3 -m oceananigans_torch.profile_step [--trace-dir DIR]
+    python3 -m oceananigans_torch.profile_step [--config NAME] [--trace-dir DIR]
 
-It runs ``bench.py``'s default configuration (256³, float32, Centered(2),
-(Bounded, Periodic, Periodic), halo (1, 0, 0), Δt = 1e-4) on the kernel
-path (``fused_kernels="auto"``) and the plain path (``fused_kernels=False``)
-and prints, for each path:
+It runs one of ``bench.py``'s nonhydrostatic configurations (256³, float32,
+(Bounded, Periodic, Periodic), Δt = 1e-4, with its initial velocities and
+tracers), chosen by ``--config``:
+
+- ``default``: Centered(2), halo (1, 0, 0);
+- ``science``: Centered(2), FPlane(f=1e-4), BuoyancyTracer, tracers
+  ("b", "c"), halo (1, 0, 0);
+- ``weno``: WENO(5), tracers ("T", "S"), halo (3, 0, 0);
+- ``weno_mom``: WENO(5), halo (3, 0, 0);
+
+on the kernel path (``fused_kernels="auto"``) and the plain path
+(``fused_kernels=False``) and prints, for each path:
 
 1. step times by CUDA events, 100 steps per run, in alternated runs
-   (plain, kernel, kernel, plain) repeated three times;
+   (plain, kernel, kernel, plain) repeated three times, then the card's SM
+   clock, power draw and temperature as those runs leave it;
 2. the host's time to enqueue one step;
 3. device time per phase: CUDA events between the phases of
    :func:`phased_ab2_step`, which repeats ``ab2_step`` phase by phase and is
@@ -20,7 +29,7 @@ and prints, for each path:
    (1 - kernel time / wall time), with the largest kernels; ``--trace-dir``
    also writes each path's Chrome trace there;
 5. single-run step times of RK3 and of the opt-in kernels (fused pressure
-   correction, fused matmul Poisson solver).
+   correction, fused matmul Poisson solver) in the same configuration.
 
 It needs a CUDA device and prints the card's name and power limit first.
 """
@@ -48,29 +57,17 @@ def phased_ab2_step(model, state, dt, mark):
     from oceananigans_torch.boundary_conditions import fill_halo_regions
     from oceananigans_torch.fields import LOC_C, new_field
     from oceananigans_torch.grids.base import Center
-    from oceananigans_torch.ops.cuda_kernels import (
-        centered2_ab2_update, pressure_correction,
-    )
+    from oceananigans_torch.ops.cuda_kernels import pressure_correction
     from oceananigans_torch.ops.operators import (
         ddx_f, ddy_f, ddz_f, divergence_ccc,
     )
-    from oceananigans_torch.timesteppers import ab2_coefficients, tick
+    from oceananigans_torch.timesteppers import tick
     replace = dataclasses.replace
 
     g = model.grid
     dt = torch.tensor(dt, dtype=state.u.dtype)
     dtf = dt.item()
-    c_now, c_prev = ab2_coefficients(state.clock.iteration)
-    if model.fused_ab2:
-        u, v, w, Gu, Gv, Gw = centered2_ab2_update(
-            g, state.u, state.v, state.w, state.Gu, state.Gv, state.Gw,
-            (dt * c_now).item(), (dt * c_prev).item())
-    else:
-        Gu, Gv, Gw = model.compute_tendencies(state)
-        u = state.u + dtf * (c_now * Gu + c_prev * state.Gu)
-        v = state.v + dtf * (c_now * Gv + c_prev * state.Gv)
-        w = state.w + dtf * (c_now * Gw + c_prev * state.Gw)
-    state = replace(state, u=u, v=v, w=w, Gu=Gu, Gv=Gv, Gw=Gw)
+    state = model.ab2_update(state, dt)
     mark()
     state = model._fill_before_projection(state)
     mark()
@@ -94,6 +91,37 @@ def phased_ab2_step(model, state, dt, mark):
     state = model.fill_state_halos(state)
     mark()
     return state
+
+
+#: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo
+CONFIGS = ("default", "science", "weno", "weno_mom")
+
+
+def config_kwargs(name):
+    """The model keywords and the grid halo of configuration ``name``."""
+    import oceananigans_torch as ot
+    if name == "default":
+        return {}, (1, 0, 0)
+    if name == "science":
+        return dict(coriolis=ot.FPlane(f=1e-4), buoyancy=ot.BuoyancyTracer(),
+                    tracers=("b", "c")), (1, 0, 0)
+    if name == "weno":
+        return dict(advection=ot.WENO(5), tracers=("T", "S")), (3, 0, 0)
+    if name == "weno_mom":
+        return dict(advection=ot.WENO(5)), (3, 0, 0)
+    raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
+
+
+def initial_state(model):
+    """``bench.py``'s initial velocities and tracers, projected."""
+    tracer = (lambda x, y, z: 0.01 * z
+              + 0.001 * torch.cos(2 * math.pi * y))
+    return model.initial_state(
+        u=lambda x, y, z: 0.01 * torch.sin(8 * math.pi * x)
+        * torch.cos(6 * math.pi * y) * torch.cos(2 * math.pi * z),
+        v=lambda x, y, z: 0.01 * torch.cos(4 * math.pi * x)
+        * torch.sin(6 * math.pi * y),
+        **{t: tracer for t in model.tracer_names})
 
 
 def _events(n):
@@ -133,6 +161,7 @@ def _kernel_time_us(prof):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", choices=CONFIGS, default="default")
     parser.add_argument("--trace-dir", type=Path, default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -152,21 +181,20 @@ def main(argv=None):
     _build.load()
 
     N, dt, steps = 256, 1e-4, 100
+    kwargs, halo = config_kwargs(args.config)
+    print(f"configuration {args.config}: {kwargs or 'Centered(2)'}, halo "
+          f"{halo}", flush=True)
     grid = ot.RectilinearGrid(
         size=(N, N, N), extent=(1.0, 1.0, 1.0),
-        topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=(1, 0, 0),
+        topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
         dtype=torch.float32, device="cuda")
 
     def model_of(fused="auto", timestepper="QuasiAdamsBashforth2"):
         return ot.NonhydrostaticModel(grid=grid, timestepper=timestepper,
-                                      fused_kernels=fused)
+                                      fused_kernels=fused, **kwargs)
 
     def init(model):
-        state = model.initial_state(
-            u=lambda x, y, z: 0.01 * torch.sin(8 * math.pi * x)
-            * torch.cos(6 * math.pi * y) * torch.cos(2 * math.pi * z),
-            v=lambda x, y, z: 0.01 * torch.cos(4 * math.pi * x)
-            * torch.sin(6 * math.pi * y))
+        state = initial_state(model)
         return _run(model, model.fill_state_halos(state), dt, 5)
 
     models = {"kernel": model_of("auto"), "plain": model_of(False)}
@@ -182,6 +210,13 @@ def main(argv=None):
         print(f"[step] {k} path ms/step over {steps} steps, "
               f"{len(r)} alternated runs: {r}; mean {sum(r) / len(r)}",
               flush=True)
+    # the card's clocks and power right after the sustained runs
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+    print(f"[clock] after the step runs: sm clock, max sm clock, power, "
+          f"temperature: {clocks}", flush=True)
 
     for k, model in models.items():
         # 2. host enqueue time
@@ -202,6 +237,11 @@ def main(argv=None):
         for q in ("u", "v", "w", "pressure", "Gu", "Gv", "Gw"):
             if not torch.equal(getattr(ref, q), getattr(got, q)):
                 raise RuntimeError(f"phased step differs from step in {q}")
+        for group in ("tracers", "Gtracers"):
+            for q, t in getattr(ref, group).items():
+                if not torch.equal(t, getattr(got, group)[q]):
+                    raise RuntimeError(
+                        f"phased step differs from step in {group}/{q}")
         n = 20
         ev = _events(1 + n * len(PHASES))
         marks = iter(ev[1:])

@@ -27,6 +27,15 @@ TOPOLOGIES = {
 LOCS = {"u": oj.LOC_U, "v": oj.LOC_V, "w": oj.LOC_W, "c": oj.LOC_C}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
 def grids(topology, halo, size=(6, 8, 5)):
     kw = dict(size=size, extent=(1.0, 2.0, 0.5), topology=topology,
               halo=halo)

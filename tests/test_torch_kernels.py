@@ -30,6 +30,15 @@ SHAPES = {"aligned": ((8, 16, 128), (1, 0, 0)),
 LOCS = {"u": ot.LOC_U, "v": ot.LOC_V, "w": ot.LOC_W, "p": ot.LOC_C}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
 def grid_kwargs(shape):
     N, halo = SHAPES[shape]
     return dict(size=N, extent=(1.0, 2.0, 0.5), topology=BPP, halo=halo)

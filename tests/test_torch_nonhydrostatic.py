@@ -43,6 +43,15 @@ GRID = dict(size=(8, 16, 128), extent=(1.0, 1.0, 1.0),
             topology=(oj.Bounded, oj.Periodic, oj.Periodic), halo=(1, 0, 0))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
 def jax_state_to_numpy(s):
     out = {name: np.asarray(getattr(s, name)) for name in FIELDS}
     out.update(time=np.asarray(s.clock.time),
@@ -197,8 +206,8 @@ def test_gates_and_unported_arguments():
     assert model.fused_correction is False
     assert isinstance(model.pressure_solver, ot.FFTPoissonSolver)
     assert "grid.xF" in dict(model.named_buffers())
-    for kw in (dict(tracers=("b",)), dict(coriolis=object()),
-               dict(closure=object()), dict(forcing={"u": 1.0})):
+    for kw in (dict(coriolis=object()), dict(closure=object()),
+               dict(forcing={"u": 1.0})):
         with pytest.raises(NotImplementedError):
             ot.NonhydrostaticModel(grid=tg, **kw)
     with pytest.raises(ValueError):

@@ -30,6 +30,15 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
 def setup(case, seed=0):
     topology, halo = CASES[case]
     kw = dict(size=(8, 6, 10), extent=(1.0, 2.0, 0.5), topology=topology,
@@ -100,8 +109,12 @@ def test_shift_is_exact_roll():
 
 
 def test_unported_schemes_raise():
-    for make in (lambda: t_adv.Centered(4), lambda: t_adv.WENO(5),
-                 lambda: t_adv.UpwindBiased(3)):
+    for make in (lambda: t_adv.Centered(4),
+                 lambda: t_adv.WENO(5, bounds=(0.0, 1.0)),
+                 lambda: t_adv.UpwindBiased(3),
+                 lambda: t_adv.BoundPreserving(t_adv.WENO(5)),
+                 lambda: t_adv.FluxFormAdvection(t_adv.WENO(5))):
         with pytest.raises(NotImplementedError):
             make()
     assert t_adv.required_halo(t_adv.Centered(2)) == 1
+    assert t_adv.required_halo(t_adv.WENO(5)) == 3

@@ -36,6 +36,15 @@ TOPOLOGIES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
 def grids(topo, size=(8, 6, 10)):
     kw = dict(size=size, extent=(1.0, 0.7, 0.5), topology=TOPOLOGIES[topo],
               halo=1)

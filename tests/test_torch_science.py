@@ -1,0 +1,335 @@
+"""oceananigans_torch Coriolis, buoyancy and the nonhydrostatic model with
+tracers, against the JAX package, in float64 on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages; model
+runs start from the JAX package's projected initial state, carried across
+with ``oceananigans_torch.interop``. The port runs its fused code paths
+(``fused_kernels=True``: on the CPU, the kernels' plain versions) and is
+held to the JAX XLA path at 1e-12 of each field's largest value: both
+evaluate the same formulas up to rounding (the fused AB2 update forms
+a·G + b·G⁻ where the XLA path forms Δt·(c₁G + c₂G⁻)). The thermal bubble
+golden data is held at atol 1e-12, as the JAX package holds it.
+"""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oceananigans_torch as ot
+import oceananigans_tpu as oj
+from oceananigans_torch import buoyancy as t_buoy, coriolis as t_cor
+from oceananigans_torch.interop import (
+    FIELDS, state_from_numpy, state_to_numpy, tracer_keys,
+)
+from oceananigans_tpu import buoyancy as j_buoy, coriolis as j_cor
+from oceananigans_tpu.boundary_conditions import (
+    fill_halo_regions as j_fill, regularize_field_boundary_conditions,
+)
+from oceananigans_tpu.models import NonhydrostaticModel as JModel
+
+F64 = torch.float64
+RTOL = 1e-12
+AB2 = "QuasiAdamsBashforth2"
+RK3 = "RungeKutta3"
+BPP = (oj.Bounded, oj.Periodic, oj.Periodic)
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "thermal_bubble.npz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
+def fields(size=(6, 8, 5), halo=(1, 1, 1), topology=BPP, seed=0):
+    """Both grids and halo-filled u, v, w and tracers T, S, b."""
+    kw = dict(size=size, extent=(1.0, 2.0, 0.5), topology=topology,
+              halo=halo)
+    jg = oj.RectilinearGrid(dtype="float64", **kw)
+    tg = ot.RectilinearGrid(dtype=F64, **kw)
+    rng = np.random.default_rng(seed)
+    j, t = {}, {}
+    for name, loc in (("u", oj.LOC_U), ("v", oj.LOC_V), ("w", oj.LOC_W),
+                      ("T", oj.LOC_C), ("S", oj.LOC_C), ("b", oj.LOC_C)):
+        a = rng.standard_normal(tg.shape)
+        bcs = regularize_field_boundary_conditions(None, jg, loc)
+        j[name] = j_fill(jnp.asarray(a), jg, bcs, loc)
+        t[name] = ot.fill_halo_regions(torch.tensor(a), tg, loc=loc)
+    return jg, tg, j, t
+
+
+def assert_close(tg, got, ref, rtol=RTOL):
+    ii = tg.interior_slices
+    got = np.broadcast_to(got.detach().cpu().numpy(), tg.shape)[ii]
+    ref = np.broadcast_to(np.asarray(ref), tg.shape)[ii]
+    scale = max(np.abs(ref).max(), 1e-300)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rtol * scale)
+
+
+# ---------------------------------------------------------------------------
+# Coriolis and buoyancy terms
+# ---------------------------------------------------------------------------
+
+CORIOLIS = {
+    "fplane": lambda m: m.FPlane(f=1e-4),
+    "fplane_latitude": lambda m: m.FPlane(latitude=45.0),
+    "constant_cartesian": lambda m: m.ConstantCartesianCoriolis(latitude=30),
+    "beta_plane": lambda m: m.BetaPlane(f0=1e-4, beta=1e-11),
+    "non_traditional": lambda m: m.NonTraditionalBetaPlane(latitude=40.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CORIOLIS))
+def test_coriolis_matches(name):
+    jg, tg, j, t = fields(seed=1)
+    jc, tc = CORIOLIS[name](j_cor), CORIOLIS[name](t_cor)
+    assert repr(tc) == repr(jc)
+    for comp in ("x_f_cross_U", "y_f_cross_U", "z_f_cross_U"):
+        got = getattr(tc, comp)(tg, t["u"], t["v"], t["w"])
+        ref = getattr(jc, comp)(jg, j["u"], j["v"], j["w"])
+        assert_close(tg, got, ref)
+
+
+BUOYANCY = {
+    "tracer": lambda m: m.BuoyancyTracer(),
+    "linear": lambda m: m.SeawaterBuoyancy(
+        equation_of_state=m.LinearEquationOfState(2e-4, 8e-4)),
+    "teos10": lambda m: m.SeawaterBuoyancy(
+        equation_of_state=m.TEOS10EquationOfState()),
+    "constant_salinity": lambda m: m.SeawaterBuoyancy(constant_salinity=35),
+    "tilted": lambda m: m.BuoyancyForce(m.BuoyancyTracer(),
+                                        gravity_unit_vector=(0.3, -0.1,
+                                                             -0.9)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUOYANCY))
+def test_buoyancy_matches(name):
+    jg, tg, j, t = fields(seed=2)
+    jb = j_buoy.regularize_buoyancy(BUOYANCY[name](j_buoy))
+    tb = t_buoy.regularize_buoyancy(BUOYANCY[name](t_buoy))
+    assert tb.required_tracers == jb.required_tracers
+    assert repr(tb) == repr(jb)
+    jt = {n: j[n] for n in ("T", "S", "b")}
+    tt = {n: t[n] for n in ("T", "S", "b")}
+    for comp in ("x_contribution", "y_contribution", "z_contribution"):
+        got = getattr(tb, comp)(tg, tt)
+        ref = getattr(jb, comp)(jg, jt)
+        assert (got is None) == (ref is None), comp
+        if got is not None:
+            assert_close(tg, got, ref)
+    assert_close(tg, t_buoy.buoyancy_frequency(tg, tb, tt),
+                 j_buoy.buoyancy_frequency(jg, jb, jt))
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+#: the model configurations, as keyword builders for either package
+CONFIGS = {
+    "weno_mom": lambda m: dict(advection=m.WENO(5)),
+    "weno": lambda m: dict(advection=m.WENO(5), tracers=("T", "S")),
+    "weno_science": lambda m: dict(
+        advection=m.WENO(5), coriolis=m.FPlane(f=1e-2),
+        buoyancy=m.BuoyancyTracer(), tracers=("b", "c")),
+    "science": lambda m: dict(coriolis=m.FPlane(f=1e-2),
+                              buoyancy=m.BuoyancyTracer(),
+                              tracers=("b", "c")),
+}
+#: the port's fused route for each configuration under AB2
+ROUTES = {"weno_mom": "fused_ab2_weno", "weno": "fused_ab2_weno_science",
+          "weno_science": "fused_ab2_weno_science", "science": None}
+
+
+def model_grid_kwargs(config):
+    halo = (1, 0, 0) if config == "science" else (3, 0, 0)
+    return dict(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), topology=BPP,
+                halo=halo)
+
+
+def jax_state_to_numpy(s):
+    out = {name: np.asarray(getattr(s, name)) for name in FIELDS}
+    for group in ("tracers", "Gtracers"):
+        for n, a in getattr(s, group).items():
+            out[f"{group}/{n}"] = np.asarray(a)
+    out.update(time=np.asarray(s.clock.time),
+               iteration=int(s.clock.iteration),
+               last_dt=np.asarray(s.clock.last_dt))
+    return out
+
+
+def run_jax(config, timestepper, steps, dt=1e-3):
+    """The JAX XLA path from its projected initial state; returns the
+    numpy arrays of the initial and the final state."""
+    jg = oj.RectilinearGrid(dtype="float64", **model_grid_kwargs(config))
+    jm = JModel(grid=jg, timestepper=timestepper, fused_kernels=False,
+                **CONFIGS[config](oj))
+    rng = np.random.default_rng(3)
+    init = {n: rng.standard_normal(jg.N)
+            for n in ("u", "v", "w") + tuple(jm.tracer_names)}
+    s = jm.initial_state(**init)
+    start = jax_state_to_numpy(s)
+    step = jax.jit(lambda s_: jm.step(s_, dt))
+    for _ in range(steps):
+        s = step(s)
+    return jm, start, jax_state_to_numpy(s)
+
+
+def run_port(config, timestepper, arrays, steps, dt=1e-3):
+    tg = ot.RectilinearGrid(dtype=F64, **model_grid_kwargs(config))
+    tm = ot.NonhydrostaticModel(grid=tg, timestepper=timestepper,
+                                fused_kernels=True, **CONFIGS[config](ot))
+    s = tm.fill_state_halos(state_from_numpy(tm, arrays))
+    for _ in range(steps):
+        s = tm.step(s, dt, assume_filled=True)
+    return tm, state_to_numpy(s)
+
+
+@pytest.mark.parametrize("config,timestepper,steps", [
+    ("weno_mom", AB2, 4), ("weno", AB2, 4), ("weno_science", AB2, 4),
+    ("science", AB2, 4), ("weno", RK3, 2)])
+def test_model_matches_xla(config, timestepper, steps):
+    """4 AB2 steps through the plain versions of kernels 6 and 8 (and the
+    Centered-2 science route), 2 RK3 steps through those of kernels 7 and
+    9, against the JAX XLA path."""
+    jm, start, ref = run_jax(config, timestepper, steps)
+    tm, got = run_port(config, timestepper, start, steps)
+    assert tm.tracer_names == jm.tracer_names
+    if timestepper == AB2 and ROUTES[config]:
+        assert getattr(tm, ROUTES[config])
+    assert tm.fused_kernels == ("centered2" if config == "science"
+                                else "weno5")
+    names = FIELDS + tracer_keys(tm.tracer_names)
+    assert set(got) >= set(names)
+    for name in names:
+        assert_close(tm.grid, torch.tensor(got[name]), ref[name])
+    assert got["iteration"] == ref["iteration"]
+    assert float(got["time"]) == float(ref["time"])
+
+
+def test_thermal_bubble_golden():
+    """The port reproduces ``tests/golden/thermal_bubble.npz``: 16³
+    Centered-2 BuoyancyTracer bubble, 10 AB2 steps of Δt = 6."""
+    grid = ot.RectilinearGrid(size=(16, 16, 16), extent=(100.0, 100.0, 100.0),
+                              topology=(ot.Periodic, ot.Periodic, ot.Bounded),
+                              dtype=F64)
+    model = ot.NonhydrostaticModel(grid=grid, advection=ot.Centered(2),
+                                   tracers=("b",),
+                                   buoyancy=ot.BuoyancyTracer(),
+                                   timestepper=AB2)
+    state = model.initial_state(
+        b=lambda x, y, z: 0.01 * torch.exp(
+            -((x - 50) ** 2 + (y - 50) ** 2 + (z + 50) ** 2) / 200.0))
+    for _ in range(10):
+        state = model.step(state, 6.0)
+    got = {"u": state.u, "w": state.w, "b": state.tracers["b"]}
+    with np.load(GOLDEN) as golden:
+        assert sorted(golden.files) == sorted(got)
+        for name in golden.files:
+            np.testing.assert_allclose(grid.interior(got[name]).numpy(),
+                                       golden[name], rtol=0, atol=1e-12,
+                                       err_msg=name)
+
+
+GATE_CONFIGS = {
+    "default": lambda m: {},
+    "weno_mom": CONFIGS["weno_mom"],
+    "weno": CONFIGS["weno"],
+    "weno_science": CONFIGS["weno_science"],
+    "science": CONFIGS["science"],
+    "weno7": lambda m: dict(advection=m.WENO(7)),
+    "weno_beta_plane": lambda m: dict(advection=m.WENO(5),
+                                      coriolis=m.BetaPlane(1e-4, 1e-11)),
+    "weno_seawater": lambda m: dict(advection=m.WENO(5),
+                                    buoyancy=m.SeawaterBuoyancy()),
+}
+
+
+@pytest.mark.parametrize("timestepper", [AB2, RK3])
+@pytest.mark.parametrize("config", sorted(GATE_CONFIGS))
+def test_gates_match_jax(config, timestepper):
+    """At the aligned 16×16×128 layout, where the JAX gates' (8, 128)
+    rules hold, the port picks its kernels as the JAX model does, except
+    that the Centered-2 science kernel is not ported yet."""
+    halo = (4, 0, 0) if config == "weno7" else (3, 0, 0)
+    kw = dict(size=(16, 16, 128), extent=(1.0, 1.0, 1.0), topology=BPP,
+              halo=halo)
+    for fused in (True, False):
+        jm = JModel(grid=oj.RectilinearGrid(dtype="float64", **kw),
+                    timestepper=timestepper, fused_kernels=fused,
+                    **GATE_CONFIGS[config](oj))
+        tm = ot.NonhydrostaticModel(
+            grid=ot.RectilinearGrid(dtype=F64, **kw),
+            timestepper=timestepper, fused_kernels=fused,
+            **GATE_CONFIGS[config](ot))
+        assert tm.tracer_names == jm.tracer_names
+        assert tm.fused_kernels == jm.fused_kernels
+        for gate in ("fused_ab2", "fused_ab2_weno",
+                     "fused_ab2_weno_science"):
+            assert getattr(tm, gate) == getattr(jm, gate), gate
+        assert tm.fused_ab2_science is False
+
+
+def test_unported_arguments_raise():
+    grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
+                              topology=BPP, halo=(3, 0, 0), dtype=F64)
+    for kw in (dict(closure=object()), dict(forcing={"u": 1.0}),
+               dict(background_fields={"u": 1.0}),
+               dict(particles=object()), dict(stokes_drift=object()),
+               dict(biogeochemistry=object()), dict(coriolis=object()),
+               dict(buoyancy=object())):
+        with pytest.raises(NotImplementedError):
+            ot.NonhydrostaticModel(grid=grid, **kw)
+    with pytest.raises(NotImplementedError):
+        t_cor.HydrostaticSphericalCoriolis()
+    with pytest.raises(ValueError):         # WENO(5) needs a halo of 3
+        ot.NonhydrostaticModel(
+            grid=ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
+                                    topology=BPP, halo=(1, 0, 0), dtype=F64),
+            advection=ot.WENO(5))
+    m = ot.NonhydrostaticModel(grid=grid, tracers="c",
+                               buoyancy=ot.BuoyancyTracer())
+    assert m.tracer_names == ("c", "b")
+
+
+def test_default_device_is_the_gpu():
+    """The default device is "cuda"; a grid built without ``device=``
+    lands on the card, and on a machine without one its construction
+    raises rather than falling back to the CPU."""
+    from oceananigans_torch.config import Config
+    assert Config().device == "cuda"
+    old = ot.config.device
+    ot.config.device = Config().device
+    try:
+        make = lambda: ot.RectilinearGrid(  # noqa: E731
+            size=(4, 4, 4), extent=(1.0, 1.0, 1.0))
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
+    finally:
+        ot.config.device = old
+
+
+def test_interop_carries_tracers():
+    jm, start, _ = run_jax("weno_science", AB2, 0)
+    tg = ot.RectilinearGrid(dtype=F64, **model_grid_kwargs("weno_science"))
+    tm = ot.NonhydrostaticModel(grid=tg, timestepper=AB2,
+                                **CONFIGS["weno_science"](ot))
+    s = state_from_numpy(tm, start)
+    assert list(s.tracers) == list(tm.tracer_names) == ["b", "c"]
+    back = state_to_numpy(s)
+    for key in FIELDS + tracer_keys(tm.tracer_names):
+        np.testing.assert_array_equal(back[key], start[key])
+    with pytest.raises(KeyError):
+        state_from_numpy(tm, {k: v for k, v in start.items()
+                              if k != "tracers/c"})
