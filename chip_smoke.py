@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive oceananigans_torch's nonhydrostatic main path on one NVIDIA GPU.
+"""Drive oceananigans_torch's main paths on one NVIDIA GPU.
 
 Run from the root of the repository with no arguments:
 
@@ -11,9 +11,10 @@ each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
    one process per source), with each kernel's registers and spills;
-3. each of the eight kernels against its plain PyTorch version, in float32,
-   at the main path's shapes and at a ragged haloed shape, with times and
-   the least time the card could take for the same work;
+3. each of the ten kernels against its plain PyTorch version, in float32,
+   at the main path's shapes and at a ragged shape, the Centered-2 science
+   and shallow-water kernels also at a small size in float64, with times
+   and the least time the card could take for the same work;
 4. the main path: the 256³ Centered-2 quasi-AB2 model (``bench.py``'s
    default configuration) for 100 timed steps after a warm-up, on the
    kernel path and on the plain path, held against each other and against
@@ -22,19 +23,30 @@ each of which raises on failure:
 5. a few RK3 steps at 256³ (the tendency-only kernel);
 6. a few AB2 steps with the fused pressure correction and the fused matmul
    Poisson solver, held against phase 4's path, and the solvers' times;
-7. the WENO-5 paths at 256³ in ``bench.py``'s configurations: ``weno``
-   (two tracers, the science kernel) for 100 timed steps after a warm-up
-   and ``weno_mom`` (the momentum AB2 kernel), the WENO science model
-   (f-plane, BuoyancyTracer, tracers b and c) and RK3 ``weno`` (the tendency
-   and tracer kernels) for a few steps each, each on the kernel path and on
-   the plain path; plus a float64 16³ WENO science run of the kernel path
-   held against the plain path on the CPU.
+7. the WENO-5 and science paths at 256³ in ``bench.py``'s configurations:
+   ``weno`` (two tracers, the WENO science kernel) and ``science``
+   (Centered(2), f-plane, BuoyancyTracer, tracers b and c: the Centered-2
+   science kernel) for 100 timed steps after a warm-up, and ``weno_mom``
+   (the momentum AB2 kernel), the WENO science model (f-plane,
+   BuoyancyTracer, tracers b and c) and RK3 ``weno`` (the tendency and
+   tracer kernels) for a few steps each, each on the kernel path and on the
+   plain path; plus float64 16³ science and WENO science runs of the kernel
+   path held against the plain path on the CPU;
+8. the shallow-water model in ``bench.py``'s ``sw8192`` configuration
+   (8192², RK3, the stage kernel three times a step) on the kernel path
+   and on the plain path, held against each other after 5 steps and timed
+   over the next 20; a float64 run of the kernel path held against the
+   plain path on the CPU; and a few kernel-path steps at 16384²
+   (``sw16384``);
+9. the least time the card could take for each TPU kernel not ported yet,
+   reckoned from its main path's shapes and the JAX formulas.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
 phase 5's RK3 run for the Centered-2 tendency kernel, phase 6's opt-in
 model for the pressure and Poisson kernels, phase 7's ``weno``,
-``weno_mom`` and RK3 runs for the WENO kernels) and read just after it;
+``science``, ``weno_mom`` and RK3 runs for the WENO and science kernels,
+phase 8's ``sw8192`` run for the stage kernel) and read just after it;
 each must equal the launches that run makes. The line before the last is
 the JSON summary of the kernels, with those counts; the last line is the
 device record.
@@ -106,6 +118,47 @@ WENO_TRACER_OPS = 3 * (WENO_FACE_OPS + 1) + 9
 SCIENCE_OPS = 14 + 3
 #: q + a·G + b·G⁻ for one field
 AB2_OPS = 4
+#: the Centered-2 advection of one tracer (``centered2.cu``): six face
+#: fluxes of 3 each, three differences with their scales and sums
+C2_TRACER_OPS = 27
+#: a shallow-water stage point (``shallow_water.cu``): ten velocities of 3
+#: (the face depth's sum and half, the division), eight momentum fluxes of
+#: 5, the two momentum tendencies' 12 each with the g·h·∂h term, the mass
+#: tendency's 6, and three updates
+SW_STAGE_OPS = 10 * 3 + 8 * 5 + 2 * 12 + 6 + 3 * AB2_OPS
+#: a WENO-7 face flux, counted from the JAX formulas: each biased side
+#: takes 28 for its four sub-stencil polynomials, 92 for the Balsara-Shu
+#: indicators, 26 for the WENO-Z weights and 11 to combine them (157); both
+#: sides, the select and the product with the velocity
+WENO7_FACE_OPS = 2 * 157 + 2
+#: a WENO-9 face flux the same way: 45 for five polynomials, 275 for the
+#: quadratic-form indicators, 32 for the weights, 14 to combine (366 a
+#: side)
+WENO9_FACE_OPS = 2 * 366 + 3
+#: the TPU kernels not ported yet, at their main path's shapes in float32:
+#: name -> (pallas_call site, full field shape, fields read and written,
+#: operations per output point, output points). ``hydro_vi`` is 360 x 160 x
+#: 60 with halo (6, 6, 4) and two WENO-7 tracers; its vector-invariant
+#: momentum takes a WENO-9 vorticity flux, four WENO-5 fluxes (kinetic
+#: energy gradient and divergence, both sides) and ~40 for the centred
+#: vertical and cross terms per component. The generic kernel runs only in
+#: its test, WENO-5 momentum at 8 x 16 x 128 with an x halo of 3.
+UNPORTED = {
+    "weno_tracer_tendencies": (
+        "oceananigans_tpu/ops/pallas_tracer.py:269", (372, 172, 68),
+        3 + 2 * 2, 2 * (3 * WENO7_FACE_OPS + 9), 360 * 160 * 60),
+    "vi_momentum_tendency": (
+        "oceananigans_tpu/ops/pallas_vi.py:634", (372, 172, 68), 3 + 2,
+        2 * (WENO9_FACE_OPS + 4 * (WENO_FACE_OPS + 1) + 40),
+        360 * 160 * 60),
+    "vi_momentum_tendency_zyx": (
+        "oceananigans_tpu/ops/pallas_vi.py:538", (68, 172, 372), 3 + 2,
+        2 * (WENO9_FACE_OPS + 4 * (WENO_FACE_OPS + 1) + 40),
+        360 * 160 * 60),
+    "fused_momentum_tendency": (
+        "oceananigans_tpu/ops/pallas_generic.py:111", (14, 16, 128), 6,
+        WENO_MOMENTUM_OPS, 8 * 16 * 128),
+}
 
 
 def bound(nbytes, flops):
@@ -129,9 +182,12 @@ def main():
     import oceananigans_torch as ot
     from oceananigans_torch.ops import _build, cuda_kernels as ck
     from oceananigans_torch.ops import cuda_poisson as cp
+    from oceananigans_torch.ops import cuda_sw as csw
     from oceananigans_torch.ops import cuda_weno as cw
     from oceananigans_torch.ops.operators import divergence_ccc
-    from oceananigans_torch.profile_step import config_kwargs, initial_state
+    from oceananigans_torch.profile_step import (
+        config_kwargs, initial_state, sw_initial_state, sw_model,
+    )
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
@@ -164,6 +220,22 @@ def main():
             topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
             dtype=dtype, device=dev)
 
+    def sw_grid(N, dtype, halo=(8, 0, 0)):
+        return ot.RectilinearGrid(
+            size=N, x=(0.0, 1e6), y=(0.0, 1e6),
+            topology=(ot.Periodic, ot.Periodic, ot.Flat), halo=halo,
+            dtype=dtype, device=dev)
+
+    def sw_term_scale(grid, uh, vh, h, g=9.81):
+        """The largest single term of the stage stencil: the momentum flux
+        |U²/h| and the g·h·|Δh| product, over the spacing."""
+        inv = max(grid.Nx / grid.Lx, grid.Ny / grid.Ly)
+        flux = float(torch.maximum(uh.abs(), vh.abs()).max()) ** 2 / float(
+            h.abs().min())
+        dh = max(float((h - torch.roll(h, 1, 0)).abs().max()),
+                 float((h - torch.roll(h, 1, 1)).abs().max()))
+        return inv * max(flux, g * float(h.abs().max()) * dh)
+
     def filled_fields(grid, n):
         fs = []
         for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C, ot.LOC_C)[:n]:
@@ -187,14 +259,25 @@ def main():
               "ragged": ((30, 20, 40), (1, 1, 1))}
     report = {}
 
+    def check_groups(name, shape_name, groups):
+        """``groups``: (what, got, ref, scale, rtol) for outputs held to
+        ``rtol`` of their own scale; the float32 errors go to the
+        report."""
+        for what, got, ref, sc, rtol in groups:
+            err = max_err(got, ref)
+            tol = rtol * sc
+            log(f"[3] {name} {shape_name}{what}: max|kernel - plain| = "
+                f"{err:.3e} (tolerance {tol:.3e} = {rtol:.3g} x {sc:.4g})")
+            require(err <= tol and math.isfinite(err),
+                    f"{name} {shape_name}{what}")
+            if shape_name.endswith("float64"):
+                continue
+            rep = report.setdefault(name, {"max_abs_err": 0.0})
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+
     def check(name, shape_name, got, ref, rtol):
-        err = max_err(got, ref)
-        tol = rtol * scale(ref)
-        log(f"[3] {name} {shape_name}: max|kernel - plain| = {err:.3e} "
-            f"(tolerance {tol:.3e} = {rtol:g} x max|plain|)")
-        require(err <= tol and math.isfinite(err), f"{name} {shape_name}")
-        rep = report.setdefault(name, {"max_abs_err": 0.0})
-        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        """All outputs held to ``rtol`` of the largest plain value."""
+        check_groups(name, shape_name, [("", got, ref, scale(ref), rtol)])
 
     for shape_name, (N, halo) in shapes.items():
         grid = grid_of(N, halo)
@@ -361,6 +444,115 @@ def main():
         del u, v, w, c, d, tr, Gm, Gk, Gp, got, ref, checks
         torch.cuda.empty_cache()
 
+    # kernel 5, the Centered-2 science step: the updated fields and the
+    # tendencies, each group to 8 float32 ulps of its largest value (the
+    # same stencils as kernels 1-2, plus products and sums of the same
+    # size); in float64 to F64_RTOL
+    F64_RTOL = 1e-12
+    science_shapes = {"main": ((256, 256, 256), (1, 0, 0), f32),
+                      "ragged": ((30, 20, 40), (1, 1, 1), f32),
+                      "ragged float64": ((30, 20, 40), (1, 1, 1),
+                                         torch.float64)}
+    for shape_name, (N, halo, dtype) in science_shapes.items():
+        grid = grid_of(N, halo, dtype)
+        u, v, w, b_, c_ = (q.to(dtype) for q in filled_fields(grid, 5))
+        tr = {"b": b_, "c": c_}
+        Gm = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
+                                dtype=dtype) for _ in range(5)]
+        Gk = [g.clone() for g in Gm]
+        Gp = [g.clone() for g in Gm]
+        a, b = 1.6e-4, -0.6e-4
+
+        def science5(fn, G):
+            out = fn(grid, u, v, w, tr, *G[:3], {"b": G[3], "c": G[4]}, a,
+                     b, f=f_smoke, buoyancy_tracer="b")
+            return ([*out[:3], *out[3].values()],
+                    [*out[4:7], *out[7].values()])
+
+        got = science5(ck.centered2_science_ab2_update, Gk)
+        ref = science5(ck.centered2_science_ab2_update_plain, Gp)
+        torch.cuda.synchronize()
+        rtol = 8 * torch.finfo(dtype).eps if dtype == f32 else F64_RTOL
+        check_groups("centered2_science_ab2_update", shape_name, [
+            (" fields", got[0], ref[0], scale(ref[0]), rtol),
+            (" tendencies", got[1], ref[1], scale(ref[1]), rtol)])
+        if shape_name != "main":
+            continue
+        field = u.numel() * u.element_size()
+        points = N[0] * N[1] * N[2]
+        T = len(tr)
+        bound_ms, bound_by = bound(
+            4 * (3 + T) * field,
+            points * (C2_TENDENCY_OPS + SCIENCE_OPS + T * C2_TRACER_OPS
+                      + (3 + T) * AB2_OPS))
+        plain_ms, ms = paired_times(
+            torch, lambda: science5(ck.centered2_science_ab2_update_plain,
+                                    Gp),
+            lambda: science5(ck.centered2_science_ab2_update, Gk), 20)
+        report["centered2_science_ab2_update"].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        log(f"[3] centered2_science_ab2_update at {tuple(u.shape)}, {T} "
+            f"tracers: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    del u, v, w, b_, c_, tr, Gm, Gk, Gp, got, ref
+    torch.cuda.empty_cache()
+
+    # kernel 10, the shallow-water stage, on random fields near the
+    # benchmark's (h ~ 1000, uh and vh ~ 100): the updated fields to 8
+    # float32 ulps of their largest value; the tendencies, each a small
+    # residual of terms ~1e4 times larger, to 32 float32 ulps of the largest
+    # single term (sw_term_scale); in float64 both to F64_RTOL. The float64
+    # bound is wider in ulps: the plain versions divide by spacings taken
+    # from coordinate differences, which carry a relative rounding of up to
+    # an ulp of the coordinate over the spacing (~1e-14 here; in float32
+    # the spacings are rounded to float32 and this stays within an ulp)
+    sw_shapes = {"main": ((8192, 8192), f32), "ragged": ((48, 200), f32),
+                 "ragged float64": ((48, 200), torch.float64)}
+    for shape_name, (N, dtype) in sw_shapes.items():
+        grid = sw_grid(N, dtype)
+        sgen = torch.Generator(device=dev).manual_seed(1)
+
+        def rnd(sd, offset=0.0):
+            return offset + sd * torch.randn(grid.shape, generator=sgen,
+                                             device=dev, dtype=dtype)
+        q = [rnd(100.0), rnd(100.0), rnd(1.0, 1000.0)]
+        for fld, loc in zip(q, (ot.LOC_U, ot.LOC_V, ot.LOC_C)):
+            ot.fill_halo_regions(fld, grid, loc=loc)
+        Gm = [rnd(1e-2) for _ in range(3)]
+        Gk = [g.clone() for g in Gm]
+        Gp = [g.clone() for g in Gm]
+        a, b = 0.4, -0.2
+        got = csw.sw_rk3_stage(grid, *q, *Gk, a, b, 9.81)
+        ref = csw.sw_rk3_stage_plain(grid, *q, *Gp, a, b, 9.81)
+        torch.cuda.synchronize()
+        eps = torch.finfo(dtype).eps
+        r_fields, r_terms = ((8 * eps, 32 * eps) if dtype == f32
+                             else (F64_RTOL, F64_RTOL))
+        ii = grid.interior_slices
+        gi = [[t[ii] for t in group] for group in (got[:3], got[3:],
+                                                   ref[:3], ref[3:])]
+        check_groups("sw_rk3_stage", shape_name, [
+            (" fields", gi[0], gi[2], scale(gi[2]), r_fields),
+            (" tendencies", gi[1], gi[3], sw_term_scale(grid, *q),
+             r_terms)])
+        del gi
+        if shape_name != "main":
+            continue
+        field = q[0].numel() * q[0].element_size()
+        points = N[0] * N[1]
+        bound_ms, bound_by = bound(12 * field, points * SW_STAGE_OPS)
+        plain_ms, ms = paired_times(
+            torch, lambda: csw.sw_rk3_stage_plain(grid, *q, *Gp, a, b, 9.81),
+            lambda: csw.sw_rk3_stage(grid, *q, *Gk, a, b, 9.81), 10)
+        report["sw_rk3_stage"].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        log(f"[3] sw_rk3_stage at {tuple(q[0].shape)}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    del q, Gm, Gk, Gp, got, ref
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the main path ----------------------------------------
     wrappers = {"centered2_ab2_update": ck.centered2_ab2_update,
                 "centered2_momentum_tendency":
@@ -370,7 +562,10 @@ def main():
                 "weno5_ab2_update": cw.weno5_ab2_update,
                 "weno5_momentum_tendency": cw.weno5_momentum_tendency,
                 "weno5_science_ab2_update": cw.weno5_science_ab2_update,
-                "weno5_tracer_tendencies": cw.weno5_tracer_tendencies}
+                "weno5_tracer_tendencies": cw.weno5_tracer_tendencies,
+                "centered2_science_ab2_update":
+                    ck.centered2_science_ab2_update,
+                "sw_rk3_stage": csw.sw_rk3_stage}
     launches = {}
 
     def zero_counts():
@@ -549,16 +744,17 @@ def main():
     del ref_model, s_ref, opt, s_opt, solvers, rhs
     torch.cuda.empty_cache()
 
-    # ---- phase 7: the WENO-5 paths ----------------------------------------
+    # ---- phase 7: the WENO-5 and science paths ----------------------------
+    def model_kwargs(config):
+        if config == "weno_science":
+            return dict(advection=ot.WENO(5), coriolis=ot.FPlane(f=1e-4),
+                        buoyancy=ot.BuoyancyTracer(),
+                        tracers=("b", "c")), (3, 0, 0)
+        return config_kwargs(config)
+
     def weno_model(config, fused, timestepper="QuasiAdamsBashforth2",
                    grid=None):
-        if config == "weno_science":
-            kwargs, halo = dict(advection=ot.WENO(5),
-                                coriolis=ot.FPlane(f=1e-4),
-                                buoyancy=ot.BuoyancyTracer(),
-                                tracers=("b", "c")), (3, 0, 0)
-        else:
-            kwargs, halo = config_kwargs(config)
+        kwargs, halo = model_kwargs(config)
         grid = grid or grid_of((N, N, N), halo)
         return ot.NonhydrostaticModel(grid=grid, timestepper=timestepper,
                                       fused_kernels=fused, **kwargs)
@@ -576,16 +772,20 @@ def main():
                if sk.tracers else 0.0)
         return vel, trc
 
-    #: the kernel and plain paths round the WENO fluxes and the update
+    #: the kernel and plain paths round the fluxes and the update
     #: differently every step, and the nonlinear WENO-Z weights carry the
     #: difference on; relative to the largest value of each group of
     #: fields. Two runs on an H100 read 8.724e-06 (velocities) and
-    #: 8.906e-06 (tracers) after the 105 `weno` steps, each time
+    #: 8.906e-06 (tracers) after the 105 `weno` steps, each time; the
+    #: Centered-2 `science` path is held to the same bound (its default
+    #: counterpart reads 8.361e-6 after 105 steps)
     WENO_PATH_RTOL = 3e-5
     weno_runs = {
         # name: (configuration, timestepper, warm-up, steps, kernels)
         "weno": ("weno", "QuasiAdamsBashforth2", warm, steps,
                  {"weno5_science_ab2_update": 1}),
+        "science": ("science", "QuasiAdamsBashforth2", warm, steps,
+                    {"centered2_science_ab2_update": 1}),
         "weno_mom": ("weno_mom", "QuasiAdamsBashforth2", 2, 20,
                      {"weno5_ab2_update": 1}),
         "weno_science": ("weno_science", "QuasiAdamsBashforth2", 2, 10,
@@ -645,37 +845,158 @@ def main():
         del finals, holder, state, sk, sp, mk
         torch.cuda.empty_cache()
 
-    # a small float64 WENO science run: the kernel path on the card against
-    # the plain path on the CPU
-    f64 = {}
-    for device, fused in (("cuda", True), ("cpu", False)):
-        g16 = ot.RectilinearGrid(size=(16, 16, 16), extent=(1.0, 1.0, 1.0),
-                                 topology=(ot.Bounded, ot.Periodic,
-                                           ot.Periodic),
-                                 halo=(3, 0, 0), dtype=torch.float64,
-                                 device=device)
-        m16 = weno_model("weno_science", fused, grid=g16)
-        s16 = m16.initial_state(
-            u=lambda x, y, z: torch.sin(2 * math.pi * x)
-            * torch.cos(2 * math.pi * y),
-            v=lambda x, y, z: torch.cos(2 * math.pi * z) + 0 * x,
-            b=lambda x, y, z: 0.1 * torch.sin(2 * math.pi * z) + 0 * x,
-            c=lambda x, y, z: torch.cos(2 * math.pi * y) + 0 * x)
-        for _ in range(5):
-            s16 = m16.step(s16, 1e-3)
-        f64[device] = (m16, s16)
-    require(f64["cuda"][0].fused_ab2_weno_science,
-            "the float64 card run takes the WENO science kernel")
-    vel64, trc64 = rel_diff(f64["cuda"][0].grid, f64["cuda"][1],
-                            f64["cpu"][1])
-    require(vel64 <= 1e-12 and trc64 <= 1e-12,
-            f"float64 16^3 WENO science card vs CPU {vel64:.3e}, {trc64:.3e}")
-    log(f"[7] float64 16^3 WENO science, 5 AB2 steps: kernel path on the "
-        f"card vs plain path on the CPU: velocities {vel64:.3e}, tracers "
-        f"{trc64:.3e} of the largest value (tolerance 1e-12)")
+    # small float64 science runs: the kernel path on the card against the
+    # plain path on the CPU
+    for config, gate in (("weno_science", "fused_ab2_weno_science"),
+                         ("science", "fused_ab2_science")):
+        f64 = {}
+        for device, fused in (("cuda", True), ("cpu", False)):
+            g16 = ot.RectilinearGrid(
+                size=(16, 16, 16), extent=(1.0, 1.0, 1.0),
+                topology=(ot.Bounded, ot.Periodic, ot.Periodic),
+                halo=model_kwargs(config)[1], dtype=torch.float64,
+                device=device)
+            m16 = weno_model(config, fused, grid=g16)
+            s16 = m16.initial_state(
+                u=lambda x, y, z: torch.sin(2 * math.pi * x)
+                * torch.cos(2 * math.pi * y),
+                v=lambda x, y, z: torch.cos(2 * math.pi * z) + 0 * x,
+                b=lambda x, y, z: 0.1 * torch.sin(2 * math.pi * z) + 0 * x,
+                c=lambda x, y, z: torch.cos(2 * math.pi * y) + 0 * x)
+            for _ in range(5):
+                s16 = m16.step(s16, 1e-3)
+            f64[device] = (m16, s16)
+        require(getattr(f64["cuda"][0], gate),
+                f"the float64 card run takes {gate}")
+        vel64, trc64 = rel_diff(f64["cuda"][0].grid, f64["cuda"][1],
+                                f64["cpu"][1])
+        require(vel64 <= 1e-12 and trc64 <= 1e-12,
+                f"float64 16^3 {config} card vs CPU {vel64:.3e}, "
+                f"{trc64:.3e}")
+        log(f"[7] float64 16^3 {config}, 5 AB2 steps: kernel path on the "
+            f"card vs plain path on the CPU: velocities {vel64:.3e}, "
+            f"tracers {trc64:.3e} of the largest value (tolerance 1e-12)")
     log(f"[7] step times on {card}: " + ", ".join(
         f"{name} {path} {ms:.3f} ms/step"
         for (name, path), ms in weno_ms.items()))
+
+    del f64, m16, s16
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the shallow-water model ---------------------------------
+    # bench.py's Δt = 1 s is above RK3's stability limit for the grid-scale
+    # gravity waves (ω·Δt = 2.3 at 8192², against √3): rounding noise grows
+    # by ~1.7 a step and the fields overflow after ~30 steps on either
+    # path. So each path is compared after SW_CMP steps, where the growth
+    # is ~13, and timed over the next SW_TIMED, inside that horizon.
+    #: sw8192 after SW_CMP steps, kernel path against plain path, relative
+    #: to the largest value of each group. Both paths round h ~ 1e3 to
+    #: float32 (an ulp is 6e-5 there), and the g·h·∂h term turns one ulp of
+    #: h into ~0.05 of the x-transport tendency, so the transports drift
+    #: apart by rounding noise; h itself stays within a few ulps of the
+    #: largest value. Bounds set before the first run on the card
+    SW_PATH_RTOL = {"transports": 1e-2, "h": 1e-4}
+    SW_CMP, SW_TIMED = 5, 20
+    sw_ms, sw_cmp = {}, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = sw_model(8192, fused)
+        require(model.fused_rk3 == (path == "kernel"),
+                f"sw8192 {path} path selects fused_rk3={model.fused_rk3}")
+        zero_counts()
+        state = model.fill_state_halos(sw_initial_state(model))
+        for _ in range(SW_CMP):
+            state = model.step(state, 1.0, assume_filled=True)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (state.uh, state.vh, state.h)),
+                f"sw8192 {path} path: finite fields")
+        sw_cmp[path] = [model.grid.interior(q).clone()
+                        for q in (state.uh, state.vh, state.h)]
+        holder = [state]
+        sw_ms[path] = time_ms(torch, lambda: holder.__setitem__(
+            0, model.step(holder[0], 1.0, assume_filled=True)), SW_TIMED)
+        total = SW_CMP + SW_TIMED
+        if path == "kernel":
+            n = launches["sw_rk3_stage"] = csw.sw_rk3_stage.launches
+            require(n == 3 * total, f"sw_rk3_stage launched {n} times in "
+                    f"{total} steps")
+            others = [k for k in wrappers if k != "sw_rk3_stage"
+                      and wrappers[k].launches]
+            require(not others, f"sw8192: unexpected launches of {others}")
+        else:
+            require(all(fn.launches == 0 for fn in wrappers.values()),
+                    "sw8192: the plain path launches no kernel")
+        log(f"[8] sw8192 {path} path: {sw_ms[path]:.3f} ms/step at 8192^2 "
+            f"float32 (steps {SW_CMP + 1} to {total} of RK3, timed)")
+        del model, state, holder
+    (uk, vk, hk), (up, vp, hp) = sw_cmp["kernel"], sw_cmp["plain"]
+    sw_rel = {
+        "transports": max(float((uk - up).abs().max()),
+                          float((vk - vp).abs().max()))
+        / max(float(up.abs().max()), float(vp.abs().max())),
+        "h": float((hk - hp).abs().max()) / float(hp.abs().max())}
+    log(f"[8] sw8192: sw_rk3_stage launches {launches['sw_rk3_stage']} in "
+        f"{total} steps; kernel vs plain path after {SW_CMP} steps: "
+        + ", ".join(f"{k} {v:.3e} of the largest value (tolerance "
+                    f"{SW_PATH_RTOL[k]:g})" for k, v in sw_rel.items()))
+    require(all(sw_rel[k] <= SW_PATH_RTOL[k] for k in sw_rel),
+            f"sw8192 kernel vs plain path {sw_rel}")
+    del sw_cmp, uk, vk, hk, up, vp, hp
+    torch.cuda.empty_cache()
+
+    # a small float64 run: the kernel path on the card against the plain
+    # path on the CPU; the transports to 1e-12 of the largest transport and
+    # h to 1e-12 of its largest value (vh starts at zero, so its own largest
+    # value is no scale), the tendencies to 1e-9 absolute, the JAX
+    # package's bound for its own stage kernel (one ulp of h ~ 1e3 moves the
+    # g·h·∂h term by ~1e-12 of the largest term)
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = sw_model(96, "auto", torch.float64, device)
+        require(m.fused_rk3 == (device == "cuda"), "float64 sw routes")
+        st = sw_initial_state(m)
+        for _ in range(4):
+            st = m.step(st, 20.0)
+        f64[device] = (m.grid, st)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    transports = max(float(gp.interior(q).abs().max())
+                     for q in (sp.uh, sp.vh))
+    scales = {"uh": transports, "vh": transports,
+              "h": float(gp.interior(sp.h).abs().max())}
+    sw64 = {"fields": 0.0, "tendencies": 0.0}
+    for name in ("uh", "vh", "h", "Guh", "Gvh", "Gh"):
+        a = gk.interior(getattr(sk, name)).cpu()
+        b = gp.interior(getattr(sp, name))
+        if name.startswith("G"):
+            sw64["tendencies"] = max(sw64["tendencies"],
+                                     float((a - b).abs().max()))
+        else:
+            sw64["fields"] = max(sw64["fields"], float(
+                (a - b).abs().max()) / scales[name])
+    require(sw64["fields"] <= 1e-12 and sw64["tendencies"] <= 1e-9,
+            f"float64 96^2 shallow water card vs CPU {sw64}")
+    log(f"[8] float64 96^2 shallow water, 4 RK3 steps: kernel path on the "
+        f"card vs plain path on the CPU: fields {sw64['fields']:.3e} of "
+        f"the largest value of their group (tolerance 1e-12), tendencies "
+        f"{sw64['tendencies']:.3e} (tolerance 1e-9)")
+
+    # a few kernel-path steps at 16384², where the noise grows ~15 a step
+    m = sw_model(16384)
+    st = m.fill_state_halos(sw_initial_state(m))
+    st = m.step(st, 1.0, assume_filled=True)
+    torch.cuda.synchronize()
+    holder = [st]
+    sw_ms["kernel 16384"] = time_ms(torch, lambda: holder.__setitem__(
+        0, m.step(holder[0], 1.0, assume_filled=True)), 3)
+    require(all(bool(torch.isfinite(q).all())
+                for q in (holder[0].uh, holder[0].vh, holder[0].h)),
+            "sw16384 finite fields")
+    log(f"[8] sw16384 kernel path: {sw_ms['kernel 16384']:.3f} ms/step "
+        "(1 warm-up + 3 timed RK3 steps)")
+    log(f"[8] step times on {card}: " + ", ".join(
+        f"{k} {v:.3f} ms/step" for k, v in sw_ms.items()))
+    del m, st, holder
+    torch.cuda.empty_cache()
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),
@@ -698,13 +1019,22 @@ def main():
                    "oceananigans_tpu/ops/pallas_weno.py:528"),
                "weno5_tracer_tendencies": (
                    "oceananigans_torch/csrc/weno5.cu",
-                   "oceananigans_tpu/ops/pallas_weno.py:783")}
+                   "oceananigans_tpu/ops/pallas_weno.py:783"),
+               "centered2_science_ab2_update": (
+                   "oceananigans_torch/csrc/centered2.cu",
+                   "oceananigans_tpu/ops/pallas_kernels.py:574"),
+               "sw_rk3_stage": ("oceananigans_torch/csrc/shallow_water.cu",
+                                "oceananigans_tpu/ops/pallas_sw.py:207")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 **{k: report[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, rep) in sources.items()]
+    for name, (site, shape, nfields, ops, points) in UNPORTED.items():
+        ms_, by = bound(nfields * math.prod(shape) * 4, ops * points)
+        log(f"[9] {name} ({site}), not ported yet: bound {ms_:.5f} ms "
+            f"({by}) at {shape} float32, {ops} operations per point")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -248,6 +248,24 @@ def required_halo(scheme) -> int:
     return scheme.required_halo
 
 
+def _scheme_for(scheme, axis):
+    """The scheme that reconstructs along ``axis``; every ported scheme
+    uses itself on all axes (``FluxFormAdvection``, which picks one per
+    axis, is not ported)."""
+    return scheme
+
+
+def cell_advection_timescale(grid, u, v, w):
+    """min over the interior of (|u|/Δx + |v|/Δy + |w|/Δz)⁻¹."""
+    dx = grid.dx(Face, Center).expand(grid.shape)
+    dy = grid.dy(Face, Center).expand(grid.shape)
+    dz = grid.dz(Face).expand(grid.shape)
+    ii = grid.interior_slices
+    rate = (u[ii].abs() / dx[ii] + v[ii].abs() / dy[ii]
+            + w[ii].abs() / dz[ii])
+    return 1.0 / torch.clamp(rate.max(), min=1e-30)
+
+
 def _face_value(scheme, U, a, axis, o):
     """Reconstructed value of ``a`` at the flux location, upwinded on the
     sign of the (already interpolated) advecting velocity ``U``; where U is
@@ -311,5 +329,5 @@ def div_vw(grid, scheme, u, v, w):
 
 
 __all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
-           "UpwindBiased", "WENO", "div_Uc", "div_vu", "div_vv", "div_vw",
-           "required_halo"]
+           "UpwindBiased", "WENO", "cell_advection_timescale", "div_Uc",
+           "div_vu", "div_vv", "div_vw", "required_halo"]

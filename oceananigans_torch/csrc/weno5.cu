@@ -42,7 +42,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-// must equal MAX_TRACERS in ops/cuda_weno.py
+// must equal MAX_TRACERS in ops/cuda_kernels.py
 constexpr int kMaxTracers = 8;
 
 template <typename T> struct RatioCap;

@@ -57,5 +57,17 @@ def interior(grid, a):
     return grid.interior(a)
 
 
-__all__ = ["LOC_C", "LOC_U", "LOC_V", "LOC_W", "interior",
-           "location_coords", "new_field", "set_field"]
+def field_sum(grid, a, loc=LOC_C):
+    """Sum of the interior values."""
+    return torch.sum(interior(grid, a))
+
+
+def field_integral(grid, a, loc=LOC_C):
+    """Volume integral over the interior of a field at ``loc``."""
+    V = grid.V(*loc).expand(grid.shape)
+    return torch.sum(interior(grid, a) * interior(grid, V))
+
+
+__all__ = ["LOC_C", "LOC_U", "LOC_V", "LOC_W", "field_integral",
+           "field_sum", "interior", "location_coords", "new_field",
+           "set_field"]

@@ -23,6 +23,7 @@ paths run the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -43,11 +44,11 @@ from oceananigans_torch.fields import (
 from oceananigans_torch.grids.base import Center, Periodic
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.ops.cuda_kernels import (
-    centered2_ab2_update, centered2_momentum_tendency, fused_available,
-    pressure_correction,
+    MAX_TRACERS, centered2_ab2_update, centered2_momentum_tendency,
+    centered2_science_ab2_update, fused_available, pressure_correction,
 )
 from oceananigans_torch.ops.cuda_weno import (
-    MAX_TRACERS, weno5_ab2_update, weno5_available, weno5_momentum_tendency,
+    weno5_ab2_update, weno5_available, weno5_momentum_tendency,
     weno5_science_ab2_update, weno5_tracer_tendencies,
 )
 from oceananigans_torch.ops.operators import (
@@ -220,27 +221,33 @@ class NonhydrostaticModel(torch.nn.Module):
         return self._pure_advection and self.fused_kernels == "weno5"
 
     @property
-    def fused_ab2_science(self) -> bool:
-        """The Centered-2 science step as one kernel. Always False: that
-        kernel (``centered2_science_ab2_update``) is not ported yet, ROADMAP
-        Queue 2 item 1; the science configuration takes the Centered-2
-        tendency kernel and plain physics and tracer terms meanwhile."""
-        return False
-
-    @property
-    def fused_ab2_weno_science(self) -> bool:
-        """The WENO-5 science step (f-plane Coriolis, a BuoyancyTracer with
-        gravity along -z, at most MAX_TRACERS tracers) as one kernel."""
+    def _science_fusable(self) -> bool:
+        """The physics a science kernel takes: AB2, f-plane Coriolis or
+        none, a BuoyancyTracer with gravity along -z or no buoyancy, and at
+        most MAX_TRACERS tracers (in place of the JAX model's VMEM budget,
+        ``science_kernel_fits``)."""
         buoyancy_ok = self.buoyancy is None or (
             isinstance(self.buoyancy.formulation, BuoyancyTracer)
             and self.buoyancy.gravity_unit_vector == (0.0, 0.0, -1.0))
         return (self.timestepper == "QuasiAdamsBashforth2"
-                and self.fused_kernels == "weno5"
-                and not self.fused_ab2_weno
                 and (self.coriolis is None
                      or type(self.coriolis) is FPlane)
                 and buoyancy_ok
                 and len(self.tracer_names) <= MAX_TRACERS)
+
+    @property
+    def fused_ab2_science(self) -> bool:
+        """The Centered-2 science step (``centered2_science_ab2_update``)
+        as one kernel."""
+        return (self.fused_kernels == "centered2" and not self.fused_ab2
+                and self._science_fusable)
+
+    @property
+    def fused_ab2_weno_science(self) -> bool:
+        """The WENO-5 science step (``weno5_science_ab2_update``) as one
+        kernel."""
+        return (self.fused_kernels == "weno5" and not self.fused_ab2_weno
+                and self._science_fusable)
 
     # ------------------------------------------------------------------
     # State construction
@@ -411,13 +418,15 @@ class NonhydrostaticModel(torch.nn.Module):
                 g, state.u, state.v, state.w, state.Gu, state.Gv, state.Gw,
                 a, b, epsilon=self.advection.epsilon)
             return _replace(state, u=u, v=v, w=w, Gu=Gu, Gv=Gv, Gw=Gw)
-        if self.fused_ab2_weno_science:
-            u, v, w, tracers, Gu, Gv, Gw, Gt = weno5_science_ab2_update(
+        if self.fused_ab2_science or self.fused_ab2_weno_science:
+            kernel = (centered2_science_ab2_update if self.fused_ab2_science
+                      else functools.partial(weno5_science_ab2_update,
+                                             epsilon=self.advection.epsilon))
+            u, v, w, tracers, Gu, Gv, Gw, Gt = kernel(
                 g, state.u, state.v, state.w, state.tracers,
                 state.Gu, state.Gv, state.Gw, state.Gtracers, a, b,
                 f=self.coriolis.f if self.coriolis is not None else 0.0,
-                buoyancy_tracer="b" if self.buoyancy is not None else None,
-                epsilon=self.advection.epsilon)
+                buoyancy_tracer="b" if self.buoyancy is not None else None)
             return _replace(state, u=u, v=v, w=w, tracers=tracers,
                             Gu=Gu, Gv=Gv, Gw=Gw, Gtracers=Gt)
         Gu, Gv, Gw, Gt = self.compute_tendencies(state)

@@ -35,12 +35,14 @@ _D = ctypes.c_double
 SIGNATURES = {
     "ot_c2_tendency": [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P],
     "ot_c2_ab2": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
+    "ot_c2_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 6 + [_I] + [_P],
     "ot_pressure_correction": [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
     "ot_poisson_middle": [_P] * 8 + [_I] * 3 + [_P],
     "ot_weno5_tendency": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_P],
     "ot_weno5_tracers": [_P] * 5 + [_I] * 4 + [_D] * 4 + [_P],
     "ot_weno5_ab2": [_P] * 9 + [_I] * 3 + [_D] * 6 + [_P],
     "ot_weno5_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 7 + [_I] + [_P],
+    "ot_sw_rk3_stage": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
 }
 
 _lib = None

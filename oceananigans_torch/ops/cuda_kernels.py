@@ -7,6 +7,10 @@ Counterpart of ``oceananigans_tpu/ops/pallas_kernels.py``:
   quasi-AB2 update (``csrc/centered2.cu``), the default AB2 path;
 - ``centered2_momentum_tendency``: the tendency alone (same source), used
   by RK3;
+- ``centered2_science_ab2_update``: the science step in one pass
+  (``csrc/centered2.cu``): the Centered-2 momentum tendency, f-plane
+  Coriolis, the buoyancy of a BuoyancyTracer, the Centered-2 advection of
+  up to :data:`MAX_TRACERS` tracers and the AB2 update of every field;
 - ``pressure_correction``: (u, v, w) -= Δt∇p in one pass
   (``csrc/pressure_correction.cu``), opt-in as ``model.fused_correction``.
 
@@ -21,12 +25,21 @@ haloed one).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from oceananigans_torch.advection import Centered, div_vu, div_vv, div_vw
+from oceananigans_torch.advection import (
+    Centered, div_Uc, div_vu, div_vv, div_vw,
+)
 from oceananigans_torch.ops import _build
 
 _FLOATS = (torch.float32, torch.float64)
+#: the most tracers one launch of a science or tracer kernel takes
+#: (``kMaxTracers`` in ``csrc/centered2.cu`` and ``csrc/weno5.cu``); the
+#: model takes the unfused route above it, as the JAX model does above its
+#: VMEM budget
+MAX_TRACERS = 8
 
 
 def fused_available(grid, advection=None) -> bool:
@@ -70,6 +83,13 @@ def check_operands(name, tensors, shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def pointers(tensors):
+    """A C array of the tensors' data pointers (kept alive by the caller
+    for the duration of the launch call)."""
+    return (ctypes.c_void_p * max(len(tensors), 1))(
+        *(t.data_ptr() for t in tensors))
 
 
 def _inv_spacings(grid):
@@ -120,6 +140,58 @@ def centered2_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev,
         gm[1:-1] = g
         news.append(qn)
     return (*news, Gu_prev, Gv_prev, Gw_prev)
+
+
+def ab2_rows(qs, gs, g_prevs, a, b, H):
+    """q' = q + a·G + b·G⁻ on x-rows [H, nx-H) for each field, with G
+    (given on those rows) written over G⁻ in place; q' copies q's other
+    rows."""
+    news = []
+    for q, g, gm in zip(qs, gs, g_prevs):
+        qn = q.clone()
+        qn[H:-H] = q[H:-H] + a * g + b * gm[H:-H]
+        gm[H:-H] = g
+        news.append(qn)
+    return news
+
+
+def science_ab2_plain(grid, scheme, H, u, v, w, tracers, Gu_prev, Gv_prev,
+                      Gw_prev, Gc_prev, a, b, f, buoyancy_tracer):
+    """The plain science step on x-rows [H, nx-H) with advection
+    ``scheme``: the model's own operators (``advection.div_vu/div_vv/
+    div_vw/div_Uc``, the ``coriolis.FPlane`` and ``buoyancy.BuoyancyForce``
+    terms), the AB2 update of every field and G written over G⁻. Returns
+    ``(u', v', w', {c'}, Gu, Gv, Gw, {Gc})``."""
+    from oceananigans_torch.buoyancy import BuoyancyForce, BuoyancyTracer
+    from oceananigans_torch.coriolis import FPlane
+    names = list(tracers)
+    r = slice(H, -H)
+    gu, gv, gw = (-div(grid, scheme, u, v, w)[r]
+                  for div in (div_vu, div_vv, div_vw))
+    if f != 0.0:
+        cor = FPlane(f=f)
+        gu = gu - cor.x_f_cross_U(grid, u, v, w)[r]
+        gv = gv - cor.y_f_cross_U(grid, u, v, w)[r]
+    if buoyancy_tracer is not None:
+        force = BuoyancyForce(BuoyancyTracer())
+        gw = gw + force.z_contribution(
+            grid, {"b": tracers[buoyancy_tracer]})[r]
+    gcs = [-div_Uc(grid, scheme, u, v, w, tracers[n])[r] for n in names]
+    news = ab2_rows((u, v, w, *(tracers[n] for n in names)),
+                    (gu, gv, gw, *gcs),
+                    (Gu_prev, Gv_prev, Gw_prev,
+                     *(Gc_prev[n] for n in names)), a, b, H)
+    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
+            Gw_prev, {n: Gc_prev[n] for n in names})
+
+
+def centered2_science_ab2_update_plain(grid, u, v, w, tracers, Gu_prev,
+                                       Gv_prev, Gw_prev, Gc_prev, a, b,
+                                       f=0.0, buoyancy_tracer=None):
+    """Plain version of :func:`centered2_science_ab2_update`."""
+    return science_ab2_plain(grid, Centered(2), 1, u, v, w, tracers,
+                             Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b, f,
+                             buoyancy_tracer)
 
 
 def pressure_correction_plain(grid, p, u, v, w, dt):
@@ -185,6 +257,56 @@ def centered2_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b):
     return (*news, Gu_prev, Gv_prev, Gw_prev)
 
 
+def science_operands(name, tracers, Gc_prev, buoyancy_tracer):
+    """The tracer names in order, the index of the buoyancy tracer (-1 for
+    none), the tracers and their G⁻, for a science kernel; raises above
+    :data:`MAX_TRACERS` or when ``Gc_prev`` has other names."""
+    names = list(tracers)
+    if len(names) > MAX_TRACERS:
+        raise ValueError(f"{name}: {len(names)} tracers, at most "
+                         f"{MAX_TRACERS}")
+    if set(Gc_prev) != set(names):
+        raise ValueError(f"{name}: Gc_prev has {sorted(Gc_prev)}, tracers "
+                         f"{sorted(names)}")
+    b_idx = -1 if buoyancy_tracer is None else names.index(buoyancy_tracer)
+    return (names, b_idx, [tracers[n] for n in names],
+            [Gc_prev[n] for n in names])
+
+
+def centered2_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
+                                 Gw_prev, Gc_prev, a, b, f=0.0,
+                                 buoyancy_tracer=None):
+    """One fused pass of the Centered-2 science step: the momentum tendency,
+    f-plane Coriolis (``f``), the buoyancy of the tracer named
+    ``buoyancy_tracer`` (a BuoyancyTracer with gravity along -z), the
+    advection of every tracer and the quasi-AB2 update of all 3 + T fields
+    on x-rows [1, nx-1). Same contract as :func:`centered2_ab2_update`;
+    returns ``(u', v', w', {c'}, Gu, Gv, Gw, {Gc})`` with the dicts in the
+    order of ``tracers``. Takes at most :data:`MAX_TRACERS` tracers."""
+    name = "centered2_science_ab2_update"
+    _check_grid(name, grid, u)
+    names, b_idx, cs, gcs = science_operands(name, tracers, Gc_prev,
+                                             buoyancy_tracer)
+    check_operands(name, (u, v, w, *cs, Gu_prev, Gv_prev, Gw_prev, *gcs),
+                   grid.shape)
+    if not on_cuda(u):
+        return centered2_science_ab2_update_plain(
+            grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b,
+            f, buoyancy_tracer)
+    news = [torch.empty_like(u) for _ in range(3 + len(names))]
+    c_ptrs, g_ptrs, n_ptrs = pointers(cs), pointers(gcs), pointers(news[3:])
+    _build.launch("ot_c2_science_ab2", u.dtype, u.device,
+                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
+                  *(q.data_ptr() for q in news[:3]),
+                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                  ctypes.addressof(n_ptrs), len(names), *u.shape,
+                  *_inv_spacings(grid), float(a), float(b), float(f), b_idx)
+    centered2_science_ab2_update.launches += 1
+    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
+            Gw_prev, dict(zip(names, gcs)))
+
+
 def pressure_correction(grid, p, u, v, w, dt):
     """(u, v, w) - dt ∇p on x-rows [1, nx-1), read and written once; the
     outputs' x-halo rows are zero. ``p`` is the halo-filled pressure."""
@@ -204,9 +326,12 @@ def pressure_correction(grid, p, u, v, w, dt):
 
 centered2_momentum_tendency.launches = 0
 centered2_ab2_update.launches = 0
+centered2_science_ab2_update.launches = 0
 pressure_correction.launches = 0
 
-__all__ = ["centered2_ab2_update", "centered2_ab2_update_plain",
-           "centered2_momentum_tendency",
-           "centered2_momentum_tendency_plain", "fused_available",
+__all__ = ["MAX_TRACERS", "centered2_ab2_update",
+           "centered2_ab2_update_plain", "centered2_momentum_tendency",
+           "centered2_momentum_tendency_plain",
+           "centered2_science_ab2_update",
+           "centered2_science_ab2_update_plain", "fused_available",
            "pressure_correction", "pressure_correction_plain"]

@@ -35,14 +35,13 @@ from oceananigans_torch.advection import (
     WENO, div_Uc, div_vu, div_vv, div_vw,
 )
 from oceananigans_torch.ops import _build
-from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
+from oceananigans_torch.ops.cuda_kernels import (
+    MAX_TRACERS, ab2_rows, check_operands, on_cuda, pointers,
+    science_ab2_plain, science_operands,
+)
 
 #: rows each side that a WENO-5 stencil reads
 H = 3
-#: the most tracers one launch of the science or tracer kernel takes
-#: (``kMaxTracers`` in ``csrc/weno5.cu``); the model takes the unfused
-#: route above it, as the JAX model does above its VMEM budget
-MAX_TRACERS = 8
 
 
 def weno5_available(grid, advection) -> bool:
@@ -76,13 +75,6 @@ def _check_grid(name, grid, u):
                          "(see weno5_available)")
     if tuple(u.shape) != tuple(grid.shape):
         raise ValueError(f"{name}: fields must be grid-shaped {grid.shape}")
-
-
-def _pointers(tensors):
-    """A C array of the tensors' data pointers (kept alive by the caller
-    for the duration of the launch call)."""
-    return (ctypes.c_void_p * max(len(tensors), 1))(
-        *(t.data_ptr() for t in tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -121,24 +113,12 @@ def weno5_tracer_tendencies_plain(grid, u, v, w, tracers, epsilon=1e-8):
     return {n: _embed(g, u) for n, g in zip(names, gs)}
 
 
-def _ab2_plain(qs, gs, g_prevs, a, b):
-    """q' = q + a·G + b·G⁻ on rows [3, nx-3), with G written over G⁻ in
-    place; q' copies q's other rows."""
-    news = []
-    for q, g, gm in zip(qs, gs, g_prevs):
-        qn = q.clone()
-        qn[H:-H] = q[H:-H] + a * g + b * gm[H:-H]
-        gm[H:-H] = g
-        news.append(qn)
-    return news
-
-
 def weno5_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
                            epsilon=1e-8):
     """Plain version of :func:`weno5_ab2_update`, with the same in-place
     write of G over G_prev."""
-    news = _ab2_plain((u, v, w), _momentum_plain(grid, u, v, w, epsilon),
-                      (Gu_prev, Gv_prev, Gw_prev), a, b)
+    news = ab2_rows((u, v, w), _momentum_plain(grid, u, v, w, epsilon),
+                    (Gu_prev, Gv_prev, Gw_prev), a, b, H)
     return (*news, Gu_prev, Gv_prev, Gw_prev)
 
 
@@ -147,26 +127,9 @@ def weno5_science_ab2_update_plain(grid, u, v, w, tracers, Gu_prev, Gv_prev,
                                    buoyancy_tracer=None, epsilon=1e-8):
     """Plain version of :func:`weno5_science_ab2_update`: the model's own
     Coriolis and buoyancy terms on top of the WENO(5) operators."""
-    from oceananigans_torch.buoyancy import BuoyancyForce, BuoyancyTracer
-    from oceananigans_torch.coriolis import FPlane
-    names = list(tracers)
-    gu, gv, gw = _momentum_plain(grid, u, v, w, epsilon)
-    if f != 0.0:
-        cor = FPlane(f=f)
-        gu = gu - cor.x_f_cross_U(grid, u, v, w)[H:-H]
-        gv = gv - cor.y_f_cross_U(grid, u, v, w)[H:-H]
-    if buoyancy_tracer is not None:
-        force = BuoyancyForce(BuoyancyTracer())
-        gw = gw + force.z_contribution(
-            grid, {"b": tracers[buoyancy_tracer]})[H:-H]
-    gcs = _tracers_plain(grid, u, v, w, [tracers[n] for n in names],
-                         epsilon)
-    news = _ab2_plain((u, v, w, *(tracers[n] for n in names)),
-                      (gu, gv, gw, *gcs),
-                      (Gu_prev, Gv_prev, Gw_prev,
-                       *(Gc_prev[n] for n in names)), a, b)
-    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
-            Gw_prev, {n: Gc_prev[n] for n in names})
+    return science_ab2_plain(grid, WENO(5, epsilon=epsilon), H, u, v, w,
+                             tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a,
+                             b, f, buoyancy_tracer)
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +170,8 @@ def weno5_tracer_tendencies(grid, u, v, w, tracers, epsilon=1e-8):
     out = {n: torch.empty_like(u) for n in names}
     for lo in range(0, len(names), MAX_TRACERS):
         chunk = names[lo:lo + MAX_TRACERS]
-        cs = _pointers([tracers[n] for n in chunk])
-        gs = _pointers([out[n] for n in chunk])
+        cs = pointers([tracers[n] for n in chunk])
+        gs = pointers([out[n] for n in chunk])
         _build.launch("ot_weno5_tracers", u.dtype, u.device,
                       u.data_ptr(), v.data_ptr(), w.data_ptr(),
                       ctypes.addressof(cs), ctypes.addressof(gs), len(chunk),
@@ -254,17 +217,9 @@ def weno5_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
     {Gc})`` with the dicts in the order of ``tracers``. Takes at most
     :data:`MAX_TRACERS` tracers."""
     name = "weno5_science_ab2_update"
-    names = list(tracers)
     _check_grid(name, grid, u)
-    if len(names) > MAX_TRACERS:
-        raise ValueError(f"{name}: {len(names)} tracers, at most "
-                         f"{MAX_TRACERS}")
-    if set(Gc_prev) != set(names):
-        raise ValueError(f"{name}: Gc_prev has {sorted(Gc_prev)}, tracers "
-                         f"{sorted(names)}")
-    b_idx = -1 if buoyancy_tracer is None else names.index(buoyancy_tracer)
-    cs = [tracers[n] for n in names]
-    gcs = [Gc_prev[n] for n in names]
+    names, b_idx, cs, gcs = science_operands(name, tracers, Gc_prev,
+                                             buoyancy_tracer)
     check_operands(name, (u, v, w, *cs, Gu_prev, Gv_prev, Gw_prev, *gcs),
                    grid.shape)
     if not on_cuda(u):
@@ -272,8 +227,8 @@ def weno5_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
             grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b,
             f, buoyancy_tracer, epsilon)
     news = [torch.empty_like(u) for _ in range(3 + len(names))]
-    c_ptrs, g_ptrs, n_ptrs = (_pointers(cs), _pointers(gcs),
-                              _pointers(news[3:]))
+    c_ptrs, g_ptrs, n_ptrs = (pointers(cs), pointers(gcs),
+                              pointers(news[3:]))
     _build.launch("ot_weno5_science_ab2", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(),
                   Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),

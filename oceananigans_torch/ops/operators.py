@@ -80,12 +80,25 @@ def ddx_f(grid, a, ly=Center):
     return dx_f(a) / grid.dx(Face, ly)
 
 
+def ddx_c(grid, a, ly=Center):
+    """∂/∂x of face-located data, landing on centers."""
+    return dx_c(a) / grid.dx(Center, ly)
+
+
 def ddy_f(grid, a, lx=Center):
     return dy_f(a) / grid.dy(Face, lx)
 
 
+def ddy_c(grid, a, lx=Center):
+    return dy_c(a) / grid.dy(Center, lx)
+
+
 def ddz_f(grid, a):
     return dz_f(a) / grid.dz(Face)
+
+
+def ddz_c(grid, a):
+    return dz_c(a) / grid.dz(Center)
 
 
 def divergence_ccc(grid, u, v, w):
@@ -98,6 +111,40 @@ def divergence_ccc(grid, u, v, w):
         Center, Center, Center)
 
 
+def div_xy_cc(grid, u, v):
+    """Horizontal divergence at centers: ``(δx(Ax u) + δy(Ay v)) / V``."""
+    flux_x = grid.Ax(Face, Center, Center) * u
+    flux_y = grid.Ay(Center, Face, Center) * v
+    return (dx_c(flux_x) + dy_c(flux_y)) / grid.V(Center, Center, Center)
+
+
+def vorticity_z_ff(grid, u, v):
+    """Vertical vorticity ζ = (δx(Δy v) − δy(Δx u)) / Az at (Face, Face),
+    the circulation form: each velocity is weighted by the edge length at
+    its own location."""
+    return (dx_f(grid.dy(Face, Center) * v) -
+            dy_f(grid.dx(Face, Center) * u)) / grid.Az(Face, Face)
+
+
+def laplacian_ccc(grid, c):
+    """∇²c at centers: the divergence of the face-staggered gradient."""
+    gx = grid.Ax(Face, Center, Center) * dx_f(c) / grid.dx(Face, Center)
+    gy = grid.Ay(Center, Face, Center) * dy_f(c) / grid.dy(Face, Center)
+    gz = grid.Az(Center, Center) * dz_f(c) / grid.dz(Face)
+    return (dx_c(gx) + dy_c(gy) + dz_c(gz)) / grid.V(Center, Center, Center)
+
+
+def kinetic_energy_cc(grid, u, v, w=None):
+    """Kinetic energy per unit mass at centers; horizontal unless ``w`` is
+    given."""
+    ke = 0.5 * (ix_c(u * u) + iy_c(v * v))
+    if w is not None:
+        ke = ke + 0.5 * iz_c(w * w)
+    return ke
+
+
 __all__ = ["shift", "dx_f", "dx_c", "dy_f", "dy_c", "dz_f", "dz_c",
            "ix_f", "ix_c", "iy_f", "iy_c", "iz_f", "iz_c",
-           "ddx_f", "ddy_f", "ddz_f", "divergence_ccc"]
+           "ddx_c", "ddx_f", "ddy_c", "ddy_f", "ddz_c", "ddz_f",
+           "divergence_ccc", "div_xy_cc", "vorticity_z_ff", "laplacian_ccc",
+           "kinetic_energy_cc"]

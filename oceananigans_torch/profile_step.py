@@ -1,35 +1,49 @@
-"""Where the time of the 256³ quasi-AB2 step goes, on one CUDA device.
+"""Where the time of a step goes, on one CUDA device.
 
 Run from the root of the repository:
 
     python3 -m oceananigans_torch.profile_step [--config NAME] [--trace-dir DIR]
 
-It runs one of ``bench.py``'s nonhydrostatic configurations (256³, float32,
-(Bounded, Periodic, Periodic), Δt = 1e-4, with its initial velocities and
-tracers), chosen by ``--config``:
+It runs one of ``bench.py``'s configurations, chosen by ``--config``. The
+nonhydrostatic ones are 256³, float32, (Bounded, Periodic, Periodic),
+Δt = 1e-4, with ``bench.py``'s initial velocities and tracers, stepped by
+quasi-AB2:
 
 - ``default``: Centered(2), halo (1, 0, 0);
 - ``science``: Centered(2), FPlane(f=1e-4), BuoyancyTracer, tracers
   ("b", "c"), halo (1, 0, 0);
 - ``weno``: WENO(5), tracers ("T", "S"), halo (3, 0, 0);
-- ``weno_mom``: WENO(5), halo (3, 0, 0);
+- ``weno_mom``: WENO(5), halo (3, 0, 0).
 
-on the kernel path (``fused_kernels="auto"``) and the plain path
+The shallow-water ones are ``bench.py``'s ``sw8192`` and ``sw16384``:
+N², float32, (Periodic, Periodic, Flat), halo (8, 0, 0), extent 1e6 m,
+g = 9.81, Δt = 1 s, the initial ``h`` and ``uh`` of ``bench.py``, stepped
+by RK3 (three stage kernels and the halo fills per step). That Δt is above
+RK3's stability limit for the grid-scale gravity waves (ω·Δt = 2.3 at
+8192², 4.6 at 16384², against √3), so rounding noise grows by about 1.7
+(8192²) or 15 (16384²) a step and the fields overflow after ~30 or ~8
+steps; every shallow-water measurement therefore starts again from the
+initial state after 2 warm-up steps and runs 20 (8192²) or 4 (16384²)
+steps.
+
+It runs the kernel path (``fused_kernels="auto"``) and the plain path
 (``fused_kernels=False``) and prints, for each path:
 
-1. step times by CUDA events, 100 steps per run, in alternated runs
-   (plain, kernel, kernel, plain) repeated three times, then the card's SM
-   clock, power draw and temperature as those runs leave it;
+1. step times by CUDA events in alternated runs (plain, kernel, kernel,
+   plain), repeated three times (100 steps per run for the 256³
+   configurations, the steps above for the shallow-water ones), then the
+   card's SM clock, power draw and temperature as those runs leave it;
 2. the host's time to enqueue one step;
 3. device time per phase: CUDA events between the phases of
-   :func:`phased_ab2_step`, which repeats ``ab2_step`` phase by phase and is
-   checked equal to ``model.step`` on the same state first;
+   :func:`phased_ab2_step` (:data:`PHASES`) or :func:`phased_sw_step`
+   (:data:`SW_PHASES`), which repeat ``model.step`` phase by phase and are
+   checked equal to it on the same state first;
 4. device kernel time per step from ``torch.profiler`` over 10 steps, the
    wall time of those steps by CUDA events, and the device's idle share
    (1 - kernel time / wall time), with the largest kernels; ``--trace-dir``
    also writes each path's Chrome trace there;
-5. single-run step times of RK3 and of the opt-in kernels (fused pressure
-   correction, fused matmul Poisson solver) in the same configuration.
+5. for the 256³ configurations, single-run step times of RK3 and of the
+   opt-in kernels (fused pressure correction, fused matmul Poisson solver).
 
 It needs a CUDA device and prints the card's name and power limit first.
 """
@@ -93,8 +107,56 @@ def phased_ab2_step(model, state, dt, mark):
     return state
 
 
+SW_PHASES = ("stage 1 fill", "stage 1", "stage 2 fill", "stage 2",
+             "stage 3 fill", "stage 3", "trailing fill")
+
+
+def phased_sw_step(model, state, dt, mark):
+    """``model.step(state, dt, assume_filled=True)`` for a shallow-water
+    model, with ``mark()`` called after each of the :data:`SW_PHASES` (the
+    first stage's fill is skipped, as ``assume_filled`` skips it)."""
+    from oceananigans_torch.ops.cuda_sw import sw_rk3_stage
+    from oceananigans_torch.timesteppers import RK3_STAGES, tick
+    replace = dataclasses.replace
+
+    dt = torch.tensor(dt, dtype=state.h.dtype)
+    dtf = dt.item()
+    G_prev = (state.Guh, state.Gvh, state.Gh, state.Gtracers)
+    for stage, (gamma, zeta) in enumerate(RK3_STAGES):
+        if stage > 0:
+            state = model.fill_state_halos(state)
+        mark()
+        if model.fused_rk3:
+            uh, vh, h, Guh, Gvh, Gh = sw_rk3_stage(
+                model.grid, state.uh, state.vh, state.h, state.Guh,
+                state.Gvh, state.Gh, (dt * gamma).item(),
+                (dt * zeta).item(), model.g)
+            state = replace(state, uh=uh, vh=vh, h=h, Guh=Guh, Gvh=Gvh,
+                            Gh=Gh)
+        else:
+            Guh, Gvh, Gh, Gt = model.compute_tendencies(state)
+            state = replace(
+                state,
+                uh=state.uh + dtf * (gamma * Guh + zeta * G_prev[0]),
+                vh=state.vh + dtf * (gamma * Gvh + zeta * G_prev[1]),
+                h=state.h + dtf * (gamma * Gh + zeta * G_prev[2]),
+                tracers={n: state.tracers[n]
+                         + dtf * (gamma * Gt[n] + zeta * G_prev[3][n])
+                         for n in model.tracer_names})
+            G_prev = (Guh, Gvh, Gh, Gt)
+            state = replace(state, Guh=Guh, Gvh=Gvh, Gh=Gh, Gtracers=Gt)
+        mark()
+    state = replace(state, clock=tick(state.clock, dt))
+    state = model.fill_state_halos(state)
+    mark()
+    return state
+
+
 #: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo
 CONFIGS = ("default", "science", "weno", "weno_mom")
+#: ``bench.py``'s shallow-water configurations: N and the steps of one
+#: measurement (see the module's docstring)
+SW_CONFIGS = {"sw8192": (8192, 20), "sw16384": (16384, 4)}
 
 
 def config_kwargs(name):
@@ -122,6 +184,24 @@ def initial_state(model):
         v=lambda x, y, z: 0.01 * torch.cos(4 * math.pi * x)
         * torch.sin(6 * math.pi * y),
         **{t: tracer for t in model.tracer_names})
+
+
+def sw_model(N, fused="auto", dtype=torch.float32, device="cuda"):
+    """``bench.py``'s shallow-water configuration at N²."""
+    import oceananigans_torch as ot
+    grid = ot.RectilinearGrid(size=(N, N), x=(0.0, 1e6), y=(0.0, 1e6),
+                              topology=(ot.Periodic, ot.Periodic, ot.Flat),
+                              halo=(8, 0, 0), dtype=dtype, device=device)
+    return ot.ShallowWaterModel(grid=grid, gravitational_acceleration=9.81,
+                                fused_kernels=fused)
+
+
+def sw_initial_state(model):
+    """``bench.py``'s initial height and x-transport."""
+    return model.initial_state(
+        h=lambda x, y, z: 1000.0 + torch.sin(2 * math.pi * x / 1e6)
+        * torch.cos(2 * math.pi * y / 1e6),
+        uh=lambda x, y, z: 100.0 * torch.cos(2 * math.pi * y / 1e6) + 0 * x)
 
 
 def _events(n):
@@ -159,9 +239,137 @@ def _kernel_time_us(prof):
     return sum(r[0] for r in rows), rows
 
 
+def _alternated(models, states, dt, steps, reset=None):
+    """Step times of each path by CUDA events in alternated runs (plain,
+    kernel, kernel, plain) repeated three times, each from ``reset(path)``
+    when it is given; prints them and the card's clocks after them."""
+    readings = {k: [] for k in models}
+    for _ in range(3):
+        for k in ("plain", "kernel", "kernel", "plain"):
+            if reset is not None:
+                states[k] = reset(k)
+            ms, states[k] = _step_ms(models[k], states[k], dt, steps)
+            readings[k].append(ms)
+    for k, r in readings.items():
+        print(f"[step] {k} path ms/step over {steps} steps, "
+              f"{len(r)} alternated runs: {r}; mean {sum(r) / len(r)}",
+              flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+    print(f"[clock] after the step runs: sm clock, max sm clock, power, "
+          f"temperature: {clocks}", flush=True)
+
+
+def _states_equal(a, b, fields):
+    for q in fields:
+        if not torch.equal(getattr(a, q), getattr(b, q)):
+            raise RuntimeError(f"phased step differs from step in {q}")
+    for group in ("tracers", "Gtracers"):
+        for q, t in getattr(a, group).items():
+            if not torch.equal(t, getattr(b, group)[q]):
+                raise RuntimeError(
+                    f"phased step differs from step in {group}/{q}")
+
+
+def _profile_path(k, model, state, dt, phased, phases, fields, trace_dir,
+                  steps=(20, 20, 10), reset=None):
+    """Host enqueue time, time per phase and the profiler's kernel time and
+    idle share of one path, over ``steps`` steps each, each from
+    ``reset()`` when it is given; returns the state it leaves."""
+    # 2. host enqueue time
+    n = steps[0]
+    state = reset() if reset is not None else state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = _run(model, state, dt, n)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[host] {k} path: enqueue {(t1 - t0) * 1e3 / n} ms/step, "
+          f"until done {(t2 - t0) * 1e3 / n} ms/step", flush=True)
+
+    # 3. phases, after checking the phased step against model.step (step
+    # writes halos and tendencies in place, so each gets a copy)
+    state = reset() if reset is not None else state
+    ref = model.step(copy.deepcopy(state), dt, assume_filled=True)
+    got = phased(model, copy.deepcopy(state), dt, lambda: None)
+    _states_equal(ref, got, fields)
+    del ref, got
+    n = steps[1]
+    ev = _events(1 + n * len(phases))
+    marks = iter(ev[1:])
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(n):
+        state = phased(model, state, dt, lambda: next(marks).record())
+    ev[-1].synchronize()
+    per = [0.0] * len(phases)
+    for i in range(n * len(phases)):
+        per[i % len(phases)] += ev[i].elapsed_time(ev[i + 1]) / n
+    print(f"[phase] {k} path, ms/step over {n} steps: " + "; ".join(
+        f"{name} {t}" for name, t in zip(phases, per))
+        + f"; sum {sum(per)}", flush=True)
+
+    # 4. profiler: kernel time and idle share
+    from torch.profiler import ProfilerActivity, profile
+    n = steps[2]
+    state = reset() if reset is not None else state
+    e0, e1 = _events(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        state = _run(model, state, dt, n)
+        e1.record()
+        e1.synchronize()
+    wall = e0.elapsed_time(e1) / n
+    total_us, rows = _kernel_time_us(prof)
+    busy = total_us / 1e3 / n
+    print(f"[profile] {k} path, {n} steps: kernel time {busy} ms/step, "
+          f"wall {wall} ms/step, idle share {1 - busy / wall}", flush=True)
+    for t, count, key in rows[:12]:
+        print(f"[profile]   {t / 1e3 / n} ms/step  {count / n}/step  "
+              f"{key[:100]}", flush=True)
+    if trace_dir is not None:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_dir / f"trace_{k}.json"))
+    return state
+
+
+def _shallow_water(name, trace_dir):
+    (N, steps), dt = SW_CONFIGS[name], 1.0
+    print(f"configuration {name}: ShallowWaterModel at {N}^2, "
+          f"Centered(2), halo (8, 0, 0); every measurement starts from the "
+          f"initial state after 2 warm-up steps and runs {steps} steps",
+          flush=True)
+    models = {k: sw_model(N, fused) for k, fused in (("kernel", "auto"),
+                                                    ("plain", False))}
+    if not models["kernel"].fused_rk3 or models["plain"].fused_rk3:
+        raise RuntimeError("the kernel path must take the stage kernel and "
+                           "the plain path must not")
+
+    def reset(k):
+        m = models[k]
+        return _run(m, sw_initial_state(m), dt, 2)
+
+    states = {}
+    _alternated(models, states, dt, steps, reset)
+    for k, model in models.items():
+        states[k] = _profile_path(
+            k, model, None, dt, phased_sw_step, SW_PHASES,
+            ("uh", "vh", "h", "Guh", "Gvh", "Gh"), trace_dir,
+            steps=(steps, steps, min(steps, 10)),
+            reset=lambda: reset(k))
+        del states[k]
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=CONFIGS, default="default")
+    parser.add_argument("--config", choices=CONFIGS + tuple(SW_CONFIGS),
+                        default="default")
     parser.add_argument("--trace-dir", type=Path, default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -179,6 +387,9 @@ def main(argv=None):
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     _build.load()
+    if args.config in SW_CONFIGS:
+        _shallow_water(args.config, args.trace_dir)
+        return
 
     N, dt, steps = 256, 1e-4, 100
     kwargs, halo = config_kwargs(args.config)
@@ -201,85 +412,11 @@ def main(argv=None):
     states = {k: init(m) for k, m in models.items()}
 
     # 1. alternated step times
-    readings = {k: [] for k in models}
-    for _ in range(3):
-        for k in ("plain", "kernel", "kernel", "plain"):
-            ms, states[k] = _step_ms(models[k], states[k], dt, steps)
-            readings[k].append(ms)
-    for k, r in readings.items():
-        print(f"[step] {k} path ms/step over {steps} steps, "
-              f"{len(r)} alternated runs: {r}; mean {sum(r) / len(r)}",
-              flush=True)
-    # the card's clocks and power right after the sustained runs
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
-         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
-        text=True, check=True).stdout.strip()
-    print(f"[clock] after the step runs: sm clock, max sm clock, power, "
-          f"temperature: {clocks}", flush=True)
-
+    _alternated(models, states, dt, steps)
     for k, model in models.items():
-        # 2. host enqueue time
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        states[k] = _run(model, states[k], dt, 20)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        print(f"[host] {k} path: enqueue {(t1 - t0) * 1e3 / 20} ms/step, "
-              f"until done {(t2 - t0) * 1e3 / 20} ms/step", flush=True)
-
-        # 3. phases, after checking the phased step against model.step
-        # (step writes halos and tendencies in place, so each gets a copy)
-        ref = model.step(copy.deepcopy(states[k]), dt, assume_filled=True)
-        got = phased_ab2_step(model, copy.deepcopy(states[k]), dt,
-                              lambda: None)
-        for q in ("u", "v", "w", "pressure", "Gu", "Gv", "Gw"):
-            if not torch.equal(getattr(ref, q), getattr(got, q)):
-                raise RuntimeError(f"phased step differs from step in {q}")
-        for group in ("tracers", "Gtracers"):
-            for q, t in getattr(ref, group).items():
-                if not torch.equal(t, getattr(got, group)[q]):
-                    raise RuntimeError(
-                        f"phased step differs from step in {group}/{q}")
-        n = 20
-        ev = _events(1 + n * len(PHASES))
-        marks = iter(ev[1:])
-        torch.cuda.synchronize()
-        ev[0].record()
-        for _ in range(n):
-            states[k] = phased_ab2_step(model, states[k], dt,
-                                        lambda: next(marks).record())
-        ev[-1].synchronize()
-        per = [0.0] * len(PHASES)
-        for i in range(n * len(PHASES)):
-            per[i % len(PHASES)] += ev[i].elapsed_time(ev[i + 1]) / n
-        print(f"[phase] {k} path, ms/step over {n} steps: " + "; ".join(
-            f"{name} {t}" for name, t in zip(PHASES, per))
-            + f"; sum {sum(per)}", flush=True)
-
-        # 4. profiler: kernel time and idle share
-        from torch.profiler import ProfilerActivity, profile
-        e0, e1 = _events(2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            e0.record()
-            states[k] = _run(model, states[k], dt, 10)
-            e1.record()
-            e1.synchronize()
-        wall = e0.elapsed_time(e1) / 10
-        total_us, rows = _kernel_time_us(prof)
-        busy = total_us / 1e3 / 10
-        print(f"[profile] {k} path, 10 steps: kernel time {busy} ms/step, "
-              f"wall {wall} ms/step, idle share {1 - busy / wall}",
-              flush=True)
-        for t, count, key in rows[:12]:
-            print(f"[profile]   {t / 1e3 / 10} ms/step  {count / 10}/step  "
-                  f"{key[:100]}", flush=True)
-        if args.trace_dir is not None:
-            args.trace_dir.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(args.trace_dir / f"trace_{k}.json"))
+        states[k] = _profile_path(
+            k, model, states[k], dt, phased_ab2_step, PHASES,
+            ("u", "v", "w", "pressure", "Gu", "Gv", "Gw"), args.trace_dir)
     del models, states
     torch.cuda.empty_cache()
 

@@ -217,3 +217,36 @@ def test_cuda_kernels_match_plain(dtype):
     got, ref = cp.fused_middle_solve(*args), cp.fused_middle_solve_plain(*args)
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_science_kernel_matches_plain(shape, dtype):
+    """The Centered-2 science kernel against its plain version on the card,
+    two tracers with one of them the buoyancy: 8 ulps of each group's
+    largest value (the updated fields, the tendencies), as for the other
+    Centered-2 kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    tg, _, t = torch_setup(shape, seed=3, device="cuda", dtype=dtype)
+    u, v, w = t["u"], t["v"], t["w"]
+    tr = {"b": t["p"], "c": t["Gw"].clone()}
+    G = [t[n] for n in ("Gu", "Gv", "Gw")] + [0.5 * t["p"], 0.5 * t["u"]]
+
+    def run(fn):
+        out = fn(tg, u, v, w, tr, *(g.clone() for g in G[:3]),
+                 {"b": G[3].clone(), "c": G[4].clone()}, 0.2, -0.1, f=0.5,
+                 buoyancy_tracer="b")
+        return ([*out[:3], *out[3].values()], [*out[4:7], *out[7].values()])
+
+    n0 = ck.centered2_science_ab2_update.launches
+    got, ref = run(ck.centered2_science_ab2_update), run(
+        ck.centered2_science_ab2_update_plain)
+    torch.cuda.synchronize()
+    assert ck.centered2_science_ab2_update.launches == n0 + 1
+    rtol = 8 * torch.finfo(dtype).eps
+    for gs, rs in zip(got, ref):
+        scale = max(float(r.abs().max()) for r in rs)
+        for a, b in zip(gs, rs):
+            assert float((a - b).abs().max()) <= rtol * scale

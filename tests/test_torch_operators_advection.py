@@ -81,6 +81,47 @@ def test_gradients_match(case):
     assert_interior(tg, t_ops.ddz_f(tg, c_t), j_ops.ddz_f(jg, c_j))
 
 
+#: the rest of the operator vocabulary: name -> arguments from the fields
+MORE_OPERATORS = {
+    "ddx_c": lambda ops, g, f: ops.ddx_c(g, f["u"]),
+    "ddy_c": lambda ops, g, f: ops.ddy_c(g, f["v"]),
+    "ddz_c": lambda ops, g, f: ops.ddz_c(g, f["w"]),
+    "div_xy_cc": lambda ops, g, f: ops.div_xy_cc(g, f["u"], f["v"]),
+    "vorticity_z_ff": lambda ops, g, f: ops.vorticity_z_ff(g, f["u"],
+                                                           f["v"]),
+    "laplacian_ccc": lambda ops, g, f: ops.laplacian_ccc(g, f["c"]),
+    "kinetic_energy_cc": lambda ops, g, f: ops.kinetic_energy_cc(
+        g, f["u"], f["v"]),
+    "kinetic_energy_ccc": lambda ops, g, f: ops.kinetic_energy_cc(
+        g, f["u"], f["v"], f["w"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MORE_OPERATORS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_more_operators_match(case, name):
+    jg, tg, j, t = setup(case, seed=4)
+    op = MORE_OPERATORS[name]
+    assert_interior(tg, op(t_ops, tg, t), op(j_ops, jg, j))
+
+
+def test_reductions_and_cfl_match():
+    """``field_sum``, ``field_integral`` and the advective time scale."""
+    from oceananigans_torch import fields as t_fields
+    from oceananigans_tpu import fields as j_fields
+    jg, tg, j, t = setup("pbb-h111", seed=5)
+    for loc in (ot.LOC_C, ot.LOC_U):
+        for fn in ("field_sum", "field_integral"):
+            np.testing.assert_allclose(
+                float(getattr(t_fields, fn)(tg, t["c"], loc)),
+                float(getattr(j_fields, fn)(jg, j["c"], loc)),
+                rtol=1e-12)
+    np.testing.assert_allclose(
+        float(t_adv.cell_advection_timescale(tg, t["u"], t["v"], t["w"])),
+        float(j_adv.cell_advection_timescale(jg, j["u"], j["v"], j["w"])),
+        rtol=1e-12)
+
+
 @pytest.mark.parametrize("fn", ["div_vu", "div_vv", "div_vw"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_momentum_advection_matches(case, fn):

@@ -146,7 +146,8 @@ CONFIGS = {
 }
 #: the port's fused route for each configuration under AB2
 ROUTES = {"weno_mom": "fused_ab2_weno", "weno": "fused_ab2_weno_science",
-          "weno_science": "fused_ab2_weno_science", "science": None}
+          "weno_science": "fused_ab2_weno_science",
+          "science": "fused_ab2_science"}
 
 
 def model_grid_kwargs(config):
@@ -197,8 +198,8 @@ def run_port(config, timestepper, arrays, steps, dt=1e-3):
     ("weno_mom", AB2, 4), ("weno", AB2, 4), ("weno_science", AB2, 4),
     ("science", AB2, 4), ("weno", RK3, 2)])
 def test_model_matches_xla(config, timestepper, steps):
-    """4 AB2 steps through the plain versions of kernels 6 and 8 (and the
-    Centered-2 science route), 2 RK3 steps through those of kernels 7 and
+    """4 AB2 steps through the plain versions of kernels 6, 8 and 5 (the
+    Centered-2 science kernel), 2 RK3 steps through those of kernels 7 and
     9, against the JAX XLA path."""
     jm, start, ref = run_jax(config, timestepper, steps)
     tm, got = run_port(config, timestepper, start, steps)
@@ -257,8 +258,7 @@ GATE_CONFIGS = {
 @pytest.mark.parametrize("config", sorted(GATE_CONFIGS))
 def test_gates_match_jax(config, timestepper):
     """At the aligned 16×16×128 layout, where the JAX gates' (8, 128)
-    rules hold, the port picks its kernels as the JAX model does, except
-    that the Centered-2 science kernel is not ported yet."""
+    rules hold, the port picks its kernels as the JAX model does."""
     halo = (4, 0, 0) if config == "weno7" else (3, 0, 0)
     kw = dict(size=(16, 16, 128), extent=(1.0, 1.0, 1.0), topology=BPP,
               halo=halo)
@@ -272,10 +272,9 @@ def test_gates_match_jax(config, timestepper):
             **GATE_CONFIGS[config](ot))
         assert tm.tracer_names == jm.tracer_names
         assert tm.fused_kernels == jm.fused_kernels
-        for gate in ("fused_ab2", "fused_ab2_weno",
+        for gate in ("fused_ab2", "fused_ab2_weno", "fused_ab2_science",
                      "fused_ab2_weno_science"):
             assert getattr(tm, gate) == getattr(jm, gate), gate
-        assert tm.fused_ab2_science is False
 
 
 def test_unported_arguments_raise():
