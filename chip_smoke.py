@@ -11,10 +11,11 @@ each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
    one process per source), with each kernel's registers and spills;
-3. each of the ten kernels against its plain PyTorch version, in float32,
-   at the main path's shapes and at a ragged shape, the Centered-2 science
-   and shallow-water kernels also at a small size in float64, with times
-   and the least time the card could take for the same work;
+3. each of the twelve kernels against its plain PyTorch version, in
+   float32, at the main path's shapes and at a ragged shape, the
+   Centered-2 science, shallow-water, WENO tracer and vector-invariant
+   kernels also at a small size in float64, with times and the least time
+   the card could take for the same work;
 4. the main path: the 256³ Centered-2 quasi-AB2 model (``bench.py``'s
    default configuration) for 100 timed steps after a warm-up, on the
    kernel path and on the plain path, held against each other and against
@@ -38,18 +39,28 @@ each of which raises on failure:
    over the next 20; a float64 run of the kernel path held against the
    plain path on the CPU; and a few kernel-path steps at 16384²
    (``sw16384``);
-9. the least time the card could take for each TPU kernel not ported yet,
-   reckoned from its main path's shapes and the JAX formulas.
+9. the hydrostatic model in ``bench.py``'s ``hydro_vi`` configuration
+   (360 x 160 x 60, WENOVectorInvariant, WENO(7) tracers T and S,
+   split-explicit free surface, AB2, the VI and tracer kernels once a step)
+   on the kernel path and on the plain path for 2 + 50 steps, held against
+   each other and timed, with the host's enqueue time and the device's idle
+   share (``torch.profiler`` over 5 more steps); and a float64
+   (48, 16, 6) run of the kernel path held against the plain path on the
+   CPU;
+10. the least time the card could take for the TPU kernel not ported yet,
+    reckoned from its main path's shapes and the JAX formulas.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
 phase 5's RK3 run for the Centered-2 tendency kernel, phase 6's opt-in
 model for the pressure and Poisson kernels, phase 7's ``weno``,
 ``science``, ``weno_mom`` and RK3 runs for the WENO and science kernels,
-phase 8's ``sw8192`` run for the stage kernel) and read just after it;
+phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
+for the tracer and vector-invariant kernels) and read just after it;
 each must equal the launches that run makes. The line before the last is
-the JSON summary of the kernels, with those counts; the last line is the
-device record.
+the JSON summary of the kernels, with those counts (the one
+vector-invariant kernel stands for both TPU kernels it replaces); the last
+line is the device record.
 """
 
 from __future__ import annotations
@@ -126,35 +137,35 @@ C2_TRACER_OPS = 27
 #: 5, the two momentum tendencies' 12 each with the g·h·∂h term, the mass
 #: tendency's 6, and three updates
 SW_STAGE_OPS = 10 * 3 + 8 * 5 + 2 * 12 + 6 + 3 * AB2_OPS
-#: a WENO-7 face flux, counted from the JAX formulas: each biased side
-#: takes 28 for its four sub-stencil polynomials, 92 for the Balsara-Shu
-#: indicators, 26 for the WENO-Z weights and 11 to combine them (157); both
-#: sides, the select and the product with the velocity
-WENO7_FACE_OPS = 2 * 157 + 2
-#: a WENO-9 face flux the same way: 45 for five polynomials, 275 for the
-#: quadratic-form indicators, 32 for the weights, 14 to combine (366 a
-#: side)
-WENO9_FACE_OPS = 2 * 366 + 3
-#: the TPU kernels not ported yet, at their main path's shapes in float32:
+#: one side of a WENO reconstruction, counted from ``csrc/weno.h``: the
+#: smoothness indicators, the WENO-Z weights and their combination with the
+#: sub-stencil polynomials. WENO-5 (hand forms): 43 + 43; WENO-7
+#: (Balsara-Shu forms): 92 + 65; WENO-9 with the two VelocityStencil
+#: smoothness fields (generated forms): 2 x 170 + 5 + 91
+WENO5_SIDE_OPS = 86
+WENO7_SIDE_OPS = 157
+WENO9_VS_SIDE_OPS = 436
+#: a WENO-7 tracer point (``csrc/weno_tracer.cu``), the least work: three
+#: faces of one side each with the transport A·U, the product and the
+#: select, then three differences, two sums, the division by V and the sign
+TRACER7_POINT_OPS = 3 * (WENO7_SIDE_OPS + 3) + 7
+#: a vector-invariant point (``csrc/vector_invariant.cu``), the least work:
+#: for Gu and Gv each the WENO-9 ζ flux (one side, the select, the product)
+#: and v̂ or û (11); ζ and its two smoothness values once (12); the
+#: Bernoulli head (the δ(u²/2) value and its smoothness 5, a WENO-5 side,
+#: the select 2, the cross term 6, the division 2); the divergence flux
+#: (dxU, dyV, their sum 5, a side, the select, the cross term 3, the
+#: product 2); the vertical flux (the advecting w 4, a side, the select and
+#: product 2, the difference and division 3); the two sums
+VI_POINT_OPS = (2 * (WENO9_VS_SIDE_OPS + 2 + 11) + 12
+                + 2 * (5 + WENO5_SIDE_OPS + 2 + 6 + 2)
+                + 2 * (5 + WENO5_SIDE_OPS + 1 + 3 + 2)
+                + 2 * (4 + WENO5_SIDE_OPS + 2 + 3) + 4)
+#: the TPU kernel not ported yet, at its main path's shape in float32:
 #: name -> (pallas_call site, full field shape, fields read and written,
-#: operations per output point, output points). ``hydro_vi`` is 360 x 160 x
-#: 60 with halo (6, 6, 4) and two WENO-7 tracers; its vector-invariant
-#: momentum takes a WENO-9 vorticity flux, four WENO-5 fluxes (kinetic
-#: energy gradient and divergence, both sides) and ~40 for the centred
-#: vertical and cross terms per component. The generic kernel runs only in
-#: its test, WENO-5 momentum at 8 x 16 x 128 with an x halo of 3.
+#: operations per output point, output points). The generic kernel runs
+#: only in its test, WENO-5 momentum at 8 x 16 x 128 with an x halo of 3.
 UNPORTED = {
-    "weno_tracer_tendencies": (
-        "oceananigans_tpu/ops/pallas_tracer.py:269", (372, 172, 68),
-        3 + 2 * 2, 2 * (3 * WENO7_FACE_OPS + 9), 360 * 160 * 60),
-    "vi_momentum_tendency": (
-        "oceananigans_tpu/ops/pallas_vi.py:634", (372, 172, 68), 3 + 2,
-        2 * (WENO9_FACE_OPS + 4 * (WENO_FACE_OPS + 1) + 40),
-        360 * 160 * 60),
-    "vi_momentum_tendency_zyx": (
-        "oceananigans_tpu/ops/pallas_vi.py:538", (68, 172, 372), 3 + 2,
-        2 * (WENO9_FACE_OPS + 4 * (WENO_FACE_OPS + 1) + 40),
-        360 * 160 * 60),
     "fused_momentum_tendency": (
         "oceananigans_tpu/ops/pallas_generic.py:111", (14, 16, 128), 6,
         WENO_MOMENTUM_OPS, 8 * 16 * 128),
@@ -183,10 +194,14 @@ def main():
     from oceananigans_torch.ops import _build, cuda_kernels as ck
     from oceananigans_torch.ops import cuda_poisson as cp
     from oceananigans_torch.ops import cuda_sw as csw
+    from oceananigans_torch.ops import cuda_tracer as ctr
+    from oceananigans_torch.ops import cuda_vi as cvi
     from oceananigans_torch.ops import cuda_weno as cw
     from oceananigans_torch.ops.operators import divergence_ccc
     from oceananigans_torch.profile_step import (
-        config_kwargs, initial_state, sw_initial_state, sw_model,
+        HYDRO_DT, _kernel_time_us, config_kwargs, hydro_generic_state,
+        hydro_initial_state, hydro_model, initial_state, sw_initial_state,
+        sw_model,
     )
 
     dev = torch.device("cuda", 0)
@@ -353,8 +368,12 @@ def main():
         for name, (plain, kernel) in timings.items():
             plain_ms, ms = paired_times(torch, plain, kernel, reps)
             bound_ms, bound_by = bounds[name]
-            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=None)
+            # the plain middle stage is itself the torch.matmul chain, the
+            # one library computation of the same function
+            report[name].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
+                library_ms=plain_ms if name == "fused_middle_solve" else None)
             log(f"[3] {name} at {tuple(u.shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
@@ -553,6 +572,86 @@ def main():
     del q, Gm, Gk, Gp, got, ref
     torch.cuda.empty_cache()
 
+    # kernel 11 (WENO tracers) and the vector-invariant kernel (rows 12 and
+    # 13) on random fields, u and v exactly zero on some rows (velocities of
+    # both signs and exact zeros), at hydro_vi's shape, a ragged one and a
+    # small float64 one. WENO_RTOL as for the WENO-5 kernels: nonlinear
+    # WENO-Z weights, the plain versions divide by volumes and areas where
+    # the kernels take the same values from y-profiles, FMA contraction
+    hydro_shapes = {
+        "main": ((360, 160, 60), (6, 6, 4),
+                 (ot.Periodic, ot.Bounded, ot.Bounded), f32),
+        "ragged": ((23, 17, 9), (6, 6, 4),
+                   (ot.Bounded, ot.Bounded, ot.Bounded), f32),
+        "ragged halo-free": ((16, 12, 32), (5, 0, 0),
+                             (ot.Bounded, ot.Periodic, ot.Periodic), f32),
+        "ragged float64": ((23, 17, 9), (6, 6, 4),
+                           (ot.Periodic, ot.Bounded, ot.Bounded),
+                           torch.float64)}
+    vi_velocity = ot.WENOVectorInvariant()
+    vi_default = ot.WENOVectorInvariant(vorticity_stencil="default")
+    for shape_name, (N, halo, topo, dtype) in hydro_shapes.items():
+        hg = ot.RectilinearGrid(size=N, extent=(4e7, 2e7, 4e3),
+                                topology=topo, halo=halo, dtype=dtype,
+                                device=dev)
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C,
+                                 ot.LOC_C)):
+            a = torch.randn(hg.shape, generator=gen, device=dev, dtype=dtype)
+            if n == 0:
+                a[:, :, ::3] = 0.0
+            if n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, hg, loc=loc))
+        u, v, w, T, S = fs
+        tr = {"T": T, "S": S}
+        rtol = WENO_RTOL if dtype == f32 else F64_RTOL
+        for order in (7, 5):
+            sch = ot.WENO(order)
+            got = list(ctr.weno_tracer_tendencies(hg, sch, u, v, w,
+                                                  tr).values())
+            ref = list(ctr.weno_tracer_tendencies_plain(hg, sch, u, v, w,
+                                                        tr).values())
+            torch.cuda.synchronize()
+            check("weno_tracer_tendencies",
+                  f"WENO({order}) {shape_name}", got, ref, rtol)
+        for vi in (vi_velocity, vi_default):
+            got = cvi.vi_momentum_tendency(hg, vi, u, v, w)
+            ref = cvi.vi_momentum_tendency_plain(hg, vi, u, v, w)
+            torch.cuda.synchronize()
+            check("vi_momentum_tendency",
+                  f"{vi.vorticity_stencil} {shape_name}", got, ref, rtol)
+        if shape_name != "main":
+            continue
+        field = u.numel() * u.element_size()
+        points = math.prod(N)
+        bounds = {
+            "weno_tracer_tendencies": bound(
+                (3 + 2 * len(tr)) * field,
+                points * len(tr) * TRACER7_POINT_OPS),
+            "vi_momentum_tendency": bound(5 * field, points * VI_POINT_OPS)}
+        timings = {
+            "weno_tracer_tendencies": (
+                lambda: ctr.weno_tracer_tendencies_plain(
+                    hg, ot.WENO(7), u, v, w, tr),
+                lambda: ctr.weno_tracer_tendencies(hg, ot.WENO(7), u, v, w,
+                                                   tr)),
+            "vi_momentum_tendency": (
+                lambda: cvi.vi_momentum_tendency_plain(hg, vi_velocity, u,
+                                                       v, w),
+                lambda: cvi.vi_momentum_tendency(hg, vi_velocity, u, v, w))}
+        for name, (plain, kernel) in timings.items():
+            plain_ms, ms = paired_times(torch, plain, kernel, 10)
+            bound_ms, bound_by = bounds[name]
+            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
+            log(f"[3] {name} at {tuple(u.shape)}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+        del timings
+    del hg, fs, u, v, w, T, S, tr, got, ref
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the main path ----------------------------------------
     wrappers = {"centered2_ab2_update": ck.centered2_ab2_update,
                 "centered2_momentum_tendency":
@@ -565,7 +664,9 @@ def main():
                 "weno5_tracer_tendencies": cw.weno5_tracer_tendencies,
                 "centered2_science_ab2_update":
                     ck.centered2_science_ab2_update,
-                "sw_rk3_stage": csw.sw_rk3_stage}
+                "sw_rk3_stage": csw.sw_rk3_stage,
+                "weno_tracer_tendencies": ctr.weno_tracer_tendencies,
+                "vi_momentum_tendency": cvi.vi_momentum_tendency}
     launches = {}
 
     def zero_counts():
@@ -998,6 +1099,151 @@ def main():
     del m, st, holder
     torch.cuda.empty_cache()
 
+    # ---- phase 9: the hydrostatic model (hydro_vi) -----------------------
+    #: hydro_vi after 2 + 50 steps, kernel path against plain path,
+    #: relative to the largest value of each group: both paths share the
+    #: free surface and the fills and their tendencies differ by float32
+    #: rounding, which this stable, smooth flow carries on without growth
+    #: (PERF.md states the bounds with the expected ~1e-6)
+    HYDRO_PATH_RTOL = {"velocities": 1e-4, "eta": 1e-4, "tracers": 1e-5}
+    HYDRO_WARM, HYDRO_TIMED = 2, 50
+    hydro_ms, hydro_enqueue, hydro_cmp = {}, {}, {}
+    hydro_kernels = ("weno_tracer_tendencies", "vi_momentum_tendency")
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = hydro_model(fused)
+        require(model.fused_kernels == model.fused_tracer
+                == (path == "kernel"),
+                f"hydro_vi {path} path selects fused_kernels="
+                f"{model.fused_kernels}, fused_tracer={model.fused_tracer}")
+        state = model.update_state(hydro_initial_state(model))
+        torch.cuda.synchronize()
+        zero_counts()
+        for _ in range(HYDRO_WARM):
+            state = model.step(state, HYDRO_DT, assume_filled=True)
+        torch.cuda.synchronize()
+        # CUDA events around the timed steps; the host clock stops when
+        # the last step is enqueued
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(HYDRO_TIMED):
+            state = model.step(state, HYDRO_DT, assume_filled=True)
+        t1 = time.perf_counter()
+        e1.record()
+        e1.synchronize()
+        hydro_ms[path] = e0.elapsed_time(e1) / HYDRO_TIMED
+        hydro_enqueue[path] = (t1 - t0) * 1e3 / HYDRO_TIMED
+        st = state
+        total = HYDRO_WARM + HYDRO_TIMED
+        if path == "kernel":
+            for name in hydro_kernels:
+                n = launches[name] = wrappers[name].launches
+                require(n == total, f"hydro_vi: {name} launched {n} times "
+                        f"in {total} steps")
+            others = [k for k in wrappers if k not in hydro_kernels
+                      and wrappers[k].launches]
+            require(not others, f"hydro_vi: unexpected launches of {others}")
+        else:
+            require(all(fn.launches == 0 for fn in wrappers.values()),
+                    "hydro_vi: the plain path launches no kernel")
+        g9 = model.grid
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (st.u, st.v, st.w, st.eta,
+                              *st.tracers.values())),
+                f"hydro_vi {path} path: finite fields")
+        xy = g9.interior_slices[:2]
+        hydro_cmp[path] = {
+            "velocities": [g9.interior(st.u).clone(),
+                           g9.interior(st.v).clone()],
+            "eta": [st.eta[xy].clone()],
+            "tracers": [g9.interior(st.tracers[n]).clone()
+                        for n in ("T", "S")]}
+        log(f"[9] hydro_vi {path} path: {hydro_ms[path]:.3f} ms/step "
+            f"(steps {HYDRO_WARM + 1} to {total} of AB2, CUDA events); host "
+            f"enqueue {hydro_enqueue[path]:.3f} ms/step; max|u| "
+            f"{float(g9.interior(st.u).abs().max()):.4e}, max|eta| "
+            f"{float(st.eta[xy].abs().max()):.4e}")
+        # the device's idle share: torch.profiler's kernel time over a few
+        # more steps (after the counts and the compared fields are read),
+        # against their wall time under the profiler and against the
+        # unprofiled step
+        from torch.profiler import ProfilerActivity, profile
+        n_prof = 5
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            for _ in range(n_prof):
+                state = model.step(state, HYDRO_DT, assume_filled=True)
+            e1.record()
+            e1.synchronize()
+        busy = _kernel_time_us(prof)[0] / 1e3 / n_prof
+        wall = e0.elapsed_time(e1) / n_prof
+        require(busy > 0, f"hydro_vi {path} path: the profiler saw device "
+                "time")
+        log(f"[9] hydro_vi {path} path under torch.profiler, {n_prof} "
+            f"steps: kernel time {busy:.3f} ms/step in a wall of "
+            f"{wall:.3f}, idle share {1 - busy / wall:.3f}; against the "
+            f"unprofiled {hydro_ms[path]:.3f} ms/step, idle share "
+            f"{1 - busy / hydro_ms[path]:.3f}")
+        del model, state, st, prof
+        torch.cuda.empty_cache()
+    hydro_rel = {}
+    for group, ks in hydro_cmp["kernel"].items():
+        ps = hydro_cmp["plain"][group]
+        hydro_rel[group] = max(float((a - b).abs().max())
+                               for a, b in zip(ks, ps)) / max(
+            float(b.abs().max()) for b in ps)
+    log(f"[9] hydro_vi: launches {[launches[k] for k in hydro_kernels]} in "
+        f"{HYDRO_WARM + HYDRO_TIMED} kernel-path steps; kernel vs plain path "
+        "after them: " + ", ".join(
+            f"{k} {v:.3e} of the largest value (tolerance "
+            f"{HYDRO_PATH_RTOL[k]:g})" for k, v in hydro_rel.items()))
+    require(all(hydro_rel[k] <= HYDRO_PATH_RTOL[k] for k in hydro_rel),
+            f"hydro_vi kernel vs plain path {hydro_rel}")
+    del hydro_cmp
+    torch.cuda.empty_cache()
+
+    # a small float64 run: the kernel path on the card against the plain
+    # path on the CPU, which the CPU tests hold against the JAX package;
+    # from a state without rounding-level zeros of the velocities, where
+    # the Bernoulli term's upwind select is discontinuous (bench.py's state
+    # has them and amplifies the devices' rounding differences to ~1e-10)
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = hydro_model("auto", torch.float64, device, size=(48, 16, 6))
+        require(m.fused_kernels == m.fused_tracer == (device == "cuda"),
+                "float64 hydro_vi routes")
+        st = hydro_generic_state(m)
+        for _ in range(5):
+            st = m.step(st, HYDRO_DT)
+        f64[device] = (m.grid, st)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    xy = gp.interior_slices[:2]
+    groups = {"velocities": [(gk.interior(sk.u).cpu(), gp.interior(sp.u)),
+                             (gk.interior(sk.v).cpu(), gp.interior(sp.v))],
+              "w": [(gk.interior(sk.w).cpu(), gp.interior(sp.w))],
+              "eta": [(sk.eta[xy].cpu(), sp.eta[xy])],
+              "tracers": [(gk.interior(sk.tracers[n]).cpu(),
+                           gp.interior(sp.tracers[n])) for n in ("T", "S")]}
+    hydro64 = {k: max(float((a - b).abs().max()) for a, b in pairs)
+               / max(float(b.abs().max()) for _, b in pairs)
+               for k, pairs in groups.items()}
+    require(all(v <= 1e-12 for v in hydro64.values()),
+            f"float64 (48, 16, 6) hydro_vi card vs CPU {hydro64}")
+    log("[9] float64 (48, 16, 6) hydro_vi, 5 AB2 steps: kernel path on the "
+        "card vs plain path on the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in hydro64.items())
+        + " of the largest value (tolerance 1e-12)")
+    log(f"[9] step times on {card}: hydro_vi kernel path "
+        f"{hydro_ms['kernel']:.3f} ms/step, plain path "
+        f"{hydro_ms['plain']:.3f} ms/step")
+    del f64, m, st
+    torch.cuda.empty_cache()
+
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),
                "centered2_momentum_tendency": (
@@ -1024,16 +1270,27 @@ def main():
                    "oceananigans_torch/csrc/centered2.cu",
                    "oceananigans_tpu/ops/pallas_kernels.py:574"),
                "sw_rk3_stage": ("oceananigans_torch/csrc/shallow_water.cu",
-                                "oceananigans_tpu/ops/pallas_sw.py:207")}
+                                "oceananigans_tpu/ops/pallas_sw.py:207"),
+               "weno_tracer_tendencies": (
+                   "oceananigans_torch/csrc/weno_tracer.cu",
+                   "oceananigans_tpu/ops/pallas_tracer.py:269"),
+               "vi_momentum_tendency": (
+                   "oceananigans_torch/csrc/vector_invariant.cu",
+                   "oceananigans_tpu/ops/pallas_vi.py:634"),
+               # the same CUDA kernel replaces both layouts' TPU kernels
+               "vi_momentum_tendency_zyx": (
+                   "oceananigans_torch/csrc/vector_invariant.cu",
+                   "oceananigans_tpu/ops/pallas_vi.py:538")}
+    same = {"vi_momentum_tendency_zyx": "vi_momentum_tendency"}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                **{k: report[name][k] for k in (
+                "replaces": rep, "launches": launches[same.get(name, name)],
+                **{k: report[same.get(name, name)][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, rep) in sources.items()]
     for name, (site, shape, nfields, ops, points) in UNPORTED.items():
         ms_, by = bound(nfields * math.prod(shape) * 4, ops * points)
-        log(f"[9] {name} ({site}), not ported yet: bound {ms_:.5f} ms "
+        log(f"[10] {name} ({site}), not ported yet: bound {ms_:.5f} ms "
             f"({by}) at {shape} float32, {ops} operations per point")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,8 @@ coefficient tables (stretched grids themselves are not ported).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from oceananigans_torch.grids.base import Center, Face
@@ -198,11 +200,24 @@ class WENO:
         return [g * (1.0 + torch.clamp(tau / (b + eps), max=cap) ** 2)
                 for g, b in zip(gammas, betas)]
 
-    def _onesided(self, shifts, reflect):
+    def _onesided(self, shifts, reflect, smooth_shifts=None):
+        """One biased reconstruction from the taps ``shifts`` (offset ->
+        tensor). ``smooth_shifts``: taps of other fields whose summed
+        indicators replace ψ's own (the reference's FunctionStencil and
+        VelocityStencil smoothness: β from the smoothness fields, the
+        sub-stencil values from ψ)."""
         s = {n: shifts[-1 - n] for n in shifts} if reflect else shifts
         qs = [_apply_stencil_shifted(s, q) for q in self._qs]
-        alphas = self._z_alphas(self._gammas, self._betas_of(s),
-                                self.epsilon)
+        if smooth_shifts is None:
+            betas = self._betas_of(s)
+        else:
+            betas = None
+            for sm in smooth_shifts:
+                smr = {n: sm[-1 - n] for n in sm} if reflect else sm
+                bs = self._betas_of(smr)
+                betas = bs if betas is None else tuple(
+                    b0 + b1 for b0, b1 in zip(betas, bs))
+        alphas = self._z_alphas(self._gammas, betas, self.epsilon)
         asum = alphas[0]
         for al in alphas[1:]:
             asum = asum + al
@@ -211,13 +226,19 @@ class WENO:
             out = out + al * q
         return out / asum
 
-    def biased(self, a, axis, o):
+    def biased(self, a, axis, o, smooth=None):
         """The left- and right-biased reconstructions of ``a`` at faces
-        (o = 0) or centers (o = 1) along ``axis``."""
+        (o = 0) or centers (o = 1) along ``axis``. ``smooth``: a list of
+        fields at ``a``'s location whose summed smoothness indicators
+        drive the nonlinear weights (see ``_onesided``)."""
         B = self.required_halo
         shifts = {n: shift(a, n + o, axis) for n in range(-B, B)}
-        return (self._onesided(shifts, reflect=False),
-                self._onesided(shifts, reflect=True))
+        sm = None
+        if smooth is not None:
+            sm = [{n: shift(f, n + o, axis) for n in range(-B, B)}
+                  for f in smooth]
+        return (self._onesided(shifts, reflect=False, smooth_shifts=sm),
+                self._onesided(shifts, reflect=True, smooth_shifts=sm))
 
     def __eq__(self, other):
         return (type(self) is type(other) and self.order == other.order
@@ -277,6 +298,19 @@ def _face_value(scheme, U, a, axis, o):
                        torch.where(U < 0, right, 0.5 * (left + right)))
 
 
+def _face_value_smooth(scheme, U, a, axis, o, smooth=None):
+    """Like ``_face_value``, but a WENO scheme measures smoothness on the
+    ``smooth`` fields instead of on ``a`` itself."""
+    if scheme.symmetric:
+        return scheme.reconstruct(a, axis, o)
+    if smooth is not None and isinstance(scheme, WENO):
+        left, right = scheme.biased(a, axis, o, smooth=smooth)
+    else:
+        left, right = scheme.biased(a, axis, o)
+    return torch.where(U > 0, left,
+                       torch.where(U < 0, right, 0.5 * (left + right)))
+
+
 def div_Uc(grid, scheme, u, v, w, c):
     """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c)."""
     if scheme is None:
@@ -328,6 +362,72 @@ def div_vw(grid, scheme, u, v, w):
     return (dx_c(fzx) + dy_c(fzy) + dz_f(fzz)) / grid.V(Center, Center, Face)
 
 
+# ---------------------------------------------------------------------------
+# The multidimensional (2-D horizontal) reconstruction filter: a fifth-order
+# centered-WENO filter applied transverse to a 1-D reconstruction, the
+# published constants of the fifth-order centered WENO interpolant.
+# ---------------------------------------------------------------------------
+
+_S15 = math.sqrt(15.0)
+_MD_G1 = ((1008 + 71 * _S15) / 5240, 408 / 655, (1008 - 71 * _S15) / 5240)
+_MD_G3 = ((1008 - 71 * _S15) / 5240, 408 / 655, (1008 + 71 * _S15) / 5240)
+_MD_SP, _MD_SM = 214 / 80, 67 / 40
+_MD_G2P = (9 / 80 / _MD_SP, 49 / 20 / _MD_SP, 9 / 80 / _MD_SP)
+_MD_G2M = (9 / 40 / _MD_SM, 49 / 40 / _MD_SM, 9 / 40 / _MD_SM)
+_MD_A1 = (((2 - 3 * _S15) / 60, (-4 + 12 * _S15) / 60, (62 - 9 * _S15) / 60),
+          ((2 + 3 * _S15) / 60, 56 / 60, (2 - 3 * _S15) / 60),
+          ((62 + 9 * _S15) / 60, (-4 - 12 * _S15) / 60, (2 + 3 * _S15) / 60))
+_MD_A2 = ((-1 / 24, 2 / 24, 23 / 24),
+          (-1 / 24, 26 / 24, -1 / 24),
+          (23 / 24, 2 / 24, -1 / 24))
+_MD_A3 = (((2 + 3 * _S15) / 60, (-4 - 12 * _S15) / 60, (62 + 9 * _S15) / 60),
+          ((2 - 3 * _S15) / 60, 56 / 60, (2 + 3 * _S15) / 60),
+          ((62 - 9 * _S15) / 60, (-4 + 12 * _S15) / 60, (2 - 3 * _S15) / 60))
+_MD_EPS = 1e-6
+
+
+def multi_dimensional_filter(q, axis):
+    """Fifth-order centered-WENO filter of ``q`` along ``axis`` (the
+    transverse leg of the reference's multidimensional reconstruction).
+    Preserves constants exactly; in smooth regions reproduces ``q`` to
+    fifth order."""
+    t = {n: shift(q, n, axis) for n in (-2, -1, 0, 1, 2)}
+    S = ((t[-2], t[-1], t[0]), (t[-1], t[0], t[1]), (t[0], t[1], t[2]))
+
+    def comb(A):
+        return tuple(A[r][0] * S[r][0] + A[r][1] * S[r][1]
+                     + A[r][2] * S[r][2] for r in range(3))
+
+    q1h = comb(_MD_A1)
+    q2h = comb(_MD_A2)
+    q3h = comb(_MD_A3)
+
+    c1, c2 = 13.0 / 12.0, 0.25
+    b0 = (c1 * (S[0][0] - 2 * S[0][1] + S[0][2]) ** 2
+          + c2 * (S[0][0] - 4 * S[0][1] + 3 * S[0][2]) ** 2)
+    b1 = (c1 * (S[1][0] - 2 * S[1][1] + S[1][2]) ** 2
+          + c2 * (S[1][0] - S[1][2]) ** 2)
+    b2 = (c1 * (S[2][0] - 2 * S[2][1] + S[2][2]) ** 2
+          + c2 * (3 * S[2][0] - 4 * S[2][1] + S[2][2]) ** 2)
+
+    def weights(g):
+        a0 = g[0] / (b0 + _MD_EPS) ** 2
+        a1 = g[1] / (b1 + _MD_EPS) ** 2
+        a2 = g[2] / (b2 + _MD_EPS) ** 2
+        s = a0 + a1 + a2
+        return a0 / s, a1 / s, a2 / s
+
+    def total(g, qh):
+        w0, w1, w2 = weights(g)
+        return w0 * qh[0] + w1 * qh[1] + w2 * qh[2]
+
+    q1 = total(_MD_G1, q1h)
+    q3 = total(_MD_G3, q3h)
+    q2 = _MD_SP * total(_MD_G2P, q2h) - _MD_SM * total(_MD_G2M, q2h)
+    return q1 / 6 + 2 * q2 / 3 + q3 / 6
+
+
 __all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
            "UpwindBiased", "WENO", "cell_advection_timescale", "div_Uc",
-           "div_vu", "div_vv", "div_vw", "required_halo"]
+           "div_vu", "div_vv", "div_vw", "multi_dimensional_filter",
+           "required_halo"]

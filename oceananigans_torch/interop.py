@@ -5,8 +5,10 @@ these two functions: every field of the state as a halo-extended array,
 each tracer and its previous tendency under ``tracers/<name>`` and
 ``Gtracers/<name>``, and the clock as ``time``, ``iteration`` and
 ``last_dt``. The fields are :data:`FIELDS` for a nonhydrostatic state (u,
-v, w, pressure, Gu, Gv, Gw) and :data:`SW_FIELDS` for a shallow-water one
-(uh, vh, h, Guh, Gvh, Gh).
+v, w, pressure, Gu, Gv, Gw), :data:`SW_FIELDS` for a shallow-water one (uh,
+vh, h, Guh, Gvh, Gh) and :data:`HYDROSTATIC_FIELDS` for a hydrostatic one
+(u, v, w, Gu, Gv, and η, Gη and the barotropic transports U, V, these four
+shaped (nx, ny, 1)).
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from oceananigans_torch.models.hydrostatic import (
+    HydrostaticFreeSurfaceModel, HydrostaticState,
+)
 from oceananigans_torch.models.nonhydrostatic import NonhydrostaticState
 from oceananigans_torch.models.shallow_water import (
     ShallowWaterModel, ShallowWaterState,
@@ -22,6 +27,9 @@ from oceananigans_torch.timesteppers import Clock
 
 FIELDS = ("u", "v", "w", "pressure", "Gu", "Gv", "Gw")
 SW_FIELDS = ("uh", "vh", "h", "Guh", "Gvh", "Gh")
+HYDROSTATIC_FIELDS = ("u", "v", "w", "eta", "Gu", "Gv", "Geta", "U", "V")
+#: the hydrostatic fields without a z extent
+FIELDS_2D = ("eta", "Geta", "U", "V")
 CLOCK = ("time", "iteration", "last_dt")
 
 
@@ -34,13 +42,16 @@ def tracer_keys(names):
 def state_from_numpy(model, arrays):
     """A state of ``model`` (on its device, in its grid's dtype) from a
     mapping of numpy arrays with the keys of the model's fields
-    (:data:`FIELDS`, or :data:`SW_FIELDS` for a ``ShallowWaterModel``), of
+    (:data:`FIELDS`, :data:`SW_FIELDS` for a ``ShallowWaterModel`` or
+    :data:`HYDROSTATIC_FIELDS` for a ``HydrostaticFreeSurfaceModel``), of
     :func:`tracer_keys` for its tracers, and of :data:`CLOCK`. The tensors
     are copies."""
     g = model.grid
     names = model.tracer_names
     if isinstance(model, ShallowWaterModel):
         cls, fields = ShallowWaterState, SW_FIELDS
+    elif isinstance(model, HydrostaticFreeSurfaceModel):
+        cls, fields = HydrostaticState, HYDROSTATIC_FIELDS
     else:
         cls, fields = NonhydrostaticState, FIELDS
     missing = set(fields + tracer_keys(names) + CLOCK) - set(arrays)
@@ -49,8 +60,11 @@ def state_from_numpy(model, arrays):
 
     def tensor(key):
         a = np.asarray(arrays[key])
-        if a.shape != tuple(g.shape):
-            raise ValueError(f"{key}: shape {a.shape} != grid {g.shape}")
+        shape = tuple(g.shape)
+        if cls is HydrostaticState and key in FIELDS_2D:
+            shape = shape[:2] + (1,)
+        if a.shape != shape:
+            raise ValueError(f"{key}: shape {a.shape} != {shape}")
         return torch.tensor(a, dtype=g.dtype, device=g.device)
 
     clock = Clock(time=torch.tensor(float(arrays["time"]), dtype=g.dtype),
@@ -65,7 +79,9 @@ def state_from_numpy(model, arrays):
 def state_to_numpy(state):
     """The state's fields, tracers and clock as numpy arrays (copied to the
     host)."""
-    fields = SW_FIELDS if isinstance(state, ShallowWaterState) else FIELDS
+    fields = (SW_FIELDS if isinstance(state, ShallowWaterState)
+              else HYDROSTATIC_FIELDS if isinstance(state, HydrostaticState)
+              else FIELDS)
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in fields}
     for group in ("tracers", "Gtracers"):
@@ -77,5 +93,5 @@ def state_to_numpy(state):
     return out
 
 
-__all__ = ["CLOCK", "FIELDS", "SW_FIELDS", "state_from_numpy",
-           "state_to_numpy", "tracer_keys"]
+__all__ = ["CLOCK", "FIELDS", "FIELDS_2D", "HYDROSTATIC_FIELDS",
+           "SW_FIELDS", "state_from_numpy", "state_to_numpy", "tracer_keys"]

@@ -1,6 +1,10 @@
 """Models of the port."""
 
-from oceananigans_torch.models.hydrostatic import VectorInvariant
+from oceananigans_torch.models.hydrostatic import (
+    CrossAndSelfUpwinding, ExplicitFreeSurface, HydrostaticFreeSurfaceModel,
+    HydrostaticState, OnlySelfUpwinding, SplitExplicitFreeSurface,
+    VectorInvariant, WENOVectorInvariant,
+)
 from oceananigans_torch.models.nonhydrostatic import (
     NonhydrostaticModel, NonhydrostaticState,
 )
@@ -9,6 +13,9 @@ from oceananigans_torch.models.shallow_water import (
     VectorInvariantFormulation,
 )
 
-__all__ = ["ConservativeFormulation", "NonhydrostaticModel",
-           "NonhydrostaticState", "ShallowWaterModel", "ShallowWaterState",
-           "VectorInvariant", "VectorInvariantFormulation"]
+__all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
+           "ExplicitFreeSurface", "HydrostaticFreeSurfaceModel",
+           "HydrostaticState", "NonhydrostaticModel", "NonhydrostaticState",
+           "OnlySelfUpwinding", "ShallowWaterModel", "ShallowWaterState",
+           "SplitExplicitFreeSurface", "VectorInvariant",
+           "VectorInvariantFormulation", "WENOVectorInvariant"]

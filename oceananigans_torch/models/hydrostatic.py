@@ -1,32 +1,134 @@
-"""Momentum advection of the hydrostatic and shallow-water models.
+"""HydrostaticFreeSurfaceModel: the primitive equations with a free surface,
+and the vector-invariant momentum advection it shares with the
+shallow-water model.
 
-Counterpart of the momentum-advection part of
-``oceananigans_tpu/models/hydrostatic.py``. For now it holds only
-``VectorInvariant`` with its two centred vorticity schemes, which the
-shallow-water model's vector-invariant formulation uses. The hydrostatic
-free-surface model itself, the scheme-valued (upwinded) vorticity,
-vertical, divergence and kinetic-energy schemes, the upwinding treatments
-and the multi-dimensional stencil come with ROADMAP Queue 1 item 15 and
-raise ``NotImplementedError`` until then.
+Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
+``RectilinearGrid``:
+
+- ``VectorInvariant`` with every option of the reference: the conserving
+  (string) and upwinded (scheme-valued) vorticity, vertical, divergence and
+  kinetic-energy-gradient schemes, ``OnlySelfUpwinding`` and
+  ``CrossAndSelfUpwinding``, the "velocity" and "default" vorticity
+  stencils and the multidimensional stencil; ``WENOVectorInvariant``;
+- ``ExplicitFreeSurface`` and ``SplitExplicitFreeSurface`` (the
+  barotropic substeps are a Python loop over the averaging weights);
+- ``HydrostaticState`` and ``HydrostaticFreeSurfaceModel`` with quasi-AB2
+  stepping: w diagnosed from continuity by a ``torch.cumsum`` over z, the
+  hydrostatic pressure anomaly of a buoyancy, Coriolis.
+
+Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
+Queue 1 item: closures, forcings, biogeochemistry, Stokes drift, particles
+and auxiliary fields (item 12); immersed grids (item 13); the implicit free
+surface, ``ZStar``, ``PrescribedVelocityFields``, ``split_rk3`` stepping
+and lat-lon or orthogonal grids (item 15).
+
+The state is a dataclass of tensors. ``step`` returns a new state but
+reuses its argument's storage: halo fills write halo rows in place, the
+persistent barotropic transports ``U``/``V`` among them.
+
+Fused kernels: with ``fused_kernels="auto"`` the WENO vector-invariant
+momentum kernel (``ops/cuda_vi.py``) and the WENO tracer kernel
+(``ops/cuda_tracer.py``) run exactly when the model's device is a CUDA
+device and their gates hold; ``fused_kernels=True`` takes the same code
+paths on the CPU, where the wrappers run their plain versions.
 """
 
 from __future__ import annotations
 
-from oceananigans_torch.grids.base import Center, Face
-from oceananigans_torch.ops.operators import ix_c, ix_f, iy_c, iy_f
+import dataclasses
+from typing import Dict
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 15)"
+import numpy as np
+import torch
 
-VORTICITY_SCHEMES = ("enstrophy_conserving", "energy_conserving")
+from oceananigans_torch.advection import (
+    WENO, Centered, _face_value, _face_value_smooth,
+    cell_advection_timescale, div_Uc, div_vu, div_vv,
+    multi_dimensional_filter,
+)
+from oceananigans_torch.boundary_conditions import (
+    _fill_axis, apply_flux_bcs, fill_halo_regions,
+    regularize_field_boundary_conditions,
+)
+from oceananigans_torch.buoyancy import g_Earth, regularize_buoyancy
+from oceananigans_torch.coriolis import FORMULATIONS
+from oceananigans_torch.fields import (
+    LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
+)
+from oceananigans_torch.grids.base import Bounded, Center, Face
+from oceananigans_torch.grids.rectilinear import RectilinearGrid
+from oceananigans_torch.ops.cuda_tracer import (
+    tracer_fusion_available, tracer_metric_profiles, weno_tracer_tendencies,
+)
+from oceananigans_torch.ops.cuda_vi import (
+    vi_available, vi_metric_profiles, vi_momentum_tendency,
+)
+from oceananigans_torch.ops.operators import (
+    div_xy_cc, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f,
+    iz_c, shift, vorticity_z_ff,
+)
+from oceananigans_torch.timesteppers import Clock, ab2_coefficients, tick
+
+X, Y, Z = 0, 1, 2
+
+_ITEM12 = "ROADMAP Queue 1 item 12 (closures and physics)"
+_ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
+
+
+# ---------------------------------------------------------------------------
+# Momentum advection
+# ---------------------------------------------------------------------------
+
+class OnlySelfUpwinding:
+    """Upwinding of the divergence flux and kinetic-energy gradient in
+    which only the terms in the transporting velocity are upwinded; the
+    cross terms use ``cross_scheme`` (Centered(2), the symmetric
+    counterpart of any upwind scheme) symmetrically."""
+
+    def __init__(self, cross_scheme=None):
+        if cross_scheme is None or not getattr(cross_scheme, "symmetric",
+                                               False):
+            cross_scheme = Centered(2)
+        self.cross_scheme = cross_scheme
+
+    def __eq__(self, other):
+        return (type(self) is type(other)
+                and self.cross_scheme == other.cross_scheme)
+
+    def __hash__(self):
+        return hash((type(self).__name__, self.cross_scheme))
+
+    def __repr__(self):
+        return f"{type(self).__name__}(cross_scheme={self.cross_scheme!r})"
+
+
+class CrossAndSelfUpwinding(OnlySelfUpwinding):
+    """The self and cross contributions of the divergence flux upwinded
+    together, as one reconstruction of δx(Ax u) + δy(Ay v); the kinetic
+    energy gradient keeps self-only upwinding."""
 
 
 class VectorInvariant:
     """Rotational-form momentum advection: 𝐯·∇u = ζ ẑ×u + ∇K + w ∂z u.
 
-    ``vorticity_scheme`` is "enstrophy_conserving" (the default: ℑy(ζ)·v̂
-    with the length-weighted transverse velocity v̂ = ℑxy(Δx v)/Δxᶠᶜᶜ) or
-    "energy_conserving" (ℑy(ζ·ℑx(Δx v))/Δxᶠᶜᶜ). ``vorticity_stencil`` is
-    kept for the keyword surface; it matters only for upwinded vorticity.
+    - ``vorticity_scheme``: "enstrophy_conserving" (default: ℑy(ζ)·v̂ with
+      the length-weighted transverse velocity v̂ = ℑxy(Δx v)/Δxᶠᶜᶜ),
+      "energy_conserving" (ℑy(ζ·ℑx(Δx v))/Δxᶠᶜᶜ), or a biased scheme: ζ
+      reconstructed transversely, biased on the sign of v̂.
+    - ``vorticity_stencil``: "velocity" (default: WENO smoothness measured
+      on the tangential velocities ℑy(u), ℑx(v)) or "default" (on ζ).
+    - ``vertical_scheme``: "energy_conserving" (default: ℑz(ℑx(w)∂z u)) or
+      a biased scheme: the flux form δz(ℑx(Az w)·uᴿ) plus the upwinded
+      horizontal divergence flux.
+    - ``divergence_scheme``: the biased scheme of δx(Ax u) (defaults to a
+      scheme-valued ``vertical_scheme``).
+    - ``kinetic_energy_gradient_scheme``: "energy_conserving" (∂x of the
+      centred horizontal kinetic energy) or a biased scheme for the self
+      difference δx(u²/2) (defaults to ``divergence_scheme``).
+    - ``upwinding``: ``OnlySelfUpwinding()`` (default) or
+      ``CrossAndSelfUpwinding()``.
+    - ``multi_dimensional_stencil``: filter every scheme-based horizontal
+      reconstruction transversely (fifth-order centred WENO).
     """
 
     def __init__(self, vorticity_scheme="enstrophy_conserving",
@@ -35,42 +137,52 @@ class VectorInvariant:
                  divergence_scheme=None,
                  kinetic_energy_gradient_scheme=None,
                  upwinding=None, multi_dimensional_stencil=False):
-        for name, scheme in (
-                ("vorticity_scheme", vorticity_scheme),
-                ("vertical_scheme", vertical_scheme),
-                ("divergence_scheme", divergence_scheme),
-                ("kinetic_energy_gradient_scheme",
-                 kinetic_energy_gradient_scheme)):
-            if scheme is not None and not isinstance(scheme, str):
-                raise NotImplementedError(
-                    f"VectorInvariant({name}={scheme!r}), an upwinded "
-                    f"vector-invariant form, {_LATER}")
-        if upwinding is not None:
-            raise NotImplementedError(f"VectorInvariant(upwinding=...) "
-                                      f"{_LATER}")
-        if multi_dimensional_stencil:
-            raise NotImplementedError(
-                f"VectorInvariant(multi_dimensional_stencil=True) {_LATER}")
-        if vorticity_scheme not in VORTICITY_SCHEMES:
+        if isinstance(vorticity_scheme, str) and vorticity_scheme not in (
+                "enstrophy_conserving", "energy_conserving"):
             raise ValueError(
                 f"unknown vorticity_scheme {vorticity_scheme!r}")
         if vorticity_stencil not in ("velocity", "default"):
             raise ValueError(
                 f"unknown vorticity_stencil {vorticity_stencil!r}")
-        if vertical_scheme != "energy_conserving":
+        if isinstance(vertical_scheme, str) and \
+                vertical_scheme != "energy_conserving":
             raise ValueError(f"unknown vertical_scheme {vertical_scheme!r}")
         self.vorticity_scheme = vorticity_scheme
         self.vorticity_stencil = vorticity_stencil
         self.vertical_scheme = vertical_scheme
+        if divergence_scheme is None and not isinstance(vertical_scheme,
+                                                        str):
+            divergence_scheme = vertical_scheme
+        self.divergence_scheme = divergence_scheme
+        if kinetic_energy_gradient_scheme is None:
+            kinetic_energy_gradient_scheme = (
+                divergence_scheme if divergence_scheme is not None
+                else "energy_conserving")
+        self.kinetic_energy_gradient_scheme = kinetic_energy_gradient_scheme
+        self.upwinding = upwinding if upwinding is not None \
+            else OnlySelfUpwinding()
+        self.multi_dimensional_stencil = bool(multi_dimensional_stencil)
 
     @property
     def required_halo(self):
-        """ζ consumes one halo cell on top of the centred interpolations."""
-        return 2
+        """The largest scheme halo, plus one for ζ (2 with only conserving
+        schemes), plus two for the multidimensional filter."""
+        h = 1
+        for s in (self.vorticity_scheme, self.vertical_scheme,
+                  self.divergence_scheme,
+                  self.kinetic_energy_gradient_scheme):
+            if s is not None and not isinstance(s, str):
+                h = max(h, s.required_halo)
+        h = h + 1 if h > 1 else 2
+        if self.multi_dimensional_stencil:
+            h += 2
+        return h
 
     def _key(self):
         return ("VectorInvariant", self.vorticity_scheme,
-                self.vorticity_stencil, self.vertical_scheme)
+                self.vorticity_stencil, self.vertical_scheme,
+                self.divergence_scheme, self.kinetic_energy_gradient_scheme,
+                self.upwinding, self.multi_dimensional_stencil)
 
     def __eq__(self, other):
         return isinstance(other, VectorInvariant) and \
@@ -83,19 +195,742 @@ class VectorInvariant:
         return (f"VectorInvariant({self.vorticity_scheme!r}, "
                 f"vertical_scheme={self.vertical_scheme!r})")
 
+    def _md(self, q, interp_axis):
+        """The transverse filter of a horizontal reconstruction (an x
+        interpolation is filtered along y and the reverse); the identity
+        unless ``multi_dimensional_stencil``."""
+        if not self.multi_dimensional_stencil:
+            return q
+        return multi_dimensional_filter(q, Y if interp_axis == X else X)
+
+    # -- vorticity term -----------------------------------------------------
+    def _zeta_smooth(self, u, v):
+        if self.vorticity_stencil == "velocity" and \
+                isinstance(self.vorticity_scheme, WENO):
+            # the tangential velocities at ζ's (f,f) location
+            return [iy_f(u), ix_f(v)]
+        return None
+
     def _zeta_v(self, grid, zeta, u, v):
         """The +ζ v̂ term of the u equation, at (f,c,c)."""
         dxv = grid.dx(Center, Face) * v
         if self.vorticity_scheme == "energy_conserving":
             return iy_c(zeta * ix_f(dxv)) / grid.dx(Face, Center)
-        return iy_c(zeta) * ix_f(iy_c(dxv)) / grid.dx(Face, Center)
+        if self.vorticity_scheme == "enstrophy_conserving":
+            return iy_c(zeta) * ix_f(iy_c(dxv)) / grid.dx(Face, Center)
+        vhat = self._md(ix_f(iy_c(dxv)) / grid.dx(Face, Center), X)
+        # ζ sits on y-faces: reconstruct it to y-centers (o = 1)
+        zr = self._md(_face_value_smooth(self.vorticity_scheme, vhat, zeta,
+                                         Y, 1, self._zeta_smooth(u, v)), Y)
+        return vhat * zr
 
     def _zeta_u(self, grid, zeta, u, v):
         """The ζ û term that the v equation subtracts, at (c,f,c)."""
         dyu = grid.dy(Center, Face) * u
         if self.vorticity_scheme == "energy_conserving":
             return ix_c(zeta * iy_f(dyu)) / grid.dy(Face, Center)
-        return ix_c(zeta) * iy_f(ix_c(dyu)) / grid.dy(Face, Center)
+        if self.vorticity_scheme == "enstrophy_conserving":
+            return ix_c(zeta) * iy_f(ix_c(dyu)) / grid.dy(Face, Center)
+        uhat = self._md(iy_f(ix_c(dyu)) / grid.dy(Face, Center), Y)
+        zr = self._md(_face_value_smooth(self.vorticity_scheme, uhat, zeta,
+                                         X, 1, self._zeta_smooth(u, v)), X)
+        return uhat * zr
+
+    # -- Bernoulli head -----------------------------------------------------
+    def _bernoulli_u(self, grid, u, v):
+        """∂x K at (f,c,c)."""
+        ke = self.kinetic_energy_gradient_scheme
+        if isinstance(ke, str):
+            K = 0.5 * (ix_c(u * u) + iy_c(v * v))
+            return dx_f(K) / grid.dx(Face, Center)
+        du2 = dx_c(0.5 * u * u)          # δx(u²/2) at (c,c,c)
+        dv2 = dx_f(0.5 * v * v)          # δx(v²/2) at (f,f,c)
+        smooth = [ix_c(u)] if isinstance(ke, WENO) else None
+        duR = self._md(_face_value_smooth(ke, u, du2, X, 0, smooth), X)
+        dvS = self._md(self.upwinding.cross_scheme.reconstruct(dv2, Y, 1), Y)
+        return (duR + dvS) / grid.dx(Face, Center)
+
+    def _bernoulli_v(self, grid, u, v):
+        ke = self.kinetic_energy_gradient_scheme
+        if isinstance(ke, str):
+            K = 0.5 * (ix_c(u * u) + iy_c(v * v))
+            return dy_f(K) / grid.dy(Face, Center)
+        dv2 = dy_c(0.5 * v * v)          # (c,c,c)
+        du2 = dy_f(0.5 * u * u)          # (f,f,c)
+        smooth = [iy_c(v)] if isinstance(ke, WENO) else None
+        dvR = self._md(_face_value_smooth(ke, v, dv2, Y, 0, smooth), Y)
+        duS = self._md(self.upwinding.cross_scheme.reconstruct(du2, X, 1), X)
+        return (dvR + duS) / grid.dy(Face, Center)
+
+    # -- vertical and divergence flux ---------------------------------------
+    def _div_terms(self, grid, u, v):
+        dxU = dx_c(grid.Ax(Face, Center, Center) * u)    # (c,c,c)
+        dyV = dy_c(grid.Ay(Center, Face, Center) * v)    # (c,c,c)
+        return dxU, dyV
+
+    def _vertical_u(self, grid, u, v, w):
+        """The +[w ∂z u] term of 𝐯·∇u at (f,c,c)."""
+        vs = self.vertical_scheme
+        if isinstance(vs, str):
+            return iz_c(ix_f(w) * (dz_f(u) / grid.dz(Face)))
+        dxU, dyV = self._div_terms(grid, u, v)
+        ds = self.divergence_scheme
+        if isinstance(self.upwinding, CrossAndSelfUpwinding):
+            dR = self._md(_face_value_smooth(ds, u, dxU + dyV, X, 0, None), X)
+            phi = u * dR
+        else:
+            smooth = [dxU + dyV] if isinstance(ds, WENO) else None
+            duR = self._md(_face_value_smooth(ds, u, dxU, X, 0, smooth), X)
+            dvS = self._md(
+                self.upwinding.cross_scheme.reconstruct(dyV, X, 0), X)
+            phi = u * (dvS + duR)
+        Wadv = ix_f(grid.Az(Center, Center) * w)         # (f,c,f)
+        uz = _face_value(vs, Wadv, u, Z, 0)
+        return (phi + dz_c(Wadv * uz)) / grid.V(Face, Center, Center)
+
+    def _vertical_v(self, grid, u, v, w):
+        vs = self.vertical_scheme
+        if isinstance(vs, str):
+            return iz_c(iy_f(w) * (dz_f(v) / grid.dz(Face)))
+        dxU, dyV = self._div_terms(grid, u, v)
+        ds = self.divergence_scheme
+        if isinstance(self.upwinding, CrossAndSelfUpwinding):
+            dR = self._md(_face_value_smooth(ds, v, dxU + dyV, Y, 0, None), Y)
+            phi = v * dR
+        else:
+            smooth = [dxU + dyV] if isinstance(ds, WENO) else None
+            dvR = self._md(_face_value_smooth(ds, v, dyV, Y, 0, smooth), Y)
+            duS = self._md(
+                self.upwinding.cross_scheme.reconstruct(dxU, Y, 0), Y)
+            phi = v * (duS + dvR)
+        Wadv = iy_f(grid.Az(Center, Center) * w)         # (c,f,f)
+        vz = _face_value(vs, Wadv, v, Z, 0)
+        return (phi + dz_c(Wadv * vz)) / grid.V(Center, Face, Center)
+
+    # -- tendencies ---------------------------------------------------------
+    def u_tendency(self, grid, u, v, w, zeta=None):
+        """−[𝐯·∇u]ₓ at (f,c,c). ``zeta`` overrides the vorticity computed
+        here (the cubed sphere passes its corner-corrected ζ)."""
+        if zeta is None:
+            zeta = vorticity_z_ff(grid, u, v)
+        return (self._zeta_v(grid, zeta, u, v)
+                - self._bernoulli_u(grid, u, v)
+                - self._vertical_u(grid, u, v, w))
+
+    def v_tendency(self, grid, u, v, w, zeta=None):
+        if zeta is None:
+            zeta = vorticity_z_ff(grid, u, v)
+        return (-self._zeta_u(grid, zeta, u, v)
+                - self._bernoulli_v(grid, u, v)
+                - self._vertical_v(grid, u, v, w))
 
 
-__all__ = ["VectorInvariant"]
+class WENOVectorInvariant(VectorInvariant):
+    """WENO vorticity (order 9 by default) with VelocityStencil smoothness,
+    flux-form WENO vertical advection and upwinded divergence flux and
+    kinetic-energy gradient (order 5 by default) with
+    ``OnlySelfUpwinding``."""
+
+    def __init__(self, vorticity_order=None, order=None,
+                 vertical_order=None, divergence_order=None,
+                 kinetic_energy_gradient_order=None, upwinding=None,
+                 vorticity_stencil="velocity",
+                 multi_dimensional_stencil=False):
+        vorticity_order = vorticity_order or order or 9
+        vertical_order = vertical_order or order or 5
+        divergence_order = divergence_order or order or 5
+        kinetic_energy_gradient_order = (kinetic_energy_gradient_order
+                                         or order or 5)
+        super().__init__(
+            vorticity_scheme=WENO(vorticity_order),
+            vorticity_stencil=vorticity_stencil,
+            vertical_scheme=WENO(vertical_order),
+            divergence_scheme=WENO(divergence_order),
+            kinetic_energy_gradient_scheme=WENO(
+                kinetic_energy_gradient_order),
+            upwinding=upwinding,
+            multi_dimensional_stencil=multi_dimensional_stencil)
+
+    def __repr__(self):
+        return (f"WENOVectorInvariant(vorticity_order="
+                f"{self.vorticity_scheme.order}, vertical_order="
+                f"{self.vertical_scheme.order})")
+
+
+# ---------------------------------------------------------------------------
+# Free surfaces and vertical coordinates
+# ---------------------------------------------------------------------------
+
+class ExplicitFreeSurface:
+    """∂t η = −∇·U with g∇η explicit in the momentum tendency; the
+    gravity-wave CFL limits Δt."""
+
+    def __init__(self, gravitational_acceleration=g_Earth):
+        self.g = float(gravitational_acceleration)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.g == other.g
+
+    def __hash__(self):
+        return hash(("ExplicitFS", self.g))
+
+    def __repr__(self):
+        return f"ExplicitFreeSurface(g={self.g:g})"
+
+
+def averaging_shape_function(tau, p=2, q=4, r=0.18927):
+    """Shchepetkin & McWilliams (2005) dispersion-minimizing barotropic
+    averaging kernel."""
+    tau0 = (p + 2) * (p + q + 2) / (p + 1) / (p + q + 1)
+    return (tau / tau0) ** p * (1 - (tau / tau0) ** q) - r * (tau / tau0)
+
+
+def weights_from_substeps(substeps, kernel=averaging_shape_function):
+    """The fractional substep and the normalized averaging weights over
+    τ ∈ (0, 2], cut after the last positive weight."""
+    tau_f = np.linspace(0.0, 2.0, substeps + 1)
+    frac = tau_f[1] - tau_f[0]
+    w = np.array([kernel(t) for t in tau_f[1:]])
+    idx = len(w)
+    while idx > 0 and w[idx - 1] <= 0:
+        idx -= 1
+    w = w[:idx]
+    return frac, w / w.sum()
+
+
+class SplitExplicitFreeSurface:
+    """Barotropic substepping with filtered averaging."""
+
+    def __init__(self, substeps=30, gravitational_acceleration=g_Earth,
+                 averaging_kernel=averaging_shape_function):
+        self.g = float(gravitational_acceleration)
+        self.substeps = int(substeps)
+        frac, w = weights_from_substeps(self.substeps, averaging_kernel)
+        self.fractional_step = float(frac)
+        self.weights = tuple(float(x) for x in w)
+
+    def __eq__(self, other):
+        return (type(self) is type(other) and self.g == other.g
+                and self.weights == other.weights)
+
+    def __hash__(self):
+        return hash(("SplitExplicitFS", self.g, self.weights))
+
+    def __repr__(self):
+        return (f"SplitExplicitFreeSurface(substeps={len(self.weights)}, "
+                f"g={self.g:g})")
+
+
+def ImplicitFreeSurface(*args, **kwargs):
+    raise NotImplementedError(f"ImplicitFreeSurface is not ported yet; "
+                              f"{_ITEM15} brings it")
+
+
+def ZStar(*args, **kwargs):
+    raise NotImplementedError(f"ZStar is not ported yet; {_ITEM15} brings "
+                              "it")
+
+
+def PrescribedVelocityFields(*args, **kwargs):
+    raise NotImplementedError(f"PrescribedVelocityFields is not ported "
+                              f"yet; {_ITEM15} brings it")
+
+
+class ZCoordinate:
+    """Static vertical coordinate (the default)."""
+
+    def __repr__(self):
+        return "ZCoordinate()"
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def __hash__(self):
+        return hash("ZCoordinate")
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class HydrostaticState:
+    """Prognostic and diagnostic fields. ``eta``, ``Geta``, ``U`` and ``V``
+    are (nx, ny, 1); ``U``/``V`` are the split-explicit free surface's
+    persistent barotropic transports (zeros otherwise). ``Gu``/``Gv``,
+    ``Geta`` and ``Gtracers`` hold the previous tendencies quasi-AB2
+    needs."""
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    eta: torch.Tensor
+    tracers: Dict[str, torch.Tensor]
+    clock: Clock
+    Gu: torch.Tensor
+    Gv: torch.Tensor
+    Geta: torch.Tensor
+    Gtracers: Dict[str, torch.Tensor]
+    U: torch.Tensor
+    V: torch.Tensor
+
+    @property
+    def velocities(self):
+        return {"u": self.u, "v": self.v, "w": self.w}
+
+    def fields(self):
+        return {"u": self.u, "v": self.v, "w": self.w, "eta": self.eta,
+                **self.tracers}
+
+
+_replace = dataclasses.replace
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class HydrostaticFreeSurfaceModel(torch.nn.Module):
+    """Hydrostatic Boussinesq dynamics with a free surface. Mirrors the JAX
+    constructor's keywords and raises ``NotImplementedError`` on the ones
+    not ported."""
+
+    def __init__(self, grid, momentum_advection=None, tracer_advection=None,
+                 free_surface=None, tracers=(), buoyancy=None, coriolis=None,
+                 closure=None, forcing=None, boundary_conditions=None,
+                 vertical_coordinate=None, timestepper="quasi_ab2",
+                 particles=None, biogeochemistry=None, stokes_drift=None,
+                 auxiliary_fields=None, fused_kernels="auto", device=None):
+        super().__init__()
+        given = dict(closure=closure, forcing=forcing, particles=particles,
+                     biogeochemistry=biogeochemistry,
+                     stokes_drift=stokes_drift,
+                     auxiliary_fields=auxiliary_fields)
+        for name, value in given.items():
+            if value is not None and not (
+                    isinstance(value, (tuple, list, dict)) and not value):
+                raise NotImplementedError(
+                    f"HydrostaticFreeSurfaceModel({name}=...) is not ported "
+                    f"yet; {_ITEM12} brings it")
+        if not isinstance(grid, RectilinearGrid):
+            raise NotImplementedError(
+                f"{type(grid).__name__} is not ported yet; immersed grids "
+                "come with ROADMAP Queue 1 item 13, lat-lon and orthogonal "
+                f"grids with {_ITEM15}")
+        if timestepper not in ("quasi_ab2", "split_rk3"):
+            raise ValueError(f"unknown timestepper {timestepper!r}")
+        if timestepper == "split_rk3":
+            raise NotImplementedError(f"timestepper='split_rk3' is not "
+                                      f"ported yet; {_ITEM15} brings it")
+        if vertical_coordinate is None:
+            vertical_coordinate = ZCoordinate()
+        if not isinstance(vertical_coordinate, ZCoordinate):
+            raise ValueError(
+                f"unknown vertical_coordinate {vertical_coordinate!r}")
+        if momentum_advection is None:
+            momentum_advection = VectorInvariant()
+        if not isinstance(momentum_advection,
+                          (VectorInvariant, Centered, WENO)):
+            raise NotImplementedError(
+                f"momentum advection {momentum_advection!r} is not ported "
+                "yet (ROADMAP Queue 1 item 11)")
+        if tracer_advection is None:
+            tracer_advection = Centered(2)
+        if not isinstance(tracer_advection, (Centered, WENO)):
+            raise NotImplementedError(
+                f"tracer advection {tracer_advection!r} is not ported yet "
+                "(ROADMAP Queue 1 item 11)")
+        if free_surface is None:
+            free_surface = SplitExplicitFreeSurface()
+        if not isinstance(free_surface, (ExplicitFreeSurface,
+                                         SplitExplicitFreeSurface)):
+            raise NotImplementedError(
+                f"free surface {free_surface!r} is not ported yet; "
+                f"{_ITEM15} brings the implicit free surface")
+        if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
+            raise NotImplementedError(
+                f"coriolis {coriolis!r} is not ported yet; the port has "
+                + ", ".join(c.__name__ for c in FORMULATIONS))
+        if isinstance(tracers, str):
+            tracers = (tracers,)
+        tracers = tuple(tracers)
+        buoyancy = regularize_buoyancy(buoyancy)
+        if buoyancy is not None:
+            tracers += tuple(t for t in buoyancy.required_tracers
+                             if t not in tracers)
+
+        self.grid = grid
+        self.momentum_advection = momentum_advection
+        self.tracer_advection = tracer_advection
+        self.free_surface = free_surface
+        self.vertical_coordinate = vertical_coordinate
+        self.timestepper = timestepper
+        self.tracer_names = tracers
+        self.buoyancy = buoyancy
+        self.coriolis = coriolis
+        self._fused = fused_kernels
+
+        boundary_conditions = dict(boundary_conditions or {})
+        self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W,
+                          **{t: LOC_C for t in tracers}}
+        self.bcs = {name: regularize_field_boundary_conditions(
+            boundary_conditions.get(name), grid, loc)
+            for name, loc in self.locations.items()}
+        self.eta_bcs = regularize_field_boundary_conditions(
+            boundary_conditions.get("eta"), grid, LOC_C)
+
+        # static column geometry: the z-interior mask and spacing, and the
+        # column depths at u and v faces (the smaller of the two adjacent
+        # columns), computed once: without an immersed boundary they never
+        # change and every column is wet, so the JAX model's dry-column
+        # masks are identities here
+        nz = grid.shape[Z]
+        k = torch.arange(nz, device=grid.device).reshape(1, 1, -1)
+        interior = (k >= grid.H[Z]) & (k < grid.H[Z] + grid.N[Z])
+        dzm = torch.where(interior, grid.dz(Center), 0.0)
+        shape2d = (grid.shape[X], grid.shape[Y], 1)
+        H = torch.sum(dzm.expand(grid.shape), dim=Z, keepdim=True)
+        self.register_buffer("_z_interior", interior)
+        self.register_buffer("_dzm", dzm)
+        self.register_buffer("_H_fc", torch.minimum(H, shift(H, -1, X)))
+        self.register_buffer("_H_cf", torch.minimum(H, shift(H, -1, Y)))
+        # wall and halo faces of the barotropic transports on Bounded axes
+        for name, axis in (("_U_walls", X), ("_V_walls", Y)):
+            walls = None
+            if grid.axis_topo(axis) == Bounded:
+                idx = torch.arange(shape2d[axis], device=grid.device)
+                idx = idx.reshape((-1, 1, 1) if axis == X else (1, -1, 1))
+                walls = ((idx <= grid.H[axis])
+                         | (idx >= grid.H[axis] + grid.N[axis]))
+            self.register_buffer(name, walls)
+        # the kernels' metric profiles, built once
+        self.register_buffer(
+            "_vi_metrics",
+            vi_metric_profiles(grid)
+            if isinstance(momentum_advection, VectorInvariant)
+            and vi_available(grid, momentum_advection) else None)
+        self.register_buffer(
+            "_tracer_metrics",
+            tracer_metric_profiles(grid)
+            if tracer_fusion_available(grid, tracer_advection) else None)
+        if device is not None:
+            self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid.device
+
+    def _on(self) -> bool:
+        if self._fused == "auto":
+            return self.device.type == "cuda"
+        return bool(self._fused)
+
+    @property
+    def fused_kernels(self) -> bool:
+        """The WENO vector-invariant momentum kernel
+        (``vi_momentum_tendency``) computes Gu and Gv; "auto" means: on a
+        CUDA device."""
+        return self._vi_metrics is not None and self._on()
+
+    @property
+    def fused_tracer(self) -> bool:
+        """The WENO tracer kernel (``weno_tracer_tendencies``) computes
+        every tracer's advection; "auto" means: on a CUDA device."""
+        return self._tracer_metrics is not None and self._on()
+
+    # ------------------------------------------------------------------
+    # State construction and halos
+    # ------------------------------------------------------------------
+    def initial_state(self, time=0.0, **field_values):
+        """A state from initial ``u``, ``v`` and tracers (numbers, arrays or
+        callables ``f(x, y, z)`` of coordinate tensors) and ``eta`` (a
+        number, an (nx, ny, 1) array or a callable ``f(x, y)``)."""
+        g = self.grid
+        allowed = {"u", "v", "eta"} | set(self.tracer_names)
+        unknown = set(field_values) - allowed
+        if unknown:
+            raise ValueError(
+                f"unknown initial_state fields {sorted(unknown)}; "
+                f"this model takes {sorted(allowed)}")
+
+        def mk(name, loc):
+            if name in field_values:
+                return set_field(g, field_values[name], loc=loc)
+            return new_field(g)
+
+        eta = self._eta_field(field_values.get("eta", 0.0))
+        state = HydrostaticState(
+            u=mk("u", LOC_U), v=mk("v", LOC_V), w=new_field(g), eta=eta,
+            tracers={t: mk(t, LOC_C) for t in self.tracer_names},
+            clock=Clock.start(time, g.dtype),
+            Gu=new_field(g), Gv=new_field(g), Geta=torch.zeros_like(eta),
+            Gtracers={t: new_field(g) for t in self.tracer_names},
+            U=torch.zeros_like(eta), V=torch.zeros_like(eta))
+        state = self.update_state(state)
+        # the persistent barotropic transports start from the initial
+        # velocities
+        U0, V0 = self._zero_wall_transports(
+            *self._barotropic_mode(state.u, state.v))
+        return _replace(state, U=U0, V=V0)
+
+    def _eta_field(self, value):
+        g = self.grid
+        shape2d = (g.shape[X], g.shape[Y], 1)
+        if callable(value):
+            value = value(g.xC, g.yC)
+        value = torch.as_tensor(value, dtype=g.dtype, device=g.device)
+        return value.expand(shape2d).clone()
+
+    def _fill_transport_halos(self, U, V):
+        """x/y halo fill of the barotropic transports with the velocities'
+        side conditions (in place)."""
+        g = self.grid
+        for axis in (X, Y):
+            _fill_axis(U, g, axis, LOC_U[axis], *self.bcs["u"].sides(axis))
+            _fill_axis(V, g, axis, LOC_V[axis], *self.bcs["v"].sides(axis))
+        return U, V
+
+    def _fill_eta_halos(self, eta):
+        """x/y halo fill of η (in place; η has no z extent)."""
+        for axis in (X, Y):
+            _fill_axis(eta, self.grid, axis, Center,
+                       *self.eta_bcs.sides(axis))
+        return eta
+
+    def fill_state_halos(self, state):
+        """Fill u, v, the tracers and η in place."""
+        g = self.grid
+        fill_halo_regions(state.u, g, self.bcs["u"], LOC_U)
+        fill_halo_regions(state.v, g, self.bcs["v"], LOC_V)
+        for name, c in state.tracers.items():
+            fill_halo_regions(c, g, self.bcs[name], LOC_C)
+        self._fill_eta_halos(state.eta)
+        return state
+
+    def compute_w(self, state):
+        """w from continuity: w(zF_k) = −∫ from the bottom to k of ∇ₕ·𝐮 dz,
+        a ``torch.cumsum`` over z; then its halo fill."""
+        g = self.grid
+        hdiv = div_xy_cc(g, state.u, state.v)
+        contrib = torch.where(self._z_interior, hdiv * g.dz(Center), 0.0)
+        csum = torch.cumsum(contrib, dim=Z)
+        # w at face k (the bottom face of cell k) = −Σ over cells k' < k
+        w = -shift(csum, -1, Z)
+        w[:, :, 0] = 0.0
+        fill_halo_regions(w, g, self.bcs["w"], LOC_W)
+        return _replace(state, w=w)
+
+    def update_state(self, state):
+        return self.compute_w(self.fill_state_halos(state))
+
+    # ------------------------------------------------------------------
+    # Tendencies
+    # ------------------------------------------------------------------
+    def hydrostatic_pressure_anomaly(self, state):
+        """p′(z) = −∫_z^0 b dz′ at centers (∂z p′ = b, p′ = 0 at the top),
+        or None without a buoyancy."""
+        if self.buoyancy is None:
+            return None
+        g = self.grid
+        b = self.buoyancy.buoyancy_ccc(g, state.tracers)
+        contrib = torch.where(self._z_interior, b * g.dz(Center), 0.0)
+        total = torch.sum(contrib, dim=Z, keepdim=True)
+        above = total - torch.cumsum(contrib, dim=Z)
+        return -(above + 0.5 * contrib)
+
+    def momentum_tendencies(self, state):
+        """``(Gu, Gv)``: momentum advection, Coriolis, the hydrostatic
+        pressure gradient and the explicit free surface's g∇η."""
+        g = self.grid
+        u, v, w = state.u, state.v, state.w
+        ma = self.momentum_advection
+        if isinstance(ma, VectorInvariant):
+            if self.fused_kernels:
+                Gu, Gv = vi_momentum_tendency(g, ma, u, v, w,
+                                              metrics=self._vi_metrics)
+            else:
+                Gu = ma.u_tendency(g, u, v, w)
+                Gv = ma.v_tendency(g, u, v, w)
+        else:
+            Gu = -div_vu(g, ma, u, v, w)
+            Gv = -div_vv(g, ma, u, v, w)
+        if self.coriolis is not None:
+            Gu = Gu - self.coriolis.x_f_cross_U(g, u, v, w)
+            Gv = Gv - self.coriolis.y_f_cross_U(g, u, v, w)
+        p_anom = self.hydrostatic_pressure_anomaly(state)
+        if p_anom is not None:
+            Gu = Gu - dx_f(p_anom) / g.dx(Face, Center)
+            Gv = Gv - dy_f(p_anom) / g.dy(Face, Center)
+        fs = self.free_surface
+        if isinstance(fs, ExplicitFreeSurface):
+            Gu = Gu - fs.g * dx_f(state.eta) / g.dx(Face, Center)
+            Gv = Gv - fs.g * dy_f(state.eta) / g.dy(Face, Center)
+        return (apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U),
+                apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V))
+
+    def tracer_tendencies(self, state):
+        """``{name: Gc}``: each tracer's advection."""
+        g = self.grid
+        u, v, w = state.u, state.v, state.w
+        tracers = state.tracers
+        fused = {}
+        if self.fused_tracer and tracers:
+            # one kernel for every tracer: the velocities are read once
+            fused = weno_tracer_tendencies(g, self.tracer_advection, u, v, w,
+                                           tracers,
+                                           metrics=self._tracer_metrics)
+        Gtracers = {}
+        for name in self.tracer_names:
+            Gc = fused.get(name)
+            if Gc is None:
+                Gc = -div_Uc(g, self.tracer_advection, u, v, w,
+                             tracers[name])
+            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C)
+        return Gtracers
+
+    def compute_tendencies(self, state):
+        """``(Gu, Gv, {name: Gc})``."""
+        return (*self.momentum_tendencies(state),
+                self.tracer_tendencies(state))
+
+    # ------------------------------------------------------------------
+    # Barotropic mode and the split-explicit free surface
+    # ------------------------------------------------------------------
+    def _barotropic_mode(self, u, v):
+        """(U, V) = ∫ (u, v) dz over the interior."""
+        return (torch.sum(u * self._dzm, dim=Z, keepdim=True),
+                torch.sum(v * self._dzm, dim=Z, keepdim=True))
+
+    def _zero_wall_transports(self, U, V):
+        """Zero the transports on the wall faces (and beyond) of Bounded
+        axes: the substepped transports must keep the impenetrability the
+        baroclinic velocities get from their wall conditions."""
+        if self._U_walls is not None:
+            U = torch.where(self._U_walls, 0.0, U)
+        if self._V_walls is not None:
+            V = torch.where(self._V_walls, 0.0, V)
+        return U, V
+
+    def _div_transports(self, U, V):
+        """(δx(Δy U) + δy(Δx V)) / Az of transports at (f,c) and (c,f)."""
+        g = self.grid
+        return (dx_c(g.dy(Center, Face) * U)
+                + dy_c(g.dx(Center, Face) * V)) / g.Az(Center, Center)
+
+    def _split_explicit_substep(self, eta, U, V, GU, GV, dtau, fs):
+        """One forward-backward barotropic substep: η ← η − Δτ ∇·(U, V),
+        then (U, V) ← (U, V) + Δτ (−g H ∇η + (GU, GV))."""
+        g = self.grid
+        U, V = self._zero_wall_transports(U, V)
+        eta = eta - dtau * self._div_transports(U, V)
+        eta = self._fill_eta_halos(eta)
+        H_fc, H_cf = self._H_fc, self._H_cf
+        U = U + dtau * (-fs.g * H_fc * dx_f(eta) / g.dx(Face, Center) + GU)
+        V = V + dtau * (-fs.g * H_cf * dy_f(eta) / g.dy(Face, Center) + GV)
+        U, V = self._zero_wall_transports(U, V)
+        return eta, U, V
+
+    def _step_free_surface_split(self, state, Gu_ab2, Gv_ab2, dt, fs):
+        """The substep loop from the persistent transports, forced by the
+        vertically integrated AB2 tendencies; returns the weighted averages
+        (η, U, V). ``dt`` is a 0-d CPU tensor in the state's dtype."""
+        GU = torch.sum(Gu_ab2 * self._dzm, dim=Z, keepdim=True)
+        GV = torch.sum(Gv_ab2 * self._dzm, dim=Z, keepdim=True)
+        eta, U, V = (state.eta,
+                     *self._fill_transport_halos(state.U, state.V))
+        dtau = (dt * fs.fractional_step).item()
+        # the weights in the fields' dtype, as the JAX scan casts them
+        weights = torch.tensor(fs.weights, dtype=eta.dtype).tolist()
+        eta_f = torch.zeros_like(eta)
+        U_f = torch.zeros_like(U)
+        V_f = torch.zeros_like(V)
+        for wgt in weights:
+            eta, U, V = self._split_explicit_substep(eta, U, V, GU, GV, dtau,
+                                                     fs)
+            eta_f = eta_f + wgt * eta
+            U_f = U_f + wgt * U
+            V_f = V_f + wgt * V
+        return eta_f, U_f, V_f
+
+    def _barotropic_correct(self, state, U_target, V_target):
+        """u ← u + (Ū − ∫u dz)/H: the baroclinic velocities take the
+        averaged barotropic transports."""
+        U, V = self._barotropic_mode(state.u, state.v)
+        return _replace(state, u=state.u + (U_target - U) / self._H_fc,
+                        v=state.v + (V_target - V) / self._H_cf)
+
+    # ------------------------------------------------------------------
+    # Time stepping
+    # ------------------------------------------------------------------
+    def step(self, state, dt, chi=0.1, assume_filled=False):
+        """One quasi-AB2 step with the configured free surface.
+        ``assume_filled=True`` skips the leading fill and w diagnosis:
+        every step ends with them, so a loop does them once before its
+        first step and passes ``assume_filled=True``."""
+        dt = torch.tensor(dt, dtype=state.u.dtype)
+        if not assume_filled:
+            state = self.update_state(state)
+        return self._step_qab2(state, dt, chi)
+
+    def ab2_update(self, state, dt, chi=0.1, tendencies=None):
+        """The quasi-AB2 update of u, v and the tracers with the
+        ``tendencies`` ``(Gu, Gv, Gtracers)`` (computed here when not
+        given): ``(u, v, tracers, Gu, Gv, Gtracers, Gu_ab2, Gv_ab2)``; the
+        first part of :meth:`step`."""
+        dtf = dt.item()
+        Gu, Gv, Gt = (self.compute_tendencies(state) if tendencies is None
+                      else tendencies)
+        c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
+        Gu_ab2 = c_now * Gu + c_prev * state.Gu
+        Gv_ab2 = c_now * Gv + c_prev * state.Gv
+        u = state.u + dtf * Gu_ab2
+        v = state.v + dtf * Gv_ab2
+        tracers = {n: state.tracers[n]
+                   + dtf * (c_now * Gt[n] + c_prev * state.Gtracers[n])
+                   for n in self.tracer_names}
+        return u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2
+
+    def _step_qab2(self, state, dt, chi=0.1):
+        """Quasi-AB2 from a filled state with w diagnosed. ``dt`` is a 0-d
+        CPU tensor in the state's dtype."""
+        u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2 = self.ab2_update(
+            state, dt, chi)
+        fs = self.free_surface
+        Geta = state.Geta
+        if isinstance(fs, ExplicitFreeSurface):
+            # η is an AB2 prognostic with Gη = −∇·U of the same time-n
+            # transports whose fluxes move the tracers
+            c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
+            Geta = -self._div_transports(*self._barotropic_mode(state.u,
+                                                                state.v))
+            eta = state.eta + dt.item() * (c_now * Geta
+                                           + c_prev * state.Geta)
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers, eta=eta))
+        else:
+            eta_f, U_f, V_f = self._step_free_surface_split(
+                _replace(state, u=u, v=v), Gu_ab2, Gv_ab2, dt, fs)
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers, eta=eta_f,
+                         U=U_f, V=V_f))
+            state2 = self._barotropic_correct(state2, U_f, V_f)
+        state2 = _replace(state2, Gu=Gu, Gv=Gv, Gtracers=Gt, Geta=Geta,
+                          clock=tick(state2.clock, dt))
+        return self.update_state(state2)
+
+    def cfl_timescale(self, state):
+        return cell_advection_timescale(self.grid, state.u, state.v,
+                                        state.w)
+
+    def extra_repr(self):
+        return (f"free_surface={self.free_surface!r}, "
+                f"momentum_advection={self.momentum_advection!r}, "
+                f"tracer_advection={self.tracer_advection!r}, "
+                f"tracers={self.tracer_names}")
+
+
+__all__ = ["CrossAndSelfUpwinding", "ExplicitFreeSurface",
+           "HydrostaticFreeSurfaceModel", "HydrostaticState",
+           "ImplicitFreeSurface", "OnlySelfUpwinding",
+           "PrescribedVelocityFields", "SplitExplicitFreeSurface",
+           "VectorInvariant", "WENOVectorInvariant", "ZCoordinate", "ZStar",
+           "averaging_shape_function", "weights_from_substeps"]

@@ -4,8 +4,9 @@ At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for Hopper
 (``sm_90a``), one process per source, all started together, and links the
 objects into one shared library with a plain C interface, in
 ``build/oceananigans_torch/`` beside the package (git ignores ``build/``).
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. It is loaded with
+The library's name carries a hash of the sources, the headers they include
+(``csrc/*.h``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. It is loaded with
 ``ctypes``; every entry point launches on the stream it is given and returns
 ``cudaGetLastError()``.
 """
@@ -43,6 +44,8 @@ SIGNATURES = {
     "ot_weno5_ab2": [_P] * 9 + [_I] * 3 + [_D] * 6 + [_P],
     "ot_weno5_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 7 + [_I] + [_P],
     "ot_sw_rk3_stage": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
+    "ot_weno_tracers": [_P] * 5 + [_I] * 4 + [_P, _I, _D, _P],
+    "ot_vi_tendency": [_P] * 5 + [_I] * 3 + [_P, _I, _I, _D, _P],
 }
 
 _lib = None
@@ -63,7 +66,7 @@ def _nvcc():
 def library_path():
     sources = sorted(SOURCE_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(SOURCE_DIR.glob("*.h")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return sources, BUILD_DIR / f"liboceananigans_torch_{h.hexdigest()[:16]}.so"

@@ -1,0 +1,140 @@
+"""The hand-written CUDA kernel of WENO tracer advection of any odd order,
+with its plain PyTorch version.
+
+Counterpart of ``oceananigans_tpu/ops/pallas_tracer.py``
+(``weno_tracer_tendencies``, ``_tracer_core``, ``_kernel``): one pass
+computes −∇·(𝐯c) for every tracer, reading u, v and w once for up to
+:data:`MAX_TRACERS` of them. The kernel is ``csrc/weno_tracer.cu``, a
+template on the WENO order (3 to 11) whose coefficients come from
+``csrc/weno_tables.h``.
+
+Both TPU layouts, (x, y, z) and the transposed (z, y, x), exist only for
+the TPU's 128 lanes; on the GPU the one kernel works on the port's
+(x, y, z) tensors with z contiguous. It computes every point of the
+halo-extended tensors, with neighbours wrapped modulo the full extent on
+every axis, exactly as the plain version's whole-tensor operators
+(``advection.div_Uc``, built on ``torch.roll``) do: the two agree on every
+point, halo rows included, where the JAX kernels write zeros into their
+output halo rows. The face areas and the volume enter as y-profiles
+(:func:`tracer_metric_profiles`), built once by the model.
+
+The wrapper takes its plain version for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; there is no fallback from one to
+the other. It counts its launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from oceananigans_torch.advection import WENO, div_Uc
+from oceananigans_torch.grids.base import Center, Face, Periodic
+from oceananigans_torch.ops import _build
+from oceananigans_torch.ops.cuda_kernels import (
+    MAX_TRACERS, check_operands, on_cuda, pointers,
+)
+
+#: the WENO orders the kernel is instantiated for
+ORDERS = (3, 5, 7, 9, 11)
+#: the face areas and the cell volume of the flux divergence, in the order
+#: the kernel reads its metric profiles
+METRICS = ("ax_fcc", "ay_cfc", "az_cc", "v_ccc")
+
+
+def tracer_reach(scheme) -> int:
+    """Cells each side that the kernel reads: a face reconstruction reads
+    offsets -B..B-1 and the divergence takes the faces i and i+1."""
+    return (scheme.order + 1) // 2
+
+
+def axes_reachable(grid, reach) -> bool:
+    """Every axis has more than one cell, more cells than ``reach`` (the
+    kernels wrap a neighbour by one period at most) and either a halo of
+    ``reach[axis]`` or more or no halo on a periodic axis (where the wrap
+    is the periodic boundary itself)."""
+    return all(
+        grid.N[axis] > 1 and grid.shape[axis] > reach[axis]
+        and (grid.H[axis] >= reach[axis]
+             or (grid.axis_topo(axis) == Periodic and grid.H[axis] == 0))
+        for axis in range(3))
+
+
+def tracer_fusion_available(grid, scheme) -> bool:
+    """True when the kernel applies: a regular rectilinear grid, plain WENO
+    (no bounds) of an order in :data:`ORDERS`, and the reach of
+    :func:`axes_reachable` on every axis. Unlike the JAX gate, a
+    halo-free periodic axis needs no (8, 128) alignment and may be x, and
+    the lat-lon grid (not ported) is not taken."""
+    from oceananigans_torch.grids.rectilinear import RectilinearGrid
+    if not (isinstance(grid, RectilinearGrid) and grid.regular):
+        return False
+    if not (type(scheme) is WENO and scheme.bounds is None
+            and scheme.order in ORDERS):
+        return False
+    return axes_reachable(grid, (tracer_reach(scheme),) * 3)
+
+
+def metric_profile(grid, expr):
+    """A metric that varies at most along y, as its y-profile over the full
+    y extent (taken at the first interior x and z)."""
+    full = torch.broadcast_to(expr, grid.shape)
+    return full[grid.H[0], :, grid.H[2]]
+
+
+def tracer_metric_profiles(grid):
+    """The (4, ny) profiles of :data:`METRICS`."""
+    exprs = (grid.Ax(Face, Center, Center), grid.Ay(Center, Face, Center),
+             grid.Az(Center, Center), grid.V(Center, Center, Center))
+    return torch.stack([metric_profile(grid, e) for e in exprs]).contiguous()
+
+
+def weno_tracer_tendencies_plain(grid, scheme, u, v, w, tracers):
+    """Plain version of :func:`weno_tracer_tendencies`: −div_Uc per
+    tracer."""
+    return {n: -div_Uc(grid, scheme, u, v, w, c) for n, c in tracers.items()}
+
+
+def weno_tracer_tendencies(grid, scheme, u, v, w, tracers, metrics=None):
+    """``{name: −∇·(𝐯c)}`` with ``scheme``'s WENO fluxes for each tracer of
+    the dict ``tracers``, on every point. ``metrics``: the profiles of
+    :func:`tracer_metric_profiles` (built here when not given)."""
+    name = "weno_tracer_tendencies"
+    if not tracer_fusion_available(grid, scheme):
+        raise ValueError(f"{name}: no kernel for {scheme!r} on {grid!r} "
+                         "(see tracer_fusion_available)")
+    names = list(tracers)
+    check_operands(name, (u, v, w, *tracers.values()), grid.shape)
+    if not names:
+        return {}
+    if not on_cuda(u):
+        return weno_tracer_tendencies_plain(grid, scheme, u, v, w, tracers)
+    if u.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: fields of {u.numel()} points exceed the "
+                         "kernel's 32-bit indexing")
+    if metrics is None:
+        metrics = tracer_metric_profiles(grid)
+    check_operands(name, (metrics,), (len(METRICS), grid.shape[1]))
+    if metrics.device != u.device or metrics.dtype != u.dtype:
+        raise ValueError(f"{name}: metrics differ from the fields in device "
+                         "or dtype")
+    out = {n: torch.empty_like(u) for n in names}
+    for lo in range(0, len(names), MAX_TRACERS):
+        chunk = names[lo:lo + MAX_TRACERS]
+        cs = pointers([tracers[n] for n in chunk])
+        gs = pointers([out[n] for n in chunk])
+        _build.launch("ot_weno_tracers", u.dtype, u.device,
+                      u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                      ctypes.addressof(cs), ctypes.addressof(gs), len(chunk),
+                      *u.shape, metrics.data_ptr(), scheme.order,
+                      float(scheme.epsilon))
+        weno_tracer_tendencies.launches += 1
+    return out
+
+
+weno_tracer_tendencies.launches = 0
+
+__all__ = ["METRICS", "ORDERS", "tracer_fusion_available",
+           "tracer_metric_profiles", "weno_tracer_tendencies",
+           "weno_tracer_tendencies_plain"]

@@ -26,6 +26,14 @@ steps; every shallow-water measurement therefore starts again from the
 initial state after 2 warm-up steps and runs 20 (8192²) or 4 (16384²)
 steps.
 
+The hydrostatic one is ``bench.py``'s ``hydro_vi``: 360 × 160 × 60,
+extent (4e7, 2e7, 4e3) m, (Periodic, Bounded, Bounded), halo (6, 6, 4),
+float32, ``WENOVectorInvariant()`` momentum advection, ``WENO(7)`` tracers
+T and S, ``SplitExplicitFreeSurface(substeps=30)``, Δt = 60 s, the initial
+u, T and S of ``bench.py``, stepped by quasi-AB2 (the VI kernel and the
+tracer kernel once a step, 21 barotropic substeps, the fills), 20 steps
+per run after 5 warm-up steps.
+
 It runs the kernel path (``fused_kernels="auto"``) and the plain path
 (``fused_kernels=False``) and prints, for each path:
 
@@ -36,8 +44,9 @@ It runs the kernel path (``fused_kernels="auto"``) and the plain path
 2. the host's time to enqueue one step;
 3. device time per phase: CUDA events between the phases of
    :func:`phased_ab2_step` (:data:`PHASES`) or :func:`phased_sw_step`
-   (:data:`SW_PHASES`), which repeat ``model.step`` phase by phase and are
-   checked equal to it on the same state first;
+   (:data:`SW_PHASES`) or :func:`phased_hydro_step`
+   (:data:`HYDRO_PHASES`), which repeat ``model.step`` phase by phase and
+   are checked equal to it on the same state first;
 4. device kernel time per step from ``torch.profiler`` over 10 steps, the
    wall time of those steps by CUDA events, and the device's idle share
    (1 - kernel time / wall time), with the largest kernels; ``--trace-dir``
@@ -150,6 +159,88 @@ def phased_sw_step(model, state, dt, mark):
     state = model.fill_state_halos(state)
     mark()
     return state
+
+
+HYDRO_PHASES = ("momentum tendency", "tracer tendencies", "AB2 update",
+                "barotropic substeps", "fill after the free surface",
+                "barotropic correction", "trailing fill", "compute_w")
+
+
+def phased_hydro_step(model, state, dt, mark):
+    """``model.step(state, dt, assume_filled=True)`` for a hydrostatic
+    model with the split-explicit free surface, with ``mark()`` called
+    after each of the :data:`HYDRO_PHASES`."""
+    from oceananigans_torch.timesteppers import tick
+    replace = dataclasses.replace
+
+    dt = torch.tensor(dt, dtype=state.u.dtype)
+    Gu, Gv = model.momentum_tendencies(state)
+    mark()
+    Gt = model.tracer_tendencies(state)
+    mark()
+    u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2 = model.ab2_update(
+        state, dt, tendencies=(Gu, Gv, Gt))
+    mark()
+    eta_f, U_f, V_f = model._step_free_surface_split(
+        replace(state, u=u, v=v), Gu_ab2, Gv_ab2, dt, model.free_surface)
+    mark()
+    state2 = model.fill_state_halos(
+        replace(state, u=u, v=v, tracers=tracers, eta=eta_f, U=U_f, V=V_f))
+    mark()
+    state2 = model._barotropic_correct(state2, U_f, V_f)
+    state2 = replace(state2, Gu=Gu, Gv=Gv, Gtracers=Gt,
+                     clock=tick(state2.clock, dt))
+    mark()
+    state2 = model.fill_state_halos(state2)
+    mark()
+    state2 = model.compute_w(state2)
+    mark()
+    return state2
+
+
+#: ``bench.py``'s hydrostatic configuration, its time step and the steps of
+#: one measurement
+HYDRO_CONFIG, HYDRO_DT, HYDRO_STEPS = "hydro_vi", 60.0, 20
+
+
+def hydro_model(fused="auto", dtype=torch.float32, device="cuda",
+                size=(360, 160, 60)):
+    """``bench.py``'s ``hydro_vi`` model (at ``size``)."""
+    import oceananigans_torch as ot
+    grid = ot.RectilinearGrid(size=size, extent=(4e7, 2e7, 4e3),
+                              topology=(ot.Periodic, ot.Bounded, ot.Bounded),
+                              halo=(6, 6, 4), dtype=dtype, device=device)
+    return ot.HydrostaticFreeSurfaceModel(
+        grid=grid, momentum_advection=ot.WENOVectorInvariant(),
+        tracer_advection=ot.WENO(7), tracers=("T", "S"),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        fused_kernels=fused)
+
+
+def hydro_initial_state(model):
+    """``bench.py``'s initial u, T and S of ``hydro_vi``."""
+    return model.initial_state(
+        u=lambda x, y, z: 0.1 * torch.sin(2 * math.pi * x / 4e7)
+        * torch.cos(math.pi * y / 2e7),
+        T=lambda x, y, z: 20.0 + 8e-4 * z + 1e-7 * y,
+        S=lambda x, y, z: 35.0 + 1e-8 * y)
+
+
+def hydro_generic_state(model):
+    """A ``hydro_vi`` state without the exact zeros of ``bench.py``'s u
+    (on the x = 0 faces) and v: the Bernoulli self difference of the
+    vector-invariant form takes one biased side where the velocity is
+    positive, the other where it is negative and their mean where it is
+    zero, so where symmetry leaves a velocity within rounding of zero two
+    devices' roundings pick different sides. Comparisons of devices start
+    from this state."""
+    return model.initial_state(
+        u=lambda x, y, z: 0.1 * torch.sin(2 * math.pi * x / 4e7 + 0.5)
+        * torch.cos(math.pi * y / 2e7 + 0.2) + 0.01,
+        v=lambda x, y, z: 0.05 * torch.cos(2 * math.pi * x / 4e7 + 0.3)
+        * torch.sin(math.pi * y / 2e7),
+        T=lambda x, y, z: 20.0 + 8e-4 * z + 1e-7 * y,
+        S=lambda x, y, z: 35.0 + 1e-8 * y)
 
 
 #: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo
@@ -366,9 +457,37 @@ def _shallow_water(name, trace_dir):
         torch.cuda.empty_cache()
 
 
+def _hydrostatic(trace_dir):
+    dt, steps = HYDRO_DT, HYDRO_STEPS
+    models = {k: hydro_model(fused) for k, fused in (("kernel", "auto"),
+                                                    ("plain", False))}
+    mk = models["kernel"]
+    print(f"configuration {HYDRO_CONFIG}: HydrostaticFreeSurfaceModel at "
+          f"{mk.grid.N}, halo {mk.grid.H}, WENOVectorInvariant(), WENO(7) "
+          f"tracers T and S, {mk.free_surface!r}, dt {dt}; kernel path "
+          f"fused_kernels={mk.fused_kernels}, "
+          f"fused_tracer={mk.fused_tracer}", flush=True)
+    if not (mk.fused_kernels and mk.fused_tracer) or \
+            models["plain"].fused_kernels or models["plain"].fused_tracer:
+        raise RuntimeError("the kernel path must take both kernels and the "
+                           "plain path neither")
+    states = {}
+    for k, m in models.items():
+        s = m.update_state(hydro_initial_state(m))
+        states[k] = _run(m, s, dt, 5)
+    _alternated(models, states, dt, steps)
+    fields = ("u", "v", "w", "eta", "Gu", "Gv", "Geta", "U", "V")
+    for k, model in models.items():
+        states[k] = _profile_path(k, model, states[k], dt, phased_hydro_step,
+                                  HYDRO_PHASES, fields, trace_dir)
+        del states[k]
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=CONFIGS + tuple(SW_CONFIGS),
+    parser.add_argument("--config",
+                        choices=CONFIGS + tuple(SW_CONFIGS) + (HYDRO_CONFIG,),
                         default="default")
     parser.add_argument("--trace-dir", type=Path, default=None)
     args = parser.parse_args(argv)
@@ -389,6 +508,9 @@ def main(argv=None):
     _build.load()
     if args.config in SW_CONFIGS:
         _shallow_water(args.config, args.trace_dir)
+        return
+    if args.config == HYDRO_CONFIG:
+        _hydrostatic(args.trace_dir)
         return
 
     N, dt, steps = 256, 1e-4, 100

@@ -469,13 +469,22 @@ def test_unported_arguments_raise():
         ot.ShallowWaterModel(grid=grid, forcing={"uh": 1.0})
     with pytest.raises(NotImplementedError):
         ot.ShallowWaterModel(grid=grid, coriolis=object())
-    for kw in (dict(vorticity_scheme=ot.WENO(5)),
-               dict(vertical_scheme=ot.WENO(5)),
-               dict(divergence_scheme=ot.WENO(5)),
-               dict(kinetic_energy_gradient_scheme=ot.WENO(5)),
-               dict(multi_dimensional_stencil=True)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            VectorInvariant(**kw)
+    # the scheme-valued VectorInvariant options are ported now (with the
+    # hydrostatic model); they build as in the JAX package
+    from oceananigans_tpu import WENO as JWENO
+    from oceananigans_tpu.models.hydrostatic import VectorInvariant as JVI
+    for kw, jkw in ((dict(vorticity_scheme=ot.WENO(5)),
+                     dict(vorticity_scheme=JWENO(5))),
+                    (dict(vertical_scheme=ot.WENO(5)),
+                     dict(vertical_scheme=JWENO(5))),
+                    (dict(divergence_scheme=ot.WENO(5)),
+                     dict(divergence_scheme=JWENO(5))),
+                    (dict(kinetic_energy_gradient_scheme=ot.WENO(5)),
+                     dict(kinetic_energy_gradient_scheme=JWENO(5))),
+                    (dict(multi_dimensional_stencil=True),
+                     dict(multi_dimensional_stencil=True))):
+        assert VectorInvariant(**kw).required_halo == \
+            JVI(**jkw).required_halo
     with pytest.raises(ValueError):
         VectorInvariant("unknown")
     with pytest.raises(ValueError):               # needs the VI formulation

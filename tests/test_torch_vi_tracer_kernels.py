@@ -1,0 +1,513 @@
+"""oceananigans_torch's WENO tracer kernel, WENO vector-invariant kernel and
+vector-invariant momentum advection against the JAX package, on the CPU.
+
+On the CPU the kernels' wrappers run their plain versions, so these tests
+hold the kernel code paths (gates, metric profiles, operand checks) and the
+plain versions to the JAX package; the CUDA kernels themselves are held to
+the plain versions on the card (``tests/test_torch_hydrostatic_gpu.py``,
+``chip_smoke.py``). Inputs are made with numpy from a seed and handed to
+both packages. Tolerance: 1e-12 of the largest reference value, in float64
+(both packages evaluate the same whole-array formulas, or the JAX Pallas
+kernels the same terms in interpret mode).
+
+The coefficient header ``csrc/weno_tables.h`` is read here and every
+literal held to the JAX package's Python tables to one float64 ulp.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oceananigans_torch as ot
+import oceananigans_tpu as oj
+from oceananigans_torch.ops import cuda_tracer as ctr
+from oceananigans_torch.ops import cuda_vi as cvi
+from oceananigans_tpu import advection as j_adv
+from oceananigans_tpu.boundary_conditions import (
+    fill_halo_regions as j_fill, regularize_field_boundary_conditions,
+)
+from oceananigans_tpu.models import hydrostatic as j_hyd
+
+RTOL = 1e-12
+F64 = torch.float64
+BBB = (oj.Bounded, oj.Bounded, oj.Bounded)
+LOCS = {"u": oj.LOC_U, "v": oj.LOC_V, "w": oj.LOC_W, "T": oj.LOC_C,
+        "S": oj.LOC_C}
+HEADER = (Path(__file__).resolve().parent.parent / "oceananigans_torch"
+          / "csrc" / "weno_tables.h")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port runs on the GPU by default; these tests ask for the CPU."""
+    old = ot.config.device
+    ot.config.device = "cpu"
+    yield
+    ot.config.device = old
+
+
+def setup(size, halo, topology=BBB, extent=(1.0, 2.0, 0.5), seed=3,
+          zero_bands=False):
+    """Both packages' grids and the same halo-filled random fields; with
+    ``zero_bands`` u and v are exactly zero on some rows, so that advecting
+    velocities of both signs and exact zeros meet."""
+    kw = dict(size=size, extent=extent, topology=topology, halo=halo)
+    jg = oj.RectilinearGrid(dtype="float64", **kw)
+    tg = ot.RectilinearGrid(dtype=F64, **kw)
+    rng = np.random.default_rng(seed)
+    j, t = {}, {}
+    for name, loc in LOCS.items():
+        a = rng.standard_normal(tg.shape)
+        if zero_bands and name == "u":
+            a[:, :, ::3] = 0.0
+        if zero_bands and name == "v":
+            a[::2] = 0.0
+        bcs = regularize_field_boundary_conditions(None, jg, loc)
+        j[name] = j_fill(jnp.asarray(a), jg, bcs, loc)
+        t[name] = ot.fill_halo_regions(torch.tensor(a), tg, loc=loc)
+    return jg, tg, j, t
+
+
+def assert_close(got, ref, S=(slice(None),) * 3, rtol=RTOL):
+    got = got.detach().numpy()[S]
+    ref = np.asarray(ref)[S]
+    scale = np.abs(ref).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rtol * scale)
+
+
+# ---------------------------------------------------------------------------
+# The coefficient header
+# ---------------------------------------------------------------------------
+
+def _parse_header():
+    """{order: {table name: flat list of numbers, "form": BetaForm}}."""
+    text = HEADER.read_text()
+    number = r"-?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?"
+    tables = {}
+    for m in re.finditer(r"struct WenoTable<(\d+)> \{(.*?)\n\};", text, re.S):
+        body = m.group(2)
+        entry = {"form": re.search(r"BetaForm::(\w+);", body).group(1),
+                 "B": int(re.search(r"int B = (\d+);", body).group(1))}
+        for f in re.finditer(r"static constexpr \w+ (\w+)\([^)]*\) \{\s*"
+                             r"constexpr \w+ c[\[\]\d]+ = (\{.*?\});",
+                             body, re.S):
+            entry[f.group(1)] = [float(x) for x in
+                                 re.findall(number, f.group(2))]
+        tables[int(m.group(1))] = entry
+    return tables
+
+
+def _quadratic_form(beta, B):
+    """The symmetric matrix of the quadratic form ``beta(v)`` in B values."""
+    e = np.eye(B)
+    Q = np.zeros((B, B))
+    for m in range(B):
+        Q[m, m] = beta(e[m])
+    for m in range(B):
+        for n in range(m + 1, B):
+            Q[m, n] = Q[n, m] = 0.5 * (beta(e[m] + e[n]) - Q[m, m]
+                                       - Q[n, n])
+    return Q
+
+
+def _within_ulp(got, ref):
+    got, ref = np.asarray(got, float), np.asarray(ref, float)
+    assert got.shape == ref.shape
+    assert np.all(np.abs(got - ref) <= np.spacing(np.abs(ref))), (got, ref)
+
+
+@pytest.mark.parametrize("order", [3, 5, 7, 9, 11])
+def test_weno_tables_header_matches_python(order):
+    """Every literal of ``csrc/weno_tables.h`` against the JAX package's
+    tables: the sub-stencil offsets and coefficients, the ideal weights and
+    the smoothness forms (the hand forms of orders 3, 5 and 7, the
+    generated quadratic forms of 9 and 11), each to one ulp."""
+    from oceananigans_tpu.ops import reconstruction_coefficients as j_rc
+    tab = _parse_header()[order]
+    B = (order + 1) // 2
+    assert tab["B"] == B
+    if order in j_adv._WENO_Q:
+        qs, gammas = j_adv._WENO_Q[order], j_adv._WENO_GAMMA[order]
+    else:
+        qs = j_rc.weno_substencils(order)
+        gammas = j_rc.weno_ideal_weights(order)
+    lo = [min(q) for q in qs]
+    assert tab["lo"] == lo
+    assert all(sorted(q) == list(range(lo[r], lo[r] + B))
+               for r, q in enumerate(qs))
+    _within_ulp(tab["q"], [q[lo[r] + j] for r, q in enumerate(qs)
+                           for j in range(B)])
+    _within_ulp(tab["gamma"], gammas)
+
+    def python_beta(r):
+        def beta(v):
+            s = {n: 0.0 for n in range(-B, B)}
+            for j in range(B):
+                s[lo[r] + j] = v[j]
+            if order in j_adv._WENO_BETAS:
+                return j_adv._WENO_BETAS[order](s)[r]
+            return j_adv.WENO(order)._betas_from_forms(s)[r]
+        return beta
+
+    if order in (3, 5):
+        assert tab["form"] == "kSquares"
+        w = tab["w"]
+        _within_ulp(w, (1.0,) if order == 3 else (13.0 / 12.0, 0.25))
+        L = np.reshape(tab["l"], (B, len(w), B))
+        assert np.array_equal(L, np.round(L))     # integer stencils
+        for r in range(B):
+            Q = sum(wt * np.outer(L[r, t], L[r, t]) for t, wt in enumerate(w))
+            np.testing.assert_allclose(Q, _quadratic_form(python_beta(r), B),
+                                       rtol=0, atol=1e-13)
+        return
+    assert tab["form"] == "kTriangular"
+    P = np.reshape(tab["p"], (B, B, B))
+    for r in range(B):
+        assert not np.triu(P[r].T, 1).any()       # upper-triangular
+        if order == 7:
+            # the Balsara–Shu integers, read off the Python hand forms
+            Q = _quadratic_form(python_beta(r), B)
+            ref = np.triu(2 * Q, 1) + np.diag(np.diag(Q))
+            assert np.array_equal(P[r], ref)
+        else:
+            M = j_rc.weno_beta_forms(order)[r]
+            ref = np.triu(np.where(np.abs(M) > 1e-14, 2 * M, 0.0), 1) \
+                + np.diag(np.diag(M))
+            _within_ulp(P[r], ref)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: WENO tracer tendencies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", [5, 7])
+def test_tracer_kernel_path_matches_xla(order):
+    """``weno_tracer_tendencies`` (its plain version on the CPU) against
+    the JAX −div_Uc on ``tests/test_pallas_vi.py``'s grids, every point."""
+    B = (order + 1) // 2
+    jg, tg, j, t = setup((16, 12, 8), B + 1, seed=7)
+    sch = ot.WENO(order)
+    assert ctr.tracer_fusion_available(tg, sch)
+    got = ctr.weno_tracer_tendencies(tg, sch, t["u"], t["v"], t["w"],
+                                     {"T": t["T"], "S": t["S"]})
+    for name in ("T", "S"):
+        ref = -j_adv.div_Uc(jg, j_adv.WENO(order), j["u"], j["v"], j["w"],
+                            j[name])
+        assert_close(got[name], ref)
+
+
+def test_tracer_kernel_path_matches_pallas_zyx():
+    """The port against the JAX kernel in its transposed (z, y, x) layout,
+    in interpret mode, on the interior (the JAX kernel writes zeros into
+    its output's z-halo rows)."""
+    from oceananigans_tpu.ops.pallas_tracer import weno_tracer_tendencies
+    jg, tg, j, t = setup((16, 12, 8), 5, seed=5)
+    ref = weno_tracer_tendencies(jg, j_adv.WENO(7), j["u"], j["v"], j["w"],
+                                 {"T": j["T"], "S": j["S"]}, interpret=True,
+                                 layout="zyx")
+    got = ctr.weno_tracer_tendencies(tg, ot.WENO(7), t["u"], t["v"], t["w"],
+                                     {"T": t["T"], "S": t["S"]})
+    for name in ("T", "S"):
+        assert_close(got[name], ref[name], tg.interior_slices)
+
+
+def test_tracer_gate():
+    """The port's gate against the JAX one: the same verdict on the JAX
+    tests' grids and on ``hydro_vi``'s; the port also takes halo-free
+    periodic axes of any length (the JAX kernel needs (8, 128) alignment)
+    and a halo-free periodic x."""
+    from oceananigans_tpu.ops.pallas_tracer import (
+        tracer_fusion_available, transposed_layout_preferred,
+    )
+
+    def both(size, halo, topology=BBB):
+        kw = dict(size=size, extent=(1.0, 2.0, 0.5), topology=topology,
+                  halo=halo)
+        return (oj.RectilinearGrid(dtype="float64", **kw),
+                ot.RectilinearGrid(dtype=F64, **kw))
+
+    for order, halo in ((5, 4), (7, 5), (7, 3)):
+        jg, tg = both((16, 12, 8), halo)
+        assert ctr.tracer_fusion_available(tg, ot.WENO(order)) == \
+            tracer_fusion_available(jg, j_adv.WENO(order))
+    jg, tg = both((360, 160, 60), (6, 6, 4),
+                  (oj.Periodic, oj.Bounded, oj.Bounded))
+    assert ctr.tracer_fusion_available(tg, ot.WENO(7))
+    assert tracer_fusion_available(jg, j_adv.WENO(7))
+    assert transposed_layout_preferred(jg, j_adv.WENO(7))
+    assert not ctr.tracer_fusion_available(tg, ot.Centered())
+    # where the gates differ: halo-free periodic y of 12, x of 12
+    PPB = (oj.Periodic, oj.Periodic, oj.Bounded)
+    for halo in ((4, 0, 4), (0, 4, 4)):
+        jg, tg = both((12, 12, 8), halo, PPB)
+        assert ctr.tracer_fusion_available(tg, ot.WENO(7))
+        assert not tracer_fusion_available(jg, j_adv.WENO(7))
+
+
+def test_tracer_gate_differences_match_xla():
+    """On the layouts only the port's gate takes, its kernel path matches
+    the JAX XLA path (the halo-free periodic wrap is the boundary)."""
+    PPB = (oj.Periodic, oj.Periodic, oj.Bounded)
+    jg, tg, j, t = setup((12, 10, 8), (0, 0, 4), PPB, seed=9)
+    sch = ot.WENO(7)
+    assert ctr.tracer_fusion_available(tg, sch)
+    got = ctr.weno_tracer_tendencies(tg, sch, t["u"], t["v"], t["w"],
+                                     {"T": t["T"]})
+    ref = -j_adv.div_Uc(jg, j_adv.WENO(7), j["u"], j["v"], j["w"], j["T"])
+    assert_close(got["T"], ref)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 12/13: the WENO vector-invariant momentum tendency
+# ---------------------------------------------------------------------------
+
+VI_GRIDS = {
+    # tests/test_pallas_vi.py:47-68
+    "bounded": ((16, 12, 8), 6, BBB, None),
+    "halofree5": ((12, 16, 128), (4, 0, 0),
+                  (oj.Bounded, oj.Periodic, oj.Periodic), 5),
+}
+
+
+def _vi_pair(stencil, order=None):
+    kw = dict(vorticity_stencil=stencil)
+    if order is not None:
+        kw["order"] = order
+    return ot.WENOVectorInvariant(**kw), j_hyd.WENOVectorInvariant(**kw)
+
+
+@pytest.mark.parametrize("stencil", ["velocity", "default"])
+@pytest.mark.parametrize("grid", sorted(VI_GRIDS))
+def test_vi_kernel_path_matches_xla(grid, stencil):
+    """``vi_momentum_tendency`` (its plain version on the CPU) against the
+    JAX ``u_tendency``/``v_tendency``, every point."""
+    size, halo, topo, order = VI_GRIDS[grid]
+    jg, tg, j, t = setup(size, halo, topo)
+    tvi, jvi = _vi_pair(stencil, order)
+    assert cvi.vi_available(tg, tvi)
+    Gu, Gv = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    assert_close(Gu, jvi.u_tendency(jg, j["u"], j["v"], j["w"]))
+    assert_close(Gv, jvi.v_tendency(jg, j["u"], j["v"], j["w"]))
+
+
+def test_vi_kernel_path_zero_velocities():
+    """Exact zeros in u and v: the Bernoulli self difference then takes the
+    mean of both biased values, every other term either side times 0."""
+    jg, tg, j, t = setup((16, 12, 8), 6, zero_bands=True)
+    tvi, jvi = _vi_pair("velocity")
+    Gu, Gv = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    assert_close(Gu, jvi.u_tendency(jg, j["u"], j["v"], j["w"]))
+    assert_close(Gv, jvi.v_tendency(jg, j["u"], j["v"], j["w"]))
+
+
+@pytest.mark.parametrize("layout", ["xyz", "zyx"])
+def test_vi_kernel_path_matches_pallas(layout):
+    """The port against the JAX kernels ``vi_momentum_tendency`` ((x, y,
+    z) layout) and ``vi_momentum_tendency_zyx`` in interpret mode, on the
+    interior (the JAX kernels write zeros into their output halo rows)."""
+    from oceananigans_tpu.ops import pallas_vi
+    fn = (pallas_vi.vi_momentum_tendency if layout == "xyz"
+          else pallas_vi.vi_momentum_tendency_zyx)
+    jg, tg, j, t = setup((16, 12, 8), 6)
+    tvi, jvi = _vi_pair("velocity")
+    ref = fn(jg, jvi, j["u"], j["v"], j["w"], interpret=True)
+    got = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    for g, r in zip(got, ref):
+        assert_close(g, r, tg.interior_slices)
+
+
+def test_vi_gate():
+    """The cases of ``test_vi_availability_gate`` and ``hydro_vi``'s grid,
+    with the JAX gates beside the port's."""
+    from oceananigans_tpu.ops.pallas_vi import (
+        vi_available, vi_transposed_layout_preferred,
+    )
+
+    def both(size, halo, topology=BBB):
+        kw = dict(size=size, extent=(1.0, 2.0, 0.5), topology=topology,
+                  halo=halo)
+        return (oj.RectilinearGrid(dtype="float64", **kw),
+                ot.RectilinearGrid(dtype=F64, **kw))
+
+    jg, tg = both((16, 12, 8), 6)
+    tvi, jvi = _vi_pair("velocity")
+    assert cvi.vi_available(tg, tvi) and vi_available(jg, jvi)
+    # conserving schemes and cross-and-self upwinding stay unfused
+    assert not cvi.vi_available(tg, ot.VectorInvariant())
+    assert not vi_available(jg, j_hyd.VectorInvariant())
+    assert not cvi.vi_available(tg, ot.WENOVectorInvariant(
+        upwinding=ot.CrossAndSelfUpwinding()))
+    assert not cvi.vi_available(tg, ot.WENOVectorInvariant(
+        multi_dimensional_stencil=True))
+    # insufficient x halo for WENO-9 vorticity; order 5 fits
+    jg, tg = both((16, 12, 8), 4)
+    assert not cvi.vi_available(tg, ot.WENOVectorInvariant())
+    assert not vi_available(jg, j_hyd.WENOVectorInvariant())
+    assert cvi.vi_available(tg, ot.WENOVectorInvariant(order=5))
+    assert vi_available(jg, j_hyd.WENOVectorInvariant(order=5))
+    # orders other than 5 for the other three schemes: not instantiated
+    assert not cvi.vi_available(tg, ot.WENOVectorInvariant(order=3))
+    # hydro_vi: both gates hold (the JAX model takes the transposed kernel)
+    jg, tg = both((360, 160, 60), (6, 6, 4),
+                  (oj.Periodic, oj.Bounded, oj.Bounded))
+    tvi, jvi = _vi_pair("velocity")
+    assert cvi.vi_available(tg, tvi)
+    assert vi_available(jg, jvi) and vi_transposed_layout_preferred(jg, jvi)
+    assert cvi.vi_reach(tvi) == (5, 5, 3)
+
+
+@pytest.mark.parametrize("halo", [(5, 5, 3), (0, 6, 4)])
+def test_vi_gate_differences(halo):
+    """Where the port's gate differs from the JAX ones: halo (5, 5, 3) is
+    the kernel's own reach (the JAX gates ask 6 on y and 4 on z), (0, 6, 4)
+    a halo-free periodic x. The kernel path's interior then equals the one
+    computed on a (7, 7, 5)-halo grid from the same interior fields."""
+    from oceananigans_tpu.ops.pallas_vi import (
+        vi_available, vi_transposed_layout_preferred,
+    )
+    size = (14, 10, 6)
+    PBB = (oj.Periodic, oj.Bounded, oj.Bounded)
+    jg, tg, _, t = setup(size, halo, PBB, seed=4)
+    tvi, jvi = _vi_pair("velocity")
+    assert cvi.vi_available(tg, tvi)
+    assert not (vi_available(jg, jvi)
+                or vi_transposed_layout_preferred(jg, jvi))
+    wide = ot.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
+                              topology=PBB, halo=(7, 7, 5), dtype=F64)
+    tw = {}
+    for name in ("u", "v", "w"):
+        a = torch.zeros(wide.shape, dtype=F64)
+        a[wide.interior_slices] = tg.interior(t[name])
+        tw[name] = ot.fill_halo_regions(a, wide, loc=LOCS[name])
+    got = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    ref = cvi.vi_momentum_tendency(wide, tvi, tw["u"], tw["v"], tw["w"])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(tg.interior(g), wide.interior(r),
+                                   rtol=0, atol=1e-13 * float(r.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# VectorInvariant options against the JAX package
+# ---------------------------------------------------------------------------
+
+def _smooth_fields(seed=2):
+    """A (16, 16, 8) periodic-periodic-bounded grid with halo 6 and smooth
+    velocities plus noise, in both packages."""
+    topo = (oj.Periodic, oj.Periodic, oj.Bounded)
+    kw = dict(size=(16, 16, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=(-1.0, 0.0),
+              topology=topo, halo=6)
+    jg = oj.RectilinearGrid(dtype="float64", **kw)
+    tg = ot.RectilinearGrid(dtype=F64, **kw)
+    rng = np.random.default_rng(seed)
+    x = np.asarray(tg.xC).reshape(-1, 1, 1)
+    y = np.asarray(tg.yC).reshape(1, -1, 1)
+    z = np.asarray(tg.zC).reshape(1, 1, -1)
+    base = {"u": np.sin(2 * np.pi * x) * np.cos(2 * np.pi * y) + 0 * z,
+            "v": -np.cos(2 * np.pi * x) * np.sin(2 * np.pi * y) + 0 * z,
+            "w": 0.1 * np.sin(2 * np.pi * x) * np.sin(np.pi * z) + 0 * y}
+    j, t = {}, {}
+    for name in ("u", "v", "w"):
+        a = base[name] + 0.1 * rng.standard_normal(tg.shape)
+        bcs = regularize_field_boundary_conditions(None, jg, LOCS[name])
+        j[name] = j_fill(jnp.asarray(a), jg, bcs, LOCS[name])
+        t[name] = ot.fill_halo_regions(torch.tensor(a), tg, loc=LOCS[name])
+    return jg, tg, j, t
+
+
+def _scheme(pkg, spec):
+    if spec in ("enstrophy_conserving", "energy_conserving"):
+        return spec
+    if spec == "C2":
+        return pkg.Centered(2)
+    return pkg.WENO(spec)
+
+
+# every option of tests/test_vector_invariant.py:53-80 the port has
+# (UpwindBiased and Centered(4) are not ported), plus the multidimensional
+# stencil and the "default" vorticity stencil
+VI_OPTIONS = [
+    dict(vorticity_scheme=zs, vertical_scheme=vs, upwinding=up)
+    for zs in ("enstrophy_conserving", "energy_conserving", 5)
+    for vs in ("energy_conserving", "C2", 5)
+    for up in ("self", "cross")
+] + [dict(vorticity_scheme=5, vertical_scheme=5, upwinding="self",
+          multi_dimensional_stencil=True),
+     dict(vorticity_scheme=9, vertical_scheme=5, upwinding="self",
+          vorticity_stencil="default")]
+
+
+def _build_vi(pkg, mod, opts):
+    kw = dict(opts)
+    kw["vorticity_scheme"] = _scheme(pkg, kw["vorticity_scheme"])
+    kw["vertical_scheme"] = _scheme(pkg, kw["vertical_scheme"])
+    if kw["vertical_scheme"] == pkg.Centered(2):
+        # centred schemes are symmetric: the divergence flux needs a
+        # biased one of its own
+        kw["divergence_scheme"] = pkg.WENO(5)
+    kw["upwinding"] = (mod.OnlySelfUpwinding() if kw["upwinding"] == "self"
+                       else mod.CrossAndSelfUpwinding())
+    return mod.VectorInvariant(**kw)
+
+
+@pytest.mark.parametrize("opts", VI_OPTIONS,
+                         ids=lambda o: "-".join(str(v) for v in o.values()))
+def test_vector_invariant_options_match_jax(opts):
+    from oceananigans_torch.models import hydrostatic as t_hyd
+    jg, tg, j, t = _smooth_fields()
+    tvi = _build_vi(ot, t_hyd, opts)
+    jvi = _build_vi(oj, j_hyd, opts)
+    assert tvi.required_halo == jvi.required_halo
+    assert repr(tvi) == repr(jvi)
+    assert_close(tvi.u_tendency(tg, t["u"], t["v"], t["w"]),
+                 jvi.u_tendency(jg, j["u"], j["v"], j["w"]))
+    assert_close(tvi.v_tendency(tg, t["u"], t["v"], t["w"]),
+                 jvi.v_tendency(jg, j["u"], j["v"], j["w"]))
+
+
+def test_multi_dimensional_filter_matches_jax():
+    from oceananigans_torch.advection import multi_dimensional_filter
+    jg, tg, j, t = _smooth_fields(seed=8)
+    for axis in (0, 1):
+        assert_close(multi_dimensional_filter(t["u"], axis),
+                     j_adv.multi_dimensional_filter(j["u"], axis))
+
+
+def test_required_halo_matches_reference_rule():
+    assert ot.VectorInvariant().required_halo == 2
+    assert ot.WENOVectorInvariant(5).required_halo == 4
+    assert ot.WENOVectorInvariant(5, vertical_order=3).required_halo == 4
+    vi = ot.WENOVectorInvariant()
+    assert vi.vorticity_scheme.order == 9 and vi.vertical_scheme.order == 5
+    assert vi.required_halo == 6
+    assert ot.WENOVectorInvariant(multi_dimensional_stencil=True) \
+        .required_halo == 8
+
+
+def test_wrappers_check_operands():
+    jg, tg, j, t = setup((16, 12, 8), 6)
+    u, v, w, T = t["u"], t["v"], t["w"], t["T"]
+    vi = ot.WENOVectorInvariant()
+    with pytest.raises(ValueError):
+        cvi.vi_momentum_tendency(tg, vi, u, v.float(), w)
+    with pytest.raises(ValueError):              # not instantiated
+        cvi.vi_momentum_tendency(tg, ot.VectorInvariant(), u, v, w)
+    with pytest.raises(ValueError):
+        ctr.weno_tracer_tendencies(tg, ot.WENO(7), u, v, w, {"T": T[1:]})
+    with pytest.raises(ValueError):
+        ctr.weno_tracer_tendencies(tg, ot.Centered(), u, v, w, {"T": T})
+    assert ctr.weno_tracer_tendencies(tg, ot.WENO(7), u, v, w, {}) == {}
+    counts = (cvi.vi_momentum_tendency.launches,
+              ctr.weno_tracer_tendencies.launches)
+    cvi.vi_momentum_tendency(tg, vi, u, v, w)
+    ctr.weno_tracer_tendencies(tg, ot.WENO(7), u, v, w, {"T": T})
+    # the plain versions on the CPU launch nothing
+    assert counts == (cvi.vi_momentum_tendency.launches,
+                      ctr.weno_tracer_tendencies.launches)
+    m = cvi.vi_metric_profiles(tg)
+    assert m.shape == (len(cvi.METRICS), tg.shape[1]) and m.is_contiguous()
+    assert ctr.tracer_metric_profiles(tg).shape == (4, tg.shape[1])
