@@ -11,11 +11,14 @@ each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
    one process per source), with each kernel's registers and spills;
-3. each of the twelve kernels against its plain PyTorch version, in
+3. each of the thirteen kernels against its plain PyTorch version, in
    float32, at the main path's shapes and at a ragged shape, the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
    kernels also at a small size in float64, with times and the least time
-   the card could take for the same work;
+   the card could take for the same work; the generic momentum kernel
+   (kernel 14) at small ragged shapes for Centered(2..12),
+   UpwindBiased(1..11), WENO(3..11) and two FluxFormAdvections, in float32
+   and float64;
 4. the main path: the 256³ Centered-2 quasi-AB2 model (``bench.py``'s
    default configuration) for 100 timed steps after a warm-up, on the
    kernel path and on the plain path, held against each other and against
@@ -47,8 +50,21 @@ each of which raises on failure:
    share (``torch.profiler`` over 5 more steps); and a float64
    (48, 16, 6) run of the kernel path held against the plain path on the
    CPU;
-10. the least time the card could take for the TPU kernel not ported yet,
-    reckoned from its main path's shapes and the JAX formulas.
+10. kernel 14 at full width: ``fused_momentum_tendency`` called once per
+    scheme on ``bench.py``'s ``weno_mom`` grid (256³, (Bounded, Periodic,
+    Periodic), float32, x halo of the scheme's reach) for WENO(5),
+    Centered(4), UpwindBiased(5), WENO(9) and FluxFormAdvection(WENO(5),
+    Centered(2), UpwindBiased(3)), each held against its plain version,
+    WENO(5) also against kernel 7 (the same function), and timed against
+    its plain version and its bound;
+11. ``Simulation`` at full width: 100 constant-Δt steps of the 256³
+    default model (kernel 1) through ``Simulation(stop_iteration=100)``,
+    bit for bit against the bare loop of phase 4 from the same state, and
+    timed against it; the same model with a ``TimeStepWizard(cfl=0.5)``
+    every 10 iterations, a progress callback and a ``stop_time`` whose
+    alignment cuts the last Δt, held to finite fields and the divergence
+    bound; and 20 steps of a 256³ UpwindBiased(5) model, which no kernel
+    takes, on the plain path.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -56,15 +72,17 @@ phase 5's RK3 run for the Centered-2 tendency kernel, phase 6's opt-in
 model for the pressure and Poisson kernels, phase 7's ``weno``,
 ``science``, ``weno_mom`` and RK3 runs for the WENO and science kernels,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
-for the tracer and vector-invariant kernels) and read just after it;
-each must equal the launches that run makes. The line before the last is
-the JSON summary of the kernels, with those counts (the one
-vector-invariant kernel stands for both TPU kernels it replaces); the last
-line is the device record.
+for the tracer and vector-invariant kernels, phase 10's call of each
+scheme for the generic kernel) and read just after it; each must equal the
+launches that run makes. The line before the last is the JSON summary of
+the fourteen TPU kernels, with those counts (the one vector-invariant
+kernel stands for both TPU kernels it replaces; kernel 14's times are its
+WENO(5) ones); the last line is the device record.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -161,15 +179,40 @@ VI_POINT_OPS = (2 * (WENO9_VS_SIDE_OPS + 2 + 11) + 12
                 + 2 * (5 + WENO5_SIDE_OPS + 2 + 6 + 2)
                 + 2 * (5 + WENO5_SIDE_OPS + 1 + 3 + 2)
                 + 2 * (4 + WENO5_SIDE_OPS + 2 + 3) + 4)
-#: the TPU kernel not ported yet, at its main path's shape in float32:
-#: name -> (pallas_call site, full field shape, fields read and written,
-#: operations per output point, output points). The generic kernel runs
-#: only in its test, WENO-5 momentum at 8 x 16 x 128 with an x halo of 3.
-UNPORTED = {
-    "fused_momentum_tendency": (
-        "oceananigans_tpu/ops/pallas_generic.py:111", (14, 16, 128), 6,
-        WENO_MOMENTUM_OPS, 8 * 16 * 128),
-}
+#: one side of a WENO reconstruction of order K = 2B - 1, counted from
+#: ``csrc/weno.h``: the smoothness indicators (hand forms for orders 3 and
+#: 5, the Balsara-Shu integers for 7, the generated quadratic forms with
+#: every term nonzero for 9 and 11) and the WENO-Z combination, 2B² + 8B + 1
+WENO_BETA_OPS = {3: 10, 5: 43, 7: 92, 9: 170, 11: 282}
+
+
+def weno_side_ops(order):
+    B = (order + 1) // 2
+    return WENO_BETA_OPS[order] + 2 * B * B + 8 * B + 1
+
+
+def face_value_ops(scheme):
+    """Operations of one face value of ``scheme`` in
+    ``csrc/generic_momentum.cu``: a linear stencil of K taps is a product
+    and K - 1 fused multiply-adds; a biased scheme computes the one side
+    its velocity's sign selects, plus the select."""
+    kind, order = type(scheme).__name__, scheme.order
+    if kind == "Centered":
+        return 2 * order - 1
+    if kind == "UpwindBiased":
+        return 2 * order - 1 + 1
+    return weno_side_ops(order) + 1
+
+
+def generic_point_ops(scheme):
+    """Operations of one output point of ``fused_momentum_tendency``, the
+    least work: for each of the three components and three axes one face
+    (the advecting velocity's two products, sum and half, the face value,
+    its product with the velocity); per component the three differences,
+    two sums, the division by V and the sign."""
+    from oceananigans_torch.ops.cuda_generic import axis_schemes
+    faces = sum(4 + face_value_ops(s) + 1 for s in axis_schemes(scheme))
+    return 3 * (faces + 3 + 2 + 2)
 
 
 def bound(nbytes, flops):
@@ -192,6 +235,7 @@ def main():
 
     import oceananigans_torch as ot
     from oceananigans_torch.ops import _build, cuda_kernels as ck
+    from oceananigans_torch.ops import cuda_generic as cg
     from oceananigans_torch.ops import cuda_poisson as cp
     from oceananigans_torch.ops import cuda_sw as csw
     from oceananigans_torch.ops import cuda_tracer as ctr
@@ -652,6 +696,52 @@ def main():
     del hg, fs, u, v, w, T, S, tr, got, ref
     torch.cuda.empty_cache()
 
+    # kernel 14 (generic momentum advection) against its plain version at
+    # small ragged shapes, for every scheme family on every axis, in
+    # float32 (WENO_RTOL: the WENO-Z weights are nonlinear in the rounding
+    # of the indicators, and the linear schemes are held to the same bound)
+    # and float64 (F64_RTOL), with halo-free periodic and haloed y and z
+    generic_schemes = (
+        [ot.Centered(k) for k in range(2, 13, 2)]
+        + [ot.UpwindBiased(k) for k in range(1, 12, 2)]
+        + [ot.WENO(k) for k in range(3, 12, 2)]
+        + [ot.FluxFormAdvection(ot.WENO(5), ot.Centered(2),
+                                ot.UpwindBiased(3)),
+           ot.FluxFormAdvection(ot.UpwindBiased(11), ot.WENO(9),
+                                ot.Centered(12))])
+    generic_shapes = {
+        "ragged": ((13, 17, 24), (6, 0, 0),
+                   (ot.Bounded, ot.Periodic, ot.Periodic), f32),
+        "ragged haloed": ((9, 11, 14), (6, 6, 6),
+                          (ot.Periodic, ot.Bounded, ot.Bounded), f32),
+        "ragged float64": ((13, 17, 24), (6, 0, 0),
+                           (ot.Bounded, ot.Periodic, ot.Periodic),
+                           torch.float64),
+        "ragged haloed float64": ((9, 11, 14), (6, 6, 6),
+                                  (ot.Periodic, ot.Bounded, ot.Bounded),
+                                  torch.float64)}
+    for shape_name, (N, halo, topo, dtype) in generic_shapes.items():
+        gg = ot.RectilinearGrid(size=N, extent=(1.0, 2.0, 0.5),
+                                topology=topo, halo=halo, dtype=dtype,
+                                device=dev)
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+            a = torch.randn(gg.shape, generator=gen, device=dev, dtype=dtype)
+            if n == 0:
+                a[:, :, ::3] = 0.0
+            if n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, gg, loc=loc))
+        rtol = WENO_RTOL if dtype == f32 else F64_RTOL
+        for sch in generic_schemes:
+            got = cg.fused_momentum_tendency(gg, sch, *fs)
+            ref = cg.fused_momentum_tendency_plain(gg, sch, *fs)
+            torch.cuda.synchronize()
+            check("fused_momentum_tendency", f"{sch!r} {shape_name}", got,
+                  ref, rtol)
+    del gg, fs, got, ref
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the main path ----------------------------------------
     wrappers = {"centered2_ab2_update": ck.centered2_ab2_update,
                 "centered2_momentum_tendency":
@@ -666,7 +756,8 @@ def main():
                     ck.centered2_science_ab2_update,
                 "sw_rk3_stage": csw.sw_rk3_stage,
                 "weno_tracer_tendencies": ctr.weno_tracer_tendencies,
-                "vi_momentum_tendency": cvi.vi_momentum_tendency}
+                "vi_momentum_tendency": cvi.vi_momentum_tendency,
+                "fused_momentum_tendency": cg.fused_momentum_tendency}
     launches = {}
 
     def zero_counts():
@@ -1244,6 +1335,233 @@ def main():
     del f64, m, st
     torch.cuda.empty_cache()
 
+    # ---- phase 10: kernel 14 at full width ------------------------------
+    # bench.py's weno_mom grid (256³, extent 1, (Bounded, Periodic,
+    # Periodic), float32) with the x halo each scheme needs, on random
+    # filled fields with exact zero rows; the entry point a user calls, once
+    # per scheme, is kernel 14's main path
+    full_schemes = {
+        "WENO(5)": ot.WENO(5), "Centered(4)": ot.Centered(4),
+        "UpwindBiased(5)": ot.UpwindBiased(5), "WENO(9)": ot.WENO(9),
+        "FluxForm(WENO(5), Centered(2), UpwindBiased(3))":
+            ot.FluxFormAdvection(ot.WENO(5), ot.Centered(2),
+                                 ot.UpwindBiased(3))}
+    generic_ms = {}
+    for label, sch in full_schemes.items():
+        H = sch.required_halo
+        g10 = grid_of((N, N, N), (H, 0, 0))
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+            a = torch.randn(g10.shape, generator=gen, device=dev, dtype=f32)
+            if n == 0:
+                a[:, :, ::3] = 0.0
+            if n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, g10, loc=loc))
+        torch.cuda.synchronize()
+        zero_counts()
+        got = cg.fused_momentum_tendency(g10, sch, *fs)
+        torch.cuda.synchronize()
+        n14 = cg.fused_momentum_tendency.launches
+        others = [k for k in wrappers if k != "fused_momentum_tendency"
+                  and wrappers[k].launches]
+        require(n14 == 1 and not others, f"phase 10 {label}: kernel 14 "
+                f"launched {n14} times, others {others}")
+        launches["fused_momentum_tendency"] = (
+            launches.get("fused_momentum_tendency", 0) + n14)
+        ref = cg.fused_momentum_tendency_plain(g10, sch, *fs)
+        torch.cuda.synchronize()
+        check("fused_momentum_tendency", f"{label} at {tuple(g10.shape)}",
+              got, ref, WENO_RTOL)
+        if label == "WENO(5)":
+            # kernel 7 computes the same function on the interior x-rows
+            k7 = cw.weno5_momentum_tendency(g10, *fs)
+            torch.cuda.synchronize()
+            S = slice(H, g10.shape[0] - H)
+            err7 = max(float((a[S] - b[S]).abs().max())
+                       for a, b in zip(got, k7))
+            tol7 = WENO_RTOL * scale(ref)
+            log(f"[10] WENO(5): kernel 14 vs kernel 7 max|diff| {err7:.3e}"
+                f" (tolerance {tol7:.3e})")
+            require(err7 <= tol7, f"kernel 14 vs kernel 7 {err7:.3e}")
+            del k7
+        del got, ref
+        torch.cuda.empty_cache()
+        reps = 5
+        field = fs[0].numel() * fs[0].element_size()
+        bound_ms, bound_by = bound(6 * field,
+                                   N ** 3 * generic_point_ops(sch))
+        plain_ms, ms = paired_times(
+            torch, lambda: cg.fused_momentum_tendency_plain(g10, sch, *fs),
+            lambda: cg.fused_momentum_tendency(g10, sch, *fs), reps)
+        line = (f"[10] fused_momentum_tendency {label} at "
+                f"{tuple(g10.shape)} float32 on {card}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}, {generic_point_ops(sch)} operations a point)")
+        if label == "WENO(5)":
+            # kernel 7 computes the same function: the two timed in turn
+            # (7, 14, 14, 7) on these fields and on fields without the
+            # exact zero rows (phase 3's kernel 7 timing takes such fields)
+            for data in ("with zero rows", "without zero rows"):
+                if data == "without zero rows":
+                    fs = filled_fields(g10, 3)
+                k7_ms, k14_ms = paired_times(
+                    torch, lambda: cw.weno5_momentum_tendency(g10, *fs),
+                    lambda: cg.fused_momentum_tendency(g10, sch, *fs), reps)
+                line += (f"; {data}: kernel 7 (same function) {k7_ms:.4f} "
+                         f"ms, kernel 14 {k14_ms:.4f} ms in turn")
+            report["fused_momentum_tendency"].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+        generic_ms[label] = ms
+        log(line)
+        del fs
+        torch.cuda.empty_cache()
+    log(f"[10] kernel 14 launches in its main path (one call per scheme): "
+        f"{launches['fused_momentum_tendency']}")
+
+    # ---- phase 11: Simulation at full width -----------------------------
+    # bitwise: 100 constant-Δt steps of the 256³ default model (kernel 1)
+    # through Simulation(stop_iteration=100) against the bare loop of
+    # phase 4 from the same state: one window of 100 steps (the default
+    # NaN checker actuates every 100), and a refill of filled halos is
+    # idempotent
+    SIM_STEPS = 100
+    model = ot.NonhydrostaticModel(grid=grid,
+                                   timestepper="QuasiAdamsBashforth2")
+    s0 = initial_state(model)
+    copy0 = {k: getattr(s0, k).clone() for k in ("u", "v", "w", "pressure",
+                                                 "Gu", "Gv", "Gw")}
+
+    def fresh():
+        return dataclasses.replace(
+            s0, **{k: t.clone() for k, t in copy0.items()})
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    bare = run(model, fresh(), SIM_STEPS)
+    e1.record()
+    e1.synchronize()
+    bare_ms = e0.elapsed_time(e1) / SIM_STEPS
+    sim = ot.Simulation(model, state=fresh(), dt=dt,
+                        stop_iteration=SIM_STEPS)
+    zero_counts()
+    e0.record()
+    t0 = time.perf_counter()
+    sim.run()
+    e1.record()
+    e1.synchronize()
+    sim_wall_ms = (time.perf_counter() - t0) * 1e3 / SIM_STEPS
+    sim_ms = e0.elapsed_time(e1) / SIM_STEPS
+    n1 = ck.centered2_ab2_update.launches
+    require(n1 == SIM_STEPS, f"Simulation: kernel 1 launched {n1} times "
+            f"in {SIM_STEPS} steps")
+    require(sim.state.clock.iteration == SIM_STEPS
+            and sim.stop_reason == "stop_iteration reached",
+            f"Simulation stopped at {sim.state.clock.iteration}: "
+            f"{sim.stop_reason}")
+    same = all(torch.equal(getattr(sim.state, k), getattr(bare, k))
+               for k in ("u", "v", "w", "pressure", "Gu", "Gv", "Gw"))
+    log(f"[11] Simulation, {SIM_STEPS} AB2 steps at {N}^3 (default, kernel "
+        f"1 launched {n1} times): bitwise equal to the bare loop: {same}")
+    require(same, "Simulation equals the bare loop bit for bit")
+    # a second pair, for the timing: the bare loop then Simulation.run
+    # again, alternated with the first
+    e0.record()
+    bare = run(model, fresh(), SIM_STEPS)
+    e1.record()
+    e1.synchronize()
+    bare_ms2 = e0.elapsed_time(e1) / SIM_STEPS
+    sim = ot.Simulation(model, state=fresh(), dt=dt,
+                        stop_iteration=SIM_STEPS)
+    e0.record()
+    sim.run()
+    e1.record()
+    e1.synchronize()
+    sim_ms2 = e0.elapsed_time(e1) / SIM_STEPS
+    log(f"[11] on {card}: Simulation.run {sim_ms:.4f} and {sim_ms2:.4f} "
+        f"ms/step (host clock {sim_wall_ms:.4f}), bare loop {bare_ms:.4f} "
+        f"and {bare_ms2:.4f} ms/step ({SIM_STEPS} steps each, CUDA "
+        f"events, one fill each)")
+    del bare, sim
+    torch.cuda.empty_cache()
+
+    # the wizard: TimeStepWizard(cfl=0.5) every 10 iterations, a progress
+    # callback every 10 iterations, a recorder every 0.002 of model time,
+    # and a stop_time that the alignment reaches with a shortened last Δt.
+    # The clock is float32, as in the JAX package: a TimeInterval fires
+    # only where the float32 time lands within 1e-10 of its multiple, so
+    # the recorder's count is printed, not required
+    progress, timed = [], []
+
+    def recorder(into):
+        return lambda s: into.append((s.state.clock.iteration,
+                                      float(s.state.clock.time), s.dt))
+
+    sim = ot.Simulation(model, state=fresh(), dt=dt, stop_time=0.006)
+    sim.callbacks["wizard"] = ot.Callback(ot.TimeStepWizard(cfl=0.5),
+                                          ot.IterationInterval(10))
+    sim.callbacks["progress"] = ot.Callback(recorder(progress),
+                                            ot.IterationInterval(10))
+    sim.callbacks["timed"] = ot.Callback(recorder(timed),
+                                         ot.TimeInterval(0.002))
+    zero_counts()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wiz_s = time.perf_counter() - t0
+    st = sim.state
+    nwiz = st.clock.iteration
+    require(finite(st), "wizard run: finite fields")
+    umax11 = interior_max(grid, st)
+    div11 = max_div(grid, st)
+    last_dt = float(st.clock.last_dt)
+    require(div11 <= 1e-5 * umax11 / dx,
+            f"wizard run: max|div| {div11:.3e} <= 1e-5 max|u|/dx")
+    require(abs(float(st.clock.time) - 0.006) <= 1e-6 and last_dt < sim.dt,
+            f"wizard run ends at t = {float(st.clock.time)} with the last "
+            f"Δt {last_dt} < {sim.dt}")
+    require(ck.centered2_ab2_update.launches == nwiz,
+            "wizard run: kernel 1 once a step")
+    log(f"[11] wizard run: {nwiz} steps to t = {float(st.clock.time):.6g} "
+        f"in {wiz_s:.3f} s on {card}; Δt {dt:g} -> {sim.dt:.6g}, last Δt {last_dt:.6g}"
+        f" (cut by the alignment); progress {progress}; TimeInterval(0.002) "
+        f"fired at {timed}; max|u| "
+        f"{umax11:.4e}, max|div| {div11:.3e} (bound {1e-5 * umax11 / dx:.3e})")
+    del sim, st, model, s0, copy0
+    torch.cuda.empty_cache()
+
+    # a 256³ UpwindBiased(5) model through Simulation: no kernel applies,
+    # so it runs the plain path on the card
+    g11 = grid_of((N, N, N), (3, 0, 0))
+    model = ot.NonhydrostaticModel(grid=g11, advection=ot.UpwindBiased(5),
+                                   timestepper="QuasiAdamsBashforth2")
+    require(model.fused_kernels is False, "UpwindBiased(5) takes no kernel")
+    sim = ot.Simulation(model, state=initial_state(model), dt=dt,
+                        stop_iteration=20)
+    zero_counts()
+    torch.cuda.synchronize()
+    e0.record()
+    sim.run()
+    e1.record()
+    e1.synchronize()
+    ub_ms = e0.elapsed_time(e1) / 20
+    require(all(fn.launches == 0 for fn in wrappers.values()),
+            "UpwindBiased(5) run launches no kernel")
+    st = sim.state
+    require(finite(st), "UpwindBiased(5) run: finite fields")
+    umax_ub = interior_max(g11, st)
+    div_ub = max_div(g11, st)
+    require(div_ub <= 1e-5 * umax_ub / dx,
+            f"UpwindBiased(5) run: max|div| {div_ub:.3e}")
+    log(f"[11] UpwindBiased(5) at {N}^3, 20 AB2 steps through Simulation on "
+        f"the plain path: {ub_ms:.3f} ms/step on {card}; max|u| "
+        f"{umax_ub:.4e}, max|div| {div_ub:.3e}")
+    del sim, st, model
+    torch.cuda.empty_cache()
+
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),
                "centered2_momentum_tendency": (
@@ -1280,7 +1598,10 @@ def main():
                # the same CUDA kernel replaces both layouts' TPU kernels
                "vi_momentum_tendency_zyx": (
                    "oceananigans_torch/csrc/vector_invariant.cu",
-                   "oceananigans_tpu/ops/pallas_vi.py:538")}
+                   "oceananigans_tpu/ops/pallas_vi.py:538"),
+               "fused_momentum_tendency": (
+                   "oceananigans_torch/csrc/generic_momentum.cu",
+                   "oceananigans_tpu/ops/pallas_generic.py:111")}
     same = {"vi_momentum_tendency_zyx": "vi_momentum_tendency"}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[same.get(name, name)],
@@ -1288,10 +1609,6 @@ def main():
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, rep) in sources.items()]
-    for name, (site, shape, nfields, ops, points) in UNPORTED.items():
-        ms_, by = bound(nfields * math.prod(shape) * 4, ops * points)
-        log(f"[10] {name} ({site}), not ported yet: bound {ms_:.5f} ms "
-            f"({by}) at {shape} float32, {ops} operations per point")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,20 @@
 """oceananigans_torch — the ocean dynamical core of ``oceananigans_tpu``
 ported to PyTorch, with its hot kernels hand-written in CUDA for Hopper.
 
-It covers the nonhydrostatic model on a ``RectilinearGrid`` with regular
-spacing: Centered(2) or WENO (orders 3 to 11) advection of momentum and
-tracers, f-plane, β-plane and constant Cartesian Coriolis, BuoyancyTracer
-and seawater buoyancy, quasi-AB2 or RK3 time stepping, halo fills, and the
-FFT or eigenbasis matmul Poisson projection; the shallow-water model on a
-Flat-z grid in its conservative and vector-invariant formulations, with
-Coriolis, bathymetry and tracers, stepped by RK3; and the hydrostatic
-free-surface model with the vector-invariant (WENOVectorInvariant) or
-flux-form momentum advection, WENO or Centered(2) tracers, explicit or
-split-explicit free surface, Coriolis and buoyancy, stepped by quasi-AB2. Grids and models run on the
-GPU unless they are given ``device="cpu"`` (or ``config.device`` is set to
-"cpu"); without a GPU, a grid built with no ``device=`` raises.
+It covers, on a ``RectilinearGrid`` with regular spacing: the advection
+schemes Centered (orders 2 to 12), UpwindBiased (1 to 11), WENO (3 to 11)
+and FluxFormAdvection; the nonhydrostatic model with f-plane, β-plane and
+constant Cartesian Coriolis, BuoyancyTracer and seawater buoyancy,
+quasi-AB2 or RK3 time stepping, halo fills, and the FFT or eigenbasis
+matmul Poisson projection; the shallow-water model on a Flat-z grid in its
+conservative and vector-invariant formulations, with Coriolis, bathymetry
+and tracers, stepped by RK3; the hydrostatic free-surface model with the
+vector-invariant (WENOVectorInvariant) or flux-form momentum advection,
+explicit or split-explicit free surface, Coriolis and buoyancy, stepped by
+quasi-AB2; and the ``Simulation`` driver with its callbacks, schedules,
+``TimeStepWizard`` and NaN guard. Grids and models run on the GPU unless
+they are given ``device="cpu"`` (or ``config.device`` is set to "cpu");
+without a GPU, a grid built with no ``device=`` raises.
 
     grid = RectilinearGrid(size=(N, N, N), extent=(1, 1, 1),
                            topology=(Bounded, Periodic, Periodic),
@@ -24,7 +26,9 @@ GPU unless they are given ``device="cpu"`` (or ``config.device`` is set to
     state = model.step(state, 1e-4)
 """
 
-from oceananigans_torch.advection import WENO, Centered
+from oceananigans_torch.advection import (
+    WENO, Centered, FluxFormAdvection, UpwindBiased, adapt_advection_order,
+)
 from oceananigans_torch.boundary_conditions import (
     FieldBoundaryConditions, FluxBC, OpenBC, PeriodicBC, fill_halo_regions,
 )
@@ -49,21 +53,47 @@ from oceananigans_torch.models import (
     ShallowWaterState, SplitExplicitFreeSurface, VectorInvariant,
     VectorInvariantFormulation, WENOVectorInvariant,
 )
+from oceananigans_torch.simulation import (
+    Callback, NaNChecker, Simulation, TendencyCallsite, TimeStepCallsite,
+    TimeStepWizard, UpdateStateCallsite, add_callback,
+    conjure_time_step_wizard, iteration,
+)
 from oceananigans_torch.solvers import FFTPoissonSolver, MatmulPoissonSolver
+from oceananigans_torch.diagnostics import (
+    CFL, AdvectiveCFL, DiffusiveCFL, StateChecker, seawater_density,
+)
+from oceananigans_torch.utils.pretty import prettytime
+from oceananigans_torch.utils.schedules import (
+    AndSchedule, AveragedTimeInterval, IterationInterval, OrSchedule,
+    SpecifiedTimes, TimeInterval, WallTimeInterval,
+)
+from oceananigans_torch.utils.units import (
+    GiB, KiB, MiB, TiB, day, days, hour, hours, kilometer, kilometers,
+    meter, meters, minute, minutes, second, seconds, year, years,
+)
 
 __all__ = [
-    "BetaPlane", "Bounded", "BuoyancyForce", "BuoyancyTracer", "Center",
-    "Centered", "ConservativeFormulation", "ConstantCartesianCoriolis",
-    "CrossAndSelfUpwinding", "ExplicitFreeSurface", "FFTPoissonSolver",
-    "FPlane",
-    "Face", "FieldBoundaryConditions", "Flat", "FluxBC", "LOC_C", "LOC_U",
-    "HydrostaticFreeSurfaceModel", "HydrostaticState",
-    "LOC_V", "LOC_W", "LinearEquationOfState", "MatmulPoissonSolver",
+    "AdvectiveCFL", "AndSchedule", "AveragedTimeInterval", "BetaPlane",
+    "Bounded", "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback",
+    "Center", "Centered", "ConservativeFormulation",
+    "ConstantCartesianCoriolis", "CrossAndSelfUpwinding", "DiffusiveCFL",
+    "ExplicitFreeSurface", "FFTPoissonSolver", "FPlane", "Face",
+    "FieldBoundaryConditions", "Flat", "FluxBC", "FluxFormAdvection",
+    "GiB", "HydrostaticFreeSurfaceModel", "HydrostaticState",
+    "IterationInterval", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
+    "LinearEquationOfState", "MatmulPoissonSolver", "MiB", "NaNChecker",
     "NonTraditionalBetaPlane", "NonhydrostaticModel", "NonhydrostaticState",
-    "OnlySelfUpwinding", "OpenBC", "Periodic", "PeriodicBC",
+    "OnlySelfUpwinding", "OpenBC", "OrSchedule", "Periodic", "PeriodicBC",
     "RectilinearGrid", "SeawaterBuoyancy", "ShallowWaterModel",
-    "ShallowWaterState", "SplitExplicitFreeSurface",
-    "TEOS10EquationOfState", "VectorInvariant",
-    "VectorInvariantFormulation", "WENO", "WENOVectorInvariant", "config",
-    "fill_halo_regions", "interior", "new_field", "set_field",
+    "ShallowWaterState", "Simulation", "SpecifiedTimes",
+    "SplitExplicitFreeSurface", "StateChecker", "TEOS10EquationOfState",
+    "TendencyCallsite", "TiB", "TimeInterval", "TimeStepCallsite",
+    "TimeStepWizard", "UpdateStateCallsite", "UpwindBiased",
+    "VectorInvariant", "VectorInvariantFormulation", "WENO",
+    "WENOVectorInvariant", "WallTimeInterval", "adapt_advection_order",
+    "add_callback", "config", "conjure_time_step_wizard", "day", "days",
+    "fill_halo_regions", "hour", "hours", "interior", "iteration",
+    "kilometer", "kilometers", "meter", "meters", "minute", "minutes",
+    "new_field", "prettytime", "seawater_density", "second", "seconds",
+    "set_field", "year", "years",
 ]

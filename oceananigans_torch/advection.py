@@ -1,9 +1,11 @@
 """Advection schemes: reconstruction and flux-form divergences.
 
 Counterpart of the regular-grid part of ``oceananigans_tpu/advection.py``:
-Centered(2) and WENO-Z of orders 3 to 11. Each reconstruction is a
-whole-tensor expression over shifted copies of its operand; upwinding is a
-``torch.where`` on the sign of the advecting velocity.
+Centered of orders 2 to 12, UpwindBiased of orders 1 to 11, WENO-Z of
+orders 3 to 11, and FluxFormAdvection (one scheme per axis). Each
+reconstruction is a whole-tensor expression over shifted copies of its
+operand; upwinding is a ``torch.where`` on the sign of the advecting
+velocity.
 
 Index convention (``ops/operators.py``): ``shift(a, n, axis)[i] = a[i+n]``.
 A reconstruction that lands on faces (``o = 0``) gives the value at face
@@ -11,9 +13,9 @@ A reconstruction that lands on faces (``o = 0``) gives the value at face
 (``o = 1``) gives the value at center ``i``, the same stencil shifted by +1.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP Queue 1 item
-11): ``UpwindBiased``, ``FluxFormAdvection``, ``BoundPreserving`` and
-``WENO(bounds=...)``, Centered orders above 2, and the stretched-grid
-coefficient tables (stretched grids themselves are not ported).
+11): ``BoundPreserving`` and ``WENO(bounds=...)`` (tracer limiters that
+need the ``split_rk3`` time stepper), and the stretched-grid coefficient
+tables (stretched grids themselves are not ported).
 """
 
 from __future__ import annotations
@@ -27,32 +29,52 @@ from oceananigans_torch.ops.operators import (
     dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c, iz_f,
     shift,
 )
+from oceananigans_torch.ops.reconstruction_coefficients import (
+    face_reconstruction_coefficients,
+)
 
 X, Y, Z = 0, 1, 2
 
 _LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 
+def _mirror(stencil):
+    """The right-biased mirror of a left-biased stencil: offsets reflected
+    about the target face (n -> -1 - n)."""
+    return {-1 - n: c for n, c in stencil.items()}
+
+
+def _apply_stencil(a, axis, stencil, o):
+    """Σ c · shift(a, n + o) over the stencil, in ascending offsets."""
+    out = None
+    for n, c in sorted(stencil.items()):
+        term = c * shift(a, n + o, axis)
+        out = term if out is None else out + term
+    return out
+
+
 class Centered:
-    """Second-order centered reconstruction: the value at face i is
-    ``(a[i-1] + a[i]) / 2``."""
+    """Even-order centered reconstruction, orders 2 to 12 (coefficients
+    generated exactly); Centered(2) gives ``(a[i-1] + a[i]) / 2`` at face
+    i."""
 
     symmetric = True
 
     def __init__(self, order: int = 2):
-        if order != 2:
-            raise NotImplementedError(f"Centered({order}) {_LATER}; only "
-                                      "Centered(2) is ported")
+        if order % 2 or not 2 <= order <= 12:
+            raise ValueError(f"Centered order must be even in 2..12, "
+                             f"got {order}")
         self.order = order
+        self._stencil = face_reconstruction_coefficients(order, "centered")
 
     @property
     def required_halo(self):
-        return 1
+        return (self.order + 1) // 2
 
     def reconstruct(self, a, axis, o):
         """Face value (o = 0) or center value (o = 1) of ``a``; the same
-        two-point stencil, shifted by ``o``."""
-        return 0.5 * shift(a, -1 + o, axis) + 0.5 * shift(a, o, axis)
+        stencil, shifted by ``o``."""
+        return _apply_stencil(a, axis, self._stencil, o)
 
     def __eq__(self, other):
         return type(self) is type(other) and self.order == other.order
@@ -62,6 +84,40 @@ class Centered:
 
     def __repr__(self):
         return f"Centered(order={self.order})"
+
+
+class UpwindBiased:
+    """Odd-order upwind-biased reconstruction, orders 1 to 11
+    (coefficients generated exactly); the right-biased stencil mirrors the
+    left one about the face."""
+
+    symmetric = False
+
+    def __init__(self, order: int = 3):
+        if order % 2 == 0 or not 1 <= order <= 11:
+            raise ValueError(f"UpwindBiased order must be odd in 1..11, "
+                             f"got {order}")
+        self.order = order
+        self._left = face_reconstruction_coefficients(order, "left")
+
+    @property
+    def required_halo(self):
+        return (self.order + 1) // 2
+
+    def biased(self, a, axis, o):
+        """The left- and right-biased reconstructions of ``a`` at faces
+        (o = 0) or centers (o = 1) along ``axis``."""
+        return (_apply_stencil(a, axis, self._left, o),
+                _apply_stencil(a, axis, _mirror(self._left), o))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.order == other.order
+
+    def __hash__(self):
+        return hash(("UpwindBiased", self.order))
+
+    def __repr__(self):
+        return f"UpwindBiased(order={self.order})"
 
 
 # WENO sub-stencil coefficients and ideal weights, left-biased at face i.
@@ -251,12 +307,35 @@ class WENO:
         return f"WENO(order={self.order})"
 
 
-def UpwindBiased(*args, **kwargs):
-    raise NotImplementedError(f"UpwindBiased {_LATER}")
+class FluxFormAdvection:
+    """One scheme per direction: ``x`` reconstructs along x, ``y`` along y
+    and ``z`` along z (``y`` and ``z`` default to ``x``)."""
+
+    def __init__(self, x, y=None, z=None):
+        self.x = x
+        self.y = x if y is None else y
+        self.z = x if z is None else z
+
+    @property
+    def required_halo(self):
+        return max(s.required_halo for s in (self.x, self.y, self.z))
+
+    def scheme_for(self, axis):
+        return (self.x, self.y, self.z)[axis]
+
+    def __eq__(self, other):
+        return (type(self) is type(other) and self.x == other.x
+                and self.y == other.y and self.z == other.z)
+
+    def __hash__(self):
+        return hash((self.x, self.y, self.z))
+
+    def __repr__(self):
+        return f"FluxFormAdvection({self.x}, {self.y}, {self.z})"
 
 
-def FluxFormAdvection(*args, **kwargs):
-    raise NotImplementedError(f"FluxFormAdvection {_LATER}")
+#: the scheme types the models take
+SCHEMES = (Centered, UpwindBiased, WENO, FluxFormAdvection)
 
 
 def BoundPreserving(*args, **kwargs):
@@ -269,10 +348,37 @@ def required_halo(scheme) -> int:
     return scheme.required_halo
 
 
+def adapt_advection_order(scheme, grid):
+    """Shrink the scheme's order on each axis so its stencil fits a small
+    grid. Returns the scheme unchanged when every axis fits, else a
+    FluxFormAdvection of the orders clamped per axis."""
+    if scheme is None or isinstance(scheme, FluxFormAdvection):
+        return scheme
+
+    def clamp(s, N):
+        if N <= 1 or s.required_halo <= N:
+            return s
+        if isinstance(s, Centered):
+            return Centered(max(2, 2 * N - (2 * N) % 2))
+        order = max(1, min(s.order, 2 * N - 1))
+        if order % 2 == 0:
+            order -= 1
+        if isinstance(s, WENO):
+            return WENO(max(3, order), bounds=s.bounds) if order >= 3 \
+                else UpwindBiased(1)
+        return UpwindBiased(order)
+
+    per_axis = [clamp(scheme, grid.N[ax]) for ax in range(3)]
+    if all(p == scheme for p in per_axis):
+        return scheme
+    return FluxFormAdvection(*per_axis)
+
+
 def _scheme_for(scheme, axis):
-    """The scheme that reconstructs along ``axis``; every ported scheme
-    uses itself on all axes (``FluxFormAdvection``, which picks one per
-    axis, is not ported)."""
+    """The scheme that reconstructs along ``axis``: a FluxFormAdvection's
+    scheme of that axis, any other scheme itself."""
+    if isinstance(scheme, FluxFormAdvection):
+        return scheme.scheme_for(axis)
     return scheme
 
 
@@ -315,9 +421,10 @@ def div_Uc(grid, scheme, u, v, w, c):
     """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c)."""
     if scheme is None:
         return torch.zeros_like(c)
-    fx = grid.Ax(Face, Center, Center) * u * _face_value(scheme, u, c, X, 0)
-    fy = grid.Ay(Center, Face, Center) * v * _face_value(scheme, v, c, Y, 0)
-    fz = grid.Az(Center, Center) * w * _face_value(scheme, w, c, Z, 0)
+    sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
+    fx = grid.Ax(Face, Center, Center) * u * _face_value(sx, u, c, X, 0)
+    fy = grid.Ay(Center, Face, Center) * v * _face_value(sy, v, c, Y, 0)
+    fz = grid.Az(Center, Center) * w * _face_value(sz, w, c, Z, 0)
     return (dx_c(fx) + dy_c(fy) + dz_c(fz)) / grid.V(Center, Center, Center)
 
 
@@ -325,14 +432,15 @@ def div_vu(grid, scheme, u, v, w):
     """Momentum advection ∇·(𝐯u) at u's location (f,c,c)."""
     if scheme is None:
         return torch.zeros_like(u)
+    sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
     # x-flux at (c,c,c): ℑx_c(Ax u) advects u, landing on centers (o=1)
     Uadv = ix_c(grid.Ax(Face, Center, Center) * u)
-    fxx = Uadv * _face_value(scheme, Uadv, u, X, 1)
+    fxx = Uadv * _face_value(sx, Uadv, u, X, 1)
     # y-flux at (f,f,c) and z-flux at (f,c,f), landing on faces (o=0)
     Vadv = ix_f(grid.Ay(Center, Face, Center) * v)
-    fxy = Vadv * _face_value(scheme, Vadv, u, Y, 0)
+    fxy = Vadv * _face_value(sy, Vadv, u, Y, 0)
     Wadv = ix_f(grid.Az(Center, Center) * w)
-    fxz = Wadv * _face_value(scheme, Wadv, u, Z, 0)
+    fxz = Wadv * _face_value(sz, Wadv, u, Z, 0)
     return (dx_f(fxx) + dy_c(fxy) + dz_c(fxz)) / grid.V(Face, Center, Center)
 
 
@@ -340,12 +448,13 @@ def div_vv(grid, scheme, u, v, w):
     """∇·(𝐯v) at v's location (c,f,c)."""
     if scheme is None:
         return torch.zeros_like(v)
+    sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
     Uadv = iy_f(grid.Ax(Face, Center, Center) * u)
-    fyx = Uadv * _face_value(scheme, Uadv, v, X, 0)
+    fyx = Uadv * _face_value(sx, Uadv, v, X, 0)
     Vadv = iy_c(grid.Ay(Center, Face, Center) * v)
-    fyy = Vadv * _face_value(scheme, Vadv, v, Y, 1)
+    fyy = Vadv * _face_value(sy, Vadv, v, Y, 1)
     Wadv = iy_f(grid.Az(Center, Center) * w)
-    fyz = Wadv * _face_value(scheme, Wadv, v, Z, 0)
+    fyz = Wadv * _face_value(sz, Wadv, v, Z, 0)
     return (dx_c(fyx) + dy_f(fyy) + dz_c(fyz)) / grid.V(Center, Face, Center)
 
 
@@ -353,12 +462,13 @@ def div_vw(grid, scheme, u, v, w):
     """∇·(𝐯w) at w's location (c,c,f)."""
     if scheme is None:
         return torch.zeros_like(w)
+    sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
     Uadv = iz_f(grid.Ax(Face, Center, Center) * u)
-    fzx = Uadv * _face_value(scheme, Uadv, w, X, 0)
+    fzx = Uadv * _face_value(sx, Uadv, w, X, 0)
     Vadv = iz_f(grid.Ay(Center, Face, Center) * v)
-    fzy = Vadv * _face_value(scheme, Vadv, w, Y, 0)
+    fzy = Vadv * _face_value(sy, Vadv, w, Y, 0)
     Wadv = iz_c(grid.Az(Center, Center) * w)
-    fzz = Wadv * _face_value(scheme, Wadv, w, Z, 1)
+    fzz = Wadv * _face_value(sz, Wadv, w, Z, 1)
     return (dx_c(fzx) + dy_c(fzy) + dz_f(fzz)) / grid.V(Center, Center, Face)
 
 
@@ -428,6 +538,6 @@ def multi_dimensional_filter(q, axis):
 
 
 __all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
-           "UpwindBiased", "WENO", "cell_advection_timescale", "div_Uc",
-           "div_vu", "div_vv", "div_vw", "multi_dimensional_filter",
-           "required_halo"]
+           "UpwindBiased", "WENO", "adapt_advection_order",
+           "cell_advection_timescale", "div_Uc", "div_vu", "div_vv",
+           "div_vw", "multi_dimensional_filter", "required_halo"]

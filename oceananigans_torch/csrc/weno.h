@@ -132,6 +132,110 @@ __device__ __forceinline__ T upwind_mean(const T* s, const T* s1,
                    + side<K, true, kSmooth>(s, s1, s2, eps));
 }
 
+// Products and sums that the compiler may not contract into FMAs.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// The smoothness indicators in the Python package's order of operations,
+// each product and sum rounded on its own, as its whole-array expressions
+// round them: advection._weno3_betas/_weno5_betas (kSquares), the
+// Balsara-Shu forms of advection._weno7_betas, whose sub-stencils 2 and 3
+// are sub-stencils 1 and 0's forms over the reversed taps, and for orders 9
+// and 11 WENO._betas_of: the sum over m of M_mm v_m v_m, then of
+// 2 M_mn v_m v_n for n > m, term by term.
+template <int K, bool kRight, typename T>
+__device__ __forceinline__ void betas_in_order(const T* s, T* beta) {
+  using W = WenoTable<K>;
+  constexpr int B = W::B;
+#pragma unroll
+  for (int r = 0; r < B; ++r) {
+    T b = T(0);
+    if constexpr (W::form == BetaForm::kSquares) {
+      T v[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) v[j] = tap<K, kRight>(s, W::lo(r) + j);
+#pragma unroll
+      for (int t = 0; t < W::terms; ++t) {
+        T x = mul_rn(T(W::l(r, t, 0)), v[0]);
+#pragma unroll
+        for (int j = 1; j < B; ++j) {
+          if (W::l(r, t, j) != 0.0) x = add_rn(x, mul_rn(T(W::l(r, t, j)), v[j]));
+        }
+        const T term = mul_rn(T(W::w(t)), mul_rn(x, x));
+        b = (t == 0) ? term : add_rn(b, term);
+      }
+    } else if constexpr (K == 7) {
+      const bool reversed = r >= 2;
+      const int form = reversed ? B - 1 - r : r;
+      T v[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        v[j] = tap<K, kRight>(s, W::lo(r) + (reversed ? B - 1 - j : j));
+      }
+#pragma unroll
+      for (int m = 0; m < B; ++m) {
+        T x = mul_rn(T(W::p(form, m, m)), v[m]);
+#pragma unroll
+        for (int n = m + 1; n < B; ++n) {
+          x = add_rn(x, mul_rn(T(W::p(form, m, n)), v[n]));
+        }
+        b = (m == 0) ? mul_rn(v[m], x) : add_rn(b, mul_rn(v[m], x));
+      }
+    } else {
+      T v[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) v[j] = tap<K, kRight>(s, W::lo(r) + j);
+#pragma unroll
+      for (int m = 0; m < B; ++m) {
+#pragma unroll
+        for (int n = m; n < B; ++n) {
+          if (n == m || W::p(r, m, n) != 0.0) {
+            const T term = mul_rn(mul_rn(T(W::p(r, m, n)), v[m]), v[n]);
+            b = (m == 0 && n == 0) ? term : add_rn(b, term);
+          }
+        }
+      }
+    }
+    beta[r] = b;
+  }
+}
+
+// One biased reconstruction in the Python package's order of operations
+// (WENO._onesided and _z_alphas), each product and sum rounded on its own.
+template <int K, bool kRight, typename T>
+__device__ __forceinline__ T side_in_order(const T* s, T eps) {
+  using W = WenoTable<K>;
+  constexpr int B = W::B;
+  T beta[B];
+  betas_in_order<K, kRight>(s, beta);
+  const T tau = fabs(add_rn(beta[0], -beta[B - 1]));
+  T asum = T(0);
+  T out = T(0);
+#pragma unroll
+  for (int r = 0; r < B; ++r) {
+    const T ratio = fmin(tau / add_rn(beta[r], eps), RatioCap<T>::value);
+    const T alpha = mul_rn(T(W::gamma(r)), add_rn(T(1), mul_rn(ratio, ratio)));
+    T poly = mul_rn(T(W::q(r, 0)), tap<K, kRight>(s, W::lo(r)));
+#pragma unroll
+    for (int j = 1; j < B; ++j) {
+      poly = add_rn(poly, mul_rn(T(W::q(r, j)), tap<K, kRight>(s, W::lo(r) + j)));
+    }
+    asum = (r == 0) ? alpha : add_rn(asum, alpha);
+    out = (r == 0) ? mul_rn(alpha, poly) : add_rn(out, mul_rn(alpha, poly));
+  }
+  return out / asum;
+}
+
 // j wrapped into [0, n) for -n <= j < 2n.
 __device__ __forceinline__ int wrap(int j, int n) {
   j = j < 0 ? j + n : j;

@@ -9,12 +9,15 @@ Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
   (string) and upwinded (scheme-valued) vorticity, vertical, divergence and
   kinetic-energy-gradient schemes, ``OnlySelfUpwinding`` and
   ``CrossAndSelfUpwinding``, the "velocity" and "default" vorticity
-  stencils and the multidimensional stencil; ``WENOVectorInvariant``;
+  stencils and the multidimensional stencil, each scheme-valued option
+  taking Centered, UpwindBiased or WENO; ``WENOVectorInvariant``; or
+  flux-form momentum advection with any scheme of ``advection.py``;
 - ``ExplicitFreeSurface`` and ``SplitExplicitFreeSurface`` (the
   barotropic substeps are a Python loop over the averaging weights);
 - ``HydrostaticState`` and ``HydrostaticFreeSurfaceModel`` with quasi-AB2
   stepping: w diagnosed from continuity by a ``torch.cumsum`` over z, the
-  hydrostatic pressure anomaly of a buoyancy, Coriolis.
+  hydrostatic pressure anomaly of a buoyancy, Coriolis, and
+  ``tendency_callbacks`` hooks on the tendencies.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 Queue 1 item: closures, forcings, biogeochemistry, Stokes drift, particles
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from oceananigans_torch.advection import (
-    WENO, Centered, _face_value, _face_value_smooth,
+    SCHEMES, WENO, Centered, _face_value, _face_value_smooth,
     cell_advection_timescale, div_Uc, div_vu, div_vv,
     multi_dimensional_filter,
 )
@@ -528,14 +531,13 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 f"unknown vertical_coordinate {vertical_coordinate!r}")
         if momentum_advection is None:
             momentum_advection = VectorInvariant()
-        if not isinstance(momentum_advection,
-                          (VectorInvariant, Centered, WENO)):
+        if not isinstance(momentum_advection, (VectorInvariant, *SCHEMES)):
             raise NotImplementedError(
                 f"momentum advection {momentum_advection!r} is not ported "
                 "yet (ROADMAP Queue 1 item 11)")
         if tracer_advection is None:
             tracer_advection = Centered(2)
-        if not isinstance(tracer_advection, (Centered, WENO)):
+        if not isinstance(tracer_advection, SCHEMES):
             raise NotImplementedError(
                 f"tracer advection {tracer_advection!r} is not ported yet "
                 "(ROADMAP Queue 1 item 11)")
@@ -568,6 +570,10 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         self.buoyancy = buoyancy
         self.coriolis = coriolis
         self._fused = fused_kernels
+        #: hooks ``(grid, state, {name: G}) -> {name: G}`` applied to the
+        #: tendencies at the end of :meth:`compute_tendencies` (wired by
+        #: ``Simulation`` for ``TendencyCallsite`` callbacks)
+        self.tendency_callbacks = ()
 
         boundary_conditions = dict(boundary_conditions or {})
         self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W,
@@ -788,9 +794,15 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         return Gtracers
 
     def compute_tendencies(self, state):
-        """``(Gu, Gv, {name: Gc})``."""
-        return (*self.momentum_tendencies(state),
-                self.tracer_tendencies(state))
+        """``(Gu, Gv, {name: Gc})``, with the ``tendency_callbacks`` applied
+        in order."""
+        Gu, Gv = self.momentum_tendencies(state)
+        Gt = self.tracer_tendencies(state)
+        for hook in self.tendency_callbacks:
+            G = hook(self.grid, state, {"u": Gu, "v": Gv, **Gt})
+            Gu, Gv = G["u"], G["v"]
+            Gt = {n: G[n] for n in Gt}
+        return Gu, Gv, Gt
 
     # ------------------------------------------------------------------
     # Barotropic mode and the split-explicit free surface

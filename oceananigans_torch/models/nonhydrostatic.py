@@ -2,8 +2,8 @@
 projection.
 
 Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
-``RectilinearGrid``: Centered(2) or WENO advection of momentum and tracers,
-Coriolis, buoyancy, quasi-AB2 or RK3 time stepping. The model is an
+``RectilinearGrid``: Centered, UpwindBiased, WENO or FluxFormAdvection
+advection of momentum and tracers, Coriolis, buoyancy, quasi-AB2 or RK3 time stepping. The model is an
 ``nn.Module`` whose grid and pressure solver are submodules, so
 ``model.to(device)`` moves every constant they hold.
 
@@ -29,7 +29,8 @@ from typing import Dict
 import torch
 
 from oceananigans_torch.advection import (
-    WENO, Centered, div_Uc, div_vu, div_vv, div_vw, required_halo,
+    SCHEMES, Centered, cell_advection_timescale, div_Uc, div_vu, div_vv,
+    div_vw, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions,
@@ -127,7 +128,7 @@ class NonhydrostaticModel(torch.nn.Module):
                 "come with ROADMAP Queue 1 item 13")
         if advection is None:
             advection = Centered(2)
-        if not isinstance(advection, (Centered, WENO)):
+        if not isinstance(advection, SCHEMES):
             raise NotImplementedError(f"advection {advection!r} is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
         if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
@@ -176,6 +177,11 @@ class NonhydrostaticModel(torch.nn.Module):
         self._fused_kernels = fused_kernels
         #: fused pressure-correction kernel; opt-in, as in the JAX package
         self.fused_correction = False
+        #: hooks ``(grid, state, {name: G}) -> {name: G}`` applied to the
+        #: tendencies at the end of :meth:`compute_tendencies` (wired by
+        #: ``Simulation`` for ``TendencyCallsite`` callbacks); while one is
+        #: set, no fused AB2 kernel runs
+        self.tendency_callbacks = ()
         if device is not None:
             self.to(device)
 
@@ -213,12 +219,14 @@ class NonhydrostaticModel(torch.nn.Module):
     @property
     def fused_ab2(self) -> bool:
         """The Centered-2 tendency and the AB2 update run as one kernel."""
-        return self._pure_advection and self.fused_kernels == "centered2"
+        return (self._pure_advection and not self.tendency_callbacks
+                and self.fused_kernels == "centered2")
 
     @property
     def fused_ab2_weno(self) -> bool:
         """The WENO-5 tendency and the AB2 update run as one kernel."""
-        return self._pure_advection and self.fused_kernels == "weno5"
+        return (self._pure_advection and not self.tendency_callbacks
+                and self.fused_kernels == "weno5")
 
     @property
     def _science_fusable(self) -> bool:
@@ -230,6 +238,7 @@ class NonhydrostaticModel(torch.nn.Module):
             isinstance(self.buoyancy.formulation, BuoyancyTracer)
             and self.buoyancy.gravity_unit_vector == (0.0, 0.0, -1.0))
         return (self.timestepper == "QuasiAdamsBashforth2"
+                and not self.tendency_callbacks
                 and (self.coriolis is None
                      or type(self.coriolis) is FPlane)
                 and buoyancy_ok
@@ -303,7 +312,8 @@ class NonhydrostaticModel(torch.nn.Module):
     # ------------------------------------------------------------------
     def compute_tendencies(self, state):
         """``(Gu, Gv, Gw, {name: Gc})``: advection, Coriolis and buoyancy of
-        the momentum, advection of each tracer."""
+        the momentum, advection of each tracer, then the
+        ``tendency_callbacks`` in order."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
@@ -343,6 +353,10 @@ class NonhydrostaticModel(torch.nn.Module):
             if Gc is None:
                 Gc = -div_Uc(g, self.advection, u, v, w, tracers[name])
             Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C)
+        for hook in self.tendency_callbacks:
+            G = hook(g, state, {"u": Gu, "v": Gv, "w": Gw, **Gtracers})
+            Gu, Gv, Gw = G["u"], G["v"], G["w"]
+            Gtracers = {n: G[n] for n in Gtracers}
         return Gu, Gv, Gw, Gtracers
 
     def _pressure_correct(self, state, dt):
@@ -451,6 +465,18 @@ class NonhydrostaticModel(torch.nn.Module):
         state = self._pressure_correct(state, dt.item())
         state = _replace(state, clock=tick(state.clock, dt))
         return self.fill_state_halos(state)
+
+    # ------------------------------------------------------------------
+    # Time scales (TimeStepWizard)
+    # ------------------------------------------------------------------
+    def cfl_timescale(self, state):
+        """min over the interior of (|u|/Δx + |v|/Δy + |w|/Δz)⁻¹."""
+        return cell_advection_timescale(self.grid, state.u, state.v, state.w)
+
+    def diffusion_timescale(self, state):
+        """Δmin²/ν_max of the closure: +inf, since the model takes no
+        closure (closures are ROADMAP Queue 1 item 12)."""
+        return torch.tensor(float("inf"), dtype=self.grid.dtype)
 
     def extra_repr(self):
         return (f"advection={self.advection!r}, "

@@ -34,7 +34,7 @@ from typing import Dict
 import torch
 
 from oceananigans_torch.advection import (
-    WENO, Centered, _face_value, _scheme_for, cell_advection_timescale,
+    SCHEMES, Centered, _face_value, _scheme_for, cell_advection_timescale,
     div_Uc, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
@@ -159,11 +159,11 @@ class ShallowWaterModel(torch.nn.Module):
             if formulation != VectorInvariantFormulation:
                 raise ValueError("VectorInvariant momentum advection needs "
                                  "the vector-invariant formulation")
-        elif not isinstance(momentum_advection, (Centered, WENO)):
+        elif not isinstance(momentum_advection, SCHEMES):
             raise NotImplementedError(f"advection {momentum_advection!r} is "
                                       "not ported yet (ROADMAP Queue 1 "
                                       "item 11)")
-        if not isinstance(tracer_advection, (Centered, WENO)):
+        if not isinstance(tracer_advection, SCHEMES):
             raise NotImplementedError(f"advection {tracer_advection!r} is "
                                       "not ported yet (ROADMAP Queue 1 "
                                       "item 11)")

@@ -46,6 +46,7 @@ SIGNATURES = {
     "ot_sw_rk3_stage": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
     "ot_weno_tracers": [_P] * 5 + [_I] * 4 + [_P, _I, _D, _P],
     "ot_vi_tendency": [_P] * 5 + [_I] * 3 + [_P, _I, _I, _D, _P],
+    "ot_generic_momentum": [_P] * 6 + [_I] * 7 + [_D] * 7 + [_P],
 }
 
 _lib = None

@@ -52,7 +52,7 @@ def fused_available(grid, advection=None) -> bool:
     from oceananigans_torch.grids.rectilinear import RectilinearGrid
     if not (isinstance(grid, RectilinearGrid) and grid.regular):
         return False
-    if advection is not None and not (isinstance(advection, Centered)
+    if advection is not None and not (type(advection) is Centered
                                       and advection.order == 2):
         return False
     if not all(n > 1 for n in grid.N) or grid.H[0] < 1:

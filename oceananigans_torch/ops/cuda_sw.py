@@ -49,7 +49,7 @@ def sw_fused_available(grid, model) -> bool:
     if model.formulation != ConservativeFormulation:
         return False
     ma = model.momentum_advection
-    if not (isinstance(ma, Centered) and ma.order == 2):
+    if not (type(ma) is Centered and ma.order == 2):
         return False
     if model.coriolis is not None or model.tracer_names:
         return False

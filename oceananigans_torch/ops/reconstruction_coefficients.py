@@ -13,9 +13,10 @@ quadratic forms, not sums of squares):
 Index convention as in ``ops/operators.py``: face ``i`` sits between cells
 ``i-1`` and ``i``; a left-biased sub-stencil ``r`` uses cells
 ``i-1-r .. i-1-r+k-1``; the smoothness integral runs over the upwind cell
-``i-1`` (x in [-1, 0] with the face at 0, Δ = 1). The JAX module's
-upwind and centered stencils and its stretched-grid tables are not copied:
-no ported scheme uses them yet.
+``i-1`` (x in [-1, 0] with the face at 0, Δ = 1). The centered and
+upwind-biased face stencils (:func:`face_reconstruction_coefficients`) are
+generated the same way. The JAX module's stretched-grid tables are not
+copied: stretched grids are not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +51,29 @@ def _shu_c(r: int, k: int):
             s += Fraction(num, den)
         out.append(s)
     return out
+
+
+@lru_cache(None)
+def face_reconstruction_coefficients(order: int, bias: str):
+    """{offset: coefficient} for the value at face i from cell values.
+
+    ``bias``: "centered" (even order, cells i-B..i+B-1) or "left" (odd
+    order, cells i-B..i+B-2). Offsets are relative to the face (cell i-1
+    is offset -1).
+    """
+    if bias == "centered":
+        if order % 2:
+            raise ValueError("centered orders are even")
+        B = order // 2
+        c = _shu_c(B - 1, order)
+        return {j - B: float(ci) for j, ci in enumerate(c)}
+    if bias == "left":
+        if order % 2 == 0:
+            raise ValueError("upwind orders are odd")
+        B = (order + 1) // 2
+        c = _shu_c(B - 1, order)
+        return {j - B: float(ci) for j, ci in enumerate(c)}
+    raise ValueError(bias)
 
 
 @lru_cache(None)
@@ -114,4 +138,5 @@ def weno_beta_forms(order: int):
     return tuple(forms)
 
 
-__all__ = ["weno_beta_forms", "weno_ideal_weights", "weno_substencils"]
+__all__ = ["face_reconstruction_coefficients", "weno_beta_forms",
+           "weno_ideal_weights", "weno_substencils"]
