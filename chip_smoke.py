@@ -10,13 +10,16 @@ each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
-   one process per source), with each kernel's registers and spills;
+   one process per source), with each kernel's registers and spills, and
+   the SASS of the float32 Poisson kernel held to tensor-core
+   instructions (``cuobjdump -sass``: HGMMA);
 3. each of the thirteen kernels against its plain PyTorch version, in
    float32, at the main path's shapes and at a ragged shape, the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
    kernels also at a small size in float64, with times and the least time
-   the card could take for the same work; the generic momentum kernel
-   (kernel 14) at small ragged shapes for Centered(2..12),
+   the card could take for the same work (the Poisson kernel also beside
+   the ``torch.matmul`` chain with its 1/λ table made once); the generic
+   momentum kernel (kernel 14) at small ragged shapes for Centered(2..12),
    UpwindBiased(1..11), WENO(3..11) and two FluxFormAdvections, in float32
    and float64;
 4. the main path: the 256³ Centered-2 quasi-AB2 model (``bench.py``'s
@@ -87,6 +90,7 @@ import json
 import math
 import subprocess
 import time
+from pathlib import Path
 
 
 def log(*args):
@@ -124,25 +128,22 @@ def paired_times(torch, plain, kernel, reps):
 
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
-#: memory rate in bytes/s and float32 rate outside the tensor cores in
-#: FLOP/s (a fused multiply-add counts two)
+#: memory rate in bytes/s, float32 rate outside the tensor cores and dense
+#: TF32 rate of the tensor cores in FLOP/s (a fused multiply-add counts two)
 PEAK_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+#: the float32 Poisson middle stage forms each product from three TF32
+#: products on the tensor cores (hi·hi + hi·lo + lo·hi)
+TF32X3_PASSES = 3
 
 #: operations per output point, counted from the CUDA sources (an add,
 #: multiply, divide, min, abs or select counts one, a fused multiply-add
 #: two), for the work each function must do at least once:
 #: Centered-2 tendency (``centered2.cu``, 34 per component), pressure
-#: correction (4 per component), and the WENO-5 face flux (``weno5.cu``:
-#: 135 for the face value, with the advecting velocity's average and the
-#: product 138 for momentum, 136 for a tracer)
+#: correction (4 per component)
 C2_TENDENCY_OPS = 102
 PRESSURE_OPS = 12
-WENO_FACE_OPS = 135
-#: a momentum point: 9 face fluxes and 9 differences, scales and sums
-WENO_MOMENTUM_OPS = 9 * (WENO_FACE_OPS + 3) + 27
-#: a tracer point: 3 face fluxes (the velocity is not averaged) and 9
-WENO_TRACER_OPS = 3 * (WENO_FACE_OPS + 1) + 9
 #: f-plane Coriolis on Gu and Gv, and the buoyancy average on Gw
 SCIENCE_OPS = 14 + 3
 #: q + a·G + b·G⁻ for one field
@@ -163,6 +164,16 @@ SW_STAGE_OPS = 10 * 3 + 8 * 5 + 2 * 12 + 6 + 3 * AB2_OPS
 WENO5_SIDE_OPS = 86
 WENO7_SIDE_OPS = 157
 WENO9_VS_SIDE_OPS = 436
+#: a WENO-5 momentum point, the least work, counted as
+#: ``generic_point_ops(WENO(5))`` counts it (kernels 7 and 14 compute the
+#: same function): per component three faces of one side each (the
+#: advecting velocity 4, the side, the select, the product with U), then
+#: three differences, two sums, the scale and the sign
+WENO_MOMENTUM_OPS = 3 * (3 * (4 + WENO5_SIDE_OPS + 1 + 1) + 7)
+#: a WENO-5 tracer point: three faces of one side each (the side, the
+#: select, the product with the face velocity), three differences, three
+#: scales, two sums and the sign
+WENO_TRACER_OPS = 3 * (WENO5_SIDE_OPS + 1 + 1) + 9
 #: a WENO-7 tracer point (``csrc/weno_tracer.cu``), the least work: three
 #: faces of one side each with the transport A·U, the product and the
 #: select, then three differences, two sums, the division by V and the sign
@@ -215,13 +226,29 @@ def generic_point_ops(scheme):
     return 3 * (faces + 3 + 2 + 2)
 
 
-def bound(nbytes, flops):
+def sass_counts(sass, kernels, ops):
+    """``{kernel: {op: n}}``: the SASS lines of each function whose
+    (mangled) name contains ``kernel`` that contain ``op``, from
+    ``cuobjdump -sass``."""
+    out = {k: dict.fromkeys(ops, 0) for k in kernels}
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            cur = next((k for k in kernels if k in name), None)
+        elif cur is not None:
+            for op in ops:
+                out[cur][op] += op in line
+    return out
+
+
+def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
     """The least time the card could take, in ms, and what sets it: the
     bytes the function must move (each input read once, each output
-    written once) over the memory rate, or its operations over the float32
-    peak, whichever is larger."""
+    written once) over the memory rate, or its operations over the peak
+    rate of their type (float32 FFMA unless given), whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -269,6 +296,17 @@ def main():
         if ("registers" in line or "Compiling entry" in line
                 or "spill" in line):
             log(f"[2]   {line.strip()}")
+    # what the kernels compiled to: the float32 Poisson kernel must run on
+    # the tensor cores (HGMMA); the IEEE-division checks (FCHK) and the
+    # reciprocals (MUFU.RCP) of the WENO-5 kernels are counted
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
+                          capture_output=True, text=True, check=True).stdout
+    counts = sass_counts(sass, ("poisson_middle_tf32x3", "weno5_tile",
+                                "weno5_step"), ("HGMMA", "FCHK", "MUFU.RCP"))
+    log(f"[2] SASS instructions per kernel (every instantiation): {counts}")
+    require(counts["poisson_middle_tf32x3"]["HGMMA"] > 0,
+            "the float32 Poisson kernel issues tensor-core instructions")
 
     # ---- phase 3: kernels against their plain versions ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -405,23 +443,52 @@ def main():
             "centered2_momentum_tendency": bound(
                 6 * field, points * C2_TENDENCY_OPS),
             "pressure_correction": bound(7 * field, points * PRESSURE_OPS),
+            # the work of the kernel's route, three TF32 products for each
+            # product, on the tensor cores
             "fused_middle_solve": bound(
                 2 * x.numel() * x.element_size(),
-                4 * N[0] * Ny * Nz * (Ny + Nz)),
+                TF32X3_PASSES * 4 * N[0] * Ny * Nz * (Ny + Nz),
+                PEAK_TF32_FLOPS),
         }
         for name, (plain, kernel) in timings.items():
             plain_ms, ms = paired_times(torch, plain, kernel, reps)
             bound_ms, bound_by = bounds[name]
-            # the plain middle stage is itself the torch.matmul chain, the
-            # one library computation of the same function
-            report[name].update(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
-                library_ms=plain_ms if name == "fused_middle_solve" else None)
+            report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
             log(f"[3] {name} at {tuple(u.shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
-        del u, v, w, p, Gm, Gk, Gp, got, ref, x, margs, timings
+        # kernel 4's yardsticks: the same products in float32 FFMA, and the
+        # torch.matmul chain with the 1/λ table made on every call (its
+        # plain version) or made once, as the unfused MatmulPoissonSolver
+        # holds it; the faster chain is the library call's time
+        ffma_ms, _ = bound(2 * x.numel() * x.element_size(),
+                           4 * N[0] * Ny * Nz * (Ny + Nz))
+        inv_lam = cp._inv_lambda(*margs[3:], f32)
+
+        def chain():
+            Ey, Ez = margs[1], margs[2]
+            z = torch.matmul(torch.matmul(Ey, x), Ez.T) * inv_lam
+            return torch.matmul(Ey.T, torch.matmul(z, Ez))
+
+        require(float((chain() - ref[0]).abs().max())
+                <= GEMM_RTOL * scale(ref), "the table chain computes kernel "
+                "4's function")
+        table_ms, ms2 = paired_times(
+            torch, chain, lambda: cp.fused_middle_solve(*margs), reps)
+        rep = report["fused_middle_solve"]
+        rep["library_ms"] = min(rep["plain_ms"], table_ms)
+        log(f"[3] fused_middle_solve at {tuple(x.shape)} on {card}: kernel "
+            f"{rep['ms']:.4f} and {ms2:.4f} ms (two turns); torch.matmul "
+            f"chain {rep['plain_ms']:.4f} ms (1/λ table made each call), "
+            f"{table_ms:.4f} ms (table made once); bound "
+            f"{rep['bound_ms']:.4f} ms as 3xTF32 on the tensor cores "
+            f"({TF32X3_PASSES} x {4 * N[0] * Ny * Nz * (Ny + Nz) / 1e9:.2f} "
+            f"GFLOP at {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s), {ffma_ms:.4f} ms "
+            f"as float32 FFMA at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s; share of "
+            f"the 3xTF32 bound {rep['bound_ms'] / rep['ms']:.3f}")
+        del u, v, w, p, Gm, Gk, Gp, got, ref, x, margs, timings, chain, \
+            inv_lam
         torch.cuda.empty_cache()
 
     #: the WENO-5 kernels against the plain versions: the WENO-Z weights
@@ -483,6 +550,8 @@ def main():
         field = u.numel() * u.element_size()
         points = N[0] * N[1] * N[2]
         T = len(tr)
+        require(WENO_MOMENTUM_OPS == generic_point_ops(ot.WENO(5)),
+                "kernels 7 and 14 are bounded by the same count of work")
         bounds = {
             "weno5_ab2_update": bound(
                 12 * field, points * (WENO_MOMENTUM_OPS + 3 * AB2_OPS)),
@@ -928,8 +997,15 @@ def main():
         solver.solve(rhs)
         torch.cuda.synchronize()
         solve_ms[name] = time_ms(torch, lambda: solver.solve(rhs), 10)
-    log(f"[6] Poisson solve at {N}^3 float32: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in solve_ms.items()))
+    # the default solver against the fused matmul solver, in turns
+    fft_ms, fused_ms = paired_times(
+        torch, lambda: solvers["fft"].solve(rhs),
+        lambda: solvers["matmul_fused"].solve(rhs), 10)
+    log(f"[6] Poisson solve at {N}^3 float32 on {card}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in solve_ms.items())
+        + f"; in turns (fft, fused, fused, fft): FFTPoissonSolver "
+        f"{fft_ms:.4f} ms, MatmulPoissonSolver(fused=True) {fused_ms:.4f} "
+        "ms")
     log(f"[6] step times on {card}: kernel path {step_ms['kernel']:.3f} "
         f"ms/step, plain path {step_ms['plain']:.3f} ms/step")
 
@@ -1384,7 +1460,17 @@ def main():
             log(f"[10] WENO(5): kernel 14 vs kernel 7 max|diff| {err7:.3e}"
                 f" (tolerance {tol7:.3e})")
             require(err7 <= tol7, f"kernel 14 vs kernel 7 {err7:.3e}")
-            del k7
+            # and kernel 7 against its own plain version on these fields
+            # with exact zero rows, every row (x-halo rows zero in both)
+            p7 = cw.weno5_momentum_tendency_plain(g10, *fs)
+            torch.cuda.synchronize()
+            err7p = max_err(k7, p7)
+            tol7p = WENO_RTOL * scale(p7)
+            log(f"[10] WENO(5), zero rows: kernel 7 vs its plain version "
+                f"max|diff| {err7p:.3e} (tolerance {tol7p:.3e})")
+            require(err7p <= tol7p, f"kernel 7 vs plain on zero rows "
+                    f"{err7p:.3e}")
+            del k7, p7
         del got, ref
         torch.cuda.empty_cache()
         reps = 5
@@ -1576,7 +1662,7 @@ def main():
                "weno5_ab2_update": ("oceananigans_torch/csrc/weno5.cu",
                                     "oceananigans_tpu/ops/pallas_weno.py:603"),
                "weno5_momentum_tendency": (
-                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_torch/csrc/weno5_tile.cu",
                    "oceananigans_tpu/ops/pallas_weno.py:664"),
                "weno5_science_ab2_update": (
                    "oceananigans_torch/csrc/weno5.cu",

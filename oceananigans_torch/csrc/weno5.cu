@@ -1,13 +1,14 @@
-// WENO-5 momentum and tracer advection, alone and fused with physics and
-// the quasi-AB2 update.
+// WENO-5 momentum and tracer advection fused with physics and the
+// quasi-AB2 update, and the tracer tendencies.
 //
 // Replaces the TPU kernels of oceananigans_tpu/ops/pallas_weno.py:
 //   weno5_ab2_update          (_weno_ab2_pipelined_kernel) -> weno5_step<T, false>
-//   weno5_momentum_tendency   (_kernel)                    -> weno5_tendency
 //   weno5_science_ab2_update  (_weno_science_kernel)       -> weno5_step<T, true>
 //   weno5_tracer_tendencies   (_tracer_kernel)             -> weno5_tracers
-// All four share one face reconstruction (_weno_face -> weno5_face) and the
-// three momentum kernels one momentum body (_weno5_body -> weno5_momentum).
+// All three share one face reconstruction (_weno_face -> weno5_face) and the
+// two momentum kernels one momentum body (_weno5_body -> weno5_momentum).
+// The momentum tendency alone (weno5_momentum_tendency) is the x-marching
+// tile of weno5_tile.cu.
 //
 // Fields are halo-extended (nx, ny, nz) arrays, C-contiguous, z fastest.
 // Output x-rows are [3, nx-3), as on the TPU. y and z neighbours at offsets
@@ -27,10 +28,11 @@
 // order, so the two agree to rounding, not bit for bit.
 //
 // What bounds it on the H100: arithmetic more than memory. One face value
-// costs ~135 operations; a momentum point needs 9 face fluxes and each
-// tracer 3 more. At 256^3 in float32 the momentum tendency alone is ~21
-// GFLOP, 0.32 ms at the 67 TFLOP/s FFMA peak, against 0.25 ms for the 12
-// fields the fused AB2 kernel moves. Design: one thread per output point
+// costs ~135 operations for both sides (one side ~86); a momentum point
+// needs 9 face fluxes and each tracer 3 more. At 256^3 in float32 the
+// momentum part is 14 GFLOP of one-sided faces, 0.21 ms at the 67 TFLOP/s
+// FFMA peak, against 0.25 ms for the 12 fields the fused AB2 kernel
+// moves. Design: one thread per output point
 // with z on the fastest thread index, so every load and store of a warp is
 // one contiguous run; neighbour reads go through the read-only cache, and
 // each face flux is computed twice, once for each cell it bounds. Shared
@@ -243,34 +245,6 @@ __device__ __forceinline__ void decompose(int64_t p, const Layout& L,
   i = t / L.ny;
 }
 
-// Kernel 7: (Gu, Gv, Gw) on rows [3, nx-3); the other x-rows are zeroed,
-// as the JAX wrapper embeds its result in zeros.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) weno5_tendency(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
-    T* __restrict__ gu, T* __restrict__ gv, T* __restrict__ gw, Layout L,
-    Coefs<T> c) {
-  const int64_t total = (int64_t)L.nx * L.sx;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < total;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    int64_t i;
-    int j, k;
-    decompose(p, L, i, j, k);
-    if (i < 3 || i >= L.nx - 3) {
-      gu[p] = T(0);
-      gv[p] = T(0);
-      gw[p] = T(0);
-      continue;
-    }
-    const Stencil S = stencil_of(L, i, j, k);
-    T a, b, d;
-    weno5_momentum(u, v, w, S, c, a, b, d);
-    gu[p] = a;
-    gv[p] = b;
-    gw[p] = d;
-  }
-}
-
 // Kernel 9: the tendencies of tr.n tracers on rows [3, nx-3), zero on the
 // other x-rows; u, v, w are read once for all of them.
 template <typename T>
@@ -387,18 +361,6 @@ Coefs<T> coefs_of(double idx, double idy, double idz, double eps) {
 }
 
 template <typename T>
-int launch_tendency(const void* u, const void* v, const void* w, void* gu,
-                    void* gv, void* gw, int nx, int ny, int nz, double idx,
-                    double idy, double idz, double eps, void* stream) {
-  const int64_t total = (int64_t)nx * ny * nz;
-  if (total == 0) return 0;
-  weno5_tendency<T><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)v, (const T*)w, (T*)gu, (T*)gv, (T*)gw,
-      layout_of(nx, ny, nz), coefs_of<T>(idx, idy, idz, eps));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_tracers(const void* u, const void* v, const void* w,
                    const void* const* c, void* const* g, int n, int nx,
                    int ny, int nz, double idx, double idy, double idz,
@@ -438,14 +400,6 @@ int launch_step(const void* u, const void* v, const void* w, void* gu,
 extern "C" {
 
 #define OT_WENO5_ENTRIES(SUFFIX, T)                                          \
-  int ot_weno5_tendency_##SUFFIX(const void* u, const void* v,               \
-                                 const void* w, void* gu, void* gv,          \
-                                 void* gw, int nx, int ny, int nz,           \
-                                 double idx, double idy, double idz,         \
-                                 double eps, void* stream) {                 \
-    return launch_tendency<T>(u, v, w, gu, gv, gw, nx, ny, nz, idx, idy,     \
-                              idz, eps, stream);                             \
-  }                                                                          \
   int ot_weno5_tracers_##SUFFIX(const void* u, const void* v, const void* w, \
                                 const void* const* c, void* const* g, int n, \
                                 int nx, int ny, int nz, double idx,          \

@@ -188,8 +188,9 @@ def test_cuda_kernels_match_plain(dtype):
     """Each CUDA kernel against its plain version on the card. The stencils
     round in another order than the plain versions and contract into FMA,
     so they agree to a few ulps of the largest value (8 ulps allowed); the
-    Poisson middle stage sums its products in its own order (1e-5 of the
-    largest value in float32, 1e-12 in float64)."""
+    Poisson middle stage sums its products in its own order, in float32 as
+    3xTF32 products on the tensor cores (1e-5 of the largest value in
+    float32, 1e-12 in float64)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from oceananigans_torch.ops import cuda_poisson as cp
@@ -211,12 +212,25 @@ def test_cuda_kernels_match_plain(dtype):
         scale = max(float(b.abs().max()) for b in ref)
         for a, b in zip(got, ref):
             assert float((a - b).abs().max()) <= stencil_rtol * scale
-    s = ot.MatmulPoissonSolver(tg)
-    x = torch.randn(tg.N, dtype=dtype, device="cuda")
-    args = (x, s.T1, s.T2, s.lam0.to(dtype), s.lam1, s.lam2)
-    got, ref = cp.fused_middle_solve(*args), cp.fused_middle_solve_plain(*args)
+    # the Poisson middle stage on the haloed grid, at shapes whose y and z
+    # extents differ and are not multiples of the 128 x 128 tile, nor
+    # (30, 20, 40) of the 4-float runs the 16-byte copies take, and at the
+    # main path's 256 x 256 planes, whose sums over 256 terms show how the
+    # float32 path accumulates
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
-    assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+    for N in (tg.N, (8, 24, 136), (30, 20, 40), (2, 256, 256)):
+        g = ot.RectilinearGrid(size=N, extent=(1.0, 2.0, 0.5), topology=BPP,
+                               halo=1, dtype=dtype, device="cuda")
+        s = ot.MatmulPoissonSolver(g)
+        x = torch.randn(N, dtype=dtype, device="cuda")
+        args = (x, s.T1, s.T2, s.lam0.to(dtype), s.lam1, s.lam2)
+        n0 = cp.fused_middle_solve.launches
+        got = cp.fused_middle_solve(*args)
+        ref = cp.fused_middle_solve_plain(*args)
+        torch.cuda.synchronize()
+        assert cp.fused_middle_solve.launches == n0 + 1
+        assert float((got - ref).abs().max()) <= rtol * float(
+            ref.abs().max()), N
 
 
 @pytest.mark.gpu

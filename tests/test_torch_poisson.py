@@ -17,6 +17,9 @@ import oceananigans_tpu as oj
 from oceananigans_torch.ops.cuda_poisson import (
     fused_middle_solve, fused_middle_solve_plain,
 )
+from oceananigans_torch.solvers.matmul_poisson import (
+    _bounded_basis, _periodic_basis,
+)
 from oceananigans_torch.solvers.transforms import dct2, idct2
 from oceananigans_tpu.ops.pallas_poisson import (
     fused_middle_solve as j_fused_middle_solve,
@@ -139,3 +142,77 @@ def test_solver_constants_are_buffers():
     assert {"T0", "T1", "T2", "lam0", "lam1", "lam2", "inv_lam"} <= names
     assert "inv_lam" in dict(ot.FFTPoissonSolver(tg).named_buffers())
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernel's arithmetic: 3xTF32 products on the tensor cores
+# ---------------------------------------------------------------------------
+
+#: the bound the card holds the float32 kernel to (chip_smoke.py GEMM_RTOL)
+GEMM_RTOL = 1e-5
+
+
+def _tf32(a):
+    """float32 values rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32`` rounds them."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000))
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as ``csrc/poisson_middle.cu`` forms it on the tensor cores:
+    for each k-step of 8, the products of TF32 operands added into a float32
+    accumulator; one pass (hi·hi) or the 3xTF32 split, hi = TF32(x) and
+    lo = TF32(x - hi), as lo·hi + hi·lo + hi·hi."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        if passes == 3:
+            acc += al[:, s] @ bh[s]
+            acc += ah[:, s] @ bl[s]
+        acc += ah[:, s] @ bh[s]
+    return acc
+
+
+def _middle_float32(x, Ey, Ez, lamx, lamy, lamz, matmul):
+    """The kernel's middle stage in float32 with the given product; λyz is
+    summed in float64 and rounded to float32, the zero-sum mode zeroed."""
+    f32 = np.float32
+    lyz = (lamy[:, None] + lamz[None, :]).astype(f32)
+    out = np.empty(x.shape, f32)
+    for i in range(x.shape[0]):
+        ls = f32(lamx[i]) + lyz
+        inv = np.where(ls == 0, f32(0), f32(1) / np.where(ls == 0, f32(1),
+                                                          ls))
+        S = matmul(matmul(Ey, x[i]), Ez.T) * inv
+        out[i] = matmul(Ey.T, matmul(S, Ez))
+    return out
+
+
+@pytest.mark.parametrize("size", [(4, 12, 16), (1, 256, 256)])
+def test_tf32x3_middle_stage_keeps_float32_accuracy(size):
+    """The 3xTF32 split keeps the float32 kernel within GEMM_RTOL of the
+    float64 middle stage with margin (~2e-7 at (4, 12, 16), ~1.1e-6 on one
+    256 x 256 plane of DCT and Fourier bases, as plain float32 products
+    give ~1.6e-6), where one TF32 pass misses it by ~60x (~6e-4): the
+    kernel's float32 path needs all three products."""
+    Nx, Ny, Nz = size
+    Ey, lamy = _periodic_basis(Ny, 1.0 / Ny)
+    Ez, lamz = _periodic_basis(Nz, 0.5 / Nz)
+    _, lamx = _bounded_basis(Nx, 1.0 / Nx)
+    Ey, Ez, lamx = (a.astype(np.float32) for a in (Ey, Ez, lamx))
+    x = np.random.default_rng(5).standard_normal(size).astype(np.float32)
+    ref = fused_middle_solve_plain(*(torch.tensor(a, dtype=F64) for a in (
+        x, Ey, Ez, lamx, lamy, lamz))).numpy()
+    scale = np.abs(ref).max()
+    errs = {}
+    for passes in (3, 1):
+        got = _middle_float32(x, Ey, Ez, lamx, lamy, lamz,
+                              lambda a, b: _tf32_matmul(a, b, passes))
+        errs[passes] = np.abs(got - ref).max() / scale
+    assert errs[3] <= GEMM_RTOL / 4, errs
+    assert errs[1] > GEMM_RTOL, f"one TF32 pass would do: {errs}"

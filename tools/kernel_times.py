@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Time the Poisson middle-stage kernel (``fused_middle_solve``) and the
+WENO-5 momentum tendency kernel (``weno5_momentum_tendency``) of one
+checkout of ``oceananigans_torch`` on one GPU, and print one JSON line.
+
+    python3 tools/kernel_times.py [--root DIR] [--reps N]
+
+``--root`` is the directory that holds the ``oceananigans_torch`` package
+to time (default: this checkout); its kernels are built there, under
+``DIR/build``, at first use. Two checkouts are compared by running this
+script in turns in one session on one card (a, b, b, a): the inputs are
+made from fixed seeds, so every run times the same work.
+
+At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
+
+- ``fused_middle_solve`` on an x-transformed random right-hand side of a
+  (Bounded, Periodic, Periodic) grid, its plain version (the
+  ``torch.matmul`` chain that makes the 1/λ table on every call) and the
+  same chain with the table made once;
+- ``weno5_momentum_tendency`` on a grid with halo (3, 0, 0), on random
+  halo-filled u, v, w, and on the same fields with u exactly zero on every
+  third z-column and v on every other x-plane.
+
+The line also carries the card's name and power limit, the counts of a
+few SASS instructions in the two kernels (``cuobjdump -sass``) and, when
+this run built the kernels, nvcc's registers, shared memory and spills of
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def time_ms(torch, fn, reps):
+    """Mean milliseconds per call over ``reps`` calls after one warm-up
+    call, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptxas_report(log, kernels):
+    """``{mangled name: [ptxas lines]}`` of the entry functions whose names
+    contain one of ``kernels``: their registers, shared memory and spills
+    from nvcc's ``-Xptxas -v`` report."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = name if any(k in name for k in kernels) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("spill" in line or "Used" in line):
+            out[cur].append(line.strip())
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve()
+                                              .parent.parent))
+    parser.add_argument("--reps", type=int, default=20)
+    args = parser.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times.py: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import oceananigans_torch as ot
+    from oceananigans_torch.ops import _build
+    from oceananigans_torch.ops import cuda_poisson as cp
+    from oceananigans_torch.ops import cuda_weno as cw
+    if Path(ot.__file__).resolve().parent.parent != root:
+        raise SystemExit(f"kernel_times.py: imported {ot.__file__}, not "
+                         f"the package under {root}")
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _build.load()
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"root": str(root), "card": card, "reps": args.reps}
+
+    def grid_of(halo):
+        return ot.RectilinearGrid(
+            size=(256, 256, 256), extent=(1.0, 1.0, 1.0),
+            topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
+            dtype=f32, device=dev)
+
+    # kernel 4
+    grid = grid_of((1, 0, 0))
+    solver = ot.MatmulPoissonSolver(grid)
+    x = torch.randn(grid.N, generator=gen, device=dev, dtype=f32)
+    x = solver._apply(x - x.mean(), 0, transpose=False)
+    margs = (x, solver.T1, solver.T2, solver.lam0.to(f32), solver.lam1,
+             solver.lam2)
+    inv_lam = cp._inv_lambda(*margs[3:], f32)
+
+    def chain():
+        Ey, Ez = margs[1], margs[2]
+        z = torch.matmul(torch.matmul(Ey, x), Ez.T) * inv_lam
+        return torch.matmul(Ey.T, torch.matmul(z, Ez))
+
+    ref = cp.fused_middle_solve_plain(*margs)
+    got = cp.fused_middle_solve(*margs)
+    torch.cuda.synchronize()
+    out["fused_middle_solve"] = {
+        "rel_err": float((got - ref).abs().max() / ref.abs().max()),
+        "kernel_ms": time_ms(torch, lambda: cp.fused_middle_solve(*margs),
+                             args.reps),
+        "plain_ms": time_ms(torch, lambda: cp.fused_middle_solve_plain(
+            *margs), args.reps),
+        "table_chain_ms": time_ms(torch, chain, args.reps)}
+    del solver, x, margs, inv_lam, ref, got
+    torch.cuda.empty_cache()
+
+    # kernel 7
+    grid = grid_of((3, 0, 0))
+    fields = {}
+    for data in ("random", "zero rows"):
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+            a = torch.randn(grid.shape, generator=gen, device=dev, dtype=f32)
+            if data == "zero rows" and n == 0:
+                a[:, :, ::3] = 0.0
+            if data == "zero rows" and n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, grid, loc=loc))
+        fields[data] = fs
+    rec = {}
+    for data, fs in fields.items():
+        got = cw.weno5_momentum_tendency(grid, *fs)
+        ref = cw.weno5_momentum_tendency_plain(grid, *fs)
+        torch.cuda.synchronize()
+        scale = max(float(r.abs().max()) for r in ref)
+        rec[data] = {
+            "rel_err": max(float((g - r).abs().max())
+                           for g, r in zip(got, ref)) / scale,
+            "kernel_ms": time_ms(
+                torch, lambda: cw.weno5_momentum_tendency(grid, *fs),
+                args.reps)}
+        del got, ref
+    out["weno5_momentum_tendency"] = rec
+    kernels = ("poisson_middle", "weno5_tile", "weno5_tendency")
+    out["nvcc"] = ptxas_report(_build.build_log, kernels)
+    # the instructions each kernel compiled to (chip_smoke.py's counter)
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import sass_counts
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
+                          capture_output=True, text=True, check=True).stdout
+    out["sass"] = sass_counts(sass, kernels, ("HGMMA", "HMMA", "FFMA", "FCHK",
+                                              "MUFU.RCP"))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
