@@ -10,11 +10,14 @@ each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``oceananigans_torch/csrc`` (nvcc,
-   one process per source), with each kernel's registers and spills, and
-   the SASS of the float32 Poisson kernel held to tensor-core
-   instructions (``cuobjdump -sass``: HGMMA);
+   one process per source), with each kernel's registers and spills, the
+   SASS of the float32 Poisson kernel held to tensor-core instructions
+   (``cuobjdump -sass``: HGMMA) and that of the WENO-5 tiles to
+   reciprocals without IEEE division (MUFU.RCP, no FCHK);
 3. each of the thirteen kernels against its plain PyTorch version, in
-   float32, at the main path's shapes and at a ragged shape, the
+   float32, at the main path's shapes and at a ragged shape (the WENO-5
+   science and tracer kernels there also with one and with eight
+   tracers), the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
    kernels also at a small size in float64, with times and the least time
    the card could take for the same work (the Poisson kernel also beside
@@ -35,10 +38,12 @@ each of which raises on failure:
    (Centered(2), f-plane, BuoyancyTracer, tracers b and c: the Centered-2
    science kernel) for 100 timed steps after a warm-up, and ``weno_mom``
    (the momentum AB2 kernel), the WENO science model (f-plane,
-   BuoyancyTracer, tracers b and c) and RK3 ``weno`` (the tendency and
-   tracer kernels) for a few steps each, each on the kernel path and on the
-   plain path; plus float64 16³ science and WENO science runs of the kernel
-   path held against the plain path on the CPU;
+   BuoyancyTracer, tracers b and c), RK3 ``weno`` (the tendency and
+   tracer kernels, 2 warm-up + 10 timed steps) and a WENO(7) model with
+   tracers T and S (the any-order tracer kernel, plain momentum) for a few
+   steps each, each on the kernel path and on the plain path; plus float64
+   16³ science and WENO science runs of the kernel path held against the
+   plain path on the CPU;
 8. the shallow-water model in ``bench.py``'s ``sw8192`` configuration
    (8192², RK3, the stage kernel three times a step) on the kernel path
    and on the plain path, held against each other after 5 steps and timed
@@ -73,7 +78,8 @@ Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
 phase 5's RK3 run for the Centered-2 tendency kernel, phase 6's opt-in
 model for the pressure and Poisson kernels, phase 7's ``weno``,
-``science``, ``weno_mom`` and RK3 runs for the WENO and science kernels,
+``science``, ``weno_mom`` and RK3 runs for the WENO and science kernels
+(its WENO science and WENO(7) runs are counted and checked too),
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
@@ -229,12 +235,15 @@ def generic_point_ops(scheme):
 def sass_counts(sass, kernels, ops):
     """``{kernel: {op: n}}``: the SASS lines of each function whose
     (mangled) name contains ``kernel`` that contain ``op``, from
-    ``cuobjdump -sass``."""
+    ``cuobjdump -sass``. The anonymous namespace of a source file, whose
+    mangled name carries the file's name, is left out of the match."""
+    import re
     out = {k: dict.fromkeys(ops, 0) for k in kernels}
     cur = None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = line.split("Function :", 1)[1]
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "",
+                          line.split("Function :", 1)[1])
             cur = next((k for k in kernels if k in name), None)
         elif cur is not None:
             for op in ops:
@@ -297,16 +306,21 @@ def main():
                 or "spill" in line):
             log(f"[2]   {line.strip()}")
     # what the kernels compiled to: the float32 Poisson kernel must run on
-    # the tensor cores (HGMMA); the IEEE-division checks (FCHK) and the
-    # reciprocals (MUFU.RCP) of the WENO-5 kernels are counted
+    # the tensor cores (HGMMA); the WENO-5 tiles must not divide (no
+    # FCHK, the IEEE division's slow-path test); their reciprocals
+    # (MUFU.RCP) are counted
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
                           capture_output=True, text=True, check=True).stdout
-    counts = sass_counts(sass, ("poisson_middle_tf32x3", "weno5_tile",
+    tiles = ("weno5_tile", "weno5_science_tile", "weno5_tracer_tile")
+    counts = sass_counts(sass, ("poisson_middle_tf32x3", *tiles,
                                 "weno5_step"), ("HGMMA", "FCHK", "MUFU.RCP"))
     log(f"[2] SASS instructions per kernel (every instantiation): {counts}")
     require(counts["poisson_middle_tf32x3"]["HGMMA"] > 0,
             "the float32 Poisson kernel issues tensor-core instructions")
+    require(all(counts[k]["FCHK"] == 0 and counts[k]["MUFU.RCP"] > 0
+                for k in tiles), "the WENO-5 tiles take reciprocals and "
+            "divide nowhere")
 
     # ---- phase 3: kernels against their plain versions ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -575,6 +589,42 @@ def main():
                 f"{bound_ms:.4f} ms ({bound_by})")
         del u, v, w, c, d, tr, Gm, Gk, Gp, got, ref, checks
         torch.cuda.empty_cache()
+
+    # kernels 8 and 9 with one and with MAX_TRACERS tracers at the ragged
+    # shape: a tracer block with one tracer, and four tracer blocks (8 with
+    # f and the last tracer as buoyancy)
+    N, halo = weno_shapes["ragged"]
+    grid = grid_of(N, halo)
+    for T in (1, cw.MAX_TRACERS):
+        u, v, w = filled_fields(grid, 3)
+        cs = [ot.fill_halo_regions(
+            torch.randn(grid.shape, generator=gen, device=dev, dtype=f32),
+            grid, loc=ot.LOC_C) for _ in range(T)]
+        names = [f"c{t}" for t in range(T)]
+        tr = dict(zip(names, cs))
+        Gm = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
+                                dtype=f32) for _ in range(3 + T)]
+        a, b = 1.6e-4, -0.6e-4
+
+        def science_t(fn):
+            out = fn(grid, u, v, w, tr, *(g.clone() for g in Gm[:3]),
+                     {n: g.clone() for n, g in zip(names, Gm[3:])}, a, b,
+                     f=f_smoke, buoyancy_tracer=names[-1])
+            return [*out[:3], *out[3].values(), *out[4:7], *out[7].values()]
+
+        got = science_t(cw.weno5_science_ab2_update)
+        ref = science_t(cw.weno5_science_ab2_update_plain)
+        torch.cuda.synchronize()
+        check("weno5_science_ab2_update", f"ragged, T = {T}", got, ref,
+              WENO_RTOL)
+        got = list(cw.weno5_tracer_tendencies(grid, u, v, w, tr).values())
+        ref = list(cw.weno5_tracer_tendencies_plain(grid, u, v, w,
+                                                    tr).values())
+        torch.cuda.synchronize()
+        check("weno5_tracer_tendencies", f"ragged, T = {T}", got, ref,
+              WENO_RTOL)
+    del u, v, w, cs, tr, Gm, got, ref
+    torch.cuda.empty_cache()
 
     # kernel 5, the Centered-2 science step: the updated fields and the
     # tendencies, each group to 8 float32 ulps of its largest value (the
@@ -1018,6 +1068,8 @@ def main():
             return dict(advection=ot.WENO(5), coriolis=ot.FPlane(f=1e-4),
                         buoyancy=ot.BuoyancyTracer(),
                         tracers=("b", "c")), (3, 0, 0)
+        if config == "weno7":
+            return dict(advection=ot.WENO(7), tracers=("T", "S")), (4, 0, 0)
         return config_kwargs(config)
 
     def weno_model(config, fused, timestepper="QuasiAdamsBashforth2",
@@ -1058,9 +1110,13 @@ def main():
                      {"weno5_ab2_update": 1}),
         "weno_science": ("weno_science", "QuasiAdamsBashforth2", 2, 10,
                          {"weno5_science_ab2_update": 1}),
-        "weno_rk3": ("weno", "RungeKutta3", 0, 3,
+        "weno_rk3": ("weno", "RungeKutta3", 2, 10,
                      {"weno5_momentum_tendency": 3,
                       "weno5_tracer_tendencies": 3}),
+        # WENO(7) tracers take the any-order tracer kernel (its main path
+        # is phase 9's hydro_vi run); the momentum runs plain
+        "weno7": ("weno7", "QuasiAdamsBashforth2", 1, 3,
+                  {"weno_tracer_tendencies": 1}),
     }
     weno_ms = {}
     for run_name, (config, ts, n_warm, n_steps, per_step) in \
@@ -1084,7 +1140,7 @@ def main():
                     require(n == per * total,
                             f"{run_name}: {name} launched {n} times in "
                             f"{total} steps")
-                    if run_name != "weno_science":
+                    if run_name not in ("weno_science", "weno7"):
                         launches[name] = n
                 others = [k for k in wrappers if k not in per_step
                           and wrappers[k].launches]
@@ -1665,10 +1721,10 @@ def main():
                    "oceananigans_torch/csrc/weno5_tile.cu",
                    "oceananigans_tpu/ops/pallas_weno.py:664"),
                "weno5_science_ab2_update": (
-                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_torch/csrc/weno5_science_tile.cu",
                    "oceananigans_tpu/ops/pallas_weno.py:528"),
                "weno5_tracer_tendencies": (
-                   "oceananigans_torch/csrc/weno5.cu",
+                   "oceananigans_torch/csrc/weno5_science_tile.cu",
                    "oceananigans_tpu/ops/pallas_weno.py:783"),
                "centered2_science_ab2_update": (
                    "oceananigans_torch/csrc/centered2.cu",

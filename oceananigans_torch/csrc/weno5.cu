@@ -1,14 +1,11 @@
-// WENO-5 momentum and tracer advection fused with physics and the
-// quasi-AB2 update, and the tracer tendencies.
+// WENO-5 momentum advection fused with the quasi-AB2 update.
 //
-// Replaces the TPU kernels of oceananigans_tpu/ops/pallas_weno.py:
-//   weno5_ab2_update          (_weno_ab2_pipelined_kernel) -> weno5_step<T, false>
-//   weno5_science_ab2_update  (_weno_science_kernel)       -> weno5_step<T, true>
-//   weno5_tracer_tendencies   (_tracer_kernel)             -> weno5_tracers
-// All three share one face reconstruction (_weno_face -> weno5_face) and the
-// two momentum kernels one momentum body (_weno5_body -> weno5_momentum).
-// The momentum tendency alone (weno5_momentum_tendency) is the x-marching
-// tile of weno5_tile.cu.
+// Replaces the TPU kernel of oceananigans_tpu/ops/pallas_weno.py:
+//   weno5_ab2_update (_weno_ab2_pipelined_kernel) -> weno5_step
+// This is the port's first design, kept until its own redesign: the
+// momentum tendency alone is the x-marching tile of weno5_tile.cu, the
+// science step and the tracer tendencies those of weno5_science_tile.cu,
+// and the tile of weno5_tile.h is the pattern for this kernel too.
 //
 // Fields are halo-extended (nx, ny, nz) arrays, C-contiguous, z fastest.
 // Output x-rows are [3, nx-3), as on the TPU. y and z neighbours at offsets
@@ -23,20 +20,19 @@
 // left-biased where the advecting velocity U > 0 and right-biased
 // otherwise; the XLA path averages the two where U == 0, and both give a
 // zero flux there because the face value is multiplied by U. The plain
-// PyTorch versions (ops/cuda_weno.py) multiply by face areas and divide by
-// volumes where these kernels multiply by 1/spacing, and round in another
-// order, so the two agree to rounding, not bit for bit.
+// PyTorch version (ops/cuda_weno.py) multiplies by face areas and divides
+// by volumes where this kernel multiplies by 1/spacing, and rounds in
+// another order, so the two agree to rounding, not bit for bit.
 //
 // What bounds it on the H100: arithmetic more than memory. One face value
 // costs ~135 operations for both sides (one side ~86); a momentum point
-// needs 9 face fluxes and each tracer 3 more. At 256^3 in float32 the
-// momentum part is 14 GFLOP of one-sided faces, 0.21 ms at the 67 TFLOP/s
-// FFMA peak, against 0.25 ms for the 12 fields the fused AB2 kernel
-// moves. Design: one thread per output point
-// with z on the fastest thread index, so every load and store of a warp is
-// one contiguous run; neighbour reads go through the read-only cache, and
-// each face flux is computed twice, once for each cell it bounds. Shared
-// memory tiles and flux reuse are later work.
+// needs 9 face fluxes. At 256^3 in float32 that is 14 GFLOP of one-sided
+// faces, 0.21 ms at the 67 TFLOP/s FFMA peak, against 0.25 ms for the 12
+// fields the kernel moves. Design: one thread per output point with z on
+// the fastest thread index, so every load and store of a warp is one
+// contiguous run; neighbour reads go through the read-only cache, and
+// each face flux is computed twice, once for each cell it bounds, with
+// both WENO sides.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -44,8 +40,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// must equal MAX_TRACERS in ops/cuda_kernels.py
-constexpr int kMaxTracers = 8;
 
 template <typename T> struct RatioCap;
 template <> struct RatioCap<float> { static constexpr float value = 1e12f; };
@@ -216,27 +210,6 @@ __device__ __forceinline__ void weno5_momentum(
   }
 }
 
-// -∇·(𝐯c) of one tracer at one point, advected by the unaveraged face
-// velocities (the counterpart of _tracer_kernel's loop body).
-template <typename T>
-__device__ __forceinline__ T weno5_tracer(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
-    const T* __restrict__ cfield, const Stencil& S, const Coefs<T>& c) {
-  const T U[6] = {ld(u, S.at(0, 0, 0)), ld(u, S.at(1, 0, 0)),
-                  ld(v, S.at(0, 0, 0)), ld(v, S.at(0, 1, 0)),
-                  ld(w, S.at(0, 0, 0)), ld(w, S.at(0, 0, 1))};
-  return advect(cfield, S, U, c);
-}
-
-// Tracer pointers, passed by value.
-template <typename T>
-struct Tracers {
-  const T* c[kMaxTracers];  // tracers
-  T* g[kMaxTracers];        // tendencies (over the previous ones in step)
-  T* cn[kMaxTracers];       // updated tracers (step only)
-  int n;
-};
-
 __device__ __forceinline__ void decompose(int64_t p, const Layout& L,
                                           int64_t& i, int& j, int& k) {
   k = (int)(p % L.nz);
@@ -245,43 +218,17 @@ __device__ __forceinline__ void decompose(int64_t p, const Layout& L,
   i = t / L.ny;
 }
 
-// Kernel 9: the tendencies of tr.n tracers on rows [3, nx-3), zero on the
-// other x-rows; u, v, w are read once for all of them.
+// Kernel 6: the tendencies and q' = q + ca*G + cb*G_prev for u, v, w on
+// rows [3, nx-3). Each G is written over G_prev in place (a thread reads
+// G_prev only at its own point); q' goes to a new buffer because
+// neighbouring threads read q. The x-halo rows of q' are copies of q's, and
+// G's keep G_prev's values.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) weno5_tracers(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
-    Tracers<T> tr, Layout L, Coefs<T> c) {
-  const int64_t total = (int64_t)L.nx * L.sx;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < total;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    int64_t i;
-    int j, k;
-    decompose(p, L, i, j, k);
-    if (i < 3 || i >= L.nx - 3) {
-      for (int t = 0; t < tr.n; ++t) tr.g[t][p] = T(0);
-      continue;
-    }
-    const Stencil S = stencil_of(L, i, j, k);
-#pragma unroll 1
-    for (int t = 0; t < tr.n; ++t) {
-      tr.g[t][p] = weno5_tracer(u, v, w, tr.c[t], S, c);
-    }
-  }
-}
-
-// Kernels 6 (kScience = false) and 8 (kScience = true): the tendencies and
-// q' = q + ca*G + cb*G_prev for u, v, w and, with kScience, the tracers,
-// on rows [3, nx-3). Kernel 8 adds f-plane Coriolis (f != 0) and the
-// buoyancy of tracer b_idx (>= 0) to the momentum tendency. Each G is
-// written over G_prev in place (a thread reads G_prev only at its own
-// point); q' goes to a new buffer because neighbouring threads read q. The
-// x-halo rows of q' are copies of q's, and G's keep G_prev's values.
-template <typename T, bool kScience>
 __global__ void __launch_bounds__(kThreads) weno5_step(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     T* __restrict__ gu, T* __restrict__ gv, T* __restrict__ gw,
-    T* __restrict__ un, T* __restrict__ vn, T* __restrict__ wn,
-    Tracers<T> tr, Layout L, Coefs<T> c, T ca, T cb, T f, int b_idx) {
+    T* __restrict__ un, T* __restrict__ vn, T* __restrict__ wn, Layout L,
+    Coefs<T> c, T ca, T cb) {
   const int64_t total = (int64_t)L.nx * L.sx;
   for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < total;
        p += (int64_t)gridDim.x * blockDim.x) {
@@ -292,44 +239,17 @@ __global__ void __launch_bounds__(kThreads) weno5_step(
       un[p] = u[p];
       vn[p] = v[p];
       wn[p] = w[p];
-      if (kScience) {
-        for (int t = 0; t < tr.n; ++t) tr.cn[t][p] = tr.c[t][p];
-      }
       continue;
     }
     const Stencil S = stencil_of(L, i, j, k);
     T a, b, d;
     weno5_momentum(u, v, w, S, c, a, b, d);
-    if (kScience) {
-      const T h = T(0.5);
-      if (f != T(0)) {
-        // f-plane: Gu += f ℑxᶠ(ℑyᶜ v), Gv -= f ℑyᶠ(ℑxᶜ u)
-        const T vv0 = h * (ld(v, S.at(-1, 0, 0)) + ld(v, S.at(-1, 1, 0)));
-        const T vv1 = h * (ld(v, S.at(0, 0, 0)) + ld(v, S.at(0, 1, 0)));
-        a = a + f * h * (vv0 + vv1);
-        const T uu0 = h * (ld(u, S.at(0, -1, 0)) + ld(u, S.at(1, -1, 0)));
-        const T uu1 = h * (ld(u, S.at(0, 0, 0)) + ld(u, S.at(1, 0, 0)));
-        b = b - f * h * (uu0 + uu1);
-      }
-      if (b_idx >= 0) {  // buoyancy: Gw += ℑzᶠ(b)
-        const T* bf = tr.c[b_idx];
-        d = d + h * (ld(bf, S.at(0, 0, -1)) + ld(bf, S.at(0, 0, 0)));
-      }
-    }
     un[p] = u[p] + ca * a + cb * gu[p];
     vn[p] = v[p] + ca * b + cb * gv[p];
     wn[p] = w[p] + ca * d + cb * gw[p];
     gu[p] = a;
     gv[p] = b;
     gw[p] = d;
-    if (kScience) {
-#pragma unroll 1
-      for (int t = 0; t < tr.n; ++t) {
-        const T g = weno5_tracer(u, v, w, tr.c[t], S, c);
-        tr.cn[t][p] = tr.c[t][p] + ca * g + cb * tr.g[t][p];
-        tr.g[t][p] = g;
-      }
-    }
   }
 }
 
@@ -339,59 +259,16 @@ int blocks_for(int64_t total) {
 }
 
 template <typename T>
-Tracers<T> tracers_of(const void* const* c, void* const* g, void* const* cn,
-                      int n) {
-  Tracers<T> tr{};
-  tr.n = n;
-  for (int t = 0; t < n; ++t) {
-    tr.c[t] = (const T*)c[t];
-    tr.g[t] = (T*)g[t];
-    tr.cn[t] = cn ? (T*)cn[t] : nullptr;
-  }
-  return tr;
-}
-
-Layout layout_of(int nx, int ny, int nz) {
-  return Layout{nx, ny, nz, (int64_t)ny * nz};
-}
-
-template <typename T>
-Coefs<T> coefs_of(double idx, double idy, double idz, double eps) {
-  return Coefs<T>{(T)idx, (T)idy, (T)idz, (T)eps};
-}
-
-template <typename T>
-int launch_tracers(const void* u, const void* v, const void* w,
-                   const void* const* c, void* const* g, int n, int nx,
-                   int ny, int nz, double idx, double idy, double idz,
-                   double eps, void* stream) {
-  const int64_t total = (int64_t)nx * ny * nz;
-  if (n < 1 || n > kMaxTracers) return (int)cudaErrorInvalidValue;
-  if (total == 0) return 0;
-  weno5_tracers<T><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)v, (const T*)w, tracers_of<T>(c, g, nullptr, n),
-      layout_of(nx, ny, nz), coefs_of<T>(idx, idy, idz, eps));
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool kScience>
 int launch_step(const void* u, const void* v, const void* w, void* gu,
-                void* gv, void* gw, void* un, void* vn, void* wn,
-                const void* const* c, void* const* g, void* const* cn, int n,
-                int nx, int ny, int nz, double idx, double idy, double idz,
-                double eps, double ca, double cb, double f, int b_idx,
-                void* stream) {
+                void* gv, void* gw, void* un, void* vn, void* wn, int nx,
+                int ny, int nz, double idx, double idy, double idz,
+                double eps, double ca, double cb, void* stream) {
   const int64_t total = (int64_t)nx * ny * nz;
-  if (n < 0 || n > kMaxTracers || b_idx >= n) {
-    return (int)cudaErrorInvalidValue;
-  }
   if (total == 0) return 0;
-  weno5_step<T, kScience>
-      <<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)u, (const T*)v, (const T*)w, (T*)gu, (T*)gv, (T*)gw,
-          (T*)un, (T*)vn, (T*)wn, tracers_of<T>(c, g, cn, n),
-          layout_of(nx, ny, nz), coefs_of<T>(idx, idy, idz, eps), (T)ca,
-          (T)cb, (T)f, b_idx);
+  weno5_step<T><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)u, (const T*)v, (const T*)w, (T*)gu, (T*)gv, (T*)gw,
+      (T*)un, (T*)vn, (T*)wn, Layout{nx, ny, nz, (int64_t)ny * nz},
+      Coefs<T>{(T)idx, (T)idy, (T)idz, (T)eps}, (T)ca, (T)cb);
   return (int)cudaGetLastError();
 }
 
@@ -399,38 +276,20 @@ int launch_step(const void* u, const void* v, const void* w, void* gu,
 
 extern "C" {
 
-#define OT_WENO5_ENTRIES(SUFFIX, T)                                          \
-  int ot_weno5_tracers_##SUFFIX(const void* u, const void* v, const void* w, \
-                                const void* const* c, void* const* g, int n, \
-                                int nx, int ny, int nz, double idx,          \
-                                double idy, double idz, double eps,          \
-                                void* stream) {                              \
-    return launch_tracers<T>(u, v, w, c, g, n, nx, ny, nz, idx, idy, idz,    \
-                             eps, stream);                                   \
-  }                                                                          \
-  int ot_weno5_ab2_##SUFFIX(const void* u, const void* v, const void* w,     \
-                            void* gu, void* gv, void* gw, void* un,          \
-                            void* vn, void* wn, int nx, int ny, int nz,      \
-                            double idx, double idy, double idz, double eps,  \
-                            double ca, double cb, void* stream) {            \
-    return launch_step<T, false>(u, v, w, gu, gv, gw, un, vn, wn, nullptr,   \
-                                 nullptr, nullptr, 0, nx, ny, nz, idx, idy,  \
-                                 idz, eps, ca, cb, 0.0, -1, stream);         \
-  }                                                                          \
-  int ot_weno5_science_ab2_##SUFFIX(                                         \
-      const void* u, const void* v, const void* w, void* gu, void* gv,       \
-      void* gw, void* un, void* vn, void* wn, const void* const* c,          \
-      void* const* g, void* const* cn, int n, int nx, int ny, int nz,        \
-      double idx, double idy, double idz, double eps, double ca, double cb,  \
-      double f, int b_idx, void* stream) {                                   \
-    return launch_step<T, true>(u, v, w, gu, gv, gw, un, vn, wn, c, g, cn,   \
-                                n, nx, ny, nz, idx, idy, idz, eps, ca, cb,   \
-                                f, b_idx, stream);                           \
-  }
+int ot_weno5_ab2_f32(const void* u, const void* v, const void* w, void* gu,
+                     void* gv, void* gw, void* un, void* vn, void* wn, int nx,
+                     int ny, int nz, double idx, double idy, double idz,
+                     double eps, double ca, double cb, void* stream) {
+  return launch_step<float>(u, v, w, gu, gv, gw, un, vn, wn, nx, ny, nz, idx,
+                            idy, idz, eps, ca, cb, stream);
+}
 
-OT_WENO5_ENTRIES(f32, float)
-OT_WENO5_ENTRIES(f64, double)
-
-#undef OT_WENO5_ENTRIES
+int ot_weno5_ab2_f64(const void* u, const void* v, const void* w, void* gu,
+                     void* gv, void* gw, void* un, void* vn, void* wn, int nx,
+                     int ny, int nz, double idx, double idy, double idz,
+                     double eps, double ca, double cb, void* stream) {
+  return launch_step<double>(u, v, w, gu, gv, gw, un, vn, wn, nx, ny, nz,
+                             idx, idy, idz, eps, ca, cb, stream);
+}
 
 }  // extern "C"

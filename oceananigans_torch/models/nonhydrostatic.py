@@ -29,8 +29,8 @@ from typing import Dict
 import torch
 
 from oceananigans_torch.advection import (
-    SCHEMES, Centered, cell_advection_timescale, div_Uc, div_vu, div_vv,
-    div_vw, required_halo,
+    SCHEMES, WENO, Centered, cell_advection_timescale, div_Uc, div_vu,
+    div_vv, div_vw, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions,
@@ -47,6 +47,9 @@ from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, centered2_ab2_update, centered2_momentum_tendency,
     centered2_science_ab2_update, fused_available, pressure_correction,
+)
+from oceananigans_torch.ops.cuda_tracer import (
+    tracer_fusion_available, tracer_metric_profiles, weno_tracer_tendencies,
 )
 from oceananigans_torch.ops.cuda_weno import (
     weno5_ab2_update, weno5_available, weno5_momentum_tendency,
@@ -182,6 +185,14 @@ class NonhydrostaticModel(torch.nn.Module):
         #: ``Simulation`` for ``TendencyCallsite`` callbacks); while one is
         #: set, no fused AB2 kernel runs
         self.tendency_callbacks = ()
+        # the metric profiles of the any-order WENO tracer kernel, where
+        # its gate's layout part holds (see fused_tracer)
+        self.register_buffer(
+            "_tracer_metrics",
+            tracer_metric_profiles(grid)
+            if type(advection) is WENO and advection.order != 5
+            and tracer_fusion_available(grid, advection) else None,
+            persistent=False)
         if device is not None:
             self.to(device)
 
@@ -204,11 +215,20 @@ class NonhydrostaticModel(torch.nn.Module):
             tag = "weno5"
         else:
             return False
+        return tag if self._kernels_on() else False
+
+    def _kernels_on(self) -> bool:
         if self._fused_kernels == "auto":
-            on = self.device.type == "cuda"
-        else:
-            on = bool(self._fused_kernels)
-        return tag if on else False
+            return self.device.type == "cuda"
+        return bool(self._fused_kernels)
+
+    @property
+    def fused_tracer(self) -> bool:
+        """The any-order WENO tracer kernel (``weno_tracer_tendencies``)
+        computes every tracer's advection: WENO of an order other than 5
+        (the WENO-5 kernels take that one), as the JAX model's
+        ``fused_tracer``, without the TPU's tiling rules."""
+        return self._tracer_metrics is not None and self._kernels_on()
 
     @property
     def _pure_advection(self) -> bool:
@@ -344,9 +364,13 @@ class NonhydrostaticModel(torch.nn.Module):
 
         fused = {}
         if kernels == "weno5":
-            # one kernel for every tracer: the velocities are read once
+            # one kernel for every tracer
             fused = weno5_tracer_tendencies(g, u, v, w, tracers,
                                             epsilon=self.advection.epsilon)
+        elif self.fused_tracer:
+            fused = weno_tracer_tendencies(g, self.advection, u, v, w,
+                                           tracers,
+                                           metrics=self._tracer_metrics)
         Gtracers = {}
         for name in self.tracer_names:
             Gc = fused.get(name)

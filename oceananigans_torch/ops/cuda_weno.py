@@ -1,18 +1,22 @@
 """Hand-written CUDA kernels of the WENO-5 path, with their plain PyTorch
 versions.
 
-Counterpart of ``oceananigans_tpu/ops/pallas_weno.py``; all four kernels
-live in ``csrc/weno5.cu``:
+Counterpart of ``oceananigans_tpu/ops/pallas_weno.py``; its four kernels:
 
-- ``weno5_ab2_update``: the WENO-5 momentum tendency fused with the
-  quasi-AB2 update, the AB2 path of pure momentum advection;
-- ``weno5_momentum_tendency``: the momentum tendency alone (RK3, and AB2
-  where no fused kernel applies);
-- ``weno5_science_ab2_update``: momentum, f-plane Coriolis, the buoyancy of
-  a BuoyancyTracer, the advection of up to :data:`MAX_TRACERS` tracers and
-  the AB2 update of every prognostic field, in one pass;
-- ``weno5_tracer_tendencies``: -∇·(𝐯c) of any number of tracers, reading
-  the velocities once for every :data:`MAX_TRACERS` of them.
+- ``weno5_ab2_update`` (``csrc/weno5.cu``): the WENO-5 momentum tendency
+  fused with the quasi-AB2 update, the AB2 path of pure momentum
+  advection;
+- ``weno5_momentum_tendency`` (``csrc/weno5_tile.cu``): the momentum
+  tendency alone (RK3, and AB2 where no fused kernel applies);
+- ``weno5_science_ab2_update`` (``csrc/weno5_science_tile.cu``): momentum,
+  f-plane Coriolis, the buoyancy of a BuoyancyTracer, the advection of up
+  to :data:`MAX_TRACERS` tracers and the AB2 update of every prognostic
+  field, in one pass;
+- ``weno5_tracer_tendencies`` (``csrc/weno5_science_tile.cu``): -∇·(𝐯c) of
+  any number of tracers, one launch for every :data:`MAX_TRACERS` of them.
+
+The last three are x-marching tiles (``csrc/weno5_tile.h``) that compute
+each face flux once.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; there is no fallback from one to
@@ -157,8 +161,7 @@ def weno5_momentum_tendency(grid, u, v, w, epsilon=1e-8):
 def weno5_tracer_tendencies(grid, u, v, w, tracers, epsilon=1e-8):
     """``{name: -∇·(𝐯c)}`` with WENO-5 fluxes on x-rows [3, nx-3) for each
     tracer of the dict ``tracers``, zero on the other x-rows. One launch
-    takes up to :data:`MAX_TRACERS` tracers and reads u, v, w once for
-    them."""
+    takes up to :data:`MAX_TRACERS` tracers."""
     name = "weno5_tracer_tendencies"
     names = list(tracers)
     _check_grid(name, grid, u)

@@ -273,8 +273,47 @@ def test_gates_match_jax(config, timestepper):
         assert tm.tracer_names == jm.tracer_names
         assert tm.fused_kernels == jm.fused_kernels
         for gate in ("fused_ab2", "fused_ab2_weno", "fused_ab2_science",
-                     "fused_ab2_weno_science"):
+                     "fused_ab2_weno_science", "fused_tracer"):
             assert getattr(tm, gate) == getattr(jm, gate), gate
+
+
+@pytest.mark.parametrize("timestepper,steps", [(AB2, 2), (RK3, 1)])
+def test_weno7_tracers_take_the_tracer_kernel(timestepper, steps,
+                                              monkeypatch):
+    """WENO(7) tracers go through the any-order tracer kernel's route
+    (``weno_tracer_tendencies``; on the CPU its plain version) as the JAX
+    model's ``fused_tracer`` sends them through its Pallas kernel (here in
+    interpret mode), and the two runs agree to 1e-12."""
+    from oceananigans_torch.models import nonhydrostatic as t_nh
+    calls = []
+    kernel = t_nh.weno_tracer_tendencies
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return kernel(*args, **kwargs)
+
+    monkeypatch.setattr(t_nh, "weno_tracer_tendencies", counted)
+    kw = dict(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), topology=BPP,
+              halo=(4, 4, 4))
+    config = dict(timestepper=timestepper, fused_kernels=True)
+    jm = JModel(grid=oj.RectilinearGrid(dtype="float64", **kw),
+                advection=oj.WENO(7), tracers=("T", "S"), **config)
+    tm = ot.NonhydrostaticModel(grid=ot.RectilinearGrid(dtype=F64, **kw),
+                                advection=ot.WENO(7), tracers=("T", "S"),
+                                **config)
+    assert jm.fused_tracer and tm.fused_tracer and not tm.fused_kernels
+    rng = np.random.default_rng(4)
+    s = jm.initial_state(**{n: rng.standard_normal(jm.grid.N)
+                            for n in ("u", "v", "w", "T", "S")})
+    st = tm.fill_state_halos(state_from_numpy(tm, jax_state_to_numpy(s)))
+    step = jax.jit(lambda s_: jm.step(s_, 1e-3))
+    for _ in range(steps):
+        s = step(s)
+        st = tm.step(st, 1e-3, assume_filled=True)
+    assert len(calls) == steps * (3 if timestepper == RK3 else 1)
+    ref, got = jax_state_to_numpy(s), state_to_numpy(st)
+    for name in FIELDS + tracer_keys(tm.tracer_names):
+        assert_close(tm.grid, torch.tensor(got[name]), ref[name])
 
 
 def test_unported_arguments_raise():

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the Poisson middle-stage kernel (``fused_middle_solve``) and the
-WENO-5 momentum tendency kernel (``weno5_momentum_tendency``) of one
-checkout of ``oceananigans_torch`` on one GPU, and print one JSON line.
+WENO-5 momentum tendency, science step and tracer tendency kernels
+(``weno5_momentum_tendency``, ``weno5_science_ab2_update``,
+``weno5_tracer_tendencies``) of one checkout of ``oceananigans_torch`` on
+one GPU, and print one JSON line.
 
     python3 tools/kernel_times.py [--root DIR] [--reps N]
 
@@ -19,17 +21,25 @@ At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
   same chain with the table made once;
 - ``weno5_momentum_tendency`` on a grid with halo (3, 0, 0), on random
   halo-filled u, v, w, and on the same fields with u exactly zero on every
-  third z-column and v on every other x-plane.
+  third z-column and v on every other x-plane, with a SHA-256 of its
+  outputs (two checkouts whose kernels compute the same bits print the
+  same digest);
+- on the same grid and both kinds of fields, with two tracers c and b:
+  ``weno5_science_ab2_update`` as the WENO science step calls it (f-plane
+  f = 1e-4, b the buoyancy tracer) and ``weno5_tracer_tendencies``.
 
-The line also carries the card's name and power limit, the counts of a
-few SASS instructions in the two kernels (``cuobjdump -sass``) and, when
-this run built the kernels, nvcc's registers, shared memory and spills of
-them.
+Each kernel's largest difference from its plain version, relative to the
+largest plain value, is printed beside its time. The line also carries the
+card's name and power limit, the counts of a few SASS instructions in the
+kernels (``cuobjdump -sass``; the kernel names of earlier checkouts
+included) and, when this run built the kernels, nvcc's registers, shared
+memory and spills of them.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -131,12 +141,13 @@ def main():
     del solver, x, margs, inv_lam, ref, got
     torch.cuda.empty_cache()
 
-    # kernel 7
+    # kernels 7, 8 and 9: u, v, w, tracers c and b, and G_prev of all five
     grid = grid_of((3, 0, 0))
     fields = {}
     for data in ("random", "zero rows"):
         fs = []
-        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C,
+                                 ot.LOC_C)):
             a = torch.randn(grid.shape, generator=gen, device=dev, dtype=f32)
             if data == "zero rows" and n == 0:
                 a[:, :, ::3] = 0.0
@@ -144,21 +155,62 @@ def main():
                 a[::2] = 0.0
             fs.append(ot.fill_halo_regions(a, grid, loc=loc))
         fields[data] = fs
-    rec = {}
-    for data, fs in fields.items():
-        got = cw.weno5_momentum_tendency(grid, *fs)
-        ref = cw.weno5_momentum_tendency_plain(grid, *fs)
-        torch.cuda.synchronize()
+    G_prev = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
+                                dtype=f32) for _ in range(5)]
+
+    def rel_err(got, ref):
         scale = max(float(r.abs().max()) for r in ref)
-        rec[data] = {
-            "rel_err": max(float((g - r).abs().max())
-                           for g, r in zip(got, ref)) / scale,
-            "kernel_ms": time_ms(
-                torch, lambda: cw.weno5_momentum_tendency(grid, *fs),
-                args.reps)}
-        del got, ref
-    out["weno5_momentum_tendency"] = rec
-    kernels = ("poisson_middle", "weno5_tile", "weno5_tendency")
+        return max(float((g - r).abs().max())
+                   for g, r in zip(got, ref)) / scale
+
+    def science(fn, u, v, w, c, b, G):
+        res = fn(grid, u, v, w, {"c": c, "b": b}, *G[:3],
+                 {"c": G[3], "b": G[4]}, 1.6e-4, -0.6e-4, f=1e-4,
+                 buoyancy_tracer="b")
+        return [*res[:3], *res[3].values(), *res[4:7], *res[7].values()]
+
+    def tracers(fn, u, v, w, c, b):
+        return list(fn(grid, u, v, w, {"c": c, "b": b}).values())
+
+    for name in ("weno5_momentum_tendency", "weno5_science_ab2_update",
+                 "weno5_tracer_tendencies"):
+        out[name] = {}
+    for data, fs in fields.items():
+        rec = out["weno5_momentum_tendency"][data] = {}
+        got = cw.weno5_momentum_tendency(grid, *fs[:3])
+        ref = cw.weno5_momentum_tendency_plain(grid, *fs[:3])
+        torch.cuda.synchronize()
+        rec["rel_err"] = rel_err(got, ref)
+        digest = hashlib.sha256()
+        for g in got:
+            digest.update(g.cpu().numpy().tobytes())
+        rec["sha256"] = digest.hexdigest()
+        rec["kernel_ms"] = time_ms(
+            torch, lambda: cw.weno5_momentum_tendency(grid, *fs[:3]),
+            args.reps)
+        # the science step writes G over G_prev: each side from its copy
+        got = science(cw.weno5_science_ab2_update, *fs,
+                      [g.clone() for g in G_prev])
+        ref = science(cw.weno5_science_ab2_update_plain, *fs,
+                      [g.clone() for g in G_prev])
+        torch.cuda.synchronize()
+        Gk = [g.clone() for g in G_prev]
+        out["weno5_science_ab2_update"][data] = {
+            "rel_err": rel_err(got, ref),
+            "kernel_ms": time_ms(torch, lambda: science(
+                cw.weno5_science_ab2_update, *fs, Gk), args.reps)}
+        got = tracers(cw.weno5_tracer_tendencies, *fs)
+        ref = tracers(cw.weno5_tracer_tendencies_plain, *fs)
+        torch.cuda.synchronize()
+        out["weno5_tracer_tendencies"][data] = {
+            "rel_err": rel_err(got, ref),
+            "kernel_ms": time_ms(torch, lambda: tracers(
+                cw.weno5_tracer_tendencies, *fs), args.reps)}
+        del got, ref, Gk
+        torch.cuda.empty_cache()
+    kernels = ("poisson_middle", "weno5_tile", "weno5_tendency",
+               "weno5_science_tile", "weno5_tracer_tile", "weno5_step",
+               "weno5_tracers")
     out["nvcc"] = ptxas_report(_build.build_log, kernels)
     # the instructions each kernel compiled to (chip_smoke.py's counter)
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
