@@ -13,11 +13,13 @@ each of which raises on failure:
    one process per source), with each kernel's registers and spills, the
    SASS of the float32 Poisson kernel held to tensor-core instructions
    (``cuobjdump -sass``: HGMMA) and that of the WENO-5 tiles to
-   reciprocals without IEEE division (MUFU.RCP, no FCHK);
+   reciprocals without IEEE division (MUFU.RCP, no FCHK), and the
+   shallow-water strip's instructions counted;
 3. each of the thirteen kernels against its plain PyTorch version, in
    float32, at the main path's shapes and at a ragged shape (the WENO-5
-   science and tracer kernels there also with one and with eight
-   tracers), the
+   momentum AB2 kernel at both also on fields with exact zero rows, the
+   WENO-5 science and tracer kernels at the ragged one also with one and
+   with eight tracers), the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
    kernels also at a small size in float64, with times and the least time
    the card could take for the same work (the Poisson kernel also beside
@@ -157,11 +159,12 @@ AB2_OPS = 4
 #: the Centered-2 advection of one tracer (``centered2.cu``): six face
 #: fluxes of 3 each, three differences with their scales and sums
 C2_TRACER_OPS = 27
-#: a shallow-water stage point (``shallow_water.cu``): ten velocities of 3
-#: (the face depth's sum and half, the division), eight momentum fluxes of
-#: 5, the two momentum tendencies' 12 each with the g·h·∂h term, the mass
-#: tendency's 6, and three updates
-SW_STAGE_OPS = 10 * 3 + 8 * 5 + 2 * 12 + 6 + 3 * AB2_OPS
+#: a shallow-water stage point (``shallow_water.cu``), the least work: two
+#: velocities of 3 (the face depth's sum and half, the division; the strip
+#: computes each once a point), eight momentum fluxes of 5, the two
+#: momentum tendencies' 12 each with the g·h·∂h term, the mass tendency's
+#: 6, and three updates
+SW_STAGE_OPS = 2 * 3 + 8 * 5 + 2 * 12 + 6 + 3 * AB2_OPS
 #: one side of a WENO reconstruction, counted from ``csrc/weno.h``: the
 #: smoothness indicators, the WENO-Z weights and their combination with the
 #: sub-stencil polynomials. WENO-5 (hand forms): 43 + 43; WENO-7
@@ -308,13 +311,17 @@ def main():
     # what the kernels compiled to: the float32 Poisson kernel must run on
     # the tensor cores (HGMMA); the WENO-5 tiles must not divide (no
     # FCHK, the IEEE division's slow-path test); their reciprocals
-    # (MUFU.RCP) are counted
+    # (MUFU.RCP) are counted, and the shallow-water strip's instructions
+    # (its two IEEE divisions a point, cp.async copies, loads and stores)
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
                           capture_output=True, text=True, check=True).stdout
     tiles = ("weno5_tile", "weno5_science_tile", "weno5_tracer_tile")
-    counts = sass_counts(sass, ("poisson_middle_tf32x3", *tiles,
-                                "weno5_step"), ("HGMMA", "FCHK", "MUFU.RCP"))
+    counts = sass_counts(sass, ("poisson_middle_tf32x3", *tiles),
+                         ("HGMMA", "FCHK", "MUFU.RCP"))
+    counts.update(sass_counts(sass, ("sw_strip",), (
+        "FCHK", "MUFU.RCP", "FFMA", "LDGSTS", "LDG.E", "STG.E", "LDS",
+        "BAR.SYNC")))
     log(f"[2] SASS instructions per kernel (every instantiation): {counts}")
     require(counts["poisson_middle_tf32x3"]["HGMMA"] > 0,
             "the float32 Poisson kernel issues tensor-core instructions")
@@ -559,6 +566,23 @@ def main():
             ref = plain()
             torch.cuda.synchronize()
             check(name, shape_name, got, ref, WENO_RTOL)
+        # kernel 6 also on fields with exact zero rows (u zero on every
+        # third z-column, v on every other x-plane: faces whose taps and
+        # advecting velocity are exact zeros), as phase 10 holds kernel 7
+        uz, vz = u.clone(), v.clone()
+        uz[:, :, ::3] = 0.0
+        vz[::2] = 0.0
+        uz = ot.fill_halo_regions(uz, grid, loc=ot.LOC_U)
+        vz = ot.fill_halo_regions(vz, grid, loc=ot.LOC_V)
+        for gk, gp, g0 in zip(Gk, Gp, Gm):
+            gk.copy_(g0)
+            gp.copy_(g0)
+        got = cw.weno5_ab2_update(grid, uz, vz, w, *Gk[:3], a, b)
+        ref = cw.weno5_ab2_update_plain(grid, uz, vz, w, *Gp[:3], a, b)
+        torch.cuda.synchronize()
+        check("weno5_ab2_update", f"{shape_name}, zero rows", got, ref,
+              WENO_RTOL)
+        del uz, vz
         if shape_name != "main":
             continue
         field = u.numel() * u.element_size()
@@ -1715,8 +1739,9 @@ def main():
                "fused_middle_solve": (
                    "oceananigans_torch/csrc/poisson_middle.cu",
                    "oceananigans_tpu/ops/pallas_poisson.py:101"),
-               "weno5_ab2_update": ("oceananigans_torch/csrc/weno5.cu",
-                                    "oceananigans_tpu/ops/pallas_weno.py:603"),
+               "weno5_ab2_update": (
+                   "oceananigans_torch/csrc/weno5_science_tile.cu",
+                   "oceananigans_tpu/ops/pallas_weno.py:603"),
                "weno5_momentum_tendency": (
                    "oceananigans_torch/csrc/weno5_tile.cu",
                    "oceananigans_tpu/ops/pallas_weno.py:664"),

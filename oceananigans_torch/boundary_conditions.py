@@ -85,7 +85,7 @@ def _check_ported(bc, topo, loc, name):
         raise NotImplementedError(
             f"{name} boundary condition {bc} on a {topo} axis at {loc!r} is "
             "not ported yet (value, gradient, open and valued flux "
-            "conditions come with ROADMAP Queue 1 items 3 and 9)")
+            "conditions come with ROADMAP Queue 1 item 3)")
 
 
 def regularize_field_boundary_conditions(bcs, grid, loc):

@@ -1,9 +1,12 @@
 // The WENO-5 science step (momentum, f-plane Coriolis, buoyancy, tracers
-// and the quasi-AB2 update in one pass) and the WENO-5 tracer tendencies,
-// as x-marching tiles that compute each face flux once.
+// and the quasi-AB2 update in one pass), the WENO-5 momentum AB2 step (the
+// same without Coriolis, buoyancy and tracers) and the WENO-5 tracer
+// tendencies, as x-marching tiles that compute each face flux once.
 //
 // Replaces the TPU kernels of oceananigans_tpu/ops/pallas_weno.py:
 //   weno5_science_ab2_update (_weno_science_kernel) -> weno5_science_tile
+//   weno5_ab2_update (_weno_ab2_pipelined_kernel)
+//                                  -> weno5_science_tile<T, false>
 //   weno5_tracer_tendencies  (_tracer_kernel)       -> weno5_tracer_tile
 //
 // Output x-rows are [3, nx-3). weno5_tracer_tile zeroes the other x-rows of
@@ -17,10 +20,12 @@
 // tracers moves 20 fields (u, v, w and the tracers read, G_prev read, G
 // and q' written): 0.41 ms at 3.35 TB/s; its arithmetic, 849 operations a
 // point of momentum and 273 a point of each tracer with one WENO side a
-// face, 0.36 ms at the 67 TFLOP/s FFMA peak. The tracer tendencies move
-// 3 + 2T fields, 0.14 ms at T = 2, against 0.14 ms of arithmetic. Both
-// sit near the line; the old one-thread-a-point kernels were held far
-// from it by arithmetic: every face twice, both WENO sides, IEEE division.
+// face, 0.36 ms at the 67 TFLOP/s FFMA peak. The momentum AB2 step moves
+// 12 fields, 0.25 ms, against 0.22 ms of arithmetic. The tracer
+// tendencies move 3 + 2T fields, 0.14 ms at T = 2, against 0.14 ms of
+// arithmetic. All sit near the line; the old one-thread-a-point kernels
+// were held far from it by arithmetic: every face twice, both WENO sides,
+// IEEE division.
 //
 // Design: the marches of weno5_tile.h, with each block in one role.
 // - A momentum block is weno5_tile's march (u, v, w in the ring) with an
@@ -36,7 +41,10 @@
 // A launch of the science step holds one momentum block and ceil(T / 2)
 // tracer blocks for each panel and x-segment (blockIdx.z = segment x
 // roles + role, so the roles of one panel run side by side and share u, v
-// and w in L2); the tracer tendencies launch tracer blocks only.
+// and w in L2). The momentum AB2 step is the instantiation without
+// physics (kScience = false): momentum blocks only, with no Coriolis or
+// buoyancy code and no tracer role. The tracer tendencies launch tracer
+// blocks only.
 //
 // Why roles rather than one block that carries all 3 + T rings: a ring of
 // 8 planes of 22 x 38 points is 26.75 KB a field in float32, so 3 + T rings
@@ -124,12 +132,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) weno5_tracer_tile(
                [&](int t, int i, T g, T) { G.g[t][i * P.sx + P.col] = g; });
 }
 
-// Kernel 8: role 0 (blockIdx.z % roles) is the momentum block, role r > 0
-// the tracer block of tracers [2(r-1), 2r); each updates its fields on
-// x-rows [3, nx-3) of its panel over its x-segment, and the first and last
-// segments copy the x-halo rows of q into q'. Momentum takes f-plane
-// Coriolis (f != 0) and the buoyancy of tracer b_idx (>= 0).
-template <typename T>
+// Kernels 8 and 6: role 0 (blockIdx.z % roles) is the momentum block,
+// role r > 0 the tracer block of tracers [2(r-1), 2r); each updates its
+// fields on x-rows [3, nx-3) of its panel over its x-segment, and the first
+// and last segments copy the x-halo rows of q into q'. With kScience,
+// momentum takes f-plane Coriolis (f != 0) and the buoyancy of tracer
+// b_idx (>= 0); without (kernel 6), roles is 1 and f, b_idx and tr are
+// not read.
+template <typename T, bool kScience>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) weno5_science_tile(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     T* __restrict__ gu, T* __restrict__ gv, T* __restrict__ gw,
@@ -141,13 +151,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) weno5_science_tile(
   const int seg = blockIdx.z / roles, role = blockIdx.z % roles;
   const int nseg = gridDim.z / roles;
 
-  if (role == 0) {
+  if (!kScience || role == 0) {
     halo_rows(P, nx, seg, nseg, [&](int64_t p) {
       un[p] = u[p];
       vn[p] = v[p];
       wn[p] = w[p];
     });
-    const T* bf = b_idx >= 0 ? pick(tr.c, b_idx) : nullptr;
+    const T* bf = kScience && b_idx >= 0 ? pick(tr.c, b_idx) : nullptr;
     // the offset of column k-1 (wrapped) from column k
     const int k = P.k0 + P.kz;
     const int64_t dkm = k == 0 ? nz - 1 : -1;
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) weno5_science_tile(
       const int pos = P.pos;
       const T* cur = momentum_slot(ring, i);
       T a = g[0], b = g[1], d = g[2];
-      if (f != T(0)) {
+      if (kScience && f != T(0)) {
         // f-plane: Gu += f ℑxᶠ(ℑyᶜ v), Gv -= f ℑyᶠ(ℑxᶜ u)
         const T* prev = momentum_slot(ring, i - 1) + kPlane;  // v
         const T* vc = cur + kPlane;
@@ -246,14 +256,17 @@ int launch_tracers(const void* u, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// kScience = false launches the momentum AB2 step: n = 0, f = 0 and
+// b_idx = -1, momentum blocks only.
+template <typename T, bool kScience>
 int launch_science(const void* u, const void* v, const void* w, void* gu,
                    void* gv, void* gw, void* un, void* vn, void* wn,
                    const void* const* c, void* const* g, void* const* cn,
                    int n, int nx, int ny, int nz, double idx, double idy,
                    double idz, double eps, double ca, double cb, double f,
                    int b_idx, void* stream) {
-  if (n < 0 || n > kMaxTracers || b_idx >= n) {
+  if (n < 0 || n > kMaxTracers || b_idx >= n ||
+      (!kScience && (n != 0 || f != 0.0 || b_idx >= 0))) {
     return (int)cudaErrorInvalidValue;
   }
   if ((int64_t)nx * ny * nz == 0) return 0;
@@ -265,14 +278,14 @@ int launch_science(const void* u, const void* v, const void* w, void* gu,
   const int roles = 1 + (n + kTG - 1) / kTG;
   int seg_len = 0, nseg = 0;
   const cudaError_t err = plan_segments(
-      (const void*)weno5_science_tile<T>, bytes, rows,
+      (const void*)weno5_science_tile<T, kScience>, bytes, rows,
       (int64_t)py * pz * roles, &seg_len, &nseg);
   if (err != cudaSuccess) return (int)err;
   if (py > 65535 || (int64_t)nseg * roles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  weno5_science_tile<T><<<dim3(pz, py, (unsigned)(nseg * roles)), kThreads,
-                          bytes, (cudaStream_t)stream>>>(
+  weno5_science_tile<T, kScience><<<dim3(pz, py, (unsigned)(nseg * roles)),
+                                    kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)u, (const T*)v, (const T*)w, (T*)gu, (T*)gv, (T*)gw,
       (T*)un, (T*)vn, (T*)wn, tracers_of<T>(c, g, cn, n), nx, ny, nz,
       seg_len, roles, coefs_of<T>(idx, idy, idz, eps), (T)ca, (T)cb, (T)f,
@@ -299,9 +312,19 @@ extern "C" {
       void* const* g, void* const* cn, int n, int nx, int ny, int nz,        \
       double idx, double idy, double idz, double eps, double ca, double cb,  \
       double f, int b_idx, void* stream) {                                   \
-    return launch_science<T>(u, v, w, gu, gv, gw, un, vn, wn, c, g, cn, n,  \
-                             nx, ny, nz, idx, idy, idz, eps, ca, cb, f,      \
-                             b_idx, stream);                                 \
+    return launch_science<T, true>(u, v, w, gu, gv, gw, un, vn, wn, c, g,    \
+                                   cn, n, nx, ny, nz, idx, idy, idz, eps, ca, \
+                                   cb, f, b_idx, stream);                    \
+  }                                                                          \
+  int ot_weno5_ab2_##SUFFIX(const void* u, const void* v, const void* w,     \
+                            void* gu, void* gv, void* gw, void* un,          \
+                            void* vn, void* wn, int nx, int ny, int nz,      \
+                            double idx, double idy, double idz, double eps,  \
+                            double ca, double cb, void* stream) {            \
+    return launch_science<T, false>(u, v, w, gu, gv, gw, un, vn, wn,         \
+                                    nullptr, nullptr, nullptr, 0, nx, ny,    \
+                                    nz, idx, idy, idz, eps, ca, cb, 0.0, -1, \
+                                    stream);                                 \
   }
 
 OT_WENO5_SCIENCE_ENTRIES(f32, float)

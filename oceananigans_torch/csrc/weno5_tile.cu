@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel oceananigans_tpu/ops/pallas_weno.py:
 //   weno5_momentum_tendency (_kernel) -> weno5_tile
-// (the science AB2 step and the tracer tendencies are the tiles of
-// weno5_science_tile.cu; the fused momentum AB2 kernel stays in weno5.cu).
+// (the momentum AB2 step, the science AB2 step and the tracer tendencies
+// are the tiles of weno5_science_tile.cu).
 //
 // Output x-rows are [3, nx-3), the other x-rows are zeroed, as the JAX
 // wrapper embeds its result in zeros.

@@ -36,9 +36,9 @@ from oceananigans_torch.ops import _build
 
 _FLOATS = (torch.float32, torch.float64)
 #: the most tracers one launch of a science or tracer kernel takes
-#: (``kMaxTracers`` in ``csrc/centered2.cu`` and ``csrc/weno5.cu``); the
-#: model takes the unfused route above it, as the JAX model does above its
-#: VMEM budget
+#: (``kMaxTracers`` in ``csrc/centered2.cu`` and
+#: ``csrc/weno5_science_tile.cu``); the model takes the unfused route above
+#: it, as the JAX model does above its VMEM budget
 MAX_TRACERS = 8
 
 

@@ -7,6 +7,11 @@ tendencies with the g·h·∂h gradient and the stage update
 ``q' = q + a·G + b·G⁻`` for (uh, vh, h) in one pass over the (nx, ny)
 plane of a Flat-z grid.
 
+The kernel is an x-marching strip: a block owns :data:`STRIP`
+consecutive y and a segment of the output x-rows, which it marches
+upward. :func:`stage_plan` sizes the segments from the grid and the card's
+SM count, and the wrapper passes that plan to the kernel.
+
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no fallback from one to
 the other. It counts its launches in its ``launches`` attribute. Fields are
@@ -24,6 +29,44 @@ from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
 
 #: x-rows each side that the stencil reads (i-2 .. i+1)
 REACH = 2
+#: output y a block owns (``kStrip`` in ``csrc/shallow_water.cu``)
+STRIP = 512
+#: fewest output x-rows of a segment where there are that many: a segment
+#: also reads 3 rows beyond its own, ≤ 5% more at 64
+MIN_SEGMENT = 64
+#: waves of resident blocks a launch aims for
+WAVES = 3
+
+
+def blocks_per_sm(itemsize):
+    """Blocks of the kernel resident on one SM: the minimum of its
+    ``__launch_bounds__`` (``kMinBlocks``), 4 in float32 and 2 in
+    float64."""
+    return 4 if itemsize == 4 else 2
+
+
+def stage_plan(nx, ny, x0, sms, itemsize=4):
+    """The kernel's launch plan for an ``(nx, ny)`` plane with x halo
+    ``x0`` on a card with ``sms`` SMs: ``(strips, seg_len, nseg)``.
+
+    Block ``(s, g)`` computes output y ``[s·STRIP, (s+1)·STRIP) ∩ [0, ny)``
+    on output x-rows ``[x0 + g·seg_len, x0 + (g+1)·seg_len) ∩ [x0,
+    nx-x0)``; the plan covers each output point once and leaves no segment
+    empty. It aims for :data:`WAVES` waves of resident blocks, with
+    segments of at least :data:`MIN_SEGMENT` rows where there are that
+    many."""
+    rows = nx - 2 * x0
+    if rows < 1 or ny < 1 or sms < 1:
+        raise ValueError(f"no stage plan for ({nx}, {ny}) with x halo {x0}")
+    strips = -(-ny // STRIP)
+    target = WAVES * sms * blocks_per_sm(itemsize)
+    nseg = max(1, min(-(-target // strips), rows // MIN_SEGMENT))
+    seg_len = -(-rows // nseg)
+    return strips, seg_len, -(-rows // seg_len)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sw_fused_available(grid, model) -> bool:
@@ -128,11 +171,14 @@ def sw_rk3_stage(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
                                   Gh_prev, a, b, gravitational_acceleration)
     news = tuple(torch.empty_like(uh) for _ in range(3))
     nx, ny, _ = uh.shape
+    x0 = grid.H[0]
+    _, seg_len, nseg = stage_plan(nx, ny, x0, _sm_count(uh.device),
+                                  uh.element_size())
     _build.launch("ot_sw_rk3_stage", uh.dtype, uh.device,
                   uh.data_ptr(), vh.data_ptr(), h.data_ptr(),
                   Guh_prev.data_ptr(), Gvh_prev.data_ptr(), Gh_prev.data_ptr(),
-                  *(q.data_ptr() for q in news), nx, ny, grid.H[0],
-                  float(grid.Nx / grid.Lx), float(grid.Ny / grid.Ly),
+                  *(q.data_ptr() for q in news), nx, ny, x0, STRIP, seg_len,
+                  nseg, float(grid.Nx / grid.Lx), float(grid.Ny / grid.Ly),
                   float(gravitational_acceleration), float(a), float(b))
     sw_rk3_stage.launches += 1
     return (*news, Guh_prev, Gvh_prev, Gh_prev)
@@ -140,4 +186,5 @@ def sw_rk3_stage(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
 
 sw_rk3_stage.launches = 0
 
-__all__ = ["sw_fused_available", "sw_rk3_stage", "sw_rk3_stage_plain"]
+__all__ = ["STRIP", "stage_plan", "sw_fused_available", "sw_rk3_stage",
+           "sw_rk3_stage_plain"]

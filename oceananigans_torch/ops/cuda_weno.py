@@ -3,9 +3,10 @@ versions.
 
 Counterpart of ``oceananigans_tpu/ops/pallas_weno.py``; its four kernels:
 
-- ``weno5_ab2_update`` (``csrc/weno5.cu``): the WENO-5 momentum tendency
-  fused with the quasi-AB2 update, the AB2 path of pure momentum
-  advection;
+- ``weno5_ab2_update`` (``csrc/weno5_science_tile.cu``): the WENO-5
+  momentum tendency fused with the quasi-AB2 update, the AB2 path of pure
+  momentum advection: the science step's momentum blocks alone, without
+  Coriolis, buoyancy or tracers;
 - ``weno5_momentum_tendency`` (``csrc/weno5_tile.cu``): the momentum
   tendency alone (RK3, and AB2 where no fused kernel applies);
 - ``weno5_science_ab2_update`` (``csrc/weno5_science_tile.cu``): momentum,
@@ -15,8 +16,8 @@ Counterpart of ``oceananigans_tpu/ops/pallas_weno.py``; its four kernels:
 - ``weno5_tracer_tendencies`` (``csrc/weno5_science_tile.cu``): -∇·(𝐯c) of
   any number of tracers, one launch for every :data:`MAX_TRACERS` of them.
 
-The last three are x-marching tiles (``csrc/weno5_tile.h``) that compute
-each face flux once.
+All four are x-marching tiles (``csrc/weno5_tile.h``) that compute each
+face flux once.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; there is no fallback from one to

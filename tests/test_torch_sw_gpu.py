@@ -56,10 +56,20 @@ def term_scale(grid, uh, vh, h, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("layout", [((64, 256), (8, 0, 0), PPF),
-                                    ((48, 200), (8, 0, 0), PPF),
-                                    ((30, 20), (3, 3, 0),
-                                     (ot.Periodic, ot.Bounded, ot.Flat))])
+@pytest.mark.parametrize("layout", [
+    ((64, 256), (8, 0, 0), PPF),
+    ((48, 200), (8, 0, 0), PPF),
+    ((30, 20), (3, 3, 0), (ot.Periodic, ot.Bounded, ot.Flat)),
+    # the strip kernel's edges (cuda_sw.stage_plan): an x halo of 2 with a
+    # strip edge inside y (640 > STRIP) and three segments, the last
+    # shorter; y = 2 (the y-halo wraps onto the strip twice); y = 3 with an
+    # x halo of 2 and two segments. Their spacings are exact in binary:
+    # the plain version takes them from coordinate differences, whose
+    # rounding (an ulp of 1e5 over the spacing) would exceed the float64
+    # bound at a spacing of 1e5/600
+    ((200, 640), (2, 0, 0), PPF),
+    ((64, 2), (8, 0, 0), PPF),
+    ((160, 3), (2, 0, 0), PPF)])
 def test_stage_kernel_matches_plain(layout, dtype):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
@@ -77,6 +87,12 @@ def test_stage_kernel_matches_plain(layout, dtype):
                                      9.81)
     torch.cuda.synchronize()
     assert cuda_sw.sw_rk3_stage.launches == n0 + 1
+    # the x-halo rows of q' are copies of q's; G keeps G_prev's there
+    H = halo[0]
+    for a, q in zip(got[:3], (uh, vh, h)):
+        assert torch.equal(a[:H], q[:H]) and torch.equal(a[-H:], q[-H:])
+    for a, g in zip(got[3:], Gm):
+        assert torch.equal(a[:H], g[:H]) and torch.equal(a[-H:], g[-H:])
     eps = torch.finfo(dtype).eps
     ii = grid.interior_slices
     for a, b in zip(got[:3], ref[:3]):

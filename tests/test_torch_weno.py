@@ -212,6 +212,25 @@ def test_plain_matches_xla(kernel, layout):
         assert_close(tg, g, r, RTOL64)
 
 
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_ab2_plain_is_science_plain_without_physics(layout):
+    """The momentum AB2 step is the science step with no tracers, f = 0 and
+    no buoyancy tracer, bit for bit in float64: the identity on which the
+    momentum AB2 kernel runs as the science tile's momentum blocks
+    alone."""
+    size, halo = LAYOUTS[layout]
+    _, tg, _, t = setup(size, halo, np.float64, seed=3)
+    uvw = (t["u"], t["v"], t["w"])
+    G = [0.5 * q for q in uvw]
+    ab2 = cw.weno5_ab2_update_plain(tg, *uvw, *(g.clone() for g in G), 0.3,
+                                    -0.1)
+    sci = cw.weno5_science_ab2_update_plain(
+        tg, *uvw, {}, *(g.clone() for g in G), {}, 0.3, -0.1)
+    assert sci[3] == {} and sci[7] == {}
+    for a, b in zip(ab2, (*sci[:3], *sci[4:7]), strict=True):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_plain_matches_pallas_interpret(kernel):
     """Each plain version against the JAX kernel in interpret mode, in

@@ -77,6 +77,7 @@ def test_weno5_kernels_match_plain(layout, dtype, zero_rows):
         return [*out[:3], *out[3].values(), *out[4:7], *out[7].values()]
 
     n0 = cw.weno5_science_ab2_update.launches
+    n6 = cw.weno5_ab2_update.launches
     # NaN in the blocks the allocator is likely to hand kernel 7's outputs,
     # so that a point the kernel does not write cannot pass as a zero
     junk = [torch.full_like(u, float("nan")) for _ in range(3)]
@@ -95,6 +96,7 @@ def test_weno5_kernels_match_plain(layout, dtype, zero_rows):
     ]
     torch.cuda.synchronize()
     assert cw.weno5_science_ab2_update.launches == n0 + 1
+    assert cw.weno5_ab2_update.launches == n6 + 1
     for got, ref in pairs:
         assert len(got) == len(ref)
         assert_match(got, ref, dtype)

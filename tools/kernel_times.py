@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the Poisson middle-stage kernel (``fused_middle_solve``) and the
-WENO-5 momentum tendency, science step and tracer tendency kernels
-(``weno5_momentum_tendency``, ``weno5_science_ab2_update``,
-``weno5_tracer_tendencies``) of one checkout of ``oceananigans_torch`` on
-one GPU, and print one JSON line.
+"""Time the Poisson middle-stage kernel (``fused_middle_solve``), the
+WENO-5 momentum tendency, momentum AB2, science step and tracer tendency
+kernels (``weno5_momentum_tendency``, ``weno5_ab2_update``,
+``weno5_science_ab2_update``, ``weno5_tracer_tendencies``) and the
+shallow-water stage kernel (``sw_rk3_stage``) of one checkout of
+``oceananigans_torch`` on one GPU, and print one JSON line.
 
     python3 tools/kernel_times.py [--root DIR] [--reps N]
 
@@ -25,8 +26,14 @@ At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
   outputs (two checkouts whose kernels compute the same bits print the
   same digest);
 - on the same grid and both kinds of fields, with two tracers c and b:
+  ``weno5_ab2_update`` as the ``weno_mom`` step calls it (beside the
+  science step with no tracers, f = 0 and no buoyancy, the same function
+  through the science kernel's instantiation with physics),
   ``weno5_science_ab2_update`` as the WENO science step calls it (f-plane
-  f = 1e-4, b the buoyancy tracer) and ``weno5_tracer_tendencies``.
+  f = 1e-4, b the buoyancy tracer) and ``weno5_tracer_tendencies``;
+- ``sw_rk3_stage`` at 8192² (``bench.py``'s ``sw8192`` grid: halo
+  (8, 0, 0), (Periodic, Periodic, Flat)) on random fields near the
+  benchmark's (h ~ 1000, uh and vh ~ 100), with a SHA-256 of its outputs.
 
 Each kernel's largest difference from its plain version, relative to the
 largest plain value, is printed beside its time. The line also carries the
@@ -93,6 +100,7 @@ def main():
     import oceananigans_torch as ot
     from oceananigans_torch.ops import _build
     from oceananigans_torch.ops import cuda_poisson as cp
+    from oceananigans_torch.ops import cuda_sw as csw
     from oceananigans_torch.ops import cuda_weno as cw
     if Path(ot.__file__).resolve().parent.parent != root:
         raise SystemExit(f"kernel_times.py: imported {ot.__file__}, not "
@@ -141,7 +149,8 @@ def main():
     del solver, x, margs, inv_lam, ref, got
     torch.cuda.empty_cache()
 
-    # kernels 7, 8 and 9: u, v, w, tracers c and b, and G_prev of all five
+    # kernels 6, 7, 8 and 9: u, v, w, tracers c and b, and G_prev of all
+    # five
     grid = grid_of((3, 0, 0))
     fields = {}
     for data in ("random", "zero rows"):
@@ -172,8 +181,11 @@ def main():
     def tracers(fn, u, v, w, c, b):
         return list(fn(grid, u, v, w, {"c": c, "b": b}).values())
 
-    for name in ("weno5_momentum_tendency", "weno5_science_ab2_update",
-                 "weno5_tracer_tendencies"):
+    def ab2(fn, u, v, w, G):
+        return list(fn(grid, u, v, w, *G[:3], 1.6e-4, -0.6e-4))
+
+    for name in ("weno5_momentum_tendency", "weno5_ab2_update",
+                 "weno5_science_ab2_update", "weno5_tracer_tendencies"):
         out[name] = {}
     for data, fs in fields.items():
         rec = out["weno5_momentum_tendency"][data] = {}
@@ -188,7 +200,20 @@ def main():
         rec["kernel_ms"] = time_ms(
             torch, lambda: cw.weno5_momentum_tendency(grid, *fs[:3]),
             args.reps)
-        # the science step writes G over G_prev: each side from its copy
+        # the AB2 steps write G over G_prev: each side from its copy
+        got = ab2(cw.weno5_ab2_update, *fs[:3],
+                  [g.clone() for g in G_prev])
+        ref = ab2(cw.weno5_ab2_update_plain, *fs[:3],
+                  [g.clone() for g in G_prev])
+        torch.cuda.synchronize()
+        Gk = [g.clone() for g in G_prev]
+        out["weno5_ab2_update"][data] = {
+            "rel_err": rel_err(got, ref),
+            "kernel_ms": time_ms(torch, lambda: ab2(
+                cw.weno5_ab2_update, *fs[:3], Gk), args.reps),
+            "science_t0_ms": time_ms(torch, lambda: (
+                cw.weno5_science_ab2_update(grid, *fs[:3], {}, *Gk[:3], {},
+                                            1.6e-4, -0.6e-4)), args.reps)}
         got = science(cw.weno5_science_ab2_update, *fs,
                       [g.clone() for g in G_prev])
         ref = science(cw.weno5_science_ab2_update_plain, *fs,
@@ -208,9 +233,46 @@ def main():
                 cw.weno5_tracer_tendencies, *fs), args.reps)}
         del got, ref, Gk
         torch.cuda.empty_cache()
+    del grid, fields, G_prev
+    torch.cuda.empty_cache()
+
+    # kernel 10 at 8192²
+    grid = ot.RectilinearGrid(
+        size=(8192, 8192), x=(0.0, 1e6), y=(0.0, 1e6),
+        topology=(ot.Periodic, ot.Periodic, ot.Flat), halo=(8, 0, 0),
+        dtype=f32, device=dev)
+
+    def rnd(sd, offset=0.0):
+        return offset + sd * torch.randn(grid.shape, generator=gen,
+                                         device=dev, dtype=f32)
+    q = [rnd(100.0), rnd(100.0), rnd(1.0, 1000.0)]
+    for fld, loc in zip(q, (ot.LOC_U, ot.LOC_V, ot.LOC_C)):
+        ot.fill_halo_regions(fld, grid, loc=loc)
+    G_prev = [rnd(1e-2) for _ in range(3)]
+    got = csw.sw_rk3_stage(grid, *q, *(g.clone() for g in G_prev), 0.4,
+                           -0.2, 9.81)
+    ref = csw.sw_rk3_stage_plain(grid, *q, *(g.clone() for g in G_prev),
+                                 0.4, -0.2, 9.81)
+    torch.cuda.synchronize()
+    ii = grid.interior_slices
+    digest = hashlib.sha256()
+    for g in got:
+        digest.update(g.cpu().numpy().tobytes())
+    Gk = [g.clone() for g in G_prev]
+    out["sw_rk3_stage"] = {
+        "rel_err_fields": rel_err([g[ii] for g in got[:3]],
+                                  [r[ii] for r in ref[:3]]),
+        "rel_err_tendencies": rel_err([g[ii] for g in got[3:]],
+                                      [r[ii] for r in ref[3:]]),
+        "sha256": digest.hexdigest(),
+        "kernel_ms": time_ms(torch, lambda: csw.sw_rk3_stage(
+            grid, *q, *Gk, 0.4, -0.2, 9.81), args.reps)}
+    del got, ref, q, G_prev, Gk
+    torch.cuda.empty_cache()
+
     kernels = ("poisson_middle", "weno5_tile", "weno5_tendency",
                "weno5_science_tile", "weno5_tracer_tile", "weno5_step",
-               "weno5_tracers")
+               "weno5_tracers", "sw_strip", "sw_stage")
     out["nvcc"] = ptxas_report(_build.build_log, kernels)
     # the instructions each kernel compiled to (chip_smoke.py's counter)
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -219,7 +281,15 @@ def main():
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
                           capture_output=True, text=True, check=True).stdout
     out["sass"] = sass_counts(sass, kernels, ("HGMMA", "HMMA", "FFMA", "FCHK",
-                                              "MUFU.RCP"))
+                                              "MUFU.RCP", "LDGSTS", "LDG.E",
+                                              "STG.E", "LDS", "BAR.SYNC"))
+    # all instructions (the lines that end in ";") of each float32
+    # instantiation of the science kernel: with physics (kernel 8) and
+    # without (kernel 6)
+    out["sass_instructions"] = {
+        k: v[";"] for k, v in sass_counts(
+            sass, ("weno5_science_tileIfLb1", "weno5_science_tileIfLb0"),
+            (";",)).items()}
     print(json.dumps(out), flush=True)
 
 
