@@ -13,15 +13,19 @@ each of which raises on failure:
    one process per source), with each kernel's registers and spills, the
    SASS of the float32 Poisson kernel held to tensor-core instructions
    (``cuobjdump -sass``: HGMMA) and that of the WENO-5 tiles to
-   reciprocals without IEEE division (MUFU.RCP, no FCHK), and the
-   shallow-water strip's instructions counted;
+   reciprocals without IEEE division (MUFU.RCP, no FCHK), as are the
+   vector-invariant and WENO tracer tiles, and the shallow-water strip's
+   instructions counted;
 3. each of the thirteen kernels against its plain PyTorch version, in
    float32, at the main path's shapes and at a ragged shape (the WENO-5
    momentum AB2 kernel at both also on fields with exact zero rows, the
    WENO-5 science and tracer kernels at the ragged one also with one and
    with eight tracers), the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
-   kernels also at a small size in float64, with times and the least time
+   kernels also at a small size in float64 (the last two for every
+   instantiated vector-invariant order pair and tracer order 3 to 11 at
+   the ragged shapes, exact zero rows of u and v in every field), with
+   times and the least time
    the card could take for the same work (the Poisson kernel also beside
    the ``torch.matmul`` chain with its 1/λ table made once); the generic
    momentum kernel (kernel 14) at small ragged shapes for Centered(2..12),
@@ -57,9 +61,11 @@ each of which raises on failure:
    split-explicit free surface, AB2, the VI and tracer kernels once a step)
    on the kernel path and on the plain path for 2 + 50 steps, held against
    each other and timed, with the host's enqueue time and the device's idle
-   share (``torch.profiler`` over 5 more steps); and a float64
-   (48, 16, 6) run of the kernel path held against the plain path on the
-   CPU;
+   share (``torch.profiler``'s device-busy time over 5 more steps, beside
+   their wall time); the same model with ``WENOVectorInvariant(order=7)``
+   for 1 + 3 steps on both paths (one launch of each kernel a step, held
+   against the plain path); and a float64 (48, 16, 6) run of the kernel
+   path held against the plain path on the CPU;
 10. kernel 14 at full width: ``fused_momentum_tendency`` called once per
     scheme on ``bench.py``'s ``weno_mom`` grid (256³, (Bounded, Periodic,
     Periodic), float32, x halo of the scheme's reach) for WENO(5),
@@ -183,18 +189,21 @@ WENO_MOMENTUM_OPS = 3 * (3 * (4 + WENO5_SIDE_OPS + 1 + 1) + 7)
 #: select, the product with the face velocity), three differences, three
 #: scales, two sums and the sign
 WENO_TRACER_OPS = 3 * (WENO5_SIDE_OPS + 1 + 1) + 9
-#: a WENO-7 tracer point (``csrc/weno_tracer.cu``), the least work: three
-#: faces of one side each with the transport A·U, the product and the
-#: select, then three differences, two sums, the division by V and the sign
+#: a WENO-7 tracer point (``weno_tracer_march``, ``csrc/vi_tile.h``), the
+#: least work: three faces of one side each with the transport A·U, the
+#: product and the select, then three differences, two sums, the division
+#: by V and the sign (:func:`tracer_point_ops` for any order)
 TRACER7_POINT_OPS = 3 * (WENO7_SIDE_OPS + 3) + 7
-#: a vector-invariant point (``csrc/vector_invariant.cu``), the least work:
-#: for Gu and Gv each the WENO-9 ζ flux (one side, the select, the product)
-#: and v̂ or û (11); ζ and its two smoothness values once (12); the
-#: Bernoulli head (the δ(u²/2) value and its smoothness 5, a WENO-5 side,
-#: the select 2, the cross term 6, the division 2); the divergence flux
-#: (dxU, dyV, their sum 5, a side, the select, the cross term 3, the
-#: product 2); the vertical flux (the advecting w 4, a side, the select and
-#: product 2, the difference and division 3); the two sums
+#: a vector-invariant point (``vi_march``, ``csrc/vi_tile.h``) of
+#: ``WENOVectorInvariant()``, the least work: for Gu and Gv each the
+#: WENO-9 ζ flux (one side, the select, the product) and v̂ or û (11); ζ
+#: and its two smoothness values once (12); the Bernoulli head (the
+#: δ(u²/2) value and its smoothness 5, a WENO-5 side, the select 2, the
+#: cross term 6, the division 2); the divergence flux (dxU, dyV, their sum
+#: 5, a side, the select, the cross term 3, the product 2); the vertical
+#: flux (the advecting w 4, a side, the select and product 2, the
+#: difference and division 3); the two sums (:func:`vi_point_ops` for any
+#: order pair)
 VI_POINT_OPS = (2 * (WENO9_VS_SIDE_OPS + 2 + 11) + 12
                 + 2 * (5 + WENO5_SIDE_OPS + 2 + 6 + 2)
                 + 2 * (5 + WENO5_SIDE_OPS + 1 + 3 + 2)
@@ -209,6 +218,27 @@ WENO_BETA_OPS = {3: 10, 5: 43, 7: 92, 9: 170, 11: 282}
 def weno_side_ops(order):
     B = (order + 1) // 2
     return WENO_BETA_OPS[order] + 2 * B * B + 8 * B + 1
+
+
+def tracer_point_ops(order):
+    """A WENO tracer point of ``order`` as :data:`TRACER7_POINT_OPS`
+    counts one of order 7."""
+    return 3 * (weno_side_ops(order) + 3) + 7
+
+
+def vi_point_ops(vorticity_order, rest_order, velocity=True):
+    """A vector-invariant point as :data:`VI_POINT_OPS` counts the default
+    one: the ζ side of ``vorticity_order`` with the indicators of its two
+    smoothness fields and their sum (VelocityStencil) or of ζ itself (ζ
+    alone then, 8 operations), the other three of ``rest_order``."""
+    bv = (vorticity_order + 1) // 2
+    zeta = weno_side_ops(vorticity_order)
+    if velocity:
+        zeta += WENO_BETA_OPS[vorticity_order] + bv
+    rest = weno_side_ops(rest_order)
+    return (2 * (zeta + 2 + 11) + (12 if velocity else 8)
+            + 2 * (5 + rest + 2 + 6 + 2) + 2 * (5 + rest + 1 + 3 + 2)
+            + 2 * (4 + rest + 2 + 3) + 4)
 
 
 def face_value_ops(scheme):
@@ -316,7 +346,8 @@ def main():
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
                           capture_output=True, text=True, check=True).stdout
-    tiles = ("weno5_tile", "weno5_science_tile", "weno5_tracer_tile")
+    tiles = ("weno5_tile", "weno5_science_tile", "weno5_tracer_tile",
+             "vi_march", "weno_tracer_march")
     counts = sass_counts(sass, ("poisson_middle_tf32x3", *tiles),
                          ("HGMMA", "FCHK", "MUFU.RCP"))
     counts.update(sass_counts(sass, ("sw_strip",), (
@@ -326,8 +357,8 @@ def main():
     require(counts["poisson_middle_tf32x3"]["HGMMA"] > 0,
             "the float32 Poisson kernel issues tensor-core instructions")
     require(all(counts[k]["FCHK"] == 0 and counts[k]["MUFU.RCP"] > 0
-                for k in tiles), "the WENO-5 tiles take reciprocals and "
-            "divide nowhere")
+                for k in tiles), "the WENO-5, vector-invariant and tracer "
+            "tiles take reciprocals and divide nowhere")
 
     # ---- phase 3: kernels against their plain versions ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -761,10 +792,14 @@ def main():
 
     # kernel 11 (WENO tracers) and the vector-invariant kernel (rows 12 and
     # 13) on random fields, u and v exactly zero on some rows (velocities of
-    # both signs and exact zeros), at hydro_vi's shape, a ragged one and a
-    # small float64 one. WENO_RTOL as for the WENO-5 kernels: nonlinear
-    # WENO-Z weights, the plain versions divide by volumes and areas where
-    # the kernels take the same values from y-profiles, FMA contraction
+    # both signs and exact zeros), at hydro_vi's shape, ragged ones and
+    # small float64 ones: every instantiated (vorticity, rest) order pair
+    # with both vorticity stencils and every tracer order whose reach the
+    # layout's halo holds (the halo (6, 6, 6) layouts hold them all; the
+    # main shape takes the pairs and orders its halo (6, 6, 4) holds).
+    # WENO_RTOL as for the WENO-5 kernels: nonlinear WENO-Z weights, the
+    # plain versions divide by volumes and areas where the kernels take the
+    # same values from y-profiles, FMA contraction
     hydro_shapes = {
         "main": ((360, 160, 60), (6, 6, 4),
                  (ot.Periodic, ot.Bounded, ot.Bounded), f32),
@@ -772,11 +807,19 @@ def main():
                    (ot.Bounded, ot.Bounded, ot.Bounded), f32),
         "ragged halo-free": ((16, 12, 32), (5, 0, 0),
                              (ot.Bounded, ot.Periodic, ot.Periodic), f32),
+        "ragged wide halo": ((23, 17, 9), (6, 6, 6),
+                             (ot.Bounded, ot.Bounded, ot.Bounded), f32),
         "ragged float64": ((23, 17, 9), (6, 6, 4),
                            (ot.Periodic, ot.Bounded, ot.Bounded),
-                           torch.float64)}
+                           torch.float64),
+        "ragged wide halo float64": ((23, 17, 9), (6, 6, 6),
+                                     (ot.Periodic, ot.Bounded, ot.Bounded),
+                                     torch.float64)}
     vi_velocity = ot.WENOVectorInvariant()
-    vi_default = ot.WENOVectorInvariant(vorticity_stencil="default")
+    vi_schemes = [ot.WENOVectorInvariant(vorticity_order=kv, order=kr,
+                                         vorticity_stencil=stencil)
+                  for kv, kr in cvi.ORDER_PAIRS
+                  for stencil in ("velocity", "default")]
     for shape_name, (N, halo, topo, dtype) in hydro_shapes.items():
         hg = ot.RectilinearGrid(size=N, extent=(4e7, 2e7, 4e3),
                                 topology=topo, halo=halo, dtype=dtype,
@@ -793,8 +836,11 @@ def main():
         u, v, w, T, S = fs
         tr = {"T": T, "S": S}
         rtol = WENO_RTOL if dtype == f32 else F64_RTOL
-        for order in (7, 5):
+        n_tr = n_vi = 0
+        for order in ctr.ORDERS:
             sch = ot.WENO(order)
+            if not ctr.tracer_fusion_available(hg, sch):
+                continue
             got = list(ctr.weno_tracer_tendencies(hg, sch, u, v, w,
                                                   tr).values())
             ref = list(ctr.weno_tracer_tendencies_plain(hg, sch, u, v, w,
@@ -802,12 +848,22 @@ def main():
             torch.cuda.synchronize()
             check("weno_tracer_tendencies",
                   f"WENO({order}) {shape_name}", got, ref, rtol)
-        for vi in (vi_velocity, vi_default):
+            n_tr += 1
+        for vi in vi_schemes:
+            if not cvi.vi_available(hg, vi):
+                continue
             got = cvi.vi_momentum_tendency(hg, vi, u, v, w)
             ref = cvi.vi_momentum_tendency_plain(hg, vi, u, v, w)
             torch.cuda.synchronize()
             check("vi_momentum_tendency",
-                  f"{vi.vorticity_stencil} {shape_name}", got, ref, rtol)
+                  f"({vi.vorticity_scheme.order}, {vi.vertical_scheme.order}"
+                  f") {vi.vorticity_stencil} {shape_name}", got, ref, rtol)
+            n_vi += 1
+        if "wide halo" in shape_name:
+            require(n_tr == len(ctr.ORDERS) and n_vi == len(vi_schemes),
+                    f"{shape_name}: every tracer order and VI pair checked")
+        log(f"[3] {shape_name}: {n_tr} tracer orders and {n_vi} "
+            "vector-invariant schemes checked")
         if shape_name != "main":
             continue
         field = u.numel() * u.element_size()
@@ -817,6 +873,19 @@ def main():
                 (3 + 2 * len(tr)) * field,
                 points * len(tr) * TRACER7_POINT_OPS),
             "vi_momentum_tendency": bound(5 * field, points * VI_POINT_OPS)}
+        for order in ctr.ORDERS:
+            b_ms, b_by = bound((3 + 2 * len(tr)) * field,
+                               points * len(tr) * tracer_point_ops(order))
+            log(f"[3] weno_tracer_tendencies bound at {tuple(u.shape)}, "
+                f"WENO({order}), two tracers: {b_ms:.4f} ms ({b_by})")
+        for kv, kr in cvi.ORDER_PAIRS:
+            for velocity in (True, False):
+                b_ms, b_by = bound(5 * field,
+                                   points * vi_point_ops(kv, kr, velocity))
+                log(f"[3] vi_momentum_tendency bound at {tuple(u.shape)}, "
+                    f"({kv}, {kr}) "
+                    f"{'velocity' if velocity else 'default'}: "
+                    f"{b_ms:.4f} ms ({b_by})")
         timings = {
             "weno_tracer_tendencies": (
                 lambda: ctr.weno_tracer_tendencies_plain(
@@ -835,6 +904,13 @@ def main():
             log(f"[3] {name} at {tuple(u.shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
+        vi7 = ot.WENOVectorInvariant(order=7)
+        ms7 = time_ms(torch, lambda: cvi.vi_momentum_tendency(hg, vi7, u, v,
+                                                              w), 10)
+        b7 = bound(5 * field, points * vi_point_ops(7, 7))
+        log(f"[3] vi_momentum_tendency, WENOVectorInvariant(order=7), at "
+            f"{tuple(u.shape)}: kernel {ms7:.4f} ms, bound {b7[0]:.4f} ms "
+            f"({b7[1]})")
         del timings
     del hg, fs, u, v, w, T, S, tr, got, ref
     torch.cuda.empty_cache()
@@ -1432,9 +1508,9 @@ def main():
         require(busy > 0, f"hydro_vi {path} path: the profiler saw device "
                 "time")
         log(f"[9] hydro_vi {path} path under torch.profiler, {n_prof} "
-            f"steps: kernel time {busy:.3f} ms/step in a wall of "
-            f"{wall:.3f}, idle share {1 - busy / wall:.3f}; against the "
-            f"unprofiled {hydro_ms[path]:.3f} ms/step, idle share "
+            f"steps: device-busy {busy:.3f} ms/step in a wall of "
+            f"{wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; against "
+            f"the unprofiled {hydro_ms[path]:.3f} ms/step, idle share "
             f"{1 - busy / hydro_ms[path]:.3f}")
         del model, state, st, prof
         torch.cuda.empty_cache()
@@ -1452,6 +1528,67 @@ def main():
     require(all(hydro_rel[k] <= HYDRO_PATH_RTOL[k] for k in hydro_rel),
             f"hydro_vi kernel vs plain path {hydro_rel}")
     del hydro_cmp
+    torch.cuda.empty_cache()
+
+    # hydro_vi with WENOVectorInvariant(order=7): all four schemes WENO(7),
+    # which the vector-invariant kernel takes since its order-generic
+    # tiles; 1 + 3 steps on both paths, one launch of each kernel a step
+    # and no other, held to the bounds of the 52-step run
+    o7_steps, o7 = 1 + 3, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = hydro_model(fused, momentum_advection=ot.WENOVectorInvariant(
+            order=7))
+        require(model.fused_kernels == model.fused_tracer
+                == (path == "kernel"),
+                f"hydro_vi order=7 {path} path selects fused_kernels="
+                f"{model.fused_kernels}, fused_tracer={model.fused_tracer}")
+        state = model.update_state(hydro_initial_state(model))
+        torch.cuda.synchronize()
+        zero_counts()
+        state = model.step(state, HYDRO_DT, assume_filled=True)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(o7_steps - 1):
+            state = model.step(state, HYDRO_DT, assume_filled=True)
+        e1.record()
+        e1.synchronize()
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        want = ({k: o7_steps for k in hydro_kernels} if path == "kernel"
+                else {})
+        require(counts == want, f"hydro_vi order=7 {path} path launches "
+                f"{counts}, expected {want}")
+        g9 = model.grid
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (state.u, state.v, state.w, state.eta,
+                              *state.tracers.values())),
+                f"hydro_vi order=7 {path} path: finite fields")
+        xy = g9.interior_slices[:2]
+        o7[path] = (e0.elapsed_time(e1) / (o7_steps - 1), {
+            "velocities": [g9.interior(state.u).clone(),
+                           g9.interior(state.v).clone()],
+            "eta": [state.eta[xy].clone()],
+            "tracers": [g9.interior(state.tracers[n]).clone()
+                        for n in ("T", "S")]})
+        del model, state
+        torch.cuda.empty_cache()
+    o7_rel = {}
+    for group, ks in o7["kernel"][1].items():
+        ps = o7["plain"][1][group]
+        o7_rel[group] = max(float((a - b).abs().max())
+                            for a, b in zip(ks, ps)) / max(
+            float(b.abs().max()) for b in ps)
+    require(all(o7_rel[k] <= HYDRO_PATH_RTOL[k] for k in o7_rel),
+            f"hydro_vi order=7 kernel vs plain path {o7_rel}")
+    log(f"[9] hydro_vi with WENOVectorInvariant(order=7), {o7_steps} steps: "
+        f"kernel path {o7['kernel'][0]:.3f} ms/step, plain path "
+        f"{o7['plain'][0]:.3f} ms/step (steps 2 to {o7_steps}, CUDA "
+        f"events); one VI and one tracer launch a step; kernel vs plain "
+        "path: " + ", ".join(f"{k} {v:.3e}" for k, v in o7_rel.items())
+        + " of the largest value")
+    del o7
     torch.cuda.empty_cache()
 
     # a small float64 run: the kernel path on the card against the plain
@@ -1757,14 +1894,14 @@ def main():
                "sw_rk3_stage": ("oceananigans_torch/csrc/shallow_water.cu",
                                 "oceananigans_tpu/ops/pallas_sw.py:207"),
                "weno_tracer_tendencies": (
-                   "oceananigans_torch/csrc/weno_tracer.cu",
+                   "oceananigans_torch/csrc/vi_tile.h",
                    "oceananigans_tpu/ops/pallas_tracer.py:269"),
                "vi_momentum_tendency": (
-                   "oceananigans_torch/csrc/vector_invariant.cu",
+                   "oceananigans_torch/csrc/vi_tile.h",
                    "oceananigans_tpu/ops/pallas_vi.py:634"),
                # the same CUDA kernel replaces both layouts' TPU kernels
                "vi_momentum_tendency_zyx": (
-                   "oceananigans_torch/csrc/vector_invariant.cu",
+                   "oceananigans_torch/csrc/vi_tile.h",
                    "oceananigans_tpu/ops/pallas_vi.py:538"),
                "fused_momentum_tendency": (
                    "oceananigans_torch/csrc/generic_momentum.cu",

@@ -1,14 +1,17 @@
 // WENO-Z reconstruction of any order of weno_tables.h, for the CUDA kernels
-// of oceananigans_torch: the counterpart of advection.WENO._onesided and of
-// the upwind selects of the Pallas kernels (_sel2/_sel3 in
-// oceananigans_tpu/ops/pallas_vi.py, _recon in ops/pallas_tracer.py).
+// of oceananigans_torch: the counterpart of advection.WENO._onesided. The
+// smoothness indicators in contracted form (betas) serve the x-marching
+// tiles of vi_tile.h, which form their weights with reciprocals; the
+// indicators and the one-sided value in the Python package's order of
+// operations (betas_in_order, side_in_order) serve them and the generic
+// momentum kernel.
 //
 // Taps: s[m] holds the reconstructed field at offset m - B from the target
 // (m = 0 .. 2B-1), the Python taps {n: shift(a, n + o)} for n = -B..B-1.
 // The left-biased value reads them as they are, the right-biased one
 // through the reflection n -> -1-n. The WENO-Z ratio tau/(beta+eps) is
 // capped at 1e12 in float32 and 1e60 in float64, as the Python package
-// caps it, and every division is exact IEEE division (no fast math).
+// caps it; side_in_order divides exactly (IEEE division, no fast math).
 
 #pragma once
 
@@ -68,68 +71,6 @@ __device__ __forceinline__ void betas(const T* s, T* beta) {
     }
     beta[r] = kAdd ? beta[r] + b : b;
   }
-}
-
-// The WENO-Z combination of the sub-stencil polynomials of the taps s with
-// the indicators beta: alpha_r = gamma_r (1 + min(tau/(beta_r+eps), cap)^2).
-template <int K, bool kRight, typename T>
-__device__ __forceinline__ T combine(const T* s, const T* beta, T eps) {
-  using W = WenoTable<K>;
-  constexpr int B = W::B;
-  const T tau = fabs(beta[0] - beta[B - 1]);
-  T asum = T(0);
-  T out = T(0);
-#pragma unroll
-  for (int r = 0; r < B; ++r) {
-    const T ratio = fmin(tau / (beta[r] + eps), RatioCap<T>::value);
-    const T alpha = T(W::gamma(r)) * (T(1) + ratio * ratio);
-    T poly = T(W::q(r, 0)) * tap<K, kRight>(s, W::lo(r));
-#pragma unroll
-    for (int j = 1; j < B; ++j) {
-      poly = poly + T(W::q(r, j)) * tap<K, kRight>(s, W::lo(r) + j);
-    }
-    asum = (r == 0) ? alpha : asum + alpha;
-    out = (r == 0) ? alpha * poly : out + alpha * poly;
-  }
-  return out / asum;
-}
-
-// One biased reconstruction of the taps s. kSmooth = 0: the indicators of s
-// itself; 1 or 2: the summed indicators of the smoothness taps s1 (and s2)
-// (the reference's FunctionStencil/VelocityStencil).
-template <int K, bool kRight, int kSmooth, typename T>
-__device__ __forceinline__ T side(const T* s, const T* s1, const T* s2,
-                                  T eps) {
-  T beta[WenoTable<K>::B];
-  if constexpr (kSmooth == 0) {
-    betas<K, kRight, false>(s, beta);
-  } else {
-    betas<K, kRight, false>(s1, beta);
-    if constexpr (kSmooth == 2) betas<K, kRight, true>(s2, beta);
-  }
-  return combine<K, kRight>(s, beta, eps);
-}
-
-// Upwind select where the value is multiplied by U afterwards: left-biased
-// for U > 0, else right-biased (where U == 0 the Python package averages
-// the two, and U times either is zero).
-template <int K, int kSmooth, typename T>
-__device__ __forceinline__ T upwind(const T* s, const T* s1, const T* s2,
-                                    T U, T eps) {
-  if (U > T(0)) return side<K, false, kSmooth>(s, s1, s2, eps);
-  return side<K, true, kSmooth>(s, s1, s2, eps);
-}
-
-// The exact select of the Python package, for a value that is not
-// multiplied by U (the Bernoulli self difference): U == 0 gives the mean of
-// the two biased values.
-template <int K, int kSmooth, typename T>
-__device__ __forceinline__ T upwind_mean(const T* s, const T* s1,
-                                         const T* s2, T U, T eps) {
-  if (U > T(0)) return side<K, false, kSmooth>(s, s1, s2, eps);
-  if (U < T(0)) return side<K, true, kSmooth>(s, s1, s2, eps);
-  return T(0.5) * (side<K, false, kSmooth>(s, s1, s2, eps)
-                   + side<K, true, kSmooth>(s, s1, s2, eps));
 }
 
 // Products and sums that the compiler may not contract into FMAs.

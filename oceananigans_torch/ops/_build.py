@@ -44,8 +44,8 @@ SIGNATURES = {
     "ot_weno5_ab2": [_P] * 9 + [_I] * 3 + [_D] * 6 + [_P],
     "ot_weno5_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 7 + [_I] + [_P],
     "ot_sw_rk3_stage": [_P] * 9 + [_I] * 6 + [_D] * 5 + [_P],
-    "ot_weno_tracers": [_P] * 5 + [_I] * 4 + [_P, _I, _D, _P],
-    "ot_vi_tendency": [_P] * 5 + [_I] * 3 + [_P, _I, _I, _D, _P],
+    "ot_weno_tracer_march": [_P] * 5 + [_I] * 4 + [_P] + [_I] * 5 + [_D, _P],
+    "ot_vi_march": [_P] * 5 + [_I] * 3 + [_P] + [_I] * 7 + [_D, _P],
     "ot_generic_momentum": [_P] * 6 + [_I] * 7 + [_D] * 7 + [_P],
 }
 

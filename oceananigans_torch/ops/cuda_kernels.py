@@ -70,6 +70,12 @@ def on_cuda(t) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def sm_count(device):
+    """The number of SMs of the CUDA ``device``, for the kernels' launch
+    plans."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_operands(name, tensors, shape):
     """Raise unless ``tensors`` share a device and a float32/float64 dtype,
     have ``shape`` and are contiguous."""

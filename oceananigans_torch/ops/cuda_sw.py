@@ -25,7 +25,9 @@ from __future__ import annotations
 import torch
 
 from oceananigans_torch.ops import _build
-from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
+from oceananigans_torch.ops.cuda_kernels import (
+    check_operands, on_cuda, sm_count,
+)
 
 #: x-rows each side that the stencil reads (i-2 .. i+1)
 REACH = 2
@@ -63,10 +65,6 @@ def stage_plan(nx, ny, x0, sms, itemsize=4):
     nseg = max(1, min(-(-target // strips), rows // MIN_SEGMENT))
     seg_len = -(-rows // nseg)
     return strips, seg_len, -(-rows // seg_len)
-
-
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sw_fused_available(grid, model) -> bool:
@@ -172,7 +170,7 @@ def sw_rk3_stage(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
     news = tuple(torch.empty_like(uh) for _ in range(3))
     nx, ny, _ = uh.shape
     x0 = grid.H[0]
-    _, seg_len, nseg = stage_plan(nx, ny, x0, _sm_count(uh.device),
+    _, seg_len, nseg = stage_plan(nx, ny, x0, sm_count(uh.device),
                                   uh.element_size())
     _build.launch("ot_sw_rk3_stage", uh.dtype, uh.device,
                   uh.data_ptr(), vh.data_ptr(), h.data_ptr(),

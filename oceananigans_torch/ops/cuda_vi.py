@@ -5,13 +5,19 @@ Counterpart of ``oceananigans_tpu/ops/pallas_vi.py``: its two TPU kernels,
 ``vi_momentum_tendency`` (``_kernel``, the (x, y, z) layout) and
 ``vi_momentum_tendency_zyx`` (``_kernel_zyx``, the transposed layout for
 the TPU's 128 lanes), compute the same terms, so on the GPU they are one
-kernel, ``csrc/vector_invariant.cu``, on the port's (x, y, z) tensors with
-z contiguous. One pass reads u, v and w and writes Gu and Gv of
-``VectorInvariant.u_tendency``/``v_tendency``: the WENO ζ flux with
+kernel, ``vi_march`` of ``csrc/vi_tile.h``, on the port's (x, y, z)
+tensors with z contiguous. One launch reads u, v and w and writes Gu and Gv
+of ``VectorInvariant.u_tendency``/``v_tendency``: the WENO ζ flux with
 VelocityStencil or ζ's own smoothness, the Bernoulli head (the self
 difference δx(u²/2) upwinded on u, the cross difference Centered(2)), the
 divergence flux with ``OnlySelfUpwinding`` and the flux-form WENO vertical
 advection.
+
+The kernel is an x-marching tile (a Gu block and a Gv block for each panel
+and segment of ``cuda_tracer.march_plan``), a template on the vorticity
+order and on the order of the other three schemes, with one vorticity
+order per translation unit (``csrc/vi_tile_k<K>.cu``): the pairs of
+:data:`ORDER_PAIRS`, the two families of ``WENOVectorInvariant``.
 
 The kernel computes every point of the halo-extended tensors, with
 neighbours wrapped modulo the full extent on every axis, as the plain
@@ -31,24 +37,29 @@ import torch
 
 from oceananigans_torch.grids.base import Center, Face
 from oceananigans_torch.ops import _build
-from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
-from oceananigans_torch.ops.cuda_tracer import axes_reachable, metric_profile
+from oceananigans_torch.ops.cuda_kernels import (
+    check_operands, on_cuda, sm_count,
+)
+from oceananigans_torch.ops.cuda_tracer import (
+    axes_reachable, march_plan, metric_profile,
+)
 
-#: the vorticity WENO orders the kernel is instantiated for (the reference
-#: default 9, and 5 of ``WENOVectorInvariant(order=5)``); the kinetic
-#: energy gradient, divergence and vertical schemes are WENO(5)
-VORTICITY_ORDERS = (5, 9)
-REST_ORDER = 5
+#: the (vorticity, rest) WENO orders the kernel is instantiated for, the
+#: rest being the kinetic energy gradient, divergence and vertical schemes:
+#: ``WENOVectorInvariant(vorticity_order=N)`` (the rest WENO(5); N = 9 is
+#: the default) and ``WENOVectorInvariant(order=N)`` (all four of order N)
+ORDER_PAIRS = tuple(sorted({(n, 5) for n in (3, 5, 7, 9, 11)}
+                           | {(n, n) for n in (3, 7, 9, 11)}))
 #: the metric combinations, in the order the kernel reads their profiles
 METRICS = ("dy_vf", "dx_uf", "dx_vf", "dy_uc", "az_ff", "az_cc", "ax_fcc",
            "ay_cfc", "v_fcc", "v_cfc")
 
 
 def _schemes_ok(vi) -> bool:
-    """The options the kernel computes: plain WENO schemes (no bounds) with
-    the vorticity order in :data:`VORTICITY_ORDERS` and the other three of
-    order :data:`REST_ORDER`, 1-D stencils, ``OnlySelfUpwinding`` with
-    Centered(2) cross terms."""
+    """The options the kernel computes: plain WENO schemes (no bounds) whose
+    vorticity order and common order of the other three are a pair of
+    :data:`ORDER_PAIRS`, one epsilon, 1-D stencils, ``OnlySelfUpwinding``
+    with Centered(2) cross terms."""
     from oceananigans_torch.advection import WENO, Centered
     from oceananigans_torch.models.hydrostatic import (
         OnlySelfUpwinding, VectorInvariant,
@@ -59,8 +70,9 @@ def _schemes_ok(vi) -> bool:
                vi.divergence_scheme, vi.vertical_scheme)
     if not all(type(s) is WENO and s.bounds is None for s in schemes):
         return False
-    if vi.vorticity_scheme.order not in VORTICITY_ORDERS or any(
-            s.order != REST_ORDER for s in schemes[1:]):
+    rest = {s.order for s in schemes[1:]}
+    if len(rest) != 1 or (vi.vorticity_scheme.order,
+                          rest.pop()) not in ORDER_PAIRS:
         return False
     if len({s.epsilon for s in schemes}) != 1:
         return False
@@ -87,11 +99,12 @@ def vi_reach(vi):
 def vi_available(grid, vi) -> bool:
     """True when the kernel applies: a regular rectilinear grid, the
     options of :func:`_schemes_ok` (the JAX gate's ``_vi_schemes_ok``
-    narrowed to the instantiated orders), and the reach of
-    :func:`vi_reach` on every axis (``cuda_tracer.axes_reachable``). The
-    JAX gates ask one more halo row on y and z, (8, 128) alignment of a
-    halo-free axis and, for the transposed layout, a lane-padding rule;
-    the port asks none of these, and takes a halo-free periodic x."""
+    narrowed to the instantiated order pairs and one epsilon), and the
+    reach of :func:`vi_reach` on every axis
+    (``cuda_tracer.axes_reachable``). The JAX gates ask one more halo row
+    on y and z, (8, 128) alignment of a halo-free axis and, for the
+    transposed layout, a lane-padding rule; the port asks none of these,
+    and takes a halo-free periodic x."""
     from oceananigans_torch.grids.rectilinear import RectilinearGrid
     if not (isinstance(grid, RectilinearGrid) and grid.regular):
         return False
@@ -126,9 +139,6 @@ def vi_momentum_tendency(grid, vi, u, v, w, metrics=None):
     check_operands(name, (u, v, w), grid.shape)
     if not on_cuda(u):
         return vi_momentum_tendency_plain(grid, vi, u, v, w)
-    if u.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: fields of {u.numel()} points exceed the "
-                         "kernel's 32-bit indexing")
     if metrics is None:
         metrics = vi_metric_profiles(grid)
     check_operands(name, (metrics,), (len(METRICS), grid.shape[1]))
@@ -136,11 +146,12 @@ def vi_momentum_tendency(grid, vi, u, v, w, metrics=None):
         raise ValueError(f"{name}: metrics differ from the fields in device "
                          "or dtype")
     Gu, Gv = torch.empty_like(u), torch.empty_like(u)
-    _build.launch("ot_vi_tendency", u.dtype, u.device,
+    plan = march_plan(u.shape, 2, sm_count(u.device), u.element_size())
+    _build.launch("ot_vi_march", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(), Gu.data_ptr(),
                   Gv.data_ptr(), *u.shape, metrics.data_ptr(),
-                  vi.vorticity_scheme.order,
-                  int(vi.vorticity_stencil == "velocity"),
+                  vi.vorticity_scheme.order, vi.vertical_scheme.order,
+                  int(vi.vorticity_stencil == "velocity"), *plan,
                   float(vi.vorticity_scheme.epsilon))
     vi_momentum_tendency.launches += 1
     return Gu, Gv
@@ -148,6 +159,6 @@ def vi_momentum_tendency(grid, vi, u, v, w, metrics=None):
 
 vi_momentum_tendency.launches = 0
 
-__all__ = ["METRICS", "REST_ORDER", "VORTICITY_ORDERS", "vi_available",
+__all__ = ["METRICS", "ORDER_PAIRS", "vi_available",
            "vi_metric_profiles", "vi_momentum_tendency",
            "vi_momentum_tendency_plain", "vi_reach"]

@@ -204,14 +204,18 @@ HYDRO_CONFIG, HYDRO_DT, HYDRO_STEPS = "hydro_vi", 60.0, 20
 
 
 def hydro_model(fused="auto", dtype=torch.float32, device="cuda",
-                size=(360, 160, 60)):
-    """``bench.py``'s ``hydro_vi`` model (at ``size``)."""
+                size=(360, 160, 60), momentum_advection=None):
+    """``bench.py``'s ``hydro_vi`` model (at ``size``; with
+    ``momentum_advection`` in place of its ``WENOVectorInvariant()`` when
+    given)."""
     import oceananigans_torch as ot
     grid = ot.RectilinearGrid(size=size, extent=(4e7, 2e7, 4e3),
                               topology=(ot.Periodic, ot.Bounded, ot.Bounded),
                               halo=(6, 6, 4), dtype=dtype, device=device)
+    if momentum_advection is None:
+        momentum_advection = ot.WENOVectorInvariant()
     return ot.HydrostaticFreeSurfaceModel(
-        grid=grid, momentum_advection=ot.WENOVectorInvariant(),
+        grid=grid, momentum_advection=momentum_advection,
         tracer_advection=ot.WENO(7), tracers=("T", "S"),
         free_surface=ot.SplitExplicitFreeSurface(substeps=30),
         fused_kernels=fused)

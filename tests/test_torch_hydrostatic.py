@@ -128,6 +128,31 @@ def test_weno_vector_invariant_matches_jax_xla_and_fused():
     run_both([jx, jf], tmodel, state, 30.0, 3, ("T",))
 
 
+def test_weno_vector_invariant_order7_matches_jax():
+    """``WENOVectorInvariant(order=7)`` (all four schemes WENO(7)) with
+    WENO(7) tracers: the port's kernel code path (the order-generic VI
+    kernel's gate holds) against the JAX model, 3 steps."""
+    kw = dict(size=(16, 12, 8), extent=(1e5, 2e5, 1e3),
+              topology=(oj.Bounded, oj.Bounded, oj.Bounded), halo=6)
+    jg, tg = grids(**kw)
+    jmodel = jm.HydrostaticFreeSurfaceModel(
+        grid=jg, momentum_advection=jm.WENOVectorInvariant(order=7),
+        tracer_advection=oj.WENO(7), tracers=("T",),
+        free_surface=jm.SplitExplicitFreeSurface(substeps=8),
+        fused_kernels=False)
+    tmodel = ot.HydrostaticFreeSurfaceModel(
+        grid=tg, momentum_advection=ot.WENOVectorInvariant(order=7),
+        tracer_advection=ot.WENO(7), tracers=("T",),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=8),
+        fused_kernels=True)
+    assert tmodel.fused_kernels and tmodel.fused_tracer
+    state = jmodel.initial_state(
+        u=lambda x, y, z: 0.1 * jnp.sin(2 * np.pi * x / 1e5),
+        v=lambda x, y, z: 0.05 * jnp.cos(np.pi * y / 2e5),
+        T=lambda x, y, z: 10.0 + 1e-3 * z)
+    run_both([jmodel], tmodel, state, 30.0, 3, ("T",))
+
+
 def test_nz_thin_periodic_matches_jax():
     """(Periodic, Bounded, Bounded) with halo (6, 6, 4), the nz-thin grid
     of ``tests/test_pallas_vi.py:336-338`` (where the JAX model takes its

@@ -56,13 +56,17 @@ def assert_match(got, ref, dtype):
 
 LAYOUTS = [((23, 17, 9), (6, 6, 4), PBB),
            ((16, 12, 32), (5, 0, 0),
-            (ot.Bounded, ot.Periodic, ot.Periodic))]
+            (ot.Bounded, ot.Periodic, ot.Periodic)),
+           ((23, 17, 9), (6, 6, 6), (ot.Bounded, ot.Bounded, ot.Bounded))]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_kernels_match_plain(layout, dtype):
+    """Every instantiated (vorticity, rest) order pair with both vorticity
+    stencils and every tracer order whose reach the layout's halo holds,
+    one launch each; the wide halo (6, 6, 6) holds them all."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     size, halo, topology = layout
@@ -70,14 +74,19 @@ def test_kernels_match_plain(layout, dtype):
     n_vi = cvi.vi_momentum_tendency.launches
     n_tr = ctr.weno_tracer_tendencies.launches
     pairs = []
-    for stencil in ("velocity", "default"):
-        vi = ot.WENOVectorInvariant(vorticity_stencil=stencil)
-        if not cvi.vi_available(grid, vi):
-            vi = ot.WENOVectorInvariant(order=5, vorticity_stencil=stencil)
-        pairs.append((cvi.vi_momentum_tendency(grid, vi, u, v, w),
-                      cvi.vi_momentum_tendency_plain(grid, vi, u, v, w)))
-    for order in (5, 7):
+    for kv, kr in cvi.ORDER_PAIRS:
+        for stencil in ("velocity", "default"):
+            vi = ot.WENOVectorInvariant(vorticity_order=kv, order=kr,
+                                        vorticity_stencil=stencil)
+            if cvi.vi_available(grid, vi):
+                pairs.append((cvi.vi_momentum_tendency(grid, vi, u, v, w),
+                              cvi.vi_momentum_tendency_plain(grid, vi, u, v,
+                                                             w)))
+    n_vi_pairs = len(pairs)
+    for order in ctr.ORDERS:
         sch = ot.WENO(order)
+        if not ctr.tracer_fusion_available(grid, sch):
+            continue
         tr = {"T": T, "S": S}
         pairs.append((
             list(ctr.weno_tracer_tendencies(grid, sch, u, v, w,
@@ -85,26 +94,35 @@ def test_kernels_match_plain(layout, dtype):
             list(ctr.weno_tracer_tendencies_plain(grid, sch, u, v, w,
                                                   tr).values())))
     torch.cuda.synchronize()
-    assert cvi.vi_momentum_tendency.launches == n_vi + 2
-    assert ctr.weno_tracer_tendencies.launches == n_tr + 2
+    assert n_vi_pairs >= 2 and len(pairs) > n_vi_pairs
+    if halo == (6, 6, 6):
+        assert n_vi_pairs == 2 * len(cvi.ORDER_PAIRS)
+        assert len(pairs) - n_vi_pairs == len(ctr.ORDERS)
+    assert cvi.vi_momentum_tendency.launches == n_vi + n_vi_pairs
+    assert ctr.weno_tracer_tendencies.launches == \
+        n_tr + len(pairs) - n_vi_pairs
     for got, ref in pairs:
         assert_match(got, ref, dtype)
 
 
 @pytest.mark.gpu
-def test_hydrostatic_model_on_card_matches_cpu():
-    """A float64 (48, 16, 6) ``hydro_vi`` model, halo (6, 6, 4): the kernel
-    path on the card against the plain path on the CPU over 5 steps, from
-    a state without rounding-level zeros of the velocities
-    (``profile_step.hydro_generic_state`` says why)."""
+@pytest.mark.parametrize("order", [None, 7])
+def test_hydrostatic_model_on_card_matches_cpu(order):
+    """A float64 (48, 16, 6) ``hydro_vi`` model, halo (6, 6, 4), with its
+    default ``WENOVectorInvariant()`` or with ``WENOVectorInvariant(order=
+    7)``: the kernel path on the card against the plain path on the CPU
+    over 5 steps, from a state without rounding-level zeros of the
+    velocities (``profile_step.hydro_generic_state`` says why)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from oceananigans_torch.profile_step import (
         hydro_generic_state, hydro_model,
     )
+    momentum = None if order is None else ot.WENOVectorInvariant(order=order)
     finals = {}
     for device in ("cuda", "cpu"):
-        m = hydro_model("auto", torch.float64, device, size=(48, 16, 6))
+        m = hydro_model("auto", torch.float64, device, size=(48, 16, 6),
+                        momentum_advection=momentum)
         assert m.fused_kernels == m.fused_tracer == (device == "cuda")
         s = hydro_generic_state(m)
         for _ in range(5):

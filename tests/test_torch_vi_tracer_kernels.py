@@ -350,8 +350,9 @@ def test_vi_gate():
     assert not vi_available(jg, j_hyd.WENOVectorInvariant())
     assert cvi.vi_available(tg, ot.WENOVectorInvariant(order=5))
     assert vi_available(jg, j_hyd.WENOVectorInvariant(order=5))
-    # orders other than 5 for the other three schemes: not instantiated
-    assert not cvi.vi_available(tg, ot.WENOVectorInvariant(order=3))
+    # the other three schemes of order 3 (the order=N family): both take it
+    assert cvi.vi_available(tg, ot.WENOVectorInvariant(order=3))
+    assert vi_available(jg, j_hyd.WENOVectorInvariant(order=3))
     # hydro_vi: both gates hold (the JAX model takes the transposed kernel)
     jg, tg = both((360, 160, 60), (6, 6, 4),
                   (oj.Periodic, oj.Bounded, oj.Bounded))
@@ -389,6 +390,158 @@ def test_vi_gate_differences(halo):
     for g, r in zip(got, ref):
         torch.testing.assert_close(tg.interior(g), wide.interior(r),
                                    rtol=0, atol=1e-13 * float(r.abs().max()))
+
+
+ALL_ORDERS = (3, 5, 7, 9, 11)
+
+
+@pytest.mark.parametrize("rest", ALL_ORDERS)
+@pytest.mark.parametrize("vorticity", ALL_ORDERS)
+def test_vi_gate_orders(vorticity, rest):
+    """Every (vorticity, rest) WENO order pair: on a grid whose halo holds
+    every reach the JAX gate takes them all, the port's exactly the pairs
+    of ``ORDER_PAIRS`` (``WENOVectorInvariant(vorticity_order=N)`` and
+    ``(order=N)``); mixed pairs such as (7, 3) stay on the plain path. On
+    ``hydro_vi``'s grid, halo (6, 6, 4), the port takes an instantiated
+    pair exactly where its reach fits, and so does the JAX gate."""
+    from oceananigans_tpu.ops.pallas_vi import vi_available
+    tvi = ot.WENOVectorInvariant(vorticity_order=vorticity, order=rest)
+    jvi = j_hyd.WENOVectorInvariant(vorticity_order=vorticity, order=rest)
+    pair = (vorticity, rest) in cvi.ORDER_PAIRS
+    assert pair == (rest == 5 or rest == vorticity)
+    kw = dict(size=(16, 12, 8), extent=(1.0, 2.0, 0.5), topology=BBB,
+              halo=7)
+    assert vi_available(oj.RectilinearGrid(dtype="float64", **kw), jvi)
+    assert cvi.vi_available(ot.RectilinearGrid(dtype=F64, **kw), tvi) \
+        == pair
+    kw = dict(size=(360, 160, 60), extent=(4e7, 2e7, 4e3),
+              topology=(oj.Periodic, oj.Bounded, oj.Bounded),
+              halo=(6, 6, 4))
+    reach = cvi.vi_reach(tvi)
+    fits = reach[0] <= 6 and reach[1] <= 6 and reach[2] <= 4
+    port = cvi.vi_available(ot.RectilinearGrid(dtype=F64, **kw), tvi)
+    assert port == (pair and fits)
+    # the JAX gate asks one more halo row on y and z
+    jax_fits = reach[0] <= 6 and reach[1] <= 5 and reach[2] <= 3
+    assert vi_available(oj.RectilinearGrid(dtype="float64", **kw), jvi) \
+        == jax_fits
+
+
+VI_FAMILIES = [dict(order=7), dict(vorticity_order=3),
+               dict(vorticity_order=7), dict(vorticity_order=11)]
+
+
+@pytest.mark.parametrize("stencil", ["velocity", "default"])
+@pytest.mark.parametrize("orders", VI_FAMILIES,
+                         ids=lambda kw: "-".join(f"{k}{v}"
+                                                 for k, v in kw.items()))
+def test_vi_kernel_path_orders_match_xla(orders, stencil):
+    """The order pairs beyond the default through the kernel path (its
+    plain version on the CPU) against the JAX ``u_tendency``/
+    ``v_tendency``, every point, on fields with exact zero rows."""
+    jg, tg, j, t = setup((16, 12, 8), 6, zero_bands=True, seed=11)
+    kw = dict(orders, vorticity_stencil=stencil)
+    tvi = ot.WENOVectorInvariant(**kw)
+    jvi = j_hyd.WENOVectorInvariant(**kw)
+    assert cvi.vi_available(tg, tvi)
+    Gu, Gv = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    assert_close(Gu, jvi.u_tendency(jg, j["u"], j["v"], j["w"]))
+    assert_close(Gv, jvi.v_tendency(jg, j["u"], j["v"], j["w"]))
+
+
+@pytest.mark.parametrize("halo,orders", [
+    ((4, 4, 4), dict(order=7)),
+    ((6, 6, 3), dict(vorticity_order=11)),
+    ((0, 2, 2), dict(order=3)),
+])
+def test_vi_gate_differences_orders(halo, orders):
+    """As :func:`test_vi_gate_differences` for the other order families:
+    at the kernel's own reach (and a halo-free periodic x) the port takes
+    the layout where the JAX gates do not, and its interior equals the one
+    computed on a (7, 7, 5)-halo grid from the same interior fields."""
+    from oceananigans_tpu.ops.pallas_vi import (
+        vi_available, vi_transposed_layout_preferred,
+    )
+    size = (14, 10, 6)
+    PBB = (oj.Periodic, oj.Bounded, oj.Bounded)
+    jg, tg, _, t = setup(size, halo, PBB, seed=4)
+    tvi = ot.WENOVectorInvariant(**orders)
+    jvi = j_hyd.WENOVectorInvariant(**orders)
+    assert cvi.vi_available(tg, tvi)
+    assert not (vi_available(jg, jvi)
+                or vi_transposed_layout_preferred(jg, jvi))
+    wide = ot.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
+                              topology=PBB, halo=(7, 7, 5), dtype=F64)
+    tw = {}
+    for name in ("u", "v", "w"):
+        a = torch.zeros(wide.shape, dtype=F64)
+        a[wide.interior_slices] = tg.interior(t[name])
+        tw[name] = ot.fill_halo_regions(a, wide, loc=LOCS[name])
+    got = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    ref = cvi.vi_momentum_tendency(wide, tvi, tw["u"], tw["v"], tw["w"])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(tg.interior(g), wide.interior(r),
+                                   rtol=0, atol=1e-13 * float(r.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the x-marching tiles
+# ---------------------------------------------------------------------------
+
+# hydro_vi; chip_smoke.py's ragged layouts (23, 17, 9) with halo (6, 6, 4)
+# and (16, 12, 32) with (5, 0, 0) (a halo-free periodic y and z); a
+# ragged layout with halo (6, 6, 6); the weno7 cell; a field narrower than
+# one panel on every axis
+PLAN_SHAPES = [(372, 172, 68), (35, 29, 17), (26, 12, 32), (35, 29, 21),
+               (264, 256, 256), (3, 2, 1)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("kernel", ["vi", "tracer"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_march_plan_covers_every_point_once(shape, kernel, itemsize):
+    """``march_plan`` for either kernel (the vector-invariant one with its
+    two roles and an extra column of face threads, the tracer one with one
+    to four blocks of tracer pairs and an extra row and column): each
+    x-row in exactly one non-empty segment, each (y, z) column in exactly
+    one panel, at most ``MAX_THREADS`` threads and ``PANEL_Z`` columns a
+    block, the grid within CUDA's limits, and no plan of the same panels
+    with a lower cost (waves of resident blocks times the x-rows each
+    marches)."""
+    nx, ny, nz = shape
+    extra = ctr.VI_EXTRA if kernel == "vi" else ctr.TRACER_EXTRA
+    for roles in ((2,) if kernel == "vi" else (1, 2, 4)):
+        for sms in (1, 132):
+            py, pz, seg_len, nseg = ctr.march_plan(shape, roles, sms,
+                                                   itemsize, extra)
+            assert (py + extra[0]) * (pz + extra[1]) <= ctr.MAX_THREADS
+            assert 1 <= pz <= ctr.PANEL_Z and py >= 1
+            rows = np.zeros(nx, int)
+            for seg in range(nseg):
+                lo, hi = seg * seg_len, min((seg + 1) * seg_len, nx)
+                assert lo < hi
+                rows[lo:hi] += 1
+            assert (rows == 1).all()
+            cols = np.zeros((ny, nz), int)
+            for jp in range(-(-ny // py)):
+                for kp in range(-(-nz // pz)):
+                    cols[jp * py:(jp + 1) * py, kp * pz:(kp + 1) * pz] += 1
+            assert (cols == 1).all()
+            panels = -(-ny // py) * -(-nz // pz) * roles
+            assert -(-ny // py) <= 65535 and nseg * roles <= 65535
+            slots = sms * ctr.blocks_per_sm(itemsize)
+
+            def cost(n):
+                return -(-panels * n // slots) * (-(-nx // n)
+                                                  + ctr.SEGMENT_START)
+            assert all(cost(nseg) <= cost(n) for n in range(1, nx + 1))
+    if shape == (372, 172, 68):
+        # three z-panels of 23 for hydro_vi's 68 columns
+        assert ctr.march_plan(shape, 2, 132)[:2] == (10, 23)
+        assert ctr.march_plan(shape, 1, 132, 4, extra)[:2] == (
+            (10, 23) if kernel == "vi" else (9, 23))
+    with pytest.raises(ValueError):
+        ctr.march_plan((0, ny, nz), 1, 132, itemsize, extra)
 
 
 # ---------------------------------------------------------------------------

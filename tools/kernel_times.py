@@ -2,9 +2,11 @@
 """Time the Poisson middle-stage kernel (``fused_middle_solve``), the
 WENO-5 momentum tendency, momentum AB2, science step and tracer tendency
 kernels (``weno5_momentum_tendency``, ``weno5_ab2_update``,
-``weno5_science_ab2_update``, ``weno5_tracer_tendencies``) and the
-shallow-water stage kernel (``sw_rk3_stage``) of one checkout of
-``oceananigans_torch`` on one GPU, and print one JSON line.
+``weno5_science_ab2_update``, ``weno5_tracer_tendencies``), the
+shallow-water stage kernel (``sw_rk3_stage``), the WENO tracer kernel
+(``weno_tracer_tendencies``) and the WENO vector-invariant kernel
+(``vi_momentum_tendency``) of one checkout of ``oceananigans_torch`` on
+one GPU, and print one JSON line.
 
     python3 tools/kernel_times.py [--root DIR] [--reps N]
 
@@ -33,7 +35,17 @@ At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
   f = 1e-4, b the buoyancy tracer) and ``weno5_tracer_tendencies``;
 - ``sw_rk3_stage`` at 8192² (``bench.py``'s ``sw8192`` grid: halo
   (8, 0, 0), (Periodic, Periodic, Flat)) on random fields near the
-  benchmark's (h ~ 1000, uh and vh ~ 100), with a SHA-256 of its outputs.
+  benchmark's (h ~ 1000, uh and vh ~ 100), with a SHA-256 of its outputs;
+- at ``hydro_vi``'s 360 × 160 × 60 (halo (6, 6, 4), (Periodic, Bounded,
+  Bounded), extent (4e7, 2e7, 4e3)), on random halo-filled u, v, w, T, S
+  and on the same fields with u exactly zero on every third z-column and
+  v on every other x-plane: ``weno_tracer_tendencies`` with WENO(7) for T
+  and S as the model calls it, and ``vi_momentum_tendency`` with
+  ``WENOVectorInvariant()`` (WENO-9 ζ with VelocityStencil, WENO-5 rest)
+  and, where the checkout's kernel takes it, ``WENOVectorInvariant(order=
+  7)``; and, where the checkout has the x-marching tiles of
+  ``csrc/vi_tile.h``, their launch plans at that shape and the dynamic
+  shared memory of a block for every instantiated order.
 
 Each kernel's largest difference from its plain version, relative to the
 largest plain value, is printed beside its time. The line also carries the
@@ -270,9 +282,77 @@ def main():
     del got, ref, q, G_prev, Gk
     torch.cuda.empty_cache()
 
+    # kernels 11 and 12/13 at hydro_vi's shape
+    from oceananigans_torch.ops import cuda_tracer as ctr
+    from oceananigans_torch.ops import cuda_vi as cvi
+    grid = ot.RectilinearGrid(
+        size=(360, 160, 60), extent=(4e7, 2e7, 4e3),
+        topology=(ot.Periodic, ot.Bounded, ot.Bounded), halo=(6, 6, 4),
+        dtype=f32, device=dev)
+    schemes = {"default": ot.WENOVectorInvariant(),
+               "order7": ot.WENOVectorInvariant(order=7)}
+    out["weno_tracer_tendencies"] = {}
+    out["vi_momentum_tendency"] = {}
+    for data in ("random", "zero rows"):
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C,
+                                 ot.LOC_C)):
+            a = torch.randn(grid.shape, generator=gen, device=dev, dtype=f32)
+            if data == "zero rows" and n == 0:
+                a[:, :, ::3] = 0.0
+            if data == "zero rows" and n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, grid, loc=loc))
+        u, v, w, T, S = fs
+        tr = {"T": T, "S": S}
+        got = list(ctr.weno_tracer_tendencies(grid, ot.WENO(7), u, v, w,
+                                              tr).values())
+        ref = list(ctr.weno_tracer_tendencies_plain(grid, ot.WENO(7), u, v,
+                                                    w, tr).values())
+        torch.cuda.synchronize()
+        out["weno_tracer_tendencies"][data] = {
+            "rel_err": rel_err(got, ref),
+            "kernel_ms": time_ms(torch, lambda: ctr.weno_tracer_tendencies(
+                grid, ot.WENO(7), u, v, w, tr), args.reps)}
+        for label, vi in schemes.items():
+            if not cvi.vi_available(grid, vi):
+                continue
+            got = cvi.vi_momentum_tendency(grid, vi, u, v, w)
+            ref = cvi.vi_momentum_tendency_plain(grid, vi, u, v, w)
+            torch.cuda.synchronize()
+            out["vi_momentum_tendency"][f"{label} {data}"] = {
+                "rel_err": rel_err(got, ref),
+                "kernel_ms": time_ms(
+                    torch, lambda: cvi.vi_momentum_tendency(grid, vi, u, v, w),
+                    args.reps)}
+        del fs, u, v, w, T, S, tr, got, ref
+        torch.cuda.empty_cache()
+    # the march tiles' plans at hydro_vi's shape and their blocks' dynamic
+    # shared memory, where the checkout has them
+    lib = _build.load()
+    if hasattr(lib, "ot_march_smem_bytes"):
+        import ctypes
+        fn = lib.ot_march_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        shape = tuple(grid.shape)
+        smem = out["march_smem_bytes"] = {}
+        for itemsize in (4, 8):
+            vp = ctr.march_plan(shape, 2, sms, itemsize)
+            tp = ctr.march_plan(shape, 1, sms, itemsize, ctr.TRACER_EXTRA)
+            smem[f"plans {itemsize}"] = {"vi": vp, "tracer": tp}
+            for kv, kr in cvi.ORDER_PAIRS:
+                smem[f"vi ({kv}, {kr}) velocity, itemsize {itemsize}"] = fn(
+                    1, kv, kr, 1, vp[0], vp[1], itemsize)
+            for k in ctr.ORDERS:
+                smem[f"tracer {k}, itemsize {itemsize}"] = fn(
+                    0, k, 0, 0, tp[0], tp[1], itemsize)
+
     kernels = ("poisson_middle", "weno5_tile", "weno5_tendency",
                "weno5_science_tile", "weno5_tracer_tile", "weno5_step",
-               "weno5_tracers", "sw_strip", "sw_stage")
+               "weno5_tracers", "sw_strip", "sw_stage", "vi_march",
+               "weno_tracer_march", "vi_tendency", "weno_tracers")
     out["nvcc"] = ptxas_report(_build.build_log, kernels)
     # the instructions each kernel compiled to (chip_smoke.py's counter)
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
