@@ -14,8 +14,11 @@ each of which raises on failure:
    SASS of the float32 Poisson kernel held to tensor-core instructions
    (``cuobjdump -sass``: HGMMA) and that of the WENO-5 tiles to
    reciprocals without IEEE division (MUFU.RCP, no FCHK), as are the
-   vector-invariant and WENO tracer tiles, and the shallow-water strip's
-   instructions counted;
+   vector-invariant, WENO tracer and generic momentum tiles (every
+   instantiation of the last), the Centered-2 tendency tile held to no
+   FCHK, the shallow-water strip's instructions counted, and the dynamic
+   shared memory of a block of the Centered-2 and generic tiles at the
+   main path's plans (each equal to its Python mirror);
 3. each of the thirteen kernels against its plain PyTorch version, in
    float32, at the main path's shapes and at a ragged shape (the WENO-5
    momentum AB2 kernel at both also on fields with exact zero rows, the
@@ -27,7 +30,9 @@ each of which raises on failure:
    the ragged shapes, exact zero rows of u and v in every field), with
    times and the least time
    the card could take for the same work (the Poisson kernel also beside
-   the ``torch.matmul`` chain with its 1/λ table made once); the generic
+   the ``torch.matmul`` chain with its 1/λ table made once; the Centered-2
+   tendency kernel also on fields with exact zero rows at the main shape,
+   timed there too, and in float64 at the ragged shape); the generic
    momentum kernel (kernel 14) at small ragged shapes for Centered(2..12),
    UpwindBiased(1..11), WENO(3..11) and two FluxFormAdvections, in float32
    and float64;
@@ -347,8 +352,8 @@ def main():
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path()[1])],
                           capture_output=True, text=True, check=True).stdout
     tiles = ("weno5_tile", "weno5_science_tile", "weno5_tracer_tile",
-             "vi_march", "weno_tracer_march")
-    counts = sass_counts(sass, ("poisson_middle_tf32x3", *tiles),
+             "vi_march", "weno_tracer_march", "generic_march")
+    counts = sass_counts(sass, ("poisson_middle_tf32x3", "c2_tile", *tiles),
                          ("HGMMA", "FCHK", "MUFU.RCP"))
     counts.update(sass_counts(sass, ("sw_strip",), (
         "FCHK", "MUFU.RCP", "FFMA", "LDGSTS", "LDG.E", "STG.E", "LDS",
@@ -357,8 +362,40 @@ def main():
     require(counts["poisson_middle_tf32x3"]["HGMMA"] > 0,
             "the float32 Poisson kernel issues tensor-core instructions")
     require(all(counts[k]["FCHK"] == 0 and counts[k]["MUFU.RCP"] > 0
-                for k in tiles), "the WENO-5, vector-invariant and tracer "
-            "tiles take reciprocals and divide nowhere")
+                for k in tiles), "the WENO-5, vector-invariant, tracer and "
+            "generic momentum tiles take reciprocals and divide nowhere")
+    require(counts["c2_tile"]["FCHK"] == 0,
+            "the Centered-2 tendency tile divides nowhere")
+    # the dynamic shared memory of a block of the Centered-2 and generic
+    # tiles at the main path's plans, from the library and from the
+    # wrappers' mirrors of its formula
+    import ctypes
+    lib = _build.load()
+    lib.ot_c2_tile_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ot_c2_tile_smem_bytes.restype = ctypes.c_longlong
+    lib.ot_generic_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ot_generic_smem_bytes.restype = ctypes.c_longlong
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem = {}
+    for itemsize in (4, 8):
+        py, pz, seg_len, nseg = ck.tendency_plan((258, 256, 256), sms,
+                                                 itemsize)
+        got_b = lib.ot_c2_tile_smem_bytes(py, pz, itemsize)
+        require(got_b == ck.tile_smem_bytes(py, pz, itemsize),
+                "the Centered-2 tile's shared memory equals its mirror")
+        smem[f"c2_tile itemsize {itemsize} plan {(py, pz, seg_len, nseg)}"] \
+            = got_b
+        for B in range(1, 7):
+            sch = (ot.Centered(2 * B),) * 3
+            py, pz, seg_len, nseg = cg.momentum_plan(
+                (256 + 2 * B, 256, 256), B, sch, sms, itemsize)
+            got_b = lib.ot_generic_smem_bytes(B, py, pz, itemsize)
+            require(got_b == cg.tile_smem_bytes(B, py, pz, itemsize),
+                    "the generic tile's shared memory equals its mirror")
+            smem[f"generic_march reach {B} itemsize {itemsize} plan "
+                 f"{(py, pz, seg_len, nseg)}"] = got_b
+    log(f"[2] dynamic shared memory a block (bytes) at the 256^3 plans: "
+        f"{smem}")
 
     # ---- phase 3: kernels against their plain versions ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -401,6 +438,8 @@ def main():
     #: the kernels round in another order than the plain versions and
     #: contract into FMA: 8 float32 ulps of the largest value
     STENCIL_RTOL = 8 * torch.finfo(f32).eps
+    #: float64 kernels against their plain versions
+    F64_RTOL = 1e-12
     #: four float32 GEMMs in another summation order than cuBLAS; the JAX
     #: package holds its own kernel to 1e-5 of the largest value
     GEMM_RTOL = 1e-5
@@ -542,6 +581,45 @@ def main():
         del u, v, w, p, Gm, Gk, Gp, got, ref, x, margs, timings, chain, \
             inv_lam
         torch.cuda.empty_cache()
+
+    def zero_row_fields(grid, dtype=f32):
+        """Halo-filled random u, v, w with u exactly zero on every third
+        z-column and v on every other x-plane: faces whose taps and
+        advecting velocity are exact zeros."""
+        fs = []
+        for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+            a = torch.randn(grid.shape, generator=gen, device=dev,
+                            dtype=dtype)
+            if n == 0:
+                a[:, :, ::3] = 0.0
+            if n == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, grid, loc=loc))
+        return fs
+
+    # kernel 2 on fields with exact zero rows at the main shape (checked
+    # and timed) and in float64 at the ragged shape (checked)
+    for shape_name, (N, halo), dtype in (
+            ("main, zero rows", shapes["main"], f32),
+            ("ragged, zero rows, float64", shapes["ragged"], torch.float64)):
+        grid = grid_of(N, halo, dtype)
+        fs = zero_row_fields(grid, dtype)
+        got = ck.centered2_momentum_tendency(grid, *fs)
+        ref = ck.centered2_momentum_tendency_plain(grid, *fs)
+        torch.cuda.synchronize()
+        check("centered2_momentum_tendency", shape_name, got, ref,
+              STENCIL_RTOL if dtype == f32 else F64_RTOL)
+        if dtype == f32:
+            plain_ms, ms = paired_times(
+                torch, lambda: ck.centered2_momentum_tendency_plain(grid,
+                                                                   *fs),
+                lambda: ck.centered2_momentum_tendency(grid, *fs), 20)
+            log(f"[3] centered2_momentum_tendency at {tuple(grid.shape)}, "
+                f"zero rows, on {card}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms (random fields: kernel "
+                f"{report['centered2_momentum_tendency']['ms']:.4f} ms)")
+        del fs, got, ref
+    torch.cuda.empty_cache()
 
     #: the WENO-5 kernels against the plain versions: the WENO-Z weights
     #: are nonlinear and the plain versions divide by volumes where the
@@ -685,7 +763,6 @@ def main():
     # tendencies, each group to 8 float32 ulps of its largest value (the
     # same stencils as kernels 1-2, plus products and sums of the same
     # size); in float64 to F64_RTOL
-    F64_RTOL = 1e-12
     science_shapes = {"main": ((256, 256, 256), (1, 0, 0), f32),
                       "ragged": ((30, 20, 40), (1, 1, 1), f32),
                       "ragged float64": ((30, 20, 40), (1, 1, 1),
@@ -1904,7 +1981,7 @@ def main():
                    "oceananigans_torch/csrc/vi_tile.h",
                    "oceananigans_tpu/ops/pallas_vi.py:538"),
                "fused_momentum_tendency": (
-                   "oceananigans_torch/csrc/generic_momentum.cu",
+                   "oceananigans_torch/csrc/generic_tile.h",
                    "oceananigans_tpu/ops/pallas_generic.py:111")}
     same = {"vi_momentum_tendency_zyx": "vi_momentum_tendency"}
     kernels = [{"name": name, "route": "cuda", "source": src,

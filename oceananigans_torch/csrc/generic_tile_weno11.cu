@@ -1,0 +1,10 @@
+// The WENO(11) instantiation of the generic momentum tile (generic_tile.h),
+// and the mixed schemes of reach 6 (FluxFormAdvection), in float32 and
+// float64.
+
+#include "generic_tile.h"
+
+namespace ot_generic {
+OT_GENERIC_SEL(Fixed<Weno<11>>)
+OT_GENERIC_SEL(ByReach<6>)
+}  // namespace ot_generic

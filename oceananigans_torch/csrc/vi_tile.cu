@@ -81,7 +81,7 @@ long long smem_bytes(int vi, int order, int rest_order, int velocity, int py,
 
 extern "C" {
 
-// The plan (py, pz, seg_len, nseg) is ops/cuda_tracer.py: march_plan's;
+// The plan (py, pz, seg_len, nseg) is ops/march.py: march_plan's;
 // the kernels refuse one that misses an x-row.
 #define OT_VI_ENTRY(SUFFIX, T)                                              \
   int ot_vi_march_##SUFFIX(const void* u, const void* v, const void* w,     \

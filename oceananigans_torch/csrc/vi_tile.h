@@ -22,7 +22,7 @@
 // [0, nx); one more column of threads (and for the tracers one more row)
 // computes the faces on the panel's far side, so that every thread
 // computes one face of each kind, at most 256 threads. The panel shape and
-// the segments are the launch plan of ops/cuda_tracer.py: march_plan,
+// the segments are the launch plan of ops/march.py: march_plan,
 // which fits pz to nz (68 columns: three panels of 23); the kernels refuse
 // a plan that misses an x-row. Each x-plane of the fields a block reads
 // enters a ring of shared-memory tiles (the panel and its y- and z-halo)
@@ -66,26 +66,17 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "march.h"
 #include "weno.h"
-#include "weno5_tile.h"
 
 namespace ot_march {
 
-using ot_tile::commit;
-using ot_tile::copy_async;
-using ot_tile::pick;
-using ot_tile::rcp;
-using ot_tile::wait_all;
-using ot_tile::wrap;
 using ot_weno::WenoTable;
 
-constexpr int kMaxThreads = 256;
 // must equal MAX_TRACERS in ops/cuda_kernels.py
 constexpr int kMaxTracers = 8;
 // tracers a tracer block marches (blocks by pairs of tracers)
 constexpr int kTG = 2;
-// the largest dynamic shared memory of a block on the H100
-constexpr size_t kMaxSmem = 232448;
 
 // float32 takes three blocks an SM (at most 80 registers a thread: the
 // pairs up to (9, 5) and (7, 7) and every tracer order do not spill; (9,
@@ -152,24 +143,6 @@ __device__ __forceinline__ T left_side(const T* t, const T* t1, const T* t2,
   return out * rcp(asum);
 }
 
-// The taps s[0..N-1] as they are (left) or reflected (n -> N-1-n).
-template <int N, typename T>
-__device__ __forceinline__ void mirror(const T (&s)[N], bool left,
-                                       T (&t)[N]) {
-#pragma unroll
-  for (int m = 0; m < N; ++m) t[m] = left ? s[m] : s[N - 1 - m];
-}
-
-// N taps from shared memory at p, p + stride, ..., or reflected.
-template <int N, typename T>
-__device__ __forceinline__ void taps(const T* p, int stride, bool left,
-                                     T (&t)[N]) {
-  const T* q = left ? p : p + (N - 1) * stride;
-  const int s = left ? stride : -stride;
-#pragma unroll
-  for (int m = 0; m < N; ++m) t[m] = q[m * s];
-}
-
 // One side of a register queue's reconstruction, picked by `left`.
 template <int K, int kSmooth, bool kInOrder, typename T>
 __device__ __forceinline__ T queue_side(const T (&s)[K + 1],
@@ -181,108 +154,6 @@ __device__ __forceinline__ T queue_side(const T (&s)[K + 1],
   if constexpr (kSmooth >= 1) mirror(s1, left, t1);
   if constexpr (kSmooth == 2) mirror(s2, left, t2);
   return left_side<K, kSmooth, kInOrder>(t, t1, t2, eps);
-}
-
-// Shift a register queue down by one and append x.
-template <int N, typename T>
-__device__ __forceinline__ void push(T (&q)[N], T x) {
-#pragma unroll
-  for (int m = 0; m + 1 < N; ++m) q[m] = q[m + 1];
-  q[N - 1] = x;
-}
-
-// The block's panel, its tiles' wrapped offsets and this thread's column.
-// Ring tiles cover rows j0-hy .. j0+py+hy-1 and columns k0-hz ..
-// k0+pz+hz-1. The block has (py + ey) x (pz + ez) threads: the ey rows
-// and ez columns beyond the panel compute the faces on its far side (one
-// face a thread) and own no point; threads whose column lies beyond (ny,
-// nz) load and compute like the others (their indices wrap) but write
-// nothing.
-struct Panel {
-  int py, pz, hy, hz, tr, tc;  // panel, halo, tile rows and columns
-  int j0, k0;                  // the panel's first row and column
-  int jy, kz;                  // this thread's column in the panel
-  bool mine;                   // the column is a point of the field
-  int nx, ny, nz;
-  int64_t sx;                  // x stride
-  int64_t col;                 // the column's offset in an x-plane
-  const int64_t* rowoff;       // [tr]: wrapped row * nz
-  const int* coloff;           // [tc]: wrapped column
-};
-
-__device__ __forceinline__ Panel panel_of(int nx, int ny, int nz, int py,
-                                          int pz, int hy, int hz, int ez) {
-  Panel P;
-  P.py = py;
-  P.pz = pz;
-  P.hy = hy;
-  P.hz = hz;
-  P.tr = py + 2 * hy;
-  P.tc = pz + 2 * hz;
-  P.jy = threadIdx.x / (pz + ez);
-  P.kz = threadIdx.x - P.jy * (pz + ez);
-  P.j0 = blockIdx.y * py;
-  P.k0 = blockIdx.x * pz;
-  const int j = P.j0 + P.jy, k = P.k0 + P.kz;
-  P.mine = P.jy < py && P.kz < pz && j < ny && k < nz;
-  P.nx = nx;
-  P.ny = ny;
-  P.nz = nz;
-  P.sx = (int64_t)ny * nz;
-  P.col = (int64_t)j * nz + k;
-  return P;
-}
-
-// Fill the panel's wrapped offset tables (not synchronised).
-__device__ __forceinline__ void fill_offsets(const Panel& P, int64_t* rowoff,
-                                             int* coloff) {
-  for (int e = threadIdx.x; e < P.tr + P.tc; e += blockDim.x) {
-    if (e < P.tr) {
-      rowoff[e] = (int64_t)wrap(P.j0 - P.hy + e, P.ny) * P.nz;
-    } else {
-      coloff[e - P.tr] = wrap(P.k0 - P.hz + e - P.tr, P.nz);
-    }
-  }
-}
-
-// off[e]: the offset in an x-plane of element e of the tile of rows r0 ..
-// r0+nr-1 and columns c0 .. c0+nc-1, laid out [nr][nc], taken once a
-// block (not synchronised; the plan keeps ny * nz below 2^31).
-__device__ __forceinline__ void fill_tile_offsets(int* off, const Panel& P,
-                                                  int r0, int nr, int c0,
-                                                  int nc) {
-  for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
-    const int r = e / nc, c = e - r * nc;
-    off[e] = (int)(P.rowoff[r0 + r] + P.coloff[c0 + c]);
-  }
-}
-
-// Copy the n elements of a tile whose offsets are off from the x-plane at
-// src (a field's plane) into dst.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          const int* off, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    copy_async(dst + e, src + off[e]);
-  }
-}
-
-// The value at (x-plane p, this thread's column + row dr) of f.
-template <typename T>
-__device__ __forceinline__ T own(const T* __restrict__ f, const Panel& P,
-                                 int p, int dr) {
-  return __ldg(f + wrap(p, P.nx) * P.sx + P.rowoff[P.jy + P.hy + dr] +
-               P.coloff[P.kz + P.hz]);
-}
-
-// The x-rows [a, b) of segment seg of the plan.
-struct Segment {
-  int a, b;
-};
-
-__device__ __forceinline__ Segment segment_of(int seg, int seg_len, int nx) {
-  const int a = seg * seg_len;
-  return Segment{a, min(a + seg_len, nx)};
 }
 
 // ---------------------------------------------------------------------------
@@ -711,24 +582,6 @@ struct ViArgs {
   double eps;
   void* stream;
 };
-
-// Whether (py, pz, seg_len, nseg) is a plan of ops/cuda_tracer.py:
-// march_plan's form for an (nx, ny, nz) field: panels whose blocks, with
-// ey more rows and ez more columns of threads, have at most kMaxThreads
-// threads, nseg segments of seg_len x-rows that cover the nx rows, the
-// last one not empty.
-inline bool plan_ok(int nx, int ny, int nz, int py, int pz, int ey, int ez,
-                    int seg_len, int nseg, int roles) {
-  if (nx < 1 || ny < 1 || nz < 1 || py < 1 || pz < 1 ||
-      (py + ey) * (pz + ez) > kMaxThreads || seg_len < 1 || nseg < 1) {
-    return false;
-  }
-  if ((int64_t)(nseg - 1) * seg_len >= nx || (int64_t)nseg * seg_len < nx ||
-      (int64_t)ny * nz >= (1LL << 31)) {
-    return false;
-  }
-  return (ny + py - 1) / py <= 65535 && (int64_t)nseg * roles <= 65535;
-}
 
 template <typename T, int KV, int KR, bool kVel>
 int vi_launch(const ViArgs& A) {

@@ -34,7 +34,7 @@ _D = ctypes.c_double
 #: C entry points (without the _f32/_f64 suffix) and their argument types;
 #: every one ends with the stream
 SIGNATURES = {
-    "ot_c2_tendency": [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P],
+    "ot_c2_tendency": [_P] * 6 + [_I] * 3 + [_D] * 3 + [_I] * 4 + [_P],
     "ot_c2_ab2": [_P] * 9 + [_I] * 3 + [_D] * 5 + [_P],
     "ot_c2_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 6 + [_I] + [_P],
     "ot_pressure_correction": [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
@@ -46,7 +46,7 @@ SIGNATURES = {
     "ot_sw_rk3_stage": [_P] * 9 + [_I] * 6 + [_D] * 5 + [_P],
     "ot_weno_tracer_march": [_P] * 5 + [_I] * 4 + [_P] + [_I] * 5 + [_D, _P],
     "ot_vi_march": [_P] * 5 + [_I] * 3 + [_P] + [_I] * 7 + [_D, _P],
-    "ot_generic_momentum": [_P] * 6 + [_I] * 7 + [_D] * 7 + [_P],
+    "ot_generic_momentum": [_P] * 6 + [_I] * 7 + [_D] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None

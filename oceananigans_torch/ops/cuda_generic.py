@@ -5,22 +5,27 @@ Counterpart of ``oceananigans_tpu/ops/pallas_generic.py``
 (``fused_momentum_tendency``): (Gu, Gv, Gw) = −∇·(𝐯⊗𝐯) in one pass, with
 Centered (orders 2–12), UpwindBiased (1–11) or WENO (3–11) on each axis,
 the same scheme on all three or a ``FluxFormAdvection`` of them. The kernel
-is ``csrc/generic_momentum.cu``; its coefficients come from
-``csrc/linear_tables.h`` and ``csrc/weno_tables.h``.
+is the x-marching tile ``generic_march`` of ``csrc/generic_tile.h`` (entry
+points in ``csrc/generic_momentum.cu``), a template on the scheme when one
+serves all three axes and on the largest reach for a ``FluxFormAdvection``
+of different schemes; its coefficients come from ``csrc/linear_tables.h``
+and ``csrc/weno_tables.h``. :func:`momentum_plan` is its launch plan: the
+panel each block owns and the x-segments it marches over.
 
 The contract is the JAX wrapper's: a regular grid, an x halo of at least
 ``scheme.required_halo``, the metrics of a regular grid as scalars
 (:class:`RegularMetricProxy`, Δ = 1 on an axis of one cell), and output
 x-halo rows of zeros. The interior x-rows equal the port's
-``advection.div_vu/div_vv/div_vw`` on every y and z point: the kernel wraps
-its y and z neighbours modulo the full extent, as the plain version's
-``torch.roll`` does, and it rounds every operation as the plain version
-does on the card (no FMA contraction, the division by V a product with
-its reciprocal), so the two agree to the last bit or nearly: float32 WENO
-of order 9 or 11 is otherwise ill-conditioned enough that two evaluation
-orders differ by ~1e-5 of the largest value. Like the JAX package's
-models, the port's models do not call this kernel; it is an entry point of
-its own.
+``advection.div_vu/div_vv/div_vw`` on every y and z point, to rounding:
+the kernel wraps its y and z neighbours modulo the full extent, as the
+plain version's ``torch.roll`` does, but it evaluates one mirrored side of
+each biased reconstruction, forms the WENO weights with reciprocals, and
+contracts products and sums, so it is not bit for bit its plain version
+(float32 WENO of order 9 or 11 is ill-conditioned enough that two
+evaluation orders differ by ~1e-5 of the largest value; the kernel forms
+the indicators of orders 7 and up in the plain version's order). Like the
+JAX package's models, the port's models do not call this kernel; it is an
+entry point of its own.
 
 The wrapper takes its plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; there is no fallback from one to the
@@ -34,11 +39,16 @@ from oceananigans_torch.advection import (
     div_vv, div_vw,
 )
 from oceananigans_torch.ops import _build
-from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
+from oceananigans_torch.ops.cuda_kernels import (
+    check_operands, on_cuda, sm_count,
+)
 from oceananigans_torch.ops.cuda_tracer import axes_reachable
+from oceananigans_torch.ops.march import march_plan
 
 #: the kernel's scheme kinds; a scheme's code is kind * 16 + order
 KINDS = {Centered: 0, UpwindBiased: 1, WENO: 2}
+#: ring planes of the tile (``kSlots`` in ``csrc/generic_tile.h``)
+TILE_SLOTS = 6
 
 
 class RegularMetricProxy:
@@ -85,6 +95,55 @@ def scheme_code(s):
     if kind is None or getattr(s, "bounds", None) is not None:
         return None
     return kind * 16 + s.order
+
+
+def reach(schemes):
+    """The largest reach of the axis schemes: it sizes the tile's y/z halo,
+    ring and x-queues."""
+    return max(s.required_halo for s in schemes)
+
+
+def blocks_per_sm(schemes, itemsize):
+    """Blocks of the tile resident on one SM, as its ``__launch_bounds__``
+    (``kBlocksPerSm`` in ``csrc/generic_tile.h``) ask: in float32 two for
+    one scheme on all axes (one code) that is WENO of order 7 and up or
+    linear of reach 5 and up, and for different schemes of reach 4 and up,
+    else three; in float64 one."""
+    if itemsize != 4:
+        return 1
+    if len({scheme_code(s) for s in schemes}) == 1:
+        s = schemes[0]
+        heavy = (s.required_halo >= 5
+                 or (type(s) is WENO and s.order >= 7))
+    else:
+        heavy = reach(schemes) >= 4
+    return 2 if heavy else 3
+
+
+def momentum_plan(shape, h, schemes, sms, itemsize=4):
+    """The tile's launch plan ``(py, pz, seg_len, nseg)`` for ``(nx, ny,
+    nz)`` fields with x halo ``h`` and the axis ``schemes``, on a card with
+    ``sms`` SMs: ``march.march_plan`` for the ``nx - 2h`` output x-rows
+    ``[h, nx-h)`` (segment ``s`` covers rows ``[h + s·seg_len, h +
+    (s+1)·seg_len) ∩ [h, nx-h)``), with an extra row and column of threads
+    for the panel's far faces."""
+    nx, ny, nz = shape
+    return march_plan((nx - 2 * h, int(ny), int(nz)), 1, sms, itemsize,
+                      (1, 1), blocks_per_sm(schemes, itemsize))
+
+
+def tile_smem_bytes(B, py, pz, itemsize):
+    """The dynamic shared memory of one block of the tile of largest reach
+    ``B`` for a ``py × pz`` panel (``tile_bytes`` in
+    ``csrc/generic_tile.h``): the row offsets, the ring of u, v and w
+    tiles with a B-wide halo, twelve face arrays (three y and three z, by
+    the step's parity), the column offsets and the offsets and indices of
+    the halo, the (2B - 1)(pz + 2B + py + 1) values of a field's tile that
+    no thread owns."""
+    tr, tc, nt = py + 2 * B, pz + 2 * B, (py + 1) * (pz + 1)
+    halo = (2 * B - 1) * (tc + py + 1)
+    return (8 * tr + (TILE_SLOTS * 3 * tr * tc + 12 * nt) * itemsize
+            + 4 * (tc + 6 * halo))
 
 
 def _check_contract(grid, scheme):
@@ -142,7 +201,7 @@ def fused_momentum_tendency(grid, scheme, u, v, w, tile_x=1):
     devices, where :func:`generic_available` refuses a layout or scheme the
     JAX wrapper would take (a Flat or one-cell axis, a y or z halo short of
     the reach). ``tile_x`` is the JAX wrapper's x tile, which changes no
-    value; the kernel takes one thread per point and does not use it.
+    value; the kernel's segments come from :func:`momentum_plan`.
     """
     name = "fused_momentum_tendency"
     _check_contract(grid, scheme)
@@ -152,18 +211,21 @@ def fused_momentum_tendency(grid, scheme, u, v, w, tile_x=1):
     check_operands(name, (u, v, w), grid.shape)
     if not on_cuda(u):
         return fused_momentum_tendency_plain(grid, scheme, u, v, w)
-    if u.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: fields of {u.numel()} points exceed the "
-                         "kernel's 32-bit indexing")
+    if u.shape[1] * u.shape[2] >= 2 ** 31:
+        raise ValueError(f"{name}: x-planes of {u.shape[1] * u.shape[2]} "
+                         "points exceed the kernel's 32-bit plane offsets")
     schemes = axis_schemes(scheme)
     m = RegularMetricProxy(grid)
     G = [u.new_empty(u.shape) for _ in range(3)]
+    plan = momentum_plan(u.shape, grid.H[0], schemes, sm_count(u.device),
+                         u.element_size())
     _build.launch("ot_generic_momentum", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(),
                   *(g.data_ptr() for g in G), *u.shape, grid.H[0],
                   *(scheme_code(s) for s in schemes),
                   m.Ax(), m.Ay(), m.Az(), m.V(),
-                  *(float(getattr(s, "epsilon", 0.0)) for s in schemes))
+                  *(float(getattr(s, "epsilon", 0.0)) for s in schemes),
+                  *plan)
     fused_momentum_tendency.launches += 1
     return tuple(G)
 
@@ -172,4 +234,4 @@ fused_momentum_tendency.launches = 0
 
 __all__ = ["KINDS", "RegularMetricProxy", "fused_momentum_tendency",
            "fused_momentum_tendency_plain", "generic_available",
-           "scheme_code"]
+           "momentum_plan", "scheme_code", "tile_smem_bytes"]

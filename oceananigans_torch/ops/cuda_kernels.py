@@ -5,8 +5,9 @@ Counterpart of ``oceananigans_tpu/ops/pallas_kernels.py``:
 
 - ``centered2_ab2_update``: the Centered-2 momentum tendency fused with the
   quasi-AB2 update (``csrc/centered2.cu``), the default AB2 path;
-- ``centered2_momentum_tendency``: the tendency alone (same source), used
-  by RK3;
+- ``centered2_momentum_tendency``: the tendency alone (same source, the
+  x-marching tile ``c2_tile``, launch plan :func:`tendency_plan`), used by
+  RK3;
 - ``centered2_science_ab2_update``: the science step in one pass
   (``csrc/centered2.cu``): the Centered-2 momentum tendency, f-plane
   Coriolis, the buoyancy of a BuoyancyTracer, the Centered-2 advection of
@@ -33,6 +34,7 @@ from oceananigans_torch.advection import (
     Centered, div_Uc, div_vu, div_vv, div_vw,
 )
 from oceananigans_torch.ops import _build
+from oceananigans_torch.ops.march import march_plan
 
 _FLOATS = (torch.float32, torch.float64)
 #: the most tracers one launch of a science or tracer kernel takes
@@ -96,6 +98,40 @@ def pointers(tensors):
     for the duration of the launch call)."""
     return (ctypes.c_void_p * max(len(tensors), 1))(
         *(t.data_ptr() for t in tensors))
+
+
+#: ring planes of the Centered-2 tendency tile (``kSlots`` in
+#: ``csrc/centered2.cu``)
+TILE_SLOTS = 4
+
+
+def tile_blocks_per_sm(itemsize):
+    """Blocks of the Centered-2 tendency tile resident on one SM, as its
+    ``__launch_bounds__`` ask: 4 in float32 and 2 in float64."""
+    return 4 if itemsize == 4 else 2
+
+
+def tendency_plan(shape, sms, itemsize=4):
+    """The launch plan ``(py, pz, seg_len, nseg)`` of the Centered-2
+    tendency tile for ``(nx, ny, nz)`` fields on a card with ``sms`` SMs:
+    ``march.march_plan`` for the ``nx - 2`` output x-rows ``[1, nx-1)``
+    (segment ``s`` covers rows ``[1 + s·seg_len, 1 + (s+1)·seg_len) ∩ [1,
+    nx-1)``), with an extra row and column of threads for the panel's far
+    faces."""
+    nx, ny, nz = shape
+    return march_plan((nx - 2, int(ny), int(nz)), 1, sms, itemsize, (1, 1),
+                      tile_blocks_per_sm(itemsize))
+
+
+def tile_smem_bytes(py, pz, itemsize):
+    """The dynamic shared memory of one block of the Centered-2 tendency
+    tile for a ``py × pz`` panel (``tile_bytes`` in ``csrc/centered2.cu``):
+    the row offsets, the ring of u, v and w tiles with a 1-wide halo, seven
+    face arrays, the column offsets and the halo's offsets and indices."""
+    tr, tc, nt = py + 2, pz + 2, (py + 1) * (pz + 1)
+    nh = 3 * (tc + py + 1)
+    return (8 * tr + (TILE_SLOTS * 3 * tr * tc + 7 * nt) * itemsize
+            + 4 * (tc + 2 * nh))
 
 
 def _inv_spacings(grid):
@@ -229,9 +265,11 @@ def centered2_momentum_tendency(grid, u, v, w):
     if not on_cuda(u):
         return centered2_momentum_tendency_plain(grid, u, v, w)
     G = tuple(torch.empty_like(u) for _ in range(3))
+    plan = tendency_plan(u.shape, sm_count(u.device), u.element_size())
     _build.launch("ot_c2_tendency", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  *(g.data_ptr() for g in G), *u.shape, *_inv_spacings(grid))
+                  *(g.data_ptr() for g in G), *u.shape, *_inv_spacings(grid),
+                  *plan)
     centered2_momentum_tendency.launches += 1
     return G
 
@@ -340,4 +378,5 @@ __all__ = ["MAX_TRACERS", "centered2_ab2_update",
            "centered2_momentum_tendency_plain",
            "centered2_science_ab2_update",
            "centered2_science_ab2_update_plain", "fused_available",
-           "pressure_correction", "pressure_correction_plain"]
+           "pressure_correction", "pressure_correction_plain",
+           "tendency_plan", "tile_smem_bytes"]

@@ -20,10 +20,10 @@ point, halo rows included, where the JAX kernels write zeros into their
 output halo rows. The face areas and the volume enter as y-profiles
 (:func:`tracer_metric_profiles`), built once by the model.
 
-:func:`march_plan` is the launch plan of this kernel and of the
-vector-invariant one (``ops/cuda_vi.py``): the panel each block owns and
-the x-segments it marches over; the kernels refuse a plan that misses an
-x-row.
+``ops/march.py: march_plan`` is the launch plan of this kernel, of the
+vector-invariant one (``ops/cuda_vi.py``) and of the other x-marching
+tiles: the panel each block owns and the x-segments it marches over; the
+kernels refuse a plan that misses an x-row.
 
 The wrapper takes its plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no fallback from one to
@@ -33,7 +33,6 @@ the other. It counts its launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -43,17 +42,12 @@ from oceananigans_torch.ops import _build
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, check_operands, on_cuda, pointers, sm_count,
 )
+from oceananigans_torch.ops.march import (  # noqa: F401 (re-exported)
+    MAX_THREADS, PANEL_Z, SEGMENT_START, blocks_per_sm, march_plan,
+)
 
 #: the WENO orders the kernel is instantiated for
 ORDERS = (3, 5, 7, 9, 11)
-#: most threads of a block (``kMaxThreads`` in ``csrc/vi_tile.h``)
-MAX_THREADS = 256
-#: the widest z-panel: a warp's width, so that a row of the panel is one
-#: contiguous run
-PANEL_Z = 32
-#: the cost of starting a segment (its first planes and queues), in x-rows
-#: of marching
-SEGMENT_START = 4
 #: the threads beyond the panel, (rows, columns), that compute the faces on
 #: its far side: the vector-invariant kernel's extra column, the tracer
 #: kernel's extra row and column
@@ -64,52 +58,6 @@ TRACERS_PER_BLOCK = 2
 #: the face areas and the cell volume of the flux divergence, in the order
 #: the kernel reads its metric profiles
 METRICS = ("ax_fcc", "ay_cfc", "az_cc", "v_ccc")
-
-
-def blocks_per_sm(itemsize):
-    """Blocks of the march kernels resident on one SM, as their
-    ``__launch_bounds__`` (``kMinBlocks``) ask: 3 in float32 and 1 in
-    float64."""
-    return 3 if itemsize == 4 else 1
-
-
-def march_plan(shape, roles, sms, itemsize=4, extra=VI_EXTRA):
-    """The launch plan of the x-marching tiles for ``(nx, ny, nz)`` fields
-    on a card with ``sms`` SMs: ``(py, pz, seg_len, nseg)``.
-
-    Block ``(kp, jp, seg · roles + role)`` owns output columns ``[jp·py,
-    (jp+1)·py) × [kp·pz, (kp+1)·pz) ∩ [0, ny) × [0, nz)`` on x-rows
-    ``[seg·seg_len, (seg+1)·seg_len) ∩ [0, nx)`` with ``(py + ey) × (pz +
-    ez)`` threads, ``(ey, ez) = extra``; ``roles`` blocks share each panel
-    and segment (the vector-invariant kernel's Gu and Gv, the tracer
-    kernel's pairs of tracers). The z-panel is the widest of at most
-    :data:`PANEL_Z` that splits nz evenly (68: three of 23), the y-panel
-    as tall as :data:`MAX_THREADS` threads allow, split evenly. The
-    segment count minimises the x-rows a block marches times the waves of
-    resident blocks (:func:`blocks_per_sm` on each SM), ``⌈blocks / (sms ·
-    blocks_per_sm)⌉ · (seg_len + SEGMENT_START)``, the fewest segments
-    among equals. The plan covers each output point once and leaves no
-    segment empty."""
-    nx, ny, nz = shape
-    ey, ez = extra
-    if min(nx, ny, nz) < 1 or roles < 1 or sms < 1:
-        raise ValueError(f"no march plan for {tuple(shape)}")
-    pz = math.ceil(nz / math.ceil(nz / PANEL_Z))
-    py_max = max(1, MAX_THREADS // (pz + ez) - ey)
-    py = math.ceil(ny / math.ceil(ny / py_max))
-    per_segment = math.ceil(ny / py) * math.ceil(nz / pz) * roles
-    slots = blocks_per_sm(itemsize)
-    best = None
-    for n in range(1, nx + 1):
-        seg_len = math.ceil(nx / n)
-        nseg = math.ceil(nx / seg_len)
-        if nseg != n:
-            continue
-        waves = math.ceil(per_segment * nseg / (sms * slots))
-        cost = waves * (seg_len + SEGMENT_START)
-        if best is None or cost < best[0]:
-            best = (cost, seg_len, nseg)
-    return py, pz, best[1], best[2]
 
 
 def tracer_reach(scheme) -> int:

@@ -14,7 +14,7 @@ divergence flux with ``OnlySelfUpwinding`` and the flux-form WENO vertical
 advection.
 
 The kernel is an x-marching tile (a Gu block and a Gv block for each panel
-and segment of ``cuda_tracer.march_plan``), a template on the vorticity
+and segment of ``march.march_plan``), a template on the vorticity
 order and on the order of the other three schemes, with one vorticity
 order per translation unit (``csrc/vi_tile_k<K>.cu``): the pairs of
 :data:`ORDER_PAIRS`, the two families of ``WENOVectorInvariant``.
@@ -41,8 +41,9 @@ from oceananigans_torch.ops.cuda_kernels import (
     check_operands, on_cuda, sm_count,
 )
 from oceananigans_torch.ops.cuda_tracer import (
-    axes_reachable, march_plan, metric_profile,
+    axes_reachable, metric_profile,
 )
+from oceananigans_torch.ops.march import march_plan
 
 #: the (vorticity, rest) WENO orders the kernel is instantiated for, the
 #: rest being the kinetic energy gradient, divergence and vertical schemes:

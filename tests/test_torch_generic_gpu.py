@@ -2,7 +2,9 @@
 its plain version on the card, for every scheme family, both dtypes and two
 layouts.
 
-These tests need a CUDA device and skip without one. They import nothing
+These tests need a CUDA device and skip without one. The kernel is the
+x-marching tile of ``csrc/generic_tile.h``, one instantiation per scheme
+and one per largest reach for the FluxFormAdvections. They import nothing
 of JAX, so they also run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_generic_gpu.py -m gpu
@@ -28,11 +30,15 @@ SCHEMES = ([ot.Centered(k) for k in range(2, 13, 2)]
                                    ot.UpwindBiased(3)),
               ot.FluxFormAdvection(ot.UpwindBiased(11), ot.WENO(9),
                                    ot.Centered(12))])
-#: (size, halo, topology): halo-free periodic y and z, and haloed ones
+#: (size, halo, topology): halo-free periodic y and z, haloed ones, and
+#: a layout whose plans have partial last panels in y and z and a shorter
+#: last segment (tests/test_torch_tile_plans.py)
 LAYOUTS = [((13, 17, 24), (6, 0, 0),
             (ot.Bounded, ot.Periodic, ot.Periodic)),
            ((9, 11, 14), (6, 6, 6),
-            (ot.Periodic, ot.Bounded, ot.Bounded))]
+            (ot.Periodic, ot.Bounded, ot.Bounded)),
+           ((45, 20, 70), (6, 0, 0),
+            (ot.Bounded, ot.Periodic, ot.Periodic))]
 
 
 def setup(size, halo, topology, dtype):

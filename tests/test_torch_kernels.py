@@ -212,6 +212,40 @@ def test_cuda_kernels_match_plain(dtype):
         scale = max(float(b.abs().max()) for b in ref)
         for a, b in zip(got, ref):
             assert float((a - b).abs().max()) <= stencil_rtol * scale
+    # kernel 2's x-marching tile on fields with exact zero rows (u zero on
+    # every third z-column, v on every other x-plane), at a layout whose
+    # plan has partial last panels in y and z and a shorter last segment
+    # (tests/test_torch_tile_plans.py), every point compared: 8 ulps in
+    # float32, and in float64 1e-12, the bound of the other float64
+    # kernels, since there the plain version's products with areas and
+    # division by volumes differ from a kernel's products with inverse
+    # spacings by more than 8 ulps of the largest value at this layout
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = ot.RectilinearGrid(size=(59, 20, 70), extent=(1.0, 2.0, 0.5),
+                           topology=BPP, halo=(1, 0, 0), dtype=dtype,
+                           device="cuda")
+    py, pz, seg_len, nseg = ck.tendency_plan(g.shape, sms,
+                                             torch.finfo(dtype).bits // 8)
+    if sms == 132:
+        assert 20 % py and 70 % pz and (61 - 2) % seg_len and nseg > 1
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fs = []
+    for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W)):
+        a = torch.randn(g.shape, generator=gen, device="cuda", dtype=dtype)
+        if n == 0:
+            a[:, :, ::3] = 0.0
+        if n == 1:
+            a[::2] = 0.0
+        fs.append(ot.fill_halo_regions(a, g, loc=loc))
+    n0 = ck.centered2_momentum_tendency.launches
+    got = ck.centered2_momentum_tendency(g, *fs)
+    ref = ck.centered2_momentum_tendency_plain(g, *fs)
+    torch.cuda.synchronize()
+    assert ck.centered2_momentum_tendency.launches == n0 + 1
+    scale = max(float(b.abs().max()) for b in ref)
+    rtol = stencil_rtol if dtype == torch.float32 else 1e-12
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= rtol * scale
     # the Poisson middle stage on the haloed grid, at shapes whose y and z
     # extents differ and are not multiples of the 128 x 128 tile, nor
     # (30, 20, 40) of the 4-float runs the 16-byte copies take, and at the

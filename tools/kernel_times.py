@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time the Poisson middle-stage kernel (``fused_middle_solve``), the
-WENO-5 momentum tendency, momentum AB2, science step and tracer tendency
+"""Time the Centered-2 tendency kernel (``centered2_momentum_tendency``),
+the Poisson middle-stage kernel (``fused_middle_solve``), the WENO-5
+momentum tendency, momentum AB2, science step and tracer tendency
 kernels (``weno5_momentum_tendency``, ``weno5_ab2_update``,
 ``weno5_science_ab2_update``, ``weno5_tracer_tendencies``), the
 shallow-water stage kernel (``sw_rk3_stage``), the WENO tracer kernel
 (``weno_tracer_tendencies``) and the WENO vector-invariant kernel
-(``vi_momentum_tendency``) of one checkout of ``oceananigans_torch`` on
-one GPU, and print one JSON line.
+(``vi_momentum_tendency``) and the generic momentum kernel
+(``fused_momentum_tendency``) of one checkout of ``oceananigans_torch``
+on one GPU, and print one JSON line.
 
     python3 tools/kernel_times.py [--root DIR] [--reps N]
 
@@ -17,6 +19,15 @@ script in turns in one session on one card (a, b, b, a): the inputs are
 made from fixed seeds, so every run times the same work.
 
 At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
+
+- on a grid with halo (1, 0, 0), on random halo-filled u, v, w and on the
+  same fields with u exactly zero on every third z-column and v on every
+  other x-plane: ``centered2_momentum_tendency``, with a SHA-256 of its
+  outputs; and on the random fields, with tracers b and c and random
+  G_prev, ``centered2_ab2_update`` (the default AB2 step) and
+  ``centered2_science_ab2_update`` (f-plane f = 1e-4, b the buoyancy
+  tracer), each with a SHA-256 of all its outputs (two checkouts whose
+  kernels compute the same bits print the same digests);
 
 - ``fused_middle_solve`` on an x-transformed random right-hand side of a
   (Bounded, Periodic, Periodic) grid, its plain version (the
@@ -45,10 +56,17 @@ At 256³ in float32, as ``chip_smoke.py`` phases 3 and 10 call them:
   and, where the checkout's kernel takes it, ``WENOVectorInvariant(order=
   7)``; and, where the checkout has the x-marching tiles of
   ``csrc/vi_tile.h``, their launch plans at that shape and the dynamic
-  shared memory of a block for every instantiated order.
+  shared memory of a block for every instantiated order;
+- ``fused_momentum_tendency`` on grids with the x halo of each scheme's
+  reach, on random and zero-row fields, for WENO(5), Centered(4),
+  UpwindBiased(5), WENO(9) and FluxFormAdvection(WENO(5), Centered(2),
+  UpwindBiased(3)), as phase 10 of ``chip_smoke.py`` calls it.
 
 Each kernel's largest difference from its plain version, relative to the
-largest plain value, is printed beside its time. The line also carries the
+largest plain value, is printed beside its time; the times are CUDA-event
+means over back-to-back calls, and for kernel 2, whose calls are short
+enough for the host's launch time to matter, also its device time under
+``torch.profiler`` (``device_ms``). The line also carries the
 card's name and power limit, the counts of a few SASS instructions in the
 kernels (``cuobjdump -sass``; the kernel names of earlier checkouts
 included) and, when this run built the kernels, nvcc's registers, shared
@@ -78,6 +96,24 @@ def time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Mean device time of the CUDA kernels one call of ``fn`` launches,
+    in ms, from ``torch.profiler`` over ``reps`` calls after one warm-up
+    call: the kernels' own time, without the host's time to launch them
+    (which CUDA events over back-to-back calls include where it is the
+    longer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oceananigans_torch.profile_step import _kernel_time_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_time_us(prof)[0] / 1e3 / reps
 
 
 def ptxas_report(log, kernels):
@@ -134,8 +170,75 @@ def main():
             topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
             dtype=f32, device=dev)
 
-    # kernel 4
+    def fields_of(grid, data, n=5):
+        """u, v, w and n - 3 tracers, random and halo-filled; with "zero
+        rows", u exactly zero on every third z-column, v on every other
+        x-plane."""
+        fs = []
+        locs = (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C, ot.LOC_C)
+        for n_, loc in enumerate(locs[:n]):
+            a = torch.randn(grid.shape, generator=gen, device=dev, dtype=f32)
+            if data == "zero rows" and n_ == 0:
+                a[:, :, ::3] = 0.0
+            if data == "zero rows" and n_ == 1:
+                a[::2] = 0.0
+            fs.append(ot.fill_halo_regions(a, grid, loc=loc))
+        return fs
+
+    def sha256(tensors):
+        digest = hashlib.sha256()
+        for t in tensors:
+            digest.update(t.cpu().numpy().tobytes())
+        return digest.hexdigest()
+
+    def rel_err(got, ref):
+        scale = max(float(r.abs().max()) for r in ref)
+        return max(float((g - r).abs().max())
+                   for g, r in zip(got, ref)) / scale
+
+    # kernels 1, 2 and 5
+    from oceananigans_torch.ops import cuda_kernels as ck
     grid = grid_of((1, 0, 0))
+    out["centered2_momentum_tendency"] = {}
+    for data in ("random", "zero rows"):
+        u, v, w = fields_of(grid, data, 3)
+        got = ck.centered2_momentum_tendency(grid, u, v, w)
+        ref = ck.centered2_momentum_tendency_plain(grid, u, v, w)
+        torch.cuda.synchronize()
+        call = lambda: ck.centered2_momentum_tendency(grid, u, v, w)
+        out["centered2_momentum_tendency"][data] = {
+            "rel_err": rel_err(got, ref), "sha256": sha256(got),
+            "kernel_ms": time_ms(torch, call, args.reps),
+            "device_ms": device_ms(torch, call, args.reps)}
+        del got, ref
+    u, v, w, b, c = fields_of(grid, "random")
+    G_prev = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
+                                dtype=f32) for _ in range(5)]
+    got = ck.centered2_ab2_update(grid, u, v, w,
+                                  *(g.clone() for g in G_prev[:3]), 1.6e-4,
+                                  -0.6e-4)
+    torch.cuda.synchronize()
+    Gk = [g.clone() for g in G_prev]
+    out["centered2_ab2_update"] = {
+        "sha256": sha256(got),
+        "kernel_ms": time_ms(torch, lambda: ck.centered2_ab2_update(
+            grid, u, v, w, *Gk[:3], 1.6e-4, -0.6e-4), args.reps)}
+
+    def c2_science(G):
+        res = ck.centered2_science_ab2_update(
+            grid, u, v, w, {"b": b, "c": c}, *G[:3], {"b": G[3], "c": G[4]},
+            1.6e-4, -0.6e-4, f=1e-4, buoyancy_tracer="b")
+        return [*res[:3], *res[3].values(), *res[4:7], *res[7].values()]
+
+    got = c2_science([g.clone() for g in G_prev])
+    torch.cuda.synchronize()
+    out["centered2_science_ab2_update"] = {
+        "sha256": sha256(got),
+        "kernel_ms": time_ms(torch, lambda: c2_science(Gk), args.reps)}
+    del u, v, w, b, c, G_prev, Gk, got
+    torch.cuda.empty_cache()
+
+    # kernel 4
     solver = ot.MatmulPoissonSolver(grid)
     x = torch.randn(grid.N, generator=gen, device=dev, dtype=f32)
     x = solver._apply(x - x.mean(), 0, transpose=False)
@@ -178,11 +281,6 @@ def main():
         fields[data] = fs
     G_prev = [0.1 * torch.randn(grid.shape, generator=gen, device=dev,
                                 dtype=f32) for _ in range(5)]
-
-    def rel_err(got, ref):
-        scale = max(float(r.abs().max()) for r in ref)
-        return max(float((g - r).abs().max())
-                   for g, r in zip(got, ref)) / scale
 
     def science(fn, u, v, w, c, b, G):
         res = fn(grid, u, v, w, {"c": c, "b": b}, *G[:3],
@@ -349,7 +447,58 @@ def main():
                 smem[f"tracer {k}, itemsize {itemsize}"] = fn(
                     0, k, 0, 0, tp[0], tp[1], itemsize)
 
-    kernels = ("poisson_middle", "weno5_tile", "weno5_tendency",
+    # kernel 14 at 256³, each scheme with the x halo of its reach
+    from oceananigans_torch.ops import cuda_generic as cg
+    schemes14 = {
+        "WENO(5)": ot.WENO(5), "Centered(4)": ot.Centered(4),
+        "UpwindBiased(5)": ot.UpwindBiased(5), "WENO(9)": ot.WENO(9),
+        "FluxForm(WENO(5), Centered(2), UpwindBiased(3))":
+            ot.FluxFormAdvection(ot.WENO(5), ot.Centered(2),
+                                 ot.UpwindBiased(3))}
+    out["fused_momentum_tendency"] = {}
+    for label, sch in schemes14.items():
+        g14 = grid_of((sch.required_halo, 0, 0))
+        for data in ("random", "zero rows"):
+            u, v, w = fields_of(g14, data, 3)
+            got = cg.fused_momentum_tendency(g14, sch, u, v, w)
+            ref = cg.fused_momentum_tendency_plain(g14, sch, u, v, w)
+            torch.cuda.synchronize()
+            out["fused_momentum_tendency"][f"{label} {data}"] = {
+                "rel_err": rel_err(got, ref),
+                "kernel_ms": time_ms(
+                    torch, lambda: cg.fused_momentum_tendency(g14, sch, u, v,
+                                                              w),
+                    max(2, args.reps // 4))}
+            del u, v, w, got, ref
+            torch.cuda.empty_cache()
+    # the new tiles' launch plans at the main shapes and their blocks'
+    # dynamic shared memory, where the checkout has them
+    if hasattr(lib, "ot_generic_smem_bytes"):
+        import ctypes
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        c2b = lib.ot_c2_tile_smem_bytes
+        c2b.argtypes = [ctypes.c_int] * 3
+        c2b.restype = ctypes.c_longlong
+        gb = lib.ot_generic_smem_bytes
+        gb.argtypes = [ctypes.c_int] * 4
+        gb.restype = ctypes.c_longlong
+        tiles = out["tile_plans"] = {}
+        for itemsize in (4, 8):
+            plan = ck.tendency_plan((258, 256, 256), sms, itemsize)
+            tiles[f"c2_tile itemsize {itemsize}"] = {
+                "plan": plan, "smem_bytes": c2b(plan[0], plan[1], itemsize)}
+            for label, sch in schemes14.items():
+                axis = cg.axis_schemes(sch)
+                B = cg.reach(axis)
+                plan = cg.momentum_plan((256 + 2 * B, 256, 256), B, axis,
+                                        sms, itemsize)
+                tiles[f"generic_march {label} itemsize {itemsize}"] = {
+                    "plan": plan,
+                    "smem_bytes": gb(B, plan[0], plan[1], itemsize)}
+
+    kernels = ("c2_tile", "c2_tendency_kernel", "generic_march",
+               "17momentum_tendencyI", "poisson_middle", "weno5_tile",
+               "weno5_tendency",
                "weno5_science_tile", "weno5_tracer_tile", "weno5_step",
                "weno5_tracers", "sw_strip", "sw_stage", "vi_march",
                "weno_tracer_march", "vi_tendency", "weno_tracers")
