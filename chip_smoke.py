@@ -85,7 +85,28 @@ each of which raises on failure:
     every 10 iterations, a progress callback and a ``stop_time`` whose
     alignment cuts the last Δt, held to finite fields and the divergence
     bound; and 20 steps of a 256³ UpwindBiased(5) model, which no kernel
-    takes, on the plain path.
+    takes, on the plain path;
+12. ``les``, the wind-mixing LES at 256³ (the JAX package's
+    ``examples/wind_mixing_and_convection.py`` on a regular z: WENO(5),
+    linear seawater buoyancy with a constant salinity, SmagorinskyLilly, a
+    T surface flux and deep gradient, a u surface stress; float32, Δt = 1
+    s): 2 + 20 steps on the kernel path (kernels 7 and 9 once a step, no
+    fused AB2 kernel: the closure and the fluxes turn those off) and on the
+    plain path, timed, with the host's enqueue time, the idle share, the
+    kernel launches a step and the times of a step's phases (the closure's
+    diffusivities and divergences, kernels 7 and 9, the Poisson solve, the
+    fills); the divergence held to the float32 rounding bound of the
+    projection; the same configuration in float64 for 3 steps on both
+    paths, held to each other and to the divergence bound; and a float64
+    16³ run of the kernel path on the card against the plain path on the
+    CPU;
+13. ``hydro_vi_closure``, ``hydro_vi`` with a horizontal Laplacian closure,
+    a vertically implicit one, a callable zonal wind stress and an array T
+    surface flux: 2 + 20 steps on each path (kernels 11 and 12/13 once a
+    step), held against each other at phase 9's bounds and timed, with the
+    host's enqueue time, the idle share and the launches of the implicit
+    step's Thomas solves; and a float64 (48, 16, 6) run of the kernel path
+    on the card against the plain path on the CPU.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -96,7 +117,8 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. The line before the last is the JSON summary of
+launches that run makes. Phases 12 and 13 zero and check the counts of
+their own runs and print them on lines of their own. The line before the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
 WENO(5) ones); the last line is the device record.
@@ -297,6 +319,443 @@ def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: the closure paths
+# ---------------------------------------------------------------------------
+
+#: phase 12: the wind-mixing LES (the JAX package's
+#: ``examples/wind_mixing_and_convection.py`` with a regular z): surface
+#: cooling of 200 W m⁻² as a temperature flux, a wind stress, a stratified
+#: deep gradient; Δt = 1 s
+LES_QT = 200.0 / (1026.0 * 3991.0)
+LES_TAU = 6.2e-5
+LES_DT = 1.0
+LES_WARM, LES_STEPS = 2, 20
+#: the float64 run at 256³ that holds the paths to each other, and its
+#: bound (its rounding floor is ~1e-12 of the fields)
+LES_F64_STEPS, LES_F64_RTOL = 3, 1e-10
+#: phase 13: ``hydro_vi`` with closures; Δt = 60 s
+HYDRO_CLOSURE_WARM, HYDRO_CLOSURE_STEPS = 2, 20
+
+
+def les_model(torch, ot, fused, N=256, dtype=None, device="cuda"):
+    """The wind-mixing LES at N³ on a 64 x 64 x 32 m box: WENO(5), linear
+    seawater buoyancy with a constant salinity, SmagorinskyLilly, the T
+    surface flux and deep gradient and the u surface stress, quasi-AB2."""
+    grid = ot.RectilinearGrid(
+        size=(N, N, N), x=(0.0, 64.0), y=(0.0, 64.0), z=(-32.0, 0.0),
+        topology=(ot.Periodic, ot.Periodic, ot.Bounded), halo=(3, 3, 3),
+        dtype=dtype or torch.float32, device=device)
+    return ot.NonhydrostaticModel(
+        grid=grid, advection=ot.WENO(5),
+        buoyancy=ot.SeawaterBuoyancy(
+            equation_of_state=ot.LinearEquationOfState(
+                thermal_expansion=2e-4), constant_salinity=35.0),
+        closure=ot.SmagorinskyLilly(),
+        boundary_conditions={
+            "T": ot.FieldBoundaryConditions(top=ot.FluxBC(LES_QT),
+                                            bottom=ot.GradientBC(0.01)),
+            "u": ot.FieldBoundaryConditions(top=ot.FluxBC(LES_TAU))},
+        timestepper="QuasiAdamsBashforth2", fused_kernels=fused)
+
+
+def les_state(model):
+    """T = 20 + 0.01 z and u = 1e-4 N(0, 1) from ``default_rng(0)``,
+    projected."""
+    import numpy as np
+    u = 1e-4 * np.random.default_rng(0).standard_normal(model.grid.N)
+    return model.initial_state(T=lambda x, y, z: 20.0 + 0.01 * z, u=u)
+
+
+def hydro_closure_model(torch, ot, fused, dtype=None, device="cuda",
+                        size=(360, 160, 60)):
+    """``bench.py``'s ``hydro_vi`` with a horizontal Laplacian closure, an
+    implicit vertical one, a zonal wind stress on u's top given as a
+    callable of (x, y, t), and a T surface flux given as an array over the
+    halo-extended top slab (zero halo, 1e-5 N(0, 1) from
+    ``default_rng(0)`` inside)."""
+    import numpy as np
+    grid = ot.RectilinearGrid(size=size, extent=(4e7, 2e7, 4e3),
+                              topology=(ot.Periodic, ot.Bounded, ot.Bounded),
+                              halo=(6, 6, 4), dtype=dtype or torch.float32,
+                              device=device)
+    flux = np.zeros(tuple(grid.shape[:2]) + (1,))
+    flux[6:-6, 6:-6, 0] = 1e-5 * np.random.default_rng(0).standard_normal(
+        size[:2])
+    return ot.HydrostaticFreeSurfaceModel(
+        grid=grid, momentum_advection=ot.WENOVectorInvariant(),
+        tracer_advection=ot.WENO(7), tracers=("T", "S"),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        closure=(ot.HorizontalScalarDiffusivity(nu=1e4, kappa=1e3),
+                 ot.VerticalScalarDiffusivity(
+                     nu=1e-3, kappa=1e-5,
+                     time_discretization=(
+                         ot.VerticallyImplicitTimeDiscretization))),
+        boundary_conditions={
+            "u": ot.FieldBoundaryConditions(top=ot.FluxBC(
+                lambda x, y, t: -1e-4 * torch.cos(math.pi * y / 2e7))),
+            "T": ot.FieldBoundaryConditions(top=ot.FluxBC(flux))},
+        fused_kernels=fused)
+
+
+def device_profile(torch, fn, n):
+    """Run ``fn`` ``n`` times under ``torch.profiler``: the device-busy ms
+    and kernel launches per call, and the wall ms per call by CUDA
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oceananigans_torch.profile_step import _kernel_time_us
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+    busy_us, rows = _kernel_time_us(prof)
+    return (busy_us / 1e3 / n, sum(r[1] for r in rows) / n,
+            e0.elapsed_time(e1) / n)
+
+
+def timed_steps(torch, model, state, dt, n):
+    """``n`` steps: (state, ms/step by CUDA events, host enqueue ms/step)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state = model.step(state, dt, assume_filled=True)
+    t1 = time.perf_counter()
+    e1.record()
+    e1.synchronize()
+    return state, e0.elapsed_time(e1) / n, (t1 - t0) * 1e3 / n
+
+
+def group_rel(pairs, scale=0.0):
+    """max|a − b| over ``pairs`` relative to the larger of the largest |b|
+    and ``scale``."""
+    diff = max(float((a - b.to(a.device)).abs().max()) for a, b in pairs)
+    return diff / max(max(float(b.abs().max()) for _, b in pairs), scale)
+
+
+def balance_scale(grid, state, dt):
+    """Δt·max|∂z p| over the interior: the velocity that the projection's
+    pressure gradient removes against the buoyancy each step. In a
+    stratified ocean at rest the velocities are its small residual, and
+    their rounding (the pressure's float32 rounding in the FFT solve) is
+    relative to it."""
+    from oceananigans_torch.ops.operators import ddz_f
+    gz = grid.interior(ddz_f(grid, state.pressure))[:, :, 1:]
+    return dt * float(gz.abs().max())
+
+
+def les_compare(grid, sk, sp):
+    """Kernel-path state ``sk`` against plain-path state ``sp``: the
+    velocities relative to max(max|u|, Δt·max|∂z p|), T relative to max|T|,
+    and the kernel path's max|∇·u|."""
+    from oceananigans_torch.ops.operators import divergence_ccc
+    g = grid
+    ub = balance_scale(g, sp, LES_DT)
+    umax = max(float(g.interior(q).abs().max()) for q in (sk.u, sk.v, sk.w))
+    return {
+        "velocities": group_rel([(g.interior(a), g.interior(b))
+                                 for a, b in ((sk.u, sp.u), (sk.v, sp.v),
+                                              (sk.w, sp.w))], ub),
+        "T": group_rel([(g.interior(sk.tracers["T"]),
+                         g.interior(sp.tracers["T"]))]),
+        "div": float(g.interior(divergence_ccc(g, sk.u, sk.v,
+                                                sk.w)).abs().max()),
+        "umax": umax, "ub": ub}
+
+
+def les_phase(torch, ot, wrappers, card):
+    """Phase 12: the wind-mixing LES at 256³ in float32 on the kernel path
+    (kernels 7 and 9, once a step each) and on the plain path: step and
+    phase times, the idle share, the divergence against its rounding bound
+    and the paths' difference; the same in float64 for a few steps, the
+    paths held to each other; a float64 16³ run of the kernel path on the
+    card against the plain path on the CPU."""
+    from oceananigans_torch import closures
+    from oceananigans_torch.ops import cuda_weno as cw
+    from oceananigans_torch.ops.operators import divergence_ccc
+    les_kernels = {"weno5_momentum_tendency": 1, "weno5_tracer_tendencies": 1}
+    finals, out = {}, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = les_model(torch, ot, fused)
+        require((model.fused_kernels == "weno5") == (path == "kernel")
+                and not (model.fused_ab2_weno
+                         or model.fused_ab2_weno_science),
+                f"les {path} path selects fused_kernels="
+                f"{model.fused_kernels}, no fused AB2 kernel")
+        state = les_state(model)
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for _ in range(LES_WARM):
+            state = model.step(state, LES_DT, assume_filled=True)
+        state, ms, enqueue = timed_steps(torch, model, state, LES_DT,
+                                         LES_STEPS)
+        total = LES_WARM + LES_STEPS
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        want = ({k: n * total for k, n in les_kernels.items()}
+                if path == "kernel" else {})
+        require(counts == want, f"les {path} path launches {counts}, "
+                f"expected {want}")
+        g = model.grid
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (state.u, state.v, state.w, state.pressure,
+                              state.tracers["T"])),
+                f"les {path} path: finite fields")
+        out[path] = {"ms": ms, "enqueue": enqueue, "launches": counts}
+        log(f"[12] les {path} path: {ms:.3f} ms/step at 256^3 float32 "
+            f"(steps {LES_WARM + 1} to {total} of AB2, CUDA events); host "
+            f"enqueue {enqueue:.3f} ms/step; launches in {total} steps "
+            f"{counts}; max|u| {float(g.interior(state.u).abs().max()):.4e}"
+            f", max|w| {float(g.interior(state.w).abs().max()):.4e}, T in "
+            f"[{float(g.interior(state.tracers['T']).min()):.6f}, "
+            f"{float(g.interior(state.tracers['T']).max()):.6f}]")
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, LES_DT, assume_filled=True), 3)
+        require(busy > 0, f"les {path} path: the profiler saw device time")
+        out[path].update(busy=busy, per_step_launches=n_launch)
+        log(f"[12] les {path} path under torch.profiler, 3 steps: "
+            f"device-busy {busy:.3f} ms/step in a wall of {wall:.3f} ms/step,"
+            f" idle share {1 - busy / wall:.3f}; against the unprofiled "
+            f"{ms:.3f} ms/step, idle share {1 - busy / ms:.3f}; "
+            f"{n_launch:.0f} kernel launches a step")
+        if path == "kernel":
+            # the phases of a step, each timed alone on the final state
+            st = state
+            d = model.compute_diffusivities(st)
+            rhs = g.interior(divergence_ccc(g, st.u, st.v, st.w))
+            phases = {
+                "diffusivities": lambda: model.compute_diffusivities(st),
+                "momentum divergences": lambda: (
+                    closures.momentum_flux_divergences(
+                        model.closure, g, st.u, st.v, st.w, st.tracers, d,
+                        include_implicit=False)),
+                "tracer divergence": lambda: closures.tracer_flux_divergence(
+                    model.closure, g, "T", st.tracers["T"], st.tracers, d,
+                    include_implicit=False),
+                "kernel 7": lambda: cw.weno5_momentum_tendency(
+                    g, st.u, st.v, st.w),
+                "kernel 9": lambda: cw.weno5_tracer_tendencies(
+                    g, st.u, st.v, st.w, st.tracers),
+                "Poisson solve": lambda: model.pressure_solver.solve(rhs),
+                "fills": lambda: model.fill_state_halos(st)}
+            out["phases"] = {}
+            for name, fn in phases.items():
+                fn()
+                torch.cuda.synchronize()
+                out["phases"][name] = time_ms(torch, fn, 5)
+            log(f"[12] les kernel path, phases of a step on {card} (CUDA "
+                "events, 5 calls each): " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in out["phases"].items()))
+            del d, rhs, phases, st
+        finals[path] = (g, state)
+        del model
+        torch.cuda.empty_cache()
+    (g, sk), (_, sp) = finals["kernel"], finals["plain"]
+    rel = les_compare(g, sk, sp)
+    dz = g.spacing(2)
+    pmax = float(g.interior(sp.pressure).abs().max())
+    # the projection leaves the divergence of the float32 rounding of the
+    # pressure: about eps·max|p| a point, its discrete Laplacian over Δz²,
+    # times the FFT's log2(N³) growth of rounding
+    eps32 = torch.finfo(torch.float32).eps
+    div_bound = math.log2(g.N[0] * g.N[1] * g.N[2]) * eps32 * LES_DT \
+        * pmax / dz ** 2
+    out["rel"], out["div"], out["div_bound"] = rel, rel["div"], div_bound
+    log(f"[12] les float32: kernel vs plain path after "
+        f"{LES_WARM + LES_STEPS} steps: velocities {rel['velocities']:.3e} "
+        f"of max(max|u|, Δt max|∂z p|) = max({rel['umax']:.4e}, "
+        f"{rel['ub']:.4e}), T {rel['T']:.3e} of max|T| (not held: each "
+        f"path's max|div| {rel['div']:.3e}, the float32 rounding of the "
+        f"hydrostatic pressure max|p| = {pmax:.4f}, and the flux-form "
+        f"advection of T = 20 by it, T·∇·u·Δt, set a noise floor that any "
+        f"difference in the bits decorrelates); max|div| held to "
+        f"log2(N³)·eps32·Δt·max|p|/Δz² = {div_bound:.3e}")
+    require(rel["div"] <= div_bound,
+            f"les max|div| {rel['div']:.3e} <= {div_bound:.3e}")
+    del finals, sk, sp
+    torch.cuda.empty_cache()
+
+    # float64 at full width: the kernel path against the plain path, where
+    # the rounding floor lies ~1e-12 below the fields (the float32 one does
+    # not let the paths be held to each other)
+    f64 = {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        m = les_model(torch, ot, fused, dtype=torch.float64)
+        s = les_state(m)
+        for _ in range(LES_F64_STEPS):
+            s = m.step(s, LES_DT)
+        f64[path], g = s, m.grid
+        del m
+    rel = les_compare(g, f64["kernel"], f64["plain"])
+    dx = g.spacing(0)
+    div_bound = 1e-5 * max(rel["umax"], rel["ub"]) / dx
+    out["rel64"] = rel
+    log(f"[12] les float64 256^3, {LES_F64_STEPS} AB2 steps: kernel vs "
+        f"plain path: velocities {rel['velocities']:.3e} of max(max|u|, Δt "
+        f"max|∂z p|), T {rel['T']:.3e} of max|T| (tolerance "
+        f"{LES_F64_RTOL:g}); max|div| {rel['div']:.3e} (bound 1e-5 "
+        f"max(max|u|, Δt max|∂z p|)/Δx = {div_bound:.3e})")
+    require(rel["velocities"] <= LES_F64_RTOL and rel["T"] <= LES_F64_RTOL,
+            f"les float64 kernel vs plain path {rel}")
+    require(rel["div"] <= div_bound,
+            f"les float64 max|div| {rel['div']:.3e} <= {div_bound:.3e}")
+    del f64
+    torch.cuda.empty_cache()
+
+    # float64 16³: the kernel path on the card against the plain path on
+    # the CPU, which the CPU tests hold against the JAX package
+    f64 = {}
+    for device, fused in (("cuda", True), ("cpu", False)):
+        m = les_model(torch, ot, fused, N=16, dtype=torch.float64,
+                      device=device)
+        require((m.fused_kernels == "weno5") == (device == "cuda"),
+                "float64 les routes")
+        s = les_state(m)
+        for _ in range(5):
+            s = m.step(s, LES_DT)
+        f64[device] = (m.grid, s)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    ub = balance_scale(gp, sp, LES_DT)
+    vel64 = group_rel([(gk.interior(a).cpu(), gp.interior(b)) for a, b in (
+        (sk.u, sp.u), (sk.v, sp.v), (sk.w, sp.w))], ub)
+    trc64 = group_rel([(gk.interior(sk.tracers["T"]).cpu(),
+                        gp.interior(sp.tracers["T"]))])
+    abs64 = max(float((gk.interior(a).cpu() - gp.interior(b)).abs().max())
+                for a, b in ((sk.u, sp.u), (sk.v, sp.v), (sk.w, sp.w),
+                             (sk.tracers["T"], sp.tracers["T"])))
+    log(f"[12] float64 16^3 les, 5 AB2 steps: kernel path on the card vs "
+        f"plain path on the CPU: velocities {vel64:.3e} of max(max|u|, Δt "
+        f"max|∂z p|), T {trc64:.3e} of max|T| (tolerance 1e-12); largest "
+        f"absolute difference {abs64:.3e}")
+    require(vel64 <= 1e-12 and trc64 <= 1e-12,
+            f"float64 16^3 les card vs CPU {vel64:.3e}, {trc64:.3e}")
+    return out
+
+
+def hydro_closure_phase(torch, ot, wrappers, card, rtol):
+    """Phase 13: ``hydro_vi`` with closures and wind stress at 360 x 160 x
+    60 on the kernel path (kernels 11 and 12/13, once a step each) and on
+    the plain path, held against each other; the launches of the Thomas
+    solve; a float64 (48, 16, 6) run of the kernel path on the card against
+    the plain path on the CPU."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_generic_state, hydro_initial_state,
+    )
+    hydro_kernels = {"weno_tracer_tendencies": 1, "vi_momentum_tendency": 1}
+    finals, out = {}, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = hydro_closure_model(torch, ot, fused)
+        require(model.fused_kernels == model.fused_tracer
+                == (path == "kernel"),
+                f"hydro_vi_closure {path} path selects fused_kernels="
+                f"{model.fused_kernels}, fused_tracer={model.fused_tracer}")
+        state = model.update_state(hydro_initial_state(model))
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for _ in range(HYDRO_CLOSURE_WARM):
+            state = model.step(state, HYDRO_DT, assume_filled=True)
+        state, ms, enqueue = timed_steps(torch, model, state, HYDRO_DT,
+                                         HYDRO_CLOSURE_STEPS)
+        total = HYDRO_CLOSURE_WARM + HYDRO_CLOSURE_STEPS
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        want = ({k: n * total for k, n in hydro_kernels.items()}
+                if path == "kernel" else {})
+        require(counts == want, f"hydro_vi_closure {path} path launches "
+                f"{counts}, expected {want}")
+        g = model.grid
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (state.u, state.v, state.w, state.eta,
+                              *state.tracers.values())),
+                f"hydro_vi_closure {path} path: finite fields")
+        xy = g.interior_slices[:2]
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, HYDRO_DT, assume_filled=True),
+            3)
+        require(busy > 0, f"hydro_vi_closure {path} path: the profiler saw "
+                "device time")
+        d = model.compute_diffusivities(state)
+        _, n_thomas, thomas_wall = device_profile(
+            torch, lambda: model._implicit_diffusion(state, d,
+                                                     torch.tensor(HYDRO_DT)),
+            3)
+        out[path] = {"ms": ms, "enqueue": enqueue, "busy": busy,
+                     "launches": counts, "per_step_launches": n_launch,
+                     "thomas_launches": n_thomas, "thomas_ms": thomas_wall}
+        log(f"[13] hydro_vi_closure {path} path: {ms:.3f} ms/step (steps "
+            f"{HYDRO_CLOSURE_WARM + 1} to {total} of AB2, CUDA events); host "
+            f"enqueue {enqueue:.3f} ms/step; launches in {total} steps "
+            f"{counts}; max|u| {float(g.interior(state.u).abs().max()):.4e}"
+            f", max|eta| {float(state.eta[xy].abs().max()):.4e}")
+        log(f"[13] hydro_vi_closure {path} path under torch.profiler, 3 "
+            f"steps: device-busy {busy:.3f} ms/step in a wall of "
+            f"{wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; against "
+            f"the unprofiled {ms:.3f} ms/step, idle share "
+            f"{1 - busy / ms:.3f}; {n_launch:.0f} kernel launches a step, "
+            f"{n_thomas:.0f} of them the implicit vertical diffusion (the "
+            f"Thomas solves of u, v, T and S over {g.shape[2]} levels; "
+            f"{thomas_wall:.3f} ms alone under the profiler)")
+        finals[path] = (g, {
+            "velocities": [g.interior(state.u).clone(),
+                           g.interior(state.v).clone()],
+            "eta": [state.eta[xy].clone()],
+            "tracers": [g.interior(state.tracers[n]).clone()
+                        for n in ("T", "S")]})
+        del model, state, d
+        torch.cuda.empty_cache()
+    ks, ps = finals["kernel"][1], finals["plain"][1]
+    rel = {k: group_rel(list(zip(ks[k], ps[k]))) for k in ks}
+    log(f"[13] hydro_vi_closure: kernel vs plain path after "
+        f"{HYDRO_CLOSURE_WARM + HYDRO_CLOSURE_STEPS} steps: " + ", ".join(
+            f"{k} {v:.3e} of the largest value (tolerance {rtol[k]:g})"
+            for k, v in rel.items()))
+    require(all(rel[k] <= rtol[k] for k in rel),
+            f"hydro_vi_closure kernel vs plain path {rel}")
+    del finals, ks, ps
+    torch.cuda.empty_cache()
+
+    # float64 (48, 16, 6): the kernel path on the card against the plain
+    # path on the CPU, from a state without rounding-level zeros of the
+    # velocities (as phase 9's)
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = hydro_closure_model(torch, ot, "auto", torch.float64, device,
+                                size=(48, 16, 6))
+        require(m.fused_kernels == m.fused_tracer == (device == "cuda"),
+                "float64 hydro_vi_closure routes")
+        st = hydro_generic_state(m)
+        for _ in range(5):
+            st = m.step(st, HYDRO_DT)
+        f64[device] = (m.grid, st)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    xy = gp.interior_slices[:2]
+    groups = {"velocities": [(gk.interior(sk.u).cpu(), gp.interior(sp.u)),
+                             (gk.interior(sk.v).cpu(), gp.interior(sp.v))],
+              "w": [(gk.interior(sk.w).cpu(), gp.interior(sp.w))],
+              "eta": [(sk.eta[xy].cpu(), sp.eta[xy])],
+              "tracers": [(gk.interior(sk.tracers[n]).cpu(),
+                           gp.interior(sp.tracers[n])) for n in ("T", "S")]}
+    rel64 = {k: group_rel(p) for k, p in groups.items()}
+    log("[13] float64 (48, 16, 6) hydro_vi_closure, 5 AB2 steps: kernel "
+        "path on the card vs plain path on the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel64.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel64.values()),
+            f"float64 (48, 16, 6) hydro_vi_closure card vs CPU {rel64}")
+    return out
 
 
 def main():
@@ -1941,6 +2400,17 @@ def main():
         f"{umax_ub:.4e}, max|div| {div_ub:.3e}")
     del sim, st, model
     torch.cuda.empty_cache()
+
+    # ---- phase 12: the wind-mixing LES (kernels 7 and 9) ------------------
+    les = les_phase(torch, ot, wrappers, card)
+
+    # ---- phase 13: hydro_vi with closures (kernels 11 and 12/13) ---------
+    hydro_closure = hydro_closure_phase(torch, ot, wrappers, card,
+                                        HYDRO_PATH_RTOL)
+    log(f"[13] step times on {card}: les kernel path {les['kernel']['ms']:.3f}"
+        f" ms/step, plain path {les['plain']['ms']:.3f} ms/step; "
+        f"hydro_vi_closure kernel path {hydro_closure['kernel']['ms']:.3f} "
+        f"ms/step, plain path {hydro_closure['plain']['ms']:.3f} ms/step")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -11,7 +11,12 @@ conservative and vector-invariant formulations, with Coriolis, bathymetry
 and tracers, stepped by RK3; the hydrostatic free-surface model with the
 vector-invariant (WENOVectorInvariant) or flux-form momentum advection,
 explicit or split-explicit free surface, Coriolis and buoyancy, stepped by
-quasi-AB2; and the ``Simulation`` driver with its callbacks, schedules,
+quasi-AB2; the closures of ``closures.py`` (scalar, biharmonic,
+Smagorinsky-Lilly, dynamic Smagorinsky, AMD, convective adjustment;
+explicit or vertically implicit) and valued, gradient, flux and open
+boundary conditions on the nonhydrostatic and hydrostatic models; the
+field layer (constructors, reductions, regridding, interpolation); and
+the ``Simulation`` run loop with its callbacks, schedules,
 ``TimeStepWizard`` and NaN guard. Grids and models run on the GPU unless
 they are given ``device="cpu"`` (or ``config.device`` is set to "cpu");
 without a GPU, a grid built with no ``device=`` raises.
@@ -30,18 +35,34 @@ from oceananigans_torch.advection import (
     WENO, Centered, FluxFormAdvection, UpwindBiased, adapt_advection_order,
 )
 from oceananigans_torch.boundary_conditions import (
-    FieldBoundaryConditions, FluxBC, OpenBC, PeriodicBC, fill_halo_regions,
+    BoundaryCondition, FieldBoundaryConditions, FlatExtrapolationOpenBC,
+    FluxBC, FluxBoundaryCondition, GradientBC, GradientBoundaryCondition,
+    OpenBC, OpenBoundaryCondition, PerturbationAdvection,
+    PerturbationAdvectionOpenBC, PeriodicBC, ValueBC, ValueBoundaryCondition,
+    fill_halo_regions,
 )
 from oceananigans_torch.buoyancy import (
-    BuoyancyForce, BuoyancyTracer, LinearEquationOfState, SeawaterBuoyancy,
-    TEOS10EquationOfState,
+    TEOS10, BuoyancyField, BuoyancyForce, BuoyancyTracer,
+    LinearEquationOfState, SeawaterBuoyancy, TEOS10EquationOfState,
 )
-from oceananigans_torch.config import config
+from oceananigans_torch.closures import (
+    AnisotropicMinimumDissipation, ConvectiveAdjustmentVerticalDiffusivity,
+    DynamicCoefficient, DynamicSmagorinsky, ExplicitTimeDiscretization,
+    HorizontalScalarBiharmonicDiffusivity, HorizontalScalarDiffusivity,
+    LillyCoefficient, ScalarBiharmonicDiffusivity, ScalarDiffusivity,
+    Smagorinsky, SmagorinskyLilly, VerticallyImplicitTimeDiscretization,
+    VerticalScalarBiharmonicDiffusivity, VerticalScalarDiffusivity,
+    diffusivity, viscosity,
+)
+from oceananigans_torch.config import config, float_type, set_float_type
 from oceananigans_torch.coriolis import (
     BetaPlane, ConstantCartesianCoriolis, FPlane, NonTraditionalBetaPlane,
 )
 from oceananigans_torch.fields import (
-    LOC_C, LOC_U, LOC_V, LOC_W, interior, new_field, set_field,
+    LOC_C, LOC_U, LOC_V, LOC_W, BackgroundField, CenterField, ConstantField,
+    Field, FunctionField, XFaceField, YFaceField, ZeroField, ZFaceField,
+    field_abs_max, field_integral, field_max, field_mean, field_min,
+    interior, interpolate, new_field, set_field, with_interior,
 )
 from oceananigans_torch.grids import (
     Bounded, Center, Face, Flat, Periodic, RectilinearGrid,
@@ -49,9 +70,12 @@ from oceananigans_torch.grids import (
 from oceananigans_torch.models import (
     ConservativeFormulation, CrossAndSelfUpwinding, ExplicitFreeSurface,
     HydrostaticFreeSurfaceModel, HydrostaticState, NonhydrostaticModel,
-    NonhydrostaticState, OnlySelfUpwinding, ShallowWaterModel,
+    NonhydrostaticState, OnlySelfUpwinding, PressureField, ShallowWaterModel,
     ShallowWaterState, SplitExplicitFreeSurface, VectorInvariant,
     VectorInvariantFormulation, WENOVectorInvariant,
+)
+from oceananigans_torch.models.hydrostatic import (
+    ImplicitFreeSurface, PrescribedVelocityFields, ZCoordinate, ZStar,
 )
 from oceananigans_torch.simulation import (
     Callback, NaNChecker, Simulation, TendencyCallsite, TimeStepCallsite,
@@ -62,6 +86,7 @@ from oceananigans_torch.solvers import FFTPoissonSolver, MatmulPoissonSolver
 from oceananigans_torch.diagnostics import (
     CFL, AdvectiveCFL, DiffusiveCFL, StateChecker, seawater_density,
 )
+from oceananigans_torch.timesteppers import Clock
 from oceananigans_torch.utils.pretty import prettytime
 from oceananigans_torch.utils.schedules import (
     AndSchedule, AveragedTimeInterval, IterationInterval, OrSchedule,
@@ -73,27 +98,44 @@ from oceananigans_torch.utils.units import (
 )
 
 __all__ = [
-    "AdvectiveCFL", "AndSchedule", "AveragedTimeInterval", "BetaPlane",
-    "Bounded", "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback",
-    "Center", "Centered", "ConservativeFormulation",
-    "ConstantCartesianCoriolis", "CrossAndSelfUpwinding", "DiffusiveCFL",
-    "ExplicitFreeSurface", "FFTPoissonSolver", "FPlane", "Face",
-    "FieldBoundaryConditions", "Flat", "FluxBC", "FluxFormAdvection",
-    "GiB", "HydrostaticFreeSurfaceModel", "HydrostaticState",
+    "AdvectiveCFL", "AndSchedule", "AnisotropicMinimumDissipation",
+    "AveragedTimeInterval", "BackgroundField", "BetaPlane",
+    "BoundaryCondition", "Bounded", "BuoyancyField", "BuoyancyForce",
+    "BuoyancyTracer", "CFL", "Callback", "Center", "CenterField", "Centered",
+    "Clock", "ConservativeFormulation", "ConstantCartesianCoriolis",
+    "ConstantField", "ConvectiveAdjustmentVerticalDiffusivity",
+    "CrossAndSelfUpwinding", "DiffusiveCFL", "DynamicCoefficient",
+    "DynamicSmagorinsky", "ExplicitFreeSurface",
+    "ExplicitTimeDiscretization", "FFTPoissonSolver", "FPlane", "Face",
+    "Field", "FieldBoundaryConditions", "Flat", "FlatExtrapolationOpenBC",
+    "FluxBC", "FluxBoundaryCondition", "FluxFormAdvection", "FunctionField",
+    "GiB", "GradientBC", "GradientBoundaryCondition",
+    "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
+    "HydrostaticFreeSurfaceModel", "HydrostaticState", "ImplicitFreeSurface",
     "IterationInterval", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
-    "LinearEquationOfState", "MatmulPoissonSolver", "MiB", "NaNChecker",
-    "NonTraditionalBetaPlane", "NonhydrostaticModel", "NonhydrostaticState",
-    "OnlySelfUpwinding", "OpenBC", "OrSchedule", "Periodic", "PeriodicBC",
-    "RectilinearGrid", "SeawaterBuoyancy", "ShallowWaterModel",
-    "ShallowWaterState", "Simulation", "SpecifiedTimes",
-    "SplitExplicitFreeSurface", "StateChecker", "TEOS10EquationOfState",
-    "TendencyCallsite", "TiB", "TimeInterval", "TimeStepCallsite",
-    "TimeStepWizard", "UpdateStateCallsite", "UpwindBiased",
-    "VectorInvariant", "VectorInvariantFormulation", "WENO",
-    "WENOVectorInvariant", "WallTimeInterval", "adapt_advection_order",
-    "add_callback", "config", "conjure_time_step_wizard", "day", "days",
-    "fill_halo_regions", "hour", "hours", "interior", "iteration",
-    "kilometer", "kilometers", "meter", "meters", "minute", "minutes",
-    "new_field", "prettytime", "seawater_density", "second", "seconds",
-    "set_field", "year", "years",
+    "LillyCoefficient", "LinearEquationOfState", "MatmulPoissonSolver",
+    "MiB", "NaNChecker", "NonTraditionalBetaPlane", "NonhydrostaticModel",
+    "NonhydrostaticState", "OnlySelfUpwinding", "OpenBC",
+    "OpenBoundaryCondition", "OrSchedule", "Periodic", "PeriodicBC",
+    "PerturbationAdvection", "PerturbationAdvectionOpenBC",
+    "PrescribedVelocityFields", "PressureField", "RectilinearGrid",
+    "ScalarBiharmonicDiffusivity", "ScalarDiffusivity", "SeawaterBuoyancy",
+    "ShallowWaterModel", "ShallowWaterState", "Simulation", "Smagorinsky",
+    "SmagorinskyLilly", "SpecifiedTimes", "SplitExplicitFreeSurface",
+    "StateChecker", "TEOS10", "TEOS10EquationOfState", "TendencyCallsite",
+    "TiB", "TimeInterval", "TimeStepCallsite", "TimeStepWizard",
+    "UpdateStateCallsite", "UpwindBiased", "ValueBC",
+    "ValueBoundaryCondition", "VectorInvariant",
+    "VectorInvariantFormulation", "VerticalScalarBiharmonicDiffusivity",
+    "VerticalScalarDiffusivity", "VerticallyImplicitTimeDiscretization",
+    "WENO", "WENOVectorInvariant", "WallTimeInterval", "XFaceField",
+    "YFaceField", "ZCoordinate", "ZFaceField", "ZStar", "ZeroField",
+    "adapt_advection_order", "add_callback", "config",
+    "conjure_time_step_wizard", "day", "days", "diffusivity",
+    "field_abs_max", "field_integral", "field_max", "field_mean",
+    "field_min", "fill_halo_regions", "float_type", "hour", "hours",
+    "interior", "interpolate", "iteration", "kilometer", "kilometers",
+    "meter", "meters", "minute", "minutes", "new_field", "prettytime",
+    "seawater_density", "second", "seconds", "set_field", "set_float_type",
+    "viscosity", "with_interior", "year", "years",
 ]

@@ -163,6 +163,19 @@ def buoyancy_frequency(grid, buoyancy, tracers):
     return ddz_f(grid, buoyancy.buoyancy_ccc(grid, tracers))
 
 
-__all__ = ["BuoyancyForce", "BuoyancyTracer", "LinearEquationOfState",
-           "SeawaterBuoyancy", "TEOS10EquationOfState",
-           "buoyancy_frequency", "g_Earth", "regularize_buoyancy"]
+#: the reference's short name of the TEOS-10 equation of state
+TEOS10 = TEOS10EquationOfState
+
+
+def BuoyancyField(model, state):
+    """Buoyancy at cell centers from ``model``'s formulation and the
+    tracers of ``state``."""
+    if model.buoyancy is None:
+        raise ValueError("model has no buoyancy formulation")
+    return model.buoyancy.buoyancy_ccc(model.grid, state.tracers)
+
+
+__all__ = ["BuoyancyField", "BuoyancyForce", "BuoyancyTracer",
+           "LinearEquationOfState", "SeawaterBuoyancy", "TEOS10",
+           "TEOS10EquationOfState", "buoyancy_frequency", "g_Earth",
+           "regularize_buoyancy"]

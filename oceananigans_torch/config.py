@@ -41,3 +41,14 @@ def as_dtype(dtype) -> torch.dtype:
         return dtype
     import numpy as np
     return getattr(torch, np.dtype(dtype).name)
+
+
+def set_float_type(ft) -> None:
+    """Set the default floating point type of new grids and fields (a torch
+    dtype, a numpy dtype or a name such as "float64")."""
+    config.float_type = str(as_dtype(ft)).removeprefix("torch.")
+
+
+def float_type() -> torch.dtype:
+    """The default floating point type of new grids and fields."""
+    return config.float_dtype

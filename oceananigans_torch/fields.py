@@ -5,11 +5,17 @@ Counterpart of ``oceananigans_tpu/fields.py``. A field is a tensor shaped
 function arguments (``loc`` tuples), not in the tensor.
 
     u : (Face,   Center, Center)     w : (Center, Center, Face)
-    v : (Center, Face,   Center)     p : (Center, Center, Center)
+    v : (Center, Face,   Center)     tracers, p, b : (Center, Center, Center)
+
+Lazy analytic fields (``FunctionField``, ``ConstantField``, ``ZeroField``)
+are callables of the coordinates, accepted wherever a field-valued argument
+is (initial conditions, closure coefficients); ``BackgroundField`` is a
+callable of the coordinates and time.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from oceananigans_torch.grids.base import AXIS_NAMES, Center, Face
@@ -34,9 +40,10 @@ def location_coords(grid, loc):
 
 
 def set_field(grid, value, loc=LOC_C, dtype=None):
-    """A field from a number, an interior- or full-shaped array, or a
-    callable ``f(x, y, z)`` of broadcast-ready coordinate tensors evaluated
-    at the staggered nodes. Halos are left unfilled."""
+    """A field from a number, an interior- or full-shaped array (or one that
+    broadcasts against the interior), or a callable ``f(x, y, z)`` of
+    broadcast-ready coordinate tensors evaluated at the staggered nodes.
+    Halos are left unfilled."""
     a = new_field(grid, dtype)
     if callable(value):
         x, y, z = location_coords(grid, loc)
@@ -57,17 +64,218 @@ def interior(grid, a):
     return grid.interior(a)
 
 
+def with_interior(grid, a, values):
+    """A copy of ``a`` with its interior set to ``values``."""
+    out = a.clone()
+    out[grid.interior_slices] = torch.as_tensor(values, dtype=a.dtype,
+                                                device=a.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Reductions over the interior
+# ---------------------------------------------------------------------------
+
+def _interior_volumes(grid, loc):
+    return interior(grid, grid.V(*loc).expand(grid.shape))
+
+
 def field_sum(grid, a, loc=LOC_C):
     """Sum of the interior values."""
     return torch.sum(interior(grid, a))
 
 
+def field_max(grid, a):
+    return torch.max(interior(grid, a))
+
+
+def field_min(grid, a):
+    return torch.min(interior(grid, a))
+
+
+def field_abs_max(grid, a):
+    return torch.max(torch.abs(interior(grid, a)))
+
+
+def field_mean(grid, a, loc=LOC_C):
+    """Volume-weighted mean over the interior of a field at ``loc``."""
+    Vi = _interior_volumes(grid, loc)
+    return torch.sum(interior(grid, a) * Vi) / torch.sum(Vi)
+
+
 def field_integral(grid, a, loc=LOC_C):
     """Volume integral over the interior of a field at ``loc``."""
-    V = grid.V(*loc).expand(grid.shape)
-    return torch.sum(interior(grid, a) * interior(grid, V))
+    return torch.sum(interior(grid, a) * _interior_volumes(grid, loc))
 
 
-__all__ = ["LOC_C", "LOC_U", "LOC_V", "LOC_W", "field_integral",
-           "field_sum", "interior", "location_coords", "new_field",
-           "set_field"]
+# ---------------------------------------------------------------------------
+# Conservative regridding along one axis and point interpolation
+# ---------------------------------------------------------------------------
+
+def _overlap_matrix(src_edges, dst_edges):
+    """(Nd, Ns) weight matrix: row k holds each source cell's fractional
+    overlap with destination cell k (conservative first-order remap)."""
+    Nd = len(dst_edges) - 1
+    W = np.zeros((Nd, len(src_edges) - 1))
+    for k in range(Nd):
+        lo, hi = dst_edges[k], dst_edges[k + 1]
+        ov = (np.minimum(hi, src_edges[1:])
+              - np.maximum(lo, src_edges[:-1])).clip(min=0.0)
+        W[k] = ov / max(hi - lo, 1e-30)
+    return W
+
+
+def _axis_edges(grid, axis):
+    f = getattr(grid, f"{AXIS_NAMES[axis]}F").reshape(-1).cpu().double()
+    H, N = grid.H[axis], grid.N[axis]
+    # the right wall face of the last interior cell
+    right = f[H + N] if H + N < f.numel() else (
+        f[H + N - 1] + grid.spacing(axis))
+    return np.append(f[H:H + N].numpy(), float(right))
+
+
+def regrid(src_grid, dst_grid, a, loc=LOC_C, axis=2):
+    """Conservative regridding along ONE axis between two grids that share
+    the other axes' layout: overlap-weighted cell averages, which conserve
+    the integral along that axis exactly."""
+    W = _overlap_matrix(_axis_edges(src_grid, axis),
+                        _axis_edges(dst_grid, axis))
+    ai = interior(src_grid, a)
+    sub = {0: "sjk,ds->djk", 1: "isk,ds->idk", 2: "ijs,ds->ijd"}[axis]
+    out = torch.einsum(sub, ai, torch.as_tensor(W, dtype=ai.dtype,
+                                                device=ai.device))
+    res = new_field(dst_grid, a.dtype)
+    res[dst_grid.interior_slices] = out
+    return res
+
+
+def regrid_x(src_grid, dst_grid, a, loc=LOC_C):
+    return regrid(src_grid, dst_grid, a, loc=loc, axis=0)
+
+
+def regrid_y(src_grid, dst_grid, a, loc=LOC_C):
+    return regrid(src_grid, dst_grid, a, loc=loc, axis=1)
+
+
+def regrid_z(src_grid, dst_grid, a, loc=LOC_C):
+    """Conservative vertical regridding (∫ a dz per column is kept)."""
+    return regrid(src_grid, dst_grid, a, loc=loc, axis=2)
+
+
+def _fractional_index(xs, x):
+    """Continuous index of ``x`` in the sorted 1-D coordinates ``xs`` (halo
+    included)."""
+    i = torch.clamp(torch.searchsorted(xs, x, right=True) - 1, 0,
+                    xs.numel() - 2)
+    x0, x1 = xs[i], xs[i + 1]
+    frac = (x - x0) / torch.where(x1 == x0, torch.ones_like(x1), x1 - x0)
+    return i, torch.clamp(frac, 0.0, 1.0)
+
+
+def interpolate(grid, a, loc, x, y, z):
+    """Trilinear interpolation of field ``a`` (location ``loc``) at the
+    point(s) ``(x, y, z)`` (numbers or 1-D tensors of equal length)."""
+    idxs, fracs = [], []
+    for carr, q in zip(location_coords(grid, loc), (x, y, z)):
+        c1 = carr.reshape(-1)
+        q = torch.as_tensor(q, dtype=c1.dtype, device=c1.device)
+        if c1.numel() == 1:
+            idxs.append(torch.zeros(q.shape, dtype=torch.long,
+                                    device=c1.device))
+            fracs.append(torch.zeros(q.shape, dtype=a.dtype,
+                                     device=c1.device))
+        else:
+            i, f = _fractional_index(c1, q.contiguous())
+            idxs.append(i)
+            fracs.append(f.to(a.dtype))
+    ix, iy, iz = idxs
+    fx, fy, fz = fracs
+
+    def g(dx_, dy_, dz_):
+        return a[torch.clamp(ix + dx_, max=a.shape[0] - 1),
+                 torch.clamp(iy + dy_, max=a.shape[1] - 1),
+                 torch.clamp(iz + dz_, max=a.shape[2] - 1)]
+
+    return ((1 - fx) * (1 - fy) * (1 - fz) * g(0, 0, 0)
+            + fx * (1 - fy) * (1 - fz) * g(1, 0, 0)
+            + (1 - fx) * fy * (1 - fz) * g(0, 1, 0)
+            + fx * fy * (1 - fz) * g(1, 1, 0)
+            + (1 - fx) * (1 - fy) * fz * g(0, 0, 1)
+            + fx * (1 - fy) * fz * g(1, 0, 1)
+            + (1 - fx) * fy * fz * g(0, 1, 1)
+            + fx * fy * fz * g(1, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Lazy analytic fields: callables of the grid coordinates
+# ---------------------------------------------------------------------------
+
+def FunctionField(fn):
+    """A lazy field defined by ``fn(x, y, z)``."""
+    return fn
+
+
+def ConstantField(value):
+    """A lazy field with a uniform value."""
+    def fn(*coords):
+        return value + 0.0 * coords[0]
+    return fn
+
+
+def ZeroField():
+    return ConstantField(0.0)
+
+
+# ---------------------------------------------------------------------------
+# Field constructors at the standard locations
+# ---------------------------------------------------------------------------
+
+def Field(grid, value=0.0, loc=LOC_C, dtype=None):
+    """A halo-extended tensor at ``loc`` initialised from ``value`` (a
+    number, an interior- or full-shaped array, or ``f(x, y, z)``)."""
+    return set_field(grid, value, loc=loc, dtype=dtype)
+
+
+def CenterField(grid, value=0.0, dtype=None):
+    return set_field(grid, value, loc=LOC_C, dtype=dtype)
+
+
+def XFaceField(grid, value=0.0, dtype=None):
+    return set_field(grid, value, loc=LOC_U, dtype=dtype)
+
+
+def YFaceField(grid, value=0.0, dtype=None):
+    return set_field(grid, value, loc=LOC_V, dtype=dtype)
+
+
+def ZFaceField(grid, value=0.0, dtype=None):
+    return set_field(grid, value, loc=LOC_W, dtype=dtype)
+
+
+class BackgroundField:
+    """A background field ``func(x, y, z, t[, parameters])``; ``t``
+    defaults to 0, so an instance also serves as a static ``set_field``
+    initializer. (The models' ``background_fields=`` is ROADMAP Queue 1
+    item 12.)"""
+
+    def __init__(self, func, parameters=None):
+        self.func = func
+        self.parameters = parameters
+
+    def __call__(self, x, y, z, t=0.0):
+        if self.parameters is None:
+            return self.func(x, y, z, t)
+        return self.func(x, y, z, t, self.parameters)
+
+    def __repr__(self):
+        return (f"BackgroundField({self.func!r}, "
+                f"parameters={self.parameters!r})")
+
+
+__all__ = ["BackgroundField", "CenterField", "ConstantField", "Field",
+           "FunctionField", "LOC_C", "LOC_U", "LOC_V", "LOC_W", "XFaceField",
+           "YFaceField", "ZFaceField", "ZeroField", "field_abs_max",
+           "field_integral", "field_max", "field_mean", "field_min",
+           "field_sum", "interior", "interpolate",
+           "location_coords", "new_field", "regrid", "regrid_x", "regrid_y",
+           "regrid_z", "set_field", "with_interior"]

@@ -13,9 +13,19 @@ from oceananigans_torch.models.shallow_water import (
     VectorInvariantFormulation,
 )
 
+
+def PressureField(model, state):
+    """The nonhydrostatic model's kinematic pressure, which its state
+    carries; the hydrostatic model carries none."""
+    if hasattr(state, "pressure"):
+        return state.pressure
+    raise ValueError(f"{type(model).__name__} does not carry a pressure "
+                     "field; use BuoyancyField or the free-surface height")
+
+
 __all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
            "ExplicitFreeSurface", "HydrostaticFreeSurfaceModel",
            "HydrostaticState", "NonhydrostaticModel", "NonhydrostaticState",
-           "OnlySelfUpwinding", "ShallowWaterModel", "ShallowWaterState",
-           "SplitExplicitFreeSurface", "VectorInvariant",
+           "OnlySelfUpwinding", "PressureField", "ShallowWaterModel",
+           "ShallowWaterState", "SplitExplicitFreeSurface", "VectorInvariant",
            "VectorInvariantFormulation", "WENOVectorInvariant"]

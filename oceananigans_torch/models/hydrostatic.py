@@ -16,14 +16,17 @@ Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
   barotropic substeps are a Python loop over the averaging weights);
 - ``HydrostaticState`` and ``HydrostaticFreeSurfaceModel`` with quasi-AB2
   stepping: w diagnosed from continuity by a ``torch.cumsum`` over z, the
-  hydrostatic pressure anomaly of a buoyancy, Coriolis, and
-  ``tendency_callbacks`` hooks on the tendencies.
+  hydrostatic pressure anomaly of a buoyancy, Coriolis, the closures of
+  ``closures.py`` (explicit divergences in the tendencies, the vertically
+  implicit part solved after the update), valued boundary conditions on
+  every field, and ``tendency_callbacks`` hooks on the tendencies.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item: closures, forcings, biogeochemistry, Stokes drift, particles
-and auxiliary fields (item 12); immersed grids (item 13); the implicit free
-surface, ``ZStar``, ``PrescribedVelocityFields``, ``split_rk3`` stepping
-and lat-lon or orthogonal grids (item 15).
+Queue 1 item: forcings, biogeochemistry, Stokes drift, particles and
+auxiliary fields (item 12); immersed grids (item 13); the ocean closures
+(CATKE and the rest), the implicit free surface, ``ZStar``,
+``PrescribedVelocityFields``, ``split_rk3`` stepping and lat-lon or
+orthogonal grids (item 15).
 
 The state is a dataclass of tensors. ``step`` returns a new state but
 reuses its argument's storage: halo fills write halo rows in place, the
@@ -44,6 +47,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from oceananigans_torch import closures as closures_mod
 from oceananigans_torch.advection import (
     SCHEMES, WENO, Centered, _face_value, _face_value_smooth,
     cell_advection_timescale, div_Uc, div_vu, div_vv,
@@ -51,7 +55,7 @@ from oceananigans_torch.advection import (
 )
 from oceananigans_torch.boundary_conditions import (
     _fill_axis, apply_flux_bcs, fill_halo_regions,
-    regularize_field_boundary_conditions,
+    regularize_field_boundary_conditions, top_flux_values,
 )
 from oceananigans_torch.buoyancy import g_Earth, regularize_buoyancy
 from oceananigans_torch.coriolis import FORMULATIONS
@@ -74,7 +78,7 @@ from oceananigans_torch.timesteppers import Clock, ab2_coefficients, tick
 
 X, Y, Z = 0, 1, 2
 
-_ITEM12 = "ROADMAP Queue 1 item 12 (closures and physics)"
+_ITEM12 = "ROADMAP Queue 1 item 12 (forcings and physics)"
 _ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
 
 
@@ -504,7 +508,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                  particles=None, biogeochemistry=None, stokes_drift=None,
                  auxiliary_fields=None, fused_kernels="auto", device=None):
         super().__init__()
-        given = dict(closure=closure, forcing=forcing, particles=particles,
+        given = dict(forcing=forcing, particles=particles,
                      biogeochemistry=biogeochemistry,
                      stokes_drift=stokes_drift,
                      auxiliary_fields=auxiliary_fields)
@@ -521,6 +525,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 f"grids with {_ITEM15}")
         if timestepper not in ("quasi_ab2", "split_rk3"):
             raise ValueError(f"unknown timestepper {timestepper!r}")
+        closures_mod.check_closure(closure, "HydrostaticFreeSurfaceModel")
         if timestepper == "split_rk3":
             raise NotImplementedError(f"timestepper='split_rk3' is not "
                                       f"ported yet; {_ITEM15} brings it")
@@ -569,6 +574,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         self.tracer_names = tracers
         self.buoyancy = buoyancy
         self.coriolis = coriolis
+        self.closure = closure
         self._fused = fused_kernels
         #: hooks ``(grid, state, {name: G}) -> {name: G}`` applied to the
         #: tendencies at the end of :meth:`compute_tendencies` (wired by
@@ -703,12 +709,14 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         return eta
 
     def fill_state_halos(self, state):
-        """Fill u, v, the tracers and η in place."""
+        """Fill u, v, the tracers and η in place at the clock time (u and v
+        also with the last Δt, which the radiation condition reads)."""
         g = self.grid
-        fill_halo_regions(state.u, g, self.bcs["u"], LOC_U)
-        fill_halo_regions(state.v, g, self.bcs["v"], LOC_V)
+        t, dtl = state.clock.time, state.clock.last_dt
+        fill_halo_regions(state.u, g, self.bcs["u"], LOC_U, t, dt=dtl)
+        fill_halo_regions(state.v, g, self.bcs["v"], LOC_V, t, dt=dtl)
         for name, c in state.tracers.items():
-            fill_halo_regions(c, g, self.bcs[name], LOC_C)
+            fill_halo_regions(c, g, self.bcs[name], LOC_C, t)
         self._fill_eta_halos(state.eta)
         return state
 
@@ -722,7 +730,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         # w at face k (the bottom face of cell k) = −Σ over cells k' < k
         w = -shift(csum, -1, Z)
         w[:, :, 0] = 0.0
-        fill_halo_regions(w, g, self.bcs["w"], LOC_W)
+        fill_halo_regions(w, g, self.bcs["w"], LOC_W, state.clock.time)
         return _replace(state, w=w)
 
     def update_state(self, state):
@@ -743,9 +751,19 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         above = total - torch.cumsum(contrib, dim=Z)
         return -(above + 0.5 * contrib)
 
-    def momentum_tendencies(self, state):
+    def compute_diffusivities(self, state):
+        """The closure's coefficients of this step, one entry a closure."""
+        return closures_mod.compute_diffusivities(
+            self.closure, self.grid, state.u, state.v, state.w,
+            state.tracers, self.buoyancy,
+            top_fluxes=lambda: top_flux_values(self.bcs, self.grid,
+                                               state.clock.time))
+
+    def momentum_tendencies(self, state, diffusivities=None):
         """``(Gu, Gv)``: momentum advection, Coriolis, the hydrostatic
-        pressure gradient and the explicit free surface's g∇η."""
+        pressure gradient, the explicit free surface's g∇η, the closure's
+        explicit stress divergence (with ``diffusivities``, computed here
+        when not given) and the boundary fluxes."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         ma = self.momentum_advection
@@ -770,14 +788,27 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         if isinstance(fs, ExplicitFreeSurface):
             Gu = Gu - fs.g * dx_f(state.eta) / g.dx(Face, Center)
             Gv = Gv - fs.g * dy_f(state.eta) / g.dy(Face, Center)
-        return (apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U),
-                apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V))
+        if self.closure is not None:
+            if diffusivities is None:
+                diffusivities = self.compute_diffusivities(state)
+            du, dv, _ = closures_mod.momentum_flux_divergences(
+                self.closure, g, u, v, w, state.tracers, diffusivities,
+                include_implicit=False)
+            Gu, Gv = Gu + du, Gv + dv
+        time, fields = state.clock.time, state.fields()
+        return (apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields),
+                apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields))
 
-    def tracer_tendencies(self, state):
-        """``{name: Gc}``: each tracer's advection."""
+    def tracer_tendencies(self, state, diffusivities=None):
+        """``{name: Gc}``: each tracer's advection, the closure's explicit
+        flux divergence (with ``diffusivities``, computed here when not
+        given) and the boundary fluxes."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
+        time, fields = state.clock.time, state.fields()
+        if self.closure is not None and diffusivities is None:
+            diffusivities = self.compute_diffusivities(state)
         fused = {}
         if self.fused_tracer and tracers:
             # one kernel for every tracer: the velocities are read once
@@ -790,14 +821,21 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             if Gc is None:
                 Gc = -div_Uc(g, self.tracer_advection, u, v, w,
                              tracers[name])
-            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C)
+            if self.closure is not None:
+                Gc = Gc + closures_mod.tracer_flux_divergence(
+                    self.closure, g, name, tracers[name], tracers,
+                    diffusivities, include_implicit=False)
+            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C,
+                                            time, fields)
         return Gtracers
 
-    def compute_tendencies(self, state):
+    def compute_tendencies(self, state, diffusivities=None):
         """``(Gu, Gv, {name: Gc})``, with the ``tendency_callbacks`` applied
-        in order."""
-        Gu, Gv = self.momentum_tendencies(state)
-        Gt = self.tracer_tendencies(state)
+        in order; ``diffusivities`` are computed here when not given."""
+        if diffusivities is None:
+            diffusivities = self.compute_diffusivities(state)
+        Gu, Gv = self.momentum_tendencies(state, diffusivities)
+        Gt = self.tracer_tendencies(state, diffusivities)
         for hook in self.tendency_callbacks:
             G = hook(self.grid, state, {"u": Gu, "v": Gv, **Gt})
             Gu, Gv = G["u"], G["v"]
@@ -902,10 +940,12 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         return u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2
 
     def _step_qab2(self, state, dt, chi=0.1):
-        """Quasi-AB2 from a filled state with w diagnosed. ``dt`` is a 0-d
-        CPU tensor in the state's dtype."""
+        """Quasi-AB2 from a filled state with w diagnosed, then the
+        closure's implicit vertical diffusion. ``dt`` is a 0-d CPU tensor in
+        the state's dtype."""
+        diffusivities = self.compute_diffusivities(state)
         u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2 = self.ab2_update(
-            state, dt, chi)
+            state, dt, chi, self.compute_tendencies(state, diffusivities))
         fs = self.free_surface
         Geta = state.Geta
         if isinstance(fs, ExplicitFreeSurface):
@@ -925,19 +965,37 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 _replace(state, u=u, v=v, tracers=tracers, eta=eta_f,
                          U=U_f, V=V_f))
             state2 = self._barotropic_correct(state2, U_f, V_f)
-        state2 = _replace(state2, Gu=Gu, Gv=Gv, Gtracers=Gt, Geta=Geta,
-                          clock=tick(state2.clock, dt))
+        state2 = _replace(state2, Gu=Gu, Gv=Gv, Gtracers=Gt, Geta=Geta)
+        state2 = self._implicit_diffusion(state2, diffusivities, dt)
+        state2 = _replace(state2, clock=tick(state2.clock, dt))
         return self.update_state(state2)
+
+    def _implicit_diffusion(self, state, diffusivities, dt):
+        """The closure's vertically implicit diffusion of u, v and the
+        tracers over ``dt``, where it has one: a Thomas solve down every
+        column of the halo-extended grid for each field."""
+        if not closures_mod.closure_is_vertically_implicit(self.closure):
+            return state
+        u, v, tracers = closures_mod.implicit_vertical_diffusion_step(
+            self.grid, self.closure, diffusivities, dt,
+            u=state.u, v=state.v, tracers=state.tracers)
+        return _replace(state, u=u, v=v, tracers=tracers)
 
     def cfl_timescale(self, state):
         return cell_advection_timescale(self.grid, state.u, state.v,
                                         state.w)
 
+    def diffusion_timescale(self, state):
+        """Δmin²/ν_max of the closure (Δmin⁴ for biharmonic ones), +inf
+        without one; for ``TimeStepWizard(diffusive_cfl=)``."""
+        return closures_mod.cell_diffusion_timescale(
+            self.closure, self.grid, self.compute_diffusivities(state))
+
     def extra_repr(self):
         return (f"free_surface={self.free_surface!r}, "
                 f"momentum_advection={self.momentum_advection!r}, "
                 f"tracer_advection={self.tracer_advection!r}, "
-                f"tracers={self.tracer_names}")
+                f"tracers={self.tracer_names}, closure={self.closure!r}")
 
 
 __all__ = ["CrossAndSelfUpwinding", "ExplicitFreeSurface",

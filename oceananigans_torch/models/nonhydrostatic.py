@@ -3,7 +3,10 @@ projection.
 
 Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
 ``RectilinearGrid``: Centered, UpwindBiased, WENO or FluxFormAdvection
-advection of momentum and tracers, Coriolis, buoyancy, quasi-AB2 or RK3 time stepping. The model is an
+advection of momentum and tracers, Coriolis, buoyancy, the closures of
+``closures.py`` (their explicit flux divergences added to the tendencies,
+their vertically implicit part solved after the update), valued and open
+boundary conditions, quasi-AB2 or RK3 time stepping. The model is an
 ``nn.Module`` whose grid and pressure solver are submodules, so
 ``model.to(device)`` moves every constant they hold.
 
@@ -28,12 +31,14 @@ from typing import Dict
 
 import torch
 
+from oceananigans_torch import closures as closures_mod
 from oceananigans_torch.advection import (
     SCHEMES, WENO, Centered, cell_advection_timescale, div_Uc, div_vu,
     div_vv, div_vw, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
-    apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions,
+    apply_flux_bcs, fill_halo_regions, has_valued_flux,
+    regularize_field_boundary_conditions, top_flux_values,
 )
 from oceananigans_torch.buoyancy import (
     BuoyancyTracer, SeawaterBuoyancy, regularize_buoyancy,
@@ -68,12 +73,11 @@ TIMESTEPPERS = ("QuasiAdamsBashforth2", "RungeKutta3")
 #: constructor arguments not ported yet, and the ROADMAP Queue 1 item that
 #: brings each
 _LATER = {
-    "closure": "item 12 (closures and physics)",
-    "forcing": "item 12 (closures and physics)",
-    "background_fields": "item 12 (closures and physics)",
-    "particles": "item 12 (closures and physics)",
-    "stokes_drift": "item 12 (closures and physics)",
-    "biogeochemistry": "item 12 (closures and physics)",
+    "forcing": "item 12 (forcings and physics)",
+    "background_fields": "item 12 (forcings and physics)",
+    "particles": "item 12 (forcings and physics)",
+    "stokes_drift": "item 12 (forcings and physics)",
+    "biogeochemistry": "item 12 (forcings and physics)",
 }
 
 
@@ -115,7 +119,7 @@ class NonhydrostaticModel(torch.nn.Module):
                  fused_kernels="auto", timestepper="RungeKutta3",
                  device=None):
         super().__init__()
-        given = dict(closure=closure, forcing=forcing,
+        given = dict(forcing=forcing,
                      background_fields=background_fields,
                      particles=particles, stokes_drift=stokes_drift,
                      biogeochemistry=biogeochemistry)
@@ -145,28 +149,31 @@ class NonhydrostaticModel(torch.nn.Module):
                 f"buoyancy {buoyancy.formulation!r} is not ported yet")
         if timestepper not in TIMESTEPPERS:
             raise ValueError(f"unknown timestepper {timestepper!r}")
+        closures_mod.check_closure(closure, "NonhydrostaticModel")
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
         if buoyancy is not None:
             tracers += tuple(t for t in buoyancy.required_tracers
                              if t not in tracers)
-        needed = required_halo(advection)
+        needed = max(required_halo(advection),
+                     closures_mod.closure_required_halo(closure))
         for axis in range(3):
             H, N = grid.H[axis], grid.N[axis]
             if N <= 1 or (grid.axis_topo(axis) == Periodic and H == 0):
                 continue
             if H < min(needed, N):
                 raise ValueError(
-                    f"grid halo {grid.H} too small for advection requiring "
-                    f"{needed}; build the grid with halo={needed} (or "
-                    "halo=0 on periodic axes)")
+                    f"grid halo {grid.H} too small for advection/closure "
+                    f"requiring {needed}; build the grid with halo={needed} "
+                    "(or halo=0 on periodic axes)")
 
         self.grid = grid
         self.advection = advection
         self.tracer_names = tracers
         self.buoyancy = buoyancy
         self.coriolis = coriolis
+        self.closure = closure
         self.timestepper = timestepper
         boundary_conditions = dict(boundary_conditions or {})
         self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W,
@@ -201,9 +208,11 @@ class NonhydrostaticModel(torch.nn.Module):
         return self.grid.device
 
     # ------------------------------------------------------------------
-    # Dispatch gates. Only homogeneous boundary fluxes are ported and the
-    # unported physics raise, so the JAX model's conditions on closures,
-    # forcings, flux conditions and the like hold by construction.
+    # Dispatch gates. The tendency kernels run whatever the closure and
+    # the boundary fluxes (their terms are added to the kernels' output);
+    # the fused AB2 kernels take neither, as the JAX model's
+    # ``_fused_common``. The physics not ported yet (forcings, background
+    # fields, Stokes drift, biogeochemistry) raises at construction.
     # ------------------------------------------------------------------
     @property
     def fused_kernels(self):
@@ -231,22 +240,30 @@ class NonhydrostaticModel(torch.nn.Module):
         return self._tracer_metrics is not None and self._kernels_on()
 
     @property
-    def _pure_advection(self) -> bool:
+    def _fused_common(self) -> bool:
+        """What every fused AB2 kernel needs: AB2 stepping, no closure, no
+        flux condition with a value on u, v, w or a tracer, and no
+        tendency callback."""
         return (self.timestepper == "QuasiAdamsBashforth2"
+                and self.closure is None
+                and not any(has_valued_flux(b) for b in self.bcs.values())
+                and not self.tendency_callbacks)
+
+    @property
+    def _pure_advection(self) -> bool:
+        return (self._fused_common
                 and self.coriolis is None and self.buoyancy is None
                 and not self.tracer_names)
 
     @property
     def fused_ab2(self) -> bool:
         """The Centered-2 tendency and the AB2 update run as one kernel."""
-        return (self._pure_advection and not self.tendency_callbacks
-                and self.fused_kernels == "centered2")
+        return self._pure_advection and self.fused_kernels == "centered2"
 
     @property
     def fused_ab2_weno(self) -> bool:
         """The WENO-5 tendency and the AB2 update run as one kernel."""
-        return (self._pure_advection and not self.tendency_callbacks
-                and self.fused_kernels == "weno5")
+        return self._pure_advection and self.fused_kernels == "weno5"
 
     @property
     def _science_fusable(self) -> bool:
@@ -257,8 +274,7 @@ class NonhydrostaticModel(torch.nn.Module):
         buoyancy_ok = self.buoyancy is None or (
             isinstance(self.buoyancy.formulation, BuoyancyTracer)
             and self.buoyancy.gravity_unit_vector == (0.0, 0.0, -1.0))
-        return (self.timestepper == "QuasiAdamsBashforth2"
-                and not self.tendency_callbacks
+        return (self._fused_common
                 and (self.coriolis is None
                      or type(self.coriolis) is FPlane)
                 and buoyancy_ok
@@ -311,32 +327,52 @@ class NonhydrostaticModel(torch.nn.Module):
     # Halo fills (in place)
     # ------------------------------------------------------------------
     def fill_state_halos(self, state):
+        """Fill every field's halos in place at the clock time (the
+        velocities also with the last Δt, which the radiation condition
+        reads)."""
+        t, dtl = state.clock.time, state.clock.last_dt
         for name, field in state.fields().items():
             fill_halo_regions(field, self.grid, self.bcs[name],
-                              self.locations[name])
+                              self.locations[name], t,
+                              dt=dtl if name in ("u", "v", "w") else None)
         return state
 
     def _fill_before_projection(self, state):
         """Fill only the halos the projection reads: the divergence shifts
         each velocity component along its own axis only, so u in x, v in y
         and w in z (halo-free periodic axes wrap exactly)."""
+        t, dtl = state.clock.time, state.clock.last_dt
         for axis, name in enumerate(("u", "v", "w")):
             if self.grid.H[axis] == 0:
                 continue
             fill_halo_regions(getattr(state, name), self.grid, self.bcs[name],
-                              self.locations[name], axes=(axis,))
+                              self.locations[name], t, dt=dtl, axes=(axis,))
         return state
 
     # ------------------------------------------------------------------
     # Tendencies and projection
     # ------------------------------------------------------------------
-    def compute_tendencies(self, state):
-        """``(Gu, Gv, Gw, {name: Gc})``: advection, Coriolis and buoyancy of
-        the momentum, advection of each tracer, then the
-        ``tendency_callbacks`` in order."""
+    def compute_diffusivities(self, state):
+        """The closure's coefficients of this step, one entry a closure."""
+        return closures_mod.compute_diffusivities(
+            self.closure, self.grid, state.u, state.v, state.w,
+            state.tracers, self.buoyancy,
+            top_fluxes=lambda: top_flux_values(self.bcs, self.grid,
+                                               state.clock.time))
+
+    def compute_tendencies(self, state, diffusivities=None):
+        """``(Gu, Gv, Gw, {name: Gc})``: advection, Coriolis, buoyancy and
+        the closure's explicit stress divergence of the momentum; advection
+        and the closure's explicit flux divergence of each tracer; the
+        boundary fluxes; then the ``tendency_callbacks`` in order.
+        ``diffusivities`` are computed here when not given."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
+        time = state.clock.time
+        fields = state.fields()
+        if diffusivities is None:
+            diffusivities = self.compute_diffusivities(state)
         kernels = self.fused_kernels
         if kernels == "centered2":
             Gu, Gv, Gw = centered2_momentum_tendency(g, u, v, w)
@@ -358,9 +394,14 @@ class NonhydrostaticModel(torch.nn.Module):
             Gu = Gu if bx is None else Gu + bx
             Gv = Gv if by is None else Gv + by
             Gw = Gw if bz is None else Gw + bz
-        Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U)
-        Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V)
-        Gw = apply_flux_bcs(Gw, g, self.bcs["w"], LOC_W)
+        if self.closure is not None:
+            du, dv, dw = closures_mod.momentum_flux_divergences(
+                self.closure, g, u, v, w, tracers, diffusivities,
+                include_implicit=False)
+            Gu, Gv, Gw = Gu + du, Gv + dv, Gw + dw
+        Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields)
+        Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields)
+        Gw = apply_flux_bcs(Gw, g, self.bcs["w"], LOC_W, time, fields)
 
         fused = {}
         if kernels == "weno5":
@@ -376,7 +417,12 @@ class NonhydrostaticModel(torch.nn.Module):
             Gc = fused.get(name)
             if Gc is None:
                 Gc = -div_Uc(g, self.advection, u, v, w, tracers[name])
-            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C)
+            if self.closure is not None:
+                Gc = Gc + closures_mod.tracer_flux_divergence(
+                    self.closure, g, name, tracers[name], tracers,
+                    diffusivities, include_implicit=False)
+            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C,
+                                            time, fields)
         for hook in self.tendency_callbacks:
             G = hook(g, state, {"u": Gu, "v": Gv, "w": Gw, **Gtracers})
             Gu, Gv, Gw = G["u"], G["v"], G["w"]
@@ -413,17 +459,34 @@ class NonhydrostaticModel(torch.nn.Module):
             return self.rk3_step(state, dt, assume_filled=assume_filled)
         return self.ab2_step(state, dt, assume_filled=assume_filled)
 
+    def _implicit_diffusion(self, state, diffusivities, dt):
+        """The closure's vertically implicit diffusion of u, v and the
+        tracers over ``dt`` (a 0-d tensor), where it has one."""
+        if not closures_mod.closure_is_vertically_implicit(self.closure):
+            return state
+        u, v, tracers = closures_mod.implicit_vertical_diffusion_step(
+            self.grid, self.closure, diffusivities, dt,
+            u=state.u, v=state.v, tracers=state.tracers)
+        return _replace(state, u=u, v=v, tracers=tracers)
+
     def rk3_step(self, state, dt, assume_filled=False):
-        """3-stage Wray RK3 with a projection at every stage. ``dt`` is a
-        0-d CPU tensor in the state's dtype."""
+        """3-stage Wray RK3 with a projection at every stage; boundary
+        conditions are evaluated at each stage's time. ``dt`` is a 0-d CPU
+        tensor in the state's dtype."""
         Gu_prev, Gv_prev, Gw_prev = state.Gu, state.Gv, state.Gw
         Gt_prev = state.Gtracers
         dtf = dt.item()
+        t0 = state.clock.time
+        stage_frac = 0.0
         for stage, (gamma, zeta) in enumerate(RK3_STAGES):
+            state = _replace(state, clock=dataclasses.replace(
+                state.clock, time=t0 + stage_frac * dt))
             if stage > 0 or not assume_filled:
                 state = self.fill_state_halos(state)
-            Gu, Gv, Gw, Gt = self.compute_tendencies(state)
-            stage_dt = (dt * (gamma + zeta)).item()
+            diffusivities = self.compute_diffusivities(state)
+            Gu, Gv, Gw, Gt = self.compute_tendencies(state, diffusivities)
+            stage_frac += gamma + zeta
+            stage_dt = dt * (gamma + zeta)
             state = _replace(
                 state,
                 u=state.u + dtf * (gamma * Gu + zeta * Gu_prev),
@@ -432,17 +495,20 @@ class NonhydrostaticModel(torch.nn.Module):
                 tracers={n: state.tracers[n]
                          + dtf * (gamma * Gt[n] + zeta * Gt_prev[n])
                          for n in self.tracer_names})
+            state = self._implicit_diffusion(state, diffusivities, stage_dt)
             state = self._fill_before_projection(state)
-            state = self._pressure_correct(state, stage_dt)
+            state = self._pressure_correct(state, stage_dt.item())
             Gu_prev, Gv_prev, Gw_prev, Gt_prev = Gu, Gv, Gw, Gt
+        clock = tick(dataclasses.replace(state.clock, time=t0), dt)
         state = _replace(state, Gu=Gu_prev, Gv=Gv_prev, Gw=Gw_prev,
-                         Gtracers=Gt_prev, clock=tick(state.clock, dt))
+                         Gtracers=Gt_prev, clock=clock)
         return self.fill_state_halos(state)
 
-    def ab2_update(self, state, dt, chi=0.1):
+    def ab2_update(self, state, dt, chi=0.1, diffusivities=None):
         """The tendencies and the quasi-AB2 update of every prognostic
         field, through the one fused kernel that applies or through
-        :meth:`compute_tendencies`; the first part of :meth:`ab2_step`."""
+        :meth:`compute_tendencies` (with ``diffusivities`` when given); the
+        first part of :meth:`ab2_step`."""
         c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
         a, b = (dt * c_now).item(), (dt * c_prev).item()
         g = self.grid
@@ -467,7 +533,7 @@ class NonhydrostaticModel(torch.nn.Module):
                 buoyancy_tracer="b" if self.buoyancy is not None else None)
             return _replace(state, u=u, v=v, w=w, tracers=tracers,
                             Gu=Gu, Gv=Gv, Gw=Gw, Gtracers=Gt)
-        Gu, Gv, Gw, Gt = self.compute_tendencies(state)
+        Gu, Gv, Gw, Gt = self.compute_tendencies(state, diffusivities)
         dtf = dt.item()
         return _replace(
             state,
@@ -480,11 +546,15 @@ class NonhydrostaticModel(torch.nn.Module):
             Gu=Gu, Gv=Gv, Gw=Gw, Gtracers=Gt)
 
     def ab2_step(self, state, dt, chi=0.1, assume_filled=False):
-        """Quasi-AB2 with an Euler first step. ``dt`` is a 0-d CPU tensor
-        in the state's dtype."""
+        """Quasi-AB2 with an Euler first step, then the closure's implicit
+        vertical diffusion. ``dt`` is a 0-d CPU tensor in the state's
+        dtype."""
         if not assume_filled:
             state = self.fill_state_halos(state)
-        state = self.ab2_update(state, dt, chi)
+        diffusivities = (self.compute_diffusivities(state)
+                         if self.closure is not None else None)
+        state = self.ab2_update(state, dt, chi, diffusivities)
+        state = self._implicit_diffusion(state, diffusivities, dt)
         state = self._fill_before_projection(state)
         state = self._pressure_correct(state, dt.item())
         state = _replace(state, clock=tick(state.clock, dt))
@@ -498,13 +568,15 @@ class NonhydrostaticModel(torch.nn.Module):
         return cell_advection_timescale(self.grid, state.u, state.v, state.w)
 
     def diffusion_timescale(self, state):
-        """Δmin²/ν_max of the closure: +inf, since the model takes no
-        closure (closures are ROADMAP Queue 1 item 12)."""
-        return torch.tensor(float("inf"), dtype=self.grid.dtype)
+        """Δmin²/ν_max of the closure (Δmin⁴ for biharmonic ones), +inf
+        without one; for ``TimeStepWizard(diffusive_cfl=)``."""
+        return closures_mod.cell_diffusion_timescale(
+            self.closure, self.grid, self.compute_diffusivities(state))
 
     def extra_repr(self):
         return (f"advection={self.advection!r}, "
                 f"tracers={self.tracer_names}, coriolis={self.coriolis!r}, "
+                f"closure={self.closure!r}, "
                 f"buoyancy={self.buoyancy!r}, "
                 f"timestepper={self.timestepper!r}")
 

@@ -141,7 +141,7 @@ class ShallowWaterModel(torch.nn.Module):
                                         and not forcing):
             raise NotImplementedError(
                 "ShallowWaterModel(forcing=...) is not ported yet; ROADMAP "
-                "Queue 1 item 12 (closures and physics) brings forcings")
+                "Queue 1 item 12 (forcings and physics) brings forcings")
         if not isinstance(grid, RectilinearGrid):
             raise NotImplementedError(
                 f"{type(grid).__name__} is not ported yet")
@@ -265,10 +265,14 @@ class ShallowWaterModel(torch.nn.Module):
         return self.fill_state_halos(state)
 
     def fill_state_halos(self, state):
-        """Fill every field's halos in place."""
+        """Fill every field's halos in place at the clock time (the
+        transports also with the last Δt, which the radiation condition
+        reads)."""
+        t, dtl = state.clock.time, state.clock.last_dt
         for name, field in state.fields().items():
             fill_halo_regions(field, self.grid, self.bcs[name],
-                              self.locations[name])
+                              self.locations[name], t,
+                              dt=dtl if name in ("uh", "vh") else None)
         return state
 
     # ------------------------------------------------------------------
@@ -308,8 +312,9 @@ class ShallowWaterModel(torch.nn.Module):
         if self.coriolis is not None:
             Guh = Guh - self.coriolis.x_f_cross_U(g, cu, cv, zero)
             Gvh = Gvh - self.coriolis.y_f_cross_U(g, cu, cv, zero)
-        Guh = apply_flux_bcs(Guh, g, self.bcs["uh"], LOC_U)
-        Gvh = apply_flux_bcs(Gvh, g, self.bcs["vh"], LOC_V)
+        time, fields = state.clock.time, state.fields()
+        Guh = apply_flux_bcs(Guh, g, self.bcs["uh"], LOC_U, time, fields)
+        Gvh = apply_flux_bcs(Gvh, g, self.bcs["vh"], LOC_V, time, fields)
         Gtracers = {name: -div_Uc(g, self.tracer_advection, u, v, zero,
                                   state.tracers[name])
                     for name in self.tracer_names}

@@ -168,8 +168,8 @@ HYDRO_PHASES = ("momentum tendency", "tracer tendencies", "AB2 update",
 
 def phased_hydro_step(model, state, dt, mark):
     """``model.step(state, dt, assume_filled=True)`` for a hydrostatic
-    model with the split-explicit free surface, with ``mark()`` called
-    after each of the :data:`HYDRO_PHASES`."""
+    model with the split-explicit free surface and without a closure,
+    with ``mark()`` called after each of the :data:`HYDRO_PHASES`."""
     from oceananigans_torch.timesteppers import tick
     replace = dataclasses.replace
 

@@ -124,9 +124,14 @@ def test_unported_boundary_conditions_raise():
     from oceananigans_torch.boundary_conditions import (
         regularize_field_boundary_conditions as t_regularize,
     )
-    bcs = ot.FieldBoundaryConditions(west=ot.FluxBC(1.0))
-    with pytest.raises(NotImplementedError):
-        t_regularize(bcs, tg, ot.LOC_C)
+    # valued conditions are ported; the polar, zipper and communication
+    # classifications are not
+    t_regularize(ot.FieldBoundaryConditions(west=ot.FluxBC(1.0)), tg,
+                 ot.LOC_C)
+    for cls in ("polar", "zipper", "communication"):
+        bcs = ot.FieldBoundaryConditions(west=ot.BoundaryCondition(cls))
+        with pytest.raises(NotImplementedError):
+            t_regularize(bcs, tg, ot.LOC_C)
     with pytest.raises(ValueError):
         t_regularize(ot.FieldBoundaryConditions(south=ot.FluxBC()), tg,
                      ot.LOC_C)

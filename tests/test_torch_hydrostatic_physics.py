@@ -215,7 +215,7 @@ def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 4), extent=(1.0, 1.0, 1.0),
                               dtype=F64)
     from oceananigans_torch.models import hydrostatic as hyd
-    for kw, item in ((dict(closure=object()), "item 12"),
+    for kw, item in ((dict(closure=object()), "item 15"),
                      (dict(forcing={"u": 1.0}), "item 12"),
                      (dict(particles=object()), "item 12"),
                      (dict(biogeochemistry=object()), "item 12"),
