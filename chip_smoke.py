@@ -26,8 +26,12 @@ each of which raises on failure:
    with eight tracers), the
    Centered-2 science, shallow-water, WENO tracer and vector-invariant
    kernels also at a small size in float64 (the last two for every
-   instantiated vector-invariant order pair and tracer order 3 to 11 at
-   the ragged shapes, exact zero rows of u and v in every field), with
+   instantiated vector-invariant order pair, the mixed orders of
+   :data:`VI_MIXED` and tracer order 3 to 11 at the ragged shapes, exact
+   zero rows of u and v in every field; the last two also on
+   ``LatitudeLongitudeGrid`` layouts: phase 14's, timed, a ragged one
+   reaching both poles in float32 and float64, and the JAX package's
+   lat-lon sector in float64), with
    times and the least time
    the card could take for the same work (the Poisson kernel also beside
    the ``torch.matmul`` chain with its 1/λ table made once; the Centered-2
@@ -106,7 +110,20 @@ each of which raises on failure:
     step), held against each other at phase 9's bounds and timed, with the
     host's enqueue time, the idle share and the launches of the implicit
     step's Thomas solves; and a float64 (48, 16, 6) run of the kernel path
-    on the card against the plain path on the CPU.
+    on the card against the plain path on the CPU;
+14. ``hydro_vi_latlon``, ``hydro_vi`` on a 1° near-global
+    ``LatitudeLongitudeGrid`` (360 x 160 x 60, 80°S to 80°N, 4 km deep)
+    with ``HydrostaticSphericalCoriolis`` and linear seawater buoyancy:
+    2 + 20 steps on each path (kernels 11 and 12/13 once a step through
+    their lat-lon gates), held against each other at phase 9's bounds,
+    timed, with the host's enqueue time and the idle share, and the
+    volume held to the float32 rounding of η's updates; 3 float64 steps
+    at full width, the volume held to 1e-12 of Σ|η|·Az; a float64 run at
+    the (24, 16, 8) sector of the card against the CPU; 1 + 3 steps on
+    each path with the mixed vector-invariant orders (9, 7, 5, 3) (the
+    kernel's instantiation of runtime orders); and 3 float64 steps of a
+    ``TripolarGrid(size=(360, 170, 60))`` model, which no kernel takes,
+    its volume held to 1e-12 (the zipper fold on the card).
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -117,8 +134,9 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 and 13 zero and check the counts of
-their own runs and print them on lines of their own. The line before the last is the JSON summary of
+launches that run makes. Phases 12, 13 and 14 zero and check the counts
+of their own runs and print them on lines of their own. The line before
+the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
 WENO(5) ones); the last line is the device record.
@@ -253,19 +271,48 @@ def tracer_point_ops(order):
     return 3 * (weno_side_ops(order) + 3) + 7
 
 
-def vi_point_ops(vorticity_order, rest_order, velocity=True):
+def vi_point_ops(vorticity_order, *rest_orders, velocity=True):
     """A vector-invariant point as :data:`VI_POINT_OPS` counts the default
     one: the ζ side of ``vorticity_order`` with the indicators of its two
     smoothness fields and their sum (VelocityStencil) or of ζ itself (ζ
-    alone then, 8 operations), the other three of ``rest_order``."""
+    alone then, 8 operations); ``rest_orders``, one order for the kinetic
+    energy gradient, divergence and vertical schemes or one each, the
+    sides of those three."""
+    ke, div, vert = (rest_orders * 3 if len(rest_orders) == 1
+                     else rest_orders)
     bv = (vorticity_order + 1) // 2
     zeta = weno_side_ops(vorticity_order)
     if velocity:
         zeta += WENO_BETA_OPS[vorticity_order] + bv
-    rest = weno_side_ops(rest_order)
     return (2 * (zeta + 2 + 11) + (12 if velocity else 8)
-            + 2 * (5 + rest + 2 + 6 + 2) + 2 * (5 + rest + 1 + 3 + 2)
-            + 2 * (4 + rest + 2 + 3) + 4)
+            + 2 * (5 + weno_side_ops(ke) + 2 + 6 + 2)
+            + 2 * (5 + weno_side_ops(div) + 1 + 3 + 2)
+            + 2 * (4 + weno_side_ops(vert) + 2 + 3) + 4)
+
+
+def vi_orders(vi):
+    """The (vorticity, kinetic energy gradient, divergence, vertical) WENO
+    orders of a vector-invariant scheme."""
+    from oceananigans_torch.ops.cuda_vi import schemes
+    return tuple(s.order for s in schemes(vi))
+
+
+#: mixed (vorticity, kinetic energy gradient, divergence, vertical) WENO
+#: orders that no instantiated pair covers: the kernel's instantiation of
+#: runtime orders; the first is phase 14's mixed-order run
+VI_MIXED = ((9, 7, 5, 3), (9, 5, 5, 3), (7, 3, 3, 3), (5, 11, 7, 9),
+            (3, 5, 7, 11), (11, 3, 9, 5))
+
+
+def mixed_vi(ot, orders, stencil="velocity"):
+    """A ``VectorInvariant`` of the four WENO ``orders`` whose vertical
+    scheme has an epsilon of its own (1e-6; the others 1e-8)."""
+    kv, kk, kd, kz = orders
+    return ot.VectorInvariant(
+        vorticity_scheme=ot.WENO(kv), vorticity_stencil=stencil,
+        vertical_scheme=ot.WENO(kz, epsilon=1e-6),
+        divergence_scheme=ot.WENO(kd),
+        kinetic_energy_gradient_scheme=ot.WENO(kk))
 
 
 def face_value_ops(scheme):
@@ -338,6 +385,12 @@ LES_WARM, LES_STEPS = 2, 20
 LES_F64_STEPS, LES_F64_RTOL = 3, 1e-10
 #: phase 13: ``hydro_vi`` with closures; Δt = 60 s
 HYDRO_CLOSURE_WARM, HYDRO_CLOSURE_STEPS = 2, 20
+#: phase 14: ``hydro_vi_latlon``, the 1° near-global lat-lon ocean; Δt =
+#: 60 s. Its volume is held to 1e-12 of Σ|η|·Az in float64, as the JAX
+#: package's lat-lon test holds it; in float32 to the rounding of η's
+#: updates, one float32 epsilon a barotropic substep
+LATLON_WARM, LATLON_STEPS = 2, 20
+VOLUME_RTOL = 1e-12
 
 
 def les_model(torch, ot, fused, N=256, dtype=None, device="cuda"):
@@ -755,6 +808,219 @@ def hydro_closure_phase(torch, ot, wrappers, card, rtol):
         + " of the largest value (tolerance 1e-12)")
     require(all(v <= 1e-12 for v in rel64.values()),
             f"float64 (48, 16, 6) hydro_vi_closure card vs CPU {rel64}")
+    return out
+
+
+def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
+    """Phase 14: ``hydro_vi_latlon``, ``hydro_vi`` on a 1° near-global
+    ``LatitudeLongitudeGrid`` (360 x 160 x 60, 80°S-80°N, 4 km deep, halo
+    (6, 6, 4)) with spherical Coriolis and linear seawater buoyancy, on the
+    kernel path (kernels 11 and 12/13 once a step through their lat-lon
+    gates) and on the plain path; its volume; a float64 run at full width
+    and one at the (24, 16, 8) sector of the card against the CPU; a
+    mixed-order vector-invariant run; and a float64 tripolar run, which no
+    kernel takes."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_latlon_initial_state, hydro_latlon_model,
+        volume_drift,
+    )
+    from oceananigans_torch.ops import cuda_tracer as ctr
+    from oceananigans_torch.ops import cuda_vi as cvi
+    hydro_kernels = ("weno_tracer_tendencies", "vi_momentum_tendency")
+
+    def run(model, state, warm, steps, kernels):
+        """``warm`` + ``steps`` steps from ``state`` with the launch counts
+        zeroed first and checked after: once a step for each of
+        ``kernels``, none of the others."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        for _ in range(warm):
+            state = model.step(state, HYDRO_DT, assume_filled=True)
+        state, ms, enqueue = timed_steps(torch, model, state, HYDRO_DT,
+                                         steps)
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        want = {k: warm + steps for k in kernels}
+        require(counts == want, f"hydro_vi_latlon launches {counts}, "
+                f"expected {want}")
+        require(all(bool(torch.isfinite(q).all())
+                    for q in (state.u, state.v, state.w, state.eta,
+                              *state.tracers.values())),
+                "hydro_vi_latlon: finite fields")
+        return state, ms, enqueue, counts
+
+    def fields(g, st):
+        xy = g.interior_slices[:2]
+        return {"velocities": [g.interior(st.u).clone(),
+                               g.interior(st.v).clone()],
+                "eta": [st.eta[xy].clone()],
+                "tracers": [g.interior(st.tracers[n]).clone()
+                            for n in ("T", "S")]}
+
+    def paths(momentum, warm, steps, tag, scales=None):
+        """Both paths at full width in float32 from the initial state,
+        held to each other relative to the largest value of each group
+        (or the larger ``scales`` entry)."""
+        finals, out = {}, {}
+        for path, fused in (("kernel", "auto"), ("plain", False)):
+            model = hydro_latlon_model(fused, momentum_advection=momentum)
+            g = model.grid
+            require(type(g) is ot.LatitudeLongitudeGrid
+                    and model.fused_kernels == model.fused_tracer
+                    == (path == "kernel"),
+                    f"{tag} {path} path selects fused_kernels="
+                    f"{model.fused_kernels}, fused_tracer="
+                    f"{model.fused_tracer}: the lat-lon gates take the "
+                    "grid")
+            state = model.update_state(hydro_latlon_initial_state(model))
+            eta0 = state.eta.clone()
+            torch.cuda.synchronize()
+            state, ms, enqueue, counts = run(
+                model, state, warm, steps,
+                hydro_kernels if path == "kernel" else ())
+            drift = volume_drift(model, eta0, state.eta)
+            substeps = len(model.free_surface.weights)
+            vbound = ((warm + steps) * substeps
+                      * float(torch.finfo(torch.float32).eps))
+            require(drift <= vbound, f"{tag} {path} path: volume drift "
+                    f"{drift:.3e} of sum|eta| Az (float32 bound {vbound:.3e})")
+            out[path] = {"ms": ms, "enqueue": enqueue, "counts": counts,
+                         "drift": drift, "model": model, "state": state,
+                         "vbound": vbound}
+            finals[path] = fields(g, state)
+            torch.cuda.synchronize()
+        rel = {k: group_rel(list(zip(finals["kernel"][k],
+                                     finals["plain"][k])),
+                            (scales or {}).get(k, 0.0))
+               for k in finals["kernel"]}
+        out["eta_max"] = float(finals["plain"]["eta"][0].abs().max())
+        require(all(rel[k] <= rtol[k] for k in rel),
+                f"{tag} kernel vs plain path {rel}")
+        return out, rel
+
+    # the main run: 2 + 20 steps on each path
+    out, rel = paths(None, LATLON_WARM, LATLON_STEPS, "hydro_vi_latlon")
+    total = LATLON_WARM + LATLON_STEPS
+    for path in ("kernel", "plain"):
+        o = out[path]
+        model, state = o.pop("model"), o.pop("state")
+        g = model.grid
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, HYDRO_DT, assume_filled=True),
+            3)
+        require(busy > 0, f"hydro_vi_latlon {path} path: the profiler saw "
+                "device time")
+        o.update(busy=busy, per_step_launches=n_launch)
+        xy = g.interior_slices[:2]
+        log(f"[14] hydro_vi_latlon {path} path: {o['ms']:.3f} ms/step (steps"
+            f" {LATLON_WARM + 1} to {total} of AB2, CUDA events); host "
+            f"enqueue {o['enqueue']:.3f} ms/step; launches in {total} steps "
+            f"{o['counts']}; max|u| "
+            f"{float(g.interior(state.u).abs().max()):.4e}, max|eta| "
+            f"{float(state.eta[xy].abs().max()):.4e}; volume drift "
+            f"{o['drift']:.3e} of sum|eta| Az (float32 bound "
+            f"{o['vbound']:.3e})")
+        log(f"[14] hydro_vi_latlon {path} path under torch.profiler, 3 "
+            f"steps: device-busy {busy:.3f} ms/step in a wall of "
+            f"{wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; against "
+            f"the unprofiled {o['ms']:.3f} ms/step, idle share "
+            f"{1 - busy / o['ms']:.3f}; {n_launch:.0f} kernel launches a "
+            "step")
+        del model, state
+        torch.cuda.empty_cache()
+    log(f"[14] hydro_vi_latlon: kernel vs plain path after {total} steps: "
+        + ", ".join(f"{k} {v:.3e} of the largest value (tolerance "
+                    f"{rtol[k]:g})" for k, v in rel.items()))
+
+    # float64 at full width on the kernel path: the volume to 1e-12
+    model = hydro_latlon_model("auto", torch.float64)
+    state = model.update_state(hydro_latlon_initial_state(model))
+    eta0 = state.eta.clone()
+    state, ms64, _, counts64 = run(model, state, 0, 3, hydro_kernels)
+    drift64 = volume_drift(model, eta0, state.eta)
+    require(drift64 <= VOLUME_RTOL, f"float64 hydro_vi_latlon volume drift "
+            f"{drift64:.3e}")
+    log(f"[14] float64 hydro_vi_latlon at full width, 3 AB2 steps on the "
+        f"kernel path: {ms64:.3f} ms/step; launches {counts64}; volume "
+        f"drift {drift64:.3e} of sum|eta| Az (tolerance {VOLUME_RTOL:g})")
+    del model, state, eta0
+    torch.cuda.empty_cache()
+
+    # float64 at the (24, 16, 8) sector: the card against the CPU
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = hydro_latlon_model("auto", torch.float64, device,
+                               size=(24, 16, 8), longitude=(-30.0, 30.0),
+                               latitude=(15.0, 55.0), halo=6)
+        require(m.fused_kernels == m.fused_tracer == (device == "cuda"),
+                "float64 hydro_vi_latlon sector routes")
+        st = hydro_latlon_initial_state(m, generic=True)
+        for _ in range(3):
+            st = m.step(st, HYDRO_DT)
+        f64[device] = (m.grid, st)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    xy = gp.interior_slices[:2]
+    groups = {"velocities": [(gk.interior(sk.u).cpu(), gp.interior(sp.u)),
+                             (gk.interior(sk.v).cpu(), gp.interior(sp.v))],
+              "w": [(gk.interior(sk.w).cpu(), gp.interior(sp.w))],
+              "eta": [(sk.eta[xy].cpu(), sp.eta[xy])],
+              "tracers": [(gk.interior(sk.tracers[n]).cpu(),
+                           gp.interior(sp.tracers[n])) for n in ("T", "S")]}
+    rel64 = {k: group_rel(p) for k, p in groups.items()}
+    log("[14] float64 (24, 16, 8) lat-lon sector, 3 AB2 steps: kernel path "
+        "on the card vs plain path on the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel64.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel64.values()),
+            f"float64 lat-lon sector card vs CPU {rel64}")
+    del f64, m, st
+    torch.cuda.empty_cache()
+
+    # mixed orders: the vector-invariant kernel's instantiation of runtime
+    # orders, 1 + 3 steps on both paths
+    # η starts from rest and grows over the first steps while the paths'
+    # rounding differences do not shrink with it: after 4 steps it is held
+    # relative to the larger of its own largest value and the 22-step
+    # run's
+    mixed, mixed_rel = paths(mixed_vi(ot, VI_MIXED[0]), 1, 3,
+                             "hydro_vi_latlon mixed orders",
+                             {"eta": out["eta_max"]})
+    for path in ("kernel", "plain"):
+        del mixed[path]["model"], mixed[path]["state"]
+    log(f"[14] hydro_vi_latlon with orders {VI_MIXED[0]} (the vertical "
+        f"scheme's epsilon 1e-6), 1 + 3 steps: kernel path "
+        f"{mixed['kernel']['ms']:.3f} ms/step, plain path "
+        f"{mixed['plain']['ms']:.3f} ms/step; launches "
+        f"{mixed['kernel']['counts']}; kernel vs plain path: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in mixed_rel.items())
+        + f" of the largest value (eta: of max(max|eta| "
+        f"{mixed['eta_max']:.4e}, the 22-step run's {out['eta_max']:.4e}))")
+    torch.cuda.empty_cache()
+
+    # the tripolar grid in float64: no kernel takes it (as in the JAX
+    # package); the zipper fold fills the north halos on the card
+    tg = ot.TripolarGrid(size=(360, 170, 60), z=(-4000.0, 0.0),
+                         halo=(6, 6, 4), dtype=torch.float64, device="cuda")
+    tm = ot.HydrostaticFreeSurfaceModel(
+        grid=tg, momentum_advection=ot.WENOVectorInvariant(),
+        tracer_advection=ot.WENO(7), tracers=("T", "S"),
+        buoyancy=ot.SeawaterBuoyancy(
+            equation_of_state=ot.LinearEquationOfState()),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30))
+    require(not ctr.tracer_fusion_available(tg, tm.tracer_advection)
+            and not cvi.vi_available(tg, tm.momentum_advection),
+            "no kernel takes the tripolar grid")
+    st = tm.update_state(hydro_latlon_initial_state(tm))
+    eta0 = st.eta.clone()
+    st, tms, _, tcounts = run(tm, st, 0, 3, ())
+    tdrift = volume_drift(tm, eta0, st.eta)
+    require(tdrift <= VOLUME_RTOL, f"tripolar volume drift {tdrift:.3e}")
+    log(f"[14] float64 TripolarGrid(size=(360, 170, 60)), 3 AB2 steps on "
+        f"the card: {tms:.3f} ms/step, launches {tcounts}; max|u| "
+        f"{float(tg.interior(st.u).abs().max()):.4e}; volume drift "
+        f"{tdrift:.3e} of sum|eta| Az (tolerance {VOLUME_RTOL:g})")
+    del tm, st, tg, eta0
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1336,30 +1602,50 @@ def main():
     # WENO_RTOL as for the WENO-5 kernels: nonlinear WENO-Z weights, the
     # plain versions divide by volumes and areas where the kernels take the
     # same values from y-profiles, FMA contraction
+    # The lat-lon layouts ("latlon ...", a LatitudeLongitudeGrid of
+    # (longitude, latitude) in place of the topology: phase 14's 1°
+    # near-global ocean, ragged ones reaching both poles) take the same
+    # kernels with metric profiles that vary with latitude; every layout
+    # also takes the mixed orders of VI_MIXED (the kernel's instantiation
+    # of runtime orders)
+    PBB = (ot.Periodic, ot.Bounded, ot.Bounded)
+    NEAR_GLOBAL, POLES = ((0.0, 360.0), (-80.0, 80.0)), ((0.0, 360.0),
+                                                          (-90.0, 90.0))
     hydro_shapes = {
-        "main": ((360, 160, 60), (6, 6, 4),
-                 (ot.Periodic, ot.Bounded, ot.Bounded), f32),
+        "main": ((360, 160, 60), (6, 6, 4), PBB, f32),
+        "latlon main": ((360, 160, 60), (6, 6, 4), NEAR_GLOBAL, f32),
         "ragged": ((23, 17, 9), (6, 6, 4),
                    (ot.Bounded, ot.Bounded, ot.Bounded), f32),
         "ragged halo-free": ((16, 12, 32), (5, 0, 0),
                              (ot.Bounded, ot.Periodic, ot.Periodic), f32),
         "ragged wide halo": ((23, 17, 9), (6, 6, 6),
                              (ot.Bounded, ot.Bounded, ot.Bounded), f32),
-        "ragged float64": ((23, 17, 9), (6, 6, 4),
-                           (ot.Periodic, ot.Bounded, ot.Bounded),
-                           torch.float64),
-        "ragged wide halo float64": ((23, 17, 9), (6, 6, 6),
-                                     (ot.Periodic, ot.Bounded, ot.Bounded),
-                                     torch.float64)}
+        "latlon ragged wide halo": ((23, 17, 9), (6, 6, 6), POLES, f32),
+        "ragged float64": ((23, 17, 9), (6, 6, 4), PBB, torch.float64),
+        "ragged wide halo float64": ((23, 17, 9), (6, 6, 6), PBB,
+                                     torch.float64),
+        "latlon ragged wide halo float64": ((23, 17, 9), (6, 6, 6), POLES,
+                                            torch.float64),
+        "latlon sector float64": ((24, 16, 8), (6, 6, 6),
+                                  ((-30.0, 30.0), (15.0, 55.0)),
+                                  torch.float64)}
     vi_velocity = ot.WENOVectorInvariant()
     vi_schemes = [ot.WENOVectorInvariant(vorticity_order=kv, order=kr,
                                          vorticity_stencil=stencil)
                   for kv, kr in cvi.ORDER_PAIRS
                   for stencil in ("velocity", "default")]
+    vi_schemes += [mixed_vi(ot, orders, stencil) for orders in VI_MIXED
+                   for stencil in ("velocity", "default")]
     for shape_name, (N, halo, topo, dtype) in hydro_shapes.items():
-        hg = ot.RectilinearGrid(size=N, extent=(4e7, 2e7, 4e3),
-                                topology=topo, halo=halo, dtype=dtype,
-                                device=dev)
+        if shape_name.startswith("latlon"):
+            (lon, lat) = topo
+            hg = ot.LatitudeLongitudeGrid(
+                size=N, longitude=lon, latitude=lat, z=(-4000.0, 0.0),
+                halo=halo, dtype=dtype, device=dev)
+        else:
+            hg = ot.RectilinearGrid(size=N, extent=(4e7, 2e7, 4e3),
+                                    topology=topo, halo=halo, dtype=dtype,
+                                    device=dev)
         fs = []
         for n, loc in enumerate((ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C,
                                  ot.LOC_C)):
@@ -1392,14 +1678,35 @@ def main():
             ref = cvi.vi_momentum_tendency_plain(hg, vi, u, v, w)
             torch.cuda.synchronize()
             check("vi_momentum_tendency",
-                  f"({vi.vorticity_scheme.order}, {vi.vertical_scheme.order}"
-                  f") {vi.vorticity_stencil} {shape_name}", got, ref, rtol)
+                  f"{vi_orders(vi)} {vi.vorticity_stencil} {shape_name}",
+                  got, ref, rtol)
             n_vi += 1
         if "wide halo" in shape_name:
             require(n_tr == len(ctr.ORDERS) and n_vi == len(vi_schemes),
                     f"{shape_name}: every tracer order and VI pair checked")
         log(f"[3] {shape_name}: {n_tr} tracer orders and {n_vi} "
             "vector-invariant schemes checked")
+        require(n_tr > 0 and n_vi > 0,
+                f"{shape_name}: the kernels take the layout")
+        if shape_name == "latlon main":
+            # rows 11 and 12/13 on the sphere, timed beside their plain
+            # versions and the bounds of the main shape (the same work)
+            for name, (plain, kernel) in {
+                    "weno_tracer_tendencies": (
+                        lambda: ctr.weno_tracer_tendencies_plain(
+                            hg, ot.WENO(7), u, v, w, tr),
+                        lambda: ctr.weno_tracer_tendencies(
+                            hg, ot.WENO(7), u, v, w, tr)),
+                    "vi_momentum_tendency": (
+                        lambda: cvi.vi_momentum_tendency_plain(
+                            hg, vi_velocity, u, v, w),
+                        lambda: cvi.vi_momentum_tendency(
+                            hg, vi_velocity, u, v, w))}.items():
+                plain_ms, ms = paired_times(torch, plain, kernel, 10)
+                b_ms, b_by = bounds[name]
+                log(f"[3] {name} at the lat-lon layout {tuple(u.shape)}: "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by})")
         if shape_name != "main":
             continue
         field = u.numel() * u.element_size()
@@ -1416,8 +1723,8 @@ def main():
                 f"WENO({order}), two tracers: {b_ms:.4f} ms ({b_by})")
         for kv, kr in cvi.ORDER_PAIRS:
             for velocity in (True, False):
-                b_ms, b_by = bound(5 * field,
-                                   points * vi_point_ops(kv, kr, velocity))
+                b_ms, b_by = bound(5 * field, points * vi_point_ops(
+                    kv, kr, velocity=velocity))
                 log(f"[3] vi_momentum_tendency bound at {tuple(u.shape)}, "
                     f"({kv}, {kr}) "
                     f"{'velocity' if velocity else 'default'}: "
@@ -1447,6 +1754,20 @@ def main():
         log(f"[3] vi_momentum_tendency, WENOVectorInvariant(order=7), at "
             f"{tuple(u.shape)}: kernel {ms7:.4f} ms, bound {b7[0]:.4f} ms "
             f"({b7[1]})")
+        # the instantiation of runtime orders against the (9, 5) pair, in
+        # turns (pair, mixed, mixed, pair), each beside its bound
+        b95 = bound(5 * field, points * vi_point_ops(9, 5))
+        for orders in VI_MIXED[:2]:
+            vim = mixed_vi(ot, orders)
+            pair_ms, mixed_ms = paired_times(
+                torch, lambda: cvi.vi_momentum_tendency(hg, vi_velocity, u,
+                                                        v, w),
+                lambda: cvi.vi_momentum_tendency(hg, vim, u, v, w), 10)
+            bm = bound(5 * field, points * vi_point_ops(*orders))
+            log(f"[3] vi_momentum_tendency at {tuple(u.shape)}, orders "
+                f"{orders} (runtime orders): kernel {mixed_ms:.4f} ms, bound "
+                f"{bm[0]:.4f} ms ({bm[1]}); the (9, 5) pair in turn with it "
+                f"{pair_ms:.4f} ms, bound {b95[0]:.4f} ms ({b95[1]})")
         del timings
     del hg, fs, u, v, w, T, S, tr, got, ref
     torch.cuda.empty_cache()
@@ -2411,6 +2732,12 @@ def main():
         f" ms/step, plain path {les['plain']['ms']:.3f} ms/step; "
         f"hydro_vi_closure kernel path {hydro_closure['kernel']['ms']:.3f} "
         f"ms/step, plain path {hydro_closure['plain']['ms']:.3f} ms/step")
+
+    # ---- phase 14: hydro_vi on the sphere (kernels 11 and 12/13) ---------
+    latlon = hydro_latlon_phase(torch, ot, wrappers, card, HYDRO_PATH_RTOL)
+    log(f"[14] step times on {card}: hydro_vi_latlon kernel path "
+        f"{latlon['kernel']['ms']:.3f} ms/step, plain path "
+        f"{latlon['plain']['ms']:.3f} ms/step")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -1,7 +1,11 @@
 """oceananigans_torch — the ocean dynamical core of ``oceananigans_tpu``
 ported to PyTorch, with its hot kernels hand-written in CUDA for Hopper.
 
-It covers, on a ``RectilinearGrid`` with regular spacing: the advection
+It covers, on a ``RectilinearGrid`` with regular spacing (and, for the
+hydrostatic and shallow-water models, on the ``LatitudeLongitudeGrid``
+and the orthogonal spherical shells: ``RotatedLatitudeLongitudeGrid`` and
+``TripolarGrid`` with its zipper fold, with spherical Coriolis and the
+polar condition): the advection
 schemes Centered (orders 2 to 12), UpwindBiased (1 to 11), WENO (3 to 11)
 and FluxFormAdvection; the nonhydrostatic model with f-plane, β-plane and
 constant Cartesian Coriolis, BuoyancyTracer and seawater buoyancy,
@@ -56,7 +60,8 @@ from oceananigans_torch.closures import (
 )
 from oceananigans_torch.config import config, float_type, set_float_type
 from oceananigans_torch.coriolis import (
-    BetaPlane, ConstantCartesianCoriolis, FPlane, NonTraditionalBetaPlane,
+    BetaPlane, ConstantCartesianCoriolis, FPlane,
+    HydrostaticSphericalCoriolis, NonTraditionalBetaPlane,
 )
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, BackgroundField, CenterField, ConstantField,
@@ -65,7 +70,13 @@ from oceananigans_torch.fields import (
     interior, interpolate, new_field, set_field, with_interior,
 )
 from oceananigans_torch.grids import (
-    Bounded, Center, Face, Flat, Periodic, RectilinearGrid,
+    AbstractGrid, Bounded, Center, Face, Flat, LatitudeLongitudeGrid,
+    OrthogonalSphericalShellGrid, Periodic, RectilinearGrid,
+    RotatedLatitudeLongitudeGrid, TripolarGrid, extrinsic_vector,
+    intrinsic_vector, lambda_nodes, lambda_spacings, minimum_xspacing,
+    minimum_yspacing, minimum_zspacing, nodes, phi_nodes, phi_spacings,
+    rnodes, rotation_angles, rspacings, total_length, xnodes, xspacings,
+    ynodes, yspacings, znodes, zspacings,
 )
 from oceananigans_torch.models import (
     ConservativeFormulation, CrossAndSelfUpwinding, ExplicitFreeSurface,
@@ -98,44 +109,50 @@ from oceananigans_torch.utils.units import (
 )
 
 __all__ = [
-    "AdvectiveCFL", "AndSchedule", "AnisotropicMinimumDissipation",
-    "AveragedTimeInterval", "BackgroundField", "BetaPlane",
-    "BoundaryCondition", "Bounded", "BuoyancyField", "BuoyancyForce",
-    "BuoyancyTracer", "CFL", "Callback", "Center", "CenterField", "Centered",
-    "Clock", "ConservativeFormulation", "ConstantCartesianCoriolis",
-    "ConstantField", "ConvectiveAdjustmentVerticalDiffusivity",
-    "CrossAndSelfUpwinding", "DiffusiveCFL", "DynamicCoefficient",
-    "DynamicSmagorinsky", "ExplicitFreeSurface",
-    "ExplicitTimeDiscretization", "FFTPoissonSolver", "FPlane", "Face",
-    "Field", "FieldBoundaryConditions", "Flat", "FlatExtrapolationOpenBC",
-    "FluxBC", "FluxBoundaryCondition", "FluxFormAdvection", "FunctionField",
-    "GiB", "GradientBC", "GradientBoundaryCondition",
-    "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
-    "HydrostaticFreeSurfaceModel", "HydrostaticState", "ImplicitFreeSurface",
+    "AbstractGrid", "AdvectiveCFL", "AndSchedule",
+    "AnisotropicMinimumDissipation", "AveragedTimeInterval", "BackgroundField",
+    "BetaPlane", "BoundaryCondition", "Bounded", "BuoyancyField",
+    "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback", "Center",
+    "CenterField", "Centered", "Clock", "ConservativeFormulation",
+    "ConstantCartesianCoriolis", "ConstantField",
+    "ConvectiveAdjustmentVerticalDiffusivity", "CrossAndSelfUpwinding",
+    "DiffusiveCFL", "DynamicCoefficient", "DynamicSmagorinsky",
+    "ExplicitFreeSurface", "ExplicitTimeDiscretization", "FFTPoissonSolver",
+    "FPlane", "Face", "Field", "FieldBoundaryConditions", "Flat",
+    "FlatExtrapolationOpenBC", "FluxBC", "FluxBoundaryCondition",
+    "FluxFormAdvection", "FunctionField", "GiB", "GradientBC",
+    "GradientBoundaryCondition", "HorizontalScalarBiharmonicDiffusivity",
+    "HorizontalScalarDiffusivity", "HydrostaticFreeSurfaceModel",
+    "HydrostaticSphericalCoriolis", "HydrostaticState", "ImplicitFreeSurface",
     "IterationInterval", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
-    "LillyCoefficient", "LinearEquationOfState", "MatmulPoissonSolver",
-    "MiB", "NaNChecker", "NonTraditionalBetaPlane", "NonhydrostaticModel",
-    "NonhydrostaticState", "OnlySelfUpwinding", "OpenBC",
-    "OpenBoundaryCondition", "OrSchedule", "Periodic", "PeriodicBC",
+    "LatitudeLongitudeGrid", "LillyCoefficient", "LinearEquationOfState",
+    "MatmulPoissonSolver", "MiB", "NaNChecker", "NonTraditionalBetaPlane",
+    "NonhydrostaticModel", "NonhydrostaticState", "OnlySelfUpwinding",
+    "OpenBC", "OpenBoundaryCondition", "OrSchedule",
+    "OrthogonalSphericalShellGrid", "Periodic", "PeriodicBC",
     "PerturbationAdvection", "PerturbationAdvectionOpenBC",
     "PrescribedVelocityFields", "PressureField", "RectilinearGrid",
-    "ScalarBiharmonicDiffusivity", "ScalarDiffusivity", "SeawaterBuoyancy",
-    "ShallowWaterModel", "ShallowWaterState", "Simulation", "Smagorinsky",
-    "SmagorinskyLilly", "SpecifiedTimes", "SplitExplicitFreeSurface",
-    "StateChecker", "TEOS10", "TEOS10EquationOfState", "TendencyCallsite",
-    "TiB", "TimeInterval", "TimeStepCallsite", "TimeStepWizard",
-    "UpdateStateCallsite", "UpwindBiased", "ValueBC",
-    "ValueBoundaryCondition", "VectorInvariant",
-    "VectorInvariantFormulation", "VerticalScalarBiharmonicDiffusivity",
-    "VerticalScalarDiffusivity", "VerticallyImplicitTimeDiscretization",
-    "WENO", "WENOVectorInvariant", "WallTimeInterval", "XFaceField",
-    "YFaceField", "ZCoordinate", "ZFaceField", "ZStar", "ZeroField",
-    "adapt_advection_order", "add_callback", "config",
-    "conjure_time_step_wizard", "day", "days", "diffusivity",
-    "field_abs_max", "field_integral", "field_max", "field_mean",
-    "field_min", "fill_halo_regions", "float_type", "hour", "hours",
-    "interior", "interpolate", "iteration", "kilometer", "kilometers",
-    "meter", "meters", "minute", "minutes", "new_field", "prettytime",
+    "RotatedLatitudeLongitudeGrid", "ScalarBiharmonicDiffusivity",
+    "ScalarDiffusivity", "SeawaterBuoyancy", "ShallowWaterModel",
+    "ShallowWaterState", "Simulation", "Smagorinsky", "SmagorinskyLilly",
+    "SpecifiedTimes", "SplitExplicitFreeSurface", "StateChecker", "TEOS10",
+    "TEOS10EquationOfState", "TendencyCallsite", "TiB", "TimeInterval",
+    "TimeStepCallsite", "TimeStepWizard", "TripolarGrid",
+    "UpdateStateCallsite", "UpwindBiased", "ValueBC", "ValueBoundaryCondition",
+    "VectorInvariant", "VectorInvariantFormulation",
+    "VerticalScalarBiharmonicDiffusivity", "VerticalScalarDiffusivity",
+    "VerticallyImplicitTimeDiscretization", "WENO", "WENOVectorInvariant",
+    "WallTimeInterval", "XFaceField", "YFaceField", "ZCoordinate",
+    "ZFaceField", "ZStar", "ZeroField", "adapt_advection_order",
+    "add_callback", "config", "conjure_time_step_wizard", "day", "days",
+    "diffusivity", "extrinsic_vector", "field_abs_max", "field_integral",
+    "field_max", "field_mean", "field_min", "fill_halo_regions", "float_type",
+    "hour", "hours", "interior", "interpolate", "intrinsic_vector",
+    "iteration", "kilometer", "kilometers", "lambda_nodes", "lambda_spacings",
+    "meter", "meters", "minimum_xspacing", "minimum_yspacing",
+    "minimum_zspacing", "minute", "minutes", "new_field", "nodes", "phi_nodes",
+    "phi_spacings", "prettytime", "rnodes", "rotation_angles", "rspacings",
     "seawater_density", "second", "seconds", "set_field", "set_float_type",
-    "viscosity", "with_interior", "year", "years",
+    "total_length", "viscosity", "with_interior", "xnodes", "xspacings",
+    "year", "years", "ynodes", "yspacings", "znodes", "zspacings",
 ]

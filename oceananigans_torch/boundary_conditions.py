@@ -10,10 +10,13 @@ extents), a callable ``f(c1, c2, t)`` of the two transverse coordinates and
 time (with ``field_dependencies``: ``f(c1, c2, t, *slabs)`` of the named
 fields' boundary-adjacent slabs, where the model supplies its fields), or
 an object with ``times`` and ``data`` (boundary slabs interpolated to the
-clock time). Polar and zipper conditions come with lat-lon and tripolar
-grids (ROADMAP Queue 1 item 15), communication halos with the distributed
-models (item 18) and the ``Connected`` topology with the cubed sphere (item
-16).
+clock time). On a lat-lon grid whose y faces reach a pole, center-located
+fields take the polar condition there: a value at the zonal mean of the
+polemost interior row, recomputed at each fill. On a tripolar grid the
+north y halo is the zipper fold (``grids/orthogonal.py:
+fill_zipper_north``). Communication halos come with the distributed models
+(ROADMAP Queue 1 item 18) and the ``Connected`` topology with the cubed
+sphere (item 16).
 
 Unlike the JAX package, ``fill_halo_regions`` and ``apply_flux_bcs`` write
 their argument in place and return it: halos are derived data, and a fill
@@ -42,12 +45,10 @@ GRADIENT = "gradient"    # Neumann
 OPEN = "open"            # wall-normal / open boundary
 COMMUNICATION = "communication"  # filled by a distributed halo exchange
 ZIPPER = "zipper"        # tripolar north fold
-POLAR = "polar"          # lat-lon pole row
+POLAR = "polar"          # lat-lon pole row: a value at the zonal mean
 
 #: classifications not ported yet, and the ROADMAP Queue 1 item of each
-_LATER = {COMMUNICATION: "item 18 (distributed)",
-          ZIPPER: "item 15 (lat-lon and orthogonal grids)",
-          POLAR: "item 15 (lat-lon and orthogonal grids)"}
+_LATER = {COMMUNICATION: "item 18 (distributed)"}
 
 
 @dataclasses.dataclass
@@ -158,11 +159,27 @@ def _check_ported(bc, name):
             f"Queue 1 {later} brings it")
 
 
+def _pole_sides(grid):
+    """(south, north): whether the y faces of a lat-lon grid reach the
+    south and the north pole."""
+    phiF = getattr(grid, "phiF", None)
+    if phiF is None or grid.N[1] <= 1:
+        return (False, False)
+    phi = phiF.reshape(-1).cpu()
+    H, N = grid.H[1], grid.N[1]
+    return (abs(float(phi[H]) + 90.0) < 1e-6,
+            abs(float(phi[H + N]) - 90.0) < 1e-6)
+
+
 def regularize_field_boundary_conditions(bcs, grid, loc):
-    """Fill unspecified sides of ``bcs`` with topology/location defaults,
-    and carry array conditions onto the grid's device and dtype."""
+    """Fill unspecified sides of ``bcs`` with topology/location defaults
+    (the polar condition on the pole sides of a center-located field on a
+    lat-lon grid that reaches a pole), and carry array conditions onto the
+    grid's device and dtype."""
     if bcs is None:
         bcs = FieldBoundaryConditions()
+    poles = dict(zip(("south", "north"), _pole_sides(grid)))
+    cc_loc = loc[0] == Center and loc[1] == Center
     names = (("west", "east"), ("south", "north"), ("bottom", "top"))
     out = {}
     for axis in range(3):
@@ -170,7 +187,9 @@ def regularize_field_boundary_conditions(bcs, grid, loc):
         for name in names[axis]:
             bc = getattr(bcs, name)
             if bc is None:
-                bc = default_bc(topo, loc[axis], name)
+                bc = (BoundaryCondition(POLAR)
+                      if cc_loc and poles.get(name)
+                      else default_bc(topo, loc[axis], name))
             elif topo == Periodic and bc.classification != PERIODIC:
                 raise ValueError(
                     f"non-periodic BC on periodic axis {AXIS_NAMES[axis]}")
@@ -326,6 +345,14 @@ def _fill_axis(a, grid, axis, loc_ax, left_bc, right_bc, left_val=None,
         if bc is None:
             continue
         kind = bc.classification
+        if kind == POLAR:
+            # a value at the zonal mean of the polemost interior row,
+            # recomputed from the field: the ghosts mirror about it
+            Hx, Nx = grid.H[0], grid.N[0]
+            pole = rows(H if side == "left" else N + H - 1)
+            if a.shape[0] == Nx + 2 * Hx:
+                pole = pole[Hx:Hx + Nx]
+            val = torch.mean(pole, dim=0, keepdim=True)
         if loc_ax == Face and kind in (OPEN, VALUE):
             wall = H if side == "left" else N + H
             ms = bc.matching_scheme
@@ -389,7 +416,7 @@ def _fill_axis(a, grid, axis, loc_ax, left_bc, right_bc, left_val=None,
         for h in range(H):
             g, m = ((H - 1 - h, H + h) if side == "left"
                     else (N + H + h, N + H - 1 - h))
-            if kind == VALUE:
+            if kind in (VALUE, POLAR):
                 ghost = 2.0 * val - rows(m)
             elif kind == GRADIENT:
                 d = coord[m] - coord[g]
@@ -411,6 +438,7 @@ def fill_halo_regions(a, grid, bcs=None, loc=(Center, Center, Center), time=None
     own axis)."""
     if bcs is None:
         bcs = regularize_field_boundary_conditions(None, grid, loc)
+    zipper = getattr(grid, "zipper", False)
     for axis in axes:
         lbc, rbc = bcs.sides(axis)
         # flux halos are no-flux mirror fills: the condition's value enters
@@ -419,6 +447,17 @@ def fill_halo_regions(a, grid, bcs=None, loc=(Center, Center, Center), time=None
                 if lbc and lbc.classification != FLUX else None)
         rval = (_bc_value(rbc, grid, axis, loc, time)
                 if rbc and rbc.classification != FLUX else None)
+        if zipper and axis == 1 and a.shape[1] == grid.shape[1]:
+            # the tripolar north fold: the south side takes its condition,
+            # the north halo the fold, with horizontal velocity components
+            # flipping sign
+            from oceananigans_torch.grids.orthogonal import (
+                fill_zipper_north,
+            )
+            _fill_axis(a, grid, axis, loc[axis], lbc, None, lval, None)
+            sign = -1.0 if (loc[0] == Face or loc[1] == Face) else 1.0
+            fill_zipper_north(a, grid, loc, sign)
+            continue
         _fill_axis(a, grid, axis, loc[axis], lbc, rbc, lval, rval, dt=dt)
     return a
 

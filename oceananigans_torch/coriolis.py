@@ -1,11 +1,12 @@
-"""Coriolis formulations on Cartesian grids.
+"""Coriolis formulations.
 
 Counterpart of ``oceananigans_tpu/coriolis.py``. Each formulation gives
 ``x_f_cross_U / y_f_cross_U / z_f_cross_U``: the components of ``f × 𝐯`` at
 the (f,c,c), (c,f,c) and (c,c,f) velocity points, as whole-tensor
-expressions. Tendencies subtract them. ``HydrostaticSphericalCoriolis``
-needs the latitude-longitude grid and comes with it (ROADMAP Queue 1
-item 15).
+expressions. Tendencies subtract them. The planes and the constant
+Cartesian rotation serve Cartesian grids; ``HydrostaticSphericalCoriolis``
+(f = 2Ω sinφ) serves the latitude-longitude grid, whose face latitudes
+``phiF`` it reads.
 """
 
 from __future__ import annotations
@@ -165,15 +166,48 @@ class NonTraditionalBetaPlane(AbstractCoriolis):
                 f"beta={self.beta:g}, gamma={self.gamma:g})")
 
 
-def HydrostaticSphericalCoriolis(*args, **kwargs):
-    raise NotImplementedError(
-        "HydrostaticSphericalCoriolis needs the latitude-longitude grid, "
-        "which is not ported yet (ROADMAP Queue 1 item 15)")
+class HydrostaticSphericalCoriolis(AbstractCoriolis):
+    """f = 2Ω sinφ at the (f,f) vorticity points of a latitude-longitude
+    grid, applied to length-weighted transverse velocities: the
+    "enstrophy_conserving" scheme (default) interpolates f and the
+    weighted velocity separately, "energy_conserving" their product."""
+
+    def __init__(self, rotation_rate=Omega_Earth,
+                 scheme="enstrophy_conserving"):
+        if scheme not in ("enstrophy_conserving", "energy_conserving"):
+            raise ValueError(f"unknown Coriolis scheme {scheme!r}")
+        self.rotation_rate = float(rotation_rate)
+        self.scheme = scheme
+
+    def _f_ff(self, grid):
+        return 2.0 * self.rotation_rate * torch.sin(torch.deg2rad(grid.phiF))
+
+    def x_f_cross_U(self, grid, u, v, w):
+        f = self._f_ff(grid)
+        dxv = grid.dx(Center, Face) * v
+        if self.scheme == "energy_conserving":
+            num = iy_c(f * ix_f(dxv))
+        else:
+            num = iy_c(f) * ix_f(iy_c(dxv))
+        return -num / grid.dx(Face, Center)
+
+    def y_f_cross_U(self, grid, u, v, w):
+        f = self._f_ff(grid)
+        dyu = grid.dy(Center, Face) * u
+        if self.scheme == "energy_conserving":
+            num = ix_c(f * iy_f(dyu))
+        else:
+            num = ix_c(f) * iy_f(ix_c(dyu))
+        return num / grid.dy(Face, Center)
+
+    def __repr__(self):
+        return (f"HydrostaticSphericalCoriolis(Ω={self.rotation_rate:g}, "
+                f"{self.scheme})")
 
 
-#: the formulations ``NonhydrostaticModel`` accepts
+#: the formulations the models accept
 FORMULATIONS = (FPlane, ConstantCartesianCoriolis, BetaPlane,
-                NonTraditionalBetaPlane)
+                NonTraditionalBetaPlane, HydrostaticSphericalCoriolis)
 
 __all__ = ["BetaPlane", "ConstantCartesianCoriolis", "FPlane",
            "HydrostaticSphericalCoriolis", "NonTraditionalBetaPlane",

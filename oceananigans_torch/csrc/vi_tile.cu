@@ -50,10 +50,12 @@ long long vi_bytes(int velocity, int py, int pz) {
                               : ViShape<KV, KR, false>::template bytes<T>(py, pz));
 }
 
+// rest_order 0: the instantiation of runtime orders
 template <typename T, int K>
 long long vi_bytes_of(int rest_order, int velocity, int py, int pz) {
   if (rest_order == 5) return vi_bytes<T, K, 5>(velocity, py, pz);
   if (rest_order == K) return vi_bytes<T, K, K>(velocity, py, pz);
+  if (rest_order == 0) return vi_bytes<T, K, 0>(velocity, py, pz);
   return -1;
 }
 
@@ -82,18 +84,22 @@ long long smem_bytes(int vi, int order, int rest_order, int velocity, int py,
 extern "C" {
 
 // The plan (py, pz, seg_len, nseg) is ops/march.py: march_plan's;
-// the kernels refuse one that misses an x-row.
+// the kernels refuse one that misses an x-row. The orders and epsilons are
+// those of the vorticity, kinetic energy gradient, divergence and vertical
+// schemes.
 #define OT_VI_ENTRY(SUFFIX, T)                                              \
-  int ot_vi_march_##SUFFIX(const void* u, const void* v, const void* w,     \
-                           void* gu, void* gv, int nx, int ny, int nz,      \
-                           const void* m, int vorticity_order,              \
-                           int rest_order, int velocity, int py, int pz,    \
-                           int seg_len, int nseg, double eps,               \
-                           void* stream) {                                  \
-    const ot_march::ViArgs A{u,   v,          w,        gu,  gv, nx,      \
-                             ny,  nz,         m,        rest_order,       \
-                             velocity,        py,       pz,  seg_len,     \
-                             nseg, eps,       stream};                      \
+  int ot_vi_march_##SUFFIX(                                                 \
+      const void* u, const void* v, const void* w, void* gu, void* gv,      \
+      int nx, int ny, int nz, const void* m, int vorticity_order,           \
+      int ke_order, int div_order, int vert_order, int velocity, int py,    \
+      int pz, int seg_len, int nseg, double eps_v, double eps_k,            \
+      double eps_d, double eps_z, void* stream) {                           \
+    const ot_march::ViArgs A{u,        v,         w,          gu,          \
+                             gv,       nx,        ny,         nz,          \
+                             m,        ke_order,  div_order,  vert_order,  \
+                             velocity, py,        pz,         seg_len,     \
+                             nseg,     eps_v,     eps_k,      eps_d,       \
+                             eps_z,    stream};                             \
     return ot_march::vi<T>(A, vorticity_order);                             \
   }                                                                         \
   int ot_weno_tracer_march_##SUFFIX(                                        \
@@ -113,9 +119,10 @@ OT_VI_ENTRY(f64, double)
 #undef OT_VI_ENTRY
 
 // The dynamic shared memory of one block of the vector-invariant kernel
-// (vi != 0; vorticity order `order`) or of the tracer kernel (order
-// `order`) for a panel of py x pz, in float32 (itemsize 4) or float64; -1
-// for an order that is not instantiated. For reports (tools/kernel_times.py).
+// (vi != 0; vorticity order `order`, the rest `rest_order`, 0 for the
+// instantiation of runtime orders) or of the tracer kernel (order `order`)
+// for a panel of py x pz, in float32 (itemsize 4) or float64; -1 for an
+// order that is not instantiated. For reports (tools/kernel_times.py).
 long long ot_march_smem_bytes(int vi, int order, int rest_order,
                               int velocity, int py, int pz, int itemsize) {
   return itemsize == 4

@@ -80,9 +80,34 @@ constexpr int kTG = 2;
 
 // float32 takes three blocks an SM (at most 80 registers a thread: the
 // pairs up to (9, 5) and (7, 7) and every tracer order do not spill; (9,
-// 9), (11, 5) and (11, 11) spill up to 200 bytes), float64 one
-template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 1;
+// 9), (11, 5) and (11, 11) spill up to 200 bytes), float64 one; the
+// vector-invariant kernel of runtime orders (KR = 0), whose queues hold
+// the widest reach, two in float32
+template <typename T, int KR = 1>
+constexpr int kMinBlocks = sizeof(T) == 4 ? (KR == 0 ? 2 : 3) : 1;
+
+// A WENO order as a type, for the dispatch of a runtime order.
+template <int K>
+struct Order {
+  static constexpr int value = K;
+};
+
+// f(Order<KR>) for a compile-time order KR, else f(Order<order>) for the
+// runtime order (3, 5, 7, 9 or 11) at this call site.
+template <int KR, typename F>
+__device__ __forceinline__ auto at_order(int order, F&& f) {
+  if constexpr (KR != 0) {
+    return f(Order<KR>{});
+  } else {
+    switch (order) {
+      case 3: return f(Order<3>{});
+      case 5: return f(Order<5>{});
+      case 7: return f(Order<7>{});
+      case 9: return f(Order<9>{});
+      default: return f(Order<11>{});
+    }
+  }
+}
 
 // kInOrder: the smoothness indicators in the plain version's order, each
 // product and sum rounded on its own (weno.h: betas_in_order), else the
@@ -93,7 +118,9 @@ constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 1;
 // on random fields with exact zero rows, the contracted ones came within a
 // factor of a few of that bound: the vector-invariant δ-quantities and
 // vertical flux from order 7, ζ from order 11 (its order 9, the default,
-// keeps the cheaper contracted forms), the tracers from order 9.
+// keeps the cheaper contracted forms), the tracers from order 7 (WENO-7's
+// contracted forms came 1.5e-5 of the largest value from the plain
+// version on a lat-lon layout, chip_smoke.py phase 3).
 template <int K, bool kInOrder, typename T>
 __device__ __forceinline__ void left_betas(const T* t, T* beta) {
   if constexpr (kInOrder) {
@@ -143,16 +170,27 @@ __device__ __forceinline__ T left_side(const T* t, const T* t1, const T* t2,
   return out * rcp(asum);
 }
 
-// One side of a register queue's reconstruction, picked by `left`.
-template <int K, int kSmooth, bool kInOrder, typename T>
-__device__ __forceinline__ T queue_side(const T (&s)[K + 1],
-                                        const T (&s1)[K + 1],
-                                        const T (&s2)[K + 1], bool left,
-                                        T eps) {
-  T t[K + 1], t1[K + 1], t2[K + 1];
-  mirror(s, left, t);
-  if constexpr (kSmooth >= 1) mirror(s1, left, t1);
-  if constexpr (kSmooth == 2) mirror(s2, left, t2);
+// One side of the order-K reconstruction from the middle K + 1 entries of
+// register queues of N >= K + 1 entries, picked by `left`.
+template <int K, int kSmooth, bool kInOrder, int N, typename T>
+__device__ __forceinline__ T queue_side(const T (&s)[N], const T (&s1)[N],
+                                        const T (&s2)[N], bool left, T eps) {
+  constexpr int M = K + 1, o = (N - M) / 2;
+  static_assert(N >= M && (N - M) % 2 == 0, "queue narrower than order");
+  T t[M], t1[M], t2[M];
+  if constexpr (o == 0) {
+    mirror(s, left, t);
+    if constexpr (kSmooth >= 1) mirror(s1, left, t1);
+    if constexpr (kSmooth == 2) mirror(s2, left, t2);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int q = o + (left ? m : M - 1 - m);
+      t[m] = s[q];
+      if constexpr (kSmooth >= 1) t1[m] = s1[q];
+      if constexpr (kSmooth == 2) t2[m] = s2[q];
+    }
+  }
   return left_side<K, kSmooth, kInOrder>(t, t1, t2, eps);
 }
 
@@ -163,7 +201,10 @@ __device__ __forceinline__ T queue_side(const T (&s)[K + 1],
 // head (the self difference δx(u²/2) upwinded on u, the cross difference
 // Centered(2)), the divergence flux with OnlySelfUpwinding and Centered(2)
 // cross terms, and the flux-form vertical advection; the last three
-// WENO-KR.
+// WENO-KR with one epsilon, or, with KR = 0, each of its own runtime
+// order (3 to 11) and epsilon, the queues, the ring and the planar
+// quantities sized for the widest (11), and each role's reconstruction
+// dispatched at its call site.
 //
 // Two roles, a block each for every panel and segment (blockIdx.z = 2 seg
 // + role), which share u, v and w through L2:
@@ -193,10 +234,11 @@ enum Metric {
 
 template <int KV, int KR, bool kVel>
 struct ViShape {
-  static constexpr int BV = (KV + 1) / 2, BR = (KR + 1) / 2;
+  static constexpr int KS = KR == 0 ? 11 : KR;  // the widest rest order
+  static constexpr int BV = (KV + 1) / 2, BR = (KS + 1) / 2;
   static constexpr int R = BV > BR ? BV : BR;   // y-halo of the ring
   static constexpr int NZ = kVel ? 3 : 1;       // ζ and its smoothness
-  static constexpr bool kZetaOrdered = KV >= 11, kRestOrdered = KR >= 7;
+  static constexpr bool kZetaOrdered = KV >= 11;
   // ring slot: u, v [tr][tc]; w rows j-1 .. j+py-1, columns k .. k+pz
   __host__ __device__ static int slot(int py, int pz) {
     return 2 * (py + 2 * R) * (pz + 2 * BR) + (py + 1) * (pz + 1);
@@ -217,6 +259,15 @@ struct ViShape {
   }
 };
 
+// The epsilons of the four schemes, and the orders of the kinetic energy
+// gradient, divergence and vertical schemes: the launch's where KR = 0; a
+// pair's (one epsilon, the orders KR) otherwise.
+template <typename T>
+struct ViRoles {
+  T eps_v, eps_k, eps_d, eps_z;
+  int ord_k, ord_d, ord_z;
+};
+
 template <typename T>
 struct ViCtx {
   const T* __restrict__ u;
@@ -229,8 +280,18 @@ struct ViCtx {
   const int* toff;  // [tr][tc]: the ring tiles' offsets in a plane
   const int* woff;  // [py + 1][pz + 1]: w's
   int slot;
-  T eps;
+  T eps;             // a pair's one epsilon
+  ViRoles<T> roles;  // the roles of the instantiation of runtime orders
 };
+
+template <int KR, typename T>
+__device__ __forceinline__ ViRoles<T> roles_of(const ViCtx<T>& C) {
+  if constexpr (KR == 0) {
+    return C.roles;
+  } else {
+    return ViRoles<T>{C.eps, C.eps, C.eps, C.eps, KR, KR, KR};
+  }
+}
 
 // Gu at (f,c,c): +ζ v̂ − ∂x K − [w ∂z u], over x-rows [S.a, S.b).
 template <typename T, int KV, int KR, bool kVel>
@@ -240,7 +301,7 @@ __device__ __forceinline__ void vi_gu(const ViCtx<T>& C, const Panel& P,
   constexpr int BV = Sh::BV, BR = Sh::BR, R = Sh::R;
   constexpr int kSm = kVel ? 2 : 0;
   constexpr bool kZetaOrdered = Sh::kZetaOrdered;
-  constexpr bool kRestOrdered = Sh::kRestOrdered;
+  const ViRoles<T> R_ = roles_of<KR>(C);
   const T h = T(0.5);
   const int tr = P.tr, tc = P.tc, py = P.py, pz = P.pz;
   const int tt = tr * tc;
@@ -326,10 +387,12 @@ __device__ __forceinline__ void vi_gu(const ViCtx<T>& C, const Panel& P,
       const T az = M(kAzCC, rr);
       const int xw = (q + 1) * (pz + 1) + f;
       const T Wf = h * (az * Wt[xw] + az * Wm[xw]);
-      T t[N];
-      taps<N>(U + rr * tc + f, 1, Wf > T(0), t);
-      C.faces[q * (pz + 1) + f] =
-          Wf * left_side<KR, 0, kRestOrdered>(t, t, t, C.eps);
+      C.faces[q * (pz + 1) + f] = Wf * at_order<KR>(R_.ord_z, [&](auto o) {
+        constexpr int K = decltype(o)::value, B = (K + 1) / 2;
+        T t[2 * B];
+        taps<2 * B>(U + rr * tc + f + (BR - B), 1, Wf > T(0), t);
+        return left_side<K, 0, (K >= 7)>(t, t, t, R_.eps_z);
+      });
     }
     __syncthreads();
     if (P.mine) {
@@ -349,21 +412,27 @@ __device__ __forceinline__ void vi_gu(const ViCtx<T>& C, const Panel& P,
         taps<2 * BV>(Z2 + zq, pz, lv, z2);
       }
       const T zterm =
-          vhat * left_side<KV, kSm, kZetaOrdered>(zt, z1, z2, C.eps);
+          vhat * left_side<KV, kSm, kZetaOrdered>(zt, z1, z2, R_.eps_v);
       // the Bernoulli head: δx(u²/2) upwinded on u (u == 0: the mean of
       // both sides) and the Centered(2) δx(v²/2) at y-centers
-      T duR = queue_side<KR, 1, kRestOrdered>(qK, qS, qS, u0 > T(0), C.eps);
-      if (u0 == T(0)) {
-        duR = h * (queue_side<KR, 1, kRestOrdered>(qK, qS, qS, true, C.eps) +
-                   duR);
-      }
+      const T duR = at_order<KR>(R_.ord_k, [&](auto o) {
+        constexpr int K = decltype(o)::value;
+        T d = queue_side<K, 1, (K >= 7)>(qK, qS, qS, u0 > T(0), R_.eps_k);
+        if (u0 == T(0)) {
+          d = h * (queue_side<K, 1, (K >= 7)>(qK, qS, qS, true, R_.eps_k) +
+                   d);
+        }
+        return d;
+      });
       const T v0 = V[x], vm0 = Vm[x], vp0 = V[x + tc], vpm = Vm[x + tc];
       const T dv2j = (h * v0) * v0 - (h * vm0) * vm0;
       const T dv2p = (h * vp0) * vp0 - (h * vpm) * vpm;
       const T bern = (duR + (h * dv2j + h * dv2p)) * M(kRDxUF, r0);
       // the divergence flux and the vertical flux
-      const T dR =
-          queue_side<KR, 1, kRestOrdered>(qX, qD, qD, u0 > T(0), C.eps);
+      const T dR = at_order<KR>(R_.ord_d, [&](auto o) {
+        constexpr int K = decltype(o)::value;
+        return queue_side<K, 1, (K >= 7)>(qX, qD, qD, u0 > T(0), R_.eps_d);
+      });
       const T phi = u0 * ((h * qY[BR - 1] + h * qY[BR]) + dR);
       const T* F = C.faces + P.jy * (pz + 1) + P.kz;
       const T vert = (phi + (F[1] - F[0])) * M(kRVFCC, r0);
@@ -381,7 +450,7 @@ __device__ __forceinline__ void vi_gv(const ViCtx<T>& C, const Panel& P,
   constexpr int BV = Sh::BV, BR = Sh::BR, R = Sh::R;
   constexpr int kSm = kVel ? 2 : 0;
   constexpr bool kZetaOrdered = Sh::kZetaOrdered;
-  constexpr bool kRestOrdered = Sh::kRestOrdered;
+  const ViRoles<T> R_ = roles_of<KR>(C);
   const T h = T(0.5);
   const int tr = P.tr, tc = P.tc, py = P.py, pz = P.pz;
   const int tt = tr * tc;
@@ -466,10 +535,12 @@ __device__ __forceinline__ void vi_gv(const ViCtx<T>& C, const Panel& P,
       const int xw = (q + 1) * (pz + 1) + f;
       const T Wf = h * (M(kAzCC, rr) * W0[xw] +
                         M(kAzCC, rr - 1) * W0[xw - (pz + 1)]);
-      T t[2 * BR];
-      taps<2 * BR>(V0 + rr * tc + f, 1, Wf > T(0), t);
-      C.faces[q * (pz + 1) + f] =
-          Wf * left_side<KR, 0, kRestOrdered>(t, t, t, C.eps);
+      C.faces[q * (pz + 1) + f] = Wf * at_order<KR>(R_.ord_z, [&](auto o) {
+        constexpr int K = decltype(o)::value, B = (K + 1) / 2;
+        T t[2 * B];
+        taps<2 * B>(V0 + rr * tc + f + (BR - B), 1, Wf > T(0), t);
+        return left_side<K, 0, (K >= 7)>(t, t, t, R_.eps_z);
+      });
     }
     __syncthreads();
     if (P.mine) {
@@ -482,28 +553,38 @@ __device__ __forceinline__ void vi_gv(const ViCtx<T>& C, const Panel& P,
       const T uhat = (h * (tj + tjm)) * M(kRDyVF, r0);
       const T zterm =
           -(uhat * queue_side<KV, kSm, kZetaOrdered>(qZ, q1, q2,
-                                                      uhat > T(0), C.eps));
+                                                      uhat > T(0), R_.eps_v));
       // the Bernoulli head: δy(v²/2) upwinded on v (v == 0: the mean of
-      // both sides) and the Centered(2) δy(u²/2) at x-centers
+      // both sides) and the Centered(2) δy(u²/2) at x-centers; an order-K
+      // reconstruction reads the planar rows j-B .. j+B-1
       const int pq = P.jy * pz + P.kz;
-      constexpr int NR = 2 * BR;
-      T t[NR], t1[NR];
-      taps<NR>(KE + pq, pz, v0 > T(0), t);
-      taps<NR>(SM + pq, pz, v0 > T(0), t1);
-      T dvR = left_side<KR, 1, kRestOrdered>(t, t1, t1, C.eps);
-      if (v0 == T(0)) {
-        taps<NR>(KE + pq, pz, true, t);
-        taps<NR>(SM + pq, pz, true, t1);
-        dvR = h * (left_side<KR, 1, kRestOrdered>(t, t1, t1, C.eps) + dvR);
-      }
+      const T dvR = at_order<KR>(R_.ord_k, [&](auto o) {
+        constexpr int K = decltype(o)::value, B = (K + 1) / 2;
+        const int at = pq + (BR - B) * pz;
+        T t[2 * B], t1[2 * B];
+        taps<2 * B>(KE + at, pz, v0 > T(0), t);
+        taps<2 * B>(SM + at, pz, v0 > T(0), t1);
+        T d = left_side<K, 1, (K >= 7)>(t, t1, t1, R_.eps_k);
+        if (v0 == T(0)) {
+          taps<2 * B>(KE + at, pz, true, t);
+          taps<2 * B>(SM + at, pz, true, t1);
+          d = h * (left_side<K, 1, (K >= 7)>(t, t1, t1, R_.eps_k) + d);
+        }
+        return d;
+      });
       const T um0 = U0[x - tc], up0 = U1[x], upm = U1[x - tc];
       const T du2i = (h * u0) * u0 - (h * um0) * um0;
       const T du2p = (h * up0) * up0 - (h * upm) * upm;
       const T bern = (dvR + (h * du2i + h * du2p)) * M(kRDyVF, r0);
       // the divergence flux and the vertical flux
-      taps<NR>(DY + pq, pz, v0 > T(0), t);
-      taps<NR>(DD + pq, pz, v0 > T(0), t1);
-      const T dR = left_side<KR, 1, kRestOrdered>(t, t1, t1, C.eps);
+      const T dR = at_order<KR>(R_.ord_d, [&](auto o) {
+        constexpr int K = decltype(o)::value, B = (K + 1) / 2;
+        const int at = pq + (BR - B) * pz;
+        T t[2 * B], t1[2 * B];
+        taps<2 * B>(DY + at, pz, v0 > T(0), t);
+        taps<2 * B>(DD + at, pz, v0 > T(0), t1);
+        return left_side<K, 1, (K >= 7)>(t, t1, t1, R_.eps_d);
+      });
       const T duS = h * DX[pq + (BR - 1) * pz] + h * DX[pq + BR * pz];
       const T phi = v0 * (duS + dR);
       const T* F = C.faces + P.jy * (pz + 1) + P.kz;
@@ -515,11 +596,12 @@ __device__ __forceinline__ void vi_gv(const ViCtx<T>& C, const Panel& P,
 }
 
 template <typename T, int KV, int KR, bool kVel>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
+__global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<T, KR>))
     vi_march(const T* __restrict__ u, const T* __restrict__ v,
              const T* __restrict__ w, T* __restrict__ gu,
              T* __restrict__ gv, int nx, int ny, int nz,
-             const T* __restrict__ m, int py, int pz, int seg_len, T eps) {
+             const T* __restrict__ m, int py, int pz, int seg_len, T eps,
+             ViRoles<T> roles) {
   using Sh = ViShape<KV, KR, kVel>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Panel P = panel_of(nx, ny, nz, py, pz, Sh::R, Sh::BR, 1);
@@ -536,6 +618,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
   T* met = C.faces + py * (pz + 1);
   C.met = met;
   C.eps = eps;
+  if constexpr (KR == 0) C.roles = roles;
   int* coloff = reinterpret_cast<int*>(met + kMetrics * P.tr);
   int* toff = coloff + P.tc;
   int* woff = toff + P.tr * P.tc;
@@ -577,9 +660,9 @@ struct ViArgs {
   void *gu, *gv;
   int nx, ny, nz;
   const void* m;
-  int rest_order, velocity;
+  int ke_order, div_order, vert_order, velocity;
   int py, pz, seg_len, nseg;
-  double eps;
+  double eps_v, eps_k, eps_d, eps_z;
   void* stream;
 };
 
@@ -594,30 +677,45 @@ int vi_launch(const ViArgs& A) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((A.nz + A.pz - 1) / A.pz, (A.ny + A.py - 1) / A.py,
                   (unsigned)(2 * A.nseg));
+  const ViRoles<T> roles{(T)A.eps_v,    (T)A.eps_k,   (T)A.eps_d,
+                         (T)A.eps_z,    A.ke_order,   A.div_order,
+                         A.vert_order};
   kernel<<<grid, A.py * (A.pz + 1), bytes, (cudaStream_t)A.stream>>>(
       (const T*)A.u, (const T*)A.v, (const T*)A.w, (T*)A.gu, (T*)A.gv, A.nx,
-      A.ny, A.nz, (const T*)A.m, A.py, A.pz, A.seg_len, (T)A.eps);
+      A.ny, A.nz, (const T*)A.m, A.py, A.pz, A.seg_len, (T)A.eps_v, roles);
   return (int)cudaGetLastError();
 }
 
-// The vorticity order KV with the rest at order 5 or at KV (the two
-// WENOVectorInvariant families), either vorticity stencil.
+template <typename T, int KV, int KR>
+int vi_stencil(const ViArgs& A) {
+  return A.velocity ? vi_launch<T, KV, KR, true>(A)
+                    : vi_launch<T, KV, KR, false>(A);
+}
+
+// The vorticity order KV, either vorticity stencil: one epsilon and the
+// other three schemes all at order 5 or all at KV (the two
+// WENOVectorInvariant families) take their pair's instantiation; any
+// other orders (each of 3, 5, 7, 9, 11) or epsilons the one of runtime
+// orders.
 template <typename T, int KV>
 int vi_order(const ViArgs& A) {
   if (!plan_ok(A.nx, A.ny, A.nz, A.py, A.pz, 0, 1, A.seg_len, A.nseg, 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (A.rest_order == 5) {
-    return A.velocity ? vi_launch<T, KV, 5, true>(A)
-                      : vi_launch<T, KV, 5, false>(A);
+  const int orders[3] = {A.ke_order, A.div_order, A.vert_order};
+  bool all5 = true, allKV = true;
+  for (int o : orders) {
+    if (o < 3 || o > 11 || o % 2 == 0) return (int)cudaErrorInvalidValue;
+    all5 = all5 && o == 5;
+    allKV = allKV && o == KV;
   }
+  const bool one_eps =
+      A.eps_k == A.eps_v && A.eps_d == A.eps_v && A.eps_z == A.eps_v;
+  if (one_eps && all5) return vi_stencil<T, KV, 5>(A);
   if constexpr (KV != 5) {
-    if (A.rest_order == KV) {
-      return A.velocity ? vi_launch<T, KV, KV, true>(A)
-                        : vi_launch<T, KV, KV, false>(A);
-    }
+    if (one_eps && allKV) return vi_stencil<T, KV, KV>(A);
   }
-  return (int)cudaErrorInvalidValue;
+  return vi_stencil<T, KV, 0>(A);
 }
 
 // ---------------------------------------------------------------------------
@@ -672,7 +770,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<T>)
   using Sh = TracerShape<K>;
   constexpr int B = Sh::B, N = 2 * B;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kOrdered = K >= 9;
+  constexpr bool kOrdered = K >= 7;
   Panel P = panel_of(nx, ny, nz, py, pz, B, B, 1);
   const int group = blockIdx.z % groups;
   const Segment S = segment_of(blockIdx.z / groups, seg_len, nx);

@@ -1,7 +1,7 @@
 // The order-3 instantiations of the x-marching tiles of vi_tile.h: the
 // vector-invariant kernel with WENO(3) vorticity, the other schemes
-// WENO(5) or WENO(3), either vorticity stencil, and the WENO(3) tracer
-// kernel, in float32 and float64.
+// all WENO(5), all WENO(3) or each of its own runtime order, either vorticity
+// stencil, and the WENO(3) tracer kernel, in float32 and float64.
 
 #include "vi_tile.h"
 

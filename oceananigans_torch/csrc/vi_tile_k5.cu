@@ -1,7 +1,7 @@
 // The order-5 instantiations of the x-marching tiles of vi_tile.h: the
 // vector-invariant kernel with WENO(5) vorticity, the other schemes
-// WENO(5), either vorticity stencil, and the WENO(5) tracer
-// kernel, in float32 and float64.
+// all WENO(5) or each of its own runtime order, either vorticity
+// stencil, and the WENO(5) tracer kernel, in float32 and float64.
 
 #include "vi_tile.h"
 

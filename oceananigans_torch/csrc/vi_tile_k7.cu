@@ -1,7 +1,7 @@
 // The order-7 instantiations of the x-marching tiles of vi_tile.h: the
 // vector-invariant kernel with WENO(7) vorticity, the other schemes
-// WENO(5) or WENO(7), either vorticity stencil, and the WENO(7) tracer
-// kernel, in float32 and float64.
+// all WENO(5), all WENO(7) or each of its own runtime order, either vorticity
+// stencil, and the WENO(7) tracer kernel, in float32 and float64.
 
 #include "vi_tile.h"
 

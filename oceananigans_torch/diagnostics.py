@@ -93,7 +93,7 @@ class DiffusiveCFL:
             if isinstance(kappa, dict):
                 kappa = max(kappa.values(), default=0.0)
             nu_max = max(nu_max, float(nu), float(kappa))
-        dmin = min(float(model.grid.spacing(ax)) for ax in range(3)
+        dmin = min(float(model.grid.min_spacing(ax)) for ax in range(3)
                    if model.grid.N[ax] > 1)
         return dt * nu_max / dmin ** 2
 

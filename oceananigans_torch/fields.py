@@ -33,7 +33,9 @@ def new_field(grid, dtype=None):
 
 
 def location_coords(grid, loc):
-    """Broadcast-ready (x, y, z) coordinate tensors at a staggered location."""
+    """Broadcast-ready (x, y, z) coordinate tensors at a staggered location:
+    (λ, φ, z) on the spherical grids, whose λ and φ are (nx, ny, 1) on an
+    orthogonal grid."""
     return tuple(getattr(grid, f"{name}F" if loc[axis] == Face
                          else f"{name}C")
                  for axis, name in enumerate(AXIS_NAMES))
@@ -126,11 +128,18 @@ def _overlap_matrix(src_edges, dst_edges):
 
 
 def _axis_edges(grid, axis):
-    f = getattr(grid, f"{AXIS_NAMES[axis]}F").reshape(-1).cpu().double()
+    """The N + 1 interior faces of ``axis``, in its own coordinate (metres
+    or degrees); an axis of an orthogonal grid's 2-D nodes has none."""
+    f = getattr(grid, f"{AXIS_NAMES[axis]}F")
+    if f.shape[axis] != f.numel():
+        raise ValueError(f"regrid along {AXIS_NAMES[axis]} needs 1-D "
+                         f"coordinates; {type(grid).__name__} has 2-D ones")
+    f = f.reshape(-1).cpu().double()
     H, N = grid.H[axis], grid.N[axis]
-    # the right wall face of the last interior cell
+    # the right wall face of the last interior cell, one regular spacing
+    # past the last left face where no halo slot holds it
     right = f[H + N] if H + N < f.numel() else (
-        f[H + N - 1] + grid.spacing(axis))
+        f[H + N - 1] + (grid.Lx, grid.Ly, grid.Lz)[axis] / N)
     return np.append(f[H:H + N].numpy(), float(right))
 
 

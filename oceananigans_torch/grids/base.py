@@ -1,13 +1,16 @@
-"""Topology and location vocabulary, coordinate generation.
+"""Topology and location vocabulary, coordinate generation, and the grid
+base class.
 
 Counterpart of ``oceananigans_tpu/grids/base.py``. Coordinates are built on
 the host in float64 numpy, then stored as broadcast-ready tensors: x-arrays
-shaped ``(nx, 1, 1)``, y ``(1, ny, 1)``, z ``(1, 1, nz)``.
+shaped ``(nx, 1, 1)``, y ``(1, ny, 1)``, z ``(1, 1, nz)``; the metrics of a
+curvilinear grid are ``(nx, ny, 1)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 Periodic = "periodic"
 Bounded = "bounded"
@@ -40,7 +43,8 @@ def generate_coordinate(spec, N: int, H: int, topo: str):
     if not (isinstance(spec, tuple) and len(spec) == 2
             and np.isscalar(spec[0])):
         raise NotImplementedError(
-            "stretched coordinates are not ported yet; give (left, right)")
+            "stretched coordinates are not ported yet (ROADMAP Queue 1 item "
+            "13); give (left, right)")
     left, right = float(spec[0]), float(spec[1])
     dx = (right - left) / N
     faces = left + np.arange(-H, N + H + 1, dtype=np.float64) * dx
@@ -64,3 +68,103 @@ def bshape(axis: int, n: int):
 def interior_slices(N, H):
     """Per-axis slices of the interior cells of a halo-extended array."""
     return tuple(slice(h, h + n) for n, h in zip(N, H))
+
+
+def halo_per_axis(halo):
+    """A halo given as one width or a per-axis triple, as a triple."""
+    if isinstance(halo, (tuple, list)):
+        return tuple(int(h) for h in halo)
+    return (int(halo),) * 3
+
+
+class AbstractGrid(torch.nn.Module):
+    """What every grid has: sizes ``N``, halos ``H`` and ``topology``; the
+    halo-extended ``shape``; the areas and volumes built on the subclass's
+    ``dx``/``dy``/``dz``; and the node and spacing queries. Coordinate and
+    metric tensors are buffers, so ``grid.to(device)`` moves them all.
+
+    ``x_regular``/``y_regular``/``z_regular`` say whether an axis has
+    regular spacing in its own coordinate (metres or degrees), as on the
+    JAX grids; ``regular`` is all three.
+    """
+
+    x_regular = y_regular = z_regular = True
+
+    @property
+    def regular(self) -> bool:
+        return self.x_regular and self.y_regular and self.z_regular
+
+    # ---- shapes -----------------------------------------------------------
+    @property
+    def shape(self):
+        """Full (halo-extended) field shape on this grid."""
+        return tuple(total_length(n, h) for n, h in zip(self.N, self.H))
+
+    @property
+    def interior_slices(self):
+        return interior_slices(self.N, self.H)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.zC.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.zC.device
+
+    def interior(self, a):
+        return a[self.interior_slices]
+
+    def axis_topo(self, axis: int) -> str:
+        return self.topology[axis]
+
+    # ---- metrics (dx, dy, dz come from the subclass) -----------------------
+    def Ax(self, lx, ly, lz):
+        """Area of the x-normal face of the (lx, ly, lz) control volume."""
+        return self.dy(ly, lx) * self.dz(lz)
+
+    def Ay(self, lx, ly, lz):
+        return self.dx(lx, ly) * self.dz(lz)
+
+    def Az(self, lx, ly, lz=None):
+        return self.dx(lx, ly) * self.dy(ly, lx)
+
+    def V(self, lx, ly, lz):
+        return self.Az(lx, ly) * self.dz(lz)
+
+    def min_spacing(self, axis: int):
+        """The smallest cell width along ``axis`` over the interior (at cell
+        centers), as a 0-d tensor; +inf on an axis of one cell."""
+        if self.N[axis] == 1:
+            return torch.tensor(float("inf"), dtype=self.dtype)
+        d = (self.dx(), self.dy(), self.dz())[axis]
+        sl = tuple(self.interior_slices[ax] if d.shape[ax] > 1
+                   else slice(None) for ax in range(3))
+        return torch.min(d[sl])
+
+    # ---- node queries -------------------------------------------------------
+    def nodes_1d(self, axis: int, loc: str, with_halos: bool = False):
+        """Coordinate values along ``axis`` at location ``loc``, flattened;
+        the interior ones (N + 1 faces on a Bounded axis) unless
+        ``with_halos``."""
+        name = AXIS_NAMES[axis]
+        flat = getattr(self, f"{name}F" if loc == Face
+                       else f"{name}C").reshape(-1)
+        if with_halos:
+            return flat
+        H, N = self.H[axis], self.N[axis]
+        n = N + 1 if (loc == Face and self.axis_topo(axis) == Bounded) else N
+        return flat[H:H + n]
+
+    def xnodes(self, loc=Center, **kw):
+        return self.nodes_1d(0, loc, **kw)
+
+    def ynodes(self, loc=Center, **kw):
+        return self.nodes_1d(1, loc, **kw)
+
+    def znodes(self, loc=Center, **kw):
+        return self.nodes_1d(2, loc, **kw)
+
+    def nodes(self, locs=(Center, Center, Center), **kw):
+        return (self.xnodes(locs[0], **kw), self.ynodes(locs[1], **kw),
+                self.znodes(locs[2], **kw))

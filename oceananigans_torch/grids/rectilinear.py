@@ -12,8 +12,8 @@ import torch
 
 from oceananigans_torch.config import as_dtype, config
 from oceananigans_torch.grids.base import (
-    AXIS_NAMES, Bounded, Center, Flat, Periodic, bshape, generate_coordinate,
-    interior_slices, total_length,
+    AXIS_NAMES, AbstractGrid, Bounded, Center, Flat, Periodic, bshape,
+    generate_coordinate, halo_per_axis,
 )
 
 
@@ -31,7 +31,7 @@ def _expand_per_axis(values, topology, what):
     return tuple(full)
 
 
-class RectilinearGrid(torch.nn.Module):
+class RectilinearGrid(AbstractGrid):
     """Cartesian C-grid with regular spacing on every axis.
 
     ``x=``, ``y=``, ``z=`` are ``(left, right)`` pairs; ``extent=(Lx, Ly,
@@ -54,8 +54,7 @@ class RectilinearGrid(torch.nn.Module):
             z = (-exts[2], 0.0) if exts[2] is not None else None
         sizes = _expand_per_axis(size, topology, "size")
         specs = (x, y, z)
-        halos = (tuple(halo) if isinstance(halo, (tuple, list))
-                 else (halo, halo, halo))
+        halos = halo_per_axis(halo)
         Ns, Hs, Ls = [], [], []
         for axis, name in enumerate(AXIS_NAMES):
             topo = topology[axis]
@@ -79,33 +78,6 @@ class RectilinearGrid(torch.nn.Module):
         self.Nx, self.Ny, self.Nz = self.N
         self.Lx, self.Ly, self.Lz = Ls
 
-    # ---- shapes -----------------------------------------------------------
-    @property
-    def shape(self):
-        """Full (halo-extended) field shape on this grid."""
-        return tuple(total_length(n, h) for n, h in zip(self.N, self.H))
-
-    @property
-    def interior_slices(self):
-        return interior_slices(self.N, self.H)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.xC.dtype
-
-    @property
-    def device(self) -> torch.device:
-        return self.xC.device
-
-    #: only regular spacing is ported
-    regular = True
-
-    def interior(self, a):
-        return a[self.interior_slices]
-
-    def axis_topo(self, axis: int) -> str:
-        return self.topology[axis]
-
     # ---- metrics -----------------------------------------------------------
     def dx(self, lx=Center, ly=Center):
         return self.xC_d if lx == Center else self.xF_d
@@ -115,19 +87,6 @@ class RectilinearGrid(torch.nn.Module):
 
     def dz(self, lz=Center):
         return self.zC_d if lz == Center else self.zF_d
-
-    def Ax(self, lx, ly, lz):
-        """Area of the x-normal face of the (lx, ly, lz) control volume."""
-        return self.dy(ly, lx) * self.dz(lz)
-
-    def Ay(self, lx, ly, lz):
-        return self.dx(lx, ly) * self.dz(lz)
-
-    def Az(self, lx, ly, lz=None):
-        return self.dx(lx, ly) * self.dy(ly, lx)
-
-    def V(self, lx, ly, lz):
-        return self.Az(lx, ly) * self.dz(lz)
 
     def spacing(self, axis: int) -> float:
         """The regular spacing of ``axis`` (1 on a Flat axis)."""

@@ -1,14 +1,18 @@
-"""Carry a model state across as numpy arrays.
+"""Carry a model state and a grid across as numpy arrays.
 
 Tests hand the JAX package and the port the same starting state through
-these two functions: every field of the state as a halo-extended array,
+:func:`state_from_numpy` and :func:`state_to_numpy`: every field of the
+state as a halo-extended array,
 each tracer and its previous tendency under ``tracers/<name>`` and
 ``Gtracers/<name>``, and the clock as ``time``, ``iteration`` and
 ``last_dt``. The fields are :data:`FIELDS` for a nonhydrostatic state (u,
 v, w, pressure, Gu, Gv, Gw), :data:`SW_FIELDS` for a shallow-water one (uh,
 vh, h, Guh, Gvh, Gh) and :data:`HYDROSTATIC_FIELDS` for a hydrostatic one
 (u, v, w, Gu, Gv, and η, Gη and the barotropic transports U, V, these four
-shaped (nx, ny, 1)).
+shaped (nx, ny, 1)). They build both packages' grids from the same
+constructor arguments (:func:`grid_from_arguments`); an orthogonal grid's
+(λ, φ) nodes cross as numpy arrays (:func:`orthogonal_nodes`,
+:func:`orthogonal_grid_like`).
 """
 
 from __future__ import annotations
@@ -16,6 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from oceananigans_torch import grids
+from oceananigans_torch.grids.orthogonal import (
+    NODE_KEYS, OrthogonalSphericalShellGrid,
+)
 from oceananigans_torch.models.hydrostatic import (
     HydrostaticFreeSurfaceModel, HydrostaticState,
 )
@@ -93,5 +101,37 @@ def state_to_numpy(state):
     return out
 
 
+def grid_from_arguments(kind, **kwargs):
+    """The port's grid ``kind`` ("RectilinearGrid", "LatitudeLongitudeGrid",
+    "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid" or
+    "TripolarGrid") from the keyword arguments that build the JAX package's
+    grid of that name (``dtype`` may be a name), plus ``device=``."""
+    return getattr(grids, kind)(**kwargs)
+
+
+def orthogonal_nodes(grid):
+    """``(lam, phi)``: the (λ, φ) nodes of an orthogonal spherical-shell
+    grid of either package, dicts of float64 numpy (nx, ny) arrays keyed by
+    ``NODE_KEYS``, as ``OrthogonalSphericalShellGrid`` takes them."""
+    def nodes(name):
+        return {k: np.asarray(getattr(grid, f"{name}{k.upper()}"),
+                              dtype=np.float64)[:, :, 0] for k in NODE_KEYS}
+    return nodes("lam"), nodes("phi")
+
+
+def orthogonal_grid_like(grid, **kwargs):
+    """The port's ``OrthogonalSphericalShellGrid`` with the nodes, sizes,
+    halos, topology, zipper flag, radius and regular z of ``grid`` (either
+    package's); ``kwargs`` add ``dtype`` and ``device``."""
+    lam, phi = orthogonal_nodes(grid)
+    z0 = float(np.asarray(grid.zF).reshape(-1)[grid.H[2]])
+    return OrthogonalSphericalShellGrid(
+        lam, phi, (z0, z0 + grid.Lz), grid.N, halo=grid.H,
+        radius=grid.radius, topology=grid.topology, zipper=grid.zipper,
+        **kwargs)
+
+
 __all__ = ["CLOCK", "FIELDS", "FIELDS_2D", "HYDROSTATIC_FIELDS",
-           "SW_FIELDS", "state_from_numpy", "state_to_numpy", "tracer_keys"]
+           "SW_FIELDS", "grid_from_arguments", "orthogonal_grid_like",
+           "orthogonal_nodes", "state_from_numpy", "state_to_numpy",
+           "tracer_keys"]

@@ -3,7 +3,8 @@ and the vector-invariant momentum advection it shares with the
 shallow-water model.
 
 Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
-``RectilinearGrid``:
+``RectilinearGrid``, a ``LatitudeLongitudeGrid`` or an
+``OrthogonalSphericalShellGrid`` (the rotated lat-lon and tripolar grids):
 
 - ``VectorInvariant`` with every option of the reference: the conserving
   (string) and upwinded (scheme-valued) vorticity, vertical, divergence and
@@ -25,8 +26,7 @@ Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 Queue 1 item: forcings, biogeochemistry, Stokes drift, particles and
 auxiliary fields (item 12); immersed grids (item 13); the ocean closures
 (CATKE and the rest), the implicit free surface, ``ZStar``,
-``PrescribedVelocityFields``, ``split_rk3`` stepping and lat-lon or
-orthogonal grids (item 15).
+``PrescribedVelocityFields`` and ``split_rk3`` stepping (item 15).
 
 The state is a dataclass of tensors. ``step`` returns a new state but
 reuses its argument's storage: halo fills write halo rows in place, the
@@ -63,6 +63,8 @@ from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
 from oceananigans_torch.grids.base import Bounded, Center, Face
+from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
+from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.ops.cuda_tracer import (
     tracer_fusion_available, tracer_metric_profiles, weno_tracer_tendencies,
@@ -80,6 +82,8 @@ X, Y, Z = 0, 1, 2
 
 _ITEM12 = "ROADMAP Queue 1 item 12 (forcings and physics)"
 _ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
+#: the grids the model runs on
+GRIDS = (RectilinearGrid, LatitudeLongitudeGrid, OrthogonalSphericalShellGrid)
 
 
 # ---------------------------------------------------------------------------
@@ -518,11 +522,11 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 raise NotImplementedError(
                     f"HydrostaticFreeSurfaceModel({name}=...) is not ported "
                     f"yet; {_ITEM12} brings it")
-        if not isinstance(grid, RectilinearGrid):
+        if not isinstance(grid, GRIDS):
             raise NotImplementedError(
                 f"{type(grid).__name__} is not ported yet; immersed grids "
-                "come with ROADMAP Queue 1 item 13, lat-lon and orthogonal "
-                f"grids with {_ITEM15}")
+                "come with ROADMAP Queue 1 item 13, the cubed sphere with "
+                "item 16")
         if timestepper not in ("quasi_ab2", "split_rk3"):
             raise ValueError(f"unknown timestepper {timestepper!r}")
         closures_mod.check_closure(closure, "HydrostaticFreeSurfaceModel")

@@ -47,7 +47,7 @@ from oceananigans_torch.coriolis import FORMULATIONS, FPlane
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
-from oceananigans_torch.grids.base import Center, Periodic
+from oceananigans_torch.grids.base import AbstractGrid, Center, Periodic
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, centered2_ab2_update, centered2_momentum_tendency,
@@ -129,6 +129,11 @@ class NonhydrostaticModel(torch.nn.Module):
                 raise NotImplementedError(
                     f"NonhydrostaticModel({name}=...) is not ported yet; "
                     f"ROADMAP Queue 1 {_LATER[name]} brings it")
+        if isinstance(grid, AbstractGrid) and not isinstance(
+                grid, RectilinearGrid):
+            # the JAX model's pressure solvers take no spherical grid
+            raise ValueError(f"NonhydrostaticModel needs a RectilinearGrid, "
+                             f"not a {type(grid).__name__}")
         if not isinstance(grid, RectilinearGrid):
             raise NotImplementedError(
                 f"{type(grid).__name__} is not ported yet; immersed grids "

@@ -1,7 +1,8 @@
 """ShallowWaterModel: the rotating shallow-water equations.
 
-Counterpart of ``oceananigans_tpu/models/shallow_water.py`` on a regular
-``RectilinearGrid`` with a Flat z axis, in both formulations.
+Counterpart of ``oceananigans_tpu/models/shallow_water.py`` on a grid with
+a Flat z axis (a regular ``RectilinearGrid``, a ``LatitudeLongitudeGrid``
+or an ``OrthogonalSphericalShellGrid``), in both formulations.
 
 Conservative form, with transports (uh, vh), u = uh/h and bathymetry height
 b(x, y) (the free surface is η = h + b):
@@ -44,6 +45,8 @@ from oceananigans_torch.buoyancy import g_Earth
 from oceananigans_torch.coriolis import FORMULATIONS
 from oceananigans_torch.fields import LOC_C, LOC_U, LOC_V, new_field, set_field
 from oceananigans_torch.grids.base import Center, Face, Flat, Periodic
+from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
+from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.models.hydrostatic import VectorInvariant
 from oceananigans_torch.ops.cuda_sw import sw_fused_available, sw_rk3_stage
@@ -142,9 +145,11 @@ class ShallowWaterModel(torch.nn.Module):
             raise NotImplementedError(
                 "ShallowWaterModel(forcing=...) is not ported yet; ROADMAP "
                 "Queue 1 item 12 (forcings and physics) brings forcings")
-        if not isinstance(grid, RectilinearGrid):
+        if not isinstance(grid, (RectilinearGrid, LatitudeLongitudeGrid,
+                                 OrthogonalSphericalShellGrid)):
             raise NotImplementedError(
-                f"{type(grid).__name__} is not ported yet")
+                f"{type(grid).__name__} is not ported yet; the cubed sphere "
+                "comes with ROADMAP Queue 1 item 16")
         if grid.topology[2] != Flat:
             raise ValueError("ShallowWaterModel needs a Flat z topology "
                              "(2-D grid)")

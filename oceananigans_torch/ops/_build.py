@@ -45,7 +45,7 @@ SIGNATURES = {
     "ot_weno5_science_ab2": [_P] * 12 + [_I] * 4 + [_D] * 7 + [_I] + [_P],
     "ot_sw_rk3_stage": [_P] * 9 + [_I] * 6 + [_D] * 5 + [_P],
     "ot_weno_tracer_march": [_P] * 5 + [_I] * 4 + [_P] + [_I] * 5 + [_D, _P],
-    "ot_vi_march": [_P] * 5 + [_I] * 3 + [_P] + [_I] * 7 + [_D, _P],
+    "ot_vi_march": [_P] * 5 + [_I] * 3 + [_P] + [_I] * 9 + [_D] * 4 + [_P],
     "ot_generic_momentum": [_P] * 6 + [_I] * 7 + [_D] * 7 + [_I] * 4 + [_P],
 }
 

@@ -18,7 +18,8 @@ every axis, exactly as the plain version's whole-tensor operators
 (``advection.div_Uc``, built on ``torch.roll``) do: the two agree on every
 point, halo rows included, where the JAX kernels write zeros into their
 output halo rows. The face areas and the volume enter as y-profiles
-(:func:`tracer_metric_profiles`), built once by the model.
+(:func:`tracer_metric_profiles`), built once by the model: constants on a
+regular rectilinear grid, functions of latitude on a lat-lon grid.
 
 ``ops/march.py: march_plan`` is the launch plan of this kernel, of the
 vector-invariant one (``ops/cuda_vi.py``) and of the other x-marching
@@ -78,14 +79,23 @@ def axes_reachable(grid, reach) -> bool:
         for axis in range(3))
 
 
+def grid_ok(grid) -> bool:
+    """The grids of the JAX gates of kernels 11-13: a regular rectilinear
+    grid, or a lat-lon grid regular in x and z, whose metrics vary along y
+    only (the kernels read them as y-profiles). No orthogonal grid."""
+    from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
+    from oceananigans_torch.grids.rectilinear import RectilinearGrid
+    return ((isinstance(grid, RectilinearGrid) and grid.regular)
+            or (type(grid) is LatitudeLongitudeGrid and grid.z_regular
+                and grid.x_regular))
+
+
 def tracer_fusion_available(grid, scheme) -> bool:
-    """True when the kernel applies: a regular rectilinear grid, plain WENO
+    """True when the kernel applies: a grid of :func:`grid_ok`, plain WENO
     (no bounds) of an order in :data:`ORDERS`, and the reach of
     :func:`axes_reachable` on every axis. Unlike the JAX gate, a
-    halo-free periodic axis needs no (8, 128) alignment and may be x, and
-    the lat-lon grid (not ported) is not taken."""
-    from oceananigans_torch.grids.rectilinear import RectilinearGrid
-    if not (isinstance(grid, RectilinearGrid) and grid.regular):
+    halo-free periodic axis needs no (8, 128) alignment and may be x."""
+    if not grid_ok(grid):
         return False
     if not (type(scheme) is WENO and scheme.bounds is None
             and scheme.order in ORDERS):
@@ -153,6 +163,6 @@ def weno_tracer_tendencies(grid, scheme, u, v, w, tracers, metrics=None):
 
 weno_tracer_tendencies.launches = 0
 
-__all__ = ["METRICS", "ORDERS", "march_plan", "tracer_fusion_available",
-           "tracer_metric_profiles", "weno_tracer_tendencies",
-           "weno_tracer_tendencies_plain"]
+__all__ = ["METRICS", "ORDERS", "grid_ok", "march_plan",
+           "tracer_fusion_available", "tracer_metric_profiles",
+           "weno_tracer_tendencies", "weno_tracer_tendencies_plain"]

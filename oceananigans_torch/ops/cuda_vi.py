@@ -17,14 +17,20 @@ The kernel is an x-marching tile (a Gu block and a Gv block for each panel
 and segment of ``march.march_plan``), a template on the vorticity
 order and on the order of the other three schemes, with one vorticity
 order per translation unit (``csrc/vi_tile_k<K>.cu``): the pairs of
-:data:`ORDER_PAIRS`, the two families of ``WENOVectorInvariant``.
+:data:`ORDER_PAIRS`, the two families of ``WENOVectorInvariant``, are
+instantiated as such, and any other orders of the kinetic energy
+gradient, divergence and vertical schemes (each of 3 to 11) take the
+instantiation in which those three are runtime values, each dispatched
+where its reconstruction is made. Each scheme brings its own epsilon.
 
 The kernel computes every point of the halo-extended tensors, with
 neighbours wrapped modulo the full extent on every axis, as the plain
 version's whole-tensor operators (``torch.roll``) do: the two agree on
 every point, halo rows included, where the JAX kernels write zeros into
 their output halo rows. The ten metric combinations enter as y-profiles
-(:func:`vi_metric_profiles`), built once by the model.
+(:func:`vi_metric_profiles`), built once by the model: constants on a
+regular rectilinear grid, functions of latitude on an x-regular lat-lon
+grid (its Az and volumes from Δsinφ, not Δx·Δy).
 
 The wrapper takes its plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no fallback from one to
@@ -41,14 +47,16 @@ from oceananigans_torch.ops.cuda_kernels import (
     check_operands, on_cuda, sm_count,
 )
 from oceananigans_torch.ops.cuda_tracer import (
-    axes_reachable, metric_profile,
+    axes_reachable, grid_ok, metric_profile,
 )
 from oceananigans_torch.ops.march import march_plan
 
-#: the (vorticity, rest) WENO orders the kernel is instantiated for, the
-#: rest being the kinetic energy gradient, divergence and vertical schemes:
-#: ``WENOVectorInvariant(vorticity_order=N)`` (the rest WENO(5); N = 9 is
-#: the default) and ``WENOVectorInvariant(order=N)`` (all four of order N)
+#: the (vorticity, rest) WENO orders the kernel is instantiated for as
+#: pairs, the rest being the kinetic energy gradient, divergence and
+#: vertical schemes: ``WENOVectorInvariant(vorticity_order=N)`` (the rest
+#: WENO(5); N = 9 is the default) and ``WENOVectorInvariant(order=N)`` (all
+#: four of order N); other orders of the rest run in the instantiation of
+#: runtime orders
 ORDER_PAIRS = tuple(sorted({(n, 5) for n in (3, 5, 7, 9, 11)}
                            | {(n, n) for n in (3, 7, 9, 11)}))
 #: the metric combinations, in the order the kernel reads their profiles
@@ -56,26 +64,26 @@ METRICS = ("dy_vf", "dx_uf", "dx_vf", "dy_uc", "az_ff", "az_cc", "ax_fcc",
            "ay_cfc", "v_fcc", "v_cfc")
 
 
+def schemes(vi):
+    """The vorticity, kinetic energy gradient, divergence and vertical
+    schemes of ``vi``, in the order the kernel takes their orders and
+    epsilons."""
+    return (vi.vorticity_scheme, vi.kinetic_energy_gradient_scheme,
+            vi.divergence_scheme, vi.vertical_scheme)
+
+
 def _schemes_ok(vi) -> bool:
-    """The options the kernel computes: plain WENO schemes (no bounds) whose
-    vorticity order and common order of the other three are a pair of
-    :data:`ORDER_PAIRS`, one epsilon, 1-D stencils, ``OnlySelfUpwinding``
-    with Centered(2) cross terms."""
+    """The options the kernel computes, those of the JAX gate's
+    ``_vi_schemes_ok``: plain WENO schemes (no bounds) of any order and
+    epsilon each, either vorticity stencil, 1-D stencils,
+    ``OnlySelfUpwinding`` with Centered(2) cross terms."""
     from oceananigans_torch.advection import WENO, Centered
     from oceananigans_torch.models.hydrostatic import (
         OnlySelfUpwinding, VectorInvariant,
     )
     if not isinstance(vi, VectorInvariant) or vi.multi_dimensional_stencil:
         return False
-    schemes = (vi.vorticity_scheme, vi.kinetic_energy_gradient_scheme,
-               vi.divergence_scheme, vi.vertical_scheme)
-    if not all(type(s) is WENO and s.bounds is None for s in schemes):
-        return False
-    rest = {s.order for s in schemes[1:]}
-    if len(rest) != 1 or (vi.vorticity_scheme.order,
-                          rest.pop()) not in ORDER_PAIRS:
-        return False
-    if len({s.epsilon for s in schemes}) != 1:
+    if not all(type(s) is WENO and s.bounds is None for s in schemes(vi)):
         return False
     up = vi.upwinding
     return (type(up) is OnlySelfUpwinding
@@ -98,16 +106,15 @@ def vi_reach(vi):
 
 
 def vi_available(grid, vi) -> bool:
-    """True when the kernel applies: a regular rectilinear grid, the
-    options of :func:`_schemes_ok` (the JAX gate's ``_vi_schemes_ok``
-    narrowed to the instantiated order pairs and one epsilon), and the
-    reach of :func:`vi_reach` on every axis
+    """True when the kernel applies: a regular rectilinear grid or an
+    x- and z-regular lat-lon grid (``cuda_tracer.grid_ok``, the JAX gate's
+    grids), the options of :func:`_schemes_ok` (the JAX gate's
+    ``_vi_schemes_ok``), and the reach of :func:`vi_reach` on every axis
     (``cuda_tracer.axes_reachable``). The JAX gates ask one more halo row
     on y and z, (8, 128) alignment of a halo-free axis and, for the
     transposed layout, a lane-padding rule; the port asks none of these,
     and takes a halo-free periodic x."""
-    from oceananigans_torch.grids.rectilinear import RectilinearGrid
-    if not (isinstance(grid, RectilinearGrid) and grid.regular):
+    if not grid_ok(grid):
         return False
     if not _schemes_ok(vi):
         return False
@@ -148,18 +155,19 @@ def vi_momentum_tendency(grid, vi, u, v, w, metrics=None):
                          "or dtype")
     Gu, Gv = torch.empty_like(u), torch.empty_like(u)
     plan = march_plan(u.shape, 2, sm_count(u.device), u.element_size())
+    s = schemes(vi)
     _build.launch("ot_vi_march", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(), Gu.data_ptr(),
                   Gv.data_ptr(), *u.shape, metrics.data_ptr(),
-                  vi.vorticity_scheme.order, vi.vertical_scheme.order,
+                  *(x.order for x in s),
                   int(vi.vorticity_stencil == "velocity"), *plan,
-                  float(vi.vorticity_scheme.epsilon))
+                  *(float(x.epsilon) for x in s))
     vi_momentum_tendency.launches += 1
     return Gu, Gv
 
 
 vi_momentum_tendency.launches = 0
 
-__all__ = ["METRICS", "ORDER_PAIRS", "vi_available",
+__all__ = ["METRICS", "ORDER_PAIRS", "schemes", "vi_available",
            "vi_metric_profiles", "vi_momentum_tendency",
            "vi_momentum_tendency_plain", "vi_reach"]

@@ -247,6 +247,62 @@ def hydro_generic_state(model):
         S=lambda x, y, z: 35.0 + 1e-8 * y)
 
 
+def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
+                       size=(360, 160, 60), momentum_advection=None,
+                       longitude=(0.0, 360.0), latitude=(-80.0, 80.0),
+                       halo=(6, 6, 4)):
+    """``hydro_vi`` on the sphere: a 1° near-global ocean on a
+    ``LatitudeLongitudeGrid`` (at ``size``; 4 km deep), spherical Coriolis,
+    linear seawater buoyancy, ``WENOVectorInvariant()`` (or
+    ``momentum_advection``), WENO(7) T and S, the split-explicit free
+    surface with 30 substeps."""
+    import oceananigans_torch as ot
+    grid = ot.LatitudeLongitudeGrid(
+        size=size, longitude=longitude, latitude=latitude,
+        z=(-4000.0, 0.0), halo=halo, dtype=dtype, device=device)
+    if momentum_advection is None:
+        momentum_advection = ot.WENOVectorInvariant()
+    return ot.HydrostaticFreeSurfaceModel(
+        grid=grid, momentum_advection=momentum_advection,
+        tracer_advection=ot.WENO(7), tracers=("T", "S"),
+        buoyancy=ot.SeawaterBuoyancy(
+            equation_of_state=ot.LinearEquationOfState()),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        fused_kernels=fused)
+
+
+def hydro_latlon_initial_state(model, generic=False):
+    """``hydro_vi``'s fields on (λ, φ) [degrees]: u = 0.1 sin λ cos(πφ/160),
+    T = 20 + 8e-4 z − 0.05 |φ|, S = 35 + 1e-3 φ. ``generic``: u shifted
+    and a v added, without the exact zeros of that u (as
+    :func:`hydro_generic_state`), for comparisons of devices."""
+    if generic:
+        uv = dict(
+            u=lambda lam, phi, z: 0.1 * torch.sin(torch.deg2rad(lam) + 0.5)
+            * torch.cos(math.pi * phi / 160.0 + 0.2) + 0.01,
+            v=lambda lam, phi, z: 0.05 * torch.cos(torch.deg2rad(lam) + 0.3)
+            * torch.sin(math.pi * phi / 160.0))
+    else:
+        uv = dict(u=lambda lam, phi, z: 0.1 * torch.sin(torch.deg2rad(lam))
+                  * torch.cos(math.pi * phi / 160.0))
+    return model.initial_state(
+        T=lambda lam, phi, z: 20.0 + 8e-4 * z - 0.05 * torch.abs(phi),
+        S=lambda lam, phi, z: 35.0 + 1e-3 * phi, **uv)
+
+
+def volume_drift(model, eta0, eta):
+    """|Σ η Az − Σ η₀ Az| over the interior, relative to Σ |η| Az, in
+    float64."""
+    from oceananigans_torch.grids.base import Center
+    g = model.grid
+    xy = g.interior_slices[:2]
+    Az = torch.broadcast_to(g.Az(Center, Center), eta.shape)[xy].double()
+    a, b = eta[xy].double(), eta0[xy].double()
+    return float((torch.sum(a * Az) - torch.sum(b * Az)).abs()
+                 / torch.sum(a.abs() * Az))
+
+
 #: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo
 CONFIGS = ("default", "science", "weno", "weno_mom")
 #: ``bench.py``'s shallow-water configurations: N and the steps of one

@@ -249,8 +249,11 @@ def test_field_dependent_value_needs_fields():
 
 def test_regularization_matches_jax():
     """Defaults per topology and location, the long-form aliases, and the
-    refusals: a non-periodic condition on a periodic axis; polar, zipper
-    and communication conditions name their ROADMAP items."""
+    refusals: a non-periodic condition on a periodic axis; communication
+    conditions name their ROADMAP item. Polar and zipper conditions given
+    on the south and north of a center-located field are kept and fill as
+    in the JAX package (the polar value the zonal mean of the boundary
+    row; the zipper, on a grid without a fold, a no-flux mirror)."""
     jg, tg = grids(("Periodic", "Bounded", "Bounded"))
     for loc in (oj.LOC_U, oj.LOC_V, oj.LOC_W, oj.LOC_C):
         jb = jbc.regularize_field_boundary_conditions(None, jg, loc)
@@ -266,12 +269,23 @@ def test_regularization_matches_jax():
     with pytest.raises(ValueError, match="periodic"):
         tbc.regularize_field_boundary_conditions(
             ot.FieldBoundaryConditions(west=ot.ValueBC(1.0)), tg, oj.LOC_C)
-    for cls, item in (("polar", "item 15"), ("zipper", "item 15"),
-                      ("communication", "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            tbc.regularize_field_boundary_conditions(
-                ot.FieldBoundaryConditions(
-                    south=ot.BoundaryCondition(cls)), tg, oj.LOC_C)
+    for cls in ("polar", "zipper"):
+        bcs = [pkg.FieldBoundaryConditions(
+            south=pkg.BoundaryCondition(cls),
+            north=pkg.BoundaryCondition(cls)) for pkg in (oj, ot)]
+        jb = jbc.regularize_field_boundary_conditions(bcs[0], jg, oj.LOC_C)
+        tb = tbc.regularize_field_boundary_conditions(bcs[1], tg, oj.LOC_C)
+        assert [b.classification for b in tb.sides(1)] == [
+            b.classification for b in jb.sides(1)] == [cls, cls]
+        a = np.random.default_rng(4).standard_normal(tg.shape)
+        ref = jbc.fill_halo_regions(jnp.asarray(a), jg, jb, oj.LOC_C)
+        got = tbc.fill_halo_regions(torch.tensor(a), tg, tb, oj.LOC_C)
+        assert np.abs(got.numpy() - np.asarray(ref)).max() <= RTOL * \
+            np.abs(np.asarray(ref)).max()
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tbc.regularize_field_boundary_conditions(
+            ot.FieldBoundaryConditions(
+                south=ot.BoundaryCondition("communication")), tg, oj.LOC_C)
 
 
 def test_array_condition_moves_to_the_grid():

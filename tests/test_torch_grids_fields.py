@@ -120,18 +120,34 @@ def test_fill_halo_regions_axes_subset():
 
 
 def test_unported_boundary_conditions_raise():
+    """The communication classification waits for the distributed models;
+    the polar and zipper ones are ported and, on a Bounded y, fill as in
+    the JAX package."""
     _, tg = grids(TOPOLOGIES["bpp"], 1)
     from oceananigans_torch.boundary_conditions import (
         regularize_field_boundary_conditions as t_regularize,
     )
-    # valued conditions are ported; the polar, zipper and communication
-    # classifications are not
+    # valued conditions are ported; the communication classification is not
     t_regularize(ot.FieldBoundaryConditions(west=ot.FluxBC(1.0)), tg,
                  ot.LOC_C)
-    for cls in ("polar", "zipper", "communication"):
-        bcs = ot.FieldBoundaryConditions(west=ot.BoundaryCondition(cls))
-        with pytest.raises(NotImplementedError):
-            t_regularize(bcs, tg, ot.LOC_C)
+    bcs = ot.FieldBoundaryConditions(west=ot.BoundaryCondition(
+        "communication"))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        t_regularize(bcs, tg, ot.LOC_C)
+    jp, tp = grids(TOPOLOGIES["pbb"], 2)
+    for cls in ("polar", "zipper"):
+        jb = regularize_field_boundary_conditions(
+            oj.FieldBoundaryConditions(south=oj.BoundaryCondition(cls)), jp,
+            oj.LOC_C)
+        tb = t_regularize(
+            ot.FieldBoundaryConditions(south=ot.BoundaryCondition(cls)), tp,
+            ot.LOC_C)
+        assert tb.south.classification == jb.south.classification == cls
+        a = np.random.default_rng(5).standard_normal(tp.shape)
+        ref = np.asarray(j_fill(jnp.asarray(a), jp, jb, oj.LOC_C))
+        got = ot.fill_halo_regions(torch.tensor(a, dtype=F64), tp, tb,
+                                   ot.LOC_C)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
     with pytest.raises(ValueError):
         t_regularize(ot.FieldBoundaryConditions(south=ot.FluxBC()), tg,
                      ot.LOC_C)

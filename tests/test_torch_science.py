@@ -326,8 +326,20 @@ def test_unported_arguments_raise():
                dict(buoyancy=object())):
         with pytest.raises(NotImplementedError):
             ot.NonhydrostaticModel(grid=grid, **kw)
-    with pytest.raises(NotImplementedError):
-        t_cor.HydrostaticSphericalCoriolis()
+    # spherical Coriolis is ported with the lat-lon grid: its terms there
+    # match the JAX package's
+    kw = dict(size=(8, 6, 3), longitude=(0.0, 360.0), latitude=(-60.0, 60.0),
+              z=(-10.0, 0.0), halo=2)
+    jg = oj.LatitudeLongitudeGrid(dtype="float64", **kw)
+    tg = ot.LatitudeLongitudeGrid(dtype=F64, **kw)
+    rng = np.random.default_rng(5)
+    uvw = [rng.standard_normal(jg.shape) for _ in range(3)]
+    jc, tc = (j_cor.HydrostaticSphericalCoriolis(),
+              t_cor.HydrostaticSphericalCoriolis())
+    for fn in ("x_f_cross_U", "y_f_cross_U"):
+        ref = np.asarray(getattr(jc, fn)(jg, *map(jnp.asarray, uvw)))
+        got = getattr(tc, fn)(tg, *map(torch.tensor, uvw)).numpy()
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
     with pytest.raises(ValueError):         # WENO(5) needs a halo of 3
         ot.NonhydrostaticModel(
             grid=ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),

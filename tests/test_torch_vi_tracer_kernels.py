@@ -5,7 +5,9 @@ On the CPU the kernels' wrappers run their plain versions, so these tests
 hold the kernel code paths (gates, metric profiles, operand checks) and the
 plain versions to the JAX package; the CUDA kernels themselves are held to
 the plain versions on the card (``tests/test_torch_hydrostatic_gpu.py``,
-``chip_smoke.py``). Inputs are made with numpy from a seed and handed to
+``tests/test_torch_sphere_gpu.py``, ``chip_smoke.py``). The gates are
+also held to the JAX gates on lat-lon grids and at mixed order 4-tuples,
+and the kernel paths to the JAX Pallas kernels on the lat-lon sector. Inputs are made with numpy from a seed and handed to
 both packages. Tolerance: 1e-12 of the largest reference value, in float64
 (both packages evaluate the same whole-array formulas, or the JAX Pallas
 kernels the same terms in interpret mode).
@@ -399,11 +401,12 @@ ALL_ORDERS = (3, 5, 7, 9, 11)
 @pytest.mark.parametrize("vorticity", ALL_ORDERS)
 def test_vi_gate_orders(vorticity, rest):
     """Every (vorticity, rest) WENO order pair: on a grid whose halo holds
-    every reach the JAX gate takes them all, the port's exactly the pairs
-    of ``ORDER_PAIRS`` (``WENOVectorInvariant(vorticity_order=N)`` and
-    ``(order=N)``); mixed pairs such as (7, 3) stay on the plain path. On
-    ``hydro_vi``'s grid, halo (6, 6, 4), the port takes an instantiated
-    pair exactly where its reach fits, and so does the JAX gate."""
+    every reach both gates take them all, the pairs of ``ORDER_PAIRS``
+    (``WENOVectorInvariant(vorticity_order=N)`` and ``(order=N)``) as
+    instantiated pairs, the others such as (7, 3) in the instantiation of
+    runtime orders. On ``hydro_vi``'s grid, halo (6, 6, 4), the port takes
+    a pair exactly where its reach fits, and so does the JAX gate with one
+    more halo row on y and z."""
     from oceananigans_tpu.ops.pallas_vi import vi_available
     tvi = ot.WENOVectorInvariant(vorticity_order=vorticity, order=rest)
     jvi = j_hyd.WENOVectorInvariant(vorticity_order=vorticity, order=rest)
@@ -412,19 +415,196 @@ def test_vi_gate_orders(vorticity, rest):
     kw = dict(size=(16, 12, 8), extent=(1.0, 2.0, 0.5), topology=BBB,
               halo=7)
     assert vi_available(oj.RectilinearGrid(dtype="float64", **kw), jvi)
-    assert cvi.vi_available(ot.RectilinearGrid(dtype=F64, **kw), tvi) \
-        == pair
+    assert cvi.vi_available(ot.RectilinearGrid(dtype=F64, **kw), tvi)
     kw = dict(size=(360, 160, 60), extent=(4e7, 2e7, 4e3),
               topology=(oj.Periodic, oj.Bounded, oj.Bounded),
               halo=(6, 6, 4))
     reach = cvi.vi_reach(tvi)
     fits = reach[0] <= 6 and reach[1] <= 6 and reach[2] <= 4
     port = cvi.vi_available(ot.RectilinearGrid(dtype=F64, **kw), tvi)
-    assert port == (pair and fits)
+    assert port == fits
     # the JAX gate asks one more halo row on y and z
     jax_fits = reach[0] <= 6 and reach[1] <= 5 and reach[2] <= 3
     assert vi_available(oj.RectilinearGrid(dtype="float64", **kw), jvi) \
         == jax_fits
+
+
+#: (vorticity, kinetic energy gradient, divergence, vertical) WENO orders
+#: and the roles whose epsilon is 1e-6 (the others 1e-8)
+ORDER_MIXES = [((9, 7, 5, 3), (3,)), ((7, 3, 3, 3), ()),
+               ((5, 11, 7, 9), (0, 2)), ((3, 5, 7, 11), (1,)),
+               ((11, 3, 9, 5), (0, 1, 2, 3)), ((9, 5, 5, 5), (3,)),
+               ((5, 5, 5, 5), (1,))]
+
+
+def mixed_vi(pkg, hyd, orders, eps_roles=(), stencil="velocity"):
+    """A ``VectorInvariant`` of the four WENO ``orders``, the roles of
+    ``eps_roles`` with an epsilon of 1e-6."""
+    s = [pkg.WENO(k, epsilon=1e-6 if r in eps_roles else 1e-8)
+         for r, k in enumerate(orders)]
+    return hyd.VectorInvariant(
+        vorticity_scheme=s[0], vorticity_stencil=stencil,
+        kinetic_energy_gradient_scheme=s[1], divergence_scheme=s[2],
+        vertical_scheme=s[3])
+
+
+def latlon_grids(size=(16, 12, 8), halo=7, x_regular=True, z_regular=True,
+                 latitude=(-70.0, 70.0)):
+    """Both packages' lat-lon grids. The JAX grid takes stretched x or z
+    faces where a flag is False; the port, whose stretched axes wait for
+    ROADMAP Queue 1 item 13, takes the regular axis and the JAX flag."""
+    lon = (0.0, 360.0)
+    z = (-500.0, 0.0)
+    jlon = lon if x_regular else tuple(
+        360.0 * (np.arange(size[0] + 1) / size[0]) ** 1.2)
+    jz = z if z_regular else tuple(
+        -500.0 * (1.0 - np.arange(size[2] + 1) / size[2]) ** 1.5)
+    jg = oj.LatitudeLongitudeGrid(
+        size=size, longitude=np.asarray(jlon) if not x_regular else jlon,
+        latitude=latitude, z=np.asarray(jz) if not z_regular else jz,
+        halo=halo, dtype="float64",
+        topology=(oj.Periodic, oj.Bounded, oj.Bounded))
+    tg = ot.LatitudeLongitudeGrid(size=size, longitude=lon,
+                                  latitude=latitude, z=z, halo=halo,
+                                  dtype=F64)
+    assert (jg.x_regular, jg.z_regular) == (x_regular, z_regular)
+    tg.x_regular, tg.z_regular = x_regular, z_regular
+    return jg, tg
+
+
+@pytest.mark.parametrize("halo", [7, 4])
+@pytest.mark.parametrize("regular", [(True, True), (False, True),
+                                     (True, False), (False, False)],
+                         ids=["xz", "z", "x", "none"])
+def test_gates_match_jax_on_latlon(regular, halo):
+    """The lat-lon gates of rows 11 and 12/13, held to the JAX gates: a
+    lat-lon grid regular in x and z with every tracer order and every
+    order mix of :data:`ORDER_MIXES` (per-role epsilons) on both vorticity
+    stencils; the same refused where x or z is stretched. The documented
+    halo rule is the one difference: the JAX VI gate asks one more row on
+    y and z than the kernel reads."""
+    from oceananigans_tpu.ops.pallas_tracer import (
+        tracer_fusion_available as j_tracer_ok,
+    )
+    from oceananigans_tpu.ops.pallas_vi import vi_available as j_vi_ok
+    jg, tg = latlon_grids(halo=halo, x_regular=regular[0],
+                          z_regular=regular[1])
+    takes = all(regular)
+    for order in ALL_ORDERS:
+        reach = (order + 1) // 2
+        assert ctr.tracer_fusion_available(tg, ot.WENO(order)) \
+            == j_tracer_ok(jg, oj.WENO(order)) \
+            == (takes and reach <= halo)
+    for orders, eps_roles in ORDER_MIXES:
+        for stencil in ("velocity", "default"):
+            tvi = mixed_vi(ot, ot, orders, eps_roles, stencil)
+            jvi = mixed_vi(oj, j_hyd, orders, eps_roles, stencil)
+            r = cvi.vi_reach(tvi)
+            port = takes and r[0] <= halo and r[1] <= halo \
+                and r[2] <= halo
+            jax = takes and r[0] <= halo and r[1] + 1 <= halo \
+                and r[2] + 1 <= halo
+            assert cvi.vi_available(tg, tvi) == port, (orders, stencil)
+            assert j_vi_ok(jg, jvi) == jax, (orders, stencil)
+
+
+def test_gates_refuse_what_jax_refuses():
+    """Both packages' gates refuse an orthogonal grid, a non-WENO or
+    upwinded-cross-term scheme, and the multidimensional stencil, on
+    lat-lon as on rectilinear grids."""
+    from oceananigans_tpu.ops.pallas_tracer import (
+        tracer_fusion_available as j_tracer_ok,
+    )
+    from oceananigans_tpu.ops.pallas_vi import vi_available as j_vi_ok
+    kw = dict(size=(16, 10, 6), z=(-100.0, 0.0), halo=7)
+    jt = oj.TripolarGrid(dtype="float64", **kw)
+    tt = ot.TripolarGrid(dtype=F64, **kw)
+    for jg, tg in ((jt, tt), latlon_grids()):
+        istrip = tg is tt
+        assert ctr.tracer_fusion_available(tg, ot.WENO(5)) \
+            == j_tracer_ok(jg, oj.WENO(5)) == (not istrip)
+        assert cvi.vi_available(tg, ot.WENOVectorInvariant()) \
+            == j_vi_ok(jg, j_hyd.WENOVectorInvariant()) == (not istrip)
+        for kwv in (dict(upwinding=ot.CrossAndSelfUpwinding()),
+                    dict(multi_dimensional_stencil=True)):
+            jkw = {k: (oj.CrossAndSelfUpwinding() if k == "upwinding"
+                       else v) for k, v in kwv.items()}
+            assert not cvi.vi_available(tg, ot.WENOVectorInvariant(**kwv))
+            assert not j_vi_ok(jg, j_hyd.WENOVectorInvariant(**jkw))
+        for tvi, jvi in ((ot.VectorInvariant(), j_hyd.VectorInvariant()),
+                         (ot.VectorInvariant(
+                             vorticity_scheme=ot.UpwindBiased(5),
+                             vertical_scheme=ot.WENO(5)),
+                          j_hyd.VectorInvariant(
+                              vorticity_scheme=oj.UpwindBiased(5),
+                              vertical_scheme=oj.WENO(5)))):
+            assert not cvi.vi_available(tg, tvi)
+            assert not j_vi_ok(jg, jvi)
+        assert not ctr.tracer_fusion_available(tg, ot.UpwindBiased(5))
+        assert not j_tracer_ok(jg, oj.UpwindBiased(5))
+
+
+def latlon_sector_fields(halo, seed):
+    """The lat-lon sector of the JAX package's kernel tests, (24, 16, 8)
+    on 30°W-30°E, 15°N-55°N, 1 km deep, in both packages, and the same
+    halo-filled random u, v, w, c."""
+    kw = dict(size=(24, 16, 8), longitude=(-30.0, 30.0),
+              latitude=(15.0, 55.0), z=(-1000.0, 0.0), halo=halo)
+    jg = oj.LatitudeLongitudeGrid(dtype="float64", **kw)
+    tg = ot.LatitudeLongitudeGrid(dtype=F64, **kw)
+    rng = np.random.default_rng(seed)
+    j, t = {}, {}
+    for name in ("u", "v", "w", "T"):
+        a = rng.standard_normal(jg.shape)
+        bcs = regularize_field_boundary_conditions(None, jg, LOCS[name])
+        j[name] = j_fill(jnp.asarray(a), jg, bcs, LOCS[name])
+        t[name] = ot.fill_halo_regions(torch.tensor(a), tg, loc=LOCS[name])
+    return jg, tg, j, t
+
+
+@pytest.mark.parametrize("momentum", ["default", "order5", "mixed"])
+def test_vi_kernel_path_matches_pallas_latlon(momentum):
+    """The port's kernel path on the CPU (its plain version) against the
+    JAX Pallas kernel in interpret mode on the lat-lon sector, over the
+    interior (the Pallas kernel writes zeros into its output halo rows):
+    ``WENOVectorInvariant()``, ``(order=5)`` and the mixed orders
+    (9, 7, 5, 3) with the vertical scheme's own epsilon."""
+    from oceananigans_tpu.ops.pallas_vi import (
+        vi_available, vi_momentum_tendency,
+    )
+    jg, tg, j, t = latlon_sector_fields(6, seed=9)
+    if momentum == "mixed":
+        tvi = mixed_vi(ot, ot, (9, 7, 5, 3), (3,))
+        jvi = mixed_vi(oj, j_hyd, (9, 7, 5, 3), (3,))
+    else:
+        kw = {} if momentum == "default" else dict(order=5)
+        tvi = ot.WENOVectorInvariant(**kw)
+        jvi = j_hyd.WENOVectorInvariant(**kw)
+    assert cvi.vi_available(tg, tvi) and vi_available(jg, jvi)
+    ref = vi_momentum_tendency(jg, jvi, j["u"], j["v"], j["w"],
+                               interpret=True)
+    got = cvi.vi_momentum_tendency(tg, tvi, t["u"], t["v"], t["w"])
+    S = tg.interior_slices
+    for g, r in zip(got, ref):
+        r = np.asarray(r)[S]
+        assert float(np.abs(g.numpy()[S] - r).max()) <= RTOL * float(
+            np.abs(r).max())
+
+
+@pytest.mark.parametrize("order", [5, 7])
+def test_tracer_kernel_path_matches_pallas_latlon(order):
+    """The tracer kernel path against the JAX Pallas tracer kernel in
+    interpret mode on the lat-lon sector, over the interior."""
+    from oceananigans_tpu.ops.pallas_tracer import weno_tracer_tendencies
+    jg, tg, j, t = latlon_sector_fields(5, seed=13)
+    ref = weno_tracer_tendencies(jg, oj.WENO(order), j["u"], j["v"],
+                                 j["w"], {"T": j["T"]}, interpret=True)
+    got = ctr.weno_tracer_tendencies(tg, ot.WENO(order), t["u"], t["v"],
+                                     t["w"], {"T": t["T"]})
+    S = tg.interior_slices
+    r = np.asarray(ref["T"])[S]
+    assert float(np.abs(got["T"].numpy()[S] - r).max()) <= RTOL * float(
+        np.abs(r).max())
 
 
 VI_FAMILIES = [dict(order=7), dict(vorticity_order=3),
