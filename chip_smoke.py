@@ -123,7 +123,23 @@ each of which raises on failure:
     each path with the mixed vector-invariant orders (9, 7, 5, 3) (the
     kernel's instantiation of runtime orders); and 3 float64 steps of a
     ``TripolarGrid(size=(360, 170, 60))`` model, which no kernel takes,
-    its volume held to 1e-12 (the zipper fold on the card).
+    its volume held to 1e-12 (the zipper fold on the card);
+15. ``cs_w2``, Williamson 2 on a C192 ``ConformalCubedSphereGrid``
+    (``CubedSphereShallowWaterModel``, float32, Δt = 40 s): 2 + 20 steps,
+    timed, with the host's enqueue time, the idle share and the launches
+    a step; held against a float64 card run of the same steps; the float64
+    mass held to 1e-12 of itself; and a float64 C8 run of 10 steps on the
+    card against the CPU to 1e-12 of each field's largest value;
+16. ``cs_global``, ``bench.py``'s cubed-sphere ocean
+    (``CubedSphereHydrostaticModel`` with continents, seawater buoyancy,
+    convective adjustment, a split-explicit free surface of 20 substeps,
+    wind and heat flux conditions, RK3, Δt = 300 s) at C48×16 and
+    C192×32 in float32: Δt checked against the barotropic and advective
+    limits, 2 + 20 steps timed and profiled as in phase 15, the volume
+    held to the float32 rounding of η's substeps; 5 float64 steps at
+    C48×16, the volume held to 1e-12 of the ocean's volume and the salt to
+    1e-9; and a float64 C8×4 run on the card against the CPU to 1e-12.
+    Neither cube phase may launch any of the port's kernels.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -134,8 +150,8 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12, 13 and 14 zero and check the counts
-of their own runs and print them on lines of their own. The line before
+launches that run makes. Phases 12 to 16 zero and check the counts of
+their own runs and print them on lines of their own. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
@@ -1021,6 +1037,235 @@ def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
         f"{tdrift:.3e} of sum|eta| Az (tolerance {VOLUME_RTOL:g})")
     del tm, st, tg, eta0
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 15 and 16: the cubed sphere (no port kernel lies on its paths)
+# ---------------------------------------------------------------------------
+
+#: warm-up and timed steps of each cubed-sphere run
+CS_WARM, CS_STEPS = 2, 20
+#: phase 15's size
+CS_W2_N = 192
+#: phase 15's float32 run against the float64 run of the same steps on the
+#: card, relative to the largest float64 value of each group (u and v; h)
+CS_W2_F32_RTOL = 1e-5
+#: phase 16's sizes: ``bench.py``'s own C48×16 and the throughput size
+#: C192×32 (6·192²·32 ≈ 7.1 M cells)
+CS_GLOBAL_SIZES = ((48, 16), (192, 32))
+#: the float64 budgets: mass and volume to 1e-12 of themselves, salt to
+#: 1e-9 (``tests/test_cubed_sphere_ocean.py:379-440``)
+CS_SALT_RTOL = 1e-9
+
+
+def cube_run(torch, model, state, dt, warm, steps, wrappers, tag):
+    """``warm`` + ``steps`` steps of a cubed-sphere model with the port's
+    kernel counts zeroed first: (state, ms/step by CUDA events, host enqueue
+    ms/step). Fails if any port kernel launched (none lies on a cube path,
+    as in the JAX package) or a field is not finite."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in range(warm):
+        state = model.step(state, dt)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = model.step(state, dt)
+    t1 = time.perf_counter()
+    e1.record()
+    e1.synchronize()
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    require(not counts, f"{tag}: port kernels launched on a cubed-sphere "
+            f"path: {counts}")
+    require(all(bool(torch.isfinite(q).all())
+                for q in state.fields().values()), f"{tag}: finite fields")
+    ms = e0.elapsed_time(e1) / steps if steps else float("nan")
+    return state, ms, (t1 - t0) * 1e3 / max(steps, 1)
+
+
+def cube_profile(torch, model, state, dt, tag):
+    """Device-busy ms, launches and wall ms of a step under
+    ``torch.profiler`` (3 steps from ``state``)."""
+    busy, n_launch, wall = device_profile(
+        torch, lambda: model.step(state, dt), 3)
+    require(busy > 0, f"{tag}: the profiler saw device time")
+    return busy, n_launch, wall
+
+
+def cube_groups(grid, state, names):
+    """Interior views of ``state``'s fields, grouped as ``names`` says."""
+    f = state.fields()
+    return {k: [grid.interior(f[n]) for n in ns] for k, ns in names.items()}
+
+
+def cs_w2_phase(torch, wrappers, card):
+    """Phase 15: ``cs_w2``, Williamson 2 at C192 (Δt = 40 s) in float32
+    for 2 + 20 steps, timed and profiled; held against a float64 card run
+    of the same steps; its float64 mass to 1e-12; and a float64 C8 run of
+    the golden's 10 steps on the card against the CPU."""
+    from oceananigans_torch.profile_step import CS_W2_DT, cs_w2_model
+    N, total = CS_W2_N, CS_WARM + CS_STEPS
+    groups = {"velocities": ("u", "v"), "h": ("h",)}
+    model, state = cs_w2_model(N, torch.float32)
+    g = model.grid
+    spacing = 2 * math.pi * 6.37122e6 / (4 * N)
+    log(f"[15] cs_w2: C{N} Williamson 2, float32, dt {CS_W2_DT} s, gravity-"
+        f"wave CFL {math.sqrt(2.94e4) * CS_W2_DT / spacing:.3f} at the mean "
+        "panel spacing")
+    state, ms, enqueue = cube_run(torch, model, state, CS_W2_DT, CS_WARM,
+                                  CS_STEPS, wrappers, "cs_w2")
+    busy, n_launch, wall = cube_profile(torch, model, state, CS_W2_DT,
+                                        "cs_w2")
+    log(f"[15] cs_w2 on {card}: {ms:.3f} ms/step (steps {CS_WARM + 1} to "
+        f"{total} of RK3, CUDA events); host enqueue {enqueue:.3f} ms/step; "
+        f"under torch.profiler, 3 steps: device-busy {busy:.3f} ms/step in "
+        f"a wall of {wall:.3f} ms/step, idle share {1 - busy / wall:.3f} "
+        f"(against the unprofiled {ms:.3f} ms/step: {1 - busy / ms:.3f}); "
+        f"{n_launch:.0f} kernel launches a step; port kernels launched: "
+        "none")
+    f32 = cube_groups(g, state, groups)
+    del model, state
+
+    model, state = cs_w2_model(N, torch.float64)
+    mass0 = float(model.total_mass(state))
+    state, ms64, _ = cube_run(torch, model, state, CS_W2_DT, CS_WARM,
+                              CS_STEPS, wrappers, "cs_w2 float64")
+    drift = abs(float(model.total_mass(state)) - mass0) / mass0
+    require(drift <= VOLUME_RTOL, f"cs_w2 float64 mass drift {drift:.3e}")
+    f64 = cube_groups(model.grid, state, groups)
+    rel = {k: group_rel(list(zip(f32[k], f64[k]))) for k in groups}
+    log(f"[15] cs_w2 float64 at C{N}, {total} steps: {ms64:.3f} ms/step; "
+        f"mass drift {drift:.3e} of the mass (tolerance {VOLUME_RTOL:g}); "
+        "float32 vs float64 after "
+        f"{total} steps: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" of the largest value (tolerance {CS_W2_F32_RTOL:g})")
+    require(all(v <= CS_W2_F32_RTOL for v in rel.values()),
+            f"cs_w2 float32 vs float64 {rel}")
+    del model, state, f32, f64
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m, st = cs_w2_model(8, torch.float64, device)
+        for _ in range(10):
+            st = m.step(st, 600.0)
+        runs[device] = cube_groups(m.grid, st, groups)
+    rel8 = {k: group_rel([(a, b) for a, b in zip(runs["cuda"][k],
+                                                 runs["cpu"][k])])
+            for k in groups}
+    log("[15] float64 C8 Williamson 2, 10 steps of 600 s: the card vs the "
+        "CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in rel8.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel8.values()),
+            f"cs_w2 C8 card vs CPU {rel8}")
+    return {"ms": ms, "enqueue": enqueue, "busy": busy,
+            "launches": n_launch, "wall": wall}
+
+
+def cs_global_phase(torch, wrappers, card):
+    """Phase 16: ``cs_global``, ``bench.py``'s ocean (continents, seawater
+    buoyancy, convective adjustment, split-explicit free surface with 20
+    substeps, wind and heat fluxes, RK3, Δt = 300 s) at C48×16 and
+    C192×32 in float32 for 2 + 20 steps, timed and profiled, Δt checked
+    against the gravity-wave and advective limits and the float32 volume
+    held to its rounding bound; its float64 volume and salt at C48×16; and
+    a float64 C8×4 run on the card against the CPU."""
+    from oceananigans_torch.grids.base import Center, Face
+    from oceananigans_torch.profile_step import (
+        CS_GLOBAL_DT, cs_global_model, volume_drift,
+    )
+    dt = CS_GLOBAL_DT
+    out = {}
+    for N, Nz in CS_GLOBAL_SIZES:
+        tag = f"cs_global C{N}x{Nz}"
+        model, state = cs_global_model(N, Nz, torch.float32)
+        g = model.grid.panel_grid
+        ii = g.interior_slices
+        dmin = min(float(torch.broadcast_to(d, g.shape)[ii].min())
+                   for d in (g.dx(Face, Center), g.dy(Center, Face)))
+        Hmax = float(model._Hc.max())
+        fs = model.free_surface
+        dtau = dt * fs.fractional_step
+        cfl_gw = math.sqrt(fs.g * Hmax) * dtau / dmin
+        require(cfl_gw < 1.0, f"{tag}: barotropic substep CFL {cfl_gw:.3f}")
+        state, _, _ = cube_run(torch, model, state, dt, CS_WARM, 0,
+                               wrappers, tag)
+        tau = float(model.cfl_timescale(state))
+        cfl_adv = dt / tau
+        require(cfl_adv < 1.0, f"{tag}: advective CFL {cfl_adv:.3e}")
+        log(f"[16] {tag}: dt {dt} s; the smallest spacing {dmin:.1f} m, "
+            f"deepest column {Hmax:.1f} m: barotropic substep (dt·"
+            f"{fs.fractional_step:g} = {dtau:g} s) CFL {cfl_gw:.3f}; after "
+            f"{CS_WARM} steps cfl_timescale {tau:.4e} s, advective CFL "
+            f"{cfl_adv:.3e}: dt stands")
+        eta0 = state.eta.clone()
+        state, ms, enqueue = cube_run(torch, model, state, dt, 0, CS_STEPS,
+                                      wrappers, tag)
+        # float32 rounding of η over the RK3 stages' barotropic substeps
+        substeps = 3 * len(fs.weights)
+        vdrift = volume_drift(model, eta0, state.eta)
+        vbound = (CS_STEPS * substeps
+                  * float(torch.finfo(torch.float32).eps))
+        require(vdrift <= vbound, f"{tag}: float32 volume drift "
+                f"{vdrift:.3e} of sum|eta| Az (bound {vbound:.3e})")
+        busy, n_launch, wall = cube_profile(torch, model, state, dt, tag)
+        cells = 6 * N * N * Nz
+        log(f"[16] {tag} on {card}: {ms:.3f} ms/step (steps {CS_WARM + 1} "
+            f"to {CS_WARM + CS_STEPS} of RK3, CUDA events), "
+            f"{cells / ms / 1e3:.2f} M cell-steps/s; host enqueue "
+            f"{enqueue:.3f} ms/step; under torch.profiler, 3 steps: device-"
+            f"busy {busy:.3f} ms/step in a wall of {wall:.3f} ms/step, idle "
+            f"share {1 - busy / wall:.3f} (against the unprofiled {ms:.3f} "
+            f"ms/step: {1 - busy / ms:.3f}); {n_launch:.0f} kernel launches "
+            f"a step; port kernels launched: none; float32 volume drift "
+            f"{vdrift:.3e} of sum|eta| Az over {CS_STEPS} steps (bound "
+            f"{vbound:.3e}: {CS_STEPS} steps x {substeps} barotropic "
+            f"substeps x the float32 epsilon); max|u|"
+            f" {float(model.grid.interior(state.u).abs().max()):.4e}")
+        out[f"C{N}x{Nz}"] = {"ms": ms, "enqueue": enqueue, "busy": busy,
+                             "launches": n_launch, "wall": wall}
+        del model, state
+        torch.cuda.empty_cache()
+
+    # float64 at C48x16: volume to 1e-12 of the ocean's, salt to 1e-9
+    model, state = cs_global_model(48, 16, torch.float64)
+    vol0 = float(model.total_volume(state))
+    S0 = float(model.total_tracer(state, "S"))
+    state, ms64, _ = cube_run(torch, model, state, dt, 0, 5, wrappers,
+                              "cs_global float64")
+    scale = float(model.ocean_volume())
+    vdrift = abs(float(model.total_volume(state)) - vol0) / scale
+    sdrift = abs(float(model.total_tracer(state, "S")) - S0) / abs(S0)
+    log(f"[16] float64 cs_global C48x16, 5 steps: {ms64:.3f} ms/step; "
+        f"volume drift {vdrift:.3e} of the ocean's volume (tolerance "
+        f"{VOLUME_RTOL:g}); salt drift {sdrift:.3e} (tolerance "
+        f"{CS_SALT_RTOL:g})")
+    require(vdrift <= VOLUME_RTOL and sdrift <= CS_SALT_RTOL,
+            f"cs_global float64 budgets: volume {vdrift:.3e}, salt "
+            f"{sdrift:.3e}")
+    del model, state
+    torch.cuda.empty_cache()
+
+    groups = {"velocities": ("u", "v"), "eta": ("eta",), "T": ("T",),
+              "S": ("S",)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m, st = cs_global_model(8, 4, torch.float64, device)
+        for _ in range(3):
+            st = m.step(st, 600.0)
+        runs[device] = cube_groups(m.grid, st, groups)
+    rel8 = {k: group_rel([(a, b) for a, b in zip(runs["cuda"][k],
+                                                 runs["cpu"][k])])
+            for k in groups}
+    log("[16] float64 cs_global C8x4, 3 steps of 600 s: the card vs the "
+        "CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in rel8.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel8.values()),
+            f"cs_global C8x4 card vs CPU {rel8}")
     return out
 
 
@@ -2738,6 +2983,15 @@ def main():
     log(f"[14] step times on {card}: hydro_vi_latlon kernel path "
         f"{latlon['kernel']['ms']:.3f} ms/step, plain path "
         f"{latlon['plain']['ms']:.3f} ms/step")
+
+    # ---- phase 15: the cubed sphere's shallow water (Williamson 2) -------
+    cs_w2 = cs_w2_phase(torch, wrappers, card)
+
+    # ---- phase 16: the cubed sphere's global ocean (bench.py cs_global) --
+    cs_global = cs_global_phase(torch, wrappers, card)
+    log(f"[16] step times on {card}: cs_w2 C192 {cs_w2['ms']:.3f} ms/step; "
+        + "; ".join(f"cs_global {k} {v['ms']:.3f} ms/step"
+                    for k, v in cs_global.items()))
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -5,7 +5,10 @@ It covers, on a ``RectilinearGrid`` with regular spacing (and, for the
 hydrostatic and shallow-water models, on the ``LatitudeLongitudeGrid``
 and the orthogonal spherical shells: ``RotatedLatitudeLongitudeGrid`` and
 ``TripolarGrid`` with its zipper fold, with spherical Coriolis and the
-polar condition): the advection
+polar condition; and on the ``ConformalCubedSphereGrid``, with its own
+shallow-water and hydrostatic models, ``CubedSphereShallowWaterModel``
+and ``CubedSphereHydrostaticModel``, the latter with a grid-fitted
+bathymetry): the advection
 schemes Centered (orders 2 to 12), UpwindBiased (1 to 11), WENO (3 to 11)
 and FluxFormAdvection; the nonhydrostatic model with f-plane, β-plane and
 constant Cartesian Coriolis, BuoyancyTracer and seawater buoyancy,
@@ -70,7 +73,8 @@ from oceananigans_torch.fields import (
     interior, interpolate, new_field, set_field, with_interior,
 )
 from oceananigans_torch.grids import (
-    AbstractGrid, Bounded, Center, Face, Flat, LatitudeLongitudeGrid,
+    AbstractGrid, Bounded, Center, ConformalCubedSphereGrid, Face, Flat,
+    LatitudeLongitudeGrid, conformal_cubed_sphere_panel,
     OrthogonalSphericalShellGrid, Periodic, RectilinearGrid,
     RotatedLatitudeLongitudeGrid, TripolarGrid, extrinsic_vector,
     intrinsic_vector, lambda_nodes, lambda_spacings, minimum_xspacing,
@@ -78,8 +82,14 @@ from oceananigans_torch.grids import (
     rnodes, rotation_angles, rspacings, total_length, xnodes, xspacings,
     ynodes, yspacings, znodes, zspacings,
 )
+from oceananigans_torch.immersed import (
+    GridFittedBottom, GridFittedBoundary, ImmersedBoundaryCondition,
+    ImmersedBoundaryGrid, PartialCellBottom,
+)
 from oceananigans_torch.models import (
-    ConservativeFormulation, CrossAndSelfUpwinding, ExplicitFreeSurface,
+    ConservativeFormulation, CrossAndSelfUpwinding,
+    CubedSphereHydrostaticModel, CubedSphereShallowWaterModel,
+    ExplicitFreeSurface,
     HydrostaticFreeSurfaceModel, HydrostaticState, NonhydrostaticModel,
     NonhydrostaticState, OnlySelfUpwinding, PressureField, ShallowWaterModel,
     ShallowWaterState, SplitExplicitFreeSurface, VectorInvariant,
@@ -113,22 +123,26 @@ __all__ = [
     "AnisotropicMinimumDissipation", "AveragedTimeInterval", "BackgroundField",
     "BetaPlane", "BoundaryCondition", "Bounded", "BuoyancyField",
     "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback", "Center",
-    "CenterField", "Centered", "Clock", "ConservativeFormulation",
+    "CenterField", "Centered", "Clock", "ConformalCubedSphereGrid",
+    "ConservativeFormulation",
     "ConstantCartesianCoriolis", "ConstantField",
     "ConvectiveAdjustmentVerticalDiffusivity", "CrossAndSelfUpwinding",
+    "CubedSphereHydrostaticModel", "CubedSphereShallowWaterModel",
     "DiffusiveCFL", "DynamicCoefficient", "DynamicSmagorinsky",
     "ExplicitFreeSurface", "ExplicitTimeDiscretization", "FFTPoissonSolver",
     "FPlane", "Face", "Field", "FieldBoundaryConditions", "Flat",
     "FlatExtrapolationOpenBC", "FluxBC", "FluxBoundaryCondition",
     "FluxFormAdvection", "FunctionField", "GiB", "GradientBC",
+    "GridFittedBottom", "GridFittedBoundary",
     "GradientBoundaryCondition", "HorizontalScalarBiharmonicDiffusivity",
     "HorizontalScalarDiffusivity", "HydrostaticFreeSurfaceModel",
-    "HydrostaticSphericalCoriolis", "HydrostaticState", "ImplicitFreeSurface",
+    "HydrostaticSphericalCoriolis", "HydrostaticState",
+    "ImmersedBoundaryCondition", "ImmersedBoundaryGrid", "ImplicitFreeSurface",
     "IterationInterval", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
     "LatitudeLongitudeGrid", "LillyCoefficient", "LinearEquationOfState",
     "MatmulPoissonSolver", "MiB", "NaNChecker", "NonTraditionalBetaPlane",
     "NonhydrostaticModel", "NonhydrostaticState", "OnlySelfUpwinding",
-    "OpenBC", "OpenBoundaryCondition", "OrSchedule",
+    "OpenBC", "OpenBoundaryCondition", "OrSchedule", "PartialCellBottom",
     "OrthogonalSphericalShellGrid", "Periodic", "PeriodicBC",
     "PerturbationAdvection", "PerturbationAdvectionOpenBC",
     "PrescribedVelocityFields", "PressureField", "RectilinearGrid",
@@ -144,7 +158,8 @@ __all__ = [
     "VerticallyImplicitTimeDiscretization", "WENO", "WENOVectorInvariant",
     "WallTimeInterval", "XFaceField", "YFaceField", "ZCoordinate",
     "ZFaceField", "ZStar", "ZeroField", "adapt_advection_order",
-    "add_callback", "config", "conjure_time_step_wizard", "day", "days",
+    "add_callback", "config", "conformal_cubed_sphere_panel",
+    "conjure_time_step_wizard", "day", "days",
     "diffusivity", "extrinsic_vector", "field_abs_max", "field_integral",
     "field_max", "field_mean", "field_min", "fill_halo_regions", "float_type",
     "hour", "hours", "interior", "interpolate", "intrinsic_vector",

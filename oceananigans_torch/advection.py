@@ -27,13 +27,11 @@ import torch
 from oceananigans_torch.grids.base import Center, Face
 from oceananigans_torch.ops.operators import (
     dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c, iz_f,
-    shift,
+    X, Y, Z, shift,
 )
 from oceananigans_torch.ops.reconstruction_coefficients import (
     face_reconstruction_coefficients,
 )
-
-X, Y, Z = 0, 1, 2
 
 _LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
 
@@ -383,13 +381,15 @@ def _scheme_for(scheme, axis):
 
 
 def cell_advection_timescale(grid, u, v, w):
-    """min over the interior of (|u|/Δx + |v|/Δy + |w|/Δz)⁻¹."""
+    """min over the interior of (|u|/Δx + |v|/Δy + |w|/Δz)⁻¹ (over every
+    panel of stacked cubed-sphere fields)."""
     dx = grid.dx(Face, Center).expand(grid.shape)
     dy = grid.dy(Face, Center).expand(grid.shape)
     dz = grid.dz(Face).expand(grid.shape)
     ii = grid.interior_slices
-    rate = (u[ii].abs() / dx[ii] + v[ii].abs() / dy[ii]
-            + w[ii].abs() / dz[ii])
+    jj = (Ellipsis, *ii)
+    rate = (u[jj].abs() / dx[ii] + v[jj].abs() / dy[ii]
+            + w[jj].abs() / dz[ii])
     return 1.0 / torch.clamp(rate.max(), min=1e-30)
 
 

@@ -14,9 +14,10 @@ clock time). On a lat-lon grid whose y faces reach a pole, center-located
 fields take the polar condition there: a value at the zonal mean of the
 polemost interior row, recomputed at each fill. On a tripolar grid the
 north y halo is the zipper fold (``grids/orthogonal.py:
-fill_zipper_north``). Communication halos come with the distributed models
-(ROADMAP Queue 1 item 18) and the ``Connected`` topology with the cubed
-sphere (item 16).
+fill_zipper_north``). Communication halos, and the ``Connected`` topology
+that classifies as one, come with the distributed models (ROADMAP Queue 1
+item 18); the cubed sphere fills its panel halos with its own exchanges
+(``grids/cubed_sphere_grid.py``).
 
 Unlike the JAX package, ``fill_halo_regions`` and ``apply_flux_bcs`` write
 their argument in place and return it: halos are derived data, and a fill
@@ -144,8 +145,8 @@ def default_bc(topo: str, loc: str, side: str) -> Optional[BoundaryCondition]:
         return PeriodicBC()
     if topo != Bounded:
         raise NotImplementedError(
-            f"topology {topo!r} is not ported yet (the Connected topology "
-            "comes with ROADMAP Queue 1 item 16)")
+            f"topology {topo!r} is not ported yet (the Connected topology, "
+            "a communication halo, comes with ROADMAP Queue 1 item 18)")
     if loc == Face:
         return OpenBC(None)
     return FluxBC(None)

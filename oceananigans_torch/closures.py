@@ -23,11 +23,9 @@ import torch
 from oceananigans_torch.grids.base import Center, Face
 from oceananigans_torch.ops.operators import (
     dx_c, dx_f, dy_c, dy_f, dz_c, dz_f,
-    ix_c, ix_f, iy_c, iy_f, iz_c, iz_f, shift,
+    X, Y, Z, ix_c, ix_f, iy_c, iy_f, iz_c, iz_f, shift,
 )
 from oceananigans_torch.solvers.tridiagonal import tridiagonal_solve
-
-X, Y, Z = 0, 1, 2
 
 ExplicitTimeDiscretization = "explicit"
 VerticallyImplicitTimeDiscretization = "vertically_implicit"
@@ -60,8 +58,25 @@ def _nu_at(nu, to):
     return nu
 
 
+def _mask_flux(grid, f, loc):
+    """Zero a flux at ``loc`` wherever that location touches a solid cell
+    of a grid that carries a boolean ``solid_c`` (the cubed sphere's
+    bathymetry view): no diffusive flux through or inside the bottom. The
+    identity on every other grid."""
+    solid = getattr(grid, "solid_c", None)
+    if solid is None or not torch.is_tensor(f):
+        return f
+    for axis, lo in zip((X, Y, Z), loc):
+        if lo == Face:
+            solid = solid | shift(solid, -1, axis)
+    return torch.where(solid, 0.0, f)
+
+
 def _div_u_fluxes(grid, fx_ccc, fy_ffc, fz_fcf):
     """Divergence of the fluxes of a (f,c,c)-located field."""
+    fx_ccc = _mask_flux(grid, fx_ccc, (Center, Center, Center))
+    fy_ffc = _mask_flux(grid, fy_ffc, (Face, Face, Center))
+    fz_fcf = _mask_flux(grid, fz_fcf, (Face, Center, Face))
     return (dx_f(grid.Ax(Center, Center, Center) * fx_ccc)
             + dy_c(grid.Ay(Face, Face, Center) * fy_ffc)
             + dz_c(grid.Az(Face, Center) * fz_fcf)) / grid.V(
@@ -69,6 +84,9 @@ def _div_u_fluxes(grid, fx_ccc, fy_ffc, fz_fcf):
 
 
 def _div_v_fluxes(grid, fx_ffc, fy_ccc, fz_cff):
+    fx_ffc = _mask_flux(grid, fx_ffc, (Face, Face, Center))
+    fy_ccc = _mask_flux(grid, fy_ccc, (Center, Center, Center))
+    fz_cff = _mask_flux(grid, fz_cff, (Center, Face, Face))
     return (dx_c(grid.Ax(Face, Face, Center) * fx_ffc)
             + dy_f(grid.Ay(Center, Center, Center) * fy_ccc)
             + dz_c(grid.Az(Center, Face) * fz_cff)) / grid.V(
@@ -76,6 +94,9 @@ def _div_v_fluxes(grid, fx_ffc, fy_ccc, fz_cff):
 
 
 def _div_w_fluxes(grid, fx_fcf, fy_cff, fz_ccc):
+    fx_fcf = _mask_flux(grid, fx_fcf, (Face, Center, Face))
+    fy_cff = _mask_flux(grid, fy_cff, (Center, Face, Face))
+    fz_ccc = _mask_flux(grid, fz_ccc, (Center, Center, Center))
     return (dx_c(grid.Ax(Face, Center, Face) * fx_fcf)
             + dy_c(grid.Ay(Center, Face, Face) * fy_cff)
             + dz_f(grid.Az(Center, Center) * fz_ccc)) / grid.V(
@@ -83,6 +104,9 @@ def _div_w_fluxes(grid, fx_fcf, fy_cff, fz_ccc):
 
 
 def _div_c_fluxes(grid, fx_fcc, fy_cfc, fz_ccf):
+    fx_fcc = _mask_flux(grid, fx_fcc, (Face, Center, Center))
+    fy_cfc = _mask_flux(grid, fy_cfc, (Center, Face, Center))
+    fz_ccf = _mask_flux(grid, fz_ccf, (Center, Center, Face))
     return (dx_c(grid.Ax(Face, Center, Center) * fx_fcc)
             + dy_c(grid.Ay(Center, Face, Center) * fy_cfc)
             + dz_c(grid.Az(Center, Center) * fz_ccf)) / grid.V(
@@ -420,7 +444,8 @@ class DynamicSmagorinsky(AbstractClosure):
                                   * _box_filter_ccc(Sij))
             LM = LM + mult * Lij * Mij
             MM = MM + mult * Mij * Mij
-        dims = self.averaging_dims
+        # per grid (per panel of a stacked cubed-sphere field)
+        dims = tuple(d - 3 if d >= 0 else d for d in self.averaging_dims)
         LM_avg = torch.mean(LM, dim=dims, keepdim=True)
         MM_avg = torch.mean(MM, dim=dims, keepdim=True)
         cs2 = torch.clamp(-LM_avg / torch.clamp(MM_avg, min=1e-30),

@@ -1,6 +1,7 @@
 """Grids: topology, halos, coordinates and metrics of the rectilinear,
-latitude-longitude and orthogonal spherical-shell C-grids, and the
-module-level node and spacing queries.
+latitude-longitude and orthogonal spherical-shell C-grids, the conformal
+cubed sphere's panels and six-panel grid, and the module-level node and
+spacing queries.
 
 Counterpart of ``oceananigans_tpu/grids/__init__.py``. On the curvilinear
 grids the x/y coordinates are longitude/latitude, so the λ/φ queries alias
@@ -9,6 +10,12 @@ the x/y ones.
 
 from oceananigans_torch.grids.base import (
     AbstractGrid, Bounded, Center, Face, Flat, Periodic, total_length,
+)
+from oceananigans_torch.grids.cubed_sphere import (
+    conformal_cubed_sphere_mapping, conformal_cubed_sphere_panel,
+)
+from oceananigans_torch.grids.cubed_sphere_grid import (
+    ConformalCubedSphereGrid,
 )
 from oceananigans_torch.grids.latlon import R_EARTH, LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import (
@@ -75,10 +82,11 @@ def minimum_zspacing(grid):
 
 
 __all__ = [
-    "AbstractGrid", "Bounded", "Center", "Face", "Flat",
-    "LatitudeLongitudeGrid", "OrthogonalSphericalShellGrid", "Periodic",
+    "AbstractGrid", "Bounded", "Center", "ConformalCubedSphereGrid", "Face",
+    "Flat", "LatitudeLongitudeGrid", "OrthogonalSphericalShellGrid", "Periodic",
     "R_EARTH", "RectilinearGrid", "RotatedLatitudeLongitudeGrid",
-    "TripolarGrid", "extrinsic_vector", "fill_zipper_north",
+    "TripolarGrid", "conformal_cubed_sphere_mapping",
+    "conformal_cubed_sphere_panel", "extrinsic_vector", "fill_zipper_north",
     "intrinsic_vector", "lambda_nodes", "lambda_spacings",
     "minimum_xspacing", "minimum_yspacing", "minimum_zspacing", "nodes",
     "phi_nodes", "phi_spacings", "rnodes", "rotation_angles", "rspacings",

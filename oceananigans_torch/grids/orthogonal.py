@@ -343,17 +343,17 @@ def rotation_angles(grid):
     whose frame is geographic (rectilinear, lat-lon)."""
     if not isinstance(grid, OrthogonalSphericalShellGrid):
         return 1.0, 0.0
-    from oceananigans_torch.ops.operators import shift
+    from oceananigans_torch.ops.operators import X, Y, shift
 
     d2r = np.pi / 180.0
     ff = grid.phiFF
-    ff_p0 = shift(ff, 1, 0)            # (i+1, j)
-    ff_0p = shift(ff, 1, 1)            # (i, j+1)
-    ff_pp = shift(ff_p0, 1, 1)         # (i+1, j+1)
+    ff_p0 = shift(ff, 1, X)            # (i+1, j)
+    ff_0p = shift(ff, 1, Y)            # (i, j+1)
+    ff_pp = shift(ff_p0, 1, Y)         # (i+1, j+1)
     dy_m = grid.dy(Center, Face)       # Δy at (x Face, y Center)
-    dy_p = shift(dy_m, 1, 0)
+    dy_p = shift(dy_m, 1, X)
     dx_m = grid.dx(Center, Face)       # Δx at (x Center, y Face)
-    dx_p = shift(dx_m, 1, 1)
+    dx_p = shift(dx_m, 1, Y)
     Rcos = 0.5 * (d2r * (ff_pp - ff_p0) / dy_p
                   + d2r * (ff_0p - ff) / dy_m)
     # sinθ = +∂φ/∂s_x, so that the grid's own x direction maps to (1, 0)

@@ -13,6 +13,13 @@ shaped (nx, ny, 1)). They build both packages' grids from the same
 constructor arguments (:func:`grid_from_arguments`); an orthogonal grid's
 (λ, φ) nodes cross as numpy arrays (:func:`orthogonal_nodes`,
 :func:`orthogonal_grid_like`).
+
+The cubed sphere's states cross the same way, as stacked (6, nx, ny, ·)
+arrays: :data:`CS_SW_FIELDS` for a ``CubedSphereState`` (u, v, h and their
+previous tendencies, each (6, nx, ny, 1)) and :data:`CS_HYDROSTATIC_FIELDS`
+for a ``CubedSphereHydrostaticState`` (u, v, η, U, V), with Gu, Gv and Gη
+(:data:`CS_AB2_FIELDS`) and the ``Gtracers`` when the state has them (a
+quasi-AB2 model's does).
 """
 
 from __future__ import annotations
@@ -23,6 +30,13 @@ import torch
 from oceananigans_torch import grids
 from oceananigans_torch.grids.orthogonal import (
     NODE_KEYS, OrthogonalSphericalShellGrid,
+)
+from oceananigans_torch.grids.cubed_sphere_grid import (
+    ConformalCubedSphereGrid,
+)
+from oceananigans_torch.models.cubed_sphere import (
+    CubedSphereHydrostaticModel, CubedSphereHydrostaticState,
+    CubedSphereShallowWaterModel, CubedSphereState,
 )
 from oceananigans_torch.models.hydrostatic import (
     HydrostaticFreeSurfaceModel, HydrostaticState,
@@ -39,6 +53,11 @@ HYDROSTATIC_FIELDS = ("u", "v", "w", "eta", "Gu", "Gv", "Geta", "U", "V")
 #: the hydrostatic fields without a z extent
 FIELDS_2D = ("eta", "Geta", "U", "V")
 CLOCK = ("time", "iteration", "last_dt")
+CS_SW_FIELDS = ("u", "v", "h", "Gu", "Gv", "Gh")
+CS_HYDROSTATIC_FIELDS = ("u", "v", "eta", "U", "V")
+CS_AB2_FIELDS = ("Gu", "Gv", "Geta")
+#: the cubed-sphere fields with one level
+CS_FIELDS_2D = ("eta", "U", "V", "Geta")
 
 
 def tracer_keys(names):
@@ -53,7 +72,12 @@ def state_from_numpy(model, arrays):
     (:data:`FIELDS`, :data:`SW_FIELDS` for a ``ShallowWaterModel`` or
     :data:`HYDROSTATIC_FIELDS` for a ``HydrostaticFreeSurfaceModel``), of
     :func:`tracer_keys` for its tracers, and of :data:`CLOCK`. The tensors
-    are copies."""
+    are copies. A cubed-sphere model's state takes the keys of
+    :data:`CS_SW_FIELDS` or :data:`CS_HYDROSTATIC_FIELDS` (see
+    :func:`cube_state_from_numpy`)."""
+    if isinstance(model, (CubedSphereShallowWaterModel,
+                          CubedSphereHydrostaticModel)):
+        return cube_state_from_numpy(model, arrays)
     g = model.grid
     names = model.tracer_names
     if isinstance(model, ShallowWaterModel):
@@ -75,25 +99,67 @@ def state_from_numpy(model, arrays):
             raise ValueError(f"{key}: shape {a.shape} != {shape}")
         return torch.tensor(a, dtype=g.dtype, device=g.device)
 
-    clock = Clock(time=torch.tensor(float(arrays["time"]), dtype=g.dtype),
-                  iteration=int(arrays["iteration"]),
-                  last_dt=torch.tensor(float(arrays["last_dt"]),
-                                       dtype=g.dtype))
-    return cls(clock=clock, **{name: tensor(name) for name in fields},
+    return cls(clock=_clock_from_numpy(arrays, g.dtype),
+               **{name: tensor(name) for name in fields},
                tracers={n: tensor(f"tracers/{n}") for n in names},
                Gtracers={n: tensor(f"Gtracers/{n}") for n in names})
+
+
+def _clock_from_numpy(arrays, dtype):
+    return Clock(time=torch.tensor(float(arrays["time"]), dtype=dtype),
+                 iteration=int(arrays["iteration"]),
+                 last_dt=torch.tensor(float(arrays["last_dt"]), dtype=dtype))
+
+
+def cube_state_from_numpy(model, arrays):
+    """A cubed-sphere state of ``model`` from stacked numpy arrays: the
+    keys of :data:`CS_SW_FIELDS` for the shallow-water model; of
+    :data:`CS_HYDROSTATIC_FIELDS` for the hydrostatic one, with
+    :data:`CS_AB2_FIELDS` and the ``Gtracers`` under quasi-AB2; the
+    tracers and :data:`CLOCK`."""
+    grid = model.grid
+    names = model.tracer_names
+    nx, ny, nz = grid.panel_grid.shape
+    sw = isinstance(model, CubedSphereShallowWaterModel)
+    ab2 = (not sw) and model.timestepper == "QuasiAdamsBashforth2"
+    fields = (CS_SW_FIELDS if sw else CS_HYDROSTATIC_FIELDS
+              + (CS_AB2_FIELDS if ab2 else ()))
+    groups = ("tracers", "Gtracers") if (sw or ab2) else ("tracers",)
+    keys = fields + tuple(f"{g}/{n}" for g in groups for n in names)
+    missing = set(keys + CLOCK) - set(arrays)
+    if missing:
+        raise KeyError(f"cube_state_from_numpy needs {sorted(missing)}")
+
+    def tensor(key):
+        a = np.asarray(arrays[key])
+        one = sw or key.split("/")[0] in CS_FIELDS_2D
+        shape = (6, nx, ny, 1 if one else nz)
+        if a.shape != shape:
+            raise ValueError(f"{key}: shape {a.shape} != {shape}")
+        return torch.tensor(a, dtype=grid.dtype, device=grid.device)
+
+    out = {name: tensor(name) for name in fields}
+    for group in groups:
+        out[group] = {n: tensor(f"{group}/{n}") for n in names}
+    cls = CubedSphereState if sw else CubedSphereHydrostaticState
+    return cls(clock=_clock_from_numpy(arrays, grid.dtype), **out)
 
 
 def state_to_numpy(state):
     """The state's fields, tracers and clock as numpy arrays (copied to the
     host)."""
-    fields = (SW_FIELDS if isinstance(state, ShallowWaterState)
+    if isinstance(state, (CubedSphereState, CubedSphereHydrostaticState)):
+        fields = (CS_SW_FIELDS if isinstance(state, CubedSphereState)
+                  else CS_HYDROSTATIC_FIELDS + CS_AB2_FIELDS)
+        fields = tuple(n for n in fields if getattr(state, n) is not None)
+    else:
+        fields = (SW_FIELDS if isinstance(state, ShallowWaterState)
               else HYDROSTATIC_FIELDS if isinstance(state, HydrostaticState)
               else FIELDS)
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in fields}
     for group in ("tracers", "Gtracers"):
-        for n, t in getattr(state, group).items():
+        for n, t in (getattr(state, group) or {}).items():
             out[f"{group}/{n}"] = t.detach().cpu().numpy()
     out["time"] = state.clock.time.numpy()
     out["iteration"] = np.asarray(state.clock.iteration)
@@ -103,9 +169,12 @@ def state_to_numpy(state):
 
 def grid_from_arguments(kind, **kwargs):
     """The port's grid ``kind`` ("RectilinearGrid", "LatitudeLongitudeGrid",
-    "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid" or
-    "TripolarGrid") from the keyword arguments that build the JAX package's
-    grid of that name (``dtype`` may be a name), plus ``device=``."""
+    "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
+    "TripolarGrid", or "cubed_sphere" for ``ConformalCubedSphereGrid``) from
+    the keyword arguments that build the JAX package's grid of that name
+    (``dtype`` may be a name), plus ``device=``."""
+    if kind in ("cubed_sphere", "ConformalCubedSphereGrid"):
+        return ConformalCubedSphereGrid(**kwargs)
     return getattr(grids, kind)(**kwargs)
 
 
@@ -131,7 +200,9 @@ def orthogonal_grid_like(grid, **kwargs):
         **kwargs)
 
 
-__all__ = ["CLOCK", "FIELDS", "FIELDS_2D", "HYDROSTATIC_FIELDS",
-           "SW_FIELDS", "grid_from_arguments", "orthogonal_grid_like",
+__all__ = ["CLOCK", "CS_AB2_FIELDS", "CS_FIELDS_2D",
+           "CS_HYDROSTATIC_FIELDS", "CS_SW_FIELDS", "FIELDS", "FIELDS_2D",
+           "HYDROSTATIC_FIELDS", "SW_FIELDS", "cube_state_from_numpy",
+           "grid_from_arguments", "orthogonal_grid_like",
            "orthogonal_nodes", "state_from_numpy", "state_to_numpy",
            "tracer_keys"]

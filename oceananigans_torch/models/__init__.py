@@ -1,5 +1,9 @@
 """Models of the port."""
 
+from oceananigans_torch.models.cubed_sphere import (
+    CubedSphereHydrostaticModel, CubedSphereHydrostaticState,
+    CubedSphereShallowWaterModel, CubedSphereState, panel_vector_components,
+)
 from oceananigans_torch.models.hydrostatic import (
     CrossAndSelfUpwinding, ExplicitFreeSurface, HydrostaticFreeSurfaceModel,
     HydrostaticState, OnlySelfUpwinding, SplitExplicitFreeSurface,
@@ -24,8 +28,11 @@ def PressureField(model, state):
 
 
 __all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
+           "CubedSphereHydrostaticModel", "CubedSphereHydrostaticState",
+           "CubedSphereShallowWaterModel", "CubedSphereState",
            "ExplicitFreeSurface", "HydrostaticFreeSurfaceModel",
            "HydrostaticState", "NonhydrostaticModel", "NonhydrostaticState",
            "OnlySelfUpwinding", "PressureField", "ShallowWaterModel",
            "ShallowWaterState", "SplitExplicitFreeSurface", "VectorInvariant",
-           "VectorInvariantFormulation", "WENOVectorInvariant"]
+           "VectorInvariantFormulation", "WENOVectorInvariant",
+           "panel_vector_components"]

@@ -73,12 +73,10 @@ from oceananigans_torch.ops.cuda_vi import (
     vi_available, vi_metric_profiles, vi_momentum_tendency,
 )
 from oceananigans_torch.ops.operators import (
-    div_xy_cc, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f,
-    iz_c, shift, vorticity_z_ff,
+    X, Y, Z, div_xy_cc, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c,
+    iy_f, iz_c, shift, vorticity_z_ff,
 )
 from oceananigans_torch.timesteppers import Clock, ab2_coefficients, tick
-
-X, Y, Z = 0, 1, 2
 
 _ITEM12 = "ROADMAP Queue 1 item 12 (forcings and physics)"
 _ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
@@ -524,9 +522,10 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                     f"yet; {_ITEM12} brings it")
         if not isinstance(grid, GRIDS):
             raise NotImplementedError(
-                f"{type(grid).__name__} is not ported yet; immersed grids "
-                "come with ROADMAP Queue 1 item 13, the cubed sphere with "
-                "item 16")
+                f"HydrostaticFreeSurfaceModel does not take a "
+                f"{type(grid).__name__}: immersed grids come with ROADMAP "
+                "Queue 1 item 13, and a ConformalCubedSphereGrid takes "
+                "CubedSphereHydrostaticModel")
         if timestepper not in ("quasi_ab2", "split_rk3"):
             raise ValueError(f"unknown timestepper {timestepper!r}")
         closures_mod.check_closure(closure, "HydrostaticFreeSurfaceModel")
@@ -733,7 +732,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         csum = torch.cumsum(contrib, dim=Z)
         # w at face k (the bottom face of cell k) = −Σ over cells k' < k
         w = -shift(csum, -1, Z)
-        w[:, :, 0] = 0.0
+        w[..., 0] = 0.0
         fill_halo_regions(w, g, self.bcs["w"], LOC_W, state.clock.time)
         return _replace(state, w=w)
 

@@ -51,12 +51,10 @@ from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.models.hydrostatic import VectorInvariant
 from oceananigans_torch.ops.cuda_sw import sw_fused_available, sw_rk3_stage
 from oceananigans_torch.ops.operators import (
-    dx_c, dx_f, dy_c, dy_f, ix_c, ix_f, iy_c, iy_f, kinetic_energy_cc,
+    X, Y, dx_c, dx_f, dy_c, dy_f, ix_c, ix_f, iy_c, iy_f, kinetic_energy_cc,
     vorticity_z_ff,
 )
 from oceananigans_torch.timesteppers import Clock, RK3_STAGES, tick
-
-X, Y = 0, 1
 
 ConservativeFormulation = "conservative"
 VectorInvariantFormulation = "vector_invariant"
@@ -148,8 +146,9 @@ class ShallowWaterModel(torch.nn.Module):
         if not isinstance(grid, (RectilinearGrid, LatitudeLongitudeGrid,
                                  OrthogonalSphericalShellGrid)):
             raise NotImplementedError(
-                f"{type(grid).__name__} is not ported yet; the cubed sphere "
-                "comes with ROADMAP Queue 1 item 16")
+                f"ShallowWaterModel does not take a {type(grid).__name__}; "
+                "a ConformalCubedSphereGrid takes "
+                "CubedSphereShallowWaterModel")
         if grid.topology[2] != Flat:
             raise ValueError("ShallowWaterModel needs a Flat z topology "
                              "(2-D grid)")

@@ -9,6 +9,12 @@ periodic axis the wrap is the periodic boundary itself, so it is exact.
 - ``dx_c(a)`` : out[i] = a[i+1] - a[i]        (lands on centers)
 - ``ix_f(a)`` : out[i] = (a[i] + a[i-1]) / 2
 - ``ix_c(a)`` : out[i] = (a[i+1] + a[i]) / 2
+
+Axes count from the end: x, y and z are the last three axes of a tensor,
+so the same expression serves one grid's ``(nx, ny, nz)`` fields and the
+cubed sphere's ``(6, nx, ny, nz)`` stacks of panels, whose leading axis
+broadcasts against the panel grid's ``(nx, ny, 1)`` metrics. ``X``, ``Y``
+and ``Z`` name those axes for every module of the package.
 """
 
 from __future__ import annotations
@@ -17,11 +23,12 @@ import torch
 
 from oceananigans_torch.grids.base import Center, Face
 
-X, Y, Z = 0, 1, 2
+X, Y, Z = -3, -2, -1
 
 
 def shift(a, n: int, axis: int):
-    """``out[i] = a[i + n]`` along ``axis`` (wraps; identity on size-1 axes)."""
+    """``out[i] = a[i + n]`` along ``axis`` (``X``, ``Y`` or ``Z``; wraps;
+    identity on size-1 axes)."""
     if a.ndim < 3 or a.shape[axis] == 1 or n == 0:
         return a
     return torch.roll(a, -n, axis)

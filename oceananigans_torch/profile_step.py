@@ -292,15 +292,93 @@ def hydro_latlon_initial_state(model, generic=False):
 
 
 def volume_drift(model, eta0, eta):
-    """|Σ η Az − Σ η₀ Az| over the interior, relative to Σ |η| Az, in
-    float64."""
+    """|Σ η Az − Σ η₀ Az| over the interior (of every panel on the cubed
+    sphere), relative to Σ |η| Az, in float64."""
     from oceananigans_torch.grids.base import Center
-    g = model.grid
-    xy = g.interior_slices[:2]
+    g = getattr(model.grid, "panel_grid", model.grid)
+    xy = (..., *g.interior_slices[:2], slice(None))
     Az = torch.broadcast_to(g.Az(Center, Center), eta.shape)[xy].double()
     a, b = eta[xy].double(), eta0[xy].double()
     return float((torch.sum(a * Az) - torch.sum(b * Az)).abs()
                  / torch.sum(a.abs() * Az))
+
+
+#: the cubed sphere's Williamson 2 (the JAX package's regression setup):
+#: radius, rotation rate and gravity; Δt at C192 is the example's C32 Δt of
+#: 245 s scaled by 32/192
+CS_W2_RADIUS, CS_W2_OMEGA, CS_W2_G = 6.37122e6, 7.292e-5, 9.80616
+CS_W2_DT = 40.0
+#: ``bench.py``'s cs_global ocean: depth and Δt
+CS_GLOBAL_DEPTH, CS_GLOBAL_DT = 3000.0, 300.0
+
+
+def cs_w2_model(N, dtype=torch.float32, device="cuda"):
+    """Williamson 2 (steady geostrophic zonal flow, u₀ = 2πa/12 days) on
+    the C``N`` cubed sphere, halo 3: ``(model, state)``."""
+    import numpy as np
+
+    from oceananigans_torch.grids.cubed_sphere_grid import (
+        ConformalCubedSphereGrid,
+    )
+    from oceananigans_torch.models.cubed_sphere import (
+        CubedSphereShallowWaterModel, panel_vector_components,
+    )
+    a, omega, g = CS_W2_RADIUS, CS_W2_OMEGA, CS_W2_G
+    u0 = 2 * np.pi * a / (12.0 * 86400)
+    h0 = 2.94e4 / g
+    grid = ConformalCubedSphereGrid((N, 1), z=(-1.0, 0.0), radius=a,
+                                    halo=3, dtype=dtype, device=device)
+    model = CubedSphereShallowWaterModel(
+        grid, gravitational_acceleration=g, rotation_rate=omega)
+    u, v = panel_vector_components(
+        grid, lambda P: np.cross(np.array([0.0, 0.0, u0 / a]), P * a))
+
+    def h_init(lam, phi, z):
+        s = np.sin(np.deg2rad(phi))
+        return h0 - (a * omega * u0 + 0.5 * u0 ** 2) * s ** 2 / g + 0 * z
+
+    return model, model.initial_state(u=u, v=v, h=grid.set_tracer(h_init))
+
+
+def cs_continents(lam, phi):
+    """``bench.py``'s cs_global bathymetry: two continents and polar caps
+    (land at 50 m) in a 3 km ocean."""
+    import numpy as np
+    land = (np.abs(lam + 60.0) < 25.0) & (phi > -55.0) & (phi < 70.0)
+    land |= (np.abs(lam - 45.0) < 50.0) & (phi > 0.0) & (phi < 70.0)
+    land |= np.abs(phi) > 78.0
+    return np.where(land, 50.0, -CS_GLOBAL_DEPTH)
+
+
+def cs_global_model(N, Nz, dtype=torch.float32, device="cuda"):
+    """``bench.py``'s cs_global configuration (``bench.py:66-116``) at
+    C``N`` × ``Nz``: continents, ``SeawaterBuoyancy``, convective
+    adjustment (κ 0.1 convective, 1e-5 background), a split-explicit free
+    surface, a zonal wind stress and a surface heat flux, RK3; T = 5 + 20
+    cos²φ e^(z/800), S = 35. ``(model, state)``."""
+    import numpy as np
+
+    import oceananigans_torch as ot
+    grid = ot.ConformalCubedSphereGrid(
+        (N, Nz), z=(-CS_GLOBAL_DEPTH, 0.0), radius=6.37122e6, halo=3,
+        dtype=dtype, device=device)
+    model = ot.CubedSphereHydrostaticModel(
+        grid, bathymetry=cs_continents, buoyancy=ot.SeawaterBuoyancy(),
+        closure=ot.ConvectiveAdjustmentVerticalDiffusivity(
+            convective_kappa_z=0.1, background_kappa_z=1e-5),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=20),
+        boundary_conditions={
+            "u": ot.FieldBoundaryConditions(top=ot.FluxBC(
+                lambda lam, phi, t: -8e-5
+                * torch.sin(torch.deg2rad(3 * phi)))),
+            "T": ot.FieldBoundaryConditions(top=ot.FluxBC(
+                lambda lam, phi, t: -2e-5
+                * torch.cos(torch.deg2rad(2 * phi))))},
+        tracers=())
+    state = model.initial_state(
+        T=lambda lam, phi, z: 5.0 + 20.0
+        * np.cos(np.deg2rad(phi)) ** 2 * np.exp(z / 800.0), S=35.0)
+    return model, state
 
 
 #: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo

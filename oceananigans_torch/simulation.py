@@ -8,7 +8,9 @@ Counterpart of ``oceananigans_tpu/simulation.py`` (reference
 The schedules stay on the host. Between two actuations the driver runs one
 window of steps: a halo fill, then n × ``model.step(state, dt,
 assume_filled=True)`` (every step ends with a fill, so only the window's
-first step needs one); a window of one step is ``model.step(state, dt)``.
+first step needs one); a window of one step, or of a model whose ``step``
+takes no ``assume_filled`` (the cubed sphere's shallow water, which fills
+before each stage), is ``model.step(state, dt)`` in turn.
 The JAX package compiles a window into one ``lax.fori_loop`` dispatch;
 here it is a plain host loop that launches each step's kernels in turn.
 
@@ -21,6 +23,7 @@ averaging writers (an ``AveragedTimeInterval`` schedule) raise
 
 from __future__ import annotations
 
+import inspect
 import math
 import time as _time
 from typing import Dict
@@ -154,8 +157,13 @@ class Simulation:
         at the window's start covers host-side changes of the state
         between windows, by callbacks or the caller)."""
         model, state = self.model, self.state
-        if n == 1:
-            return model.step(state, dt)
+        if n == 1 or "assume_filled" not in inspect.signature(
+                model.step).parameters:
+            # a model whose step always begins with its fill (the cubed
+            # sphere's shallow water) steps plainly
+            for _ in range(n):
+                state = model.step(state, dt)
+            return state
         state = model.fill_state_halos(state)
         for _ in range(n):
             state = model.step(state, dt, assume_filled=True)
