@@ -86,9 +86,10 @@ each of which raises on failure:
     default model (kernel 1) through ``Simulation(stop_iteration=100)``,
     bit for bit against the bare loop of phase 4 from the same state, and
     timed against it; the same model with a ``TimeStepWizard(cfl=0.5)``
-    every 10 iterations, a progress callback and a ``stop_time`` whose
-    alignment cuts the last Δt, held to finite fields and the divergence
-    bound; and 20 steps of a 256³ UpwindBiased(5) model, which no kernel
+    every 10 iterations, a progress callback, a ``TimeInterval(0.002)``
+    callback that must fire at 0, 0.002, 0.004 and 0.006 on the float32
+    clock, and a ``stop_time`` whose alignment cuts the last Δt, held to
+    finite fields and the divergence bound; and 20 steps of a 256³ UpwindBiased(5) model, which no kernel
     takes, on the plain path;
 12. ``les``, the wind-mixing LES at 256³ (the JAX package's
     ``examples/wind_mixing_and_convection.py`` on a regular z: WENO(5),
@@ -139,7 +140,32 @@ each of which raises on failure:
     held to the float32 rounding of η's substeps; 5 float64 steps at
     C48×16, the volume held to 1e-12 of the ocean's volume and the salt to
     1e-9; and a float64 C8×4 run on the card against the CPU to 1e-12.
-    Neither cube phase may launch any of the port's kernels.
+    Neither cube phase may launch any of the port's kernels;
+17. output (``output.py``): whether h5py is installed (``h5py: absent``
+    on a line of its own where it is not; then ``HDF5Writer.write`` and
+    ``NetCDFWriter.write`` must raise an ``ImportError`` naming it, and
+    the writers below fetch their outputs to the host, cast on the card
+    and copied, without writing files); 17a the 256³ default model
+    (kernel 1, bench.py's Δt = 1e-4 s, :data:`OUTPUT_DT`) through
+    ``Simulation(stop_iteration=100)`` with an ``HDF5Writer`` of u, w and
+    the horizontal mean of u every 25 iterations, a ``NetCDFWriter`` of w
+    every 50, an ``HDF5Writer`` of ``WindowedTimeAverage(u)`` on
+    ``AveragedTimeInterval(50 Δt, window=10 Δt)`` and a ``Checkpointer``
+    every 50, bitwise against the bare loop from the same state, picked
+    up at iteration 50 and run to 100 bitwise (the clock too), the last u
+    written equal to the final u, the averages within 10 float32 epsilons
+    of max|u| of the float64 means of the bare loop's states, kernel 1
+    launched 150 times, and the ms and MB of each write, of the
+    checkpoint and of its restore beside phase 11's ms/step; 17b
+    ``hydro_vi`` for 20 steps with a checkpoint at 10, picked up there
+    bitwise, kernels 11 and 12/13 launched 30 times each, timed beside
+    phase 9; 17c ``cs_w2`` at C192 with a ``NetCDFWriter`` of h and u
+    every 10 of 20 steps (the last h equal to the final h) and
+    ``cs_global`` at C48×16 for 10 steps with a checkpoint at 5, picked
+    up bitwise, no port kernel launched; 17d ``EnsembleModel`` of the JAX
+    package's diffusion column test at 1024 members of 256 levels in
+    float64, three members held to their serial runs within 1e-12, timed
+    against a serial member.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -150,7 +176,7 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 to 16 zero and check the counts of
+launches that run makes. Phases 12 to 17 zero and check the counts of
 their own runs and print them on lines of their own. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
@@ -1267,6 +1293,503 @@ def cs_global_phase(torch, wrappers, card):
     require(all(v <= 1e-12 for v in rel8.values()),
             f"cs_global C8x4 card vs CPU {rel8}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: output (writers, time averages, checkpoints, ensembles)
+# ---------------------------------------------------------------------------
+
+#: phase 17a's Δt, bench.py's: not exact in binary, so the float32 clock's
+#: sum of 50 steps ends 1.1e-10 s short of 50 Δt, and the time-based
+#: schedules compare in the clock's precision
+#: (``utils.schedules.time_margin``)
+OUTPUT_DT = 1e-4
+#: 17a: the size; steps of the run, checkpoint interval, field and NetCDF
+#: intervals, the averaging interval and window (in steps) and the progress
+#: interval
+OUT_N = 256
+OUT_STEPS, OUT_CKPT, OUT_FIELDS, OUT_NC = 100, 50, 25, 50
+OUT_AVG, OUT_WINDOW, OUT_PROGRESS = 50, 10, 10
+#: 17b, 17c: steps and checkpoint or writer interval
+HYDRO_OUT_STEPS, HYDRO_OUT_CKPT = 20, 10
+CS_W2_OUT_STEPS, CS_W2_OUT_EVERY = 20, 10
+CS_GLOBAL_OUT_SIZE, CS_GLOBAL_OUT_STEPS, CS_GLOBAL_OUT_CKPT = (48, 16), 10, 5
+#: 17d: the JAX package's ensemble test (diffusion columns,
+#: ``tests/test_ensemble_and_pallas.py:16-44``) at 1024 members of 256
+#: levels in float64, three members held to their serial runs
+ENS_MEMBERS, ENS_LEVELS, ENS_STEPS, ENS_DT = 1024, 256, 20, 1e-3
+ENS_CHECKED, ENS_RTOL = (0, 511, 1023), 1e-12
+
+
+class TimedWrites:
+    """Times each write of ``writer`` on the host clock (after the device's
+    queue is drained, so a write's time is its own: the copy to the host,
+    then the file) and counts its bytes. Without h5py an HDF5 or NetCDF
+    writer only fetches (the part of a write that touches the device:
+    the cast on the device and the copy), and keeps what it fetched."""
+
+    def __init__(self, torch, writer, files):
+        self.torch, self.writer, self.files = torch, writer, files
+        self.ms, self.nbytes, self.fetched = [], [], []
+        self._write = writer.write
+        writer.write = self
+
+    def __call__(self, sim):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.files or not hasattr(self.writer, "fetch"):
+            before = self.size()
+            self._write(sim)
+            nbytes = self.size() - before
+        else:
+            data = self.writer.fetch(sim)
+            self.fetched.append((int(sim.state.clock.iteration), data))
+            nbytes = sum(a.nbytes for a in data.values())
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.nbytes.append(nbytes)
+
+    def size(self):
+        import os
+        w = self.writer
+        if hasattr(w, "dirname"):
+            return sum(os.path.getsize(os.path.join(w.dirname, f))
+                       for f in os.listdir(w.dirname))
+        return os.path.getsize(w.filename) if os.path.exists(
+            w.filename) else 0
+
+    def summary(self):
+        n = len(self.ms)
+        return (f"{n} writes, {sum(self.ms) / n:.3f} ms and "
+                f"{sum(self.nbytes) / n / 1e6:.3f} MB a write (first "
+                f"{self.ms[0]:.3f} ms)")
+
+
+def flat_equal(torch, a, b):
+    """Whether two states are bitwise equal (every tensor, the iteration),
+    and the keys that differ."""
+    from oceananigans_torch.interop import flatten_state
+    fa, fb = flatten_state(a), flatten_state(b)
+    bad = sorted(k for k in fa if not (
+        torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+        else fa[k] == fb[k]))
+    return sorted(fa) == sorted(fb) and not bad, bad
+
+
+def output_main_path(torch, ot, wrappers, card, dev, h5, tmp, ref):
+    """17a: the 256³ default model (kernel 1) through Simulation with its
+    writers and a checkpoint; the pickup; the time averages."""
+    import os
+
+    from oceananigans_torch.grids.base import Center, Face
+    from oceananigans_torch.ops import cuda_kernels as ck
+    from oceananigans_torch.profile_step import initial_state
+    N, dt = OUT_N, OUTPUT_DT
+    grid = ot.RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
+                              topology=(ot.Bounded, ot.Periodic, ot.Periodic),
+                              halo=(1, 0, 0), dtype=torch.float32,
+                              device=dev)
+    model = ot.NonhydrostaticModel(grid=grid,
+                                   timestepper="QuasiAdamsBashforth2")
+    s0 = initial_state(model)
+    keep = {k: getattr(s0, k).clone() for k in ("u", "v", "w", "pressure",
+                                                "Gu", "Gv", "Gw")}
+
+    def fresh():
+        return dataclasses.replace(
+            s0, **{k: t.clone() for k, t in keep.items()})
+
+    def umean(m, s):
+        return ot.Average(m.grid, s.u, dims=(0, 1),
+                          loc=(Face, Center, Center))
+
+    def attach(sim, d):
+        """The phase's writers on ``sim``, files under ``d``, timed."""
+        ws = {"fields": ot.HDF5Writer(
+                  {"u": "u", "w": "w", "umean": umean},
+                  os.path.join(d, "fields.h5"),
+                  ot.IterationInterval(OUT_FIELDS)),
+              "nc": ot.NetCDFWriter({"w": "w"}, os.path.join(d, "w.nc"),
+                                    ot.IterationInterval(OUT_NC)),
+              "avg": ot.HDF5Writer(
+                  {"u": ot.WindowedTimeAverage("u")},
+                  os.path.join(d, "avg.h5"),
+                  ot.AveragedTimeInterval(OUT_AVG * dt,
+                                          window=OUT_WINDOW * dt)),
+              "ckpt": ot.Checkpointer(os.path.join(tmp, "ckpt"),
+                                      ot.IterationInterval(OUT_CKPT))}
+        sim.output_writers.update(ws)
+        sim.callbacks["progress"] = ot.Callback(
+            lambda s: None, ot.IterationInterval(OUT_PROGRESS))
+        return {k: TimedWrites(torch, w, h5) for k, w in ws.items()}
+
+    # the bare loop from the state, with the float64 sums of u over the
+    # averaging windows (the states after steps 40-49 and 90-99)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    windows = {OUT_AVG * k: torch.zeros(grid.N, dtype=torch.float64,
+                                        device=dev)
+               for k in (1, 2)}
+    umax = 0.0
+    torch.cuda.synchronize()
+    e0.record()
+    bare = model.fill_state_halos(fresh())
+    for it in range(1, OUT_STEPS + 1):
+        bare = model.step(bare, dt, assume_filled=True)
+        end = OUT_AVG * math.ceil(it / OUT_AVG)
+        if end - OUT_WINDOW <= it < end:
+            windows[end] += grid.interior(bare.u).double()
+            umax = max(umax, float(grid.interior(bare.u).abs().max()))
+    e1.record()
+    e1.synchronize()
+    bare_ms = e0.elapsed_time(e1) / OUT_STEPS
+
+    # the run with its writers, from the same state
+    for fn in wrappers.values():
+        fn.launches = 0
+    sim = ot.Simulation(model, state=fresh(), dt=dt,
+                        stop_iteration=OUT_STEPS)
+    timed = attach(sim, os.path.join(tmp, "run"))
+    torch.cuda.synchronize()
+    e0.record()
+    sim.run()
+    e1.record()
+    e1.synchronize()
+    run_ms = e0.elapsed_time(e1) / OUT_STEPS
+    n_run = ck.centered2_ab2_update.launches
+    same, bad = flat_equal(torch, sim.state, bare)
+    log(f"[17] 17a two uninterrupted runs of {OUT_STEPS} steps from one "
+        f"state (Simulation with writers; the bare loop): bitwise equal: "
+        f"{same}")
+    require(same, f"17a: the run with writers equals the bare loop bit for "
+            f"bit (differ: {bad})")
+    require(n_run == OUT_STEPS, f"17a: kernel 1 launched {n_run} times in "
+            f"{OUT_STEPS} steps")
+    final = sim.state
+
+    # the pickup at the checkpoint of iteration OUT_CKPT, to OUT_STEPS
+    path = os.path.join(tmp, "ckpt", f"ckpt_iteration{OUT_CKPT}.pt")
+    template = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = sim.output_writers["ckpt"].restore(template, path)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(restored.clock.iteration == OUT_CKPT
+            and type(restored.clock.iteration) is int
+            and restored.clock.time.dtype == torch.float32,
+            f"17a: the restored clock {restored.clock}")
+    del restored
+    sim2 = ot.Simulation(model, state=template, dt=dt,
+                         stop_iteration=OUT_STEPS)
+    attach(sim2, os.path.join(tmp, "pickup"))
+    sim2.run(pickup=path)
+    n_all = ck.centered2_ab2_update.launches
+    same, bad = flat_equal(torch, sim2.state, final)
+    log(f"[17] 17a pickup at iteration {OUT_CKPT} of {path} to "
+        f"{OUT_STEPS}: bitwise equal to the uninterrupted run (u, v, w, "
+        f"pressure, Gu, Gv, Gw, time {float(final.clock.time)!r}, "
+        f"iteration, last_dt): {same}; kernel 1 launched {n_all} times "
+        f"({OUT_STEPS} + {OUT_STEPS - OUT_CKPT})")
+    require(same, f"17a: the pickup equals the uninterrupted run bit for "
+            f"bit (differ: {bad})")
+    want = 2 * OUT_STEPS - OUT_CKPT
+    require(n_all == want, f"17a: kernel 1 launched {n_all} times, not "
+            f"{want}")
+
+    # what the writers wrote: the last u equals the final interior u; the
+    # averages equal the float64 means of the bare loop's windows
+    u_final = grid.interior(final.u).cpu().numpy()
+    if h5:
+        d = os.path.join(tmp, "run")
+        u_series = ot.load_field_time_series(os.path.join(d, "fields.h5"),
+                                             "u")
+        u_last = u_series[len(u_series) - 1]
+        u_times = [int(round(float(t) / dt)) for t in u_series.times]
+        avg = ot.load_field_time_series(os.path.join(d, "avg.h5"), "u")
+        averages = {int(round(float(t) / dt)): avg[i]
+                    for i, t in enumerate(avg.times)}
+    else:
+        f = timed["fields"].fetched
+        u_last, u_times = f[-1][1]["u"], [it for it, _ in f]
+        averages = {it: data["u"] for it, data in timed["avg"].fetched}
+    require((u_last == u_final).all(), "17a: the last written u equals the "
+            "final interior u exactly")
+    eps = float(torch.finfo(torch.float32).eps)
+    bound = OUT_WINDOW * eps * umax
+    errs = {}
+    for end, total in windows.items():
+        mean = (total / OUT_WINDOW).cpu().numpy()
+        errs[end] = float(abs(averages[end] - mean).max())
+    log(f"[17] 17a the written u at iterations {u_times} (the last equals "
+        f"the "
+        f"final interior u exactly); the windowed averages of u at "
+        f"iterations {sorted(averages)}: against the float64 means of the "
+        f"states {OUT_WINDOW} steps before {sorted(windows)}: max abs err "
+        f"{errs} (bound {OUT_WINDOW} x eps32 x max|u| = {bound:.3e}, "
+        f"max|u| {umax:.4e})")
+    require(sorted(averages) == [0] + sorted(windows)
+            and all(e <= bound for e in errs.values()),
+            f"17a: the windowed averages {errs}")
+
+    # the costs
+    ck_w = timed["ckpt"]
+    log(f"[17] 17a on {card}: {OUT_STEPS} steps with the writers "
+        f"{run_ms:.4f} ms/step (CUDA events, writes included), the bare "
+        f"loop {bare_ms:.4f} ms/step in this phase; phase 11's Simulation "
+        f"{ref['sim_ms']:.4f} and bare loop {ref['bare_ms']:.4f} ms/step "
+        f"without writers")
+    for k, t in timed.items():
+        what = ("written" if h5 or k == "ckpt"
+                else "fetched to the host (h5py absent)")
+        log(f"[17] 17a writer {k!r} ({what}): {t.summary()}")
+    log(f"[17] 17a checkpoint: write {sum(ck_w.ms) / len(ck_w.ms):.3f} ms "
+        f"and {ck_w.nbytes[-1] / 1e6:.3f} MB; restore (torch.load to the "
+        f"card) {restore_ms:.3f} ms")
+    return {"ms": run_ms, "bare_ms": bare_ms, "restore_ms": restore_ms,
+            "writers": {k: (sum(t.ms) / len(t.ms),
+                            sum(t.nbytes) / len(t.nbytes))
+                        for k, t in timed.items()}}
+
+
+def output_hydro(torch, ot, wrappers, card, tmp, ref_ms):
+    """17b: ``hydro_vi`` through Simulation with a checkpoint and a
+    pickup, kernels 11 and 12/13 once a step."""
+    import os
+
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_initial_state, hydro_model,
+    )
+    model = hydro_model("auto")
+    s0 = model.update_state(hydro_initial_state(model))
+    from oceananigans_torch.interop import flatten_state, unflatten_state
+    keep = {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in flatten_state(s0).items()}
+    kernels = ("weno_tracer_tendencies", "vi_momentum_tendency")
+    for fn in wrappers.values():
+        fn.launches = 0
+    sims = []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for pickup in (False, True):
+        state = unflatten_state(s0, {k: v.clone() if isinstance(
+            v, torch.Tensor) else v for k, v in keep.items()})
+        sim = ot.Simulation(model, state=state, dt=HYDRO_DT,
+                            stop_iteration=HYDRO_OUT_STEPS)
+        ckpt = ot.Checkpointer(os.path.join(tmp, "hydro"),
+                               ot.IterationInterval(HYDRO_OUT_CKPT))
+        sim.output_writers["ckpt"] = ckpt
+        timed = TimedWrites(torch, ckpt, True)
+        torch.cuda.synchronize()
+        e0.record()
+        sim.run(pickup=pickup and ckpt._path(HYDRO_OUT_CKPT))
+        e1.record()
+        e1.synchronize()
+        if not pickup:
+            ms = e0.elapsed_time(e1) / HYDRO_OUT_STEPS
+            ck_summary = timed.summary()
+        sims.append(sim)
+    counts = {k: wrappers[k].launches for k in kernels}
+    others = [k for k in wrappers if k not in kernels
+              and wrappers[k].launches]
+    same, bad = flat_equal(torch, sims[1].state, sims[0].state)
+    want = 2 * HYDRO_OUT_STEPS - HYDRO_OUT_CKPT
+    log(f"[17] 17b hydro_vi: {HYDRO_OUT_STEPS} steps with a checkpoint at "
+        f"{HYDRO_OUT_CKPT}, picked up at {HYDRO_OUT_CKPT} and run to "
+        f"{HYDRO_OUT_STEPS}: bitwise equal (u, v, w, eta, U, V, Gu, Gv, "
+        f"Geta, T, S, GT, GS, the clock): {same}; launches {counts} "
+        f"({want} each); on {card}: {ms:.3f} ms/step with the checkpointer "
+        f"(CUDA events, writes included) against phase 9's "
+        f"{ref_ms:.3f} ms/step; checkpoint {ck_summary}")
+    require(same, f"17b: the pickup equals the uninterrupted run (differ: "
+            f"{bad})")
+    require(all(n == want for n in counts.values()) and not others,
+            f"17b: launches {counts}, others {others}")
+    return {"ms": ms}
+
+
+def output_cube(torch, ot, wrappers, card, h5, tmp):
+    """17c: ``cs_w2`` at C192 with a NetCDF writer of h and u; ``cs_global``
+    at C48×16 with a checkpoint and a pickup. No port kernel launches."""
+    import os
+
+    from oceananigans_torch.interop import flatten_state, unflatten_state
+    from oceananigans_torch.profile_step import (
+        CS_GLOBAL_DT, CS_W2_DT, cs_global_model, cs_w2_model,
+    )
+
+    def no_launches(tag):
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        require(not counts, f"{tag}: port kernels launched: {counts}")
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    model, state = cs_w2_model(CS_W2_N, torch.float32)
+    sim = ot.Simulation(model, state=state, dt=CS_W2_DT,
+                        stop_iteration=CS_W2_OUT_STEPS)
+    nc = ot.NetCDFWriter({"h": "h", "u": "u"},
+                         os.path.join(tmp, "cs_w2.nc"),
+                         ot.IterationInterval(CS_W2_OUT_EVERY))
+    sim.output_writers["nc"] = nc
+    timed = TimedWrites(torch, nc, h5)
+    sim.run()
+    no_launches("17c cs_w2")
+    h_final = model.grid.interior(sim.state.h).cpu().numpy()
+    if h5:
+        import h5py
+        with h5py.File(nc.filename, "r") as f:
+            h_last = f["h"][-1]
+            layout = {k: f[k].shape for k in ("h", "u", "longitude")}
+    else:
+        h_last = timed.fetched[-1][1]["h"]
+        layout = {k: v.shape for k, v in timed.fetched[-1][1].items()}
+    require((h_last == h_final).all(), "17c: the written h equals the "
+            "final h exactly")
+    log(f"[17] 17c cs_w2 C{CS_W2_N}, {CS_W2_OUT_STEPS} steps with a "
+        f"NetCDFWriter of h and u every {CS_W2_OUT_EVERY} on the cube's "
+        f"coordinates ({'written' if h5 else 'fetched; h5py absent'}): "
+        f"shapes {layout}; the last h equals the final h exactly; "
+        f"{timed.summary()}; port kernels launched: none")
+    del model, state, sim, timed
+    torch.cuda.empty_cache()
+
+    model, s0 = cs_global_model(*CS_GLOBAL_OUT_SIZE, torch.float32)
+    keep = flatten_state(s0)
+    keep = {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in keep.items()}
+    sims = []
+    for pickup in (False, True):
+        state = unflatten_state(s0, {k: v.clone() if isinstance(
+            v, torch.Tensor) else v for k, v in keep.items()})
+        sim = ot.Simulation(model, state=state, dt=CS_GLOBAL_DT,
+                            stop_iteration=CS_GLOBAL_OUT_STEPS)
+        ckpt = ot.Checkpointer(os.path.join(tmp, "cs_global"),
+                               ot.IterationInterval(CS_GLOBAL_OUT_CKPT))
+        sim.output_writers["ckpt"] = ckpt
+        timed = TimedWrites(torch, ckpt, True)
+        sim.run(pickup=pickup and ckpt._path(CS_GLOBAL_OUT_CKPT))
+        if not pickup:
+            ck_summary = timed.summary()
+        sims.append(sim)
+    no_launches("17c cs_global")
+    same, bad = flat_equal(torch, sims[1].state, sims[0].state)
+    log(f"[17] 17c cs_global C{CS_GLOBAL_OUT_SIZE[0]}x"
+        f"{CS_GLOBAL_OUT_SIZE[1]} (RK3: U and V, no G's): "
+        f"{CS_GLOBAL_OUT_STEPS} steps with a checkpoint at "
+        f"{CS_GLOBAL_OUT_CKPT}, picked up there: bitwise equal: {same}; "
+        f"checkpoint {ck_summary}; port kernels launched: none")
+    require(same, f"17c: the cs_global pickup equals the uninterrupted run "
+            f"(differ: {bad})")
+
+
+def output_ensemble(torch, ot, wrappers, card, dev):
+    """17d: ``EnsembleModel`` of the JAX package's diffusion columns, 1024
+    members of 256 levels in float64, three members held to their serial
+    runs."""
+    import numpy as np
+    grid = ot.RectilinearGrid(size=(ENS_LEVELS,), z=(0.0, math.pi),
+                              topology=(ot.Flat, ot.Flat, ot.Bounded),
+                              dtype=torch.float64, device=dev)
+    model = ot.NonhydrostaticModel(
+        grid=grid, advection=None, tracers=("c",),
+        closure=ot.VerticalScalarDiffusivity(
+            kappa=0.1,
+            time_discretization=ot.VerticallyImplicitTimeDiscretization))
+    amps = np.linspace(0.5, 2.0, ENS_MEMBERS)
+    ens = ot.EnsembleModel(model, n=ENS_MEMBERS)
+    t0 = time.perf_counter()
+    states = ens.initial_states(
+        c=lambda m, x, y, z: float(amps[m]) * torch.cos(z))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for fn in wrappers.values():
+        fn.launches = 0
+    states = ens.step(states, ENS_DT)      # warm-up
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(ENS_STEPS - 1):
+        states = ens.step(states, ENS_DT)
+    e1.record()
+    e1.synchronize()
+    ens_ms = e0.elapsed_time(e1) / (ENS_STEPS - 1)
+    require(torch.isfinite(states.tracers["c"]).all(), "17d: finite")
+    errs = {}
+    for m in ENS_CHECKED:
+        s = model.initial_state(c=lambda x, y, z: float(amps[m])
+                                * torch.cos(z))
+        e0.record()
+        for _ in range(ENS_STEPS):
+            s = model.step(s, ENS_DT)
+        e1.record()
+        e1.synchronize()
+        serial_ms = e0.elapsed_time(e1) / ENS_STEPS
+        ref = grid.interior(s.tracers["c"])
+        got = grid.interior(ens.member(states, m).tracers["c"])
+        errs[m] = float((got - ref).abs().max() / ref.abs().max())
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    log(f"[17] 17d EnsembleModel: {ENS_MEMBERS} diffusion columns of "
+        f"{ENS_LEVELS} levels, float64, {ENS_STEPS} RK3 steps (implicit "
+        f"diffusion) by torch.func.vmap on {card}: {ens_ms:.3f} ms a "
+        f"batched step against {serial_ms:.3f} ms a serial member's step "
+        f"({ENS_MEMBERS * serial_ms / ens_ms:.1f} times the serial "
+        f"throughput); states built in {init_s:.2f} s; members "
+        f"{list(ENS_CHECKED)} against their serial runs: {errs} of the "
+        f"largest value (tolerance {ENS_RTOL:g}); port kernels launched: "
+        f"{counts or 'none'}")
+    require(all(e <= ENS_RTOL for e in errs.values()),
+            f"17d: members against serial runs {errs}")
+    require(not counts, f"17d: port kernels launched {counts}")
+
+
+def output_phase(torch, ot, wrappers, card, dev, ref):
+    """Phase 17: output on the card (17a-17d). ``ref`` holds phase 11's
+    and phase 9's ms/step."""
+    import importlib.util
+    import tempfile
+    import os
+    t_phase = time.perf_counter()
+    h5 = importlib.util.find_spec("h5py") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        if h5:
+            import h5py
+            log(f"[17] h5py: present ({h5py.__version__})")
+        else:
+            log("h5py: absent")
+            grid = ot.RectilinearGrid(size=(4, 4, 4),
+                                      extent=(1.0, 1.0, 1.0), device=dev)
+            sim = ot.Simulation(ot.NonhydrostaticModel(grid=grid), dt=1.0)
+            for w in (ot.HDF5Writer({"u": "u"}, os.path.join(tmp, "a.h5"),
+                                    ot.IterationInterval(1)),
+                      ot.NetCDFWriter({"u": "u"}, os.path.join(tmp, "a.nc"),
+                                      ot.IterationInterval(1))):
+                try:
+                    w.write(sim)
+                except ImportError as e:
+                    require("h5py" in str(e),
+                            f"the ImportError names h5py: {e}")
+                else:
+                    raise RuntimeError("check failed: a writer wrote "
+                                       "without h5py")
+            log("[17] h5py is absent: HDF5Writer.write and "
+                "NetCDFWriter.write raise an ImportError naming h5py; the "
+                "writers below fetch their outputs to the host (cast on "
+                "the card, copied) without writing files; checkpoints "
+                "(torch.save) are written")
+        a = output_main_path(torch, ot, wrappers, card, dev, h5, tmp, ref)
+        torch.cuda.empty_cache()
+        b = output_hydro(torch, ot, wrappers, card, tmp, ref["hydro_ms"])
+        torch.cuda.empty_cache()
+        output_cube(torch, ot, wrappers, card, h5, tmp)
+        torch.cuda.empty_cache()
+        output_ensemble(torch, ot, wrappers, card, dev)
+        torch.cuda.empty_cache()
+    log(f"[17] phase 17 on {card} in {time.perf_counter() - t_phase:.1f} "
+        f"s: 17a {a['ms']:.4f} ms/step with writers (bare loop "
+        f"{a['bare_ms']:.4f}; phase 11 {ref['sim_ms']:.4f}), 17b "
+        f"{b['ms']:.3f} ms/step with the checkpointer (phase 9 "
+        f"{ref['hydro_ms']:.3f})")
 
 
 def main():
@@ -2896,9 +3419,9 @@ def main():
     # the wizard: TimeStepWizard(cfl=0.5) every 10 iterations, a progress
     # callback every 10 iterations, a recorder every 0.002 of model time,
     # and a stop_time that the alignment reaches with a shortened last Δt.
-    # The clock is float32, as in the JAX package: a TimeInterval fires
-    # only where the float32 time lands within 1e-10 of its multiple, so
-    # the recorder's count is printed, not required
+    # The clock is float32, as in the JAX package; the recorder fires at
+    # 0, 0.002, 0.004 and 0.006, where the clock is within its margin of
+    # them (``utils.schedules.time_margin``)
     progress, timed = [], []
 
     def recorder(into):
@@ -2930,6 +3453,8 @@ def main():
             f"Δt {last_dt} < {sim.dt}")
     require(ck.centered2_ab2_update.launches == nwiz,
             "wizard run: kernel 1 once a step")
+    require([round(t / 0.002) for _, t, _ in timed] == [0, 1, 2, 3],
+            f"wizard run: TimeInterval(0.002) fired at {timed}")
     log(f"[11] wizard run: {nwiz} steps to t = {float(st.clock.time):.6g} "
         f"in {wiz_s:.3f} s on {card}; Δt {dt:g} -> {sim.dt:.6g}, last Δt {last_dt:.6g}"
         f" (cut by the alignment); progress {progress}; TimeInterval(0.002) "
@@ -2992,6 +3517,11 @@ def main():
     log(f"[16] step times on {card}: cs_w2 C192 {cs_w2['ms']:.3f} ms/step; "
         + "; ".join(f"cs_global {k} {v['ms']:.3f} ms/step"
                     for k, v in cs_global.items()))
+
+    # ---- phase 17: output (writers, averages, checkpoints, ensembles) ---
+    output_phase(torch, ot, wrappers, card, dev, {
+        "sim_ms": sim_ms, "bare_ms": bare_ms,
+        "hydro_ms": hydro_ms["kernel"]})
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -22,11 +22,15 @@ quasi-AB2; the closures of ``closures.py`` (scalar, biharmonic,
 Smagorinsky-Lilly, dynamic Smagorinsky, AMD, convective adjustment;
 explicit or vertically implicit) and valued, gradient, flux and open
 boundary conditions on the nonhydrostatic and hydrostatic models; the
-field layer (constructors, reductions, regridding, interpolation); and
-the ``Simulation`` run loop with its callbacks, schedules,
-``TimeStepWizard`` and NaN guard. Grids and models run on the GPU unless
-they are given ``device="cpu"`` (or ``config.device`` is set to "cpu");
-without a GPU, a grid built with no ``device=`` raises.
+field layer (constructors, reductions, regridding, interpolation) and
+the operations (derivatives, metric averages and integrals, derived
+fields); the ``Simulation`` run loop with its callbacks, schedules,
+``TimeStepWizard`` and NaN guard; output (HDF5 and NetCDF writers,
+windowed time averages, checkpoints and pickup, field time series,
+calendar clocks); ensembles of models batched by ``torch.func.vmap``; and
+matplotlib plots (``utils/plotting.py``). Grids and models run on the GPU
+unless they are given ``device="cpu"`` (or ``config.device`` is set to
+"cpu"); without a GPU, a grid built with no ``device=`` raises.
 
     grid = RectilinearGrid(size=(N, N, N), extent=(1, 1, 1),
                            topology=(Bounded, Periodic, Periodic),
@@ -98,6 +102,16 @@ from oceananigans_torch.models import (
 from oceananigans_torch.models.hydrostatic import (
     ImplicitFreeSurface, PrescribedVelocityFields, ZCoordinate, ZStar,
 )
+from oceananigans_torch.operations import (
+    Accumulation, Average, ConditionalAverage, CumulativeIntegral, Integral,
+    KernelFunctionOperation, Reduction,
+)
+from oceananigans_torch.output import (
+    Checkpointer, FieldDataset, FieldTimeSeries, FileSizeLimit, HDF5Writer,
+    InMemory, JLD2Writer, NetCDFWriter, OnDisk, WindowedTimeAverage,
+    load_field_time_series,
+)
+from oceananigans_torch.ensemble import EnsembleModel
 from oceananigans_torch.simulation import (
     Callback, NaNChecker, Simulation, TendencyCallsite, TimeStepCallsite,
     TimeStepWizard, UpdateStateCallsite, add_callback,
@@ -119,55 +133,59 @@ from oceananigans_torch.utils.units import (
 )
 
 __all__ = [
-    "AbstractGrid", "AdvectiveCFL", "AndSchedule",
-    "AnisotropicMinimumDissipation", "AveragedTimeInterval", "BackgroundField",
-    "BetaPlane", "BoundaryCondition", "Bounded", "BuoyancyField",
-    "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback", "Center",
-    "CenterField", "Centered", "Clock", "ConformalCubedSphereGrid",
-    "ConservativeFormulation",
-    "ConstantCartesianCoriolis", "ConstantField",
+    "AbstractGrid", "Accumulation", "AdvectiveCFL", "AndSchedule",
+    "AnisotropicMinimumDissipation", "Average", "AveragedTimeInterval",
+    "BackgroundField", "BetaPlane", "BoundaryCondition", "Bounded",
+    "BuoyancyField", "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback",
+    "Center", "CenterField", "Centered", "Checkpointer", "Clock",
+    "ConditionalAverage", "ConformalCubedSphereGrid",
+    "ConservativeFormulation", "ConstantCartesianCoriolis", "ConstantField",
     "ConvectiveAdjustmentVerticalDiffusivity", "CrossAndSelfUpwinding",
     "CubedSphereHydrostaticModel", "CubedSphereShallowWaterModel",
-    "DiffusiveCFL", "DynamicCoefficient", "DynamicSmagorinsky",
-    "ExplicitFreeSurface", "ExplicitTimeDiscretization", "FFTPoissonSolver",
-    "FPlane", "Face", "Field", "FieldBoundaryConditions", "Flat",
-    "FlatExtrapolationOpenBC", "FluxBC", "FluxBoundaryCondition",
-    "FluxFormAdvection", "FunctionField", "GiB", "GradientBC",
-    "GridFittedBottom", "GridFittedBoundary",
-    "GradientBoundaryCondition", "HorizontalScalarBiharmonicDiffusivity",
-    "HorizontalScalarDiffusivity", "HydrostaticFreeSurfaceModel",
-    "HydrostaticSphericalCoriolis", "HydrostaticState",
-    "ImmersedBoundaryCondition", "ImmersedBoundaryGrid", "ImplicitFreeSurface",
-    "IterationInterval", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
-    "LatitudeLongitudeGrid", "LillyCoefficient", "LinearEquationOfState",
-    "MatmulPoissonSolver", "MiB", "NaNChecker", "NonTraditionalBetaPlane",
-    "NonhydrostaticModel", "NonhydrostaticState", "OnlySelfUpwinding",
-    "OpenBC", "OpenBoundaryCondition", "OrSchedule", "PartialCellBottom",
-    "OrthogonalSphericalShellGrid", "Periodic", "PeriodicBC",
-    "PerturbationAdvection", "PerturbationAdvectionOpenBC",
-    "PrescribedVelocityFields", "PressureField", "RectilinearGrid",
+    "CumulativeIntegral", "DiffusiveCFL", "DynamicCoefficient",
+    "DynamicSmagorinsky", "EnsembleModel", "ExplicitFreeSurface",
+    "ExplicitTimeDiscretization", "FFTPoissonSolver", "FPlane", "Face",
+    "Field", "FieldBoundaryConditions", "FieldDataset", "FieldTimeSeries",
+    "FileSizeLimit", "Flat", "FlatExtrapolationOpenBC", "FluxBC",
+    "FluxBoundaryCondition", "FluxFormAdvection", "FunctionField", "GiB",
+    "GradientBC", "GradientBoundaryCondition", "GridFittedBottom",
+    "GridFittedBoundary", "HDF5Writer",
+    "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
+    "HydrostaticFreeSurfaceModel", "HydrostaticSphericalCoriolis",
+    "HydrostaticState", "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
+    "ImplicitFreeSurface", "InMemory", "Integral", "IterationInterval",
+    "JLD2Writer", "KernelFunctionOperation", "KiB", "LOC_C", "LOC_U", "LOC_V",
+    "LOC_W", "LatitudeLongitudeGrid", "LillyCoefficient",
+    "LinearEquationOfState", "MatmulPoissonSolver", "MiB", "NaNChecker",
+    "NetCDFWriter", "NonTraditionalBetaPlane", "NonhydrostaticModel",
+    "NonhydrostaticState", "OnDisk", "OnlySelfUpwinding", "OpenBC",
+    "OpenBoundaryCondition", "OrSchedule", "OrthogonalSphericalShellGrid",
+    "PartialCellBottom", "Periodic", "PeriodicBC", "PerturbationAdvection",
+    "PerturbationAdvectionOpenBC", "PrescribedVelocityFields",
+    "PressureField", "RectilinearGrid", "Reduction",
     "RotatedLatitudeLongitudeGrid", "ScalarBiharmonicDiffusivity",
     "ScalarDiffusivity", "SeawaterBuoyancy", "ShallowWaterModel",
     "ShallowWaterState", "Simulation", "Smagorinsky", "SmagorinskyLilly",
     "SpecifiedTimes", "SplitExplicitFreeSurface", "StateChecker", "TEOS10",
     "TEOS10EquationOfState", "TendencyCallsite", "TiB", "TimeInterval",
     "TimeStepCallsite", "TimeStepWizard", "TripolarGrid",
-    "UpdateStateCallsite", "UpwindBiased", "ValueBC", "ValueBoundaryCondition",
-    "VectorInvariant", "VectorInvariantFormulation",
+    "UpdateStateCallsite", "UpwindBiased", "ValueBC",
+    "ValueBoundaryCondition", "VectorInvariant", "VectorInvariantFormulation",
     "VerticalScalarBiharmonicDiffusivity", "VerticalScalarDiffusivity",
     "VerticallyImplicitTimeDiscretization", "WENO", "WENOVectorInvariant",
-    "WallTimeInterval", "XFaceField", "YFaceField", "ZCoordinate",
-    "ZFaceField", "ZStar", "ZeroField", "adapt_advection_order",
-    "add_callback", "config", "conformal_cubed_sphere_panel",
-    "conjure_time_step_wizard", "day", "days",
+    "WallTimeInterval", "WindowedTimeAverage", "XFaceField", "YFaceField",
+    "ZCoordinate", "ZFaceField", "ZStar", "ZeroField",
+    "adapt_advection_order", "add_callback", "config",
+    "conformal_cubed_sphere_panel", "conjure_time_step_wizard", "day", "days",
     "diffusivity", "extrinsic_vector", "field_abs_max", "field_integral",
     "field_max", "field_mean", "field_min", "fill_halo_regions", "float_type",
     "hour", "hours", "interior", "interpolate", "intrinsic_vector",
     "iteration", "kilometer", "kilometers", "lambda_nodes", "lambda_spacings",
-    "meter", "meters", "minimum_xspacing", "minimum_yspacing",
-    "minimum_zspacing", "minute", "minutes", "new_field", "nodes", "phi_nodes",
-    "phi_spacings", "prettytime", "rnodes", "rotation_angles", "rspacings",
-    "seawater_density", "second", "seconds", "set_field", "set_float_type",
-    "total_length", "viscosity", "with_interior", "xnodes", "xspacings",
-    "year", "years", "ynodes", "yspacings", "znodes", "zspacings",
+    "load_field_time_series", "meter", "meters", "minimum_xspacing",
+    "minimum_yspacing", "minimum_zspacing", "minute", "minutes", "new_field",
+    "nodes", "phi_nodes", "phi_spacings", "prettytime", "rnodes",
+    "rotation_angles", "rspacings", "seawater_density", "second", "seconds",
+    "set_field", "set_float_type", "total_length", "viscosity",
+    "with_interior", "xnodes", "xspacings", "year", "years", "ynodes",
+    "yspacings", "znodes", "zspacings",
 ]

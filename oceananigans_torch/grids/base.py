@@ -113,7 +113,15 @@ class AbstractGrid(torch.nn.Module):
         return self.zC.device
 
     def interior(self, a):
-        return a[self.interior_slices]
+        """Interior view of ``a``, whose last three axes are x, y and z
+        (leading axes, such as an ensemble's members, pass through); an
+        axis of size 1 where the grid has more (η's z) carries no halo and
+        passes through whole."""
+        sl = list(self.interior_slices)
+        for ax, n in enumerate(self.shape):
+            if a.shape[ax - 3] != n and a.shape[ax - 3] == 1:
+                sl[ax] = slice(None)
+        return a[(Ellipsis, *sl)]
 
     def axis_topo(self, axis: int) -> str:
         return self.topology[axis]

@@ -24,6 +24,8 @@ quasi-AB2 model's does).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -145,26 +147,65 @@ def cube_state_from_numpy(model, arrays):
     return cls(clock=_clock_from_numpy(arrays, grid.dtype), **out)
 
 
+def flatten_state(state, prefix=""):
+    """Every tensor and int of a state dataclass as a flat dict, keyed as
+    this module's arrays are: members by name, a dict member's entries as
+    ``<member>/<key>``, the clock's members by the names of :data:`CLOCK`
+    and any other nested dataclass's members as ``<member>/<name>``; None
+    members and the clock's epoch are left out. The walk goes by
+    ``dataclasses.fields``, so a member added to a state is carried with
+    no edit here."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        key = prefix + f.name
+        if v is None or f.name == "epoch":
+            continue
+        if isinstance(v, Clock):
+            out.update(flatten_state(v, prefix))
+        elif dataclasses.is_dataclass(v):
+            out.update(flatten_state(v, key + "/"))
+        elif isinstance(v, dict):
+            out.update({f"{key}/{n}": t for n, t in v.items()})
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten_state(template, flat, prefix=""):
+    """A state with ``template``'s structure, devices, dtypes and epoch
+    from a flat dict keyed as :func:`flatten_state` keys it."""
+
+    def leaf(key, like):
+        if key not in flat:
+            raise KeyError(f"no {key!r} for the state")
+        v = flat[key]
+        if isinstance(like, torch.Tensor):
+            return v.to(device=like.device, dtype=like.dtype)
+        return type(like)(v)
+
+    new = {}
+    for f in dataclasses.fields(template):
+        v = getattr(template, f.name)
+        key = prefix + f.name
+        if v is None or f.name == "epoch":
+            continue
+        if isinstance(v, Clock):
+            new[f.name] = unflatten_state(v, flat, prefix)
+        elif dataclasses.is_dataclass(v):
+            new[f.name] = unflatten_state(v, flat, key + "/")
+        elif isinstance(v, dict):
+            new[f.name] = {n: leaf(f"{key}/{n}", t) for n, t in v.items()}
+        else:
+            new[f.name] = leaf(key, v)
+    return dataclasses.replace(template, **new)
+
+
 def state_to_numpy(state):
     """The state's fields, tracers and clock as numpy arrays (copied to the
-    host)."""
-    if isinstance(state, (CubedSphereState, CubedSphereHydrostaticState)):
-        fields = (CS_SW_FIELDS if isinstance(state, CubedSphereState)
-                  else CS_HYDROSTATIC_FIELDS + CS_AB2_FIELDS)
-        fields = tuple(n for n in fields if getattr(state, n) is not None)
-    else:
-        fields = (SW_FIELDS if isinstance(state, ShallowWaterState)
-              else HYDROSTATIC_FIELDS if isinstance(state, HydrostaticState)
-              else FIELDS)
-    out = {name: getattr(state, name).detach().cpu().numpy()
-           for name in fields}
-    for group in ("tracers", "Gtracers"):
-        for n, t in (getattr(state, group) or {}).items():
-            out[f"{group}/{n}"] = t.detach().cpu().numpy()
-    out["time"] = state.clock.time.numpy()
-    out["iteration"] = np.asarray(state.clock.iteration)
-    out["last_dt"] = state.clock.last_dt.numpy()
-    return out
+    host), keyed by :func:`flatten_state`."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in flatten_state(state).items()}
 
 
 def grid_from_arguments(kind, **kwargs):
@@ -203,6 +244,6 @@ def orthogonal_grid_like(grid, **kwargs):
 __all__ = ["CLOCK", "CS_AB2_FIELDS", "CS_FIELDS_2D",
            "CS_HYDROSTATIC_FIELDS", "CS_SW_FIELDS", "FIELDS", "FIELDS_2D",
            "HYDROSTATIC_FIELDS", "SW_FIELDS", "cube_state_from_numpy",
-           "grid_from_arguments", "orthogonal_grid_like",
+           "flatten_state", "grid_from_arguments", "orthogonal_grid_like",
            "orthogonal_nodes", "state_from_numpy", "state_to_numpy",
-           "tracer_keys"]
+           "tracer_keys", "unflatten_state"]

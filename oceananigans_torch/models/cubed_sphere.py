@@ -496,7 +496,7 @@ class CubedSphereShallowWaterModel(_OnDevice):
         state = CubedSphereState(
             u=u, v=v, h=h, tracers=tr, Gu=zero, Gv=zero, Gh=zero,
             Gtracers={n: zero for n in self.tracer_names},
-            clock=Clock.start(float(time), dtype))
+            clock=Clock.start(time, dtype))
         return self.fill_state_halos(state)
 
     def fill_state_halos(self, state):
@@ -945,7 +945,7 @@ class CubedSphereHydrostaticModel(_OnDevice):
         ab2 = self.timestepper == "QuasiAdamsBashforth2"
         state = CubedSphereHydrostaticState(
             u=u, v=v, eta=eta, tracers=tr,
-            clock=Clock.start(float(time), dtype),
+            clock=Clock.start(time, dtype),
             U=zero2, V=zero2,
             Gu=zero3 if ab2 else None, Gv=zero3 if ab2 else None,
             Geta=zero2 if ab2 else None,

@@ -440,7 +440,7 @@ class NonhydrostaticModel(torch.nn.Module):
         g = self.grid
         div = divergence_ccc(g, state.u, state.v, state.w)
         phi = self.pressure_solver.solve(g.interior(div) / dt)
-        p = new_field(g, phi.dtype)
+        p = torch.zeros_like(div)   # batched where the state is (vmap)
         p[g.interior_slices] = phi
         fill_halo_regions(p, g, self.pressure_bcs, LOC_C)
         if self.fused_correction:

@@ -15,32 +15,33 @@ The JAX package compiles a window into one ``lax.fori_loop`` dispatch;
 here it is a plain host loop that launches each step's kernels in turn.
 
 Output writers are duck-typed, as the JAX loop calls them: an object with a
-``schedule`` and a ``write(simulation)`` method. ``run(pickup=...)`` and
-averaging writers (an ``AveragedTimeInterval`` schedule) raise
-``NotImplementedError``: they need ``output.py`` (the checkpointer and
-``WindowedTimeAverage``), ROADMAP Queue 1 item 17.
+``schedule`` and a ``write(simulation)`` method (``output.py`` holds the
+package's own). Inside the averaging window of a writer on an
+``AveragedTimeInterval`` the windows are one step long, and after each the
+writer's ``WindowedTimeAverage`` outputs accumulate. ``run(pickup=...)``
+restores the state from the first ``Checkpointer`` among the writers.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import os
 import time as _time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from oceananigans_torch.output import Checkpointer, WindowedTimeAverage
 from oceananigans_torch.utils.pretty import prettytime
 from oceananigans_torch.utils.schedules import (
-    AveragedTimeInterval, IterationInterval,
+    AveragedTimeInterval, IterationInterval, time_margin,
 )
 
 __all__ = ["Simulation", "Callback", "TimeStepWizard", "NaNChecker",
            "add_callback", "conjure_time_step_wizard", "iteration",
            "TimeStepCallsite", "TendencyCallsite", "UpdateStateCallsite"]
-
-_OUTPUT = "is not ported yet; output.py comes with ROADMAP Queue 1 item 17"
 
 # callback callsites (reference src/Oceananigans.jl:186-188):
 #   TimeStepCallsite    after a window of steps (host side)
@@ -181,9 +182,12 @@ class Simulation:
         run as one window. Time-based schedules bound the window by a TIME
         horizon (Δt shrinks to land exactly on it); iteration-based
         schedules bound it by a STEP-count horizon — e.g. the default
-        IterationInterval(100) NaN checker allows 100-step windows."""
+        IterationInterval(100) NaN checker allows 100-step windows. On a
+        clock coarser than float64, plain steps that land within the
+        clock's ``time_margin`` of the time horizon are kept as they are."""
         clock = self.state.clock
         t = float(clock.time)
+        margin = time_margin(clock)
         horizon_t = math.inf      # model time until next time actuation
         horizon_n = math.inf      # steps until next iteration actuation
         if self.stop_time is not None:
@@ -200,7 +204,8 @@ class Simulation:
             # wall-time / unknown schedules: check every step
             horizon_n = 1
         if math.isfinite(horizon_t) and horizon_t > 0:
-            n_t = max(1, int(math.ceil(horizon_t / self.dt - 1e-9)))
+            n_t = max(1, int(math.ceil((horizon_t - margin) / self.dt
+                                       - 1e-9)))
         else:
             n_t = 1 if horizon_t <= 0 else None
         if not math.isfinite(horizon_n):
@@ -211,10 +216,16 @@ class Simulation:
             # the iteration horizon binds: plain dt, no alignment needed
             return max(1, int(horizon_n)), self.dt
         n = n_t
+        if margin and abs(n * self.dt - horizon_t) <= margin:
+            return n, self.dt
         dt = min(self.dt, horizon_t / n)
         # align exactly onto the time horizon when within one window
         if n * self.dt > horizon_t - 1e-12:
             dt = horizon_t / n
+        if bool(clock.time + dt == clock.time):
+            raise RuntimeError(
+                f"time step {dt!r} does not advance the clock's time "
+                f"{t!r} ({clock.time.dtype}); the run would not progress")
         return n, dt
 
     # ------------------------------------------------------------------
@@ -239,17 +250,14 @@ class Simulation:
                                       ()):
             self.model.tendency_callbacks = funcs
 
-    def _check_writers(self):
-        for name, w in self.output_writers.items():
-            if isinstance(w.schedule, AveragedTimeInterval):
-                raise NotImplementedError(
-                    f"output writer {name!r}: time-averaged output "
-                    f"(AveragedTimeInterval) {_OUTPUT}")
+    def _inside_averaging_window(self):
+        return any(isinstance(w.schedule, AveragedTimeInterval)
+                   and w.schedule.averaging(self.state.clock)
+                   for w in self.output_writers.values())
 
     def initialize(self):
         """Actuate everything once at iteration 0 (reference
         run.jl:203-252)."""
-        self._check_writers()
         self._wire_tendency_callbacks()
         upd, ts = self._host_callbacks()
         for cb in upd + ts:
@@ -267,7 +275,8 @@ class Simulation:
             self.stop_reason = "stop_iteration reached"
             return True
         if self.stop_time is not None and (
-                float(self.state.clock.time) >= self.stop_time - 1e-12):
+                float(self.state.clock.time) >= self.stop_time
+                - max(1e-12, time_margin(self.state.clock))):
             self.stop_reason = "stop_time reached"
             return True
         if self.wall_time_limit is not None and (
@@ -277,18 +286,25 @@ class Simulation:
         return False
 
     def run(self, pickup=False):
-        """The run loop (reference run.jl:92-113); returns the final
-        state."""
+        """The run loop (reference run.jl:92-113); returns the final state.
+        ``pickup=True`` first restores the latest checkpoint of the first
+        ``Checkpointer`` among the output writers (reference run.jl:66-98);
+        ``pickup`` may also be a checkpoint's path."""
         if pickup:
-            raise NotImplementedError(f"run(pickup=...) needs the "
-                                      f"checkpointer, which {_OUTPUT}")
+            ckpt = next((w for w in self.output_writers.values()
+                         if isinstance(w, Checkpointer)), None)
+            if ckpt is None:
+                raise ValueError("pickup requested but no Checkpointer "
+                                 "among output_writers")
+            path = pickup if isinstance(pickup, (str, os.PathLike)) else None
+            self.state = ckpt.restore(self.state, path=path)
         if not self.initialized:
             self.initialize()
-        else:
-            self._check_writers()
         while self.running and not self._should_stop():
             t0 = _time.monotonic()
             n, dt = self._aligned_steps()
+            if self._inside_averaging_window():
+                n = 1   # accumulate after every step inside the window
             if self.stop_iteration is not None:
                 n = min(n, self.stop_iteration
                         - int(self.state.clock.iteration))
@@ -301,9 +317,21 @@ class Simulation:
                 if cb.schedule.actuates(self.state.clock):
                     cb(self)
             for w in self.output_writers.values():
+                self._accumulate_averages(w)
                 if w.schedule.actuates(self.state.clock):
                     w.write(self)
         return self.state
+
+    def _accumulate_averages(self, writer):
+        """Add the current state to ``writer``'s ``WindowedTimeAverage``
+        outputs while its ``AveragedTimeInterval`` is averaging (reference
+        windowed_time_average.jl)."""
+        if not (isinstance(writer.schedule, AveragedTimeInterval)
+                and writer.schedule.averaging(self.state.clock)):
+            return
+        for out in getattr(writer, "outputs", {}).values():
+            if isinstance(out, WindowedTimeAverage):
+                out.accumulate(self.model, self.state)
 
     def __repr__(self):
         return (f"Simulation(t={prettytime(float(self.state.clock.time))}, "

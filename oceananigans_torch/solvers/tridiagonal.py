@@ -48,13 +48,16 @@ def tridiagonal_solve(a, b, c, d, axis: int = -1):
         cps.append(cp)
         dps.append(dp)
 
-    # back substitution, into a contiguous tensor of the broadcast shape
-    out = torch.empty(shape, dtype=dps[-1].dtype, device=d_.device)
-    x = torch.zeros((), dtype=out.dtype, device=out.device)
+    # back substitution; the levels are stacked into a tensor of the
+    # broadcast shape (out of place, so the solve also runs under
+    # torch.func.vmap)
+    plane = shape[:axis] + shape[axis + 1:]
+    xs = [None] * n
+    x = torch.zeros((), dtype=dps[-1].dtype, device=d_.device)
     for k in range(n - 1, -1, -1):
         x = dps[k] - cps[k] * x
-        out.select(axis, k).copy_(x)
-    return out
+        xs[k] = x.expand(plane)
+    return torch.stack(xs, dim=axis)
 
 
 __all__ = ["tridiagonal_solve"]

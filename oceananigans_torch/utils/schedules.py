@@ -7,6 +7,9 @@ Reference: ``src/Utils/schedules.jl`` — ``TimeInterval``,
 Counterpart of ``oceananigans_tpu/utils/schedules.py``: host-side objects
 that ``Simulation`` consults between its windows of steps; they hold no
 tensors.
+
+A clock coarser than float64 compares times in its own precision (see
+``time_margin``); a float64 clock keeps the JAX package's margins.
 """
 
 from __future__ import annotations
@@ -14,10 +17,33 @@ from __future__ import annotations
 import time as _time
 
 import numpy as np
+import torch
 
 __all__ = ["TimeInterval", "IterationInterval", "WallTimeInterval",
            "SpecifiedTimes", "AveragedTimeInterval", "AndSchedule",
-           "OrSchedule"]
+           "OrSchedule", "time_margin"]
+
+#: the margin of a clock coarser than float64, in units of its machine
+#: epsilon times its time (16 to 32 ulps of the time)
+MARGIN_EPS = 16
+
+
+def time_margin(clock):
+    """How far the clock's time may lie from a time and still be at it,
+    beyond the JAX package's margins (1e-10 of max(1, |t|) in
+    ``TimeInterval``, 1e-10 and 1e-12 elsewhere), which are kept as they
+    are. 0 for a float64 clock or a plain float. A float32 clock sums its
+    steps with a rounding of up to half an ulp each, so a window of steps
+    aligned onto a time can end a few ulps from it (50 steps of 1e-4 s end
+    1.1e-10 s short of 5e-3 s, outside the 1e-10 margin); its margin is
+    ``MARGIN_EPS`` × its epsilon × |t|. A window that ends further off
+    takes one more, short step onto the time."""
+    if not isinstance(clock.time, torch.Tensor):
+        return 0.0
+    finfo = torch.finfo(clock.time.dtype)
+    if finfo.bits >= 64:
+        return 0.0
+    return MARGIN_EPS * finfo.eps * abs(float(clock.time))
 
 
 class AbstractSchedule:
@@ -47,16 +73,20 @@ class TimeInterval(AbstractSchedule):
     def actuates(self, clock):
         t = float(clock.time)
         n = round(t / self.interval)
-        if abs(t - n * self.interval) < 1e-10 * max(1.0, abs(t)):
+        margin = max(1e-10 * max(1.0, abs(t)), time_margin(clock))
+        if abs(t - n * self.interval) < margin:
             if self.previous_actuation_time != n * self.interval:
                 self.previous_actuation_time = n * self.interval
                 return True
         return False
 
-    def next_actuation_time(self, clock):
+    def _next_multiple(self, clock):
         t = float(clock.time)
-        n = np.floor(t / self.interval + 1e-12) + 1
-        return n * self.interval
+        return np.floor((t + time_margin(clock)) / self.interval
+                        + 1e-12) + 1
+
+    def next_actuation_time(self, clock):
+        return self._next_multiple(clock) * self.interval
 
 
 class IterationInterval(AbstractSchedule):
@@ -95,16 +125,18 @@ class SpecifiedTimes(AbstractSchedule):
 
     def actuates(self, clock):
         t = float(clock.time)
+        margin = max(1e-10, time_margin(clock))
         for i, st in enumerate(self.times):
-            if i > self.previous_index and t >= st - 1e-10:
+            if i > self.previous_index and t >= st - margin:
                 self.previous_index = i
                 return True
         return False
 
     def next_actuation_time(self, clock):
         t = float(clock.time)
+        margin = max(1e-12, time_margin(clock))
         for st in self.times:
-            if st > t + 1e-12:
+            if st > t + margin:
                 return st
         return None
 
@@ -163,6 +195,5 @@ class AveragedTimeInterval(TimeInterval):
     def averaging(self, clock):
         """True while inside the averaging window preceding an actuation."""
         t = float(clock.time)
-        n = np.floor(t / self.interval + 1e-12) + 1
-        window_start = n * self.interval - self.window
-        return t >= window_start - 1e-12
+        window_start = self._next_multiple(clock) * self.interval - self.window
+        return t >= window_start - max(1e-12, time_margin(clock))

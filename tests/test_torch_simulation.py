@@ -7,9 +7,10 @@ schedules and callbacks; the tests compare what the callbacks saw (the
 iterations, times and Δt at each actuation), the step counts, the stop
 reasons and the final states, to 1e-12 of the largest reference value.
 Also here: the ``NaNChecker``, a ``TendencyCallsite`` hook on the
-nonhydrostatic and hydrostatic models, duck-typed output writers, the
-parts that raise until ``output.py`` is ported, the schedules, the
-diagnostics, and the README quick start.
+nonhydrostatic and hydrostatic models, duck-typed output writers, a pickup
+without a checkpointer, the schedules, the diagnostics, and the README
+quick start (``tests/test_torch_output.py`` holds the writers and
+checkpoints).
 """
 
 import math
@@ -279,13 +280,14 @@ def test_hydrostatic_simulation_with_hook():
 
 
 def test_unported_output_raises():
-    _, tm, _, ts = nonhydrostatic_pair("Centered")
-    sim = ot.Simulation(tm, state=ts, dt=1e-3, stop_iteration=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sim.run(pickup=True)
-    sim.output_writers["avg"] = Writer(ot.AveragedTimeInterval(1.0))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sim.run()
+    """What Simulation refuses, as the JAX package's does: a pickup without
+    a Checkpointer among the writers, and a Simulation without Δt."""
+    jm, tm, js, ts = nonhydrostatic_pair("Centered")
+    for pkg, model, state in ((oj, jm, js), (ot, tm, ts)):
+        sim = pkg.Simulation(model, state=state, dt=1e-3, stop_iteration=2)
+        sim.output_writers["w"] = Writer(pkg.IterationInterval(1))
+        with pytest.raises(ValueError, match="no Checkpointer"):
+            sim.run(pickup=True)
     with pytest.raises(ValueError):
         ot.Simulation(tm, state=ts)
 
@@ -373,9 +375,9 @@ def test_seawater_density_matches_jax():
 
 def test_readme_quick_start():
     """README.md's quick start on both packages, at 32² instead of its
-    128² (a cut for time) and without its HDF5Writer (output.py is not
-    ported): WENO(5), RK3, a TimeStepWizard every 10 iterations, to
-    t = 10."""
+    128² and without its HDF5Writer (cuts for time;
+    ``tests/test_torch_output.py`` holds the writers): WENO(5), RK3, a
+    TimeStepWizard every 10 iterations, to t = 10."""
     sims = []
     for pkg, xp in ((oj, jnp), (ot, torch)):
         kw = {} if pkg is oj else {"dtype": F64}
