@@ -165,7 +165,31 @@ each of which raises on failure:
     up bitwise, no port kernel launched; 17d ``EnsembleModel`` of the JAX
     package's diffusion column test at 1024 members of 256 levels in
     float64, three members held to their serial runs within 1e-12, timed
-    against a serial member.
+    against a serial member;
+18. ``seamount``: the JAX package's ``examples/flow_over_seamount.py`` in
+    3-D at 256 x 256 x 128 on an ``ImmersedBoundaryGrid`` with the bottom
+    -2 + exp(-(x² + y²)/2) (WENO(5), BuoyancyTracer with N² = 1, u = 0.1,
+    Δt = 0.02, AB2, float32): 2 + 20 steps timed and profiled, the
+    conjugate gradient's iterations and host reads of its convergence
+    flag each step (and one step's synchronizing calls counted by
+    ``torch.cuda.set_sync_debug_mode``), the velocities exactly zero on
+    every solid face, max|w| > 0, max|∇·u| over the fluid held to the
+    bound the CG's reltol sets plus phase 12's rounding floor; a float64
+    (32, 32, 16) run on the card against the CPU (10·reltol);
+19. ``hydro_vi_bathy``: phase 14's ``hydro_vi_latlon`` with ``bench.py``'s
+    continents as a ``GridFittedBottom`` (the plain path: the kernels
+    refuse the grid), 2 + 10 steps timed and profiled, the float32 volume;
+    ``hydro_vi`` over a Gaussian ridge in partial cells, 1 + 3 steps; 3
+    float64 steps at full width, the volume to 1e-12 of Σ|η|·Az and T and
+    S exactly 0 in solid cells; a float64 (24, 16, 8) sector on the card
+    against the CPU to 1e-12;
+20. ``les_stretched``: phase 12's 256³ LES on the stretched z of
+    ``examples/wind_mixing_and_convection.py`` (the Fourier-tridiagonal
+    projection, WENO(5)'s z tables, the plain path), 2 + 10 steps timed
+    and profiled, the Poisson solve timed alone, max|∇·u| held to phase
+    12's rounding floor at the smallest Δz; a float64 (32, 32, 24) run on
+    the card against the CPU to 1e-12. Phases 18 to 20 print every port
+    kernel's launch count, each of which must be 0.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -176,7 +200,7 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 to 17 zero and check the counts of
+launches that run makes. Phases 12 to 20 zero and check the counts of
 their own runs and print them on lines of their own. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
@@ -435,12 +459,15 @@ LATLON_WARM, LATLON_STEPS = 2, 20
 VOLUME_RTOL = 1e-12
 
 
-def les_model(torch, ot, fused, N=256, dtype=None, device="cuda"):
-    """The wind-mixing LES at N³ on a 64 x 64 x 32 m box: WENO(5), linear
-    seawater buoyancy with a constant salinity, SmagorinskyLilly, the T
-    surface flux and deep gradient and the u surface stress, quasi-AB2."""
+def les_model(torch, ot, fused, N=256, dtype=None, device="cuda", Nz=None,
+              z=(-32.0, 0.0)):
+    """The wind-mixing LES at N x N x Nz (Nz = N by default) on a 64 x 64 x
+    32 m box: WENO(5), linear seawater buoyancy with a constant salinity,
+    SmagorinskyLilly, the T surface flux and deep gradient and the u
+    surface stress, quasi-AB2; ``z`` is the vertical coordinate (regular
+    by default; phase 20 gives the example's stretched faces)."""
     grid = ot.RectilinearGrid(
-        size=(N, N, N), x=(0.0, 64.0), y=(0.0, 64.0), z=(-32.0, 0.0),
+        size=(N, N, Nz or N), x=(0.0, 64.0), y=(0.0, 64.0), z=z,
         topology=(ot.Periodic, ot.Periodic, ot.Bounded), halo=(3, 3, 3),
         dtype=dtype or torch.float32, device=device)
     return ot.NonhydrostaticModel(
@@ -1085,15 +1112,20 @@ CS_GLOBAL_SIZES = ((48, 16), (192, 32))
 CS_SALT_RTOL = 1e-9
 
 
-def cube_run(torch, model, state, dt, warm, steps, wrappers, tag):
-    """``warm`` + ``steps`` steps of a cubed-sphere model with the port's
-    kernel counts zeroed first: (state, ms/step by CUDA events, host enqueue
-    ms/step). Fails if any port kernel launched (none lies on a cube path,
-    as in the JAX package) or a field is not finite."""
+def cube_run(torch, model, state, dt, warm, steps, wrappers, tag,
+             each=None):
+    """``warm`` + ``steps`` steps of a model on a path no port kernel lies
+    on (a cubed-sphere, immersed or stretched grid), with the port's kernel
+    counts zeroed first: (state, ms/step by CUDA events, host enqueue
+    ms/step). ``each(model)`` is called after every step. Fails if any
+    port kernel launched (as in the JAX package, none takes these grids)
+    or a field is not finite."""
     for fn in wrappers.values():
         fn.launches = 0
     for _ in range(warm):
         state = model.step(state, dt)
+        if each is not None:
+            each(model)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1101,12 +1133,14 @@ def cube_run(torch, model, state, dt, warm, steps, wrappers, tag):
     t0 = time.perf_counter()
     for _ in range(steps):
         state = model.step(state, dt)
+        if each is not None:
+            each(model)
     t1 = time.perf_counter()
     e1.record()
     e1.synchronize()
     counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
-    require(not counts, f"{tag}: port kernels launched on a cubed-sphere "
-            f"path: {counts}")
+    require(not counts, f"{tag}: port kernels launched on a path none "
+            f"takes: {counts}")
     require(all(bool(torch.isfinite(q).all())
                 for q in state.fields().values()), f"{tag}: finite fields")
     ms = e0.elapsed_time(e1) / steps if steps else float("nan")
@@ -1790,6 +1824,405 @@ def output_phase(torch, ot, wrappers, card, dev, ref):
         f"{a['bare_ms']:.4f}; phase 11 {ref['sim_ms']:.4f}), 17b "
         f"{b['ms']:.3f} ms/step with the checkpointer (phase 9 "
         f"{ref['hydro_ms']:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# Phases 18 to 20: immersed boundaries and stretched grids (no port kernel
+# lies on their paths: every kernel gate takes only a regular grid of its
+# own class, as the JAX gates do)
+# ---------------------------------------------------------------------------
+
+#: warm-up and timed steps of phases 18 (seamount), 19 (hydro_vi_bathy and
+#: its partial-cell ridge) and 20 (les_stretched)
+SEAMOUNT_WARM, SEAMOUNT_STEPS = 2, 20
+BATHY_WARM, BATHY_STEPS = 2, 10
+RIDGE_WARM, RIDGE_STEPS = 1, 3
+STRETCHED_WARM, STRETCHED_STEPS = 2, 10
+#: phase 18's float64 card-against-CPU bound: the two CG solves each stop
+#: within reltol = 1e-8 of ‖b‖, and a step's velocities move by Δt∇δp with
+#: ‖Gδp‖ ≤ 2·reltol·‖b‖; 10·reltol of each group's largest value
+SEAMOUNT_F64_RTOL = 1e-7
+
+
+def zero_launches(wrappers):
+    """Every port kernel's launch count, printed; all must be 0."""
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def profile_line(torch, model, state, dt, tag):
+    """Device-busy ms, launches and wall ms of a step under
+    ``torch.profiler`` (3 steps from ``state``), for a log line."""
+    busy, n_launch, wall = cube_profile(torch, model, state, dt, tag)
+    return busy, n_launch, wall, (
+        f"under torch.profiler, 3 steps: device-busy {busy:.3f} ms/step in "
+        f"a wall of {wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; "
+        f"{n_launch:.0f} kernel launches a step")
+
+
+def seamount_phase(torch, ot, wrappers, card):
+    """Phase 18: ``seamount``, the JAX package's
+    ``examples/flow_over_seamount.py`` in 3-D at 256 x 256 x 128 (WENO(5),
+    BuoyancyTracer with N² = 1, u = 0.1, Δt = 0.02, AB2, float32): 2 + 20
+    steps timed and profiled, the CG iterations and host reads of the
+    convergence flag of each step, no port kernel launched; finite fields,
+    velocities exactly zero on solid faces, flow over the seamount
+    (max|w| > 0), and max|∇·u| over the fluid within the bound the
+    solver's reltol sets; and a float64 (32, 32, 16) run on the card
+    against the CPU."""
+    import warnings
+
+    from oceananigans_torch.ops.operators import divergence_ccc
+    from oceananigans_torch.profile_step import (
+        SEAMOUNT_DT, seamount_initial_state, seamount_model,
+    )
+    dt = SEAMOUNT_DT
+    model = seamount_model()
+    g = model.grid
+    solver = model.pressure_solver
+    require(isinstance(g, ot.ImmersedBoundaryGrid)
+            and model.fused_kernels is False and not model.fused_tracer
+            and isinstance(solver, ot.ImmersedPoissonSolver)
+            and solver.preconditioner is not None,
+            "seamount: the plain path with FFT-preconditioned CG")
+    state = seamount_initial_state(model)
+    its, syncs = [], []
+
+    def each(m):
+        its.append(m.pressure_solver.iterations)
+        syncs.append(m.pressure_solver.host_syncs)
+
+    total = SEAMOUNT_WARM + SEAMOUNT_STEPS
+    state, ms, enqueue = cube_run(torch, model, state, dt, SEAMOUNT_WARM,
+                                  SEAMOUNT_STEPS, wrappers, "seamount",
+                                  each=each)
+    counts = zero_launches(wrappers)
+    its = [int(i) for i in its]
+    from oceananigans_torch.solvers.conjugate_gradient import CHECK_EVERY
+    k = CHECK_EVERY
+    log(f"[18] seamount on {card}: {' x '.join(map(str, g.N))} float32, "
+        f"{float(g.fluid_fraction):.4f} of the cells fluid; {ms:.3f} ms/step "
+        f"(steps {SEAMOUNT_WARM + 1} to {total} of AB2, CUDA events); host "
+        f"enqueue {enqueue:.3f} ms/step; CG iterations of each step {its} "
+        f"(reltol {solver.reltol:g}, FFT preconditioner); host syncs a step "
+        f"{syncs} (the CG's reads of its convergence flag, one every {k} "
+        f"iterations); port kernel launches {counts}")
+    busy, n_launch, wall, line = profile_line(torch, model, state, dt,
+                                              "seamount")
+    log(f"[18] seamount {line}; against the unprofiled {ms:.3f} ms/step, "
+        f"idle share {1 - busy / ms:.3f}")
+
+    # the divergence after a projection, against its bound: on a fluid
+    # cell it is Δt (r + b̄)/V, with r the CG residual of G p = b
+    # (‖r‖ ≤ reltol·‖b‖, b = V∇·u*/Δt less its fluid mean b̄, itself a
+    # rounding term), plus the float32 rounding of the projection (phase
+    # 12's floor)
+    seen = {}
+    solve = solver.solve
+
+    def recording(rhs):
+        seen["rhs"] = rhs
+        return solve(rhs)
+
+    # one more step with the recording solve, its host synchronizations
+    # counted by torch's sync debug mode
+    solver.solve = recording
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = model.step(state, dt)
+    torch.cuda.set_sync_debug_mode("default")
+    del solver.solve
+    n_sync = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"[18] seamount: one more step under torch.cuda.set_sync_debug_mode"
+        f": {n_sync} synchronizing calls (the CG's flag reads "
+        f"{solver.host_syncs}, iterations {int(solver.iterations)})")
+    sysm = solver.system
+    ii = g.interior_slices
+    full = torch.zeros(g.shape, dtype=torch.float64, device=g.device)
+    full[ii] = seen.pop("rhs").double()
+    Vw = sysm.Vw.double()
+    b = torch.where(sysm.fluid, full * Vw, 0.0)
+    b = torch.where(sysm.fluid, b - b[ii].sum() / sysm.nf, 0.0)
+    vmin = float(Vw[sysm.fluid].min())
+    fluid = sysm.fluid
+    div = divergence_ccc(g, state.u, state.v, state.w)
+    div_max = float(div[fluid].abs().max())
+    pmax = float(g.interior(state.pressure).abs().max())
+    eps32 = float(torch.finfo(torch.float32).eps)
+    dz = 2.0 / g.N[2]
+    floor = math.log2(g.N[0] * g.N[1] * g.N[2]) * eps32 * dt * pmax / dz ** 2
+    cg_part = dt * solver.reltol * float(torch.linalg.vector_norm(b)) / vmin
+    bound = cg_part + floor
+    w_max = float(state.w[fluid].abs().max())
+    solid_zero = all(not bool(getattr(state, n)[m].any()) for n, m in (
+        ("u", g.solid_u), ("v", g.solid_v), ("w", g.solid_w)))
+    require(all(bool(torch.isfinite(q).all()) for q in state.fields().values())
+            and solid_zero, "seamount: finite, and zero on solid faces")
+    require(w_max > 1e-3, f"seamount: flow over the seamount, max|w| "
+            f"{w_max:.3e}")
+    log(f"[18] seamount after {total + 1} steps: u, v, w exactly 0 on every "
+        f"solid face; max|w| {w_max:.4e} over the fluid; max|∇·u| over the "
+        f"fluid {div_max:.3e}, held to Δt·reltol·‖b‖₂/min V = "
+        f"{cg_part:.3e} (the CG's stopping residual) + log2(N³)·eps32·Δt·"
+        f"max|p|/Δz² = {floor:.3e} (phase 12's rounding floor, max|p| "
+        f"{pmax:.4e}) = {bound:.3e}")
+    require(div_max <= bound, f"seamount max|div| {div_max:.3e} <= "
+            f"{bound:.3e}")
+    out = {"ms": ms, "enqueue": enqueue, "busy": busy, "launches": n_launch,
+           "wall": wall, "iterations": its, "syncs": syncs,
+           "sync_calls": n_sync, "div": div_max, "bound": bound}
+    del model, state, b, full, Vw, div, sysm
+    torch.cuda.empty_cache()
+
+    # float64 (32, 32, 16): the card against the CPU
+    runs, counts64 = {}, {}
+    for device in ("cuda", "cpu"):
+        m = seamount_model((32, 32, 16), torch.float64, device)
+        st = seamount_initial_state(m)
+        seen_its = []
+        for _ in range(3):
+            st = m.step(st, dt)
+            seen_its.append(int(m.pressure_solver.iterations))
+        counts64[device] = seen_its
+        gg = m.grid
+        runs[device] = {"velocities": [gg.interior(st.u), gg.interior(st.v),
+                                       gg.interior(st.w)],
+                        "b": [gg.interior(st.tracers["b"])]}
+    rel = {k: group_rel([(a, b2) for a, b2 in zip(runs["cuda"][k],
+                                                  runs["cpu"][k])])
+           for k in runs["cuda"]}
+    log(f"[18] float64 (32, 32, 16) seamount, 3 AB2 steps: the card vs the "
+        f"CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" of the largest value (tolerance {SEAMOUNT_F64_RTOL:g}: 10 × "
+        f"reltol 1e-8); CG iterations card {counts64['cuda']}, CPU "
+        f"{counts64['cpu']}")
+    require(all(v <= SEAMOUNT_F64_RTOL for v in rel.values()),
+            f"float64 seamount card vs CPU {rel}")
+    out["rel64"] = rel
+    return out
+
+
+def bathy_phase(torch, ot, wrappers, card):
+    """Phase 19: ``hydro_vi_bathy``, phase 14's ``hydro_vi_latlon``
+    (360 x 160 x 60, 1°, 80°S-80°N, 4 km) on an ``ImmersedBoundaryGrid``
+    with ``bench.py``'s continents as a ``GridFittedBottom``: the plain
+    path (the kernels refuse the grid, as in the JAX package), 2 + 10
+    steps in float32 timed and profiled, the volume held to the float32
+    rounding of η's substeps; ``hydro_vi`` over a Gaussian ridge in
+    partial cells for 1 + 3 steps; in float64 at full width, 3 steps with
+    the volume to 1e-12 of Σ|η|·Az and T and S exactly 0 in solid cells;
+    and the (24, 16, 8) sector of the card against the CPU."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_initial_state, hydro_latlon_initial_state,
+        hydro_latlon_model, hydro_model, latlon_continents, ridge_bottom,
+        volume_drift,
+    )
+    dt = HYDRO_DT
+
+    def solid_tracers_zero(model, st):
+        solid = model.grid.solid_c
+        return all(not bool(c[solid].any()) for c in st.tracers.values())
+
+    model = hydro_latlon_model("auto", bathymetry=latlon_continents)
+    g = model.grid
+    require(isinstance(g, ot.ImmersedBoundaryGrid)
+            and not model.fused_kernels and not model.fused_tracer,
+            "hydro_vi_bathy: the kernels refuse the immersed grid")
+    state = model.update_state(hydro_latlon_initial_state(model))
+    eta0 = state.eta.clone()
+    total = BATHY_WARM + BATHY_STEPS
+    state, ms, enqueue = cube_run(torch, model, state, dt, BATHY_WARM,
+                                  BATHY_STEPS, wrappers, "hydro_vi_bathy")
+    counts = zero_launches(wrappers)
+    drift = volume_drift(model, eta0, state.eta)
+    substeps = len(model.free_surface.weights)
+    vbound = total * substeps * float(torch.finfo(torch.float32).eps)
+    require(drift <= vbound, f"hydro_vi_bathy volume drift {drift:.3e}")
+    require(solid_tracers_zero(model, state),
+            "hydro_vi_bathy: T and S zero in solid cells")
+    xy = g.interior_slices[:2]
+    log(f"[19] hydro_vi_bathy on {card}: {' x '.join(map(str, g.N))} "
+        f"float32 with "
+        f"continents, {float(g.fluid_fraction):.4f} of the cells fluid; "
+        f"{ms:.3f} ms/step (steps {BATHY_WARM + 1} to {total} of AB2, CUDA "
+        f"events); host enqueue {enqueue:.3f} ms/step; port kernel launches "
+        f"{counts}; max|u| {float(g.interior(state.u).abs().max()):.4e}, "
+        f"max|eta| {float(state.eta[xy].abs().max()):.4e}; volume drift "
+        f"{drift:.3e} of sum|eta| Az (float32 bound {vbound:.3e}); T and S "
+        f"exactly 0 in solid cells")
+    busy, n_launch, wall, line = profile_line(torch, model, state, dt,
+                                              "hydro_vi_bathy")
+    log(f"[19] hydro_vi_bathy {line}; against the unprofiled {ms:.3f} "
+        f"ms/step, idle share {1 - busy / ms:.3f}")
+    out = {"ms": ms, "enqueue": enqueue, "busy": busy,
+           "launches": n_launch, "wall": wall, "drift": drift}
+    del model, state, eta0
+    torch.cuda.empty_cache()
+
+    # hydro_vi over a partial-cell ridge (Jacobi-free: no pressure solve;
+    # the scaled heights enter every metric)
+    model = hydro_model("auto", bottom=ridge_bottom())
+    require(model.grid.dz_sigma is not None and not model.fused_kernels
+            and not model.fused_tracer, "ridge: partial cells, no kernel")
+    state = model.update_state(hydro_initial_state(model))
+    state, rms, renq = cube_run(torch, model, state, dt, RIDGE_WARM,
+                                RIDGE_STEPS, wrappers, "hydro_vi ridge")
+    require(solid_tracers_zero(model, state),
+            "ridge: T and S zero in solid cells")
+    rg = model.grid
+    log(f"[19] hydro_vi over a PartialCellBottom ridge on {card}: "
+        f"{float(rg.fluid_fraction):.4f} of the cells fluid, partial cells "
+        f"down to {float(rg.dz_sigma.min()):.3f} of their height; "
+        f"{rms:.3f} ms/step (steps {RIDGE_WARM + 1} to "
+        f"{RIDGE_WARM + RIDGE_STEPS}); host enqueue {renq:.3f} ms/step; port "
+        f"kernel launches {zero_launches(wrappers)}; max|u| "
+        f"{float(rg.interior(state.u).abs().max()):.4e}")
+    out["ridge_ms"] = rms
+    del model, state
+    torch.cuda.empty_cache()
+
+    # float64 at full width: the volume and the solid cells
+    model = hydro_latlon_model("auto", torch.float64,
+                               bathymetry=latlon_continents)
+    state = model.update_state(hydro_latlon_initial_state(model))
+    eta0 = state.eta.clone()
+    state, ms64, _ = cube_run(torch, model, state, dt, 0, 3, wrappers,
+                              "hydro_vi_bathy float64")
+    drift64 = volume_drift(model, eta0, state.eta)
+    require(drift64 <= VOLUME_RTOL, f"float64 hydro_vi_bathy volume drift "
+            f"{drift64:.3e}")
+    require(solid_tracers_zero(model, state),
+            "float64 hydro_vi_bathy: T and S zero in solid cells")
+    log(f"[19] float64 hydro_vi_bathy at full width, 3 AB2 steps: "
+        f"{ms64:.3f} ms/step; volume drift {drift64:.3e} of sum|eta| Az "
+        f"(tolerance {VOLUME_RTOL:g}); T and S exactly 0 in solid cells")
+    del model, state, eta0
+    torch.cuda.empty_cache()
+
+    # float64 at a (24, 16, 8) sector: the card against the CPU
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = hydro_latlon_model("auto", torch.float64, device,
+                               size=(24, 16, 8), longitude=(-60.0, 60.0),
+                               latitude=(-80.0, 80.0), halo=6,
+                               bathymetry=latlon_continents)
+        st = hydro_latlon_initial_state(m, generic=True)
+        for _ in range(3):
+            st = m.step(st, dt)
+        f64[device] = (m.grid, st)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    xy = gp.interior_slices[:2]
+    groups = {"velocities": [(gk.interior(sk.u).cpu(), gp.interior(sp.u)),
+                             (gk.interior(sk.v).cpu(), gp.interior(sp.v))],
+              "w": [(gk.interior(sk.w).cpu(), gp.interior(sp.w))],
+              "eta": [(sk.eta[xy].cpu(), sp.eta[xy])],
+              "tracers": [(gk.interior(sk.tracers[n]).cpu(),
+                           gp.interior(sp.tracers[n])) for n in ("T", "S")]}
+    rel64 = {k: group_rel(p) for k, p in groups.items()}
+    log("[19] float64 (24, 16, 8) sector with continents, 3 AB2 steps: the "
+        "card vs the CPU: " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in rel64.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel64.values()),
+            f"float64 hydro_vi_bathy sector card vs CPU {rel64}")
+    out["rel64"] = rel64
+    return out
+
+
+def les_stretched_phase(torch, ot, wrappers, card):
+    """Phase 20: ``les_stretched``, phase 12's 256³ LES on the stretched z
+    of ``examples/wind_mixing_and_convection.py``, z_k = -Lz (1 - k/Nz)^1.2:
+    the Fourier-tridiagonal projection and WENO(5)'s z tables on the plain
+    path, 2 + 10 steps timed and profiled, the Poisson solve timed alone,
+    max|∇·u| held to phase 12's rounding floor at the smallest Δz; and a
+    float64 (32, 32, 24) run on the card against the CPU."""
+    from oceananigans_torch.ops.operators import divergence_ccc
+    N, Lz = 256, 32.0
+
+    def zfaces(n):
+        return lambda k: -Lz * (1 - k / n) ** 1.2
+
+    model = les_model(torch, ot, "auto", N=N, z=zfaces(N))
+    g = model.grid
+    require(not g.z_regular and model.fused_kernels is False
+            and not model.fused_tracer
+            and isinstance(model.pressure_solver,
+                           ot.FourierTridiagonalPoissonSolver)
+            and model.advection._tables,
+            "les_stretched: the plain path, Fourier-tridiagonal, tables")
+    state = les_state(model)
+    total = STRETCHED_WARM + STRETCHED_STEPS
+    state, ms, enqueue = cube_run(torch, model, state, LES_DT,
+                                  STRETCHED_WARM, STRETCHED_STEPS, wrappers,
+                                  "les_stretched")
+    counts = zero_launches(wrappers)
+    dz_min = float(g.min_spacing(2))
+    log(f"[20] les_stretched on {card}: {N}^3 float32, Δz from {dz_min:.4f}"
+        f" m at the surface to {float(g.dz('c')[0, 0, g.H[2]]):.4f} m at the "
+        f"bottom; {ms:.3f} ms/step (steps {STRETCHED_WARM + 1} to {total} of "
+        f"AB2, CUDA events); host enqueue {enqueue:.3f} ms/step; port kernel "
+        f"launches {counts}")
+    busy, n_launch, wall, line = profile_line(torch, model, state, LES_DT,
+                                              "les_stretched")
+    log(f"[20] les_stretched {line}; against the unprofiled {ms:.3f} "
+        f"ms/step, idle share {1 - busy / ms:.3f}")
+    rhs = g.interior(divergence_ccc(g, state.u, state.v, state.w))
+    solver = model.pressure_solver
+    solver.solve(rhs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poisson_ms = time_ms(torch, lambda: solver.solve(rhs), 5)
+    enq_solve = (time.perf_counter() - t0) * 1e3 / 5
+    solve_busy, solve_launches, solve_wall = device_profile(
+        torch, lambda: solver.solve(rhs), 3)
+    log(f"[20] les_stretched Poisson solve (Fourier-tridiagonal, {g.N[2]} "
+        f"levels): {poisson_ms:.3f} ms (CUDA events, 5 calls; host "
+        f"{enq_solve:.3f} ms a call); under torch.profiler device-busy "
+        f"{solve_busy:.3f} ms in a wall of {solve_wall:.3f} ms, "
+        f"{solve_launches:.0f} kernel launches a solve")
+    pmax = float(g.interior(state.pressure).abs().max())
+    eps32 = float(torch.finfo(torch.float32).eps)
+    div = float(g.interior(divergence_ccc(g, state.u, state.v,
+                                          state.w)).abs().max())
+    bound = math.log2(N ** 3) * eps32 * LES_DT * pmax / dz_min ** 2
+    require(all(bool(torch.isfinite(q).all())
+                for q in state.fields().values()),
+            "les_stretched: finite fields")
+    log(f"[20] les_stretched after {total} steps: max|u| "
+        f"{float(g.interior(state.u).abs().max()):.4e}, max|w| "
+        f"{float(g.interior(state.w).abs().max()):.4e}; max|∇·u| {div:.3e}, "
+        f"held to log2(N³)·eps32·Δt·max|p|/Δz_min² = {bound:.3e} (max|p| "
+        f"{pmax:.4f})")
+    require(div <= bound, f"les_stretched max|div| {div:.3e} <= "
+            f"{bound:.3e}")
+    out = {"ms": ms, "enqueue": enqueue, "busy": busy,
+           "launches": n_launch, "wall": wall, "poisson_ms": poisson_ms,
+           "poisson_launches": solve_launches, "div": div, "bound": bound}
+    del model, state, rhs, solver
+    torch.cuda.empty_cache()
+
+    # float64 (32, 32, 24): the card against the CPU
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = les_model(torch, ot, "auto", N=32, Nz=24, dtype=torch.float64,
+                      device=device, z=zfaces(24))
+        s = les_state(m)
+        for _ in range(3):
+            s = m.step(s, LES_DT)
+        f64[device] = (m.grid, s)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    ub = balance_scale(gp, sp, LES_DT)
+    vel = group_rel([(gk.interior(a).cpu(), gp.interior(b)) for a, b in (
+        (sk.u, sp.u), (sk.v, sp.v), (sk.w, sp.w))], ub)
+    trc = group_rel([(gk.interior(sk.tracers["T"]).cpu(),
+                      gp.interior(sp.tracers["T"]))])
+    log(f"[20] float64 (32, 32, 24) les_stretched, 3 AB2 steps: the card vs "
+        f"the CPU: velocities {vel:.3e} of max(max|u|, Δt max|∂z p|), T "
+        f"{trc:.3e} of max|T| (tolerance 1e-12)")
+    require(vel <= 1e-12 and trc <= 1e-12,
+            f"float64 les_stretched card vs CPU {vel:.3e}, {trc:.3e}")
+    out["rel64"] = {"velocities": vel, "T": trc}
+    return out
 
 
 def main():
@@ -3522,6 +3955,16 @@ def main():
     output_phase(torch, ot, wrappers, card, dev, {
         "sim_ms": sim_ms, "bare_ms": bare_ms,
         "hydro_ms": hydro_ms["kernel"]})
+
+    # ---- phases 18 to 20: immersed boundaries and stretched grids --------
+    seamount = seamount_phase(torch, ot, wrappers, card)
+    bathy = bathy_phase(torch, ot, wrappers, card)
+    stretched = les_stretched_phase(torch, ot, wrappers, card)
+    log(f"[20] step times on {card}: seamount {seamount['ms']:.3f} ms/step "
+        f"(CG iterations {seamount['iterations']}), hydro_vi_bathy "
+        f"{bathy['ms']:.3f} ms/step, les_stretched {stretched['ms']:.3f} "
+        f"ms/step against phase 12's les plain path {les['plain']['ms']:.3f} "
+        f"ms/step; none launched a port kernel")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

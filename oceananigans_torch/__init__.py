@@ -1,10 +1,12 @@
 """oceananigans_torch — the ocean dynamical core of ``oceananigans_tpu``
 ported to PyTorch, with its hot kernels hand-written in CUDA for Hopper.
 
-It covers, on a ``RectilinearGrid`` with regular spacing (and, for the
-hydrostatic and shallow-water models, on the ``LatitudeLongitudeGrid``
-and the orthogonal spherical shells: ``RotatedLatitudeLongitudeGrid`` and
-``TripolarGrid`` with its zipper fold, with spherical Coriolis and the
+It covers, on a ``RectilinearGrid`` with regular or stretched axes, and
+on any of its grids wrapped in an ``ImmersedBoundaryGrid`` with a
+``GridFittedBottom``, ``PartialCellBottom`` or ``GridFittedBoundary``
+(and, for the hydrostatic and shallow-water models, on the
+``LatitudeLongitudeGrid`` and the orthogonal spherical shells:
+``RotatedLatitudeLongitudeGrid`` and ``TripolarGrid`` with its zipper fold, with spherical Coriolis and the
 polar condition; and on the ``ConformalCubedSphereGrid``, with its own
 shallow-water and hydrostatic models, ``CubedSphereShallowWaterModel``
 and ``CubedSphereHydrostaticModel``, the latter with a grid-fitted
@@ -88,7 +90,7 @@ from oceananigans_torch.grids import (
 )
 from oceananigans_torch.immersed import (
     GridFittedBottom, GridFittedBoundary, ImmersedBoundaryCondition,
-    ImmersedBoundaryGrid, PartialCellBottom,
+    ImmersedBoundaryGrid, ImmersedPoissonSolver, PartialCellBottom,
 )
 from oceananigans_torch.models import (
     ConservativeFormulation, CrossAndSelfUpwinding,
@@ -117,7 +119,10 @@ from oceananigans_torch.simulation import (
     TimeStepWizard, UpdateStateCallsite, add_callback,
     conjure_time_step_wizard, iteration,
 )
-from oceananigans_torch.solvers import FFTPoissonSolver, MatmulPoissonSolver
+from oceananigans_torch.solvers import (
+    FFTPoissonSolver, FourierTridiagonalPoissonSolver, MatmulPoissonSolver,
+    conjugate_gradient,
+)
 from oceananigans_torch.diagnostics import (
     CFL, AdvectiveCFL, DiffusiveCFL, StateChecker, seawater_density,
 )
@@ -147,12 +152,14 @@ __all__ = [
     "ExplicitTimeDiscretization", "FFTPoissonSolver", "FPlane", "Face",
     "Field", "FieldBoundaryConditions", "FieldDataset", "FieldTimeSeries",
     "FileSizeLimit", "Flat", "FlatExtrapolationOpenBC", "FluxBC",
-    "FluxBoundaryCondition", "FluxFormAdvection", "FunctionField", "GiB",
+    "FluxBoundaryCondition", "FluxFormAdvection",
+    "FourierTridiagonalPoissonSolver", "FunctionField", "GiB",
     "GradientBC", "GradientBoundaryCondition", "GridFittedBottom",
     "GridFittedBoundary", "HDF5Writer",
     "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
     "HydrostaticFreeSurfaceModel", "HydrostaticSphericalCoriolis",
     "HydrostaticState", "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
+    "ImmersedPoissonSolver",
     "ImplicitFreeSurface", "InMemory", "Integral", "IterationInterval",
     "JLD2Writer", "KernelFunctionOperation", "KiB", "LOC_C", "LOC_U", "LOC_V",
     "LOC_W", "LatitudeLongitudeGrid", "LillyCoefficient",
@@ -176,7 +183,8 @@ __all__ = [
     "WallTimeInterval", "WindowedTimeAverage", "XFaceField", "YFaceField",
     "ZCoordinate", "ZFaceField", "ZStar", "ZeroField",
     "adapt_advection_order", "add_callback", "config",
-    "conformal_cubed_sphere_panel", "conjure_time_step_wizard", "day", "days",
+    "conformal_cubed_sphere_panel", "conjugate_gradient",
+    "conjure_time_step_wizard", "day", "days",
     "diffusivity", "extrinsic_vector", "field_abs_max", "field_integral",
     "field_max", "field_mean", "field_min", "fill_halo_regions", "float_type",
     "hour", "hours", "interior", "interpolate", "intrinsic_vector",

@@ -1,11 +1,16 @@
 """Advection schemes: reconstruction and flux-form divergences.
 
-Counterpart of the regular-grid part of ``oceananigans_tpu/advection.py``:
-Centered of orders 2 to 12, UpwindBiased of orders 1 to 11, WENO-Z of
-orders 3 to 11, and FluxFormAdvection (one scheme per axis). Each
-reconstruction is a whole-tensor expression over shifted copies of its
-operand; upwinding is a ``torch.where`` on the sign of the advecting
-velocity.
+Counterpart of ``oceananigans_tpu/advection.py``: Centered of orders 2 to
+12, UpwindBiased of orders 1 to 11, WENO-Z of orders 3 to 11, and
+FluxFormAdvection (one scheme per axis). Each reconstruction is a
+whole-tensor expression over shifted copies of its operand; upwinding is a
+``torch.where`` on the sign of the advecting velocity. On a stretched axis
+a scheme bound to the grid (``bind_grid``, at model build) takes per-point
+coefficient tables (and per-point WENO ideal weights) in place of the
+uniform coefficients. On an immersed grid a flux whose full stencil
+touches a solid value falls back to Centered(2) or UpwindBiased(1)
+(:func:`_face_value_ib`), and the momentum cross-term fluxes are zeroed
+where they touch a solid cell.
 
 Index convention (``ops/operators.py``): ``shift(a, n, axis)[i] = a[i+n]``.
 A reconstruction that lands on faces (``o = 0``) gives the value at face
@@ -14,23 +19,25 @@ A reconstruction that lands on faces (``o = 0``) gives the value at face
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP Queue 1 item
 11): ``BoundPreserving`` and ``WENO(bounds=...)`` (tracer limiters that
-need the ``split_rk3`` time stepper), and the stretched-grid coefficient
-tables (stretched grids themselves are not ported).
+need the ``split_rk3`` time stepper).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from oceananigans_torch.grids.base import Center, Face
+from oceananigans_torch.immersed import mask_flux, solid_mask_at
 from oceananigans_torch.ops.operators import (
     dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c, iz_f,
     X, Y, Z, shift,
 )
 from oceananigans_torch.ops.reconstruction_coefficients import (
-    face_reconstruction_coefficients,
+    face_reconstruction_coefficients, stretched_reconstruction_tables,
+    weno_stretched_tables,
 )
 
 _LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
@@ -43,12 +50,61 @@ def _mirror(stencil):
 
 
 def _apply_stencil(a, axis, stencil, o):
-    """Σ c · shift(a, n + o) over the stencil, in ascending offsets."""
+    """Σ c · shift(a, n + o) over the stencil, in ascending offsets; the
+    coefficients are numbers, or per-point tensors along ``axis`` (a
+    stretched axis's tables)."""
     out = None
     for n, c in sorted(stencil.items()):
         term = c * shift(a, n + o, axis)
         out = term if out is None else out + term
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stretched axes: per-point coefficient tables, bound at model build
+# ---------------------------------------------------------------------------
+
+def _stretched_axes(grid):
+    """The axes of ``grid`` that are stretched, have more than one cell and
+    a separable 1-D coordinate (a curvilinear grid's 2-D coordinates keep
+    the uniform coefficients), as in the JAX package."""
+    axes = []
+    for axis, name in enumerate(("x", "y", "z")):
+        if grid.N[axis] <= 1 or getattr(grid, f"{name}_regular", True):
+            continue
+        coord = getattr(grid, f"{name}F", None)
+        if coord is None or coord.numel() != coord.shape[axis]:
+            continue
+        axes.append(axis)
+    return axes
+
+
+def _cell_edges(grid, axis, o=0):
+    """Halo-extended source-cell edges along ``axis`` in float64 numpy:
+    the faces for center-located data (o = 0), the centers for
+    face-located data reconstructed to centers (o = 1, the dual cells).
+    Length n + 1."""
+    name = ("x", "y", "z")[axis]
+    arr = getattr(grid, f"{name}F" if o == 0 else f"{name}C")
+    c = arr.detach().cpu().double().numpy().reshape(-1)
+    return np.append(c, 2 * c[-1] - c[-2])
+
+
+def _table(c, axis, grid):
+    """A (n,) numpy table as a broadcast-ready tensor on ``grid``."""
+    shape = [1, 1, 1]
+    shape[axis] = len(c)
+    return torch.as_tensor(c, dtype=grid.dtype,
+                           device=grid.device).reshape(shape)
+
+
+def _tables_of(grid, offsets):
+    """``{(axis, o): {offset: tensor}}`` for every stretched axis of
+    ``grid`` and both targets."""
+    return {(axis, o): {n: _table(c, axis, grid) for n, c in
+                        stretched_reconstruction_tables(
+                            _cell_edges(grid, axis, o), offsets).items()}
+            for axis in _stretched_axes(grid) for o in (0, 1)}
 
 
 class Centered:
@@ -72,7 +128,19 @@ class Centered:
     def reconstruct(self, a, axis, o):
         """Face value (o = 0) or center value (o = 1) of ``a``; the same
         stencil, shifted by ``o``."""
+        tables = getattr(self, "_tables", None)
+        if tables and (axis % 3, o) in tables:
+            return _apply_stencil(a, axis, tables[(axis % 3, o)], o)
         return _apply_stencil(a, axis, self._stencil, o)
+
+    def bind_grid(self, grid):
+        """A copy carrying per-point coefficient tables for ``grid``'s
+        stretched axes, for both targets; ``self`` on a regular grid."""
+        if not _stretched_axes(grid):
+            return self
+        new = Centered(self.order)
+        new._tables = _tables_of(grid, sorted(self._stencil))
+        return new
 
     def __eq__(self, other):
         return type(self) is type(other) and self.order == other.order
@@ -105,8 +173,24 @@ class UpwindBiased:
     def biased(self, a, axis, o):
         """The left- and right-biased reconstructions of ``a`` at faces
         (o = 0) or centers (o = 1) along ``axis``."""
+        tables = getattr(self, "_tables", None)
+        if tables and (axis % 3, o) in tables:
+            tl, tr = tables[(axis % 3, o)]
+            return (_apply_stencil(a, axis, tl, o),
+                    _apply_stencil(a, axis, tr, o))
         return (_apply_stencil(a, axis, self._left, o),
                 _apply_stencil(a, axis, _mirror(self._left), o))
+
+    def bind_grid(self, grid):
+        """A copy carrying the left and right per-point tables of
+        ``grid``'s stretched axes; ``self`` on a regular grid."""
+        if not _stretched_axes(grid):
+            return self
+        new = UpwindBiased(self.order)
+        left = _tables_of(grid, sorted(self._left))
+        right = _tables_of(grid, sorted(_mirror(self._left)))
+        new._tables = {key: (left[key], right[key]) for key in left}
+        return new
 
     def __eq__(self, other):
         return type(self) is type(other) and self.order == other.order
@@ -254,14 +338,21 @@ class WENO:
         return [g * (1.0 + torch.clamp(tau / (b + eps), max=cap) ** 2)
                 for g, b in zip(gammas, betas)]
 
-    def _onesided(self, shifts, reflect, smooth_shifts=None):
+    def _onesided(self, shifts, reflect, smooth_shifts=None, tables=None):
         """One biased reconstruction from the taps ``shifts`` (offset ->
         tensor). ``smooth_shifts``: taps of other fields whose summed
         indicators replace ψ's own (the reference's FunctionStencil and
         VelocityStencil smoothness: β from the smoothness fields, the
-        sub-stencil values from ψ)."""
+        sub-stencil values from ψ). ``tables``: a stretched axis's
+        ``(sub-stencil tables, ideal weights)`` of this side, applied to
+        the unreflected taps; the indicators keep their uniform forms."""
         s = {n: shifts[-1 - n] for n in shifts} if reflect else shifts
-        qs = [_apply_stencil_shifted(s, q) for q in self._qs]
+        if tables is None:
+            qs = [_apply_stencil_shifted(s, q) for q in self._qs]
+            gammas = self._gammas
+        else:
+            subs, gammas = tables
+            qs = [_apply_stencil_shifted(shifts, q) for q in subs]
         if smooth_shifts is None:
             betas = self._betas_of(s)
         else:
@@ -271,7 +362,7 @@ class WENO:
                 bs = self._betas_of(smr)
                 betas = bs if betas is None else tuple(
                     b0 + b1 for b0, b1 in zip(betas, bs))
-        alphas = self._z_alphas(self._gammas, betas, self.epsilon)
+        alphas = self._z_alphas(gammas, betas, self.epsilon)
         asum = alphas[0]
         for al in alphas[1:]:
             asum = asum + al
@@ -291,8 +382,39 @@ class WENO:
         if smooth is not None:
             sm = [{n: shift(f, n + o, axis) for n in range(-B, B)}
                   for f in smooth]
-        return (self._onesided(shifts, reflect=False, smooth_shifts=sm),
-                self._onesided(shifts, reflect=True, smooth_shifts=sm))
+        tables = getattr(self, "_tables", None)
+        tl = tr = None
+        if tables and (axis % 3, o) in tables:
+            tl, tr = tables[(axis % 3, o)]
+        return (self._onesided(shifts, reflect=False, smooth_shifts=sm,
+                               tables=tl),
+                self._onesided(shifts, reflect=True, smooth_shifts=sm,
+                               tables=tr))
+
+    def bind_grid(self, grid):
+        """A copy carrying, for ``grid``'s stretched axes and both
+        targets, per-point sub-stencil coefficients and ideal weights of
+        the left and the right side (the reflection of the uniform
+        stencils holds only on uniform spacing); ``self`` on a regular
+        grid."""
+        axes = _stretched_axes(grid)
+        if not axes:
+            return self
+        new = WENO(self.order, self.epsilon)
+        new._tables = {}
+        for axis in axes:
+            for o in (0, 1):
+                edges = _cell_edges(grid, axis, o)
+                sides = []
+                for side in ("left", "right"):
+                    subs, gam = weno_stretched_tables(edges, self.order,
+                                                      side=side)
+                    sides.append((
+                        [{n: _table(c, axis, grid) for n, c in t.items()}
+                         for t in subs],
+                        [_table(g.copy(), axis, grid) for g in gam]))
+                new._tables[(axis, o)] = tuple(sides)
+        return new
 
     def __eq__(self, other):
         return (type(self) is type(other) and self.order == other.order
@@ -318,6 +440,10 @@ class FluxFormAdvection:
     def required_halo(self):
         return max(s.required_halo for s in (self.x, self.y, self.z))
 
+    def bind_grid(self, grid):
+        return FluxFormAdvection(*(bind_grid(s, grid)
+                                   for s in (self.x, self.y, self.z)))
+
     def scheme_for(self, axis):
         return (self.x, self.y, self.z)[axis]
 
@@ -338,6 +464,13 @@ SCHEMES = (Centered, UpwindBiased, WENO, FluxFormAdvection)
 
 def BoundPreserving(*args, **kwargs):
     raise NotImplementedError(f"BoundPreserving {_LATER}")
+
+
+def bind_grid(scheme, grid):
+    """``scheme`` with the per-point tables of ``grid``'s stretched axes
+    (the scheme itself where it has no ``bind_grid`` or the grid none)."""
+    b = getattr(scheme, "bind_grid", None)
+    return scheme if b is None else b(grid)
 
 
 def required_halo(scheme) -> int:
@@ -417,30 +550,69 @@ def _face_value_smooth(scheme, U, a, axis, o, smooth=None):
                        torch.where(U < 0, right, 0.5 * (left + right)))
 
 
+def _near_boundary(a_solid, scheme, axis, o):
+    """True where the scheme's full stencil touches a solid value of the
+    reconstructed field (offsets [-R, R-1] for face targets, [-(R-1), R]
+    for center targets, R the scheme's halo)."""
+    R = required_halo(scheme)
+    lo, hi = (-R, R - 1) if o == 0 else (-(R - 1), R)
+    near = None
+    for n in range(lo, hi + 1):
+        s = shift(a_solid, n, axis)
+        near = s if near is None else (near | s)
+    return near
+
+
+def _face_value_ib(grid, scheme, U, a, axis, o, a_loc):
+    """:func:`_face_value` on an immersed grid: where the full stencil
+    touches a solid cell, the value of the two-point scheme (Centered(2)
+    for a symmetric scheme, UpwindBiased(1) otherwise), whose stencil reads
+    only the two adjacent values and so never a solid one at a wet flux
+    point. On any other grid, :func:`_face_value`."""
+    fv = _face_value(scheme, U, a, axis, o)
+    if required_halo(scheme) <= 1:
+        return fv
+    a_solid = solid_mask_at(grid, a_loc)
+    if a_solid is None:
+        return fv
+    near = _near_boundary(a_solid, scheme, axis, o)
+    fb = Centered(2) if scheme.symmetric else UpwindBiased(1)
+    return torch.where(near, _face_value(fb, U, a, axis, o), fv)
+
+
 def div_Uc(grid, scheme, u, v, w, c):
     """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c)."""
     if scheme is None:
         return torch.zeros_like(c)
     sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
-    fx = grid.Ax(Face, Center, Center) * u * _face_value(sx, u, c, X, 0)
-    fy = grid.Ay(Center, Face, Center) * v * _face_value(sy, v, c, Y, 0)
-    fz = grid.Az(Center, Center) * w * _face_value(sz, w, c, Z, 0)
+    LC = (Center, Center, Center)
+    fx = grid.Ax(Face, Center, Center) * u * _face_value_ib(grid, sx, u, c,
+                                                            X, 0, LC)
+    fy = grid.Ay(Center, Face, Center) * v * _face_value_ib(grid, sy, v, c,
+                                                            Y, 0, LC)
+    fz = grid.Az(Center, Center) * w * _face_value_ib(grid, sz, w, c,
+                                                      Z, 0, LC)
     return (dx_c(fx) + dy_c(fy) + dz_c(fz)) / grid.V(Center, Center, Center)
 
 
 def div_vu(grid, scheme, u, v, w):
-    """Momentum advection ∇·(𝐯u) at u's location (f,c,c)."""
+    """Momentum advection ∇·(𝐯u) at u's location (f,c,c). On an immersed
+    grid the cross-term fluxes are zeroed where they touch a solid cell
+    (their transverse averages would reach across the boundary)."""
     if scheme is None:
         return torch.zeros_like(u)
     sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
+    LU = (Face, Center, Center)
     # x-flux at (c,c,c): ℑx_c(Ax u) advects u, landing on centers (o=1)
     Uadv = ix_c(grid.Ax(Face, Center, Center) * u)
-    fxx = Uadv * _face_value(sx, Uadv, u, X, 1)
+    fxx = Uadv * _face_value_ib(grid, sx, Uadv, u, X, 1, LU)
     # y-flux at (f,f,c) and z-flux at (f,c,f), landing on faces (o=0)
     Vadv = ix_f(grid.Ay(Center, Face, Center) * v)
-    fxy = Vadv * _face_value(sy, Vadv, u, Y, 0)
+    fxy = Vadv * _face_value_ib(grid, sy, Vadv, u, Y, 0, LU)
     Wadv = ix_f(grid.Az(Center, Center) * w)
-    fxz = Wadv * _face_value(sz, Wadv, u, Z, 0)
+    fxz = Wadv * _face_value_ib(grid, sz, Wadv, u, Z, 0, LU)
+    fxy = mask_flux(grid, fxy, (Face, Face, Center))
+    fxz = mask_flux(grid, fxz, (Face, Center, Face))
     return (dx_f(fxx) + dy_c(fxy) + dz_c(fxz)) / grid.V(Face, Center, Center)
 
 
@@ -449,12 +621,15 @@ def div_vv(grid, scheme, u, v, w):
     if scheme is None:
         return torch.zeros_like(v)
     sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
+    LV = (Center, Face, Center)
     Uadv = iy_f(grid.Ax(Face, Center, Center) * u)
-    fyx = Uadv * _face_value(sx, Uadv, v, X, 0)
+    fyx = Uadv * _face_value_ib(grid, sx, Uadv, v, X, 0, LV)
     Vadv = iy_c(grid.Ay(Center, Face, Center) * v)
-    fyy = Vadv * _face_value(sy, Vadv, v, Y, 1)
+    fyy = Vadv * _face_value_ib(grid, sy, Vadv, v, Y, 1, LV)
     Wadv = iy_f(grid.Az(Center, Center) * w)
-    fyz = Wadv * _face_value(sz, Wadv, v, Z, 0)
+    fyz = Wadv * _face_value_ib(grid, sz, Wadv, v, Z, 0, LV)
+    fyx = mask_flux(grid, fyx, (Face, Face, Center))
+    fyz = mask_flux(grid, fyz, (Center, Face, Face))
     return (dx_c(fyx) + dy_f(fyy) + dz_c(fyz)) / grid.V(Center, Face, Center)
 
 
@@ -463,12 +638,15 @@ def div_vw(grid, scheme, u, v, w):
     if scheme is None:
         return torch.zeros_like(w)
     sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
+    LW = (Center, Center, Face)
     Uadv = iz_f(grid.Ax(Face, Center, Center) * u)
-    fzx = Uadv * _face_value(sx, Uadv, w, X, 0)
+    fzx = Uadv * _face_value_ib(grid, sx, Uadv, w, X, 0, LW)
     Vadv = iz_f(grid.Ay(Center, Face, Center) * v)
-    fzy = Vadv * _face_value(sy, Vadv, w, Y, 0)
+    fzy = Vadv * _face_value_ib(grid, sy, Vadv, w, Y, 0, LW)
     Wadv = iz_c(grid.Az(Center, Center) * w)
-    fzz = Wadv * _face_value(sz, Wadv, w, Z, 1)
+    fzz = Wadv * _face_value_ib(grid, sz, Wadv, w, Z, 1, LW)
+    fzx = mask_flux(grid, fzx, (Face, Center, Face))
+    fzy = mask_flux(grid, fzy, (Center, Face, Face))
     return (dx_c(fzx) + dy_c(fzy) + dz_f(fzz)) / grid.V(Center, Center, Face)
 
 
@@ -538,6 +716,6 @@ def multi_dimensional_filter(q, axis):
 
 
 __all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
-           "UpwindBiased", "WENO", "adapt_advection_order",
+           "UpwindBiased", "WENO", "adapt_advection_order", "bind_grid",
            "cell_advection_timescale", "div_Uc", "div_vu", "div_vv",
            "div_vw", "multi_dimensional_filter", "required_halo"]

@@ -121,8 +121,10 @@ def CommunicationBC():
 
 @dataclasses.dataclass
 class FieldBoundaryConditions:
-    """west/east/south/north/bottom/top bundle; ``immersed`` is carried for
-    the immersed grids of ROADMAP Queue 1 item 13."""
+    """west/east/south/north/bottom/top bundle; ``immersed`` holds the
+    condition on an immersed boundary (a plain condition for every side, or
+    an ``ImmersedBoundaryCondition``), which the models apply on an
+    ``ImmersedBoundaryGrid``."""
     west: Optional[BoundaryCondition] = None
     east: Optional[BoundaryCondition] = None
     south: Optional[BoundaryCondition] = None

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from oceananigans_torch.grids.base import Center, Face
+from oceananigans_torch.immersed import mask_flux as _mask_flux
 from oceananigans_torch.ops.operators import (
     dx_c, dx_f, dy_c, dy_f, dz_c, dz_f,
     X, Y, Z, ix_c, ix_f, iy_c, iy_f, iz_c, iz_f, shift,
@@ -58,22 +59,11 @@ def _nu_at(nu, to):
     return nu
 
 
-def _mask_flux(grid, f, loc):
-    """Zero a flux at ``loc`` wherever that location touches a solid cell
-    of a grid that carries a boolean ``solid_c`` (the cubed sphere's
-    bathymetry view): no diffusive flux through or inside the bottom. The
-    identity on every other grid."""
-    solid = getattr(grid, "solid_c", None)
-    if solid is None or not torch.is_tensor(f):
-        return f
-    for axis, lo in zip((X, Y, Z), loc):
-        if lo == Face:
-            solid = solid | shift(solid, -1, axis)
-    return torch.where(solid, 0.0, f)
-
-
 def _div_u_fluxes(grid, fx_ccc, fy_ffc, fz_fcf):
-    """Divergence of the fluxes of a (f,c,c)-located field."""
+    """Divergence of the fluxes of a (f,c,c)-located field. On a grid with
+    a solid mask (an immersed grid, the cubed sphere's bathymetry view)
+    every flux is zeroed through and inside the boundary: the default
+    free-slip, no-flux immersed boundary."""
     fx_ccc = _mask_flux(grid, fx_ccc, (Center, Center, Center))
     fy_ffc = _mask_flux(grid, fy_ffc, (Face, Face, Center))
     fz_fcf = _mask_flux(grid, fz_fcf, (Face, Center, Face))

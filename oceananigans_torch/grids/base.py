@@ -30,24 +30,51 @@ def total_length(N: int, H: int) -> int:
 def generate_coordinate(spec, N: int, H: int, topo: str):
     """Halo-extended 1-D coordinates of one axis, in float64 numpy.
 
-    ``spec`` is ``(left, right)``: regular spacing, the only kind ported so
-    far. Returns ``(xF, xC, dxC, dxF, extent)``, each array of length
-    ``N + 2H``. Interior cells occupy ``H..H+N-1``; ``xF[i]`` is the
-    left face of cell ``i``, so the right wall face of a bounded axis sits at
-    index ``H + N``, inside the first halo slot.
+    ``spec`` is ``(left, right)`` (regular spacing), an array of the
+    ``N + 1`` interior faces, or a callable ``i -> face`` sampled at ``i =
+    0..N`` (stretched). Returns ``(xF, xC, dxC, dxF, regular, extent)``,
+    each array of length ``N + 2H``. Interior cells occupy ``H..H+N-1``;
+    ``xF[i]`` is the left face of cell ``i``, so the right wall face of a
+    bounded axis sits at index ``H + N``, inside the first halo slot. A
+    stretched axis's halo faces repeat the periodic images (Periodic) or
+    the edge spacings (Bounded); ``regular`` is the JAX package's rule,
+    ``np.allclose`` of the spacings, so uniform faces given as an array
+    count as regular.
     """
     if topo == Flat:
         one, zero = np.ones(1), np.zeros(1)
-        return zero, zero, one, one, 1.0
+        return zero, zero, one, one, True, 1.0
 
-    if not (isinstance(spec, tuple) and len(spec) == 2
-            and np.isscalar(spec[0])):
-        raise NotImplementedError(
-            "stretched coordinates are not ported yet (ROADMAP Queue 1 item "
-            "13); give (left, right)")
-    left, right = float(spec[0]), float(spec[1])
-    dx = (right - left) / N
-    faces = left + np.arange(-H, N + H + 1, dtype=np.float64) * dx
+    if isinstance(spec, tuple) and len(spec) == 2 and np.isscalar(spec[0]):
+        left, right = float(spec[0]), float(spec[1])
+        dx = (right - left) / N
+        faces = left + np.arange(-H, N + H + 1, dtype=np.float64) * dx
+        regular = True
+    else:
+        if callable(spec):
+            inner = np.asarray([float(spec(i)) for i in range(N + 1)],
+                               dtype=np.float64)
+        else:
+            inner = np.asarray(spec, dtype=np.float64)
+            if inner.shape != (N + 1,):
+                raise ValueError(
+                    f"stretched coordinate needs N+1={N + 1} faces, "
+                    f"got shape {inner.shape}")
+        if np.any(np.diff(inner) <= 0):
+            raise ValueError("coordinate faces must be strictly increasing")
+        faces = np.empty(N + 2 * H + 1, dtype=np.float64)
+        faces[H:H + N + 1] = inner
+        if topo == Periodic:
+            L = inner[-1] - inner[0]
+            for h in range(1, H + 1):
+                faces[H - h] = inner[N - h] - L
+                faces[H + N + h] = inner[h] + L
+        else:   # bounded: the edge spacings repeat outward
+            dl, dr = inner[1] - inner[0], inner[-1] - inner[-2]
+            for h in range(1, H + 1):
+                faces[H - h] = faces[H - h + 1] - dl
+                faces[H + N + h] = faces[H + N + h - 1] + dr
+        regular = bool(np.allclose(np.diff(faces), np.diff(faces)[0]))
 
     centers = 0.5 * (faces[:-1] + faces[1:])
     dxC = np.diff(faces)
@@ -55,7 +82,7 @@ def generate_coordinate(spec, N: int, H: int, topo: str):
     dxF[1:] = centers[1:] - centers[:-1]
     dxF[0] = dxF[1]
     extent = float(faces[H + N] - faces[H])
-    return faces[:-1], centers, dxC, dxF, extent
+    return faces[:-1], centers, dxC, dxF, regular, extent
 
 
 def bshape(axis: int, n: int):
@@ -84,8 +111,8 @@ class AbstractGrid(torch.nn.Module):
     metric tensors are buffers, so ``grid.to(device)`` moves them all.
 
     ``x_regular``/``y_regular``/``z_regular`` say whether an axis has
-    regular spacing in its own coordinate (metres or degrees), as on the
-    JAX grids; ``regular`` is all three.
+    regular spacing in its own coordinate (metres or degrees), by the JAX
+    grids' rule (:func:`generate_coordinate`); ``regular`` is all three.
     """
 
     x_regular = y_regular = z_regular = True

@@ -28,7 +28,8 @@ class LatitudeLongitudeGrid(AbstractGrid):
     ``longitude=(λW, λE)`` (Periodic when it spans 360°, else Bounded),
     ``latitude=(φS, φN)`` (Bounded), ``z=(bottom, top)``; ``size`` may be
     (Nλ, Nφ) with a Flat z topology. ``halo`` is one width or a per-axis
-    triple. Stretched axes are not ported yet (ROADMAP Queue 1 item 13).
+    triple. Each of the three may also be an array of N + 1 faces or a
+    callable ``i -> face`` (a stretched axis).
     The coordinates are also ``xC``/``xF`` (λ) and ``yC``/``yF`` (φ), so
     initial-state callables take (λ, φ, z).
     """
@@ -55,12 +56,12 @@ class LatitudeLongitudeGrid(AbstractGrid):
         H = tuple(0 if t == Flat else min(h, n)
                   for n, h, t in zip(N, halos, topology))
 
-        lamF, lamC, dlamC, dlamF, Lx = generate_coordinate(
+        lamF, lamC, dlamC, dlamF, x_reg, Lx = generate_coordinate(
             longitude, N[0], H[0], topology[0])
-        phiF, phiC, dphiC, dphiF, Ly = generate_coordinate(
+        phiF, phiC, dphiC, dphiF, y_reg, Ly = generate_coordinate(
             latitude, N[1], H[1], topology[1])
-        zF, zC, dzC, dzF, Lz = generate_coordinate(z, N[2], H[2],
-                                                   topology[2])
+        zF, zC, dzC, dzF, z_reg, Lz = generate_coordinate(z, N[2], H[2],
+                                                          topology[2])
 
         deg = np.pi / 180.0
         # |cos φ| mirrors the halo rows beyond a pole, floored so that the
@@ -101,6 +102,7 @@ class LatitudeLongitudeGrid(AbstractGrid):
         self.Nx, self.Ny, self.Nz = N
         self.Lx, self.Ly, self.Lz = Lx, Ly, Lz
         self.radius = float(radius)
+        self.x_regular, self.y_regular, self.z_regular = x_reg, y_reg, z_reg
 
     # the λ/φ coordinates under the names the node queries and the
     # initial-state callables use

@@ -66,7 +66,8 @@ def _guard(d):
 
 class OrthogonalSphericalShellGrid(AbstractGrid):
     """Curvilinear horizontal C-grid with 2-D (λ, φ) nodes at the four
-    staggerings and 2-D metrics, and a regular z.
+    staggerings and 2-D metrics. ``z`` is a ``(bottom, top)`` pair, an
+    array of ``Nz + 1`` faces or a callable ``k -> face`` (a stretched z).
 
     ``lam``/``phi`` map each key of :data:`NODE_KEYS` (x location, then y
     location) to a halo-extended (nx, ny) array of longitudes/latitudes in
@@ -90,7 +91,8 @@ class OrthogonalSphericalShellGrid(AbstractGrid):
         Nx, Ny, Nz = (int(n) for n in size)
         Hx, Hy = min(halos[0], Nx), min(halos[1], Ny)
         Hz = 0 if topology[2] == Flat else min(halos[2], Nz)
-        zF, zC, dzC, dzF, Lz = generate_coordinate(z, Nz, Hz, topology[2])
+        zF, zC, dzC, dzF, z_reg, Lz = generate_coordinate(z, Nz, Hz,
+                                                          topology[2])
 
         nx, ny = Nx + 2 * Hx, Ny + 2 * Hy
         lam = {k: np.array(lam[k], dtype=np.float64) for k in NODE_KEYS}
@@ -136,6 +138,7 @@ class OrthogonalSphericalShellGrid(AbstractGrid):
         self.N, self.H = (Nx, Ny, Nz), (Hx, Hy, Hz)
         self.Nx, self.Ny, self.Nz = self.N
         self.Lz = Lz
+        self.z_regular = z_reg
 
     # ---- metrics -------------------------------------------------------------
     def dx(self, lx=Center, ly=Center):

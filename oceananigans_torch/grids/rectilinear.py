@@ -1,9 +1,8 @@
-"""RectilinearGrid: Cartesian staggered grid with regular spacing.
+"""RectilinearGrid: Cartesian staggered grid, regular or stretched per axis.
 
 Counterpart of ``oceananigans_tpu/grids/rectilinear.py``. The grid is an
 ``nn.Module`` whose coordinate and spacing tensors are buffers, so
 ``grid.to(device)`` (or moving a model that holds it) moves them all.
-Stretched axes are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,10 +31,13 @@ def _expand_per_axis(values, topology, what):
 
 
 class RectilinearGrid(AbstractGrid):
-    """Cartesian C-grid with regular spacing on every axis.
+    """Cartesian C-grid.
 
-    ``x=``, ``y=``, ``z=`` are ``(left, right)`` pairs; ``extent=(Lx, Ly,
-    Lz)`` is shorthand for ``x=(0, Lx), y=(0, Ly), z=(-Lz, 0)``.
+    ``x=``, ``y=``, ``z=`` are each a ``(left, right)`` pair (regular
+    spacing), an array of ``N + 1`` faces or a callable ``i -> face``
+    (stretched); ``extent=(Lx, Ly, Lz)`` is shorthand for ``x=(0, Lx),
+    y=(0, Ly), z=(-Lz, 0)``. ``x_regular``, ``y_regular`` and
+    ``z_regular`` say which axes are regular.
     """
 
     def __init__(self, size, x=None, y=None, z=None, extent=None,
@@ -55,7 +57,7 @@ class RectilinearGrid(AbstractGrid):
         sizes = _expand_per_axis(size, topology, "size")
         specs = (x, y, z)
         halos = halo_per_axis(halo)
-        Ns, Hs, Ls = [], [], []
+        Ns, Hs, Ls, regs = [], [], [], []
         for axis, name in enumerate(AXIS_NAMES):
             topo = topology[axis]
             if topo != Flat and specs[axis] is None:
@@ -63,7 +65,8 @@ class RectilinearGrid(AbstractGrid):
                                  f"non-flat axis {axis}")
             N = 1 if topo == Flat else int(sizes[axis])
             H = 0 if topo == Flat else min(int(halos[axis]), N)
-            F, C, dC, dF, L = generate_coordinate(specs[axis], N, H, topo)
+            F, C, dC, dF, regular, L = generate_coordinate(specs[axis], N,
+                                                           H, topo)
             for suffix, arr in (("F", F), ("C", C), ("C_d", dC),
                                 ("F_d", dF)):
                 t = torch.as_tensor(arr, dtype=dtype, device=device)
@@ -72,11 +75,13 @@ class RectilinearGrid(AbstractGrid):
             Ns.append(N)
             Hs.append(H)
             Ls.append(L)
+            regs.append(regular)
         self.topology = tuple(topology)
         self.N = tuple(Ns)
         self.H = tuple(Hs)
         self.Nx, self.Ny, self.Nz = self.N
         self.Lx, self.Ly, self.Lz = Ls
+        self.x_regular, self.y_regular, self.z_regular = regs
 
     # ---- metrics -----------------------------------------------------------
     def dx(self, lx=Center, ly=Center):
@@ -89,7 +94,8 @@ class RectilinearGrid(AbstractGrid):
         return self.zC_d if lz == Center else self.zF_d
 
     def spacing(self, axis: int) -> float:
-        """The regular spacing of ``axis`` (1 on a Flat axis)."""
+        """The regular spacing of ``axis`` (1 on a Flat axis; the mean
+        spacing of a stretched axis)."""
         if self.topology[axis] == Flat:
             return 1.0
         return (self.Lx, self.Ly, self.Lz)[axis] / self.N[axis]

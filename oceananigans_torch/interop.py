@@ -231,12 +231,16 @@ def orthogonal_nodes(grid):
 
 def orthogonal_grid_like(grid, **kwargs):
     """The port's ``OrthogonalSphericalShellGrid`` with the nodes, sizes,
-    halos, topology, zipper flag, radius and regular z of ``grid`` (either
-    package's); ``kwargs`` add ``dtype`` and ``device``."""
+    halos, topology, zipper flag, radius and z (regular or stretched) of
+    ``grid`` (either package's); ``kwargs`` add ``dtype`` and ``device``."""
     lam, phi = orthogonal_nodes(grid)
-    z0 = float(np.asarray(grid.zF).reshape(-1)[grid.H[2]])
+    zF = np.asarray(grid.zF, dtype=np.float64).reshape(-1)
+    H, N = grid.H[2], grid.N[2]
+    z0 = float(zF[H])
+    # the right wall face sits in the first halo slot
+    z = (z0, z0 + grid.Lz) if grid.z_regular else zF[H:H + N + 1]
     return OrthogonalSphericalShellGrid(
-        lam, phi, (z0, z0 + grid.Lz), grid.N, halo=grid.H,
+        lam, phi, z, grid.N, halo=grid.H,
         radius=grid.radius, topology=grid.topology, zipper=grid.zipper,
         **kwargs)
 

@@ -18,12 +18,14 @@ band of ``corner_upwind_width`` cells, and the Bernoulli head self-upwinded
 in a band of :data:`CS_KE_BAND` cells: C32 Williamson 2 is stable without a
 filter only with the last of these.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item: ``ImplicitFreeSurface`` and ``ZStar`` (item 15, the first with
-``solvers/conjugate_gradient.py``); the immersed-boundary objects
-``GridFittedBottom``, ``GridFittedBoundary`` and ``PartialCellBottom`` as
-``bathymetry`` (item 13; a callable or an array of bottom heights is
-ported); ``cubed_sphere_partition`` (item 18).
+The hydrostatic model's ``bathymetry`` is a ``GridFittedBottom`` (or its
+bottom height given bare, a callable or an array), a ``PartialCellBottom``
+(the partial cells' height fractions scale every metric of the dynamics
+through ``_ScaledPanelGrid``, the JAX model's scaled-height view) or a
+``GridFittedBoundary`` (a 3-D solid mask). Not ported, each raising
+``NotImplementedError`` that names its ROADMAP Queue 1 item:
+``ImplicitFreeSurface`` and ``ZStar`` (item 15); ``cubed_sphere_partition``
+(item 18).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ from oceananigans_torch.advection import (
 from oceananigans_torch.boundary_conditions import FLUX
 from oceananigans_torch.buoyancy import BuoyancyTracer, g_Earth
 from oceananigans_torch.grids.base import Center, Face
+from oceananigans_torch.immersed import (
+    GridFittedBottom, GridFittedBoundary, PartialCellBottom,
+)
 from oceananigans_torch.grids.cubed_sphere_grid import (
     ConformalCubedSphereGrid, _panel_xyz, _tangents,
     cubed_sphere_corner_vorticity, cubed_sphere_halo_exchange,
@@ -72,7 +77,6 @@ OMEGA_EARTH = 7.292115e-5
 #: from the environment variable ``CS_KE_BAND``; the port keeps its default.
 CS_KE_BAND = 2
 
-_ITEM13 = "ROADMAP Queue 1 item 13 (immersed boundaries)"
 _ITEM15 = "ROADMAP Queue 1 item 15"
 _ITEM18 = "ROADMAP Queue 1 item 18 (distributed)"
 
@@ -97,11 +101,15 @@ def cs_column_depth(g):
                      keepdim=True)[None]
 
 
-def cs_barotropic_mode(g, u, v):
-    """(U, V) = ∫ (u, v) dz over the interior levels, per column."""
+def cs_barotropic_mode(g, u, v, sigma_u=None, sigma_v=None):
+    """(U, V) = ∫ (u, v) dz over the interior levels, per column; with
+    ``sigma_u``/``sigma_v`` (partial cells' height fractions at the faces)
+    over the scaled thicknesses σ dz."""
     dzm = torch.where(_z_interior(g), g.dz(Center), 0.0)
-    return (torch.sum(u * dzm, dim=Z, keepdim=True),
-            torch.sum(v * dzm, dim=Z, keepdim=True))
+    dzu = dzm if sigma_u is None else sigma_u * dzm
+    dzv = dzm if sigma_v is None else sigma_v * dzm
+    return (torch.sum(u * dzu, dim=Z, keepdim=True),
+            torch.sum(v * dzv, dim=Z, keepdim=True))
 
 
 def cs_transport_divergence(g, U, V, sync_fluxes):
@@ -151,10 +159,12 @@ def cs_split_explicit_free_surface(g, U0, V0, eta0, GU, GV, dt, fs,
 
 
 def cs_barotropic_correct(g, u, v, U_target, V_target, mask_u, mask_v,
-                          Hu=None, Hv=None):
+                          Hu=None, Hv=None, sigma_u=None, sigma_v=None):
     """Replace the barotropic mode of (u, v) with the filtered substepped
-    transports; land faces (depth 0) are left untouched."""
-    U, V = cs_barotropic_mode(g, u, v)
+    transports; land faces (depth 0) are left untouched. ``sigma_u`` and
+    ``sigma_v`` scale the mode's thicknesses (partial cells; ``Hu`` and
+    ``Hv`` already hold the partial depths)."""
+    U, V = cs_barotropic_mode(g, u, v, sigma_u, sigma_v)
     if Hu is None:
         Hu = Hv = cs_column_depth(g)
     Hu_safe = torch.where(Hu > 0, Hu, 1.0)
@@ -162,6 +172,38 @@ def cs_barotropic_correct(g, u, v, U_target, V_target, mask_u, mask_v,
     u = u + torch.where(Hu > 0, (U_target - U) / Hu_safe, 0.0) * mask_u
     v = v + torch.where(Hv > 0, (V_target - V) / Hv_safe, 0.0) * mask_v
     return u, v
+
+
+class _ScaledPanelGrid:
+    """The panel grid with its cell heights scaled by ``sigma`` (partial
+    bottom cells' height fractions at the centres, ``sigma_u`` and
+    ``sigma_v`` at the u and v faces): the JAX model's ``_ScaledZGrid``,
+    through which the thicknesses enter every metric of the dynamics."""
+
+    def __init__(self, base, sigma, sigma_u=None, sigma_v=None):
+        object.__setattr__(self, "base", base)
+        object.__setattr__(self, "sigma", sigma)
+        object.__setattr__(self, "sigma_u",
+                           sigma if sigma_u is None else sigma_u)
+        object.__setattr__(self, "sigma_v",
+                           sigma if sigma_v is None else sigma_v)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "base"), name)
+
+    def dz(self, lz=Center):
+        return self.sigma * self.base.dz(lz)
+
+    def Ax(self, lx, ly, lz):
+        s = self.sigma_u if lx == Face else self.sigma
+        return self.base.dy(ly, lx) * (s * self.base.dz(lz))
+
+    def Ay(self, lx, ly, lz):
+        s = self.sigma_v if ly == Face else self.sigma
+        return self.base.dx(lx, ly) * (s * self.base.dz(lz))
+
+    def V(self, lx, ly, lz):
+        return self.base.Az(lx, ly) * self.dz(lz)
 
 
 class _PanelSolidView:
@@ -824,6 +866,7 @@ class CubedSphereHydrostaticModel(_OnDevice):
 
         self.bathymetry = bathymetry
         self._wet_c = self._wet_u = self._wet_v = self._wet_w = None
+        self._frac_c = self._frac_u = self._frac_v = None
         self._Hu = self._Hv = self._Hc = None
         self._wet2_c = self._wet2_u = self._wet2_v = None
         kk = np.arange(g.shape[2]).reshape(1, 1, 1, -1)
@@ -850,13 +893,29 @@ class CubedSphereHydrostaticModel(_OnDevice):
         _corner_filter_setup(self, corner_filter)
 
     def _grid_fitted_bottom(self, bathymetry, kin, top):
-        """Wet masks, wet-column depths and boundary-cell indicators of a
-        grid-fitted bottom given as a callable ``h(lam, phi)`` or an array of
-        bottom heights (numpy)."""
+        """Wet masks, wet-column depths and boundary-cell indicators of the
+        bathymetry: a ``GridFittedBottom`` (or its bottom height given
+        bare: a callable ``h(lam, phi)`` or an array of bottom heights), a
+        ``PartialCellBottom`` (its cells' height fractions too) or a
+        ``GridFittedBoundary`` (a 3-D solid mask), built in numpy."""
         grid = self.grid
         g = grid.panel_grid
         N, H = grid.N_panel, g.H[0]
         nx, ny, _ = g.shape
+        Hz, Nz = g.H[2], g.N[2]
+        eps_min = (bathymetry.minimum_fractional_cell_height
+                   if isinstance(bathymetry, PartialCellBottom) else None)
+        if isinstance(bathymetry, GridFittedBoundary):
+            wet = self._boundary_wet(bathymetry.mask)
+            # below-domain z halos read dry, so the bottom indicator marks
+            # the deepest wet cell of a full-depth column; above-surface
+            # halos stay wet, so the top mirror is kept
+            wet[..., :Hz] = 0.0
+            wet[..., Hz + Nz:] = 1.0
+            self._wet_columns(wet, kin, top)
+            return
+        if isinstance(bathymetry, GridFittedBottom):
+            bathymetry = bathymetry.bottom_height
         if callable(bathymetry):
             bot_full = np.asarray(
                 bathymetry(self._lam_c[..., 0], self._phi_c[..., 0])
@@ -882,14 +941,64 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 torch.as_tensor(bot_full, dtype=torch.float64,
                                 device=grid.device), grid).cpu().numpy()
         else:
-            raise NotImplementedError(
-                f"bathymetry={bathymetry!r} is not ported yet; the port "
-                "takes a callable or an array of bottom heights, and "
-                f"GridFittedBottom, GridFittedBoundary and PartialCellBottom "
-                f"come with {_ITEM13}")
-        zc = g.zC.cpu().numpy().reshape(1, 1, 1, -1)
+            raise ValueError(
+                f"bathymetry={bathymetry!r}: give a GridFittedBottom, a "
+                "GridFittedBoundary, a callable h(lam, phi) or an array of "
+                "bottom heights")
+        if eps_min is None:
+            zc = g.zC.cpu().numpy().reshape(1, 1, 1, -1)
+            self._wet_columns((zc >= bot_full).astype(float), kin, top)
+            return
+        # partial bottom cells: a cell is wet where at least the minimum
+        # fraction of it lies above the bottom, and keeps that fraction
+        # of its height; a face takes the shallower of its two cells
+        zf = g.zF.cpu().numpy().reshape(1, 1, 1, -1)
         dzf = np.broadcast_to(g.dz(Center).cpu().numpy(), g.shape)[None]
-        wet = (zc >= bot_full).astype(float)
+        with np.errstate(invalid="ignore"):
+            water = np.clip((zf + dzf - bot_full) / dzf, 0.0, 1.0)
+        wet = (water >= eps_min).astype(float)
+        frac = np.where(wet > 0, np.clip(water, eps_min, 1.0), 1.0)
+        self._frac_c = frac
+        self._frac_u = np.minimum(frac, np.roll(frac, 1, axis=1))
+        self._frac_v = np.minimum(frac, np.roll(frac, 1, axis=2))
+        self._wet_columns(wet, kin, top)
+
+    def _boundary_wet(self, mask):
+        """The wet cells (1.0) of a ``GridFittedBoundary`` mask: a callable
+        ``mask(lam, phi, z)`` (degrees, metres) or a (6, N, N, Nz) or
+        halo-extended array, made consistent across the panel seams."""
+        grid = self.grid
+        g = grid.panel_grid
+        N, H = grid.N_panel, g.H[0]
+        nx, ny, nz = g.shape
+        Hz, Nz = g.H[2], g.N[2]
+        zc = g.zC.cpu().numpy().reshape(1, 1, 1, -1)
+        if callable(mask):
+            solid = np.asarray(mask(self._lam_c, self._phi_c, zc), float)
+            solid = np.broadcast_to(solid, (6, nx, ny, nz)).copy()
+        else:
+            mv = (mask.detach().cpu().numpy() if torch.is_tensor(mask)
+                  else np.asarray(mask)).astype(float)
+            solid = np.zeros((6, nx, ny, nz))
+            if mv.shape == (6, N, N, Nz):
+                solid[:, H:H + N, H:H + N, Hz:Hz + Nz] = mv
+            elif mv.shape == (6, nx, ny, nz):
+                solid = mv.copy()
+            else:
+                raise ValueError(
+                    f"GridFittedBoundary mask must be (6, {N}, {N}, {Nz}) "
+                    f"or full-frame, got {mv.shape}")
+            solid = (cubed_sphere_halo_exchange(
+                torch.as_tensor(solid, dtype=torch.float64,
+                                device=grid.device),
+                grid).cpu().numpy() > 0.5).astype(float)
+        return 1.0 - np.clip(solid, 0.0, 1.0)
+
+    def _wet_columns(self, wet, kin, top):
+        """The masks, wet-column depths and boundary-cell indicators of the
+        wet cells ``wet`` (a (6, nx, ny, nz) array of 0.0 and 1.0)."""
+        g = self.grid.panel_grid
+        dzf = np.broadcast_to(g.dz(Center).cpu().numpy(), g.shape)[None]
         self._wet_c = wet
         # a face is wet only when both adjacent cells are (face i sits
         # between cells i - 1 and i)
@@ -897,9 +1006,11 @@ class CubedSphereHydrostaticModel(_OnDevice):
         self._wet_v = wet * np.roll(wet, 1, axis=2)
         self._wet_w = wet * np.roll(wet, 1, axis=3)
         dzi = dzf * kin
-        self._Hc = np.sum(self._wet_c * dzi, axis=3, keepdims=True)
-        self._Hu = np.sum(self._wet_u * dzi, axis=3, keepdims=True)
-        self._Hv = np.sum(self._wet_v * dzi, axis=3, keepdims=True)
+        fc, fu, fv = ((1.0, 1.0, 1.0) if self._frac_c is None
+                      else (self._frac_c, self._frac_u, self._frac_v))
+        self._Hc = np.sum(self._wet_c * fc * dzi, axis=3, keepdims=True)
+        self._Hu = np.sum(self._wet_u * fu * dzi, axis=3, keepdims=True)
+        self._Hv = np.sum(self._wet_v * fv * dzi, axis=3, keepdims=True)
         self._wet2_c = (self._Hc > 0).astype(float)
         self._wet2_u = (self._Hu > 0).astype(float)
         self._wet2_v = (self._Hv > 0).astype(float)
@@ -954,7 +1065,8 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # the persistent barotropic transports start from the initial
         # velocities
         um, vm = self._wet_masked(state.u, state.v)
-        U0, V0 = cs_barotropic_mode(g, um, vm)
+        U0, V0 = cs_barotropic_mode(g, um, vm, self._frac("u", dtype),
+                                    self._frac("v", dtype))
         return _replace(state, U=U0 * self._dev("_mask_u2", dtype),
                         V=V0 * self._dev("_mask_v2", dtype))
 
@@ -1023,36 +1135,54 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 + dy_c(g.dx(Center, Face) * v)) / g.Az(Center, Center)
         return self._w_from_divergence(hdiv, g.dz(Center))
 
-    def _w_from_fluxes(self, Fxl, Fyl):
+    def _w_from_fluxes(self, Fxl, Fyl, g):
         """w from edge-synced per-level transports (Ax u, Ay v): the same
         single-valued seam transports as the tracer fluxes, so a uniform
-        tracer stays uniform at edge columns too."""
-        g = self.grid.panel_grid
+        tracer stays uniform at edge columns too. ``g``: the (scaled)
+        panel grid of :meth:`_dynamics_grid`."""
         hdiv = (dx_c(Fxl) + dy_c(Fyl)) / g.V(Center, Center, Center)
         return self._w_from_divergence(hdiv, g.dz(Center))
 
-    def _pressure(self, b):
-        """p′ = −∫_z^0 b dz′ at the centres."""
+    def _dynamics_grid(self, dtype):
+        """The panel grid the dynamics see: with partial bottom cells, its
+        heights scaled by their fractions (:class:`_ScaledPanelGrid`)."""
         g = self.grid.panel_grid
+        if self._frac_c is None:
+            return g
+        return _ScaledPanelGrid(g, self._dev("_frac_c", dtype),
+                                self._dev("_frac_u", dtype),
+                                self._dev("_frac_v", dtype))
+
+    def _frac(self, name, dtype):
+        """The height fractions of the partial cells at the location of
+        field ``name``, or None without partial cells."""
+        if self._frac_c is None:
+            return None
+        tag = "u" if name == "u" else "v" if name == "v" else "c"
+        return self._dev(f"_frac_{tag}", dtype)
+
+    def _pressure(self, b, g):
+        """p′ = −∫_z^0 b dz′ at the centres."""
         contrib = torch.where(_z_interior(g), b * g.dz(Center), 0.0)
         total = torch.sum(contrib, dim=Z, keepdim=True)
         below_incl = torch.cumsum(contrib, dim=Z)
         return -((total - below_incl) + 0.5 * contrib)
 
-    def _buoyancy_ccc(self, tracers):
+    def _buoyancy_ccc(self, tracers, g):
         if self.buoyancy is not None:
-            return self.buoyancy.buoyancy_ccc(self.grid.panel_grid, tracers)
+            return self.buoyancy.buoyancy_ccc(g, tracers)
         # without a formulation, a "b" tracer is the buoyancy
         return tracers.get("b")
 
-    def _momentum_tendencies(self, u, v, eta, f_ff, zeta, tracers, w):
-        """(Gu, Gv) of all panels. Transports use the wet-masked velocities
-        (no flux through the bottom); gradients and shear the mirrored
-        fields the exchange made."""
-        g = self.grid.panel_grid
+    def _momentum_tendencies(self, u, v, eta, f_ff, zeta, tracers, w, g):
+        """(Gu, Gv) of all panels on the (scaled) panel grid ``g``.
+        Transports use the wet-masked velocities (no flux through the
+        bottom); gradients and shear the mirrored fields the exchange
+        made. With partial cells the pressure gradient along a level takes
+        the slope of the partial cells' raised centres."""
         um, vm = self._wet_masked(u, v)
-        b = self._buoyancy_ccc(tracers)
-        p = self._pressure(b) if b is not None else 0.0
+        b = self._buoyancy_ccc(tracers, g)
+        p = self._pressure(b, g) if b is not None else 0.0
         eta_term = self.g * eta if self._explicit_eta_grad else 0.0
         q = zeta + f_ff
         K = 0.5 * (ix_c(u * u) + iy_c(v * v))
@@ -1078,6 +1208,18 @@ class CubedSphereHydrostaticModel(_OnDevice):
             g, u, v, K, self._dev("_corner_mask_ke", u.dtype))
         Gu = Gu + dGu
         Gv = Gv + dGv
+        slope_x = slope_y = None
+        if self._frac_c is not None and b is not None:
+            # a partial bottom cell's centre rises by (1 − frac)·Δz/2, so
+            # the gradient of p′ along a level differs from the gradient
+            # at constant z by b ∂x(z) (p′ has ∂z p′ = +b)
+            base = g.base
+            dz0 = base.dz(Center)
+            z_c = (base.zC + 0.5 * (1.0 - g.sigma) * dz0) + eta
+            slope_x = ix_f(b) * dx_f(z_c) / g.dx(Face, Center)
+            slope_y = iy_f(b) * dy_f(z_c) / g.dy(Face, Center)
+            Gu = Gu + slope_x
+            Gv = Gv + slope_y
         adv = self.momentum_advection
         if adv is None:
             return Gu, Gv
@@ -1092,17 +1234,25 @@ class CubedSphereHydrostaticModel(_OnDevice):
                  - dx_f(phig) / g.dx(Face, Center))
         Gv_vi = (Gv_adv - ix_c(f_ff) * Uv
                  - dy_f(phig) / g.dy(Face, Center))
+        if slope_x is not None:
+            Gu_vi = Gu_vi + slope_x
+            Gv_vi = Gv_vi + slope_y
         return cm * Gu + (1 - cm) * Gu_vi, cm * Gv + (1 - cm) * Gv_vi
 
-    def _fluxes(self, u, v, w, tracers):
-        """Barotropic and tracer fluxes of all panels (the horizontal ones
-        before the edge sync); advective fluxes through solid faces are
-        zero."""
-        g = self.grid.panel_grid
+    def _fluxes(self, u, v, w, tracers, g):
+        """Barotropic and tracer fluxes of all panels on the (scaled) panel
+        grid ``g`` (the horizontal ones before the edge sync); advective
+        fluxes through solid faces are zero. The transports integrate the
+        thickness of each face, as the tracer fluxes' areas do."""
         um, vm = self._wet_masked(u, v)
-        dzi = torch.where(_z_interior(g), g.dz(Center), 0.0)
-        U = torch.sum(um * dzi, dim=Z, keepdim=True)
-        V = torch.sum(vm * dzi, dim=Z, keepdim=True)
+        if self._frac_c is None:
+            dzi = torch.where(_z_interior(g), g.dz(Center), 0.0)
+            U = torch.sum(um * dzi, dim=Z, keepdim=True)
+            V = torch.sum(vm * dzi, dim=Z, keepdim=True)
+        else:
+            dzi0 = torch.where(_z_interior(g), g.base.dz(Center), 0.0)
+            U = torch.sum(um * (g.sigma_u * dzi0), dim=Z, keepdim=True)
+            V = torch.sum(vm * (g.sigma_v * dzi0), dim=Z, keepdim=True)
         Fx = g.dy(Center, Face) * U
         Fy = g.dx(Center, Face) * V
         k = torch.arange(g.shape[2], device=g.device)
@@ -1188,6 +1338,10 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 q = self._eval_cs_flux(bc, name, side, state, t, dtype)
                 ind = self._dev(self._boundary_indicator(name, side), dtype)
                 contrib = sign * q * ind / dz
+                frac = self._frac(name, dtype)
+                if frac is not None:
+                    # a partial bottom cell is frac·Δz thick
+                    contrib = contrib / frac
                 if name == "u":
                     Gu = Gu + contrib
                 elif name == "v":
@@ -1224,19 +1378,20 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # edge-synced w: continuity integrates the same single-valued seam
         # transports as the tracer fluxes
         um, vm = self._wet_masked(state.u, state.v)
+        gd = self._dynamics_grid(dtype)
         Fxl, Fyl = cubed_sphere_sync_edge_fluxes(
-            g.Ax(Face, Center, Center) * um,
-            g.Ay(Center, Face, Center) * vm, self.grid)
-        w = self._w_from_fluxes(Fxl, Fyl)
+            gd.Ax(Face, Center, Center) * um,
+            gd.Ay(Center, Face, Center) * vm, self.grid)
+        w = self._w_from_fluxes(Fxl, Fyl, gd)
         Gu, Gv = self._momentum_tendencies(state.u, state.v, state.eta, f,
-                                           zeta, state.tracers, w)
-        Fx, Fy, Ft = self._fluxes(state.u, state.v, w, state.tracers)
+                                           zeta, state.tracers, w, gd)
+        Fx, Fy, Ft = self._fluxes(state.u, state.v, w, state.tracers, gd)
         Fx, Fy = cubed_sphere_sync_edge_fluxes(Fx, Fy, self.grid)
         Ft = {n: (*cubed_sphere_sync_edge_fluxes(fx, fy, self.grid), fz)
               for n, (fx, fy, fz) in Ft.items()}
         Geta = -(dx_c(Fx) + dy_c(Fy)) / g.Az(Center, Center)[..., :1]
         Gt = {n: -(dx_c(fx) + dy_c(fy) + dz_c(fz))
-              / g.V(Center, Center, Center)
+              / gd.V(Center, Center, Center)
               for n, (fx, fy, fz) in Ft.items()}
 
         diffusivities = None
@@ -1303,20 +1458,24 @@ class CubedSphereHydrostaticModel(_OnDevice):
             Hu = self._dev("_Hu", dtype)
             Hv = self._dev("_Hv", dtype)
         um, vm = self._wet_masked(u_e, v_e)
+        # with partial cells the transports integrate the faces' partial
+        # thicknesses
+        fu, fv = self._frac("u", dtype), self._frac("v", dtype)
         if isinstance(fs, ExplicitFreeSurface):
             eta = s.eta + dt.item() * Geta
-            U, V = cs_barotropic_mode(g, um, vm)
+            U, V = cs_barotropic_mode(g, um, vm, fu, fv)
             return u_e, v_e, eta, U * mu, V * mv
         # split-explicit substepping from the persistent transports, forced
         # by ∫ G dz
-        GU, GV = cs_barotropic_mode(g, Gu, Gv)
+        GU, GV = cs_barotropic_mode(g, Gu, Gv, fu, fv)
         eta_f, U_f, V_f = cs_split_explicit_free_surface(
             g, s.U, s.V, s.eta, GU, GV, dt, fs,
             lambda e: cubed_sphere_halo_exchange(e, grid),
             lambda fx, fy: cubed_sphere_sync_edge_fluxes(fx, fy, grid),
             mu, mv, Hu=Hu, Hv=Hv)
         u_c, v_c = cs_barotropic_correct(g, um, vm, U_f, V_f, mu, mv,
-                                         Hu=Hu, Hv=Hv)
+                                         Hu=Hu, Hv=Hv, sigma_u=fu,
+                                         sigma_v=fv)
         if self._wet_u is not None:
             # the solid cells keep their mirror until the next exchange
             wu = self._dev("_wet_u", dtype)
@@ -1405,15 +1564,23 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # filter on filled halos; the caller's exchange fills them again
         s = self.fill_state_halos(s)
         dtype = s.u.dtype
+        frac = self._frac("c", dtype)
+        if frac is None:
+            tracers = {n: _corner_smooth_center(self, c)
+                       for n, c in s.tracers.items()}
+        else:
+            # partial cells hold frac of a cell's content: smooth the
+            # content and divide by the (smoothed, unchanged) fraction, so
+            # Σ Az dz frac c is kept
+            tracers = {n: _corner_smooth_center(self, c * frac) / frac
+                       for n, c in s.tracers.items()}
         return _replace(
             s,
             u=_corner_smooth_velocity(self, s.u,
                                       self._dev("_cf_mask_u", dtype)),
             v=_corner_smooth_velocity(self, s.v,
                                       self._dev("_cf_mask_v", dtype)),
-            eta=_corner_smooth_center(self, s.eta),
-            tracers={n: _corner_smooth_center(self, c)
-                     for n, c in s.tracers.items()})
+            eta=_corner_smooth_center(self, s.eta), tracers=tracers)
 
     # ------------------------------------------------------------------
     def cfl_timescale(self, state):
@@ -1440,6 +1607,9 @@ class CubedSphereHydrostaticModel(_OnDevice):
         c = state.tracers[name][:, sx, sy, sz]
         if self._wet_c is not None:
             c = c * self._dev("_wet_c", c.dtype)[:, sx, sy, sz]
+        if self._frac_c is not None:
+            # partial bottom cells hold only their water fraction
+            c = c * self._dev("_frac_c", c.dtype)[:, sx, sy, sz]
         return torch.sum(c * self._cell_volumes())
 
     def ocean_volume(self):
@@ -1449,7 +1619,10 @@ class CubedSphereHydrostaticModel(_OnDevice):
         dV = self._cell_volumes()
         if self._wet_c is None:
             return 6.0 * torch.sum(dV)
-        return torch.sum(self._dev("_wet_c", dV.dtype)[:, sx, sy, sz] * dV)
+        w = self._dev("_wet_c", dV.dtype)[:, sx, sy, sz]
+        if self._frac_c is not None:
+            w = w * self._dev("_frac_c", dV.dtype)[:, sx, sy, sz]
+        return torch.sum(w * dV)
 
     def __repr__(self):
         return (f"CubedSphereHydrostaticModel(N={self.grid.N_panel}, "

@@ -2,9 +2,13 @@
 and the vector-invariant momentum advection it shares with the
 shallow-water model.
 
-Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
+Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a
 ``RectilinearGrid``, a ``LatitudeLongitudeGrid`` or an
-``OrthogonalSphericalShellGrid`` (the rotated lat-lon and tripolar grids):
+``OrthogonalSphericalShellGrid`` (the rotated lat-lon and tripolar grids),
+regular or stretched, or an ``ImmersedBoundaryGrid`` over any of them
+(bathymetry: the fields and tendencies masked, wet column depths in the
+barotropic mode, immersed boundary conditions; no kernel takes an immersed
+grid, as in the JAX package):
 
 - ``VectorInvariant`` with every option of the reference: the conserving
   (string) and upwinded (scheme-valued) vorticity, vertical, divergence and
@@ -24,9 +28,10 @@ Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` on a regular
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 Queue 1 item: forcings, biogeochemistry, Stokes drift, particles and
-auxiliary fields (item 12); immersed grids (item 13); the ocean closures
-(CATKE and the rest), the implicit free surface, ``ZStar``,
-``PrescribedVelocityFields`` and ``split_rk3`` stepping (item 15).
+auxiliary fields (item 12); the ocean closures (CATKE and the rest), the
+implicit free surface (over bathymetry too, with ``matrix_solver.py``),
+``ZStar``, ``PrescribedVelocityFields`` and ``split_rk3`` stepping (item
+15).
 
 The state is a dataclass of tensors. ``step`` returns a new state but
 reuses its argument's storage: halo fills write halo rows in place, the
@@ -49,7 +54,7 @@ import torch
 
 from oceananigans_torch import closures as closures_mod
 from oceananigans_torch.advection import (
-    SCHEMES, WENO, Centered, _face_value, _face_value_smooth,
+    SCHEMES, WENO, Centered, _face_value, _face_value_smooth, bind_grid,
     cell_advection_timescale, div_Uc, div_vu, div_vv,
     multi_dimensional_filter,
 )
@@ -66,6 +71,10 @@ from oceananigans_torch.grids.base import Bounded, Center, Face
 from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
+from oceananigans_torch.immersed import (
+    ImmersedBoundaryGrid, immersed_flux_divergence, mask_immersed_field,
+    regularize_immersed_bc, scalar_diffusivity_of,
+)
 from oceananigans_torch.ops.cuda_tracer import (
     tracer_fusion_available, tracer_metric_profiles, weno_tracer_tendencies,
 )
@@ -520,11 +529,12 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 raise NotImplementedError(
                     f"HydrostaticFreeSurfaceModel({name}=...) is not ported "
                     f"yet; {_ITEM12} brings it")
-        if not isinstance(grid, GRIDS):
+        base = (grid.underlying_grid
+                if isinstance(grid, ImmersedBoundaryGrid) else grid)
+        if not isinstance(base, GRIDS):
             raise NotImplementedError(
                 f"HydrostaticFreeSurfaceModel does not take a "
-                f"{type(grid).__name__}: immersed grids come with ROADMAP "
-                "Queue 1 item 13, and a ConformalCubedSphereGrid takes "
+                f"{type(base).__name__}: a ConformalCubedSphereGrid takes "
                 "CubedSphereHydrostaticModel")
         if timestepper not in ("quasi_ab2", "split_rk3"):
             raise ValueError(f"unknown timestepper {timestepper!r}")
@@ -570,7 +580,9 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
 
         self.grid = grid
         self.momentum_advection = momentum_advection
-        self.tracer_advection = tracer_advection
+        # the tracer scheme takes a stretched grid's per-point tables; the
+        # momentum scheme keeps the uniform ones, as in the JAX package
+        self.tracer_advection = bind_grid(tracer_advection, grid)
         self.free_surface = free_surface
         self.vertical_coordinate = vertical_coordinate
         self.timestepper = timestepper
@@ -592,18 +604,32 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             for name, loc in self.locations.items()}
         self.eta_bcs = regularize_field_boundary_conditions(
             boundary_conditions.get("eta"), grid, LOC_C)
+        # the immersed boundary conditions, and the scalar diffusivity
+        # their Value and Gradient fluxes use
+        self.immersed = isinstance(grid, ImmersedBoundaryGrid)
+        self.immersed_bcs = {}
+        if self.immersed:
+            for name, loc in self.locations.items():
+                rib = regularize_immersed_bc(self.bcs[name].immersed, loc)
+                if rib is not None:
+                    self.immersed_bcs[name] = rib
+        self._ib_kappa = {
+            name: scalar_diffusivity_of(
+                closure, None if name in ("u", "v", "w") else name)
+            for name in self.immersed_bcs}
 
-        # static column geometry: the z-interior mask and spacing, and the
-        # column depths at u and v faces (the smaller of the two adjacent
-        # columns), computed once: without an immersed boundary they never
-        # change and every column is wet, so the JAX model's dry-column
-        # masks are identities here
+        # static column geometry, computed once: the z-interior mask and
+        # spacing, and the wet column depths at u and v faces (the
+        # shallower of the two adjacent columns; zero where a face is
+        # dry); without an immersed boundary every column is full
         nz = grid.shape[Z]
         k = torch.arange(nz, device=grid.device).reshape(1, 1, -1)
         interior = (k >= grid.H[Z]) & (k < grid.H[Z] + grid.N[Z])
         dzm = torch.where(interior, grid.dz(Center), 0.0)
         shape2d = (grid.shape[X], grid.shape[Y], 1)
-        H = torch.sum(dzm.expand(grid.shape), dim=Z, keepdim=True)
+        wet = interior & ~grid.solid_c if self.immersed else interior
+        H = torch.sum(torch.where(wet, grid.dz(Center), 0.0).expand(
+            grid.shape), dim=Z, keepdim=True)
         self.register_buffer("_z_interior", interior)
         self.register_buffer("_dzm", dzm)
         self.register_buffer("_H_fc", torch.minimum(H, shift(H, -1, X)))
@@ -626,7 +652,8 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         self.register_buffer(
             "_tracer_metrics",
             tracer_metric_profiles(grid)
-            if tracer_fusion_available(grid, tracer_advection) else None)
+            if tracer_fusion_available(grid, self.tracer_advection)
+            else None)
         if device is not None:
             self.to(device)
 
@@ -713,8 +740,15 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
 
     def fill_state_halos(self, state):
         """Fill u, v, the tracers and η in place at the clock time (u and v
-        also with the last Δt, which the radiation condition reads)."""
+        also with the last Δt, which the radiation condition reads); on an
+        immersed grid u, v and the tracers are masked first."""
         g = self.grid
+        if self.immersed:
+            state = _replace(
+                state, u=mask_immersed_field(g, state.u, LOC_U),
+                v=mask_immersed_field(g, state.v, LOC_V),
+                tracers={n: mask_immersed_field(g, c, LOC_C)
+                         for n, c in state.tracers.items()})
         t, dtl = state.clock.time, state.clock.last_dt
         fill_halo_regions(state.u, g, self.bcs["u"], LOC_U, t, dt=dtl)
         fill_halo_regions(state.v, g, self.bcs["v"], LOC_V, t, dt=dtl)
@@ -733,6 +767,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         # w at face k (the bottom face of cell k) = −Σ over cells k' < k
         w = -shift(csum, -1, Z)
         w[..., 0] = 0.0
+        w = mask_immersed_field(g, w, LOC_W)
         fill_halo_regions(w, g, self.bcs["w"], LOC_W, state.clock.time)
         return _replace(state, w=w)
 
@@ -799,8 +834,22 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 include_implicit=False)
             Gu, Gv = Gu + du, Gv + dv
         time, fields = state.clock.time, state.fields()
-        return (apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields),
-                apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields))
+        Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields)
+        Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields)
+        if not self.immersed:
+            return Gu, Gv
+        for name, vel, loc in (("u", u, LOC_U), ("v", v, LOC_V)):
+            ib = self.immersed_bcs.get(name)
+            if ib is None:
+                continue
+            term = immersed_flux_divergence(g, ib, loc, vel,
+                                            self._ib_kappa[name], time)
+            if name == "u":
+                Gu = Gu + term
+            else:
+                Gv = Gv + term
+        return (mask_immersed_field(g, Gu, LOC_U),
+                mask_immersed_field(g, Gv, LOC_V))
 
     def tracer_tendencies(self, state, diffusivities=None):
         """``{name: Gc}``: each tracer's advection, the closure's explicit
@@ -828,8 +877,12 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 Gc = Gc + closures_mod.tracer_flux_divergence(
                     self.closure, g, name, tracers[name], tracers,
                     diffusivities, include_implicit=False)
-            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C,
-                                            time, fields)
+            Gc = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C, time, fields)
+            ib = self.immersed_bcs.get(name)
+            if ib is not None:
+                Gc = Gc + immersed_flux_divergence(
+                    g, ib, LOC_C, tracers[name], self._ib_kappa[name], time)
+            Gtracers[name] = mask_immersed_field(g, Gc, LOC_C)
         return Gtracers
 
     def compute_tendencies(self, state, diffusivities=None):
@@ -879,6 +932,10 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         H_fc, H_cf = self._H_fc, self._H_cf
         U = U + dtau * (-fs.g * H_fc * dx_f(eta) / g.dx(Face, Center) + GU)
         V = V + dtau * (-fs.g * H_cf * dy_f(eta) / g.dy(Face, Center) + GV)
+        if self.immersed:
+            # no transport through a dry face
+            U = torch.where(H_fc > 0, U, 0.0)
+            V = torch.where(H_cf > 0, V, 0.0)
         U, V = self._zero_wall_transports(U, V)
         return eta, U, V
 
@@ -906,10 +963,22 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
 
     def _barotropic_correct(self, state, U_target, V_target):
         """u ← u + (Ū − ∫u dz)/H: the baroclinic velocities take the
-        averaged barotropic transports."""
+        averaged barotropic transports. On an immersed grid H is the wet
+        depth, dry columns are left as they are and solid faces stay
+        zero."""
         U, V = self._barotropic_mode(state.u, state.v)
-        return _replace(state, u=state.u + (U_target - U) / self._H_fc,
-                        v=state.v + (V_target - V) / self._H_cf)
+        H_fc, H_cf = self._H_fc, self._H_cf
+        if not self.immersed:
+            return _replace(state, u=state.u + (U_target - U) / H_fc,
+                            v=state.v + (V_target - V) / H_cf)
+        du = torch.where(H_fc > 0, (U_target - U)
+                         / torch.where(H_fc > 0, H_fc, 1.0), 0.0)
+        dv = torch.where(H_cf > 0, (V_target - V)
+                         / torch.where(H_cf > 0, H_cf, 1.0), 0.0)
+        g = self.grid
+        return _replace(state,
+                        u=mask_immersed_field(g, state.u + du, LOC_U),
+                        v=mask_immersed_field(g, state.v + dv, LOC_V))
 
     # ------------------------------------------------------------------
     # Time stepping

@@ -1,14 +1,21 @@
 """NonhydrostaticModel: incompressible Boussinesq dynamics with a pressure
 projection.
 
-Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
-``RectilinearGrid``: Centered, UpwindBiased, WENO or FluxFormAdvection
-advection of momentum and tracers, Coriolis, buoyancy, the closures of
-``closures.py`` (their explicit flux divergences added to the tendencies,
-their vertically implicit part solved after the update), valued and open
-boundary conditions, quasi-AB2 or RK3 time stepping. The model is an
-``nn.Module`` whose grid and pressure solver are submodules, so
-``model.to(device)`` moves every constant they hold.
+Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a
+``RectilinearGrid``, regular or stretched, or an ``ImmersedBoundaryGrid``
+over one: Centered, UpwindBiased, WENO or FluxFormAdvection advection of
+momentum and tracers (bound to a stretched grid's coefficient tables),
+Coriolis, buoyancy, the closures of ``closures.py`` (their explicit flux
+divergences added to the tendencies, their vertically implicit part solved
+after the update), valued and open boundary conditions, immersed boundary
+conditions, quasi-AB2 or RK3 time stepping. The pressure solver is the FFT
+solver on a regular grid, the Fourier-tridiagonal solver on a stretched z
+and preconditioned CG on an immersed grid (``solvers/pressure_solver.py``).
+On an immersed grid the velocities are masked before every halo fill, the
+projection's gradient is zeroed on solid faces, and no kernel runs (their
+gates take no immersed grid). The model is an ``nn.Module`` whose grid and
+pressure solver are submodules, so ``model.to(device)`` moves every
+constant they hold.
 
 The state is a dataclass of tensors, with the tracers and their previous
 tendencies in dicts keyed by name in the model's tracer order. ``step``
@@ -33,8 +40,8 @@ import torch
 
 from oceananigans_torch import closures as closures_mod
 from oceananigans_torch.advection import (
-    SCHEMES, WENO, Centered, cell_advection_timescale, div_Uc, div_vu,
-    div_vv, div_vw, required_halo,
+    SCHEMES, WENO, Centered, bind_grid, cell_advection_timescale, div_Uc,
+    div_vu, div_vv, div_vw, required_halo,
 )
 from oceananigans_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, has_valued_flux,
@@ -47,8 +54,12 @@ from oceananigans_torch.coriolis import FORMULATIONS, FPlane
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
-from oceananigans_torch.grids.base import AbstractGrid, Center, Periodic
+from oceananigans_torch.grids.base import Center, Periodic
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
+from oceananigans_torch.immersed import (
+    ImmersedBoundaryGrid, immersed_flux_divergence, mask_immersed_field,
+    regularize_immersed_bc, scalar_diffusivity_of,
+)
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, centered2_ab2_update, centered2_momentum_tendency,
     centered2_science_ab2_update, fused_available, pressure_correction,
@@ -129,15 +140,13 @@ class NonhydrostaticModel(torch.nn.Module):
                 raise NotImplementedError(
                     f"NonhydrostaticModel({name}=...) is not ported yet; "
                     f"ROADMAP Queue 1 {_LATER[name]} brings it")
-        if isinstance(grid, AbstractGrid) and not isinstance(
-                grid, RectilinearGrid):
+        base = (grid.underlying_grid
+                if isinstance(grid, ImmersedBoundaryGrid) else grid)
+        if not isinstance(base, RectilinearGrid):
             # the JAX model's pressure solvers take no spherical grid
-            raise ValueError(f"NonhydrostaticModel needs a RectilinearGrid, "
-                             f"not a {type(grid).__name__}")
-        if not isinstance(grid, RectilinearGrid):
-            raise NotImplementedError(
-                f"{type(grid).__name__} is not ported yet; immersed grids "
-                "come with ROADMAP Queue 1 item 13")
+            raise ValueError(f"NonhydrostaticModel needs a RectilinearGrid "
+                             f"(or an ImmersedBoundaryGrid over one), not a "
+                             f"{type(base).__name__}")
         if advection is None:
             advection = Centered(2)
         if not isinstance(advection, SCHEMES):
@@ -174,7 +183,9 @@ class NonhydrostaticModel(torch.nn.Module):
                     "(or halo=0 on periodic axes)")
 
         self.grid = grid
-        self.advection = advection
+        # the per-point tables of a stretched grid (the scheme itself on a
+        # regular one)
+        self.advection = bind_grid(advection, grid)
         self.tracer_names = tracers
         self.buoyancy = buoyancy
         self.coriolis = coriolis
@@ -188,6 +199,18 @@ class NonhydrostaticModel(torch.nn.Module):
             for name, loc in self.locations.items()}
         self.pressure_bcs = regularize_field_boundary_conditions(
             None, grid, LOC_C)
+        # the immersed boundary conditions, and the scalar diffusivity
+        # their Value and Gradient fluxes use
+        self.immersed_bcs = {}
+        if isinstance(grid, ImmersedBoundaryGrid):
+            for name, loc in self.locations.items():
+                rib = regularize_immersed_bc(self.bcs[name].immersed, loc)
+                if rib is not None:
+                    self.immersed_bcs[name] = rib
+        self._ib_kappa = {
+            name: scalar_diffusivity_of(
+                closure, None if name in ("u", "v", "w") else name)
+            for name in self.immersed_bcs}
         self.pressure_solver = make_pressure_solver(grid)
         self._fused_kernels = fused_kernels
         #: fused pressure-correction kernel; opt-in, as in the JAX package
@@ -203,7 +226,7 @@ class NonhydrostaticModel(torch.nn.Module):
             "_tracer_metrics",
             tracer_metric_profiles(grid)
             if type(advection) is WENO and advection.order != 5
-            and tracer_fusion_available(grid, advection) else None,
+            and tracer_fusion_available(grid, self.advection) else None,
             persistent=False)
         if device is not None:
             self.to(device)
@@ -247,11 +270,12 @@ class NonhydrostaticModel(torch.nn.Module):
     @property
     def _fused_common(self) -> bool:
         """What every fused AB2 kernel needs: AB2 stepping, no closure, no
-        flux condition with a value on u, v, w or a tracer, and no
-        tendency callback."""
+        flux condition with a value on u, v, w or a tracer, no immersed
+        boundary condition and no tendency callback."""
         return (self.timestepper == "QuasiAdamsBashforth2"
                 and self.closure is None
                 and not any(has_valued_flux(b) for b in self.bcs.values())
+                and not self.immersed_bcs
                 and not self.tendency_callbacks)
 
     @property
@@ -334,7 +358,12 @@ class NonhydrostaticModel(torch.nn.Module):
     def fill_state_halos(self, state):
         """Fill every field's halos in place at the clock time (the
         velocities also with the last Δt, which the radiation condition
-        reads)."""
+        reads); on an immersed grid the velocities are masked first."""
+        if isinstance(self.grid, ImmersedBoundaryGrid):
+            g = self.grid
+            state = _replace(state, u=mask_immersed_field(g, state.u, LOC_U),
+                             v=mask_immersed_field(g, state.v, LOC_V),
+                             w=mask_immersed_field(g, state.w, LOC_W))
         t, dtl = state.clock.time, state.clock.last_dt
         for name, field in state.fields().items():
             fill_halo_regions(field, self.grid, self.bcs[name],
@@ -345,7 +374,10 @@ class NonhydrostaticModel(torch.nn.Module):
     def _fill_before_projection(self, state):
         """Fill only the halos the projection reads: the divergence shifts
         each velocity component along its own axis only, so u in x, v in y
-        and w in z (halo-free periodic axes wrap exactly)."""
+        and w in z (halo-free periodic axes wrap exactly). An immersed grid
+        takes the full fill, with its masking."""
+        if isinstance(self.grid, ImmersedBoundaryGrid):
+            return self.fill_state_halos(state)
         t, dtl = state.clock.time, state.clock.last_dt
         for axis, name in enumerate(("u", "v", "w")):
             if self.grid.H[axis] == 0:
@@ -407,6 +439,19 @@ class NonhydrostaticModel(torch.nn.Module):
         Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields)
         Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields)
         Gw = apply_flux_bcs(Gw, g, self.bcs["w"], LOC_W, time, fields)
+        for name, vel, loc in (("u", u, LOC_U), ("v", v, LOC_V),
+                               ("w", w, LOC_W)):
+            ib = self.immersed_bcs.get(name)
+            if ib is None:
+                continue
+            term = immersed_flux_divergence(g, ib, loc, vel,
+                                            self._ib_kappa[name], time)
+            if name == "u":
+                Gu = Gu + term
+            elif name == "v":
+                Gv = Gv + term
+            else:
+                Gw = Gw + term
 
         fused = {}
         if kernels == "weno5":
@@ -426,8 +471,12 @@ class NonhydrostaticModel(torch.nn.Module):
                 Gc = Gc + closures_mod.tracer_flux_divergence(
                     self.closure, g, name, tracers[name], tracers,
                     diffusivities, include_implicit=False)
-            Gtracers[name] = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C,
-                                            time, fields)
+            Gc = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C, time, fields)
+            ib = self.immersed_bcs.get(name)
+            if ib is not None:
+                Gc = Gc + immersed_flux_divergence(
+                    g, ib, LOC_C, tracers[name], self._ib_kappa[name], time)
+            Gtracers[name] = Gc
         for hook in self.tendency_callbacks:
             G = hook(g, state, {"u": Gu, "v": Gv, "w": Gw, **Gtracers})
             Gu, Gv, Gw = G["u"], G["v"], G["w"]
@@ -447,9 +496,16 @@ class NonhydrostaticModel(torch.nn.Module):
             u, v, w = pressure_correction(g, p, state.u, state.v, state.w,
                                           dt)
         else:
-            u = state.u - dt * ddx_f(g, p, Center)
-            v = state.v - dt * ddy_f(g, p, Center)
-            w = state.w - dt * ddz_f(g, p)
+            gx, gy, gz = ddx_f(g, p, Center), ddy_f(g, p, Center), ddz_f(g, p)
+            if isinstance(g, ImmersedBoundaryGrid):
+                # the masked operator has no flux through solid faces; the
+                # correction leaves them too, or div(u − Δt∇p) = 0 breaks
+                gx = torch.where(g.solid_u, 0.0, gx)
+                gy = torch.where(g.solid_v, 0.0, gy)
+                gz = torch.where(g.solid_w, 0.0, gz)
+            u = state.u - dt * gx
+            v = state.v - dt * gy
+            w = state.w - dt * gz
         return _replace(state, u=u, v=v, w=w, pressure=p)
 
     # ------------------------------------------------------------------

@@ -82,7 +82,9 @@ def axes_reachable(grid, reach) -> bool:
 def grid_ok(grid) -> bool:
     """The grids of the JAX gates of kernels 11-13: a regular rectilinear
     grid, or a lat-lon grid regular in x and z, whose metrics vary along y
-    only (the kernels read them as y-profiles). No orthogonal grid."""
+    only (the kernels read them as y-profiles). No orthogonal grid, and no
+    immersed grid (an ``ImmersedBoundaryGrid`` is no instance of the grid
+    it wraps), whose fields the kernels would read unmasked."""
     from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
     from oceananigans_torch.grids.rectilinear import RectilinearGrid
     return ((isinstance(grid, RectilinearGrid) and grid.regular)
@@ -92,12 +94,14 @@ def grid_ok(grid) -> bool:
 
 def tracer_fusion_available(grid, scheme) -> bool:
     """True when the kernel applies: a grid of :func:`grid_ok`, plain WENO
-    (no bounds) of an order in :data:`ORDERS`, and the reach of
-    :func:`axes_reachable` on every axis. Unlike the JAX gate, a
-    halo-free periodic axis needs no (8, 128) alignment and may be x."""
+    (no bounds, no stretched-axis tables) of an order in :data:`ORDERS`,
+    and the reach of :func:`axes_reachable` on every axis. Unlike the JAX
+    gate, a halo-free periodic axis needs no (8, 128) alignment and may be
+    x."""
     if not grid_ok(grid):
         return False
     if not (type(scheme) is WENO and scheme.bounds is None
+            and getattr(scheme, "_tables", None) is None
             and scheme.order in ORDERS):
         return False
     return axes_reachable(grid, (tracer_reach(scheme),) * 3)

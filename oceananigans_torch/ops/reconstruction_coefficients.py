@@ -15,8 +15,10 @@ Index convention as in ``ops/operators.py``: face ``i`` sits between cells
 ``i-1-r .. i-1-r+k-1``; the smoothness integral runs over the upwind cell
 ``i-1`` (x in [-1, 0] with the face at 0, Δ = 1). The centered and
 upwind-biased face stencils (:func:`face_reconstruction_coefficients`) are
-generated the same way. The JAX module's stretched-grid tables are not
-copied: stretched grids are not ported.
+generated the same way. The stretched-grid tables
+(:func:`stretched_reconstruction_tables`, :func:`weno_stretched_tables`)
+solve the same exactness conditions per face on a nonuniform axis, in
+float64 numpy on the host.
 """
 
 from __future__ import annotations
@@ -138,5 +140,93 @@ def weno_beta_forms(order: int):
     return tuple(forms)
 
 
-__all__ = ["face_reconstruction_coefficients", "weno_beta_forms",
-           "weno_ideal_weights", "weno_substencils"]
+# ---------------------------------------------------------------------------
+# Stretched-grid (nonuniform) reconstruction tables
+# ---------------------------------------------------------------------------
+
+def stretched_reconstruction_tables(edges, offsets):
+    """Per-face reconstruction coefficients on a nonuniform axis.
+
+    ``edges``: (n+1,) source-cell edge coordinates (cell ``i`` spans
+    ``[edges[i], edges[i+1]]``). ``offsets``: the cell offsets of the
+    stencil relative to the target face (cell i-1 is offset -1, as in
+    :func:`face_reconstruction_coefficients`).
+
+    Returns ``{offset: (n,) float array}`` such that the face value
+    ``Σ_k c_k[i] a[i+k]`` is exact for every polynomial of degree
+    < len(offsets) in the finite-volume (cell-average) sense. Faces whose
+    stencil leaves the array take the nearest valid row (they lie in halo
+    slots that no stencil reads when the halos are wide enough)."""
+    edges = np.asarray(edges, float).reshape(-1)
+    n = len(edges) - 1
+    offs = sorted(offsets)
+    p = len(offs)
+    idx = np.arange(n)
+
+    def edge_at(k):
+        return edges[np.clip(idx + k, 0, n)]
+
+    xf = edges[:n]
+    # the local spacing scales the moments, for conditioning
+    h = np.maximum(edge_at(1) - edge_at(0), 1e-300)
+    A = np.zeros((n, p, p))
+    for col, off in enumerate(offs):
+        eL = (edge_at(off) - xf) / h
+        eR = (edge_at(off + 1) - xf) / h
+        width = np.where(np.abs(eR - eL) > 1e-300, eR - eL, 1.0)
+        for l in range(p):
+            A[:, l, col] = (eR ** (l + 1) - eL ** (l + 1)) \
+                / ((l + 1) * width)
+    valid = (idx + offs[0] >= 0) & (idx + offs[-1] + 1 <= n)
+    if not valid.any():
+        raise ValueError("grid too small for the stencil")
+    rhs = np.zeros((p, 1))
+    rhs[0, 0] = 1.0
+    w = np.zeros((n, p))
+    w[valid] = np.linalg.solve(A[valid], rhs[None, :, :])[:, :, 0]
+    vi = np.where(valid)[0]
+    nearest = vi[np.clip(np.searchsorted(vi, idx), 0, len(vi) - 1)]
+    w[~valid] = w[nearest[~valid]]
+    return {off: w[:, k].copy() for k, off in enumerate(offs)}
+
+
+def weno_stretched_tables(edges, order, side="left"):
+    """Nonuniform WENO tables: per-face sub-stencil coefficients and
+    per-face ideal weights γ_r (the combination of the sub-stencils that
+    reproduces the full-order reconstruction, solved face by face). The
+    smoothness indicators keep the uniform forms.
+
+    Returns ``(sub_tables, gamma)``: ``sub_tables[r]`` is an ``{offset:
+    (n,) array}`` dict for sub-stencil r (left-biased at face i, cells
+    i-1-r .. i-1-r+k-1; mirrored for ``side="right"``) and ``gamma`` a
+    (k, n) array."""
+    k = (order + 1) // 2
+    full_offs = sorted(face_reconstruction_coefficients(order, "left"))
+    if side == "right":
+        full_offs = sorted(-1 - o for o in full_offs)
+    full = stretched_reconstruction_tables(edges, full_offs)
+    sub_tables = []
+    for r in range(k):
+        offs_r = [(-1 - r) + j for j in range(k)]
+        if side == "right":
+            offs_r = sorted(-1 - o for o in offs_r)
+        sub_tables.append(stretched_reconstruction_tables(edges, offs_r))
+    n = len(np.asarray(edges).reshape(-1)) - 1
+    gamma = np.zeros((k, n))
+    # per face: Σ_r γ_r C_r = C_full (k unknowns, 2k − 1 consistent
+    # equations)
+    for i in range(n):
+        M = np.zeros((len(full_offs), k))
+        b = np.array([full[o][i] for o in full_offs])
+        for r in range(k):
+            for row, o in enumerate(full_offs):
+                M[row, r] = sub_tables[r][o][i] if o in sub_tables[r] \
+                    else 0.0
+        g, *_ = np.linalg.lstsq(M, b, rcond=None)
+        gamma[:, i] = g
+    return sub_tables, gamma
+
+
+__all__ = ["face_reconstruction_coefficients",
+           "stretched_reconstruction_tables", "weno_beta_forms",
+           "weno_ideal_weights", "weno_stretched_tables", "weno_substencils"]

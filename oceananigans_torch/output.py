@@ -253,7 +253,8 @@ class NetCDFWriter(_Writer):
           ``j``/``j_f`` and 2-D geographic auxiliary coordinates at (c, c),
           (f, c) and (c, f);
         - ``ConformalCubedSphereGrid``: a leading ``panel`` dim and the
-          same per panel.
+          same per panel;
+        - ``ImmersedBoundaryGrid``: its underlying grid's.
 
         Returns ``(panel, axes, aux, coords)``: the panel dim or None; per
         spatial axis ``{"c": (name, values, attrs), "f": (...)}`` (faces
@@ -268,6 +269,9 @@ class NetCDFWriter(_Writer):
         from oceananigans_torch.grids.orthogonal import (
             OrthogonalSphericalShellGrid,
         )
+        from oceananigans_torch.immersed import ImmersedBoundaryGrid
+        if isinstance(g, ImmersedBoundaryGrid):
+            g = g.underlying_grid
         deg_e = {"units": "degrees_east", "standard_name": "longitude"}
         deg_n = {"units": "degrees_north", "standard_name": "latitude"}
         zattrs = {"units": "m", "positive": "up", "standard_name": "depth"}

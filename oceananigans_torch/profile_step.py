@@ -204,14 +204,17 @@ HYDRO_CONFIG, HYDRO_DT, HYDRO_STEPS = "hydro_vi", 60.0, 20
 
 
 def hydro_model(fused="auto", dtype=torch.float32, device="cuda",
-                size=(360, 160, 60), momentum_advection=None):
+                size=(360, 160, 60), momentum_advection=None, bottom=None):
     """``bench.py``'s ``hydro_vi`` model (at ``size``; with
     ``momentum_advection`` in place of its ``WENOVectorInvariant()`` when
-    given)."""
+    given; on an ``ImmersedBoundaryGrid`` over ``bottom``, such as
+    :func:`ridge_bottom`, when given)."""
     import oceananigans_torch as ot
     grid = ot.RectilinearGrid(size=size, extent=(4e7, 2e7, 4e3),
                               topology=(ot.Periodic, ot.Bounded, ot.Bounded),
                               halo=(6, 6, 4), dtype=dtype, device=device)
+    if bottom is not None:
+        grid = ot.ImmersedBoundaryGrid(grid, bottom)
     if momentum_advection is None:
         momentum_advection = ot.WENOVectorInvariant()
     return ot.HydrostaticFreeSurfaceModel(
@@ -247,19 +250,34 @@ def hydro_generic_state(model):
         S=lambda x, y, z: 35.0 + 1e-8 * y)
 
 
+def latlon_continents(lam, phi):
+    """``bench.py``'s continents(λ, φ) (degrees; λ wrapped to [-180,
+    180)): land at +50 m, ocean 4 km deep."""
+    lam = (lam + 180.0) % 360.0 - 180.0
+    land = (torch.abs(lam + 60.0) < 25.0) & (phi > -55.0) & (phi < 70.0)
+    land = land | ((torch.abs(lam - 45.0) < 50.0) & (phi > 0.0)
+                   & (phi < 70.0))
+    land = land | (torch.abs(phi) > 78.0)
+    return torch.where(land, 50.0, -4000.0)
+
+
 def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
                        size=(360, 160, 60), momentum_advection=None,
                        longitude=(0.0, 360.0), latitude=(-80.0, 80.0),
-                       halo=(6, 6, 4)):
+                       halo=(6, 6, 4), bathymetry=None):
     """``hydro_vi`` on the sphere: a 1° near-global ocean on a
     ``LatitudeLongitudeGrid`` (at ``size``; 4 km deep), spherical Coriolis,
     linear seawater buoyancy, ``WENOVectorInvariant()`` (or
     ``momentum_advection``), WENO(7) T and S, the split-explicit free
-    surface with 30 substeps."""
+    surface with 30 substeps; on an ``ImmersedBoundaryGrid`` with a
+    ``GridFittedBottom(bathymetry)`` where ``bathymetry`` (a callable of
+    (λ, φ), such as :func:`latlon_continents`) is given."""
     import oceananigans_torch as ot
     grid = ot.LatitudeLongitudeGrid(
         size=size, longitude=longitude, latitude=latitude,
         z=(-4000.0, 0.0), halo=halo, dtype=dtype, device=device)
+    if bathymetry is not None:
+        grid = ot.ImmersedBoundaryGrid(grid, ot.GridFittedBottom(bathymetry))
     if momentum_advection is None:
         momentum_advection = ot.WENOVectorInvariant()
     return ot.HydrostaticFreeSurfaceModel(
@@ -289,6 +307,43 @@ def hydro_latlon_initial_state(model, generic=False):
     return model.initial_state(
         T=lambda lam, phi, z: 20.0 + 8e-4 * z - 0.05 * torch.abs(phi),
         S=lambda lam, phi, z: 35.0 + 1e-3 * phi, **uv)
+
+
+def ridge_bottom():
+    """A Gaussian ridge in partial cells under ``hydro_vi``: a
+    ``PartialCellBottom`` rising from 4 km to 1 km at mid-basin (x = 2e7
+    m, e-folding width 2e6 m)."""
+    import oceananigans_torch as ot
+    return ot.PartialCellBottom(lambda x, y: -4000.0 + 3000.0 * torch.exp(
+        -((x - 2e7) / 2e6) ** 2) + 0.0 * y)
+
+
+#: phase 18's seamount: ``examples/flow_over_seamount.py`` in 3-D, Δt
+SEAMOUNT_DT = 0.02
+
+
+def seamount_model(size=(256, 256, 128), dtype=torch.float32,
+                   device="cuda", advection=None):
+    """``examples/flow_over_seamount.py`` in 3-D at ``size``: a
+    ``NonhydrostaticModel`` on an ``ImmersedBoundaryGrid`` over a (20, 20,
+    2) box, (Periodic, Periodic, Bounded), halo 3, with the bottom
+    -2 + exp(-(x² + y²)/2); WENO(5) (or ``advection``), ``BuoyancyTracer``,
+    quasi-AB2."""
+    import oceananigans_torch as ot
+    grid = ot.RectilinearGrid(
+        size=size, x=(-10.0, 10.0), y=(-10.0, 10.0), z=(-2.0, 0.0),
+        topology=(ot.Periodic, ot.Periodic, ot.Bounded), halo=(3, 3, 3),
+        dtype=dtype, device=device)
+    grid = ot.ImmersedBoundaryGrid(grid, ot.GridFittedBottom(
+        lambda x, y: -2.0 + torch.exp(-(x ** 2 + y ** 2) / 2.0)))
+    return ot.NonhydrostaticModel(
+        grid=grid, advection=advection or ot.WENO(5), tracers=("b",),
+        buoyancy=ot.BuoyancyTracer(), timestepper="QuasiAdamsBashforth2")
+
+
+def seamount_initial_state(model):
+    """u = 0.1 and b = z (N² = 1), projected."""
+    return model.initial_state(u=0.1, b=lambda x, y, z: z + 0.0 * x)
 
 
 def volume_drift(model, eta0, eta):

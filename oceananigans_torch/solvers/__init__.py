@@ -1,7 +1,14 @@
-"""Poisson solvers for the pressure projection."""
+"""Poisson solvers for the pressure projection, the batched tridiagonal
+solve and preconditioned conjugate gradient."""
 
+from oceananigans_torch.solvers.conjugate_gradient import conjugate_gradient
 from oceananigans_torch.solvers.fft_poisson import FFTPoissonSolver
+from oceananigans_torch.solvers.fourier_tridiagonal import (
+    FourierTridiagonalPoissonSolver,
+)
 from oceananigans_torch.solvers.matmul_poisson import MatmulPoissonSolver
 from oceananigans_torch.solvers.pressure_solver import make_pressure_solver
 
-__all__ = ["FFTPoissonSolver", "MatmulPoissonSolver", "make_pressure_solver"]
+__all__ = ["FFTPoissonSolver", "FourierTridiagonalPoissonSolver",
+           "MatmulPoissonSolver", "conjugate_gradient",
+           "make_pressure_solver"]

@@ -6,10 +6,10 @@ their dimensionality deduced and grid-aware axis labels). A field is an
 array on a grid, so the helpers take ``(grid, field)``: a tensor is copied
 to the host first. They deduce the varying dimensions, take the coordinates
 of the field's staggered location and label the axes per grid family
-(metres on a rectilinear grid, degrees on a lat-lon one). matplotlib is
-imported where a plot is drawn, so the package imports without it. The
-masking of immersed cells comes with the immersed boundaries (ROADMAP
-Queue 1 item 13).
+(metres on a rectilinear grid, degrees on a lat-lon one, also under an
+``ImmersedBoundaryGrid``, whose solid cells are NaN so they render blank).
+matplotlib is imported where a plot is drawn, so the package imports
+without it.
 
     from oceananigans_torch.utils.plotting import fieldplot, heatmap
 
@@ -33,16 +33,29 @@ def _host(a):
     return np.asarray(a)
 
 
+def _underlying(grid):
+    from oceananigans_torch.immersed import ImmersedBoundaryGrid
+    return grid.underlying_grid if isinstance(grid, ImmersedBoundaryGrid) \
+        else grid
+
+
 def _axis_labels(grid):
     from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
-    if isinstance(grid, LatitudeLongitudeGrid):
+    if isinstance(_underlying(grid), LatitudeLongitudeGrid):
         return ("Longitude (deg)", "Latitude (deg)", "z (m)")
     return ("x (m)", "y (m)", "z (m)")
 
 
 def _interior(grid, a):
-    """Interior values as a float64 host array."""
-    return np.array(grid.interior(_host(a)), dtype=float)
+    """Interior values as a float64 host array, with an immersed grid's
+    solid cells as NaN."""
+    from oceananigans_torch.immersed import ImmersedBoundaryGrid
+    vals = np.array(grid.interior(_host(a)), dtype=float)
+    if isinstance(grid, ImmersedBoundaryGrid):
+        solid = np.broadcast_to(_host(grid.interior(grid.solid_c)),
+                                vals.shape)
+        vals = np.where(solid, np.nan, vals)
+    return vals
 
 
 def deduce_dimensionality(grid, a):
@@ -56,7 +69,7 @@ def deduce_dimensionality(grid, a):
 
 
 def _coords(grid, axis, loc):
-    return _host(grid.nodes_1d(axis, loc[axis]))
+    return _host(_underlying(grid).nodes_1d(axis, loc[axis]))
 
 
 def lineplot(grid, a, loc=LOC_C, ax=None, **kwargs):

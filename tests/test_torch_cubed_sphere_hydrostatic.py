@@ -344,10 +344,30 @@ def test_simulation_matches_jax(runs):
                                   "PartialCellBottom",
                                   "cubed_sphere_partition"])
 def test_not_ported_raises_with_its_item(what):
+    """What is not ported raises, naming its ROADMAP item; the
+    bathymetry objects ``GridFittedBottom``, ``GridFittedBoundary`` and
+    ``PartialCellBottom``, once refused, build the masks of the bottom they
+    describe."""
     _, tg = grids()
+    if what in ("GridFittedBottom", "GridFittedBoundary",
+                "PartialCellBottom"):
+        arg = ((lambda lam, phi, z: z < two_continents(lam, phi))
+               if what == "GridFittedBoundary" else two_continents)
+        m = ot.CubedSphereHydrostaticModel(tg, bathymetry=getattr(ot, what)(
+            arg))
+        bare = ot.CubedSphereHydrostaticModel(tg, bathymetry=two_continents)
+        g = tg.panel_grid
+        kz = slice(g.H[2], g.H[2] + g.N[2])
+        if what != "PartialCellBottom":
+            np.testing.assert_array_equal(m._wet_c[..., kz],
+                                          bare._wet_c[..., kz])
+        else:
+            # partial cells keep every cell with 0.2 of it above the bottom
+            assert (m._wet_c >= bare._wet_c).all()
+            assert 0.2 <= m._frac_c.min() < 1.0
+        return
     item = {"ImplicitFreeSurface": "item 15", "ZStar": "item 15",
-            "CATKE": "item 15", "cubed_sphere_partition": "item 18"}.get(
-                what, "item 13")
+            "CATKE": "item 15", "cubed_sphere_partition": "item 18"}[what]
     with pytest.raises(NotImplementedError, match=item):
         if what == "ImplicitFreeSurface":
             ot.CubedSphereHydrostaticModel(
@@ -363,5 +383,5 @@ def test_not_ported_raises_with_its_item(what):
             ot.CubedSphereHydrostaticModel(
                 tg, bathymetry=getattr(ot, what)(two_continents))
     # a bathymetry object that is neither callable nor an array
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="bathymetry"):
         ot.CubedSphereHydrostaticModel(tg, bathymetry=object())

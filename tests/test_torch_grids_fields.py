@@ -69,9 +69,15 @@ def test_flat_axis_and_unported_grids():
                             topology=(ot.Bounded, ot.Flat, ot.Bounded),
                             halo=1, dtype=F64)
     assert tg.shape == jg.shape and tg.H == jg.H
-    with pytest.raises(NotImplementedError):
-        ot.RectilinearGrid(size=(4, 4, 4), x=np.linspace(0, 1, 5) ** 2,
-                           y=(0.0, 1.0), z=(0.0, 1.0), dtype=F64)
+    # a stretched x (once refused) builds as the JAX grid does
+    kw = dict(size=(4, 4, 4), x=np.linspace(0, 1, 5) ** 2, y=(0.0, 1.0),
+              z=(0.0, 1.0))
+    ts = ot.RectilinearGrid(dtype=F64, **kw)
+    js = oj.RectilinearGrid(dtype="float64", **kw)
+    assert (ts.x_regular, ts.regular) == (js.x_regular, js.regular) == (
+        False, False)
+    np.testing.assert_array_equal(ts.xF.numpy(), np.asarray(js.xF))
+    np.testing.assert_array_equal(ts.xF_d.numpy(), np.asarray(js.dxF_))
 
 
 @pytest.mark.parametrize("loc", sorted(LOCS))

@@ -150,7 +150,8 @@ def test_queries_match_jax(name):
 
 def test_rectilinear_queries_and_flags_match_jax():
     """The shared base gives the rectilinear grid the same queries and
-    flags; a stretched axis still names ROADMAP Queue 1 item 13."""
+    flags; a lat-lon grid with a stretched longitude has the JAX grid's
+    flags and coordinates."""
     kw = dict(size=(6, 5, 4), extent=(1.0, 2.0, 0.5), halo=2)
     jg = oj.RectilinearGrid(dtype="float64", **kw)
     tg = ot.RectilinearGrid(dtype=F64, **kw)
@@ -161,10 +162,14 @@ def test_rectilinear_queries_and_flags_match_jax():
     for a, b in zip(ot.nodes(tg, (F, C, F)), jgrids.nodes(jg, (F, C, F))):
         assert_close(a, b)
     assert_close(ot.xspacings(tg, F, C), jgrids.xspacings(jg, F, C))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ot.LatitudeLongitudeGrid(size=(4, 4, 4),
-                                 longitude=np.linspace(0.0, 40.0, 5),
-                                 latitude=(0.0, 10.0), z=(-1.0, 0.0))
+    kw = dict(size=(4, 4, 4), longitude=np.linspace(0.0, 40.0, 5) ** 1.1,
+              latitude=(0.0, 10.0), z=(-1.0, 0.0))
+    ts = ot.LatitudeLongitudeGrid(dtype=F64, **kw)
+    js = oj.LatitudeLongitudeGrid(dtype="float64", **kw)
+    assert (ts.x_regular, ts.y_regular, ts.z_regular) == (
+        js.x_regular, js.y_regular, js.z_regular) == (False, True, True)
+    for name in ("lamF", "lamC", "dxlamC", "dxlamF"):
+        assert_close(getattr(ts, name), getattr(js, name))
 
 
 def test_topology_default_and_flat_z():

@@ -450,9 +450,8 @@ def mixed_vi(pkg, hyd, orders, eps_roles=(), stencil="velocity"):
 
 def latlon_grids(size=(16, 12, 8), halo=7, x_regular=True, z_regular=True,
                  latitude=(-70.0, 70.0)):
-    """Both packages' lat-lon grids. The JAX grid takes stretched x or z
-    faces where a flag is False; the port, whose stretched axes wait for
-    ROADMAP Queue 1 item 13, takes the regular axis and the JAX flag."""
+    """Both packages' lat-lon grids, with stretched x or z faces where a
+    flag is False."""
     lon = (0.0, 360.0)
     z = (-500.0, 0.0)
     jlon = lon if x_regular else tuple(
@@ -464,11 +463,12 @@ def latlon_grids(size=(16, 12, 8), halo=7, x_regular=True, z_regular=True,
         latitude=latitude, z=np.asarray(jz) if not z_regular else jz,
         halo=halo, dtype="float64",
         topology=(oj.Periodic, oj.Bounded, oj.Bounded))
-    tg = ot.LatitudeLongitudeGrid(size=size, longitude=lon,
-                                  latitude=latitude, z=z, halo=halo,
-                                  dtype=F64)
-    assert (jg.x_regular, jg.z_regular) == (x_regular, z_regular)
-    tg.x_regular, tg.z_regular = x_regular, z_regular
+    tg = ot.LatitudeLongitudeGrid(
+        size=size, longitude=np.asarray(jlon) if not x_regular else jlon,
+        latitude=latitude, z=np.asarray(jz) if not z_regular else jz,
+        halo=halo, dtype=F64)
+    assert (jg.x_regular, jg.z_regular) == (tg.x_regular, tg.z_regular) \
+        == (x_regular, z_regular)
     return jg, tg
 
 
