@@ -190,6 +190,34 @@ each of which raises on failure:
     12's rounding floor at the smallest Δz; a float64 (32, 32, 24) run on
     the card against the CPU to 1e-12. Phases 18 to 20 print every port
     kernel's launch count, each of which must be 0.
+21. ``langmuir``: ``examples/langmuir_turbulence.py`` at 256³ over its
+    128 x 128 x 64 m box (WENO(5), a BuoyancyTracer, the example's wave as
+    a ``UniformStokesDrift``, AMD, the u and b surface fluxes and the b
+    bottom gradient), with a tracer P under ``SimpleBiogeochemistry``
+    (growth (1/day)·exp(z/16 m), sinking 1e-4 m/s) and 2²⁰
+    ``LagrangianParticles`` tracking b; Δt = 0.5 s, 2 + 20 steps on the
+    kernel path (kernels 7 and 9 once a step; the fused AB2 kernels and
+    the any-order tracer kernel never) and on the plain path, timed, with
+    the device-busy time, the host syncs of a step (torch's sync debug
+    mode) and every kernel's launch count; the float32 divergence held to
+    phase 12's rounding floor, the paths to each other in float64 at full
+    width (3 steps, 1e-10), a float64 16³ run with 4096 particles on the
+    card against the CPU (1e-12, particles included). 21b: ``bench.py``'s
+    ``weno`` cell with ``Relaxation`` sponges of u and T masked by a
+    ``GaussianMask`` along x at the Bounded end, 1 + 3 steps a path
+    (kernels 7 and 9 once a step, 6 and 8 never; the paths at phase 7's
+    3e-5). 21c: the same cell with background fields of u and T, 1 + 3
+    steps a path: as in the JAX package, whose model selects no kernel
+    under background fields, every kernel launches 0 times and the two
+    paths are equal bit for bit.
+22. ``hydro_catke``: phase 14's ``hydro_vi_latlon`` with
+    ``CATKEVerticalDiffusivity()`` (its TKE e a third tracer) and a zonal
+    wind stress, 2 + 20 steps on each path (kernels 11, taking T, S and e,
+    and 12/13 once a step; the Thomas solves plain), held to each other at
+    phase 14's bounds, timed, with the host syncs of a step; and
+    ``examples/baroclinic_adjustment.py`` at its own (60, 60, 10) with a
+    destabilizing b surface flux (CATKE's convective lengths), float64, 3
+    steps on the card against the CPU to 1e-12.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -200,7 +228,7 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 to 20 zero and check the counts of
+launches that run makes. Phases 12 to 22 zero and check the counts of
 their own runs and print them on lines of their own. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
@@ -583,17 +611,11 @@ def les_compare(grid, sk, sp):
     and the kernel path's max|∇·u|."""
     from oceananigans_torch.ops.operators import divergence_ccc
     g = grid
-    ub = balance_scale(g, sp, LES_DT)
     umax = max(float(g.interior(q).abs().max()) for q in (sk.u, sk.v, sk.w))
-    return {
-        "velocities": group_rel([(g.interior(a), g.interior(b))
-                                 for a, b in ((sk.u, sp.u), (sk.v, sp.v),
-                                              (sk.w, sp.w))], ub),
-        "T": group_rel([(g.interior(sk.tracers["T"]),
-                         g.interior(sp.tracers["T"]))]),
-        "div": float(g.interior(divergence_ccc(g, sk.u, sk.v,
-                                                sk.w)).abs().max()),
-        "umax": umax, "ub": ub}
+    return {**les_compare_fields(g, sk, sp, LES_DT, ("T",)),
+            "div": float(g.interior(divergence_ccc(g, sk.u, sk.v,
+                                                    sk.w)).abs().max()),
+            "umax": umax, "ub": balance_scale(g, sp, LES_DT)}
 
 
 def les_phase(torch, ot, wrappers, card):
@@ -2222,6 +2244,396 @@ def les_stretched_phase(torch, ot, wrappers, card):
     require(vel <= 1e-12 and trc <= 1e-12,
             f"float64 les_stretched card vs CPU {vel:.3e}, {trc:.3e}")
     out["rel64"] = {"velocities": vel, "T": trc}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 21 and 22: forcings, background fields, Stokes drift,
+# biogeochemistry, particles and the ocean closures
+# ---------------------------------------------------------------------------
+
+#: phase 21: ``examples/langmuir_turbulence.py`` at 256³ with a sinking,
+#: growing tracer P and 2²⁰ particles tracking b; 2 + 20 steps a path
+LANGMUIR_WARM, LANGMUIR_TIMED, LANGMUIR_PARTICLES = 2, 20, 2 ** 20
+#: 21b and 21c: ``bench.py``'s ``weno`` cell with a sponge, then with
+#: background fields, 1 + 3 steps a path at its Δt
+SPONGE_WARM, SPONGE_STEPS, SPONGE_DT = 1, 3, 1e-4
+#: phase 22: ``hydro_vi_latlon`` with CATKE, 2 + 20 steps a path
+CATKE_WARM, CATKE_STEPS = 2, 20
+
+
+def run_counted(torch, model, state, dt, warm, steps, wrappers, want, tag):
+    """``warm`` + ``steps`` steps with the launch counts zeroed first:
+    (state, ms/step, host enqueue ms/step, the counts of every kernel).
+    Each kernel of ``want`` must launch that many times a step, every
+    other kernel never; every field must be finite."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in range(warm):
+        state = model.step(state, dt, assume_filled=True)
+    state, ms, enqueue = timed_steps(torch, model, state, dt, steps)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    expected = {k: want.get(k, 0) * (warm + steps) for k in wrappers}
+    require(counts == expected, f"{tag} launches {counts}, expected "
+            f"{expected}")
+    require(all(bool(torch.isfinite(q).all())
+                for q in state.fields().values()), f"{tag}: finite fields")
+    return state, ms, enqueue, counts
+
+
+def count_syncs(torch, fn):
+    """The host synchronizations of ``fn()``, counted by torch's sync
+    debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def particle_rel(sk, sp):
+    """Positions and properties of two particle states: the largest
+    difference relative to the largest value of each."""
+    pk, pp = sk.particles, sp.particles
+    pairs = [(pk.x, pp.x), (pk.y, pp.y), (pk.z, pp.z)]
+    pairs += [(pk.properties[k], pp.properties[k]) for k in pp.properties]
+    return max(group_rel([(a, b)]) for a, b in pairs)
+
+
+def langmuir_phase(torch, ot, wrappers, card):
+    """Phase 21: ``langmuir``, the Langmuir LES at 256³ (Stokes drift, AMD,
+    the example's fluxes, a growing and sinking P, 2²⁰ particles) on the
+    kernel path (kernels 7 and 9 once a step; no fused AB2 kernel, no
+    any-order tracer kernel) and on the plain path: step times, the
+    device-busy time, the host syncs of a step, the launches; the
+    float32 divergence held to its rounding floor, the paths to each other
+    in float64 at full width, a float64 16³ run on the card against the
+    CPU; then 21b (``weno`` with a sponge) and 21c (``weno`` with
+    background fields)."""
+    from oceananigans_torch.ops.operators import divergence_ccc
+    from oceananigans_torch.profile_step import (
+        LANGMUIR_DT, langmuir_initial_state, langmuir_model,
+        langmuir_particles,
+    )
+    dt = LANGMUIR_DT
+    want = {"weno5_momentum_tendency": 1, "weno5_tracer_tendencies": 1}
+    out, finals = {}, {}
+    total = LANGMUIR_WARM + LANGMUIR_TIMED
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = langmuir_model(fused=fused, particles=langmuir_particles(
+            LANGMUIR_PARTICLES))
+        require((model.fused_kernels == "weno5") == (path == "kernel")
+                and not (model.fused_ab2_weno or model.fused_ab2_weno_science
+                         or model.fused_tracer),
+                f"langmuir {path} path selects fused_kernels="
+                f"{model.fused_kernels}, no fused AB2 kernel, no any-order "
+                "tracer kernel")
+        g = model.grid
+        state = model.fill_state_halos(langmuir_initial_state(model))
+        state, ms, enqueue, counts = run_counted(
+            torch, model, state, dt, LANGMUIR_WARM, LANGMUIR_TIMED, wrappers,
+            want if path == "kernel" else {}, f"langmuir {path} path")
+        p = state.particles
+        inside = bool(((p.z >= -64.0) & (p.z <= 0.0) & (p.x >= 0.0)
+                       & (p.x <= 128.0) & (p.y >= 0.0)
+                       & (p.y <= 128.0)).all())
+        require(inside and all(bool(torch.isfinite(q).all()) for q in (
+            p.x, p.y, p.z, p.properties["b"])),
+            f"langmuir {path} path: the particles are finite and inside")
+        state, syncs = count_syncs(torch, lambda: model.step(
+            state, dt, assume_filled=True))
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+        require(busy > 0, f"langmuir {path} path: the profiler saw device "
+                "time")
+        out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
+                     "launches": counts}
+        P = g.interior(state.tracers["P"])
+        log(f"[21] langmuir {path} path on {card}: {ms:.3f} ms/step at "
+            f"256^3 float32 with {len(model.particles)} particles (steps "
+            f"{LANGMUIR_WARM + 1} to {total} of AB2, Δt {dt} s, CUDA "
+            f"events); host enqueue {enqueue:.3f} ms/step; device-busy "
+            f"{busy:.3f} ms/step in a wall of {wall:.3f} under "
+            f"torch.profiler (idle share {1 - busy / wall:.3f}; against the "
+            f"unprofiled ms, {1 - busy / ms:.3f}), {n_launch:.0f} launches a"
+            f" step; host syncs in one step {syncs}; port kernel launches in"
+            f" {total} steps {counts}; max|u| "
+            f"{float(g.interior(state.u).abs().max()):.4e}, max|w| "
+            f"{float(g.interior(state.w).abs().max()):.4e}, P in "
+            f"[{float(P.min()):.6f}, {float(P.max()):.6f}], particle b in "
+            f"[{float(p.properties['b'].min()):.4e}, "
+            f"{float(p.properties['b'].max()):.4e}]")
+        finals[path] = (g, state)
+        del model
+        torch.cuda.empty_cache()
+    (g, sk), (_, sp) = finals["kernel"], finals["plain"]
+    dz = g.spacing(2)
+    pmax = float(g.interior(sp.pressure).abs().max())
+    eps32 = torch.finfo(torch.float32).eps
+    div_bound = math.log2(g.N[0] * g.N[1] * g.N[2]) * eps32 * dt * pmax \
+        / dz ** 2
+    divs = {k: float(g.interior(divergence_ccc(g, s.u, s.v, s.w)).abs()
+                     .max()) for k, s in (("kernel", sk), ("plain", sp))}
+    log(f"[21] langmuir float32 after {total + 1} steps: max|div| kernel "
+        f"path {divs['kernel']:.3e}, plain path {divs['plain']:.3e}, held to"
+        f" log2(N³)·eps32·Δt·max|p|/Δz² = {div_bound:.3e} (max|p| "
+        f"{pmax:.4e}); the float32 paths are held to each other in float64 "
+        "below (phase 12's rounding floor)")
+    require(max(divs.values()) <= div_bound,
+            f"langmuir max|div| {divs} <= {div_bound:.3e}")
+    del finals, sk, sp
+    torch.cuda.empty_cache()
+
+    # float64 at full width: the paths to each other
+    f64 = {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        m = langmuir_model(fused=fused, dtype=torch.float64,
+                           particles=langmuir_particles(LANGMUIR_PARTICLES))
+        s = langmuir_initial_state(m)
+        for _ in range(3):
+            s = m.step(s, dt)
+        f64[path], g = s, m.grid
+        del m
+    rel = les_compare_fields(g, f64["kernel"], f64["plain"], dt,
+                             ("b", "P"))
+    rel["particles"] = particle_rel(f64["kernel"], f64["plain"])
+    log(f"[21] langmuir float64 256^3, 3 AB2 steps: kernel vs plain path: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" of the largest value (velocities of max(max|u|, Δt max|∂z p|);"
+        f" tolerance {LES_F64_RTOL:g})")
+    require(all(v <= LES_F64_RTOL for v in rel.values()),
+            f"langmuir float64 kernel vs plain path {rel}")
+    del f64
+    torch.cuda.empty_cache()
+
+    # float64 16³ with 4096 particles: the card against the CPU
+    from oceananigans_torch.interop import flatten_state, unflatten_state
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = langmuir_model(size=(16, 16, 16), dtype=torch.float64,
+                           device=device, fused=device == "cuda",
+                           particles=langmuir_particles(4096))
+        require((m.fused_kernels == "weno5") == (device == "cuda"),
+                "float64 langmuir routes")
+        s = langmuir_initial_state(m)
+        for _ in range(5):
+            s = m.step(s, dt)
+        f64[device] = (m.grid, s)
+    gp, sp = f64["cpu"]
+    sk = unflatten_state(sp, flatten_state(f64["cuda"][1]))
+    rel = les_compare_fields(gp, sk, sp, dt, ("b", "P"))
+    rel["particles"] = particle_rel(sk, sp)
+    log("[21] float64 16^3 langmuir with 4096 particles, 5 AB2 steps: "
+        "kernel path on the card vs plain path on the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel.values()),
+            f"float64 16^3 langmuir card vs CPU {rel}")
+    del f64, sk, sp
+    out["sponge"] = weno_physics_phase(torch, ot, wrappers, card, "sponge")
+    out["background"] = weno_physics_phase(torch, ot, wrappers, card,
+                                           "background")
+    return out
+
+
+def les_compare_fields(g, sk, sp, dt, tracers):
+    """The velocities of ``sk`` against ``sp`` relative to max(max|u|,
+    Δt·max|∂z p|), each of ``tracers`` relative to its largest value."""
+    ub = balance_scale(g, sp, dt)
+    rel = {"velocities": group_rel([(g.interior(a), g.interior(b))
+                                    for a, b in ((sk.u, sp.u), (sk.v, sp.v),
+                                                 (sk.w, sp.w))], ub)}
+    for n in tracers:
+        rel[n] = group_rel([(g.interior(sk.tracers[n]),
+                             g.interior(sp.tracers[n]))])
+    return rel
+
+
+def weno_physics_model(torch, ot, fused, physics):
+    """``bench.py``'s ``weno`` cell (256³, (Bounded, Periodic, Periodic),
+    halo (3, 0, 0), WENO(5), T and S, AB2) with ``physics``: "sponge", a
+    ``Relaxation`` of u to rest and of T to 0.01 z masked by a
+    ``GaussianMask`` along x centred on the Bounded end x = 1 (width
+    0.05), at 100 s⁻¹; or "background", background fields U = 0.005
+    cos 2πz and T = 0.001 sin 2πy."""
+    from oceananigans_torch.profile_step import config_kwargs
+    kwargs, halo = config_kwargs("weno")
+    grid = ot.RectilinearGrid(
+        size=(256, 256, 256), extent=(1.0, 1.0, 1.0),
+        topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
+        dtype=torch.float32, device="cuda")
+    if physics == "sponge":
+        mask = ot.GaussianMask(1.0, 0.05, coordinate="x")
+        extra = {"forcing": {
+            "u": ot.Relaxation(100.0, mask=mask),
+            "T": ot.Relaxation(100.0, mask=mask,
+                               target=ot.LinearTarget(0.0, 0.01))}}
+    else:
+        extra = {"background_fields": {
+            "u": lambda x, y, z: 0.005 * torch.cos(2 * math.pi * z) + 0 * x,
+            "T": lambda x, y, z: 0.001 * torch.sin(2 * math.pi * y)
+            + 0 * x * z}}
+    return ot.NonhydrostaticModel(grid=grid, timestepper="QuasiAdamsBashforth2",
+                                  fused_kernels=fused, **kwargs, **extra)
+
+
+def weno_physics_phase(torch, ot, wrappers, card, physics):
+    """21b (``physics="sponge"``): the ``weno`` cell with a relaxation
+    sponge: kernels 7 and 9 once a step, the fused AB2 kernels (6, 8)
+    never; the paths held to each other at phase 7's bound. 21c
+    (``"background"``): the same cell with background fields of u and T:
+    as in the JAX package (whose model selects no kernel under background
+    fields), every kernel is refused, the momentum and both tracers run
+    plain on both paths, and the two paths are equal bit for bit."""
+    from oceananigans_torch.profile_step import initial_state
+    tag = {"sponge": "21b", "background": "21c"}[physics]
+    want = ({"weno5_momentum_tendency": 1, "weno5_tracer_tendencies": 1}
+            if physics == "sponge" else {})
+    finals, ms = {}, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = weno_physics_model(torch, ot, fused, physics)
+        require(not (model.fused_ab2_weno or model.fused_ab2_weno_science
+                     or model.fused_tracer)
+                and (model.fused_kernels == "weno5")
+                == (path == "kernel" and physics == "sponge"),
+                f"[{tag}] {path} path selects fused_kernels="
+                f"{model.fused_kernels}, no fused AB2 kernel")
+        state = model.fill_state_halos(initial_state(model))
+        state, ms[path], _, counts = run_counted(
+            torch, model, state, SPONGE_DT, SPONGE_WARM, SPONGE_STEPS,
+            wrappers, want if path == "kernel" else {},
+            f"[{tag}] {path} path")
+        finals[path] = (model.grid, state)
+        log(f"[{tag}] weno with {physics} {path} path on {card}: "
+            f"{ms[path]:.3f} ms/step at 256^3 float32 ({SPONGE_WARM} + "
+            f"{SPONGE_STEPS} AB2 steps); port kernel launches {counts}")
+        del model
+    (g, sk), (_, sp) = finals["kernel"], finals["plain"]
+    pairs = {"velocities": [(g.interior(a), g.interior(b)) for a, b in (
+        (sk.u, sp.u), (sk.v, sp.v), (sk.w, sp.w))],
+        "tracers": [(g.interior(sk.tracers[n]), g.interior(sp.tracers[n]))
+                    for n in ("T", "S")]}
+    rel = {k: group_rel(v) for k, v in pairs.items()}
+    if physics == "sponge":
+        log(f"[{tag}] kernel vs plain path: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items())
+            + " of the largest value (tolerance 3e-05, phase 7's)")
+        require(all(v <= 3e-5 for v in rel.values()),
+                f"[{tag}] kernel vs plain path {rel}")
+    else:
+        same = all(torch.equal(a, b) for v in pairs.values() for a, b in v)
+        log(f"[{tag}] both paths plain under background fields (the JAX "
+            f"model selects no kernel then): equal bit for bit {same}")
+        require(same, f"[{tag}] the two plain paths differ: {rel}")
+    del finals, sk, sp
+    torch.cuda.empty_cache()
+    return ms
+
+
+def catke_phase(torch, ot, wrappers, card, rtol):
+    """Phase 22: ``hydro_catke``, phase 14's ``hydro_vi_latlon`` with
+    ``CATKEVerticalDiffusivity()`` and a zonal wind stress: 2 + 20 steps on
+    each path (kernels 11 and 12/13 once a step, the tracer kernel taking
+    T, S and the TKE e; the Thomas solves plain), held to each other at
+    phase 14's bounds, timed, with the host syncs of a step; and
+    ``examples/baroclinic_adjustment.py`` at its own (60, 60, 10) with a
+    destabilizing b surface flux, float64, 3 steps on the card (kernel 11)
+    against the CPU."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_CATKE_DT, baroclinic_adjustment_initial_state,
+        baroclinic_adjustment_model, hydro_catke_model,
+        hydro_latlon_initial_state,
+    )
+    dt = HYDRO_CATKE_DT
+    want = {"weno_tracer_tendencies": 1, "vi_momentum_tendency": 1}
+    out, finals = {}, {}
+    total = CATKE_WARM + CATKE_STEPS
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = hydro_catke_model(fused)
+        g = model.grid
+        require(model.tracer_names == ("T", "S", "e")
+                and model.fused_kernels == model.fused_tracer
+                == (path == "kernel"),
+                f"hydro_catke {path} path: tracers {model.tracer_names}, "
+                f"fused_kernels={model.fused_kernels}, "
+                f"fused_tracer={model.fused_tracer}")
+        state = model.update_state(hydro_latlon_initial_state(model))
+        state, ms, enqueue, counts = run_counted(
+            torch, model, state, dt, CATKE_WARM, CATKE_STEPS, wrappers,
+            want if path == "kernel" else {}, f"hydro_catke {path} path")
+        state, syncs = count_syncs(torch, lambda: model.step(
+            state, dt, assume_filled=True))
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+        out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
+                     "launches": counts}
+        e = g.interior(state.tracers["e"])
+        xy = g.interior_slices[:2]
+        log(f"[22] hydro_catke {path} path on {card}: {ms:.3f} ms/step "
+            f"(steps {CATKE_WARM + 1} to {total} of AB2, Δt {dt} s, CUDA "
+            f"events); host enqueue {enqueue:.3f} ms/step; device-busy "
+            f"{busy:.3f} ms/step in a wall of {wall:.3f} under "
+            f"torch.profiler (idle share {1 - busy / wall:.3f}; against the "
+            f"unprofiled ms, {1 - busy / ms:.3f}), {n_launch:.0f} launches a"
+            f" step; host syncs in one step {syncs}; port kernel launches in"
+            f" {total} steps {counts}; max|u| "
+            f"{float(g.interior(state.u).abs().max()):.4e}, max|eta| "
+            f"{float(state.eta[xy].abs().max()):.4e}, e in "
+            f"[{float(e.min()):.4e}, {float(e.max()):.4e}]")
+        finals[path] = {
+            "velocities": [g.interior(state.u), g.interior(state.v)],
+            "eta": [state.eta[xy]],
+            "tracers": [g.interior(state.tracers[n]) for n in ("T", "S")],
+            "e": [e]}
+        del model, state
+        torch.cuda.empty_cache()
+    rel = {k: group_rel(list(zip(finals["kernel"][k], finals["plain"][k])))
+           for k in finals["kernel"]}
+    log(f"[22] hydro_catke: kernel vs plain path after {total + 1} steps: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + " of the largest value (tolerances " + ", ".join(
+            f"{k} {rtol[k]:g}" for k in rtol) + "; e reported, not held: "
+        "CATKE switches on signs)")
+    require(all(rel[k] <= rtol[k] for k in rtol),
+            f"hydro_catke kernel vs plain path {rel}")
+    del finals
+    torch.cuda.empty_cache()
+
+    # the baroclinic adjustment in float64: the card against the CPU
+    f64 = {}
+    for device in ("cuda", "cpu"):
+        m = baroclinic_adjustment_model(device=device,
+                                        fused=device == "cuda")
+        require(m.fused_tracer == (device == "cuda"),
+                "float64 baroclinic adjustment routes")
+        s = baroclinic_adjustment_initial_state(m)
+        for _ in range(3):
+            s = m.step(s, 600.0)
+        f64[device] = (m.grid, s)
+    (gk, sk), (gp, sp) = f64["cuda"], f64["cpu"]
+    xy = gp.interior_slices[:2]
+    groups = {"velocities": [(gk.interior(sk.u).cpu(), gp.interior(sp.u)),
+                             (gk.interior(sk.v).cpu(), gp.interior(sp.v))],
+              "w": [(gk.interior(sk.w).cpu(), gp.interior(sp.w))],
+              "eta": [(sk.eta[xy].cpu(), sp.eta[xy])],
+              "b": [(gk.interior(sk.tracers["b"]).cpu(),
+                     gp.interior(sp.tracers["b"]))],
+              "e": [(gk.interior(sk.tracers["e"]).cpu(),
+                     gp.interior(sp.tracers["e"]))]}
+    rel64 = {k: group_rel(p) for k, p in groups.items()}
+    log("[22] float64 baroclinic adjustment (60, 60, 10) with a b surface "
+        "flux of 1e-8, 3 AB2 steps of 600 s: kernel path on the card vs "
+        "plain path on the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel64.items())
+        + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel64.values()),
+            f"float64 baroclinic adjustment card vs CPU {rel64}")
+    out["rel"], out["rel64"] = rel, rel64
     return out
 
 
@@ -3965,6 +4377,20 @@ def main():
         f"{bathy['ms']:.3f} ms/step, les_stretched {stretched['ms']:.3f} "
         f"ms/step against phase 12's les plain path {les['plain']['ms']:.3f} "
         f"ms/step; none launched a port kernel")
+
+    # ---- phases 21 and 22: forcings, particles, the ocean closures -------
+    langmuir = langmuir_phase(torch, ot, wrappers, card)
+    catke = catke_phase(torch, ot, wrappers, card, HYDRO_PATH_RTOL)
+    log(f"[22] step times on {card}: langmuir kernel path "
+        f"{langmuir['kernel']['ms']:.3f} ms/step (plain "
+        f"{langmuir['plain']['ms']:.3f}, host syncs a step "
+        f"{langmuir['kernel']['syncs']}); weno with a sponge kernel path "
+        f"{langmuir['sponge']['kernel']:.3f} (plain "
+        f"{langmuir['sponge']['plain']:.3f}); weno with background fields "
+        f"{langmuir['background']['kernel']:.3f}; hydro_catke kernel path "
+        f"{catke['kernel']['ms']:.3f} ms/step (plain "
+        f"{catke['plain']['ms']:.3f}, host syncs a step "
+        f"{catke['kernel']['syncs']})")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

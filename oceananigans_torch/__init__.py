@@ -22,8 +22,12 @@ vector-invariant (WENOVectorInvariant) or flux-form momentum advection,
 explicit or split-explicit free surface, Coriolis and buoyancy, stepped by
 quasi-AB2; the closures of ``closures.py`` (scalar, biharmonic,
 Smagorinsky-Lilly, dynamic Smagorinsky, AMD, convective adjustment;
-explicit or vertically implicit) and valued, gradient, flux and open
-boundary conditions on the nonhydrostatic and hydrostatic models; the
+explicit or vertically implicit) and the ocean closures of
+``closures_ocean.py`` (CATKE, Ri-based, k-ε, Leith, GM/Redi), and valued,
+gradient, flux and open boundary conditions on the nonhydrostatic and
+hydrostatic models; forcings (continuous, discrete, relaxation, advective,
+time series), background fields, Stokes drift, biogeochemistry, Lagrangian
+particles and auxiliary fields on the models that take them; the
 field layer (constructors, reductions, regridding, interpolation) and
 the operations (derivatives, metric averages and integrals, derived
 fields); the ``Simulation`` run loop with its callbacks, schedules,
@@ -67,7 +71,21 @@ from oceananigans_torch.closures import (
     VerticalScalarBiharmonicDiffusivity, VerticalScalarDiffusivity,
     diffusivity, viscosity,
 )
+from oceananigans_torch.closures_ocean import (
+    CATKEVerticalDiffusivity, IsopycnalSkewSymmetricDiffusivity,
+    LeithEnstrophyDiffusivity, RiBasedVerticalDiffusivity,
+    TKEDissipationVerticalDiffusivity,
+)
+from oceananigans_torch.biogeochemistry import (
+    Biogeochemistry, SimpleBiogeochemistry,
+)
 from oceananigans_torch.config import config, float_type, set_float_type
+from oceananigans_torch.forcings import (
+    AdvectiveForcing, Forcing, GaussianMask, LinearTarget, MultipleForcings,
+    Relaxation,
+)
+from oceananigans_torch.particles import LagrangianParticles
+from oceananigans_torch.stokes_drift import StokesDrift, UniformStokesDrift
 from oceananigans_torch.coriolis import (
     BetaPlane, ConstantCartesianCoriolis, FPlane,
     HydrostaticSphericalCoriolis, NonTraditionalBetaPlane,
@@ -138,13 +156,14 @@ from oceananigans_torch.utils.units import (
 )
 
 __all__ = [
-    "AbstractGrid", "Accumulation", "AdvectiveCFL", "AndSchedule",
-    "AnisotropicMinimumDissipation", "Average", "AveragedTimeInterval",
-    "BackgroundField", "BetaPlane", "BoundaryCondition", "Bounded",
-    "BuoyancyField", "BuoyancyForce", "BuoyancyTracer", "CFL", "Callback",
-    "Center", "CenterField", "Centered", "Checkpointer", "Clock",
-    "ConditionalAverage", "ConformalCubedSphereGrid",
-    "ConservativeFormulation", "ConstantCartesianCoriolis", "ConstantField",
+    "AbstractGrid", "Accumulation", "AdvectiveCFL", "AdvectiveForcing",
+    "AndSchedule", "AnisotropicMinimumDissipation", "Average",
+    "AveragedTimeInterval", "BackgroundField", "BetaPlane", "Biogeochemistry",
+    "BoundaryCondition", "Bounded", "BuoyancyField", "BuoyancyForce",
+    "BuoyancyTracer", "CATKEVerticalDiffusivity", "CFL", "Callback", "Center",
+    "CenterField", "Centered", "Checkpointer", "Clock", "ConditionalAverage",
+    "ConformalCubedSphereGrid", "ConservativeFormulation",
+    "ConstantCartesianCoriolis", "ConstantField",
     "ConvectiveAdjustmentVerticalDiffusivity", "CrossAndSelfUpwinding",
     "CubedSphereHydrostaticModel", "CubedSphereShallowWaterModel",
     "CumulativeIntegral", "DiffusiveCFL", "DynamicCoefficient",
@@ -152,31 +171,34 @@ __all__ = [
     "ExplicitTimeDiscretization", "FFTPoissonSolver", "FPlane", "Face",
     "Field", "FieldBoundaryConditions", "FieldDataset", "FieldTimeSeries",
     "FileSizeLimit", "Flat", "FlatExtrapolationOpenBC", "FluxBC",
-    "FluxBoundaryCondition", "FluxFormAdvection",
-    "FourierTridiagonalPoissonSolver", "FunctionField", "GiB",
+    "FluxBoundaryCondition", "FluxFormAdvection", "Forcing",
+    "FourierTridiagonalPoissonSolver", "FunctionField", "GaussianMask", "GiB",
     "GradientBC", "GradientBoundaryCondition", "GridFittedBottom",
     "GridFittedBoundary", "HDF5Writer",
     "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
     "HydrostaticFreeSurfaceModel", "HydrostaticSphericalCoriolis",
     "HydrostaticState", "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
-    "ImmersedPoissonSolver",
-    "ImplicitFreeSurface", "InMemory", "Integral", "IterationInterval",
-    "JLD2Writer", "KernelFunctionOperation", "KiB", "LOC_C", "LOC_U", "LOC_V",
-    "LOC_W", "LatitudeLongitudeGrid", "LillyCoefficient",
-    "LinearEquationOfState", "MatmulPoissonSolver", "MiB", "NaNChecker",
-    "NetCDFWriter", "NonTraditionalBetaPlane", "NonhydrostaticModel",
-    "NonhydrostaticState", "OnDisk", "OnlySelfUpwinding", "OpenBC",
-    "OpenBoundaryCondition", "OrSchedule", "OrthogonalSphericalShellGrid",
-    "PartialCellBottom", "Periodic", "PeriodicBC", "PerturbationAdvection",
-    "PerturbationAdvectionOpenBC", "PrescribedVelocityFields",
-    "PressureField", "RectilinearGrid", "Reduction",
+    "ImmersedPoissonSolver", "ImplicitFreeSurface", "InMemory", "Integral",
+    "IsopycnalSkewSymmetricDiffusivity", "IterationInterval", "JLD2Writer",
+    "KernelFunctionOperation", "KiB", "LOC_C", "LOC_U", "LOC_V", "LOC_W",
+    "LagrangianParticles", "LatitudeLongitudeGrid",
+    "LeithEnstrophyDiffusivity", "LillyCoefficient", "LinearEquationOfState",
+    "LinearTarget", "MatmulPoissonSolver", "MiB", "MultipleForcings",
+    "NaNChecker", "NetCDFWriter", "NonTraditionalBetaPlane",
+    "NonhydrostaticModel", "NonhydrostaticState", "OnDisk",
+    "OnlySelfUpwinding", "OpenBC", "OpenBoundaryCondition", "OrSchedule",
+    "OrthogonalSphericalShellGrid", "PartialCellBottom", "Periodic",
+    "PeriodicBC", "PerturbationAdvection", "PerturbationAdvectionOpenBC",
+    "PrescribedVelocityFields", "PressureField", "RectilinearGrid",
+    "Reduction", "Relaxation", "RiBasedVerticalDiffusivity",
     "RotatedLatitudeLongitudeGrid", "ScalarBiharmonicDiffusivity",
     "ScalarDiffusivity", "SeawaterBuoyancy", "ShallowWaterModel",
-    "ShallowWaterState", "Simulation", "Smagorinsky", "SmagorinskyLilly",
-    "SpecifiedTimes", "SplitExplicitFreeSurface", "StateChecker", "TEOS10",
-    "TEOS10EquationOfState", "TendencyCallsite", "TiB", "TimeInterval",
-    "TimeStepCallsite", "TimeStepWizard", "TripolarGrid",
-    "UpdateStateCallsite", "UpwindBiased", "ValueBC",
+    "ShallowWaterState", "SimpleBiogeochemistry", "Simulation", "Smagorinsky",
+    "SmagorinskyLilly", "SpecifiedTimes", "SplitExplicitFreeSurface",
+    "StateChecker", "StokesDrift", "TEOS10", "TEOS10EquationOfState",
+    "TKEDissipationVerticalDiffusivity", "TendencyCallsite", "TiB",
+    "TimeInterval", "TimeStepCallsite", "TimeStepWizard", "TripolarGrid",
+    "UniformStokesDrift", "UpdateStateCallsite", "UpwindBiased", "ValueBC",
     "ValueBoundaryCondition", "VectorInvariant", "VectorInvariantFormulation",
     "VerticalScalarBiharmonicDiffusivity", "VerticalScalarDiffusivity",
     "VerticallyImplicitTimeDiscretization", "WENO", "WENOVectorInvariant",
@@ -184,11 +206,11 @@ __all__ = [
     "ZCoordinate", "ZFaceField", "ZStar", "ZeroField",
     "adapt_advection_order", "add_callback", "config",
     "conformal_cubed_sphere_panel", "conjugate_gradient",
-    "conjure_time_step_wizard", "day", "days",
-    "diffusivity", "extrinsic_vector", "field_abs_max", "field_integral",
-    "field_max", "field_mean", "field_min", "fill_halo_regions", "float_type",
-    "hour", "hours", "interior", "interpolate", "intrinsic_vector",
-    "iteration", "kilometer", "kilometers", "lambda_nodes", "lambda_spacings",
+    "conjure_time_step_wizard", "day", "days", "diffusivity",
+    "extrinsic_vector", "field_abs_max", "field_integral", "field_max",
+    "field_mean", "field_min", "fill_halo_regions", "float_type", "hour",
+    "hours", "interior", "interpolate", "intrinsic_vector", "iteration",
+    "kilometer", "kilometers", "lambda_nodes", "lambda_spacings",
     "load_field_time_series", "meter", "meters", "minimum_xspacing",
     "minimum_yspacing", "minimum_zspacing", "minute", "minutes", "new_field",
     "nodes", "phi_nodes", "phi_spacings", "prettytime", "rnodes",

@@ -11,8 +11,8 @@ backward-Euler tridiagonal solve down every column
 staggering of the advective fluxes; eddy coefficients (Smagorinsky, AMD,
 convective adjustment) are center-located tensors recomputed each step.
 The JAX package reaches no Pallas kernel here, and neither does the port:
-this is plain PyTorch on both the CPU and the GPU. The ocean closures of
-``closures_ocean.py`` (CATKE and the rest) are ROADMAP Queue 1 item 15.
+this is plain PyTorch on both the CPU and the GPU. The ocean closures
+(CATKE and the rest) are in ``closures_ocean.py``, on the same interface.
 """
 
 from __future__ import annotations
@@ -646,13 +646,15 @@ def compute_diffusivities(closure, grid, u, v, w, tracers, buoyancy,
     """Each closure's coefficients for this step, as a tuple. A closure
     with ``wants_top_fluxes`` also receives the mapping that the callable
     ``top_fluxes`` returns, called only for such a closure (the surface
-    fluxes of u, v and b may be callables of time)."""
+    fluxes of u, v and b may be callables of time); without ``top_fluxes``
+    it receives an empty mapping, as the JAX package's ``top_fluxes or
+    {}`` gives it."""
     out = []
     for c in _as_tuple(closure):
         if getattr(c, "wants_top_fluxes", False):
-            out.append(c.compute_diffusivities(grid, u, v, w, tracers,
-                                               buoyancy,
-                                               top_fluxes=top_fluxes()))
+            out.append(c.compute_diffusivities(
+                grid, u, v, w, tracers, buoyancy,
+                top_fluxes=top_fluxes() if top_fluxes is not None else {}))
         else:
             out.append(c.compute_diffusivities(grid, u, v, w, tracers,
                                                buoyancy))
@@ -843,25 +845,18 @@ def diffusivity(closure, diffusivities, name=None):
     return _kappa_for(getattr(closure, "kappa", 0.0), name)
 
 
-#: the closures a model takes
-CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
-            DynamicSmagorinsky, AnisotropicMinimumDissipation,
-            ConvectiveAdjustmentVerticalDiffusivity)
-
-
 def check_closure(closure, model_name):
-    """Raise ``NotImplementedError`` for a closure the port lacks (the ocean
-    closures of ROADMAP Queue 1 item 15)."""
+    """Raise ``TypeError`` for a closure that is not an
+    :class:`AbstractClosure` (every closure of ``closures.py`` and
+    ``closures_ocean.py`` is one)."""
     for c in _as_tuple(closure):
-        if not isinstance(c, CLOSURES):
-            raise NotImplementedError(
-                f"{model_name}(closure={c!r}) is not ported yet; the ocean "
-                "closures (CATKE, k-ε, Ri-based, GM/Redi, Leith) come with "
-                "ROADMAP Queue 1 item 15")
+        if not isinstance(c, AbstractClosure):
+            raise TypeError(f"{model_name}(closure={c!r}): a closure "
+                            "derives from closures.AbstractClosure")
 
 
 __all__ = [
-    "AnisotropicMinimumDissipation", "CLOSURES",
+    "AbstractClosure", "AnisotropicMinimumDissipation",
     "ConvectiveAdjustmentVerticalDiffusivity", "DynamicCoefficient",
     "DynamicSmagorinsky", "ExplicitTimeDiscretization",
     "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",

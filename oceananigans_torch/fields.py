@@ -262,10 +262,10 @@ def ZFaceField(grid, value=0.0, dtype=None):
 
 
 class BackgroundField:
-    """A background field ``func(x, y, z, t[, parameters])``; ``t``
-    defaults to 0, so an instance also serves as a static ``set_field``
-    initializer. (The models' ``background_fields=`` is ROADMAP Queue 1
-    item 12.)"""
+    """A background field ``func(x, y, z, t[, parameters])``, evaluated by
+    the nonhydrostatic model's ``background_fields=`` at each step's clock
+    time; ``t`` defaults to 0, so an instance also serves as a static
+    ``set_field`` initializer."""
 
     def __init__(self, func, parameters=None):
         self.func = func

@@ -9,7 +9,9 @@ each tracer and its previous tendency under ``tracers/<name>`` and
 v, w, pressure, Gu, Gv, Gw), :data:`SW_FIELDS` for a shallow-water one (uh,
 vh, h, Guh, Gvh, Gh) and :data:`HYDROSTATIC_FIELDS` for a hydrostatic one
 (u, v, w, Gu, Gv, and η, Gη and the barotropic transports U, V, these four
-shaped (nx, ny, 1)). They build both packages' grids from the same
+shaped (nx, ny, 1)). A model's Lagrangian particles cross as
+``particles/x``, ``particles/y``, ``particles/z`` and
+``particles/properties/<name>``, 1-D arrays. They build both packages' grids from the same
 constructor arguments (:func:`grid_from_arguments`); an orthogonal grid's
 (λ, φ) nodes cross as numpy arrays (:func:`orthogonal_nodes`,
 :func:`orthogonal_grid_like`).
@@ -47,6 +49,7 @@ from oceananigans_torch.models.nonhydrostatic import NonhydrostaticState
 from oceananigans_torch.models.shallow_water import (
     ShallowWaterModel, ShallowWaterState,
 )
+from oceananigans_torch.particles import ParticleState
 from oceananigans_torch.timesteppers import Clock
 
 FIELDS = ("u", "v", "w", "pressure", "Gu", "Gv", "Gw")
@@ -76,7 +79,9 @@ def state_from_numpy(model, arrays):
     :func:`tracer_keys` for its tracers, and of :data:`CLOCK`. The tensors
     are copies. A cubed-sphere model's state takes the keys of
     :data:`CS_SW_FIELDS` or :data:`CS_HYDROSTATIC_FIELDS` (see
-    :func:`cube_state_from_numpy`)."""
+    :func:`cube_state_from_numpy`). A model with particles takes them
+    from the ``particles/...`` keys where they are given, else from its
+    particles' initial positions."""
     if isinstance(model, (CubedSphereShallowWaterModel,
                           CubedSphereHydrostaticModel)):
         return cube_state_from_numpy(model, arrays)
@@ -101,10 +106,31 @@ def state_from_numpy(model, arrays):
             raise ValueError(f"{key}: shape {a.shape} != {shape}")
         return torch.tensor(a, dtype=g.dtype, device=g.device)
 
+    extra = {}
+    particles = getattr(model, "particles", None)
+    if particles is not None:
+        extra["particles"] = _particles_from_numpy(particles, arrays, g)
     return cls(clock=_clock_from_numpy(arrays, g.dtype),
                **{name: tensor(name) for name in fields},
                tracers={n: tensor(f"tracers/{n}") for n in names},
-               Gtracers={n: tensor(f"Gtracers/{n}") for n in names})
+               Gtracers={n: tensor(f"Gtracers/{n}") for n in names},
+               **extra)
+
+
+def _particles_from_numpy(particles, arrays, grid):
+    """The particle state from the ``particles/...`` keys of ``arrays``,
+    or ``particles``' initial one, in ``grid``'s dtype on its device."""
+    if "particles/x" not in arrays:
+        return particles.state_on(grid)
+
+    def tensor(key):
+        return torch.tensor(np.asarray(arrays[key]), dtype=grid.dtype,
+                            device=grid.device)
+    return ParticleState(
+        x=tensor("particles/x"), y=tensor("particles/y"),
+        z=tensor("particles/z"),
+        properties={k: tensor(f"particles/properties/{k}")
+                    for k in particles.tracked_fields})
 
 
 def _clock_from_numpy(arrays, dtype):

@@ -732,8 +732,10 @@ class CubedSphereHydrostaticModel(_OnDevice):
       hybrid form inside the corner band; the panel halo must cover it.
     - ``buoyancy``: "default" (``BuoyancyTracer`` when a "b" tracer is
       present) or any formulation of ``buoyancy.py``, whose tracers join.
-    - ``closure``: any closure of ``closures.py`` (or a tuple), with the
-      vertically implicit part solved down every column after each stage.
+    - ``closure``: any closure of ``closures.py`` or ``closures_ocean.py``
+      (or a tuple), with the vertically implicit part solved down every
+      column after each stage. CATKE gets no top fluxes here, as in the
+      JAX cube model: its convective lengths and surface TKE flux vanish.
     - ``bathymetry``: a callable ``h(lam_deg, phi_deg) -> bottom z``
       (negative depths, ≥ 0 for land) or a stacked bottom-height array:
       grid-fitted wet masks, wet-column depths, and the bottom-most wet

@@ -21,17 +21,19 @@ grid, as in the JAX package):
   barotropic substeps are a Python loop over the averaging weights);
 - ``HydrostaticState`` and ``HydrostaticFreeSurfaceModel`` with quasi-AB2
   stepping: w diagnosed from continuity by a ``torch.cumsum`` over z, the
-  hydrostatic pressure anomaly of a buoyancy, Coriolis, the closures of
-  ``closures.py`` (explicit divergences in the tendencies, the vertically
-  implicit part solved after the update), valued boundary conditions on
-  every field, and ``tendency_callbacks`` hooks on the tendencies.
+  hydrostatic pressure anomaly of a buoyancy, Coriolis, Stokes drift (its
+  x and y terms), the closures of ``closures.py`` and ``closures_ocean.py``
+  (explicit divergences in the tendencies, the vertically implicit part
+  solved after the update), forcings (advective ones too),
+  biogeochemistry, auxiliary fields (seen by the forcings and the
+  boundary conditions), Lagrangian particles stepped at the end of the
+  step, valued boundary conditions on every field, and
+  ``tendency_callbacks`` hooks on the tendencies.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item: forcings, biogeochemistry, Stokes drift, particles and
-auxiliary fields (item 12); the ocean closures (CATKE and the rest), the
-implicit free surface (over bathymetry too, with ``matrix_solver.py``),
-``ZStar``, ``PrescribedVelocityFields`` and ``split_rk3`` stepping (item
-15).
+Queue 1 item: the implicit free surface (over bathymetry too, with
+``matrix_solver.py``), ``ZStar``, ``PrescribedVelocityFields`` and
+``split_rk3`` stepping (item 15).
 
 The state is a dataclass of tensors. ``step`` returns a new state but
 reuses its argument's storage: halo fills write halo rows in place, the
@@ -47,7 +49,7 @@ paths on the CPU, where the wrappers run their plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -67,6 +69,7 @@ from oceananigans_torch.coriolis import FORMULATIONS
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
+from oceananigans_torch.forcings import materialize_forcings
 from oceananigans_torch.grids.base import Bounded, Center, Face
 from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
@@ -85,9 +88,9 @@ from oceananigans_torch.ops.operators import (
     X, Y, Z, div_xy_cc, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c,
     iy_f, iz_c, shift, vorticity_z_ff,
 )
+from oceananigans_torch.particles import ParticleState
 from oceananigans_torch.timesteppers import Clock, ab2_coefficients, tick
 
-_ITEM12 = "ROADMAP Queue 1 item 12 (forcings and physics)"
 _ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
 #: the grids the model runs on
 GRIDS = (RectilinearGrid, LatitudeLongitudeGrid, OrthogonalSphericalShellGrid)
@@ -490,6 +493,7 @@ class HydrostaticState:
     Gtracers: Dict[str, torch.Tensor]
     U: torch.Tensor
     V: torch.Tensor
+    particles: Optional[ParticleState] = None
 
     @property
     def velocities(self):
@@ -510,7 +514,7 @@ _replace = dataclasses.replace
 class HydrostaticFreeSurfaceModel(torch.nn.Module):
     """Hydrostatic Boussinesq dynamics with a free surface. Mirrors the JAX
     constructor's keywords and raises ``NotImplementedError`` on the ones
-    not ported."""
+    not ported (``ImplicitFreeSurface``, ``ZStar``, ``split_rk3``)."""
 
     def __init__(self, grid, momentum_advection=None, tracer_advection=None,
                  free_surface=None, tracers=(), buoyancy=None, coriolis=None,
@@ -519,16 +523,6 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                  particles=None, biogeochemistry=None, stokes_drift=None,
                  auxiliary_fields=None, fused_kernels="auto", device=None):
         super().__init__()
-        given = dict(forcing=forcing, particles=particles,
-                     biogeochemistry=biogeochemistry,
-                     stokes_drift=stokes_drift,
-                     auxiliary_fields=auxiliary_fields)
-        for name, value in given.items():
-            if value is not None and not (
-                    isinstance(value, (tuple, list, dict)) and not value):
-                raise NotImplementedError(
-                    f"HydrostaticFreeSurfaceModel({name}=...) is not ported "
-                    f"yet; {_ITEM12} brings it")
         base = (grid.underlying_grid
                 if isinstance(grid, ImmersedBoundaryGrid) else grid)
         if not isinstance(base, GRIDS):
@@ -574,8 +568,11 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             tracers = (tracers,)
         tracers = tuple(tracers)
         buoyancy = regularize_buoyancy(buoyancy)
-        if buoyancy is not None:
-            tracers += tuple(t for t in buoyancy.required_tracers
+        # the required tracers in the JAX model's order
+        for required in ((buoyancy,) + closures_mod._as_tuple(closure)
+                         + (biogeochemistry,)):
+            tracers += tuple(t for t in getattr(required, "required_tracers",
+                                                ())
                              if t not in tracers)
 
         self.grid = grid
@@ -590,6 +587,16 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         self.buoyancy = buoyancy
         self.coriolis = coriolis
         self.closure = closure
+        self.particles = particles
+        self.biogeochemistry = biogeochemistry
+        self.stokes_drift = stokes_drift
+        #: fields by name that the forcings and boundary conditions see
+        #: beside the state's: an array or a tensor (halo-extended) as it
+        #: is, anything else (a number, a callable ``f(x, y, z)``) through
+        #: ``set_field`` at the centres; made once on the grid's device and
+        #: kept
+        self.auxiliary_fields = dict(auxiliary_fields or {})
+        self._aux_on_grid = {}
         self._fused = fused_kernels
         #: hooks ``(grid, state, {name: G}) -> {name: G}`` applied to the
         #: tendencies at the end of :meth:`compute_tendencies` (wired by
@@ -604,6 +611,8 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             for name, loc in self.locations.items()}
         self.eta_bcs = regularize_field_boundary_conditions(
             boundary_conditions.get("eta"), grid, LOC_C)
+        self.forcings, self.advective_forcings = materialize_forcings(
+            forcing, self.locations, tracers)
         # the immersed boundary conditions, and the scalar diffusivity
         # their Value and Gradient fluxes use
         self.immersed = isinstance(grid, ImmersedBoundaryGrid)
@@ -706,7 +715,9 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             clock=Clock.start(time, g.dtype),
             Gu=new_field(g), Gv=new_field(g), Geta=torch.zeros_like(eta),
             Gtracers={t: new_field(g) for t in self.tracer_names},
-            U=torch.zeros_like(eta), V=torch.zeros_like(eta))
+            U=torch.zeros_like(eta), V=torch.zeros_like(eta),
+            particles=(self.particles.state_on(g)
+                       if self.particles is not None else None))
         state = self.update_state(state)
         # the persistent barotropic transports start from the initial
         # velocities
@@ -797,13 +808,31 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             top_fluxes=lambda: top_flux_values(self.bcs, self.grid,
                                                state.clock.time))
 
+    def fields(self, state):
+        """The fields that forcings and boundary conditions see: the
+        state's and the auxiliary fields."""
+        fields = state.fields()
+        if not self.auxiliary_fields:
+            return fields
+        g = self.grid
+        for name, val in self.auxiliary_fields.items():
+            key = (name, g.device, g.dtype)
+            if key not in self._aux_on_grid:
+                self._aux_on_grid[key] = (
+                    torch.as_tensor(val, dtype=g.dtype, device=g.device)
+                    if hasattr(val, "ndim") else set_field(g, val, loc=LOC_C))
+            fields[name] = self._aux_on_grid[key]
+        return fields
+
     def momentum_tendencies(self, state, diffusivities=None):
-        """``(Gu, Gv)``: momentum advection, Coriolis, the hydrostatic
-        pressure gradient, the explicit free surface's g∇η, the closure's
-        explicit stress divergence (with ``diffusivities``, computed here
-        when not given) and the boundary fluxes."""
+        """``(Gu, Gv)``: momentum advection, Stokes drift, Coriolis, the
+        hydrostatic pressure gradient, the explicit free surface's g∇η, the
+        closure's explicit stress divergence (with ``diffusivities``,
+        computed here when not given), the forcings and the boundary
+        fluxes."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
+        time, fields = state.clock.time, self.fields(state)
         ma = self.momentum_advection
         if isinstance(ma, VectorInvariant):
             if self.fused_kernels:
@@ -815,6 +844,9 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         else:
             Gu = -div_vu(g, ma, u, v, w)
             Gv = -div_vv(g, ma, u, v, w)
+        if self.stokes_drift is not None:
+            Gu = Gu + self.stokes_drift.x_tendency(g, u, v, w, time)
+            Gv = Gv + self.stokes_drift.y_tendency(g, u, v, w, time)
         if self.coriolis is not None:
             Gu = Gu - self.coriolis.x_f_cross_U(g, u, v, w)
             Gv = Gv - self.coriolis.y_f_cross_U(g, u, v, w)
@@ -833,7 +865,9 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 self.closure, g, u, v, w, state.tracers, diffusivities,
                 include_implicit=False)
             Gu, Gv = Gu + du, Gv + dv
-        time, fields = state.clock.time, state.fields()
+        f = self.forcings
+        Gu = Gu if f["u"] is None else Gu + f["u"](g, time, fields)
+        Gv = Gv if f["v"] is None else Gv + f["v"](g, time, fields)
         Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields)
         Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields)
         if not self.immersed:
@@ -852,37 +886,61 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 mask_immersed_field(g, Gv, LOC_V))
 
     def tracer_tendencies(self, state, diffusivities=None):
-        """``{name: Gc}``: each tracer's advection, the closure's explicit
-        flux divergence (with ``diffusivities``, computed here when not
-        given) and the boundary fluxes."""
+        """``{name: Gc}``: each tracer's advection (by its advective
+        forcings' velocities too), the closure's explicit flux divergence
+        (with ``diffusivities``, computed here when not given), the
+        biogeochemical transition and drift, the forcing and the boundary
+        fluxes; then the biogeochemistry's ``update_tendencies``."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
-        time, fields = state.clock.time, state.fields()
+        time, fields = state.clock.time, self.fields(state)
         if self.closure is not None and diffusivities is None:
             diffusivities = self.compute_diffusivities(state)
         fused = {}
-        if self.fused_tracer and tracers:
-            # one kernel for every tracer: the velocities are read once
-            fused = weno_tracer_tendencies(g, self.tracer_advection, u, v, w,
-                                           tracers,
-                                           metrics=self._tracer_metrics)
+        if self.fused_tracer:
+            # one kernel for every tracer without an advective forcing:
+            # the velocities are read once
+            fused = weno_tracer_tendencies(
+                g, self.tracer_advection, u, v, w,
+                {n: tracers[n] for n in self.tracer_names
+                 if n not in self.advective_forcings},
+                metrics=self._tracer_metrics)
+        bgc = self.biogeochemistry
         Gtracers = {}
         for name in self.tracer_names:
+            c = tracers[name]
             Gc = fused.get(name)
             if Gc is None:
-                Gc = -div_Uc(g, self.tracer_advection, u, v, w,
-                             tracers[name])
+                ua, va, wa = u, v, w
+                for af in self.advective_forcings.get(name, ()):
+                    du, dv, dw = af.velocities(g)
+                    ua, va, wa = ua + du, va + dv, wa + dw
+                Gc = -div_Uc(g, self.tracer_advection, ua, va, wa, c)
             if self.closure is not None:
                 Gc = Gc + closures_mod.tracer_flux_divergence(
-                    self.closure, g, name, tracers[name], tracers,
-                    diffusivities, include_implicit=False)
+                    self.closure, g, name, c, tracers, diffusivities,
+                    include_implicit=False)
+            if bgc is not None:
+                reaction = bgc.transition(g, name, time, fields)
+                if reaction is not None:
+                    Gc = Gc + reaction
+                drift = bgc.drift_velocity(name)
+                if drift is not None:
+                    wu, wv, ww = (torch.zeros_like(c) + d for d in drift)
+                    Gc = Gc - div_Uc(g, self.tracer_advection, wu, wv, ww,
+                                     c)
+            forcing = self.forcings[name]
+            if forcing is not None:
+                Gc = Gc + forcing(g, time, fields)
             Gc = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C, time, fields)
             ib = self.immersed_bcs.get(name)
             if ib is not None:
                 Gc = Gc + immersed_flux_divergence(
-                    g, ib, LOC_C, tracers[name], self._ib_kappa[name], time)
+                    g, ib, LOC_C, c, self._ib_kappa[name], time)
             Gtracers[name] = mask_immersed_field(g, Gc, LOC_C)
+        if bgc is not None:
+            Gtracers = bgc.update_tendencies(g, Gtracers, time, fields)
         return Gtracers
 
     def compute_tendencies(self, state, diffusivities=None):
@@ -991,7 +1049,13 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         dt = torch.tensor(dt, dtype=state.u.dtype)
         if not assume_filled:
             state = self.update_state(state)
-        return self._step_qab2(state, dt, chi)
+        state = self._step_qab2(state, dt, chi)
+        if self.particles is None or state.particles is None:
+            return state
+        # the particles advect at the end of the step, as in the JAX step
+        return _replace(state, particles=self.particles.step(
+            self.grid, state.particles, state.u, state.v, state.w,
+            state.fields(), dt))
 
     def ab2_update(self, state, dt, chi=0.1, tendencies=None):
         """The quasi-AB2 update of u, v and the tracers with the

@@ -5,10 +5,20 @@ Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a
 ``RectilinearGrid``, regular or stretched, or an ``ImmersedBoundaryGrid``
 over one: Centered, UpwindBiased, WENO or FluxFormAdvection advection of
 momentum and tracers (bound to a stretched grid's coefficient tables),
-Coriolis, buoyancy, the closures of ``closures.py`` (their explicit flux
-divergences added to the tendencies, their vertically implicit part solved
-after the update), valued and open boundary conditions, immersed boundary
-conditions, quasi-AB2 or RK3 time stepping. The pressure solver is the FFT
+Coriolis, buoyancy, the closures of ``closures.py`` and
+``closures_ocean.py`` (their explicit flux divergences added to the
+tendencies, their vertically implicit part solved after the update),
+forcings (``forcings.py``), background fields, Stokes drift,
+biogeochemistry and Lagrangian particles, valued and open boundary
+conditions, immersed boundary conditions, quasi-AB2 or RK3 time stepping.
+The terms follow the JAX model's order: momentum advection (with
+background fields, plain: the total flow's advection of the total
+velocity less the background's self-advection), Stokes drift, Coriolis,
+buoyancy, the closure, the forcings, the boundary fluxes; each tracer's
+advection (by its advective forcings' velocities too), the closure, the
+biogeochemical transition and drift, the forcing and the boundary fluxes;
+then the biogeochemistry's ``update_tendencies``. Particles step at the
+end of the step. The pressure solver is the FFT
 solver on a regular grid, the Fourier-tridiagonal solver on a stretched z
 and preconditioned CG on an immersed grid (``solvers/pressure_solver.py``).
 On an immersed grid the velocities are masked before every halo fill, the
@@ -34,7 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+import inspect
+from typing import Dict, Optional
 
 import torch
 
@@ -52,8 +63,10 @@ from oceananigans_torch.buoyancy import (
 )
 from oceananigans_torch.coriolis import FORMULATIONS, FPlane
 from oceananigans_torch.fields import (
-    LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
+    LOC_C, LOC_U, LOC_V, LOC_W, BackgroundField, location_coords, new_field,
+    set_field,
 )
+from oceananigans_torch.forcings import materialize_forcings
 from oceananigans_torch.grids.base import Center, Periodic
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
 from oceananigans_torch.immersed import (
@@ -74,22 +87,13 @@ from oceananigans_torch.ops.cuda_weno import (
 from oceananigans_torch.ops.operators import (
     ddx_f, ddy_f, ddz_f, divergence_ccc,
 )
+from oceananigans_torch.particles import ParticleState
 from oceananigans_torch.solvers.pressure_solver import make_pressure_solver
 from oceananigans_torch.timesteppers import (
     Clock, RK3_STAGES, ab2_coefficients, tick,
 )
 
 TIMESTEPPERS = ("QuasiAdamsBashforth2", "RungeKutta3")
-
-#: constructor arguments not ported yet, and the ROADMAP Queue 1 item that
-#: brings each
-_LATER = {
-    "forcing": "item 12 (forcings and physics)",
-    "background_fields": "item 12 (forcings and physics)",
-    "particles": "item 12 (forcings and physics)",
-    "stokes_drift": "item 12 (forcings and physics)",
-    "biogeochemistry": "item 12 (forcings and physics)",
-}
 
 
 @dataclasses.dataclass
@@ -107,6 +111,7 @@ class NonhydrostaticState:
     tracers: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     Gtracers: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    particles: Optional[ParticleState] = None
 
     @property
     def velocities(self):
@@ -121,7 +126,7 @@ _replace = dataclasses.replace
 
 class NonhydrostaticModel(torch.nn.Module):
     """Configuration and step functions; mirrors the JAX constructor's
-    keywords and raises ``NotImplementedError`` on the ones not ported."""
+    keywords."""
 
     def __init__(self, grid, advection=None, tracers=(), buoyancy=None,
                  coriolis=None, closure=None, forcing=None,
@@ -130,16 +135,6 @@ class NonhydrostaticModel(torch.nn.Module):
                  fused_kernels="auto", timestepper="RungeKutta3",
                  device=None):
         super().__init__()
-        given = dict(forcing=forcing,
-                     background_fields=background_fields,
-                     particles=particles, stokes_drift=stokes_drift,
-                     biogeochemistry=biogeochemistry)
-        for name, value in given.items():
-            if value is not None and not (
-                    isinstance(value, (tuple, list, dict)) and not value):
-                raise NotImplementedError(
-                    f"NonhydrostaticModel({name}=...) is not ported yet; "
-                    f"ROADMAP Queue 1 {_LATER[name]} brings it")
         base = (grid.underlying_grid
                 if isinstance(grid, ImmersedBoundaryGrid) else grid)
         if not isinstance(base, RectilinearGrid):
@@ -167,8 +162,11 @@ class NonhydrostaticModel(torch.nn.Module):
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        if buoyancy is not None:
-            tracers += tuple(t for t in buoyancy.required_tracers
+        # the required tracers in the JAX model's order
+        for required in ((biogeochemistry, buoyancy)
+                         + closures_mod._as_tuple(closure)):
+            tracers += tuple(t for t in getattr(required, "required_tracers",
+                                                ())
                              if t not in tracers)
         needed = max(required_halo(advection),
                      closures_mod.closure_required_halo(closure))
@@ -191,6 +189,9 @@ class NonhydrostaticModel(torch.nn.Module):
         self.coriolis = coriolis
         self.closure = closure
         self.timestepper = timestepper
+        self.particles = particles
+        self.stokes_drift = stokes_drift
+        self.biogeochemistry = biogeochemistry
         boundary_conditions = dict(boundary_conditions or {})
         self.locations = {"u": LOC_U, "v": LOC_V, "w": LOC_W,
                           **{t: LOC_C for t in tracers}}
@@ -199,6 +200,17 @@ class NonhydrostaticModel(torch.nn.Module):
             for name, loc in self.locations.items()}
         self.pressure_bcs = regularize_field_boundary_conditions(
             None, grid, LOC_C)
+        self.forcings, self.advective_forcings = materialize_forcings(
+            forcing, self.locations, tracers)
+        #: background fields by name: ``(value, time_dependent)``, where a
+        #: ``BackgroundField`` or a callable of four or more arguments is
+        #: ``f(x, y, z, t)``, evaluated at each step's clock time, and
+        #: anything else (a 3-argument callable, a number, an array) a
+        #: static ``set_field`` value
+        self.background_fields = {
+            name: (fn, _time_dependent(fn))
+            for name, fn in dict(background_fields or {}).items()}
+        self._static_backgrounds = {}
         # the immersed boundary conditions, and the scalar diffusivity
         # their Value and Gradient fluxes use
         self.immersed_bcs = {}
@@ -236,16 +248,19 @@ class NonhydrostaticModel(torch.nn.Module):
         return self.grid.device
 
     # ------------------------------------------------------------------
-    # Dispatch gates. The tendency kernels run whatever the closure and
-    # the boundary fluxes (their terms are added to the kernels' output);
-    # the fused AB2 kernels take neither, as the JAX model's
-    # ``_fused_common``. The physics not ported yet (forcings, background
-    # fields, Stokes drift, biogeochemistry) raises at construction.
+    # Dispatch gates, the JAX model's. The tendency kernels run whatever
+    # the closure, the boundary fluxes, the forcings, the Stokes drift and
+    # the biogeochemistry (their terms are added to the kernels' output),
+    # but not under background fields; the fused AB2 kernels take none of
+    # these (``_fused_common``).
     # ------------------------------------------------------------------
     @property
     def fused_kernels(self):
         """The kernel family that runs: ``"centered2"``, ``"weno5"`` or
-        False; "auto" means: on a CUDA device."""
+        False (always False under background fields, whose momentum
+        advection runs plain); "auto" means: on a CUDA device."""
+        if self.background_fields:
+            return False
         if fused_available(self.grid, self.advection):
             tag = "centered2"
         elif weno5_available(self.grid, self.advection):
@@ -264,16 +279,25 @@ class NonhydrostaticModel(torch.nn.Module):
         """The any-order WENO tracer kernel (``weno_tracer_tendencies``)
         computes every tracer's advection: WENO of an order other than 5
         (the WENO-5 kernels take that one), as the JAX model's
-        ``fused_tracer``, without the TPU's tiling rules."""
-        return self._tracer_metrics is not None and self._kernels_on()
+        ``fused_tracer``, without the TPU's tiling rules; refused under
+        background fields."""
+        return (self._tracer_metrics is not None and self._kernels_on()
+                and not self.background_fields)
 
     @property
     def _fused_common(self) -> bool:
         """What every fused AB2 kernel needs: AB2 stepping, no closure, no
-        flux condition with a value on u, v, w or a tracer, no immersed
-        boundary condition and no tendency callback."""
+        Stokes drift, no background field, no forcing, no advective
+        forcing, no biogeochemistry, no flux condition with a value on u,
+        v, w or a tracer, no immersed boundary condition and no tendency
+        callback."""
         return (self.timestepper == "QuasiAdamsBashforth2"
                 and self.closure is None
+                and self.stokes_drift is None
+                and not self.background_fields
+                and all(f is None for f in self.forcings.values())
+                and not self.advective_forcings
+                and self.biogeochemistry is None
                 and not any(has_valued_flux(b) for b in self.bcs.values())
                 and not self.immersed_bcs
                 and not self.tendency_callbacks)
@@ -347,7 +371,9 @@ class NonhydrostaticModel(torch.nn.Module):
             clock=Clock.start(time, g.dtype),
             Gu=new_field(g), Gv=new_field(g), Gw=new_field(g),
             tracers={t: mk(t) for t in self.tracer_names},
-            Gtracers={t: new_field(g) for t in self.tracer_names})
+            Gtracers={t: new_field(g) for t in self.tracer_names},
+            particles=(self.particles.state_on(g)
+                       if self.particles is not None else None))
         state = self.fill_state_halos(state)
         state = self._pressure_correct(state, 1.0)
         return self.fill_state_halos(state)
@@ -397,12 +423,35 @@ class NonhydrostaticModel(torch.nn.Module):
             top_fluxes=lambda: top_flux_values(self.bcs, self.grid,
                                                state.clock.time))
 
+    def background(self, time):
+        """The background fields at ``time`` (the clock's 0-d tensor), by
+        name, each a tensor of the grid's shape; the static ones are made
+        once and kept."""
+        g = self.grid
+        out = {}
+        for name, (fn, timed) in self.background_fields.items():
+            loc = self.locations[name]
+            if timed:
+                x, y, z = location_coords(g, loc)
+                out[name] = torch.as_tensor(
+                    fn(x, y, z, time), dtype=g.dtype,
+                    device=g.device).expand(g.shape)
+                continue
+            key = (name, g.device, g.dtype)
+            if key not in self._static_backgrounds:
+                self._static_backgrounds[key] = set_field(g, fn, loc=loc)
+            out[name] = self._static_backgrounds[key]
+        return out
+
     def compute_tendencies(self, state, diffusivities=None):
-        """``(Gu, Gv, Gw, {name: Gc})``: advection, Coriolis, buoyancy and
-        the closure's explicit stress divergence of the momentum; advection
-        and the closure's explicit flux divergence of each tracer; the
-        boundary fluxes; then the ``tendency_callbacks`` in order.
-        ``diffusivities`` are computed here when not given."""
+        """``(Gu, Gv, Gw, {name: Gc})``: advection, Stokes drift, Coriolis,
+        buoyancy, the closure's explicit stress divergence and the forcing
+        of the momentum; advection (with any advective forcings'
+        velocities), the closure's explicit flux divergence, the
+        biogeochemical transition and drift and the forcing of each tracer;
+        the boundary fluxes; the biogeochemistry's ``update_tendencies``;
+        then the ``tendency_callbacks`` in order. ``diffusivities`` are
+        computed here when not given."""
         g = self.grid
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
@@ -411,15 +460,35 @@ class NonhydrostaticModel(torch.nn.Module):
         if diffusivities is None:
             diffusivities = self.compute_diffusivities(state)
         kernels = self.fused_kernels
-        if kernels == "centered2":
-            Gu, Gv, Gw = centered2_momentum_tendency(g, u, v, w)
-        elif kernels == "weno5":
-            Gu, Gv, Gw = weno5_momentum_tendency(
-                g, u, v, w, epsilon=self.advection.epsilon)
+        bg = self.background(time) if self.background_fields else {}
+        if bg:
+            # advect the total fields by the total flow, less the
+            # background's self-advection (assumed balanced)
+            ub = bg.get("u", torch.zeros_like(u))
+            vb = bg.get("v", torch.zeros_like(v))
+            wb = bg.get("w", torch.zeros_like(w))
+            ut, vt, wt = u + ub, v + vb, w + wb
+            Gu = -(div_vu(g, self.advection, ut, vt, wt)
+                   - div_vu(g, self.advection, ub, vb, wb))
+            Gv = -(div_vv(g, self.advection, ut, vt, wt)
+                   - div_vv(g, self.advection, ub, vb, wb))
+            Gw = -(div_vw(g, self.advection, ut, vt, wt)
+                   - div_vw(g, self.advection, ub, vb, wb))
         else:
-            Gu = -div_vu(g, self.advection, u, v, w)
-            Gv = -div_vv(g, self.advection, u, v, w)
-            Gw = -div_vw(g, self.advection, u, v, w)
+            ut, vt, wt = u, v, w
+            if kernels == "centered2":
+                Gu, Gv, Gw = centered2_momentum_tendency(g, u, v, w)
+            elif kernels == "weno5":
+                Gu, Gv, Gw = weno5_momentum_tendency(
+                    g, u, v, w, epsilon=self.advection.epsilon)
+            else:
+                Gu = -div_vu(g, self.advection, u, v, w)
+                Gv = -div_vv(g, self.advection, u, v, w)
+                Gw = -div_vw(g, self.advection, u, v, w)
+        if self.stokes_drift is not None:
+            Gu = Gu + self.stokes_drift.x_tendency(g, u, v, w, time)
+            Gv = Gv + self.stokes_drift.y_tendency(g, u, v, w, time)
+            Gw = Gw + self.stokes_drift.z_tendency(g, u, v, w, time)
         if self.coriolis is not None:
             Gu = Gu - self.coriolis.x_f_cross_U(g, u, v, w)
             Gv = Gv - self.coriolis.y_f_cross_U(g, u, v, w)
@@ -436,6 +505,10 @@ class NonhydrostaticModel(torch.nn.Module):
                 self.closure, g, u, v, w, tracers, diffusivities,
                 include_implicit=False)
             Gu, Gv, Gw = Gu + du, Gv + dv, Gw + dw
+        f = self.forcings
+        Gu = Gu if f["u"] is None else Gu + f["u"](g, time, fields)
+        Gv = Gv if f["v"] is None else Gv + f["v"](g, time, fields)
+        Gw = Gw if f["w"] is None else Gw + f["w"](g, time, fields)
         Gu = apply_flux_bcs(Gu, g, self.bcs["u"], LOC_U, time, fields)
         Gv = apply_flux_bcs(Gv, g, self.bcs["v"], LOC_V, time, fields)
         Gw = apply_flux_bcs(Gw, g, self.bcs["w"], LOC_W, time, fields)
@@ -453,30 +526,60 @@ class NonhydrostaticModel(torch.nn.Module):
             else:
                 Gw = Gw + term
 
+        # one kernel for every tracer without an advective forcing or a
+        # background, on the total flow as in the JAX model (whose gates,
+        # like these, select no kernel under background fields)
+        kernel_tracers = {n: tracers[n] for n in self.tracer_names
+                          if n not in self.advective_forcings
+                          and n not in bg}
         fused = {}
         if kernels == "weno5":
-            # one kernel for every tracer
-            fused = weno5_tracer_tendencies(g, u, v, w, tracers,
+            fused = weno5_tracer_tendencies(g, ut, vt, wt, kernel_tracers,
                                             epsilon=self.advection.epsilon)
         elif self.fused_tracer:
-            fused = weno_tracer_tendencies(g, self.advection, u, v, w,
-                                           tracers,
+            fused = weno_tracer_tendencies(g, self.advection, ut, vt, wt,
+                                           kernel_tracers,
                                            metrics=self._tracer_metrics)
+        bgc = self.biogeochemistry
         Gtracers = {}
         for name in self.tracer_names:
+            c = tracers[name]
             Gc = fused.get(name)
             if Gc is None:
-                Gc = -div_Uc(g, self.advection, u, v, w, tracers[name])
+                uta, vta, wta = ut, vt, wt
+                for af in self.advective_forcings.get(name, ()):
+                    ua, va, wa = af.velocities(g)
+                    uta, vta, wta = uta + ua, vta + va, wta + wa
+                if name in bg:
+                    # the total tracer by the total flow, less the
+                    # background tracer by the background flow
+                    cb = bg[name]
+                    Gc = -(div_Uc(g, self.advection, uta, vta, wta, c + cb)
+                           - div_Uc(g, self.advection, ub, vb, wb, cb))
+                else:
+                    Gc = -div_Uc(g, self.advection, uta, vta, wta, c)
             if self.closure is not None:
                 Gc = Gc + closures_mod.tracer_flux_divergence(
-                    self.closure, g, name, tracers[name], tracers,
-                    diffusivities, include_implicit=False)
+                    self.closure, g, name, c, tracers, diffusivities,
+                    include_implicit=False)
+            if bgc is not None:
+                reaction = bgc.transition(g, name, time, fields)
+                if reaction is not None:
+                    Gc = Gc + reaction
+                drift = bgc.drift_velocity(name)
+                if drift is not None:
+                    wu, wv, ww = (torch.zeros_like(c) + d for d in drift)
+                    Gc = Gc - div_Uc(g, self.advection, wu, wv, ww, c)
+            if f[name] is not None:
+                Gc = Gc + f[name](g, time, fields)
             Gc = apply_flux_bcs(Gc, g, self.bcs[name], LOC_C, time, fields)
             ib = self.immersed_bcs.get(name)
             if ib is not None:
                 Gc = Gc + immersed_flux_divergence(
-                    g, ib, LOC_C, tracers[name], self._ib_kappa[name], time)
+                    g, ib, LOC_C, c, self._ib_kappa[name], time)
             Gtracers[name] = Gc
+        if bgc is not None:
+            Gtracers = bgc.update_tendencies(g, Gtracers, time, fields)
         for hook in self.tendency_callbacks:
             G = hook(g, state, {"u": Gu, "v": Gv, "w": Gw, **Gtracers})
             Gu, Gv, Gw = G["u"], G["v"], G["w"]
@@ -517,8 +620,19 @@ class NonhydrostaticModel(torch.nn.Module):
         its first step and passes ``assume_filled=True``."""
         dt = torch.tensor(dt, dtype=state.u.dtype)
         if self.timestepper == "RungeKutta3":
-            return self.rk3_step(state, dt, assume_filled=assume_filled)
-        return self.ab2_step(state, dt, assume_filled=assume_filled)
+            state = self.rk3_step(state, dt, assume_filled=assume_filled)
+        else:
+            state = self.ab2_step(state, dt, assume_filled=assume_filled)
+        return self._step_particles(state, dt)
+
+    def _step_particles(self, state, dt):
+        """The particles advected by the step's final velocities (and their
+        tracked fields interpolated), as at the end of the JAX step."""
+        if self.particles is None or state.particles is None:
+            return state
+        return _replace(state, particles=self.particles.step(
+            self.grid, state.particles, state.u, state.v, state.w,
+            state.fields(), dt))
 
     def _implicit_diffusion(self, state, diffusivities, dt):
         """The closure's vertically implicit diffusion of u, v and the
@@ -640,6 +754,19 @@ class NonhydrostaticModel(torch.nn.Module):
                 f"closure={self.closure!r}, "
                 f"buoyancy={self.buoyancy!r}, "
                 f"timestepper={self.timestepper!r}")
+
+
+def _time_dependent(fn) -> bool:
+    """A background field that is a function of time: a
+    ``BackgroundField``, or a callable of four or more arguments."""
+    if isinstance(fn, BackgroundField):
+        return True
+    if not callable(fn):
+        return False
+    try:
+        return len(inspect.signature(fn).parameters) >= 4
+    except (TypeError, ValueError):
+        return False
 
 
 __all__ = ["NonhydrostaticModel", "NonhydrostaticState"]

@@ -44,6 +44,7 @@ from oceananigans_torch.boundary_conditions import (
 from oceananigans_torch.buoyancy import g_Earth
 from oceananigans_torch.coriolis import FORMULATIONS
 from oceananigans_torch.fields import LOC_C, LOC_U, LOC_V, new_field, set_field
+from oceananigans_torch.forcings import materialize_forcing
 from oceananigans_torch.grids.base import Center, Face, Flat, Periodic
 from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
@@ -138,11 +139,6 @@ class ShallowWaterModel(torch.nn.Module):
                  forcing=None, boundary_conditions=None,
                  fused_kernels="auto", device=None):
         super().__init__()
-        if forcing is not None and not (isinstance(forcing, dict)
-                                        and not forcing):
-            raise NotImplementedError(
-                "ShallowWaterModel(forcing=...) is not ported yet; ROADMAP "
-                "Queue 1 item 12 (forcings and physics) brings forcings")
         if not isinstance(grid, (RectilinearGrid, LatitudeLongitudeGrid,
                                  OrthogonalSphericalShellGrid)):
             raise NotImplementedError(
@@ -221,6 +217,9 @@ class ShallowWaterModel(torch.nn.Module):
                           **{t: LOC_C for t in tracers}}
         self.bcs = {name: regularize_field_boundary_conditions(
             boundary_conditions.get(name), grid, loc)
+            for name, loc in self.locations.items()}
+        self.forcings = {name: materialize_forcing(
+            dict(forcing or {}).get(name), name, loc)
             for name, loc in self.locations.items()}
         self._fused_kernels = fused_kernels
         if device is not None:
@@ -317,11 +316,18 @@ class ShallowWaterModel(torch.nn.Module):
             Guh = Guh - self.coriolis.x_f_cross_U(g, cu, cv, zero)
             Gvh = Gvh - self.coriolis.y_f_cross_U(g, cu, cv, zero)
         time, fields = state.clock.time, state.fields()
+        f = self.forcings
+        Guh = Guh if f["uh"] is None else Guh + f["uh"](g, time, fields)
+        Gvh = Gvh if f["vh"] is None else Gvh + f["vh"](g, time, fields)
+        Gh = Gh if f["h"] is None else Gh + f["h"](g, time, fields)
         Guh = apply_flux_bcs(Guh, g, self.bcs["uh"], LOC_U, time, fields)
         Gvh = apply_flux_bcs(Gvh, g, self.bcs["vh"], LOC_V, time, fields)
-        Gtracers = {name: -div_Uc(g, self.tracer_advection, u, v, zero,
-                                  state.tracers[name])
-                    for name in self.tracer_names}
+        Gtracers = {}
+        for name in self.tracer_names:
+            Gc = -div_Uc(g, self.tracer_advection, u, v, zero,
+                         state.tracers[name])
+            Gtracers[name] = Gc if f[name] is None else Gc + f[name](
+                g, time, fields)
         return Guh, Gvh, Gh, Gtracers
 
     # ------------------------------------------------------------------

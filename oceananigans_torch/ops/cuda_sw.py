@@ -97,7 +97,8 @@ def sw_fused_available(grid, model) -> bool:
     b = model.bathymetry
     if (torch.is_tensor(b) and b.ndim != 0) or float(b) != 0.0:
         return False
-    # no forcing: the port's model refuses any (forcings are not ported)
+    if any(f is not None for f in model.forcings.values()):
+        return False
     for name in ("uh", "vh", "h"):
         for axis in range(2):
             for bc in model.bcs[name].sides(axis):

@@ -34,6 +34,25 @@ u, T and S of ``bench.py``, stepped by quasi-AB2 (the VI kernel and the
 tracer kernel once a step, 21 barotropic substeps, the fills), 20 steps
 per run after 5 warm-up steps.
 
+Two configurations of the physics slice are built by
+:func:`langmuir_model` and :func:`hydro_catke_model`:
+
+- ``langmuir``: ``examples/langmuir_turbulence.py`` at 256³ over its
+  128 × 128 × 64 m box, float32, (Periodic, Periodic, Bounded), halo
+  (3, 3, 3), WENO(5), BuoyancyTracer b, the example's wave as a
+  ``UniformStokesDrift``, ``AnisotropicMinimumDissipation``, the u and b
+  surface fluxes and the b bottom gradient, a tracer P with
+  ``SimpleBiogeochemistry`` (growth (1/day)·exp(z/16 m), sinking 1e-4
+  m/s), and 2²⁰ ``LagrangianParticles`` tracking b; quasi-AB2, Δt = 0.5 s
+  (kernels 7 and 9 once a step);
+- ``hydro_catke``: ``hydro_vi`` on the 1° near-global sphere
+  (:func:`hydro_latlon_model`) with ``CATKEVerticalDiffusivity()`` and a
+  zonal wind stress, Δt = 60 s (kernels 11 and 12/13 once a step, the
+  Thomas solves plain).
+
+For these two the script prints the alternated step times of both paths
+and the profiler's kernel time and idle share of each.
+
 It runs the kernel path (``fused_kernels="auto"``) and the plain path
 (``fused_kernels=False``) and prints, for each path:
 
@@ -264,14 +283,16 @@ def latlon_continents(lam, phi):
 def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
                        size=(360, 160, 60), momentum_advection=None,
                        longitude=(0.0, 360.0), latitude=(-80.0, 80.0),
-                       halo=(6, 6, 4), bathymetry=None):
+                       halo=(6, 6, 4), bathymetry=None, closure=None,
+                       boundary_conditions=None):
     """``hydro_vi`` on the sphere: a 1° near-global ocean on a
     ``LatitudeLongitudeGrid`` (at ``size``; 4 km deep), spherical Coriolis,
     linear seawater buoyancy, ``WENOVectorInvariant()`` (or
     ``momentum_advection``), WENO(7) T and S, the split-explicit free
     surface with 30 substeps; on an ``ImmersedBoundaryGrid`` with a
     ``GridFittedBottom(bathymetry)`` where ``bathymetry`` (a callable of
-    (λ, φ), such as :func:`latlon_continents`) is given."""
+    (λ, φ), such as :func:`latlon_continents`) is given; with ``closure``
+    and ``boundary_conditions`` where given."""
     import oceananigans_torch as ot
     grid = ot.LatitudeLongitudeGrid(
         size=size, longitude=longitude, latitude=latitude,
@@ -287,6 +308,7 @@ def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
             equation_of_state=ot.LinearEquationOfState()),
         coriolis=ot.HydrostaticSphericalCoriolis(),
         free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        closure=closure, boundary_conditions=boundary_conditions,
         fused_kernels=fused)
 
 
@@ -307,6 +329,124 @@ def hydro_latlon_initial_state(model, generic=False):
     return model.initial_state(
         T=lambda lam, phi, z: 20.0 + 8e-4 * z - 0.05 * torch.abs(phi),
         S=lambda lam, phi, z: 35.0 + 1e-3 * phi, **uv)
+
+
+#: the physics slice's configurations: Δt and the steps of one measurement
+LANGMUIR_DT, LANGMUIR_STEPS = 0.5, 20
+HYDRO_CATKE_DT, HYDRO_CATKE_STEPS = 60.0, 20
+#: ``examples/langmuir_turbulence.py``'s wave (McWilliams et al. 1997),
+#: fluxes and stratification
+LANGMUIR_AMPLITUDE, LANGMUIR_WAVELENGTH = 0.8, 60.0
+LANGMUIR_QU, LANGMUIR_QB, LANGMUIR_N2 = -3.72e-5, 2.307e-8, 1.936e-5
+
+
+def langmuir_model(grid=None, size=(256, 256, 256), dtype=torch.float32,
+                   device="cuda", fused="auto", particles=None):
+    """``examples/langmuir_turbulence.py`` at ``size`` over its 128 x 128 x
+    64 m box (or on ``grid``): WENO(5), a ``BuoyancyTracer`` b, the
+    example's wave as a ``UniformStokesDrift`` (us = Us0 exp(2kz), Us0 =
+    a²kω), ``AnisotropicMinimumDissipation``, the u and b surface fluxes
+    and the b bottom gradient; a second tracer P under
+    ``SimpleBiogeochemistry`` with the growth rate (1/day)·exp(z/16 m) and
+    a sinking speed of 1e-4 m/s; ``particles`` (``LagrangianParticles``)
+    when given; quasi-AB2."""
+    import oceananigans_torch as ot
+    if grid is None:
+        grid = ot.RectilinearGrid(
+            size=size, extent=(128.0, 128.0, 64.0),
+            topology=(ot.Periodic, ot.Periodic, ot.Bounded), halo=(3, 3, 3),
+            dtype=dtype, device=device)
+    k = 2 * math.pi / LANGMUIR_WAVELENGTH
+    Us0 = LANGMUIR_AMPLITUDE ** 2 * k * math.sqrt(9.81 * k)
+    return ot.NonhydrostaticModel(
+        grid=grid, advection=ot.WENO(5), tracers=("b", "P"),
+        buoyancy=ot.BuoyancyTracer(),
+        stokes_drift=ot.UniformStokesDrift(
+            us=lambda z, t: Us0 * torch.exp(2 * k * z),
+            dusdz=lambda z, t: 2 * k * Us0 * torch.exp(2 * k * z)),
+        closure=ot.AnisotropicMinimumDissipation(),
+        biogeochemistry=ot.SimpleBiogeochemistry(
+            tracer="P",
+            growth_rate=lambda z, t: torch.exp(z / 16.0) / 86400.0,
+            sinking_speed=1e-4),
+        boundary_conditions={
+            "u": ot.FieldBoundaryConditions(top=ot.FluxBC(LANGMUIR_QU)),
+            "b": ot.FieldBoundaryConditions(
+                top=ot.FluxBC(LANGMUIR_QB),
+                bottom=ot.GradientBC(LANGMUIR_N2))},
+        particles=particles, timestepper="QuasiAdamsBashforth2",
+        fused_kernels=fused)
+
+
+def langmuir_particles(n, seed=0):
+    """``n`` particles placed uniformly in the Langmuir box from
+    ``numpy.random.default_rng(seed)``, tracking b."""
+    import numpy as np
+
+    import oceananigans_torch as ot
+    rng = np.random.default_rng(seed)
+    return ot.LagrangianParticles(
+        x=128.0 * rng.random(n), y=128.0 * rng.random(n),
+        z=-64.0 * rng.random(n), tracked_fields={"b": "b"})
+
+
+def langmuir_initial_state(model, seed=1):
+    """The example's b = N² z, u and w of 1e-4 N(0, 1) from
+    ``default_rng(seed)``, and P = exp(z/8 m)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    N = model.grid.N
+    return model.initial_state(
+        b=lambda x, y, z: LANGMUIR_N2 * z,
+        u=1e-4 * rng.standard_normal(N), w=1e-4 * rng.standard_normal(N),
+        P=lambda x, y, z: torch.exp(z / 8.0) + 0 * x)
+
+
+def hydro_catke_model(fused="auto", dtype=torch.float32, device="cuda",
+                      size=(360, 160, 60), **grid_kw):
+    """:func:`hydro_latlon_model` with ``CATKEVerticalDiffusivity()`` (its
+    TKE e a third tracer) and a zonal wind stress −1e-4 cos(πφ/160°) on
+    u's top, a callable of (λ, φ, t)."""
+    import oceananigans_torch as ot
+    return hydro_latlon_model(
+        fused, dtype, device, size, closure=ot.CATKEVerticalDiffusivity(),
+        boundary_conditions={"u": ot.FieldBoundaryConditions(
+            top=ot.FluxBC(lambda lam, phi, t: -1e-4 * torch.cos(
+                math.pi * phi / 160.0) + 0 * lam))}, **grid_kw)
+
+
+def baroclinic_adjustment_model(grid=None, size=(60, 60, 10),
+                                dtype=torch.float64, device="cuda",
+                                fused="auto"):
+    """``examples/baroclinic_adjustment.py`` at ``size`` (or on ``grid``):
+    a buoyancy front on a ``LatitudeLongitudeGrid`` over 10°W–10°E,
+    30°N–50°N, 1 km deep; ``VectorInvariant()`` momentum, WENO(5) b,
+    ``BuoyancyTracer``, spherical Coriolis, ``CATKEVerticalDiffusivity()``,
+    the split-explicit free surface with 30 substeps; with a destabilizing
+    b surface flux of 1e-8 m² s⁻³ added, which engages CATKE's convective
+    and entrainment lengths (the example has none)."""
+    import oceananigans_torch as ot
+    if grid is None:
+        grid = ot.LatitudeLongitudeGrid(
+            size=size, longitude=(-10.0, 10.0), latitude=(30.0, 50.0),
+            z=(-1000.0, 0.0), dtype=dtype, device=device)
+    return ot.HydrostaticFreeSurfaceModel(
+        grid=grid, tracers=("b",), buoyancy=ot.BuoyancyTracer(),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        momentum_advection=ot.VectorInvariant(),
+        tracer_advection=ot.WENO(5), closure=ot.CATKEVerticalDiffusivity(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        boundary_conditions={"b": ot.FieldBoundaryConditions(
+            top=ot.FluxBC(1e-8))},
+        fused_kernels=fused)
+
+
+def baroclinic_adjustment_initial_state(model):
+    """The example's front: b = N² z + 0.01 tanh((φ − 40°)/2°) with N² =
+    1e-5, e = 1e-6."""
+    return model.initial_state(
+        b=lambda lam, phi, z: 1e-5 * z + 0.01 * torch.tanh(
+            (phi - 40.0) / 2.0), e=1e-6)
 
 
 def ridge_bottom():
@@ -677,10 +817,58 @@ def _hydrostatic(trace_dir):
         torch.cuda.empty_cache()
 
 
+def _physics(name, trace_dir):
+    """The ``langmuir`` or ``hydro_catke`` configuration: alternated step
+    times of both paths, then each path's kernel time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    if name == "langmuir":
+        dt, steps = LANGMUIR_DT, LANGMUIR_STEPS
+        models = {k: langmuir_model(
+            fused=fused, particles=langmuir_particles(2 ** 20))
+            for k, fused in (("kernel", "auto"), ("plain", False))}
+        init = langmuir_initial_state
+        ok = models["kernel"].fused_kernels == "weno5"
+    else:
+        dt, steps = HYDRO_CATKE_DT, HYDRO_CATKE_STEPS
+        models = {k: hydro_catke_model(fused) for k, fused in (
+            ("kernel", "auto"), ("plain", False))}
+
+        def init(m):
+            return m.update_state(hydro_latlon_initial_state(m))
+        ok = models["kernel"].fused_kernels and models["kernel"].fused_tracer
+    if not ok:
+        raise RuntimeError(f"{name}: the kernel path must take its kernels")
+    print(f"configuration {name}: {models['kernel']!r}, dt {dt}", flush=True)
+    states = {k: _run(m, init(m), dt, 2) for k, m in models.items()}
+    _alternated(models, states, dt, steps)
+    for k, model in models.items():
+        e0, e1 = _events(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            states[k] = _run(model, states[k], dt, 5)
+            e1.record()
+            e1.synchronize()
+        wall = e0.elapsed_time(e1) / 5
+        busy = _kernel_time_us(prof)[0] / 1e3 / 5
+        print(f"[profile] {k} path, 5 steps: kernel time {busy} ms/step, "
+              f"wall {wall} ms/step, idle share {1 - busy / wall}",
+              flush=True)
+        if trace_dir is not None:
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace_dir / f"trace_{name}_{k}.json"))
+
+
+#: the physics slice's configurations
+PHYSICS_CONFIGS = ("langmuir", "hydro_catke")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config",
-                        choices=CONFIGS + tuple(SW_CONFIGS) + (HYDRO_CONFIG,),
+                        choices=CONFIGS + tuple(SW_CONFIGS) + (HYDRO_CONFIG,)
+                        + PHYSICS_CONFIGS,
                         default="default")
     parser.add_argument("--trace-dir", type=Path, default=None)
     args = parser.parse_args(argv)
@@ -704,6 +892,9 @@ def main(argv=None):
         return
     if args.config == HYDRO_CONFIG:
         _hydrostatic(args.trace_dir)
+        return
+    if args.config in PHYSICS_CONFIGS:
+        _physics(args.config, args.trace_dir)
         return
 
     N, dt, steps = 256, 1e-4, 100

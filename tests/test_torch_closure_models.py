@@ -42,11 +42,15 @@ GOLDEN = Path(__file__).parent / "golden" / "rayleigh_benard.npz"
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def jax_arrays(state, fields, names):
@@ -420,12 +424,22 @@ def test_shallow_water_flux_matches_jax():
 
 
 def test_unported_closures_raise_with_item():
-    """The ocean closures come with ROADMAP Queue 1 item 15."""
+    """Every closure is ported: the ocean closures (ROADMAP Queue 1 item
+    15's first part) build in both models, and an object that is no
+    closure raises a ``TypeError``."""
     grid = ot.RectilinearGrid(size=(4, 4, 4), extent=(1.0, 1.0, 1.0),
                               dtype=F64)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    for cls in (ot.RiBasedVerticalDiffusivity, ot.CATKEVerticalDiffusivity,
+                ot.TKEDissipationVerticalDiffusivity,
+                ot.LeithEnstrophyDiffusivity,
+                ot.IsopycnalSkewSymmetricDiffusivity):
+        ot.NonhydrostaticModel(grid=grid, closure=cls(),
+                               buoyancy=ot.BuoyancyTracer())
+        ot.HydrostaticFreeSurfaceModel(grid=grid, closure=cls(),
+                                       buoyancy=ot.BuoyancyTracer())
+    with pytest.raises(TypeError, match="AbstractClosure"):
         ot.NonhydrostaticModel(grid=grid, closure=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="AbstractClosure"):
         ot.HydrostaticFreeSurfaceModel(grid=grid, closure=object())
     with pytest.raises(ValueError, match="halo"):
         ot.NonhydrostaticModel(

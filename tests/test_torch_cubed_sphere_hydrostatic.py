@@ -48,11 +48,15 @@ A = 6.37122e6
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def grids(Nz=3, depth=1000.0, halo=3, N=8):
@@ -347,8 +351,16 @@ def test_not_ported_raises_with_its_item(what):
     """What is not ported raises, naming its ROADMAP item; the
     bathymetry objects ``GridFittedBottom``, ``GridFittedBoundary`` and
     ``PartialCellBottom``, once refused, build the masks of the bottom they
-    describe."""
+    describe; CATKE, once refused, builds with its TKE tracer (an object
+    that is no closure raises a ``TypeError``)."""
     _, tg = grids()
+    if what == "CATKE":
+        m = ot.CubedSphereHydrostaticModel(
+            tg, closure=ot.CATKEVerticalDiffusivity())
+        assert "e" in m.tracer_names
+        with pytest.raises(TypeError, match="AbstractClosure"):
+            ot.CubedSphereHydrostaticModel(tg, closure=object())
+        return
     if what in ("GridFittedBottom", "GridFittedBoundary",
                 "PartialCellBottom"):
         arg = ((lambda lam, phi, z: z < two_continents(lam, phi))
@@ -367,7 +379,7 @@ def test_not_ported_raises_with_its_item(what):
             assert 0.2 <= m._frac_c.min() < 1.0
         return
     item = {"ImplicitFreeSurface": "item 15", "ZStar": "item 15",
-            "CATKE": "item 15", "cubed_sphere_partition": "item 18"}[what]
+            "cubed_sphere_partition": "item 18"}[what]
     with pytest.raises(NotImplementedError, match=item):
         if what == "ImplicitFreeSurface":
             ot.CubedSphereHydrostaticModel(
@@ -375,8 +387,6 @@ def test_not_ported_raises_with_its_item(what):
         elif what == "ZStar":
             ot.CubedSphereHydrostaticModel(tg, vertical_coordinate=ot.ZStar(),
                                            timestepper="QuasiAdamsBashforth2")
-        elif what == "CATKE":
-            ot.CubedSphereHydrostaticModel(tg, closure=object())
         elif what == "cubed_sphere_partition":
             tcs.cubed_sphere_partition(R=1)
         else:

@@ -23,11 +23,15 @@ G = 10.0
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def channel_grid(N=64, Nz=4, H=1.0, L=10.0):
@@ -215,14 +219,19 @@ def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 4), extent=(1.0, 1.0, 1.0),
                               dtype=F64)
     from oceananigans_torch.models import hydrostatic as hyd
-    for kw, item in ((dict(closure=object()), "item 15"),
-                     (dict(forcing={"u": 1.0}), "item 12"),
-                     (dict(particles=object()), "item 12"),
-                     (dict(biogeochemistry=object()), "item 12"),
-                     (dict(stokes_drift=object()), "item 12"),
-                     (dict(timestepper="split_rk3"), "item 15")):
+    for kw, item in ((dict(timestepper="split_rk3"), "item 15"),):
         with pytest.raises(NotImplementedError, match=item):
             ot.HydrostaticFreeSurfaceModel(grid=grid, **kw)
+    # item 12's keywords and the ocean closures are ported: they build
+    for kw in (dict(forcing={"u": 1.0}),
+               dict(particles=ot.LagrangianParticles(0.5, 0.5, -0.5)),
+               dict(biogeochemistry=ot.SimpleBiogeochemistry()),
+               dict(stokes_drift=ot.UniformStokesDrift()),
+               dict(auxiliary_fields={"Q": 1.0}),
+               dict(closure=ot.CATKEVerticalDiffusivity())):
+        ot.HydrostaticFreeSurfaceModel(grid=grid, **kw)
+    with pytest.raises(TypeError, match="AbstractClosure"):
+        ot.HydrostaticFreeSurfaceModel(grid=grid, closure=object())
     for cls in (hyd.ImplicitFreeSurface, hyd.ZStar,
                 hyd.PrescribedVelocityFields):
         with pytest.raises(NotImplementedError, match="item 15"):

@@ -45,11 +45,15 @@ GRID = dict(size=(8, 16, 128), extent=(1.0, 1.0, 1.0),
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def jax_state_to_numpy(s):
@@ -206,10 +210,14 @@ def test_gates_and_unported_arguments():
     assert model.fused_correction is False
     assert isinstance(model.pressure_solver, ot.FFTPoissonSolver)
     assert "grid.xF" in dict(model.named_buffers())
-    for kw in (dict(coriolis=object()), dict(closure=object()),
-               dict(forcing={"u": 1.0})):
-        with pytest.raises(NotImplementedError):
-            ot.NonhydrostaticModel(grid=tg, **kw)
+    with pytest.raises(NotImplementedError):
+        ot.NonhydrostaticModel(grid=tg, coriolis=object())
+    with pytest.raises(TypeError):
+        ot.NonhydrostaticModel(grid=tg, closure=object())
+    # forcings are ported: one builds, off the fused AB2 kernel's path
+    assert not ot.NonhydrostaticModel(
+        grid=tg, forcing={"u": 1.0}, timestepper="QuasiAdamsBashforth2",
+        fused_kernels=True).fused_ab2
     with pytest.raises(ValueError):
         ot.NonhydrostaticModel(grid=tg, timestepper="Euler")
 

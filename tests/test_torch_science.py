@@ -41,11 +41,15 @@ GOLDEN = pathlib.Path(__file__).parent / "golden" / "thermal_bubble.npz"
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def fields(size=(6, 8, 5), halo=(1, 1, 1), topology=BPP, seed=0):
@@ -319,13 +323,17 @@ def test_weno7_tracers_take_the_tracer_kernel(timestepper, steps,
 def test_unported_arguments_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                               topology=BPP, halo=(3, 0, 0), dtype=F64)
-    for kw in (dict(closure=object()), dict(forcing={"u": 1.0}),
-               dict(background_fields={"u": 1.0}),
-               dict(particles=object()), dict(stokes_drift=object()),
-               dict(biogeochemistry=object()), dict(coriolis=object()),
-               dict(buoyancy=object())):
+    for kw in (dict(coriolis=object()), dict(buoyancy=object())):
         with pytest.raises(NotImplementedError):
             ot.NonhydrostaticModel(grid=grid, **kw)
+    with pytest.raises(TypeError):
+        ot.NonhydrostaticModel(grid=grid, closure=object())
+    # the physics of ROADMAP Queue 1 item 12 is ported: each builds
+    for kw in (dict(forcing={"u": 1.0}), dict(background_fields={"u": 1.0}),
+               dict(particles=ot.LagrangianParticles(0.5, 0.5, 0.5)),
+               dict(stokes_drift=ot.UniformStokesDrift()),
+               dict(biogeochemistry=ot.SimpleBiogeochemistry())):
+        ot.NonhydrostaticModel(grid=grid, **kw)
     # spherical Coriolis is ported with the lat-lon grid: its terms there
     # match the JAX package's
     kw = dict(size=(8, 6, 3), longitude=(0.0, 360.0), latitude=(-60.0, 60.0),

@@ -44,11 +44,15 @@ PPB = ("periodic", "periodic", "bounded")
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    """The port runs on the GPU by default; these tests ask for the CPU."""
-    old = ot.config.device
+    """The port runs on the GPU by default; these tests ask for the CPU,
+    with one intra-op thread (the test workers share the machine's cores,
+    and these small tensors gain nothing from more)."""
+    old = ot.config.device, torch.get_num_threads()
     ot.config.device = "cpu"
+    torch.set_num_threads(1)
     yield
-    ot.config.device = old
+    ot.config.device = old[0]
+    torch.set_num_threads(old[1])
 
 
 def wind_mixing_z(Nz, Lz=32.0):
@@ -351,7 +355,8 @@ def test_tilted_bottom_matches_jax():
     """``examples/tilted_bottom_boundary_layer.py`` at 16 x 12 on its
     stretched z: tilted gravity, rotation about the tilted axis, quadratic
     drag through field-dependent flux conditions and a bottom gradient
-    condition (its background fields are ROADMAP Queue 1 item 12)."""
+    condition (its background fields run in
+    ``tests/test_torch_forcings.py``)."""
     Lx, Nx, Nz = 200.0, 16, 12
     zf = tilted_z(Nz)
     theta = np.radians(3.0)
