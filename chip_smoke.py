@@ -218,6 +218,40 @@ each of which raises on failure:
     ``examples/baroclinic_adjustment.py`` at its own (60, 60, 10) with a
     destabilizing b surface flux (CATKE's convective lengths), float64, 3
     steps on the card against the CPU to 1e-12.
+23. ``hydro_implicit``: phase 9's ``hydro_vi`` with
+    ``ImplicitFreeSurface()`` ("fft": DCT-II in y, FFT in x through cuFFT,
+    the eigenvalue denominator made in float64 and cast once), 2 + 20
+    steps on each path (kernels 11 and 12/13 once a step), held to each
+    other at phase 9's bounds, timed, with the device-busy time, idle
+    share and host syncs a step; 23b the "matrix" and "cg" methods at
+    JAX's defaults (maxiter 200, reltol 1e-9), 1 + 3 steps each with their
+    CG iterations and host reads of the convergence flag a solve, η of the
+    three methods held to each other at a bound derived from the
+    operator's condition number; float64 (48, 16, 6) runs of each method
+    on the card against the CPU to 1e-12 ("matrix" and "cg" at a fixed
+    iteration count).
+24. ``hydro_split_rk3``: phase 9's grid and momentum stepped by
+    ``split_rk3`` (split-explicit, 30 substeps, no buoyancy) with a
+    passive top-hat tracer c in a non-divergent zonal jet; 24a under
+    ``WENO(7, bounds=(0, 1))``, 24b under ``BoundPreserving(WENO(5))``:
+    2 + 20 steps on each path (kernel 12/13 three times a step, kernel 11
+    never: the gates refuse the limiters), held to each other, c held to
+    [0, 1] within its float32 rounding bound; float64 (48, 16, 6) runs on
+    the card against the CPU to 1e-12, c within [−1e-12, 1 + 1e-12].
+25. ``hydro_zstar``: phase 19's ``hydro_vi_bathy`` with ``ZStar()`` and a
+    passive c = 1, 2 + 10 steps (no kernel: the tendencies are on the
+    σ-scaled grid, as in JAX), timed and profiled, with max|c − 1| and the
+    drift of ∫σ c dV; 3 float64 steps at full width with the explicit free
+    surface, both held to 1e-12; a float64 (24, 16, 8) sector on the card
+    against the CPU to 1e-12.
+26. ``cs_global_implicit``: phase 16's ``cs_global`` at C48×16, 26a with
+    the cube's implicit free surface (one CG across the panels, RK3) and
+    26b with ``ZStar()`` under quasi-AB2, 2 + 10 steps each, timed and
+    profiled (26a with the CG iterations of every step), the float32
+    volume held to its rounding bound, 26a's float64 volume to 1e-12 of
+    the ocean's; float64 C8×4 runs of both on the card against the CPU to
+    1e-12 (CG at a fixed iteration count). Phases 25 and 26 launch no port
+    kernel.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -228,7 +262,7 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 to 22 zero and check the counts of
+launches that run makes. Phases 12 to 26 zero and check the counts of
 their own runs and print them on lines of their own. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
@@ -2637,6 +2671,542 @@ def catke_phase(torch, ot, wrappers, card, rtol):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 23 to 26: the implicit free surface, split RK3 with the
+# bound-preserving limiters, and z-star
+# ---------------------------------------------------------------------------
+
+#: phase 23: ``hydro_implicit``, 2 + 20 steps a path; 23b the "matrix" and
+#: "cg" methods beside "fft", 1 + 3 steps each
+IMPLICIT_WARM, IMPLICIT_STEPS, IMPLICIT_B_STEPS = 2, 20, 4
+#: the float64 card-against-CPU runs of the CG methods stop at a fixed
+#: iteration count (ROADMAP caveat 10: CG agrees across devices only to
+#: rounding, which a tolerance test turns into a different count)
+FIXED_CG_ITERATIONS = 20
+#: phase 24: ``hydro_split_rk3``, 2 + 20 steps a path of each limiter
+SPLIT_RK3_WARM, SPLIT_RK3_STEPS = 2, 20
+#: phase 25: ``hydro_zstar``, 2 + 10 steps; phase 26: the cube, 2 + 10
+ZSTAR_WARM, ZSTAR_STEPS = 2, 10
+CS_IMPLICIT_WARM, CS_IMPLICIT_STEPS = 2, 10
+EPS32 = 1.1920928955078125e-07
+
+
+def hydro_groups(g, st, tracers):
+    """Interior views of a hydrostatic state's u and v, w, η and
+    ``tracers``, grouped as the comparisons take them."""
+    xy = g.interior_slices[:2]
+    return {"velocities": [g.interior(st.u), g.interior(st.v)],
+            "w": [g.interior(st.w)], "eta": [st.eta[xy]],
+            "tracers": [g.interior(st.tracers[n]) for n in tracers]}
+
+
+def card_vs_cpu(make, init, steps, dt, tracers, scales=None):
+    """``steps`` float64 steps of ``make(device)`` on the card and on the
+    CPU from ``init(model)``: each group's difference relative to its
+    largest CPU value (or to ``scales[group]`` where that is larger;
+    ``scales`` a dict, or a function of the CPU model and state giving
+    one); and the two final states."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m = make(device)
+        st = init(m)
+        for _ in range(steps):
+            st = m.step(st, dt)
+        runs[device] = (m, st)
+    (mk, sk), (mp, sp) = runs["cuda"], runs["cpu"]
+    gk, gp = hydro_groups(mk.grid, sk, tracers), hydro_groups(mp.grid, sp,
+                                                              tracers)
+    if callable(scales):
+        scales = scales(mp, sp)
+    rel = {k: group_rel([(a.cpu(), b) for a, b in zip(gk[k], gp[k])],
+                        (scales or {}).get(k, 0.0)) for k in gp}
+    return rel, runs
+
+
+def path_rel(finals, scales=None):
+    """The kernel path's groups against the plain path's, relative to the
+    largest plain value (or to ``scales[group]`` where larger)."""
+    return {k: group_rel(list(zip(finals["kernel"][k], finals["plain"][k])),
+                         (scales or {}).get(k, 0.0))
+            for k in finals["kernel"]}
+
+
+def implicit_phase(torch, ot, wrappers, card, rtol):
+    """Phase 23: ``hydro_implicit``, phase 9's ``hydro_vi`` with the
+    implicit free surface ("fft": DCT-II in y, FFT in x, cuFFT): 2 + 20
+    steps on each path (kernels 11 and 12/13 once a step), held to each
+    other at phase 9's bounds, timed, with the device-busy time, idle
+    share and host syncs a step; 23b the "matrix" (Jacobi-preconditioned
+    stencil matrix) and "cg" methods at JAX's defaults (maxiter 200,
+    reltol 1e-9), 1 + 3 steps each with their CG iterations and host
+    reads of the convergence flag a solve, η of the three methods held to
+    each other at the bound derived below; and float64 (48, 16, 6) runs on
+    the card against the CPU: "fft" to 1e-12, "matrix" and "cg" at
+    :data:`FIXED_CG_ITERATIONS` iterations to 1e-12."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_generic_state, hydro_implicit_model,
+        hydro_initial_state,
+    )
+    dt = HYDRO_DT
+    want = {"weno_tracer_tendencies": 1, "vi_momentum_tendency": 1}
+    total = IMPLICIT_WARM + IMPLICIT_STEPS
+    out, finals = {}, {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = hydro_implicit_model(fused)
+        require(model.fused_kernels == model.fused_tracer
+                == (path == "kernel"),
+                f"hydro_implicit {path} path: fused_kernels="
+                f"{model.fused_kernels}, fused_tracer={model.fused_tracer}")
+        state = model.update_state(hydro_initial_state(model))
+        state, ms, enqueue, counts = run_counted(
+            torch, model, state, dt, IMPLICIT_WARM, IMPLICIT_STEPS, wrappers,
+            want if path == "kernel" else {}, f"hydro_implicit {path} path")
+        state, syncs = count_syncs(torch, lambda: model.step(
+            state, dt, assume_filled=True))
+        busy, n_launch, wall = device_profile(
+            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+        out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
+                     "launches": n_launch, "counts": counts}
+        g = model.grid
+        xy = g.interior_slices[:2]
+        log(f"[23] hydro_implicit {path} path on {card}: "
+            f"{model.free_surface!r}, {ms:.3f} ms/step (steps "
+            f"{IMPLICIT_WARM + 1} to {total} of AB2, Δt {dt} s, CUDA "
+            f"events); host enqueue {enqueue:.3f} ms/step; device-busy "
+            f"{busy:.3f} ms/step in a wall of {wall:.3f} under "
+            f"torch.profiler (idle share {1 - busy / wall:.3f}; against the "
+            f"unprofiled ms, {1 - busy / ms:.3f}), {n_launch:.0f} launches a"
+            f" step; host syncs in one step {syncs}; port kernel launches in"
+            f" {total} steps {counts}; max|u| "
+            f"{float(g.interior(state.u).abs().max()):.4e}, max|eta| "
+            f"{float(state.eta[xy].abs().max()):.4e}")
+        grp = hydro_groups(g, state, ("T", "S"))
+        finals[path] = {k: grp[k] for k in ("velocities", "eta", "tracers")}
+        del model, state
+        torch.cuda.empty_cache()
+    rel = path_rel(finals)
+    log(f"[23] hydro_implicit: kernel vs plain path after {total + 1} "
+        "steps: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + " of the largest value (tolerances " + ", ".join(
+            f"{k} {rtol[k]:g}" for k in rtol) + ")")
+    require(all(rel[k] <= rtol[k] for k in rtol),
+            f"hydro_implicit kernel vs plain path {rel}")
+    del finals
+    torch.cuda.empty_cache()
+
+    # 23b: the three methods from one state, JAX's defaults
+    etas, kappa = {}, None
+    for method in ("fft", "matrix", "cg"):
+        model = hydro_implicit_model("auto", solver_method=method)
+        fs = model.free_surface
+        state = model.update_state(hydro_initial_state(model))
+        for fn in wrappers.values():
+            fn.launches = 0
+        state = model.step(state, dt, assume_filled=True)
+        its, syncs = [model.free_surface_info.get("iterations")], [
+            model.free_surface_info.get("host_syncs")]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(IMPLICIT_B_STEPS - 1):
+            state = model.step(state, dt, assume_filled=True)
+            its.append(model.free_surface_info.get("iterations"))
+            syncs.append(model.free_surface_info.get("host_syncs"))
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1) / (IMPLICIT_B_STEPS - 1)
+        counts = {k: fn.launches for k, fn in wrappers.items()
+                  if fn.launches}
+        require(counts == {k: IMPLICIT_B_STEPS for k in want},
+                f"hydro_implicit {method}: launches {counts}")
+        state, step_syncs = count_syncs(torch, lambda: model.step(
+            state, dt, assume_filled=True))
+        if method == "fft":
+            den = model._fs_denominator(fs, dt).abs()
+            kappa = float(den.max() / den.min())
+            cg = "no CG"
+        else:
+            cg = (f"CG iterations a solve {[int(i) for i in its]} (maxiter "
+                  f"{fs.maxiter}, reltol {fs.reltol:g}), host reads of the "
+                  f"convergence flag a solve {syncs}")
+        g = model.grid
+        xy = g.interior_slices[:2]
+        etas[method] = state.eta[xy].clone()
+        log(f"[23b] hydro_implicit solver_method={method!r} on {card}: "
+            f"{ms:.3f} ms/step (steps 2 to {IMPLICIT_B_STEPS}, CUDA "
+            f"events); {cg}; host syncs in one step {step_syncs}; port "
+            f"kernel launches in {IMPLICIT_B_STEPS} steps {counts}")
+        out[method] = {"ms": ms, "iterations": [
+            int(i) for i in its if i is not None], "syncs": step_syncs}
+        del model, state
+        torch.cuda.empty_cache()
+    # each solve's error is within κ (the operator's condition number, from
+    # its eigenvalue table) times the rounding of its passes: the DCT/FFT
+    # chain's log2 N butterflies (~10), or a converged CG's iterations of
+    # rounding-level steps (√maxiter of them adding at random); two
+    # methods' errors add, and each step's error enters the next
+    steps = IMPLICIT_B_STEPS + 1
+    eta_bound = steps * 2 * (10 + math.sqrt(200)) * kappa * EPS32
+    eta_rel = {m: group_rel([(etas[m], etas["fft"])])
+               for m in ("matrix", "cg")}
+    log(f"[23b] eta of the three methods after {steps} steps: "
+        + ", ".join(f"{m} vs fft {v:.3e}" for m, v in eta_rel.items())
+        + f" of the largest value (bound {eta_bound:.3e} = {steps} steps x "
+        f"2 methods x (10 + sqrt(200)) passes x kappa {kappa:.4f} x the "
+        "float32 epsilon)")
+    require(all(v <= eta_bound for v in eta_rel.values()),
+            f"hydro_implicit methods' eta {eta_rel}")
+
+    # float64 (48, 16, 6): the card against the CPU
+    rel64 = {}
+    for method in ("fft", "matrix", "cg"):
+        kw = ({} if method == "fft" else dict(
+            solver_method=method, maxiter=FIXED_CG_ITERATIONS, reltol=0.0))
+        rel64[method], _ = card_vs_cpu(
+            lambda device: hydro_implicit_model(
+                "auto", torch.float64, device, size=(48, 16, 6), **kw),
+            hydro_generic_state, 5, dt, ("T", "S"))
+        log(f"[23] float64 (48, 16, 6) hydro_implicit {method!r}"
+            + ("" if method == "fft" else
+               f" at {FIXED_CG_ITERATIONS} CG iterations a solve")
+            + ", 5 AB2 steps: kernel path on the card vs plain path on the "
+            "CPU: " + ", ".join(f"{k} {v:.3e}"
+                                for k, v in rel64[method].items())
+            + " of the largest value (tolerance 1e-12)")
+    require(all(v <= 1e-12 for r in rel64.values() for v in r.values()),
+            f"float64 hydro_implicit card vs CPU {rel64}")
+    out["rel"], out["rel64"], out["eta_rel"] = rel, rel64, eta_rel
+    return out
+
+
+def split_rk3_phase(torch, ot, wrappers, card, rtol):
+    """Phase 24: ``hydro_split_rk3``, phase 9's grid and momentum stepped by
+    ``split_rk3`` with the split-explicit free surface (30 substeps), no
+    buoyancy, a passive tracer c (a top-hat band in x) in a non-divergent
+    zonal jet; 24a under ``WENO(7, bounds=(0, 1))``, 24b under
+    ``BoundPreserving(WENO(5))``: 2 + 20 steps on each path (kernel 12/13
+    once a stage, three times a step; kernel 11 never, its gate refuses
+    the limiters), held to each other at phase 9's bounds (η and w, flat
+    to rounding in the jet, against the flow's own scales), c held to
+    [0, 1] within the float32 rounding bound below; and float64 (48, 16,
+    6) runs on the card against the CPU to 1e-12, c within [−1e-12,
+    1 + 1e-12]."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_split_rk3_initial_state, hydro_split_rk3_model,
+    )
+    dt = HYDRO_DT
+    want = {"vi_momentum_tendency": 3}
+    total = SPLIT_RK3_WARM + SPLIT_RK3_STEPS
+    # each stage rounds c + Δt G and the convex combination once each
+    # (≤ 3 roundings of values ≤ 1), three stages a step
+    cbound = (total + 1) * 3 * 3 * EPS32
+    out = {}
+    for tag, limiter in (("24a", ot.WENO(7, bounds=(0.0, 1.0))),
+                         ("24b", ot.BoundPreserving(ot.WENO(5)))):
+        finals = {}
+        for path, fused in (("kernel", "auto"), ("plain", False)):
+            model = hydro_split_rk3_model(fused, tracer_advection=limiter)
+            require(model.fused_kernels == (path == "kernel")
+                    and not model.fused_tracer,
+                    f"hydro_split_rk3 {tag} {path} path: fused_kernels="
+                    f"{model.fused_kernels}, fused_tracer="
+                    f"{model.fused_tracer}")
+            state = model.update_state(hydro_split_rk3_initial_state(model))
+            state, ms, enqueue, counts = run_counted(
+                torch, model, state, dt, SPLIT_RK3_WARM, SPLIT_RK3_STEPS,
+                wrappers, want if path == "kernel" else {},
+                f"hydro_split_rk3 {tag} {path} path")
+            state, syncs = count_syncs(torch, lambda: model.step(
+                state, dt, assume_filled=True))
+            busy, n_launch, wall = device_profile(
+                torch, lambda: model.step(state, dt, assume_filled=True), 3)
+            g = model.grid
+            c = g.interior(state.tracers["c"])
+            cmin, cmax = float(c.min()), float(c.max())
+            log(f"[{tag}] hydro_split_rk3 {limiter!r} {path} path on "
+                f"{card}: {ms:.3f} ms/step (steps {SPLIT_RK3_WARM + 1} to "
+                f"{total} of split_rk3, Δt {dt} s, CUDA events); host "
+                f"enqueue {enqueue:.3f} ms/step; device-busy {busy:.3f} "
+                f"ms/step in a wall of {wall:.3f} under torch.profiler "
+                f"(idle share {1 - busy / wall:.3f}; against the unprofiled "
+                f"ms, {1 - busy / ms:.3f}), {n_launch:.0f} launches a step; "
+                f"host syncs in one step {syncs}; port kernel launches in "
+                f"{total} steps {counts}; min c {cmin:.6e}, max c "
+                f"{cmax:.9f} (held to [-{cbound:.3e}, 1 + {cbound:.3e}]: "
+                f"{total + 1} steps x 3 stages x 3 roundings x the float32 "
+                "epsilon)")
+            require(-cbound <= cmin and cmax <= 1.0 + cbound,
+                    f"hydro_split_rk3 {tag} {path}: c in [{cmin}, {cmax}]")
+            out[(tag, path)] = {"ms": ms, "busy": busy, "syncs": syncs,
+                                "launches": n_launch, "cmin": cmin,
+                                "cmax": cmax}
+            umax = float(g.interior(state.u).abs().max())
+            finals[path] = hydro_groups(g, state, ("c",))
+            del model, state
+            torch.cuda.empty_cache()
+        # η and w of the jet are rounding noise: each is held against the
+        # scale the flow gives it (a gravity wave of the jet's speed, U
+        # sqrt(H/g); the vertical speed of a flow of that speed over the
+        # domain's aspect, U H / Lx)
+        scales = {"eta": umax * math.sqrt(4e3 / 9.81),
+                  "w": umax * 4e3 / 4e7}
+        rel = path_rel(finals, scales)
+        trtol = dict(rtol, w=rtol["velocities"])
+        log(f"[{tag}] hydro_split_rk3: kernel vs plain path after "
+            f"{total + 1} steps: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rel.items())
+            + " (eta against max(|eta|, U sqrt(H/g)) = "
+            f"{scales['eta']:.3e} m, w against U H/Lx = {scales['w']:.3e} "
+            "m/s; tolerances " + ", ".join(
+                f"{k} {trtol[k]:g}" for k in trtol) + ")")
+        require(all(rel[k] <= trtol[k] for k in trtol),
+                f"hydro_split_rk3 {tag} kernel vs plain path {rel}")
+        out[tag] = rel
+        del finals
+        torch.cuda.empty_cache()
+
+        # float64 (48, 16, 6): the card against the CPU
+        rel64, runs = card_vs_cpu(
+            lambda device: hydro_split_rk3_model(
+                "auto", torch.float64, device, size=(48, 16, 6),
+                tracer_advection=limiter),
+            hydro_split_rk3_initial_state, 5, dt, ("c",), scales)
+        c64 = [runs[d][0].grid.interior(runs[d][1].tracers["c"])
+               for d in runs]
+        c64min = min(float(c.min()) for c in c64)
+        c64max = max(float(c.max()) for c in c64)
+        log(f"[{tag}] float64 (48, 16, 6) hydro_split_rk3 {limiter!r}, 5 "
+            "steps: kernel path on the card vs plain path on the CPU: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel64.items())
+            + " (tolerance 1e-12); c on both in "
+            f"[{c64min:.3e}, 1 + {c64max - 1:.3e}] (held to [-1e-12, "
+            "1 + 1e-12])")
+        require(all(v <= 1e-12 for v in rel64.values()),
+                f"float64 hydro_split_rk3 {tag} card vs CPU {rel64}")
+        require(c64min >= -1e-12 and c64max <= 1.0 + 1e-12,
+                f"float64 hydro_split_rk3 {tag}: c in [{c64min}, {c64max}]")
+        out[tag + "64"] = rel64
+    return out
+
+
+def zstar_content(torch, model, state):
+    """∫σ c dV over the wet cells in float64, and max|c − 1| there."""
+    from oceananigans_torch.grids.base import Center
+    g = model.grid
+    sig = model._sigma(state.eta).double()
+    dV = g.V(Center, Center, Center).double()
+    c = state.tracers["c"].double()
+    wet = ~g.solid_c
+    content = float(torch.sum(g.interior(torch.where(
+        wet, sig * dV * c, 0.0).expand(g.shape))))
+    dev = float(g.interior(torch.where(wet, (c - 1.0).abs(), 0.0)).max())
+    return content, dev
+
+
+def zstar_w_scale(model, state):
+    """The speed of the moving surface, max|∇·∫σu dz| over the interior:
+    under z-star w is the velocity across the moving levels, the
+    difference of the continuity integral and the grid's motion, each of
+    this size; their rounding is relative to it, not to their small
+    difference."""
+    g = model.grid
+    sfc = model._sigma_at(state.eta, "fc")
+    scf = model._sigma_at(state.eta, "cf")
+    speed = model._div_transports(*model._barotropic_mode(
+        state.u, state.v, sfc, scf))
+    return {"w": float(speed[g.interior_slices[:2]].abs().max())}
+
+
+def zstar_phase(torch, ot, wrappers, card):
+    """Phase 25: ``hydro_zstar``, phase 19's ``hydro_vi_bathy`` with
+    ``ZStar()`` and a passive tracer c = 1: 2 + 10 steps in float32 on the
+    plain path (the tendencies are on the σ-scaled grid, which no kernel
+    takes, as in JAX), timed and profiled, with max|c − 1| over the wet
+    cells and the drift of ∫σ c dV; 3 float64 steps at full width with the
+    explicit free surface, ∫σ c dV to 1e-12 relative and max|c − 1| to
+    1e-12; and a float64 (24, 16, 8) sector on the card against the CPU."""
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_latlon_initial_state, hydro_zstar_model,
+    )
+    dt = HYDRO_DT
+    model = hydro_zstar_model("auto")
+    require(model.zstar and not model.fused_kernels
+            and not model.fused_tracer,
+            "hydro_zstar: no kernel on the σ-scaled grid")
+    state = model.update_state(hydro_latlon_initial_state(model, c=1.0))
+    c0, _ = zstar_content(torch, model, state)
+    total = ZSTAR_WARM + ZSTAR_STEPS
+    state, ms, enqueue = cube_run(torch, model, state, dt, ZSTAR_WARM,
+                                  ZSTAR_STEPS, wrappers, "hydro_zstar")
+    counts = zero_launches(wrappers)
+    c1, dev = zstar_content(torch, model, state)
+    busy, n_launch, wall, line = profile_line(torch, model, state, dt,
+                                              "hydro_zstar")
+    g = model.grid
+    xy = g.interior_slices[:2]
+    log(f"[25] hydro_zstar on {card}: {' x '.join(map(str, g.N))} float32,"
+        f" {model.free_surface!r}; {ms:.3f} ms/step (steps {ZSTAR_WARM + 1}"
+        f" to {total} of AB2, CUDA events); host enqueue {enqueue:.3f} "
+        f"ms/step; {line}; against the unprofiled {ms:.3f} ms/step, idle "
+        f"share {1 - busy / ms:.3f}; port kernel launches {counts}; "
+        f"max|eta| {float(state.eta[xy].abs().max()):.4e}; max|c - 1| over "
+        f"the wet cells {dev:.3e}; drift of the integral of sigma c dV "
+        f"{abs(c1 - c0) / abs(c0):.3e} of itself")
+    out = {"ms": ms, "enqueue": enqueue, "busy": busy, "launches": n_launch,
+           "wall": wall, "dev": dev, "drift": abs(c1 - c0) / abs(c0)}
+    del model, state
+    torch.cuda.empty_cache()
+
+    # float64 at full width with the explicit free surface: exact
+    # telescoping of the σ-weighted content and a uniform c kept uniform
+    model = hydro_zstar_model("auto", torch.float64,
+                              free_surface=ot.ExplicitFreeSurface())
+    state = model.update_state(hydro_latlon_initial_state(model, c=1.0))
+    c0, _ = zstar_content(torch, model, state)
+    state, ms64, _ = cube_run(torch, model, state, dt, 0, 3, wrappers,
+                              "hydro_zstar float64")
+    c1, dev64 = zstar_content(torch, model, state)
+    drift64 = abs(c1 - c0) / abs(c0)
+    log(f"[25] float64 hydro_zstar at full width, explicit free surface, 3 "
+        f"AB2 steps: {ms64:.3f} ms/step; max|eta| "
+        f"{float(state.eta[xy].abs().max()):.4e}; the integral of sigma c "
+        f"dV drifts {drift64:.3e} of itself, max|c - 1| over the wet cells "
+        f"{dev64:.3e} (tolerances 1e-12)")
+    require(drift64 <= 1e-12 and dev64 <= 1e-12,
+            f"float64 hydro_zstar: content drift {drift64:.3e}, max|c - 1| "
+            f"{dev64:.3e}")
+    out["drift64"], out["dev64"] = drift64, dev64
+    del model, state
+    torch.cuda.empty_cache()
+
+    # float64 (24, 16, 8) sector: the card against the CPU
+    rel64, _ = card_vs_cpu(
+        lambda device: hydro_zstar_model(
+            "auto", torch.float64, device, size=(24, 16, 8),
+            longitude=(-60.0, 60.0), latitude=(-80.0, 80.0), halo=6),
+        lambda m: hydro_latlon_initial_state(m, generic=True, c=1.0), 3, dt,
+        ("T", "S", "c"), zstar_w_scale)
+    log("[25] float64 (24, 16, 8) hydro_zstar sector with continents, 3 AB2 "
+        "steps: the card vs the CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel64.items())
+        + " of the largest value (w: of the larger of max|w| and the "
+        "surface's speed max|div of the integral of sigma u dz|, the size "
+        "of the two terms w is the difference of; tolerance 1e-12)")
+    require(all(v <= 1e-12 for v in rel64.values()),
+            f"float64 hydro_zstar sector card vs CPU {rel64}")
+    out["rel64"] = rel64
+    return out
+
+
+def cs_implicit_phase(torch, wrappers, card):
+    """Phase 26: ``cs_global_implicit``, phase 16's ``cs_global`` at
+    C48×16: 26a with the implicit free surface (one CG across the panels,
+    JAX's maxiter 200 and reltol 1e-9, RK3), 2 + 10 steps with the CG
+    iterations of every step's last solve; 26b with ``ZStar()`` under
+    quasi-AB2 (its split-explicit free surface), 2 + 10 steps; each timed
+    and profiled, the float32 volume held to its rounding bound, 26a's
+    float64 volume over 3 steps to 1e-12 of the ocean's; and float64 C8×4
+    runs of both on the card against the CPU (26a's CG at
+    :data:`FIXED_CG_ITERATIONS` iterations) to 1e-12. No port kernel
+    launches."""
+    from oceananigans_torch.profile_step import (
+        CS_GLOBAL_DT, cs_global_implicit_model, volume_drift,
+    )
+    dt = CS_GLOBAL_DT
+    total = CS_IMPLICIT_WARM + CS_IMPLICIT_STEPS
+    out = {}
+    for tag, zstar in (("26a", False), ("26b", True)):
+        model, state = cs_global_implicit_model(48, 16, torch.float32,
+                                                zstar=zstar)
+        its = []
+
+        def each(m):
+            if not zstar:
+                its.append(m.free_surface_info["iterations"])
+        state, _, _ = cube_run(torch, model, state, dt, CS_IMPLICIT_WARM, 0,
+                               wrappers, f"cs_global {tag}", each)
+        eta0 = state.eta.clone()
+        S0 = float(model.total_tracer(state, "S"))
+        state, ms, enqueue = cube_run(torch, model, state, dt, 0,
+                                      CS_IMPLICIT_STEPS, wrappers,
+                                      f"cs_global {tag}", each)
+        its = [int(i) for i in its]
+        vdrift = volume_drift(model, eta0, state.eta)
+        sdrift = abs(float(model.total_tracer(state, "S")) - S0) / abs(S0)
+        if zstar:
+            n = len(model.free_surface.weights)
+            what = f"{CS_IMPLICIT_STEPS} steps x {n} barotropic substeps"
+        else:
+            n = 3 * max(its)
+            what = (f"{CS_IMPLICIT_STEPS} steps x 3 solves x "
+                    f"{max(its)} CG iterations")
+        vbound = CS_IMPLICIT_STEPS * n * EPS32
+        require(vdrift <= vbound, f"cs_global {tag}: float32 volume drift "
+                f"{vdrift:.3e} (bound {vbound:.3e})")
+        busy, n_launch, wall, line = profile_line(torch, model, state, dt,
+                                                  f"cs_global {tag}")
+        info = model.free_surface_info
+        cg = (f"CG iterations of each step's last solve {its} (maxiter "
+              f"{model.free_surface.maxiter}, reltol "
+              f"{model.free_surface.reltol:g}), host reads of the flag a "
+              f"solve {info['host_syncs']}; " if not zstar else "")
+        log(f"[{tag}] cs_global_implicit C48x16 {model.free_surface!r}, "
+            f"{model.timestepper}, {model.vertical_coordinate!r} on {card}: "
+            f"{ms:.3f} ms/step (steps {CS_IMPLICIT_WARM + 1} to {total}, "
+            f"CUDA events); host enqueue {enqueue:.3f} ms/step; {line}; "
+            f"{cg}port kernels launched: none; float32 volume drift "
+            f"{vdrift:.3e} of sum|eta| Az (bound {vbound:.3e}: {what} x the "
+            f"float32 epsilon); salt drift {sdrift:.3e}")
+        out[tag] = {"ms": ms, "enqueue": enqueue, "busy": busy,
+                    "launches": n_launch, "wall": wall, "iterations": its,
+                    "vdrift": vdrift}
+        del model, state
+        torch.cuda.empty_cache()
+
+    # 26a in float64 at C48x16: the volume to 1e-12 of the ocean's
+    model, state = cs_global_implicit_model(48, 16, torch.float64)
+    vol0 = float(model.total_volume(state))
+    state, ms64, _ = cube_run(torch, model, state, dt, 0, 3, wrappers,
+                              "cs_global 26a float64")
+    vdrift64 = abs(float(model.total_volume(state)) - vol0) / float(
+        model.ocean_volume())
+    log(f"[26a] float64 cs_global_implicit C48x16, 3 RK3 steps: {ms64:.3f} "
+        f"ms/step; last CG solve {int(model.free_surface_info['iterations'])}"
+        f" iterations; volume drift {vdrift64:.3e} of the ocean's volume "
+        f"(tolerance {VOLUME_RTOL:g})")
+    require(vdrift64 <= VOLUME_RTOL,
+            f"cs_global 26a float64 volume drift {vdrift64:.3e}")
+    out["vdrift64"] = vdrift64
+    del model, state
+    torch.cuda.empty_cache()
+
+    groups = {"velocities": ("u", "v"), "eta": ("eta",), "T": ("T",),
+              "S": ("S",)}
+    for tag, kw in (("26a", dict(maxiter=FIXED_CG_ITERATIONS, reltol=0.0)),
+                    ("26b", dict(zstar=True))):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            m, st = cs_global_implicit_model(8, 4, torch.float64, device,
+                                             **kw)
+            for _ in range(3):
+                st = m.step(st, 600.0)
+            runs[device] = cube_groups(m.grid, st, groups)
+        rel8 = {k: group_rel([(a, b) for a, b in zip(runs["cuda"][k],
+                                                     runs["cpu"][k])])
+                for k in groups}
+        log(f"[{tag}] float64 cs_global_implicit C8x4"
+            + (f" (CG at {FIXED_CG_ITERATIONS} iterations a solve)"
+               if tag == "26a" else " with ZStar")
+            + ", 3 steps of 600 s: the card vs the CPU: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rel8.items())
+            + " of the largest value (tolerance 1e-12)")
+        require(all(v <= 1e-12 for v in rel8.values()),
+                f"cs_global_implicit {tag} C8x4 card vs CPU {rel8}")
+        out[tag + "64"] = rel8
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4391,6 +4961,24 @@ def main():
         f"{catke['kernel']['ms']:.3f} ms/step (plain "
         f"{catke['plain']['ms']:.3f}, host syncs a step "
         f"{catke['kernel']['syncs']})")
+
+    # ---- phases 23 to 26: the implicit free surface, split RK3 with the
+    # bound-preserving limiters, z-star ---------------------------------
+    implicit = implicit_phase(torch, ot, wrappers, card, HYDRO_PATH_RTOL)
+    split_rk3 = split_rk3_phase(torch, ot, wrappers, card, HYDRO_PATH_RTOL)
+    zstar = zstar_phase(torch, ot, wrappers, card)
+    cs_implicit = cs_implicit_phase(torch, wrappers, card)
+    log(f"[26] step times on {card}: hydro_implicit kernel path "
+        f"{implicit['kernel']['ms']:.3f} ms/step (plain "
+        f"{implicit['plain']['ms']:.3f}; 'matrix' "
+        f"{implicit['matrix']['ms']:.3f}, 'cg' {implicit['cg']['ms']:.3f}); "
+        "hydro_split_rk3 kernel path "
+        f"{split_rk3[('24a', 'kernel')]['ms']:.3f} ms/step (plain "
+        f"{split_rk3[('24a', 'plain')]['ms']:.3f}; BoundPreserving kernel "
+        f"path {split_rk3[('24b', 'kernel')]['ms']:.3f}); hydro_zstar "
+        f"{zstar['ms']:.3f} ms/step; cs_global_implicit C48x16 "
+        f"{cs_implicit['26a']['ms']:.3f} ms/step, with ZStar "
+        f"{cs_implicit['26b']['ms']:.3f} ms/step")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -12,15 +12,17 @@ shallow-water and hydrostatic models, ``CubedSphereShallowWaterModel``
 and ``CubedSphereHydrostaticModel``, the latter with a grid-fitted
 bathymetry): the advection
 schemes Centered (orders 2 to 12), UpwindBiased (1 to 11), WENO (3 to 11)
-and FluxFormAdvection; the nonhydrostatic model with f-plane, β-plane and
+and FluxFormAdvection, with the bound-preserving limiters
+(``WENO(bounds=...)``, ``BoundPreserving``); the nonhydrostatic model with f-plane, β-plane and
 constant Cartesian Coriolis, BuoyancyTracer and seawater buoyancy,
 quasi-AB2 or RK3 time stepping, halo fills, and the FFT or eigenbasis
 matmul Poisson projection; the shallow-water model on a Flat-z grid in its
 conservative and vector-invariant formulations, with Coriolis, bathymetry
 and tracers, stepped by RK3; the hydrostatic free-surface model with the
 vector-invariant (WENOVectorInvariant) or flux-form momentum advection,
-explicit or split-explicit free surface, Coriolis and buoyancy, stepped by
-quasi-AB2; the closures of ``closures.py`` (scalar, biharmonic,
+explicit, split-explicit or implicit free surface (FFT, CG or the
+stencil-matrix solver), Coriolis and buoyancy, the z-star coordinate,
+stepped by quasi-AB2 or split RK3; the closures of ``closures.py`` (scalar, biharmonic,
 Smagorinsky-Lilly, dynamic Smagorinsky, AMD, convective adjustment;
 explicit or vertically implicit) and the ocean closures of
 ``closures_ocean.py`` (CATKE, Ri-based, k-ε, Leith, GM/Redi), and valued,
@@ -49,7 +51,8 @@ unless they are given ``device="cpu"`` (or ``config.device`` is set to
 """
 
 from oceananigans_torch.advection import (
-    WENO, Centered, FluxFormAdvection, UpwindBiased, adapt_advection_order,
+    WENO, BoundPreserving, Centered, FluxFormAdvection, UpwindBiased,
+    adapt_advection_order,
 )
 from oceananigans_torch.boundary_conditions import (
     BoundaryCondition, FieldBoundaryConditions, FlatExtrapolationOpenBC,
@@ -113,14 +116,12 @@ from oceananigans_torch.immersed import (
 from oceananigans_torch.models import (
     ConservativeFormulation, CrossAndSelfUpwinding,
     CubedSphereHydrostaticModel, CubedSphereShallowWaterModel,
-    ExplicitFreeSurface,
-    HydrostaticFreeSurfaceModel, HydrostaticState, NonhydrostaticModel,
-    NonhydrostaticState, OnlySelfUpwinding, PressureField, ShallowWaterModel,
-    ShallowWaterState, SplitExplicitFreeSurface, VectorInvariant,
-    VectorInvariantFormulation, WENOVectorInvariant,
-)
-from oceananigans_torch.models.hydrostatic import (
-    ImplicitFreeSurface, PrescribedVelocityFields, ZCoordinate, ZStar,
+    ExplicitFreeSurface, HydrostaticFreeSurfaceModel, HydrostaticState,
+    ImplicitFreeSurface, NonhydrostaticModel, NonhydrostaticState,
+    OnlySelfUpwinding, PrescribedVelocityFields, PressureField,
+    ShallowWaterModel, ShallowWaterState, SplitExplicitFreeSurface,
+    VectorInvariant, VectorInvariantFormulation, WENOVectorInvariant,
+    ZCoordinate, ZStar,
 )
 from oceananigans_torch.operations import (
     Accumulation, Average, ConditionalAverage, CumulativeIntegral, Integral,
@@ -138,7 +139,8 @@ from oceananigans_torch.simulation import (
     conjure_time_step_wizard, iteration,
 )
 from oceananigans_torch.solvers import (
-    FFTPoissonSolver, FourierTridiagonalPoissonSolver, MatmulPoissonSolver,
+    FFTPoissonSolver, FourierTridiagonalPoissonSolver,
+    HeptadiagonalIterativeSolver, MatmulPoissonSolver, StencilMatrix,
     conjugate_gradient,
 )
 from oceananigans_torch.diagnostics import (
@@ -159,6 +161,7 @@ __all__ = [
     "AbstractGrid", "Accumulation", "AdvectiveCFL", "AdvectiveForcing",
     "AndSchedule", "AnisotropicMinimumDissipation", "Average",
     "AveragedTimeInterval", "BackgroundField", "BetaPlane", "Biogeochemistry",
+    "BoundPreserving",
     "BoundaryCondition", "Bounded", "BuoyancyField", "BuoyancyForce",
     "BuoyancyTracer", "CATKEVerticalDiffusivity", "CFL", "Callback", "Center",
     "CenterField", "Centered", "Checkpointer", "Clock", "ConditionalAverage",
@@ -174,7 +177,7 @@ __all__ = [
     "FluxBoundaryCondition", "FluxFormAdvection", "Forcing",
     "FourierTridiagonalPoissonSolver", "FunctionField", "GaussianMask", "GiB",
     "GradientBC", "GradientBoundaryCondition", "GridFittedBottom",
-    "GridFittedBoundary", "HDF5Writer",
+    "GridFittedBoundary", "HDF5Writer", "HeptadiagonalIterativeSolver",
     "HorizontalScalarBiharmonicDiffusivity", "HorizontalScalarDiffusivity",
     "HydrostaticFreeSurfaceModel", "HydrostaticSphericalCoriolis",
     "HydrostaticState", "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
@@ -195,7 +198,7 @@ __all__ = [
     "ScalarDiffusivity", "SeawaterBuoyancy", "ShallowWaterModel",
     "ShallowWaterState", "SimpleBiogeochemistry", "Simulation", "Smagorinsky",
     "SmagorinskyLilly", "SpecifiedTimes", "SplitExplicitFreeSurface",
-    "StateChecker", "StokesDrift", "TEOS10", "TEOS10EquationOfState",
+    "StateChecker", "StencilMatrix", "StokesDrift", "TEOS10", "TEOS10EquationOfState",
     "TKEDissipationVerticalDiffusivity", "TendencyCallsite", "TiB",
     "TimeInterval", "TimeStepCallsite", "TimeStepWizard", "TripolarGrid",
     "UniformStokesDrift", "UpdateStateCallsite", "UpwindBiased", "ValueBC",

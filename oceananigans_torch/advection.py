@@ -17,9 +17,11 @@ A reconstruction that lands on faces (``o = 0``) gives the value at face
 ``i``, between centers ``i-1`` and ``i``; one that lands on centers
 (``o = 1``) gives the value at center ``i``, the same stencil shifted by +1.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP Queue 1 item
-11): ``BoundPreserving`` and ``WENO(bounds=...)`` (tracer limiters that
-need the ``split_rk3`` time stepper).
+Two limiters keep a tracer within bounds: ``WENO(bounds=(lo, hi))`` takes
+the Zhang-Shu limited flux divergence (:func:`_bounded_div_Uc`), and
+``BoundPreserving(scheme)`` clips every face reconstruction to the range of
+its two adjacent cells. Strict bound preservation also needs an SSP time
+stepper (the hydrostatic model's ``split_rk3``). No kernel takes either.
 """
 
 from __future__ import annotations
@@ -39,9 +41,6 @@ from oceananigans_torch.ops.reconstruction_coefficients import (
     face_reconstruction_coefficients, stretched_reconstruction_tables,
     weno_stretched_tables,
 )
-
-_LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
-
 
 def _mirror(stencil):
     """The right-biased mirror of a left-biased stencil: offsets reflected
@@ -284,13 +283,11 @@ class WENO:
     def __init__(self, order: int = 5, epsilon: float = 1e-8, bounds=None):
         if order % 2 == 0 or not 3 <= order <= 11:
             raise ValueError(f"WENO order must be odd in 3..11, got {order}")
-        if bounds is not None:
-            raise NotImplementedError(
-                f"WENO(bounds=...), the bound-preserving tracer flux, "
-                f"{_LATER}")
         self.order = order
         self.epsilon = epsilon
-        self.bounds = None
+        #: (lo, hi): the tracer flux divergence takes the limited form
+        self.bounds = None if bounds is None else (float(bounds[0]),
+                                                   float(bounds[1]))
         if order in _WENO_Q:
             self._qs = _WENO_Q[order]
             self._gammas = _WENO_GAMMA[order]
@@ -400,7 +397,7 @@ class WENO:
         axes = _stretched_axes(grid)
         if not axes:
             return self
-        new = WENO(self.order, self.epsilon)
+        new = WENO(self.order, self.epsilon, bounds=self.bounds)
         new._tables = {}
         for axis in axes:
             for o in (0, 1):
@@ -418,12 +415,15 @@ class WENO:
 
     def __eq__(self, other):
         return (type(self) is type(other) and self.order == other.order
-                and self.epsilon == other.epsilon)
+                and self.epsilon == other.epsilon
+                and self.bounds == other.bounds)
 
     def __hash__(self):
-        return hash(("WENO", self.order, self.epsilon))
+        return hash(("WENO", self.order, self.epsilon, self.bounds))
 
     def __repr__(self):
+        if self.bounds is not None:
+            return f"WENO(order={self.order}, bounds={self.bounds})"
         return f"WENO(order={self.order})"
 
 
@@ -458,12 +458,51 @@ class FluxFormAdvection:
         return f"FluxFormAdvection({self.x}, {self.y}, {self.z})"
 
 
+class BoundPreserving:
+    """A wrapper that clips the scheme's face reconstructions to the range
+    of the two cells adjacent to the face, so advection adds no new
+    extremum there (with an SSP time stepper)."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self.order = scheme.order
+        self.symmetric = scheme.symmetric
+
+    def bind_grid(self, grid):
+        b = getattr(self.scheme, "bind_grid", None)
+        return BoundPreserving(b(grid)) if b else self
+
+    @property
+    def required_halo(self):
+        return self.scheme.required_halo
+
+    @staticmethod
+    def _bounds(a, axis, o):
+        lo_n = shift(a, o - 1, axis)    # the cell below the target
+        hi_n = shift(a, o, axis)        # the cell above
+        return torch.minimum(lo_n, hi_n), torch.maximum(lo_n, hi_n)
+
+    def reconstruct(self, a, axis, o):
+        lo, hi = self._bounds(a, axis, o)
+        return torch.clamp(self.scheme.reconstruct(a, axis, o), lo, hi)
+
+    def biased(self, a, axis, o):
+        lo, hi = self._bounds(a, axis, o)
+        left, right = self.scheme.biased(a, axis, o)
+        return torch.clamp(left, lo, hi), torch.clamp(right, lo, hi)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.scheme == other.scheme
+
+    def __hash__(self):
+        return hash(("BoundPreserving", self.scheme))
+
+    def __repr__(self):
+        return f"BoundPreserving({self.scheme!r})"
+
+
 #: the scheme types the models take
-SCHEMES = (Centered, UpwindBiased, WENO, FluxFormAdvection)
-
-
-def BoundPreserving(*args, **kwargs):
-    raise NotImplementedError(f"BoundPreserving {_LATER}")
+SCHEMES = (Centered, UpwindBiased, WENO, FluxFormAdvection, BoundPreserving)
 
 
 def bind_grid(scheme, grid):
@@ -580,10 +619,54 @@ def _face_value_ib(grid, scheme, U, a, axis, o, a_loc):
     return torch.where(near, _face_value(fb, U, a, axis, o), fv)
 
 
+# The Zhang-Shu limiter's constants: the endpoint weight of the 3-point
+# Gauss-Lobatto quadrature through which the cell mean bounds the
+# reconstruction, and the guard of its quotients.
+_GL_W = 5.0 / 18.0
+_GL_EPS = 1e-20
+
+
+def _bounded_axis_flux(scheme, U, c, axis, A):
+    """The limited upwind tracer flux on ``axis`` faces: each cell's two
+    face reconstructions are pulled toward the cell mean by θ ∈ [0, 1], so
+    that the implied quadrature stays inside ``scheme.bounds``."""
+    lo, hi = scheme.bounds
+    left, right = scheme.biased(c, axis, 0)
+    # cell i's own reconstructions: at its lower face (right-biased, face
+    # i) and its upper face (left-biased, face i + 1)
+    c_up_L = shift(left, 1, axis)
+    c_lo_R = right
+    p = (c - _GL_W * c_lo_R - _GL_W * c_up_L) / (1.0 - 2.0 * _GL_W)
+    M = torch.maximum(p, torch.maximum(c_up_L, c_lo_R))
+    m = torch.minimum(p, torch.minimum(c_up_L, c_lo_R))
+    theta = torch.clamp(torch.minimum(
+        torch.abs((hi - c) / (M - c + _GL_EPS)),
+        torch.abs((lo - c) / (m - c + _GL_EPS))), max=1.0)
+    # face i: left from cell i − 1 (its limited upper value), right from
+    # cell i (its limited lower value)
+    cm = shift(c, -1, axis)
+    lim_left = shift(theta, -1, axis) * (left - cm) + cm
+    lim_right = theta * (c_lo_R - c) + c
+    face = torch.where(U > 0, lim_left,
+                       torch.where(U < 0, lim_right,
+                                   0.5 * (lim_left + lim_right)))
+    return A * U * face
+
+
+def _bounded_div_Uc(grid, scheme, u, v, w, c):
+    fx = _bounded_axis_flux(scheme, u, c, X, grid.Ax(Face, Center, Center))
+    fy = _bounded_axis_flux(scheme, v, c, Y, grid.Ay(Center, Face, Center))
+    fz = _bounded_axis_flux(scheme, w, c, Z, grid.Az(Center, Center))
+    return (dx_c(fx) + dy_c(fy) + dz_c(fz)) / grid.V(Center, Center, Center)
+
+
 def div_Uc(grid, scheme, u, v, w, c):
-    """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c)."""
+    """Tracer advective flux divergence ∇·(𝐯c) at (c,c,c); the limited
+    form for a WENO with ``bounds``."""
     if scheme is None:
         return torch.zeros_like(c)
+    if getattr(scheme, "bounds", None) is not None:
+        return _bounded_div_Uc(grid, scheme, u, v, w, c)
     sx, sy, sz = (_scheme_for(scheme, ax) for ax in range(3))
     LC = (Center, Center, Center)
     fx = grid.Ax(Face, Center, Center) * u * _face_value_ib(grid, sx, u, c,

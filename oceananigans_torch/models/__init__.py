@@ -6,8 +6,9 @@ from oceananigans_torch.models.cubed_sphere import (
 )
 from oceananigans_torch.models.hydrostatic import (
     CrossAndSelfUpwinding, ExplicitFreeSurface, HydrostaticFreeSurfaceModel,
-    HydrostaticState, OnlySelfUpwinding, SplitExplicitFreeSurface,
-    VectorInvariant, WENOVectorInvariant,
+    HydrostaticState, ImplicitFreeSurface, OnlySelfUpwinding,
+    PrescribedVelocityFields, SplitExplicitFreeSurface, VectorInvariant,
+    WENOVectorInvariant, ZCoordinate, ZStar,
 )
 from oceananigans_torch.models.nonhydrostatic import (
     NonhydrostaticModel, NonhydrostaticState,
@@ -31,8 +32,9 @@ __all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
            "CubedSphereHydrostaticModel", "CubedSphereHydrostaticState",
            "CubedSphereShallowWaterModel", "CubedSphereState",
            "ExplicitFreeSurface", "HydrostaticFreeSurfaceModel",
-           "HydrostaticState", "NonhydrostaticModel", "NonhydrostaticState",
-           "OnlySelfUpwinding", "PressureField", "ShallowWaterModel",
+           "HydrostaticState", "ImplicitFreeSurface", "NonhydrostaticModel",
+           "NonhydrostaticState", "OnlySelfUpwinding",
+           "PrescribedVelocityFields", "PressureField", "ShallowWaterModel",
            "ShallowWaterState", "SplitExplicitFreeSurface", "VectorInvariant",
-           "VectorInvariantFormulation", "WENOVectorInvariant",
-           "panel_vector_components"]
+           "VectorInvariantFormulation", "WENOVectorInvariant", "ZCoordinate",
+           "ZStar", "panel_vector_components"]

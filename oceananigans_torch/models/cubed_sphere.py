@@ -21,11 +21,14 @@ filter only with the last of these.
 The hydrostatic model's ``bathymetry`` is a ``GridFittedBottom`` (or its
 bottom height given bare, a callable or an array), a ``PartialCellBottom``
 (the partial cells' height fractions scale every metric of the dynamics
-through ``_ScaledPanelGrid``, the JAX model's scaled-height view) or a
-``GridFittedBoundary`` (a 3-D solid mask). Not ported, each raising
-``NotImplementedError`` that names its ROADMAP Queue 1 item:
-``ImplicitFreeSurface`` and ``ZStar`` (item 15); ``cubed_sphere_partition``
-(item 18).
+through the hydrostatic model's scaled-height view ``_ScaledZGrid``) or a
+``GridFittedBoundary`` (a 3-D solid mask). Its free surface is explicit,
+split-explicit or implicit (one CG across the stacked panels,
+:func:`cs_implicit_free_surface`), and under quasi-AB2 its vertical
+coordinate may be ``ZStar``: the z-star σ composes with the partial cells'
+fractions in the same scaled panel view. Not ported:
+``cubed_sphere_partition`` (ROADMAP Queue 1 item 18, raising
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -54,13 +57,14 @@ from oceananigans_torch.grids.cubed_sphere_grid import (
     panel_geographic_coords,
 )
 from oceananigans_torch.models.hydrostatic import (
-    ExplicitFreeSurface, SplitExplicitFreeSurface, VectorInvariant,
-    ZCoordinate,
+    ExplicitFreeSurface, ImplicitFreeSurface, SplitExplicitFreeSurface,
+    VectorInvariant, ZCoordinate, ZStar, _ScaledZGrid,
 )
 from oceananigans_torch.ops.operators import (
     X, Y, Z, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f,
     iz_c, vorticity_z_ff,
 )
+from oceananigans_torch.solvers.conjugate_gradient import conjugate_gradient
 from oceananigans_torch.timesteppers import (
     RK3_STAGES, Clock, ab2_coefficients, tick,
 )
@@ -77,7 +81,6 @@ OMEGA_EARTH = 7.292115e-5
 #: from the environment variable ``CS_KE_BAND``; the port keeps its default.
 CS_KE_BAND = 2
 
-_ITEM15 = "ROADMAP Queue 1 item 15"
 _ITEM18 = "ROADMAP Queue 1 item 18 (distributed)"
 
 _replace = dataclasses.replace
@@ -103,8 +106,8 @@ def cs_column_depth(g):
 
 def cs_barotropic_mode(g, u, v, sigma_u=None, sigma_v=None):
     """(U, V) = ∫ (u, v) dz over the interior levels, per column; with
-    ``sigma_u``/``sigma_v`` (partial cells' height fractions at the faces)
-    over the scaled thicknesses σ dz."""
+    ``sigma_u``/``sigma_v`` (the z-star σ and the partial cells' height
+    fractions at the faces) over the scaled thicknesses σ dz."""
     dzm = torch.where(_z_interior(g), g.dz(Center), 0.0)
     dzu = dzm if sigma_u is None else sigma_u * dzm
     dzv = dzm if sigma_v is None else sigma_v * dzm
@@ -159,14 +162,18 @@ def cs_split_explicit_free_surface(g, U0, V0, eta0, GU, GV, dt, fs,
 
 
 def cs_barotropic_correct(g, u, v, U_target, V_target, mask_u, mask_v,
-                          Hu=None, Hv=None, sigma_u=None, sigma_v=None):
+                          Hu=None, Hv=None, sigma_u=None, sigma_v=None,
+                          depth_u=None, depth_v=None):
     """Replace the barotropic mode of (u, v) with the filtered substepped
     transports; land faces (depth 0) are left untouched. ``sigma_u`` and
-    ``sigma_v`` scale the mode's thicknesses (partial cells; ``Hu`` and
-    ``Hv`` already hold the partial depths)."""
+    ``sigma_v`` scale the mode's thicknesses (z-star σ and partial cells;
+    ``Hu`` and ``Hv`` already hold the partial depths), ``depth_u`` and
+    ``depth_v`` the column depths (the z-star σ)."""
     U, V = cs_barotropic_mode(g, u, v, sigma_u, sigma_v)
     if Hu is None:
         Hu = Hv = cs_column_depth(g)
+    if depth_u is not None:
+        Hu, Hv = Hu * depth_u, Hv * depth_v
     Hu_safe = torch.where(Hu > 0, Hu, 1.0)
     Hv_safe = torch.where(Hv > 0, Hv, 1.0)
     u = u + torch.where(Hu > 0, (U_target - U) / Hu_safe, 0.0) * mask_u
@@ -174,36 +181,38 @@ def cs_barotropic_correct(g, u, v, U_target, V_target, mask_u, mask_v,
     return u, v
 
 
-class _ScaledPanelGrid:
-    """The panel grid with its cell heights scaled by ``sigma`` (partial
-    bottom cells' height fractions at the centres, ``sigma_u`` and
-    ``sigma_v`` at the u and v faces): the JAX model's ``_ScaledZGrid``,
-    through which the thicknesses enter every metric of the dynamics."""
+def cs_implicit_free_surface(g, u_star, v_star, eta0, dt, fs, exchange_eta,
+                             sync_fluxes, mask_c, Hu=None, Hv=None,
+                             info=None):
+    """The backward-Euler barotropic step across all panels: one CG on
+    [∇·(gH∇) − 1/Δt²] η = (∇·U* − ηⁿ/Δt)/Δt with the panel exchange inside
+    the operator and the Az-weighted inner product, under which the
+    flux-form operator is symmetric on the curvilinear panels. ``dt`` is a
+    float; ``info`` (a dict) receives the iterations and host syncs.
+    Returns η exchanged."""
+    Az = g.Az(Center, Center)[..., :1] * mask_c
+    if Hu is None:
+        Hu = Hv = cs_column_depth(g)
+    U, V = cs_barotropic_mode(g, u_star, v_star)
+    div_U = cs_transport_divergence(g, U, V, sync_fluxes)
+    rhs = (div_U - eta0 / dt) / dt * mask_c
 
-    def __init__(self, base, sigma, sigma_u=None, sigma_v=None):
-        object.__setattr__(self, "base", base)
-        object.__setattr__(self, "sigma", sigma)
-        object.__setattr__(self, "sigma_u",
-                           sigma if sigma_u is None else sigma_u)
-        object.__setattr__(self, "sigma_v",
-                           sigma if sigma_v is None else sigma_v)
+    def L(eta):
+        gx, gy = cs_eta_gradients(g, exchange_eta(eta))
+        div = cs_transport_divergence(g, fs.g * Hu * gx, fs.g * Hv * gy,
+                                      sync_fluxes)
+        return (div - eta / (dt * dt)) * mask_c
 
-    def __getattr__(self, name):
-        return getattr(object.__getattribute__(self, "base"), name)
+    def dot(x, y):
+        return torch.sum(Az * x * y)
 
-    def dz(self, lz=Center):
-        return self.sigma * self.base.dz(lz)
-
-    def Ax(self, lx, ly, lz):
-        s = self.sigma_u if lx == Face else self.sigma
-        return self.base.dy(ly, lx) * (s * self.base.dz(lz))
-
-    def Ay(self, lx, ly, lz):
-        s = self.sigma_v if ly == Face else self.sigma
-        return self.base.dx(lx, ly) * (s * self.base.dz(lz))
-
-    def V(self, lx, ly, lz):
-        return self.base.Az(lx, ly) * self.dz(lz)
+    cg = {}
+    eta, it, _ = conjugate_gradient(L, rhs, torch.zeros_like(eta0),
+                                    maxiter=fs.maxiter, reltol=fs.reltol,
+                                    dot=dot, info=cg)
+    if info is not None:
+        info.update(iterations=it, host_syncs=cg["host_syncs"])
+    return exchange_eta(eta * mask_c)
 
 
 class _PanelSolidView:
@@ -722,10 +731,12 @@ class CubedSphereHydrostaticModel(_OnDevice):
     """Hydrostatic Boussinesq primitive equations on the cubed sphere:
     vector-invariant momentum with the upwinded (ζ + f) flux and the exact
     corner circulation; w from continuity of the edge-synced transports;
-    the hydrostatic pressure p′ = −∫ b dz; an explicit or split-explicit
-    free surface with edge-synced barotropic transports (volume conserved to
-    rounding); SSP-RK3 ("RungeKutta3", default) or quasi-AB2
-    ("QuasiAdamsBashforth2") stepping with an exchange each stage.
+    the hydrostatic pressure p′ = −∫ b dz; an explicit, split-explicit or
+    implicit (``ImplicitFreeSurface(solver_method="cg")``: one CG across the
+    panels) free surface with edge-synced barotropic transports (volume
+    conserved to rounding); SSP-RK3 ("RungeKutta3", default) or quasi-AB2
+    ("QuasiAdamsBashforth2") stepping with an exchange each stage; under
+    quasi-AB2 the ``ZStar`` coordinate (``vertical_coordinate``).
 
     - ``momentum_advection``: None (the hybrid upwinded form) or a
       ``VectorInvariant``/``WENOVectorInvariant``, blended back to the
@@ -763,11 +774,14 @@ class CubedSphereHydrostaticModel(_OnDevice):
         self.timestepper = timestepper
         if vertical_coordinate is None:
             vertical_coordinate = ZCoordinate()
-        if not isinstance(vertical_coordinate, ZCoordinate):
-            raise NotImplementedError(
-                f"vertical_coordinate={vertical_coordinate!r} is not ported "
-                f"yet; {_ITEM15} brings ZStar")
+        if not isinstance(vertical_coordinate, (ZCoordinate, ZStar)):
+            raise ValueError(
+                f"unknown vertical_coordinate {vertical_coordinate!r}")
         self.vertical_coordinate = vertical_coordinate
+        self.zstar = isinstance(vertical_coordinate, ZStar)
+        if self.zstar and timestepper != "QuasiAdamsBashforth2":
+            raise ValueError("cubed-sphere ZStar needs "
+                             "timestepper='QuasiAdamsBashforth2'")
         self.corner_upwind_width = int(corner_upwind_width)
         self.grid = grid
         self._device_arrays = {}
@@ -775,16 +789,23 @@ class CubedSphereHydrostaticModel(_OnDevice):
         self.prescribed_velocities = bool(prescribed_velocities)
         if free_surface is None:
             free_surface = ExplicitFreeSurface(gravitational_acceleration)
+        if (isinstance(free_surface, ImplicitFreeSurface)
+                and free_surface.solver_method != "cg"):
+            raise ValueError(
+                "the cubed sphere supports ImplicitFreeSurface("
+                "solver_method='cg') only (spectral/matrix solvers need "
+                "a separable grid)")
         if not isinstance(free_surface, (ExplicitFreeSurface,
+                                         ImplicitFreeSurface,
                                          SplitExplicitFreeSurface)):
-            raise NotImplementedError(
-                f"free surface {free_surface!r} is not ported yet on the "
-                f"cubed sphere; {_ITEM15} brings the implicit free surface "
-                "with solvers/conjugate_gradient.py")
+            raise ValueError(f"unknown free surface {free_surface!r}")
         self.free_surface = free_surface
+        #: the last implicit solve's CG iterations (a 0-d tensor) and host
+        #: reads of its convergence flag
+        self.free_surface_info = {}
         self.g = float(free_surface.g)
         #: the momentum tendency carries −g∇η only under the explicit free
-        #: surface (the split one applies it in its substeps)
+        #: surface (the split and implicit ones apply it in their own steps)
         self._explicit_eta_grad = isinstance(free_surface,
                                              ExplicitFreeSurface)
         self.tracer_advection = tracer_advection or Centered(2)
@@ -892,7 +913,48 @@ class CubedSphereHydrostaticModel(_OnDevice):
             self._cf_mask_u = self._mask_u * self._wet_u * kin
             self._cf_mask_v = self._mask_v * self._wet_v * kin
         self._kin = kin
+        if self.zstar:
+            self._zstar_setup(kin)
         _corner_filter_setup(self, corner_filter)
+
+    def _zstar_setup(self, kin):
+        """The static parts of z-star: the wet column depths σ divides by
+        (fraction-aware, the flat column without bathymetry), and the share
+        of each wet column below each w face, over which the grid's motion
+        is distributed (0 at the bottom, 1 at the surface)."""
+        g = self.grid.panel_grid
+        dz0 = np.broadcast_to(g.dz(Center).cpu().numpy(), g.shape)[None]
+        dzw = dz0 * kin
+        if self._wet_c is not None:
+            dzw = dzw * self._wet_c
+            if self._frac_c is not None:
+                dzw = dzw * self._frac_c
+        full = np.sum(dz0 * kin, axis=3, keepdims=True)
+        self._sig_Hc = full if self._Hc is None else self._Hc
+        self._sig_Hu = full if self._Hu is None else self._Hu
+        self._sig_Hv = full if self._Hv is None else self._Hv
+        hb = np.roll(np.cumsum(dzw, axis=3), 1, axis=3)
+        hb[..., 0] = 0.0
+        H = np.sum(dzw, axis=3, keepdims=True)
+        self._zstar_below = np.where(H > 0, hb / np.where(H > 0, H, 1.0),
+                                     0.0)
+
+    def _sigma_field(self, eta):
+        """The z-star column stretching σ = (H + η)/H at the centres (1 on
+        land columns)."""
+        H = self._dev("_sig_Hc", eta.dtype)
+        return torch.where(H > 0, 1.0 + eta / torch.where(H > 0, H, 1.0),
+                           1.0)
+
+    def _sigma_faces(self, eta):
+        """σ at the u and v faces from the faces' wet column depths and η
+        interpolated to them."""
+        out = []
+        for tag, e in (("u", ix_f(eta)), ("v", iy_f(eta))):
+            H = self._dev(f"_sig_H{tag}", eta.dtype)
+            out.append(torch.where(
+                H > 0, 1.0 + e / torch.where(H > 0, H, 1.0), 1.0))
+        return tuple(out)
 
     def _grid_fitted_bottom(self, bathymetry, kin, top):
         """Wet masks, wet-column depths and boundary-cell indicators of the
@@ -1067,8 +1129,9 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # the persistent barotropic transports start from the initial
         # velocities
         um, vm = self._wet_masked(state.u, state.v)
-        U0, V0 = cs_barotropic_mode(g, um, vm, self._frac("u", dtype),
-                                    self._frac("v", dtype))
+        U0, V0 = cs_barotropic_mode(g, um, vm, *self._mode_sigmas(
+            dtype, *(self._sigma_faces(state.eta) if self.zstar
+                     else (None, None))))
         return _replace(state, U=U0 * self._dev("_mask_u2", dtype),
                         V=V0 * self._dev("_mask_v2", dtype))
 
@@ -1141,19 +1204,45 @@ class CubedSphereHydrostaticModel(_OnDevice):
         """w from edge-synced per-level transports (Ax u, Ay v): the same
         single-valued seam transports as the tracer fluxes, so a uniform
         tracer stays uniform at edge columns too. ``g``: the (scaled)
-        panel grid of :meth:`_dynamics_grid`."""
+        panel grid of :meth:`_dynamics_grid`. Under z-star less the grid's
+        motion, spread over the wet column: the velocity across the moving
+        levels, zero at the bottom and at the surface."""
         hdiv = (dx_c(Fxl) + dy_c(Fyl)) / g.V(Center, Center, Center)
-        return self._w_from_divergence(hdiv, g.dz(Center))
+        dz = g.dz(Center)
+        w = self._w_from_divergence(hdiv, dz)
+        if self.zstar:
+            total = torch.sum(torch.where(
+                _z_interior(self.grid.panel_grid), hdiv * dz, 0.0), dim=Z,
+                keepdim=True)
+            w = w + self._dev("_zstar_below", w.dtype) * total
+        return w
 
-    def _dynamics_grid(self, dtype):
-        """The panel grid the dynamics see: with partial bottom cells, its
-        heights scaled by their fractions (:class:`_ScaledPanelGrid`)."""
+    def _dynamics_grid(self, dtype, sig=None, sig_u=None, sig_v=None):
+        """The panel grid the dynamics see: its cell heights scaled by the
+        z-star σ (``sig`` at the centres, ``sig_u`` and ``sig_v`` at the
+        faces) and the partial cells' fractions (``_ScaledZGrid``);
+        the panel grid itself without either."""
         g = self.grid.panel_grid
-        if self._frac_c is None:
+        if self._frac_c is not None:
+            f = [self._dev(f"_frac_{t}", dtype) for t in "cuv"]
+            if sig is None:
+                sig, sig_u, sig_v = f
+            else:
+                sig, sig_u, sig_v = sig * f[0], sig_u * f[1], sig_v * f[2]
+        if sig is None:
             return g
-        return _ScaledPanelGrid(g, self._dev("_frac_c", dtype),
-                                self._dev("_frac_u", dtype),
-                                self._dev("_frac_v", dtype))
+        return _ScaledZGrid(g, sig, sig_u, sig_v)
+
+    def _mode_sigmas(self, dtype, sig_u=None, sig_v=None):
+        """The factors of the barotropic mode's thicknesses at the u and v
+        faces: the z-star σ times the partial cells' fractions (None where
+        neither applies)."""
+        fu, fv = self._frac("u", dtype), self._frac("v", dtype)
+        if fu is None:
+            return sig_u, sig_v
+        if sig_u is None:
+            return fu, fv
+        return sig_u * fu, sig_v * fv
 
     def _frac(self, name, dtype):
         """The height fractions of the partial cells at the location of
@@ -1176,12 +1265,13 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # without a formulation, a "b" tracer is the buoyancy
         return tracers.get("b")
 
-    def _momentum_tendencies(self, u, v, eta, f_ff, zeta, tracers, w, g):
+    def _momentum_tendencies(self, u, v, eta, f_ff, zeta, tracers, w, g,
+                             sig=None):
         """(Gu, Gv) of all panels on the (scaled) panel grid ``g``.
         Transports use the wet-masked velocities (no flux through the
         bottom); gradients and shear the mirrored fields the exchange
-        made. With partial cells the pressure gradient along a level takes
-        the slope of the partial cells' raised centres."""
+        made. Under z-star (``sig``, its σ alone) and with partial cells
+        the pressure gradient along a level takes the levels' slope."""
         um, vm = self._wet_masked(u, v)
         b = self._buoyancy_ccc(tracers, g)
         p = self._pressure(b, g) if b is not None else 0.0
@@ -1211,13 +1301,18 @@ class CubedSphereHydrostaticModel(_OnDevice):
         Gu = Gu + dGu
         Gv = Gv + dGv
         slope_x = slope_y = None
-        if self._frac_c is not None and b is not None:
-            # a partial bottom cell's centre rises by (1 − frac)·Δz/2, so
-            # the gradient of p′ along a level differs from the gradient
-            # at constant z by b ∂x(z) (p′ has ∂z p′ = +b)
+        if (self._frac_c is not None or self.zstar) and b is not None:
+            # the gradient of p′ along a level differs from the gradient at
+            # constant z by b ∂x(z) (p′ has ∂z p′ = +b): z = σ z_ref + η,
+            # and a partial bottom cell's centre rises by (1 − frac)·Δz/2
             base = g.base
-            dz0 = base.dz(Center)
-            z_c = (base.zC + 0.5 * (1.0 - g.sigma) * dz0) + eta
+            if self._frac_c is not None:
+                s2 = 1.0 if sig is None else sig
+                frac = g.sigma / s2
+                z_ref = base.zC + 0.5 * (1.0 - frac) * base.dz(Center)
+            else:
+                s2, z_ref = g.sigma, base.zC
+            z_c = s2 * z_ref + eta
             slope_x = ix_f(b) * dx_f(z_c) / g.dx(Face, Center)
             slope_y = iy_f(b) * dy_f(z_c) / g.dy(Face, Center)
             Gu = Gu + slope_x
@@ -1247,14 +1342,14 @@ class CubedSphereHydrostaticModel(_OnDevice):
         fluxes through solid faces are zero. The transports integrate the
         thickness of each face, as the tracer fluxes' areas do."""
         um, vm = self._wet_masked(u, v)
-        if self._frac_c is None:
+        if self._frac_c is None and not self.zstar:
             dzi = torch.where(_z_interior(g), g.dz(Center), 0.0)
             U = torch.sum(um * dzi, dim=Z, keepdim=True)
             V = torch.sum(vm * dzi, dim=Z, keepdim=True)
         else:
             dzi0 = torch.where(_z_interior(g), g.base.dz(Center), 0.0)
-            U = torch.sum(um * (g.sigma_u * dzi0), dim=Z, keepdim=True)
-            V = torch.sum(vm * (g.sigma_v * dzi0), dim=Z, keepdim=True)
+            U = torch.sum(um * (g.sigma_fc * dzi0), dim=Z, keepdim=True)
+            V = torch.sum(vm * (g.sigma_cf * dzi0), dim=Z, keepdim=True)
         Fx = g.dy(Center, Face) * U
         Fy = g.dx(Center, Face) * V
         k = torch.arange(g.shape[2], device=g.device)
@@ -1332,6 +1427,12 @@ class CubedSphereHydrostaticModel(_OnDevice):
         dtype = Gu.dtype
         dz = self._dev("_dz_row", dtype)
         t = state.clock.time
+        sig = None
+        if self.zstar:
+            # the boundary cell's moving thickness is σΔz: the σ-weighted
+            # tendency then carries q/Δz
+            sig = dict(zip("uv", self._sigma_faces(state.eta)))
+            sig["c"] = self._sigma_field(state.eta)
         for name, fbc in self.bcs.items():
             for side, sign in (("top", -1.0), ("bottom", 1.0)):
                 bc = getattr(fbc, side, None)
@@ -1340,6 +1441,9 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 q = self._eval_cs_flux(bc, name, side, state, t, dtype)
                 ind = self._dev(self._boundary_indicator(name, side), dtype)
                 contrib = sign * q * ind / dz
+                if sig is not None:
+                    contrib = contrib / sig[name if name in ("u", "v")
+                                             else "c"]
                 frac = self._frac(name, dtype)
                 if frac is not None:
                     # a partial bottom cell is frac·Δz thick
@@ -1380,13 +1484,17 @@ class CubedSphereHydrostaticModel(_OnDevice):
         # edge-synced w: continuity integrates the same single-valued seam
         # transports as the tracer fluxes
         um, vm = self._wet_masked(state.u, state.v)
-        gd = self._dynamics_grid(dtype)
+        sig = sig_u = sig_v = None
+        if self.zstar:
+            sig = self._sigma_field(state.eta)
+            sig_u, sig_v = self._sigma_faces(state.eta)
+        gd = self._dynamics_grid(dtype, sig, sig_u, sig_v)
         Fxl, Fyl = cubed_sphere_sync_edge_fluxes(
             gd.Ax(Face, Center, Center) * um,
             gd.Ay(Center, Face, Center) * vm, self.grid)
         w = self._w_from_fluxes(Fxl, Fyl, gd)
         Gu, Gv = self._momentum_tendencies(state.u, state.v, state.eta, f,
-                                           zeta, state.tracers, w, gd)
+                                           zeta, state.tracers, w, gd, sig)
         Fx, Fy, Ft = self._fluxes(state.u, state.v, w, state.tracers, gd)
         Fx, Fy = cubed_sphere_sync_edge_fluxes(Fx, Fy, self.grid)
         Ft = {n: (*cubed_sphere_sync_edge_fluxes(fx, fy, self.grid), fz)
@@ -1443,10 +1551,12 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 {n: G * mcw * kin for n, G in Gt.items()}, diffusivities)
 
     # ------------------------------------------------------------------
-    def _euler_free_surface(self, s, u_e, v_e, Gu, Gv, Geta, dt):
+    def _euler_free_surface(self, s, u_e, v_e, Gu, Gv, Geta, dt,
+                            sig_u=None, sig_v=None):
         """The free-surface part of one Euler substage: the stage's (u, v,
-        η, U, V) after the explicit or split-explicit barotropic step.
-        ``dt`` is a 0-d CPU tensor."""
+        η, U, V) after the explicit, split-explicit or implicit barotropic
+        step. ``dt`` is a 0-d CPU tensor; under z-star ``sig_u``/``sig_v``
+        scale the transports' thicknesses and the column depths."""
         if self.prescribed_velocities:
             return u_e, v_e, s.eta, s.U, s.V
         fs = self.free_surface
@@ -1460,24 +1570,45 @@ class CubedSphereHydrostaticModel(_OnDevice):
             Hu = self._dev("_Hu", dtype)
             Hv = self._dev("_Hv", dtype)
         um, vm = self._wet_masked(u_e, v_e)
-        # with partial cells the transports integrate the faces' partial
+        # the transports integrate the faces' moving and partial
         # thicknesses
-        fu, fv = self._frac("u", dtype), self._frac("v", dtype)
+        mode_u, mode_v = self._mode_sigmas(dtype, sig_u, sig_v)
+
+        def exchange(e):
+            return cubed_sphere_halo_exchange(e, grid)
+
+        def sync(fx, fy):
+            return cubed_sphere_sync_edge_fluxes(fx, fy, grid)
+
         if isinstance(fs, ExplicitFreeSurface):
             eta = s.eta + dt.item() * Geta
-            U, V = cs_barotropic_mode(g, um, vm, fu, fv)
+            U, V = cs_barotropic_mode(g, um, vm, mode_u, mode_v)
+            return u_e, v_e, eta, U * mu, V * mv
+        if isinstance(fs, ImplicitFreeSurface):
+            dtf = dt.item()
+            mc = self._dev("_mask_c", dtype)
+            if self._wet2_c is not None:
+                mc = mc * self._dev("_wet2_c", dtype)
+            eta = cs_implicit_free_surface(g, um, vm, s.eta, dtf, fs,
+                                           exchange, sync, mc, Hu=Hu, Hv=Hv,
+                                           info=self.free_surface_info)
+            gx, gy = cs_eta_gradients(g, eta)
+            u_e = u_e - dtf * fs.g * gx * mu
+            v_e = v_e - dtf * fs.g * gy * mv
+            um, vm = self._wet_masked(u_e, v_e)
+            U, V = cs_barotropic_mode(g, um, vm, mode_u, mode_v)
             return u_e, v_e, eta, U * mu, V * mv
         # split-explicit substepping from the persistent transports, forced
-        # by ∫ G dz
+        # by ∫ G dz (G σ-weighted under z-star)
+        fu, fv = self._frac("u", dtype), self._frac("v", dtype)
         GU, GV = cs_barotropic_mode(g, Gu, Gv, fu, fv)
         eta_f, U_f, V_f = cs_split_explicit_free_surface(
-            g, s.U, s.V, s.eta, GU, GV, dt, fs,
-            lambda e: cubed_sphere_halo_exchange(e, grid),
-            lambda fx, fy: cubed_sphere_sync_edge_fluxes(fx, fy, grid),
-            mu, mv, Hu=Hu, Hv=Hv)
+            g, s.U, s.V, s.eta, GU, GV, dt, fs, exchange, sync, mu, mv,
+            Hu=Hu, Hv=Hv)
         u_c, v_c = cs_barotropic_correct(g, um, vm, U_f, V_f, mu, mv,
-                                         Hu=Hu, Hv=Hv, sigma_u=fu,
-                                         sigma_v=fv)
+                                         Hu=Hu, Hv=Hv, sigma_u=mode_u,
+                                         sigma_v=mode_v, depth_u=sig_u,
+                                         depth_v=sig_v)
         if self._wet_u is not None:
             # the solid cells keep their mirror until the next exchange
             wu = self._dev("_wet_u", dtype)
@@ -1504,21 +1635,44 @@ class CubedSphereHydrostaticModel(_OnDevice):
     def _ab2_step(self, state, dt, chi=0.1, assume_filled=False):
         """χ-weighted quasi-AB2 with an Euler first step: the AB2-effective
         tendency drives the momentum and tracer update and the barotropic
-        step."""
+        step. Under z-star the tendencies are σ-weighted (only those
+        telescope across the moving grid), and u, v and the tracers are
+        rescaled by σⁿ/σⁿ⁺¹ after the free surface's step."""
         dtf = dt.item()
         s = state if assume_filled else self.fill_state_halos(state)
         c_now, c_prev = ab2_coefficients(s.clock.iteration, chi)
         Gu, Gv, Geta, Gt, diff = self.compute_tendencies(s)
+        sig_u = sig_v = None
+        if self.zstar:
+            sig_n = self._sigma_field(s.eta)
+            sig_u, sig_v = self._sigma_faces(s.eta)
+            Gu, Gv = Gu * sig_u, Gv * sig_v
+            Gt = {n: Gt[n] * sig_n for n in self.tracer_names}
         Gu_eff = c_now * Gu + c_prev * s.Gu
         Gv_eff = c_now * Gv + c_prev * s.Gv
         Geta_eff = c_now * Geta + c_prev * s.Geta
-        u_e = s.u + dtf * Gu_eff
-        v_e = s.v + dtf * Gv_eff
+        Gt_eff = {n: c_now * Gt[n] + c_prev * s.Gtracers[n]
+                  for n in self.tracer_names}
+        if self.zstar:
+            u_e = s.u + dtf * Gu_eff / sig_u
+            v_e = s.v + dtf * Gv_eff / sig_v
+        else:
+            u_e = s.u + dtf * Gu_eff
+            v_e = s.v + dtf * Gv_eff
         u, v, eta, U, V = self._euler_free_surface(
-            s, u_e, v_e, Gu_eff, Gv_eff, Geta_eff, dt)
-        tracers = {n: s.tracers[n]
-                   + dtf * (c_now * Gt[n] + c_prev * s.Gtracers[n])
-                   for n in self.tracer_names}
+            s, u_e, v_e, Gu_eff, Gv_eff, Geta_eff, dt, sig_u, sig_v)
+        if self.zstar:
+            tracers = {n: s.tracers[n] + dtf * Gt_eff[n] / sig_n
+                       for n in self.tracer_names}
+            # the columns stretched from σⁿ to σⁿ⁺¹: ∫ σ q dV is kept
+            ratio = sig_n / self._sigma_field(eta)
+            sig_u1, sig_v1 = self._sigma_faces(eta)
+            u = u * (sig_u / sig_u1)
+            v = v * (sig_v / sig_v1)
+            tracers = {n: c * ratio for n, c in tracers.items()}
+        else:
+            tracers = {n: s.tracers[n] + dtf * Gt_eff[n]
+                       for n in self.tracer_names}
         u, v, tracers = self._implicit_step(u, v, tracers, diff, dt)
         s = _replace(s, u=u, v=v, eta=eta, U=U, V=V, tracers=tracers,
                      Gu=Gu, Gv=Gv, Geta=Geta, Gtracers=Gt,
@@ -1567,14 +1721,19 @@ class CubedSphereHydrostaticModel(_OnDevice):
         s = self.fill_state_halos(s)
         dtype = s.u.dtype
         frac = self._frac("c", dtype)
-        if frac is None:
+        eta = _corner_smooth_center(self, s.eta)
+        if frac is None and not self.zstar:
             tracers = {n: _corner_smooth_center(self, c)
                        for n, c in s.tracers.items()}
         else:
-            # partial cells hold frac of a cell's content: smooth the
-            # content and divide by the (smoothed, unchanged) fraction, so
-            # Σ Az dz frac c is kept
-            tracers = {n: _corner_smooth_center(self, c * frac) / frac
+            # a cell holds σ·frac of a cell's content: smooth the content
+            # and divide by the thickness of the smoothed η, so Σ Az dz σ
+            # frac c is kept (η is the σ carrier, and Σ Az η is kept)
+            sig, sig_f = ((self._sigma_field(s.eta), self._sigma_field(eta))
+                          if self.zstar else (1.0, 1.0))
+            if frac is not None:
+                sig, sig_f = sig * frac, sig_f * frac
+            tracers = {n: _corner_smooth_center(self, c * sig) / sig_f
                        for n, c in s.tracers.items()}
         return _replace(
             s,
@@ -1582,7 +1741,7 @@ class CubedSphereHydrostaticModel(_OnDevice):
                                       self._dev("_cf_mask_u", dtype)),
             v=_corner_smooth_velocity(self, s.v,
                                       self._dev("_cf_mask_v", dtype)),
-            eta=_corner_smooth_center(self, s.eta), tracers=tracers)
+            eta=eta, tracers=tracers)
 
     # ------------------------------------------------------------------
     def cfl_timescale(self, state):
@@ -1607,6 +1766,9 @@ class CubedSphereHydrostaticModel(_OnDevice):
         g = self.grid.panel_grid
         sx, sy, sz = g.interior_slices
         c = state.tracers[name][:, sx, sy, sz]
+        if self.zstar:
+            # the conserved content is ∫ σ c dV
+            c = c * self._sigma_field(state.eta)[:, sx, sy, :]
         if self._wet_c is not None:
             c = c * self._dev("_wet_c", c.dtype)[:, sx, sy, sz]
         if self._frac_c is not None:

@@ -17,10 +17,24 @@ grid, as in the JAX package):
   stencils and the multidimensional stencil, each scheme-valued option
   taking Centered, UpwindBiased or WENO; ``WENOVectorInvariant``; or
   flux-form momentum advection with any scheme of ``advection.py``;
-- ``ExplicitFreeSurface`` and ``SplitExplicitFreeSurface`` (the
-  barotropic substeps are a Python loop over the averaging weights);
+- ``ExplicitFreeSurface``, ``SplitExplicitFreeSurface`` (the barotropic
+  substeps are a Python loop over the averaging weights) and
+  ``ImplicitFreeSurface`` (a backward-Euler barotropic step: "fft", DCT-II
+  on Bounded and FFT on Periodic axes through cuFFT with the eigenvalue
+  denominator made in float64; "cg", matrix-free CG; "matrix", the
+  pentadiagonal ``solvers/matrix_solver.py`` operator with its Jacobi or
+  Neumann-series preconditioner; over bathymetry "fft" becomes "cg");
+- ``ZStar``, the free-surface-following coordinate: the dynamics on a
+  σ-scaled view of the grid (:class:`_ScaledZGrid`, face σ from the face
+  wet depths), σ-weighted AB2 tendencies, the slope term b ∂x(z) of the
+  pressure gradient, the z-star w, and the σⁿ/σⁿ⁺¹ rescale after the free
+  surface; and ``PrescribedVelocityFields``, a data class the model does
+  not take (as in JAX);
 - ``HydrostaticState`` and ``HydrostaticFreeSurfaceModel`` with quasi-AB2
-  stepping: w diagnosed from continuity by a ``torch.cumsum`` over z, the
+  or ``split_rk3`` (SSP Shu-Osher RK3, each stage a full-Δt Euler substep
+  with its own free-surface step, convex-combined with the step's start;
+  not with ``ZStar``, as in JAX) stepping: w diagnosed from continuity by a
+  ``torch.cumsum`` over z, the
   hydrostatic pressure anomaly of a buoyancy, Coriolis, Stokes drift (its
   x and y terms), the closures of ``closures.py`` and ``closures_ocean.py``
   (explicit divergences in the tendencies, the vertically implicit part
@@ -30,11 +44,6 @@ grid, as in the JAX package):
   step, valued boundary conditions on every field, and
   ``tendency_callbacks`` hooks on the tendencies.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-Queue 1 item: the implicit free surface (over bathymetry too, with
-``matrix_solver.py``), ``ZStar``, ``PrescribedVelocityFields`` and
-``split_rk3`` stepping (item 15).
-
 The state is a dataclass of tensors. ``step`` returns a new state but
 reuses its argument's storage: halo fills write halo rows in place, the
 persistent barotropic transports ``U``/``V`` among them.
@@ -43,7 +52,10 @@ Fused kernels: with ``fused_kernels="auto"`` the WENO vector-invariant
 momentum kernel (``ops/cuda_vi.py``) and the WENO tracer kernel
 (``ops/cuda_tracer.py``) run exactly when the model's device is a CUDA
 device and their gates hold; ``fused_kernels=True`` takes the same code
-paths on the CPU, where the wrappers run their plain versions.
+paths on the CPU, where the wrappers run their plain versions. The gates
+are decided at construction; under ``ZStar`` neither kernel runs (the JAX
+model runs them only on its own grid, never on the σ-scaled one), and the
+gates refuse the bound-preserving limiters.
 """
 
 from __future__ import annotations
@@ -70,7 +82,7 @@ from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
 from oceananigans_torch.forcings import materialize_forcings
-from oceananigans_torch.grids.base import Bounded, Center, Face
+from oceananigans_torch.grids.base import Bounded, Center, Face, Periodic
 from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
@@ -89,9 +101,14 @@ from oceananigans_torch.ops.operators import (
     iy_f, iz_c, shift, vorticity_z_ff,
 )
 from oceananigans_torch.particles import ParticleState
+from oceananigans_torch.solvers.conjugate_gradient import conjugate_gradient
+from oceananigans_torch.solvers.fft_poisson import poisson_eigenvalues
+from oceananigans_torch.solvers.matrix_solver import (
+    HeptadiagonalIterativeSolver, StencilMatrix,
+)
+from oceananigans_torch.solvers.transforms import dct2, idct2
 from oceananigans_torch.timesteppers import Clock, ab2_coefficients, tick
 
-_ITEM15 = "ROADMAP Queue 1 item 15 (the hydrostatic model)"
 #: the grids the model runs on
 GRIDS = (RectilinearGrid, LatitudeLongitudeGrid, OrthogonalSphericalShellGrid)
 
@@ -442,19 +459,105 @@ class SplitExplicitFreeSurface:
                 f"g={self.g:g})")
 
 
-def ImplicitFreeSurface(*args, **kwargs):
-    raise NotImplementedError(f"ImplicitFreeSurface is not ported yet; "
-                              f"{_ITEM15} brings it")
+class ImplicitFreeSurface:
+    """Backward-Euler barotropic step: solve the 2-D elliptic problem
+
+        [∇·(gH∇) − 1/Δt²] η^{n+1} = (∇·U* − η^n/Δt)/Δt
+
+    then correct u and v with −Δt g ∇η^{n+1}.
+
+    ``solver_method``: "fft" (a flat bottom on a regular grid: DCT on the
+    Bounded axes, FFT on the Periodic ones, an eigenvalue division), "cg"
+    (matrix-free CG on any grid) or "matrix" (the pentadiagonal
+    :class:`~oceananigans_torch.solvers.matrix_solver.StencilMatrix` and
+    its preconditioned CG, ``preconditioner`` "jacobi", "spai" or an int).
+    Over an immersed grid the model turns "fft" into "cg"."""
+
+    def __init__(self, gravitational_acceleration=g_Earth,
+                 solver_method="fft", maxiter=200, reltol=1e-9,
+                 preconditioner="jacobi"):
+        self.g = float(gravitational_acceleration)
+        if solver_method not in ("fft", "cg", "matrix"):
+            raise ValueError(f"unknown solver_method {solver_method!r} "
+                             "(expected 'fft', 'cg', or 'matrix')")
+        self.solver_method = solver_method
+        self.maxiter = maxiter
+        self.reltol = reltol
+        self.preconditioner = preconditioner
+
+    def __eq__(self, other):
+        return (type(self) is type(other) and self.g == other.g
+                and self.solver_method == other.solver_method
+                and self.preconditioner == other.preconditioner)
+
+    def __hash__(self):
+        return hash(("ImplicitFS", self.g, self.solver_method,
+                     str(self.preconditioner)))
+
+    def __repr__(self):
+        return (f"ImplicitFreeSurface(g={self.g:g}, "
+                f"solver={self.solver_method})")
 
 
-def ZStar(*args, **kwargs):
-    raise NotImplementedError(f"ZStar is not ported yet; {_ITEM15} brings "
-                              "it")
+class ZStar:
+    """Free-surface-following vertical coordinate: the cell heights scale
+    with the column stretching σ = (H + η)/H, and u, v and the tracers are
+    rescaled by σⁿ/σⁿ⁺¹ after the free-surface update, so the σ-weighted
+    content ∫ σ q dV is kept to rounding. A uniform tracer stays uniform
+    exactly under the explicit free surface. Quasi-AB2 only."""
+
+    def __repr__(self):
+        return "ZStar()"
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def __hash__(self):
+        return hash("ZStar")
 
 
-def PrescribedVelocityFields(*args, **kwargs):
-    raise NotImplementedError(f"PrescribedVelocityFields is not ported "
-                              f"yet; {_ITEM15} brings it")
+class _ScaledZGrid:
+    """A grid view whose cell heights are scaled by ``sigma`` at the centres
+    and by ``sigma_fc`` and ``sigma_cf`` in the x and y flux areas; every
+    other attribute is the base grid's. Built each step under
+    :class:`ZStar` (σ, its face values from the face wet depths), and by
+    the cubed sphere's models for z-star and partial cells."""
+
+    def __init__(self, base, sigma, sigma_fc=None, sigma_cf=None):
+        object.__setattr__(self, "base", base)
+        object.__setattr__(self, "sigma", sigma)
+        object.__setattr__(self, "sigma_fc",
+                           sigma if sigma_fc is None else sigma_fc)
+        object.__setattr__(self, "sigma_cf",
+                           sigma if sigma_cf is None else sigma_cf)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "base"), name)
+
+    def dz(self, lz=Center):
+        return self.sigma * self.base.dz(lz)
+
+    def Ax(self, lx, ly, lz):
+        s = self.sigma_fc if lx == Face else self.sigma
+        return self.base.dy(ly, lx) * (s * self.base.dz(lz))
+
+    def Ay(self, lx, ly, lz):
+        s = self.sigma_cf if ly == Face else self.sigma
+        return self.base.dx(lx, ly) * (s * self.base.dz(lz))
+
+    def V(self, lx, ly, lz):
+        return self.base.Az(lx, ly) * self.dz(lz)
+
+
+class PrescribedVelocityFields:
+    """Diagnostic velocities ``u``, ``v`` and ``w`` that advect the
+    tracers (a data class; the hydrostatic model does not take it, as in
+    the JAX package)."""
+
+    def __init__(self, u=None, v=None, w=None):
+        self.u = u
+        self.v = v
+        self.w = w
 
 
 class ZCoordinate:
@@ -513,8 +616,9 @@ _replace = dataclasses.replace
 
 class HydrostaticFreeSurfaceModel(torch.nn.Module):
     """Hydrostatic Boussinesq dynamics with a free surface. Mirrors the JAX
-    constructor's keywords and raises ``NotImplementedError`` on the ones
-    not ported (``ImplicitFreeSurface``, ``ZStar``, ``split_rk3``)."""
+    constructor's keywords, and its ``ValueError`` on an unknown
+    timestepper, free surface or coordinate and on ``split_rk3`` with
+    ``ZStar``."""
 
     def __init__(self, grid, momentum_advection=None, tracer_advection=None,
                  free_surface=None, tracers=(), buoyancy=None, coriolis=None,
@@ -533,33 +637,38 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         if timestepper not in ("quasi_ab2", "split_rk3"):
             raise ValueError(f"unknown timestepper {timestepper!r}")
         closures_mod.check_closure(closure, "HydrostaticFreeSurfaceModel")
-        if timestepper == "split_rk3":
-            raise NotImplementedError(f"timestepper='split_rk3' is not "
-                                      f"ported yet; {_ITEM15} brings it")
+        if timestepper == "split_rk3" and isinstance(vertical_coordinate,
+                                                     ZStar):
+            raise ValueError("split_rk3 supports ZCoordinate only")
         if vertical_coordinate is None:
             vertical_coordinate = ZCoordinate()
-        if not isinstance(vertical_coordinate, ZCoordinate):
+        if not isinstance(vertical_coordinate, (ZCoordinate, ZStar)):
             raise ValueError(
                 f"unknown vertical_coordinate {vertical_coordinate!r}")
         if momentum_advection is None:
             momentum_advection = VectorInvariant()
         if not isinstance(momentum_advection, (VectorInvariant, *SCHEMES)):
-            raise NotImplementedError(
-                f"momentum advection {momentum_advection!r} is not ported "
-                "yet (ROADMAP Queue 1 item 11)")
+            raise ValueError(
+                f"unknown momentum advection {momentum_advection!r}")
         if tracer_advection is None:
             tracer_advection = Centered(2)
         if not isinstance(tracer_advection, SCHEMES):
-            raise NotImplementedError(
-                f"tracer advection {tracer_advection!r} is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
+            raise ValueError(
+                f"unknown tracer advection {tracer_advection!r}")
         if free_surface is None:
             free_surface = SplitExplicitFreeSurface()
         if not isinstance(free_surface, (ExplicitFreeSurface,
-                                         SplitExplicitFreeSurface)):
-            raise NotImplementedError(
-                f"free surface {free_surface!r} is not ported yet; "
-                f"{_ITEM15} brings the implicit free surface")
+                                         SplitExplicitFreeSurface,
+                                         ImplicitFreeSurface)):
+            raise ValueError(f"unknown free surface {free_surface!r}")
+        if (isinstance(grid, ImmersedBoundaryGrid)
+                and isinstance(free_surface, ImplicitFreeSurface)
+                and free_surface.solver_method == "fft"):
+            # the eigenbasis assumes a flat bottom: over bathymetry CG
+            free_surface = ImplicitFreeSurface(
+                gravitational_acceleration=free_surface.g,
+                solver_method="cg", maxiter=free_surface.maxiter,
+                reltol=free_surface.reltol)
         if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
             raise NotImplementedError(
                 f"coriolis {coriolis!r} is not ported yet; the port has "
@@ -640,9 +749,25 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         H = torch.sum(torch.where(wet, grid.dz(Center), 0.0).expand(
             grid.shape), dim=Z, keepdim=True)
         self.register_buffer("_z_interior", interior)
+        inside = torch.zeros(shape2d, dtype=torch.bool, device=grid.device)
+        inside[grid.interior_slices[0], grid.interior_slices[1], :] = True
+        self.register_buffer("_interior2d", inside)
         self.register_buffer("_dzm", dzm)
+        self.register_buffer("_H_cc", H)
         self.register_buffer("_H_fc", torch.minimum(H, shift(H, -1, X)))
         self.register_buffer("_H_cf", torch.minimum(H, shift(H, -1, Y)))
+        self.zstar = isinstance(vertical_coordinate, ZStar)
+        # z-star: the share of the wet column below each w face, over which
+        # the grid's motion is distributed (0 at the bottom, 1 at the top)
+        frac = None
+        if self.zstar:
+            h_below = shift(torch.cumsum(
+                torch.where(wet, grid.dz(Center), 0.0).expand(grid.shape),
+                dim=Z), -1, Z)
+            h_below = torch.where(k == 0, 0.0, h_below)
+            frac = torch.where(H > 0, h_below / torch.where(H > 0, H, 1.0),
+                               0.0)
+        self.register_buffer("_zstar_below", frac)
         # wall and halo faces of the barotropic transports on Bounded axes
         for name, axis in (("_U_walls", X), ("_V_walls", Y)):
             walls = None
@@ -652,17 +777,25 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 walls = ((idx <= grid.H[axis])
                          | (idx >= grid.H[axis] + grid.N[axis]))
             self.register_buffer(name, walls)
-        # the kernels' metric profiles, built once
+        # the kernels' metric profiles, built once; under z-star the
+        # tendencies are taken on the σ-scaled grid, which no kernel takes
+        # (the JAX model runs its kernels only on its own grid)
         self.register_buffer(
             "_vi_metrics",
             vi_metric_profiles(grid)
             if isinstance(momentum_advection, VectorInvariant)
-            and vi_available(grid, momentum_advection) else None)
+            and not self.zstar and vi_available(grid, momentum_advection)
+            else None)
         self.register_buffer(
             "_tracer_metrics",
             tracer_metric_profiles(grid)
-            if tracer_fusion_available(grid, self.tracer_advection)
+            if not self.zstar
+            and tracer_fusion_available(grid, self.tracer_advection)
             else None)
+        #: the last implicit free-surface solve's CG iterations (a 0-d
+        #: tensor) and host reads of its convergence flag
+        self.free_surface_info = {}
+        self._fs_denominators = {}
         if device is not None:
             self.to(device)
 
@@ -720,9 +853,12 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                        if self.particles is not None else None))
         state = self.update_state(state)
         # the persistent barotropic transports start from the initial
-        # velocities
+        # velocities (through the moving thicknesses under z-star)
+        sig = ((self._sigma_at(state.eta, "fc"), self._sigma_at(state.eta,
+                                                                "cf"))
+               if self.zstar else ())
         U0, V0 = self._zero_wall_transports(
-            *self._barotropic_mode(state.u, state.v))
+            *self._barotropic_mode(state.u, state.v, *sig))
         return _replace(state, U=U0, V=V0)
 
     def _eta_field(self, value):
@@ -770,15 +906,20 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
 
     def compute_w(self, state):
         """w from continuity: w(zF_k) = −∫ from the bottom to k of ∇ₕ·𝐮 dz,
-        a ``torch.cumsum`` over z; then its halo fill."""
-        g = self.grid
+        a ``torch.cumsum`` over z; then its halo fill. Under z-star, on the
+        σ-scaled grid, less the grid's own motion: the velocity across the
+        moving levels, zero at the bottom and at the surface."""
+        g = self._active_grid(state)
         hdiv = div_xy_cc(g, state.u, state.v)
         contrib = torch.where(self._z_interior, hdiv * g.dz(Center), 0.0)
         csum = torch.cumsum(contrib, dim=Z)
         # w at face k (the bottom face of cell k) = −Σ over cells k' < k
         w = -shift(csum, -1, Z)
+        if self.zstar:
+            w = w + self._zstar_below * torch.sum(contrib, dim=Z,
+                                                  keepdim=True)
         w[..., 0] = 0.0
-        w = mask_immersed_field(g, w, LOC_W)
+        w = mask_immersed_field(self.grid, w, LOC_W)
         fill_halo_regions(w, g, self.bcs["w"], LOC_W, state.clock.time)
         return _replace(state, w=w)
 
@@ -786,24 +927,51 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         return self.compute_w(self.fill_state_halos(state))
 
     # ------------------------------------------------------------------
+    # The z-star coordinate
+    # ------------------------------------------------------------------
+    def _sigma(self, eta):
+        """The column stretching σ = (H + η)/H at the centres (1 over
+        land)."""
+        H = self._H_cc
+        return torch.where(H > 0, 1.0 + eta / torch.where(H > 0, H, 1.0),
+                           1.0)
+
+    def _sigma_at(self, eta, loc):
+        """σ at the u ("fc") or v ("cf") faces, from the face's wet depth
+        and η interpolated to it."""
+        H = self._H_fc if loc == "fc" else self._H_cf
+        eta_l = ix_f(eta) if loc == "fc" else iy_f(eta)
+        return torch.where(H > 0, 1.0 + eta_l / torch.where(H > 0, H, 1.0),
+                           torch.ones_like(eta_l))
+
+    def _active_grid(self, state):
+        """The grid the dynamics see: σ-scaled under z-star."""
+        if not self.zstar:
+            return self.grid
+        return _ScaledZGrid(self.grid, self._sigma(state.eta),
+                            self._sigma_at(state.eta, "fc"),
+                            self._sigma_at(state.eta, "cf"))
+
+    # ------------------------------------------------------------------
     # Tendencies
     # ------------------------------------------------------------------
-    def hydrostatic_pressure_anomaly(self, state):
+    def hydrostatic_pressure_anomaly(self, state, g=None):
         """p′(z) = −∫_z^0 b dz′ at centers (∂z p′ = b, p′ = 0 at the top),
         or None without a buoyancy."""
         if self.buoyancy is None:
             return None
-        g = self.grid
+        g = self.grid if g is None else g
         b = self.buoyancy.buoyancy_ccc(g, state.tracers)
         contrib = torch.where(self._z_interior, b * g.dz(Center), 0.0)
         total = torch.sum(contrib, dim=Z, keepdim=True)
         above = total - torch.cumsum(contrib, dim=Z)
         return -(above + 0.5 * contrib)
 
-    def compute_diffusivities(self, state):
+    def compute_diffusivities(self, state, g=None):
         """The closure's coefficients of this step, one entry a closure."""
         return closures_mod.compute_diffusivities(
-            self.closure, self.grid, state.u, state.v, state.w,
+            self.closure, self.grid if g is None else g, state.u, state.v,
+            state.w,
             state.tracers, self.buoyancy,
             top_fluxes=lambda: top_flux_values(self.bcs, self.grid,
                                                state.clock.time))
@@ -824,13 +992,15 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             fields[name] = self._aux_on_grid[key]
         return fields
 
-    def momentum_tendencies(self, state, diffusivities=None):
+    def momentum_tendencies(self, state, diffusivities=None, g=None):
         """``(Gu, Gv)``: momentum advection, Stokes drift, Coriolis, the
-        hydrostatic pressure gradient, the explicit free surface's g∇η, the
-        closure's explicit stress divergence (with ``diffusivities``,
-        computed here when not given), the forcings and the boundary
-        fluxes."""
-        g = self.grid
+        hydrostatic pressure gradient (with the σ-levels' slope term under
+        z-star), the explicit free surface's g∇η, the closure's explicit
+        stress divergence (with ``diffusivities``, computed here when not
+        given), the forcings and the boundary fluxes; on ``g``, the
+        model's active grid by default."""
+        if g is None:
+            g = self._active_grid(state)
         u, v, w = state.u, state.v, state.w
         time, fields = state.clock.time, self.fields(state)
         ma = self.momentum_advection
@@ -850,17 +1020,26 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         if self.coriolis is not None:
             Gu = Gu - self.coriolis.x_f_cross_U(g, u, v, w)
             Gv = Gv - self.coriolis.y_f_cross_U(g, u, v, w)
-        p_anom = self.hydrostatic_pressure_anomaly(state)
+        p_anom = self.hydrostatic_pressure_anomaly(state, g)
         if p_anom is not None:
             Gu = Gu - dx_f(p_anom) / g.dx(Face, Center)
             Gv = Gv - dy_f(p_anom) / g.dy(Face, Center)
+            if self.zstar:
+                # the gradient along a σ-level differs from the one at
+                # constant z by b ∂x(z), with z = σ z_ref + η; ∂z p′ = +b,
+                # so the correction adds it
+                b = self.buoyancy.buoyancy_ccc(g, state.tracers)
+                z_c = (self._sigma(state.eta)
+                       * self.grid.zC.reshape(1, 1, -1) + state.eta)
+                Gu = Gu + ix_f(b) * dx_f(z_c) / g.dx(Face, Center)
+                Gv = Gv + iy_f(b) * dy_f(z_c) / g.dy(Face, Center)
         fs = self.free_surface
         if isinstance(fs, ExplicitFreeSurface):
             Gu = Gu - fs.g * dx_f(state.eta) / g.dx(Face, Center)
             Gv = Gv - fs.g * dy_f(state.eta) / g.dy(Face, Center)
         if self.closure is not None:
             if diffusivities is None:
-                diffusivities = self.compute_diffusivities(state)
+                diffusivities = self.compute_diffusivities(state, g)
             du, dv, _ = closures_mod.momentum_flux_divergences(
                 self.closure, g, u, v, w, state.tracers, diffusivities,
                 include_implicit=False)
@@ -882,21 +1061,23 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 Gu = Gu + term
             else:
                 Gv = Gv + term
-        return (mask_immersed_field(g, Gu, LOC_U),
-                mask_immersed_field(g, Gv, LOC_V))
+        return (mask_immersed_field(self.grid, Gu, LOC_U),
+                mask_immersed_field(self.grid, Gv, LOC_V))
 
-    def tracer_tendencies(self, state, diffusivities=None):
+    def tracer_tendencies(self, state, diffusivities=None, g=None):
         """``{name: Gc}``: each tracer's advection (by its advective
         forcings' velocities too), the closure's explicit flux divergence
         (with ``diffusivities``, computed here when not given), the
         biogeochemical transition and drift, the forcing and the boundary
-        fluxes; then the biogeochemistry's ``update_tendencies``."""
-        g = self.grid
+        fluxes; then the biogeochemistry's ``update_tendencies``; on
+        ``g``, the model's active grid by default."""
+        if g is None:
+            g = self._active_grid(state)
         u, v, w = state.u, state.v, state.w
         tracers = state.tracers
         time, fields = state.clock.time, self.fields(state)
         if self.closure is not None and diffusivities is None:
-            diffusivities = self.compute_diffusivities(state)
+            diffusivities = self.compute_diffusivities(state, g)
         fused = {}
         if self.fused_tracer:
             # one kernel for every tracer without an advective forcing:
@@ -938,20 +1119,23 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             if ib is not None:
                 Gc = Gc + immersed_flux_divergence(
                     g, ib, LOC_C, c, self._ib_kappa[name], time)
-            Gtracers[name] = mask_immersed_field(g, Gc, LOC_C)
+            Gtracers[name] = mask_immersed_field(self.grid, Gc, LOC_C)
         if bgc is not None:
             Gtracers = bgc.update_tendencies(g, Gtracers, time, fields)
         return Gtracers
 
-    def compute_tendencies(self, state, diffusivities=None):
-        """``(Gu, Gv, {name: Gc})``, with the ``tendency_callbacks`` applied
-        in order; ``diffusivities`` are computed here when not given."""
+    def compute_tendencies(self, state, diffusivities=None, g=None):
+        """``(Gu, Gv, {name: Gc})`` on ``g`` (the active grid by default),
+        with the ``tendency_callbacks`` applied in order; ``diffusivities``
+        are computed here when not given."""
+        if g is None:
+            g = self._active_grid(state)
         if diffusivities is None:
-            diffusivities = self.compute_diffusivities(state)
-        Gu, Gv = self.momentum_tendencies(state, diffusivities)
-        Gt = self.tracer_tendencies(state, diffusivities)
+            diffusivities = self.compute_diffusivities(state, g)
+        Gu, Gv = self.momentum_tendencies(state, diffusivities, g)
+        Gt = self.tracer_tendencies(state, diffusivities, g)
         for hook in self.tendency_callbacks:
-            G = hook(self.grid, state, {"u": Gu, "v": Gv, **Gt})
+            G = hook(g, state, {"u": Gu, "v": Gv, **Gt})
             Gu, Gv = G["u"], G["v"]
             Gt = {n: G[n] for n in Gt}
         return Gu, Gv, Gt
@@ -959,10 +1143,13 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
     # ------------------------------------------------------------------
     # Barotropic mode and the split-explicit free surface
     # ------------------------------------------------------------------
-    def _barotropic_mode(self, u, v):
-        """(U, V) = ∫ (u, v) dz over the interior."""
-        return (torch.sum(u * self._dzm, dim=Z, keepdim=True),
-                torch.sum(v * self._dzm, dim=Z, keepdim=True))
+    def _barotropic_mode(self, u, v, sigma_fc=None, sigma_cf=None):
+        """(U, V) = ∫ (u, v) dz over the interior; under z-star through the
+        moving thicknesses σ dz (``sigma_fc``, ``sigma_cf``)."""
+        dzu = self._dzm if sigma_fc is None else sigma_fc * self._dzm
+        dzv = self._dzm if sigma_cf is None else sigma_cf * self._dzm
+        return (torch.sum(u * dzu, dim=Z, keepdim=True),
+                torch.sum(v * dzv, dim=Z, keepdim=True))
 
     def _zero_wall_transports(self, U, V):
         """Zero the transports on the wall faces (and beyond) of Bounded
@@ -1019,13 +1206,16 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             V_f = V_f + wgt * V
         return eta_f, U_f, V_f
 
-    def _barotropic_correct(self, state, U_target, V_target):
+    def _barotropic_correct(self, state, U_target, V_target, sigma_fc=None,
+                            sigma_cf=None):
         """u ← u + (Ū − ∫u dz)/H: the baroclinic velocities take the
-        averaged barotropic transports. On an immersed grid H is the wet
-        depth, dry columns are left as they are and solid faces stay
-        zero."""
-        U, V = self._barotropic_mode(state.u, state.v)
+        averaged barotropic transports (the mode and H through the moving
+        thicknesses under z-star). On an immersed grid H is the wet depth,
+        dry columns are left as they are and solid faces stay zero."""
+        U, V = self._barotropic_mode(state.u, state.v, sigma_fc, sigma_cf)
         H_fc, H_cf = self._H_fc, self._H_cf
+        if sigma_fc is not None:
+            H_fc, H_cf = H_fc * sigma_fc, H_cf * sigma_cf
         if not self.immersed:
             return _replace(state, u=state.u + (U_target - U) / H_fc,
                             v=state.v + (V_target - V) / H_cf)
@@ -1039,17 +1229,148 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                         v=mask_immersed_field(g, state.v + dv, LOC_V))
 
     # ------------------------------------------------------------------
+    # The implicit free surface
+    # ------------------------------------------------------------------
+    def _fs_denominator(self, fs, dtf):
+        """g H λ − 1/Δt² over the horizontal eigenvalues of the flat-bottom
+        operator (DCT-II on Bounded axes, FFT on Periodic ones), formed in
+        float64 once for each g and Δt and cast once to the fields' dtype:
+        g H λ reaches ~1e5 where 1/Δt² is ~1e-4."""
+        g = self.grid
+        key = (fs.g, dtf, g.device, g.dtype)
+        den = self._fs_denominators.get(key)
+        if den is None:
+            lam = 0.0
+            for axis in (0, 1):
+                N = g.N[axis]
+                extent = (g.Lx, g.Ly)[axis]
+                ev = poisson_eigenvalues(N, extent / N, g.axis_topo(axis))
+                shape = [1, 1, 1]
+                shape[axis] = ev.shape[0]
+                lam = lam + ev.reshape(shape)
+            den = fs.g * float(g.Lz) * lam - 1.0 / (dtf * dtf)
+            den = torch.as_tensor(den, dtype=g.dtype, device=g.device)
+            self._fs_denominators[key] = den
+        return den
+
+    def _step_free_surface_implicit(self, state, dtf, fs, sigma_fc=None,
+                                    sigma_cf=None):
+        """η^{n+1} of [∇·(gH∇) − 1/Δt²] η = (∇·U* − ηⁿ/Δt)/Δt, U* the
+        barotropic mode of the updated velocities; halos filled."""
+        g = self.grid
+        U, V = self._barotropic_mode(state.u, state.v, sigma_fc, sigma_cf)
+        rhs = (self._div_transports(U, V) - state.eta / dtf) / dtf
+        if fs.solver_method == "fft":
+            sx, sy, _ = g.interior_slices
+            axes = [ax for ax in (0, 1) if g.N[ax] > 1]
+            fft_axes = [ax for ax in axes if g.axis_topo(ax) == Periodic]
+            dct_axes = [ax for ax in axes if g.axis_topo(ax) == Bounded]
+            x = rhs[sx, sy, :]
+            for ax in dct_axes:
+                x = dct2(x, ax)
+            for ax in fft_axes:
+                x = torch.fft.fft(x, dim=ax)
+            x = x / self._fs_denominator(fs, dtf)
+            for ax in fft_axes:
+                x = torch.fft.ifft(x, dim=ax)
+            if x.is_complex():
+                x = torch.real(x)
+            for ax in dct_axes:
+                x = idct2(x, ax)
+            eta = torch.zeros_like(state.eta)
+            eta[sx, sy, :] = x
+        elif fs.solver_method == "matrix":
+            eta = self._implicit_fs_matrix(rhs, dtf, fs)
+        else:
+            eta = self._implicit_fs_cg(rhs, dtf, fs)
+        return self._fill_eta_halos(eta)
+
+    def _implicit_fs_matrix(self, rhs, dtf, fs):
+        """The volume-weighted pentadiagonal operator Az·L = Σ_faces a_f
+        (η_nb − η_c) − Az η/Δt², a_f = g H Δy/Δx (zero on the walls),
+        solved by the preconditioned :class:`HeptadiagonalIterativeSolver`
+        over the interior."""
+        g = self.grid
+        sx, sy, _ = g.interior_slices
+        shape2d = (g.shape[0], g.shape[1], 1)
+
+        def b2(m):
+            return torch.broadcast_to(m, shape2d)[sx, sy, :]
+
+        ax = (fs.g * b2(self._H_fc) * b2(g.dy(Center, Face))
+              / b2(g.dx(Face, Center)))
+        ay = (fs.g * b2(self._H_cf) * b2(g.dx(Center, Face))
+              / b2(g.dy(Face, Center)))
+        per_x = g.axis_topo(0) == Periodic
+        per_y = g.axis_topo(1) == Periodic
+        if not per_x:
+            ax[0, :, :] = 0.0
+        if not per_y:
+            ay[:, 0, :] = 0.0
+        Az = b2(g.Az(Center, Center))
+        A = StencilMatrix(ax=ax, ay=ay, extra=-Az / (dtf * dtf),
+                          periodic=(per_x, per_y, False))
+        solver = HeptadiagonalIterativeSolver(
+            A, maxiter=fs.maxiter, reltol=fs.reltol,
+            preconditioner=fs.preconditioner)
+        x, it, _ = solver.solve(Az * rhs[sx, sy, :])
+        self.free_surface_info = {"iterations": it,
+                                  "host_syncs": solver.host_syncs}
+        eta = torch.zeros(shape2d, dtype=rhs.dtype, device=rhs.device)
+        eta[sx, sy, :] = x
+        return eta
+
+    def _implicit_fs_cg(self, rhs, dtf, fs):
+        """Matrix-free CG on the 2-D Helmholtz operator over the interior,
+        from η = 0, on any grid."""
+        g = self.grid
+        H_fc, H_cf, inside = self._H_fc, self._H_cf, self._interior2d
+
+        def L(eta):
+            # a copy: CG's search direction may share its residual's storage
+            eta = self._fill_eta_halos(eta.clone())
+            gx = fs.g * H_fc * dx_f(eta) / g.dx(Face, Center)
+            gy = fs.g * H_cf * dy_f(eta) / g.dy(Face, Center)
+            div = (dx_c(g.dy(Center, Face) * gx)
+                   + dy_c(g.dx(Center, Face) * gy)) / g.Az(Center, Center)
+            return torch.where(inside, div - eta / (dtf * dtf), 0.0)
+
+        b = torch.where(inside, rhs, 0.0)
+        info = {}
+        eta, it, _ = conjugate_gradient(L, b, torch.zeros_like(b),
+                                        maxiter=fs.maxiter, reltol=fs.reltol,
+                                        info=info)
+        self.free_surface_info = {"iterations": it,
+                                  "host_syncs": info["host_syncs"]}
+        return eta
+
+    def _implicit_correct(self, state, dtf, fs, sigma_fc=None,
+                          sigma_cf=None):
+        """The implicit free-surface solve from a filled state, then
+        u, v ← u, v − Δt g ∇η^{n+1}; halos filled."""
+        g = self.grid
+        eta = self._step_free_surface_implicit(state, dtf, fs, sigma_fc,
+                                               sigma_cf)
+        u = state.u - dtf * fs.g * dx_f(eta) / g.dx(Face, Center)
+        v = state.v - dtf * fs.g * dy_f(eta) / g.dy(Face, Center)
+        return self.fill_state_halos(_replace(state, u=u, v=v, eta=eta))
+
+    # ------------------------------------------------------------------
     # Time stepping
     # ------------------------------------------------------------------
     def step(self, state, dt, chi=0.1, assume_filled=False):
-        """One quasi-AB2 step with the configured free surface.
+        """One step of the configured time stepper (quasi-AB2 or
+        ``split_rk3``) with the configured free surface.
         ``assume_filled=True`` skips the leading fill and w diagnosis:
         every step ends with them, so a loop does them once before its
         first step and passes ``assume_filled=True``."""
         dt = torch.tensor(dt, dtype=state.u.dtype)
         if not assume_filled:
             state = self.update_state(state)
-        state = self._step_qab2(state, dt, chi)
+        if self.timestepper == "split_rk3":
+            state = self._step_split_rk3(state, dt)
+        else:
+            state = self._step_qab2(state, dt, chi)
         if self.particles is None or state.particles is None:
             return state
         # the particles advect at the end of the step, as in the JAX step
@@ -1057,54 +1378,145 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
             self.grid, state.particles, state.u, state.v, state.w,
             state.fields(), dt))
 
-    def ab2_update(self, state, dt, chi=0.1, tendencies=None):
+    def ab2_update(self, state, dt, chi=0.1, tendencies=None, sigmas=None):
         """The quasi-AB2 update of u, v and the tracers with the
         ``tendencies`` ``(Gu, Gv, Gtracers)`` (computed here when not
         given): ``(u, v, tracers, Gu, Gv, Gtracers, Gu_ab2, Gv_ab2)``; the
-        first part of :meth:`step`."""
+        first part of :meth:`step`. Under z-star the tendencies are
+        σ-weighted and ``sigmas`` = (σ, σ_fc, σ_cf) divide the updates."""
         dtf = dt.item()
         Gu, Gv, Gt = (self.compute_tendencies(state) if tendencies is None
                       else tendencies)
         c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
         Gu_ab2 = c_now * Gu + c_prev * state.Gu
         Gv_ab2 = c_now * Gv + c_prev * state.Gv
-        u = state.u + dtf * Gu_ab2
-        v = state.v + dtf * Gv_ab2
-        tracers = {n: state.tracers[n]
-                   + dtf * (c_now * Gt[n] + c_prev * state.Gtracers[n])
-                   for n in self.tracer_names}
+        if sigmas is None:
+            u = state.u + dtf * Gu_ab2
+            v = state.v + dtf * Gv_ab2
+            tracers = {n: state.tracers[n]
+                       + dtf * (c_now * Gt[n] + c_prev * state.Gtracers[n])
+                       for n in self.tracer_names}
+        else:
+            s_c, s_fc, s_cf = sigmas
+            u = state.u + dtf * Gu_ab2 / s_fc
+            v = state.v + dtf * Gv_ab2 / s_cf
+            tracers = {n: state.tracers[n]
+                       + dtf * (c_now * Gt[n] + c_prev * state.Gtracers[n])
+                       / s_c for n in self.tracer_names}
         return u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2
 
     def _step_qab2(self, state, dt, chi=0.1):
         """Quasi-AB2 from a filled state with w diagnosed, then the
         closure's implicit vertical diffusion. ``dt`` is a 0-d CPU tensor in
-        the state's dtype."""
-        diffusivities = self.compute_diffusivities(state)
+        the state's dtype. Under z-star the tendencies are σ-weighted (only
+        those telescope across the grid's update), and u, v and the
+        tracers are rescaled by σⁿ/σⁿ⁺¹ after the free surface's."""
+        g = self._active_grid(state)
+        diffusivities = self.compute_diffusivities(state, g)
+        Gu, Gv, Gt = self.compute_tendencies(state, diffusivities, g)
+        sig_n = sig_fc = sig_cf = None
+        if self.zstar:
+            sig_n, sig_fc, sig_cf = g.sigma, g.sigma_fc, g.sigma_cf
+            Gu, Gv = Gu * sig_fc, Gv * sig_cf
+            Gt = {n: Gc * sig_n for n, Gc in Gt.items()}
         u, v, tracers, Gu, Gv, Gt, Gu_ab2, Gv_ab2 = self.ab2_update(
-            state, dt, chi, self.compute_tendencies(state, diffusivities))
+            state, dt, chi, (Gu, Gv, Gt),
+            (sig_n, sig_fc, sig_cf) if self.zstar else None)
+        dtf = dt.item()
         fs = self.free_surface
         Geta = state.Geta
         if isinstance(fs, ExplicitFreeSurface):
             # η is an AB2 prognostic with Gη = −∇·U of the same time-n
-            # transports whose fluxes move the tracers
+            # transports whose fluxes move the tracers (no wall zeroing:
+            # under z-star they must match the tracer fluxes bit for bit)
             c_now, c_prev = ab2_coefficients(state.clock.iteration, chi)
-            Geta = -self._div_transports(*self._barotropic_mode(state.u,
-                                                                state.v))
-            eta = state.eta + dt.item() * (c_now * Geta
-                                           + c_prev * state.Geta)
+            Geta = -self._div_transports(*self._barotropic_mode(
+                state.u, state.v, sig_fc, sig_cf))
+            eta = state.eta + dtf * (c_now * Geta + c_prev * state.Geta)
             state2 = self.fill_state_halos(
                 _replace(state, u=u, v=v, tracers=tracers, eta=eta))
+        elif isinstance(fs, ImplicitFreeSurface):
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers))
+            state2 = self._implicit_correct(state2, dtf, fs, sig_fc, sig_cf)
         else:
             eta_f, U_f, V_f = self._step_free_surface_split(
                 _replace(state, u=u, v=v), Gu_ab2, Gv_ab2, dt, fs)
             state2 = self.fill_state_halos(
                 _replace(state, u=u, v=v, tracers=tracers, eta=eta_f,
                          U=U_f, V=V_f))
-            state2 = self._barotropic_correct(state2, U_f, V_f)
+            state2 = self._barotropic_correct(state2, U_f, V_f, sig_fc,
+                                              sig_cf)
+        if self.zstar:
+            # the columns stretched from σⁿ to σⁿ⁺¹: ∫ σ q dV is kept
+            ratio = sig_n / self._sigma(state2.eta)
+            state2 = _replace(
+                state2,
+                u=state2.u * (sig_fc / self._sigma_at(state2.eta, "fc")),
+                v=state2.v * (sig_cf / self._sigma_at(state2.eta, "cf")),
+                tracers={n: c * ratio for n, c in state2.tracers.items()})
         state2 = _replace(state2, Gu=Gu, Gv=Gv, Gtracers=Gt, Geta=Geta)
         state2 = self._implicit_diffusion(state2, diffusivities, dt)
         state2 = _replace(state2, clock=tick(state2.clock, dt))
         return self.update_state(state2)
+
+    def _substep_euler(self, state, dt):
+        """One forward-Euler substep of ``split_rk3`` from a filled state
+        with w diagnosed: the tendencies, the update, the free surface and
+        its correction. Returns the stepped state (halos filled) and the
+        diffusivities."""
+        dtf = dt.item()
+        diffusivities = self.compute_diffusivities(state)
+        Gu, Gv, Gt = self.compute_tendencies(state, diffusivities)
+        u = state.u + dtf * Gu
+        v = state.v + dtf * Gv
+        tracers = {n: state.tracers[n] + dtf * Gt[n]
+                   for n in self.tracer_names}
+        fs = self.free_surface
+        if isinstance(fs, ExplicitFreeSurface):
+            # η from the time-n transports, the level the tracer fluxes used
+            eta = state.eta - dtf * self._div_transports(
+                *self._barotropic_mode(state.u, state.v))
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers, eta=eta))
+        elif isinstance(fs, ImplicitFreeSurface):
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers))
+            state2 = self._implicit_correct(state2, dtf, fs)
+        else:
+            eta_f, U_f, V_f = self._step_free_surface_split(
+                _replace(state, u=u, v=v), Gu, Gv, dt, fs)
+            state2 = self.fill_state_halos(
+                _replace(state, u=u, v=v, tracers=tracers, eta=eta_f,
+                         U=U_f, V=V_f))
+            state2 = self._barotropic_correct(state2, U_f, V_f)
+        return state2, diffusivities
+
+    def _step_split_rk3(self, state, dt):
+        """SSP (Shu-Osher) RK3 from a filled state: each stage a full-Δt
+        Euler substep (with its own free-surface solve), convex-combined
+        with the state at the start of the step (u, v, η, the tracers and
+        the barotropic transports); the implicit vertical diffusion once at
+        the end."""
+        psi = state
+        s = state
+        for k, (gamma, zeta) in enumerate(((1.0, 0.0), (0.25, 0.75),
+                                           (2.0 / 3.0, 1.0 / 3.0))):
+            if k:
+                s = self.update_state(s)
+            s2, diffusivities = self._substep_euler(s, dt)
+            s = self.fill_state_halos(_replace(
+                s2,
+                u=zeta * psi.u + gamma * s2.u,
+                v=zeta * psi.v + gamma * s2.v,
+                eta=zeta * psi.eta + gamma * s2.eta,
+                tracers={n: zeta * psi.tracers[n] + gamma * s2.tracers[n]
+                         for n in self.tracer_names},
+                U=zeta * psi.U + gamma * s2.U,
+                V=zeta * psi.V + gamma * s2.V))
+        s = self._implicit_diffusion(s, diffusivities, dt)
+        s = _replace(s, clock=tick(s.clock, dt))
+        return self.update_state(s)
 
     def _implicit_diffusion(self, state, diffusivities, dt):
         """The closure's vertically implicit diffusion of u, v and the

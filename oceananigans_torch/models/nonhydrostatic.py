@@ -145,8 +145,7 @@ class NonhydrostaticModel(torch.nn.Module):
         if advection is None:
             advection = Centered(2)
         if not isinstance(advection, SCHEMES):
-            raise NotImplementedError(f"advection {advection!r} is not "
-                                      "ported yet (ROADMAP Queue 1 item 11)")
+            raise ValueError(f"unknown advection {advection!r}")
         if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
             raise NotImplementedError(
                 f"coriolis {coriolis!r} is not ported yet; the port has "

@@ -160,13 +160,9 @@ class ShallowWaterModel(torch.nn.Module):
                 raise ValueError("VectorInvariant momentum advection needs "
                                  "the vector-invariant formulation")
         elif not isinstance(momentum_advection, SCHEMES):
-            raise NotImplementedError(f"advection {momentum_advection!r} is "
-                                      "not ported yet (ROADMAP Queue 1 "
-                                      "item 11)")
+            raise ValueError(f"unknown advection {momentum_advection!r}")
         if not isinstance(tracer_advection, SCHEMES):
-            raise NotImplementedError(f"advection {tracer_advection!r} is "
-                                      "not ported yet (ROADMAP Queue 1 "
-                                      "item 11)")
+            raise ValueError(f"unknown advection {tracer_advection!r}")
         if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
             raise NotImplementedError(
                 f"coriolis {coriolis!r} is not ported yet; the port has "

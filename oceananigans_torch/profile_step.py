@@ -53,6 +53,26 @@ Two configurations of the physics slice are built by
 For these two the script prints the alternated step times of both paths
 and the profiler's kernel time and idle share of each.
 
+Four configurations take the implicit free surface, ``split_rk3``, the
+bound-preserving limiters and z-star (:data:`OPTION_CONFIGS`):
+
+- ``hydro_implicit``: ``hydro_vi`` with ``ImplicitFreeSurface()`` (the
+  "fft" method: DCT in y, FFT in x through cuFFT), kernels 11 and 12/13
+  once a step (:func:`hydro_implicit_model`);
+- ``hydro_split_rk3``: ``hydro_vi``'s grid and momentum stepped by
+  ``split_rk3`` with a passive tracer c under ``WENO(7, bounds=(0, 1))``,
+  kernel 12/13 once a stage and no tracer kernel (the gates refuse the
+  limiter; :func:`hydro_split_rk3_model`);
+- ``hydro_zstar``: phase 19's 1° ocean over ``bench.py``'s continents with
+  ``ZStar()`` and a passive c = 1, no kernel (:func:`hydro_zstar_model`);
+- ``cs_global_implicit``: ``cs_global`` at C48×16 with the cube's implicit
+  free surface (CG across the panels, RK3; no kernel;
+  :func:`cs_global_implicit_model`).
+
+For these it prints the step times (alternated with the plain path where
+there is a kernel path), and each path's kernel time, launches a step and
+idle share, with the last CG solve's iterations and host syncs.
+
 It runs the kernel path (``fused_kernels="auto"``) and the plain path
 (``fused_kernels=False``) and prints, for each path:
 
@@ -223,11 +243,16 @@ HYDRO_CONFIG, HYDRO_DT, HYDRO_STEPS = "hydro_vi", 60.0, 20
 
 
 def hydro_model(fused="auto", dtype=torch.float32, device="cuda",
-                size=(360, 160, 60), momentum_advection=None, bottom=None):
+                size=(360, 160, 60), momentum_advection=None, bottom=None,
+                free_surface=None, timestepper="quasi_ab2",
+                tracers=("T", "S"), tracer_advection=None):
     """``bench.py``'s ``hydro_vi`` model (at ``size``; with
     ``momentum_advection`` in place of its ``WENOVectorInvariant()`` when
     given; on an ``ImmersedBoundaryGrid`` over ``bottom``, such as
-    :func:`ridge_bottom`, when given)."""
+    :func:`ridge_bottom`, when given; with ``free_surface``,
+    ``timestepper``, ``tracers`` and ``tracer_advection`` in place of its
+    30-substep split-explicit free surface, quasi-AB2, T and S and
+    WENO(7) when given)."""
     import oceananigans_torch as ot
     grid = ot.RectilinearGrid(size=size, extent=(4e7, 2e7, 4e3),
                               topology=(ot.Periodic, ot.Bounded, ot.Bounded),
@@ -238,9 +263,10 @@ def hydro_model(fused="auto", dtype=torch.float32, device="cuda",
         momentum_advection = ot.WENOVectorInvariant()
     return ot.HydrostaticFreeSurfaceModel(
         grid=grid, momentum_advection=momentum_advection,
-        tracer_advection=ot.WENO(7), tracers=("T", "S"),
-        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
-        fused_kernels=fused)
+        tracer_advection=tracer_advection or ot.WENO(7), tracers=tracers,
+        free_surface=free_surface or ot.SplitExplicitFreeSurface(
+            substeps=30),
+        timestepper=timestepper, fused_kernels=fused)
 
 
 def hydro_initial_state(model):
@@ -284,15 +310,17 @@ def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
                        size=(360, 160, 60), momentum_advection=None,
                        longitude=(0.0, 360.0), latitude=(-80.0, 80.0),
                        halo=(6, 6, 4), bathymetry=None, closure=None,
-                       boundary_conditions=None):
+                       boundary_conditions=None, free_surface=None,
+                       vertical_coordinate=None, tracers=("T", "S")):
     """``hydro_vi`` on the sphere: a 1° near-global ocean on a
     ``LatitudeLongitudeGrid`` (at ``size``; 4 km deep), spherical Coriolis,
     linear seawater buoyancy, ``WENOVectorInvariant()`` (or
-    ``momentum_advection``), WENO(7) T and S, the split-explicit free
-    surface with 30 substeps; on an ``ImmersedBoundaryGrid`` with a
+    ``momentum_advection``), WENO(7) T and S (and the other ``tracers``),
+    the split-explicit free surface with 30 substeps (or
+    ``free_surface``); on an ``ImmersedBoundaryGrid`` with a
     ``GridFittedBottom(bathymetry)`` where ``bathymetry`` (a callable of
-    (λ, φ), such as :func:`latlon_continents`) is given; with ``closure``
-    and ``boundary_conditions`` where given."""
+    (λ, φ), such as :func:`latlon_continents`) is given; with ``closure``,
+    ``boundary_conditions`` and ``vertical_coordinate`` where given."""
     import oceananigans_torch as ot
     grid = ot.LatitudeLongitudeGrid(
         size=size, longitude=longitude, latitude=latitude,
@@ -303,20 +331,22 @@ def hydro_latlon_model(fused="auto", dtype=torch.float32, device="cuda",
         momentum_advection = ot.WENOVectorInvariant()
     return ot.HydrostaticFreeSurfaceModel(
         grid=grid, momentum_advection=momentum_advection,
-        tracer_advection=ot.WENO(7), tracers=("T", "S"),
+        tracer_advection=ot.WENO(7), tracers=tracers,
         buoyancy=ot.SeawaterBuoyancy(
             equation_of_state=ot.LinearEquationOfState()),
         coriolis=ot.HydrostaticSphericalCoriolis(),
-        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        free_surface=free_surface or ot.SplitExplicitFreeSurface(
+            substeps=30),
         closure=closure, boundary_conditions=boundary_conditions,
-        fused_kernels=fused)
+        vertical_coordinate=vertical_coordinate, fused_kernels=fused)
 
 
-def hydro_latlon_initial_state(model, generic=False):
+def hydro_latlon_initial_state(model, generic=False, **fields):
     """``hydro_vi``'s fields on (λ, φ) [degrees]: u = 0.1 sin λ cos(πφ/160),
-    T = 20 + 8e-4 z − 0.05 |φ|, S = 35 + 1e-3 φ. ``generic``: u shifted
-    and a v added, without the exact zeros of that u (as
-    :func:`hydro_generic_state`), for comparisons of devices."""
+    T = 20 + 8e-4 z − 0.05 |φ|, S = 35 + 1e-3 φ, and the other ``fields``
+    as given. ``generic``: u shifted and a v added, without the exact
+    zeros of that u (as :func:`hydro_generic_state`), for comparisons of
+    devices."""
     if generic:
         uv = dict(
             u=lambda lam, phi, z: 0.1 * torch.sin(torch.deg2rad(lam) + 0.5)
@@ -328,7 +358,55 @@ def hydro_latlon_initial_state(model, generic=False):
                   * torch.cos(math.pi * phi / 160.0))
     return model.initial_state(
         T=lambda lam, phi, z: 20.0 + 8e-4 * z - 0.05 * torch.abs(phi),
-        S=lambda lam, phi, z: 35.0 + 1e-3 * phi, **uv)
+        S=lambda lam, phi, z: 35.0 + 1e-3 * phi, **uv, **fields)
+
+
+def hydro_implicit_model(fused="auto", dtype=torch.float32, device="cuda",
+                         size=(360, 160, 60), **free_surface):
+    """``hydro_vi`` with ``ImplicitFreeSurface(**free_surface)`` (the "fft"
+    method by default) in place of its split-explicit free surface."""
+    import oceananigans_torch as ot
+    return hydro_model(fused, dtype, device, size,
+                       free_surface=ot.ImplicitFreeSurface(**free_surface))
+
+
+def hydro_split_rk3_model(fused="auto", dtype=torch.float32, device="cuda",
+                          size=(360, 160, 60), tracer_advection=None):
+    """``hydro_vi``'s grid, momentum and split-explicit free surface (30
+    substeps) stepped by ``split_rk3``, no buoyancy, one passive tracer c
+    advected by ``tracer_advection`` (``WENO(7, bounds=(0, 1))`` by
+    default)."""
+    import oceananigans_torch as ot
+    return hydro_model(fused, dtype, device, size, timestepper="split_rk3",
+                       tracers=("c",),
+                       tracer_advection=tracer_advection
+                       or ot.WENO(7, bounds=(0.0, 1.0)))
+
+
+def hydro_split_rk3_initial_state(model):
+    """A zonal jet u = 0.1 cos(πy/Ly), v = 0, and c a top-hat band in x (1
+    where |x − Lx/2| < Lx/8, 0 elsewhere). The jet is non-divergent, so η
+    stays flat to rounding and no column's water changes: on a fixed z a
+    changing column would move c off [0, 1] (the reason for z-star)
+    whatever the limiter."""
+    g = model.grid
+    Lx, Ly = g.Lx, g.Ly
+    return model.initial_state(
+        u=lambda x, y, z: 0.1 * torch.cos(math.pi * y / Ly) + 0 * x + 0 * z,
+        c=lambda x, y, z: torch.where(torch.abs(x - 0.5 * Lx) < Lx / 8.0,
+                                      1.0, 0.0) + 0 * y + 0 * z)
+
+
+def hydro_zstar_model(fused="auto", dtype=torch.float32, device="cuda",
+                      size=(360, 160, 60), **grid_kw):
+    """Phase 19's ``hydro_vi_bathy`` (:func:`hydro_latlon_model` over
+    :func:`latlon_continents`) with ``ZStar()`` and a passive tracer c
+    beside T and S."""
+    import oceananigans_torch as ot
+    return hydro_latlon_model(fused, dtype, device, size,
+                              bathymetry=latlon_continents,
+                              vertical_coordinate=ot.ZStar(),
+                              tracers=("T", "S", "c"), **grid_kw)
 
 
 #: the physics slice's configurations: Δt and the steps of one measurement
@@ -545,23 +623,27 @@ def cs_continents(lam, phi):
     return np.where(land, 50.0, -CS_GLOBAL_DEPTH)
 
 
-def cs_global_model(N, Nz, dtype=torch.float32, device="cuda"):
+def cs_global_model(N, Nz, dtype=torch.float32, device="cuda", **options):
     """``bench.py``'s cs_global configuration (``bench.py:66-116``) at
     C``N`` × ``Nz``: continents, ``SeawaterBuoyancy``, convective
     adjustment (κ 0.1 convective, 1e-5 background), a split-explicit free
     surface, a zonal wind stress and a surface heat flux, RK3; T = 5 + 20
-    cos²φ e^(z/800), S = 35. ``(model, state)``."""
+    cos²φ e^(z/800), S = 35. ``options`` (``free_surface``,
+    ``timestepper``, ``vertical_coordinate``) replace the model's
+    keywords. ``(model, state)``."""
     import numpy as np
 
     import oceananigans_torch as ot
     grid = ot.ConformalCubedSphereGrid(
         (N, Nz), z=(-CS_GLOBAL_DEPTH, 0.0), radius=6.37122e6, halo=3,
         dtype=dtype, device=device)
+    options.setdefault("free_surface",
+                       ot.SplitExplicitFreeSurface(substeps=20))
     model = ot.CubedSphereHydrostaticModel(
         grid, bathymetry=cs_continents, buoyancy=ot.SeawaterBuoyancy(),
         closure=ot.ConvectiveAdjustmentVerticalDiffusivity(
             convective_kappa_z=0.1, background_kappa_z=1e-5),
-        free_surface=ot.SplitExplicitFreeSurface(substeps=20),
+        **options,
         boundary_conditions={
             "u": ot.FieldBoundaryConditions(top=ot.FluxBC(
                 lambda lam, phi, t: -8e-5
@@ -574,6 +656,23 @@ def cs_global_model(N, Nz, dtype=torch.float32, device="cuda"):
         T=lambda lam, phi, z: 5.0 + 20.0
         * np.cos(np.deg2rad(phi)) ** 2 * np.exp(z / 800.0), S=35.0)
     return model, state
+
+
+def cs_global_implicit_model(N, Nz, dtype=torch.float32, device="cuda",
+                             zstar=False, **cg):
+    """:func:`cs_global_model` with the implicit free surface (one CG
+    across the panels; ``cg``: its ``maxiter`` and ``reltol``, JAX's 200
+    and 1e-9 by default) under RK3, or, with ``zstar``, its own
+    split-explicit free surface under ``ZStar()`` and quasi-AB2.
+    ``(model, state)``."""
+    import oceananigans_torch as ot
+    if zstar:
+        return cs_global_model(N, Nz, dtype, device,
+                               vertical_coordinate=ot.ZStar(),
+                               timestepper="QuasiAdamsBashforth2")
+    return cs_global_model(N, Nz, dtype, device,
+                           free_surface=ot.ImplicitFreeSurface(
+                               solver_method="cg", **cg))
 
 
 #: ``bench.py``'s nonhydrostatic configurations: model keywords and x halo
@@ -862,13 +961,85 @@ def _physics(name, trace_dir):
 
 #: the physics slice's configurations
 PHYSICS_CONFIGS = ("langmuir", "hydro_catke")
+#: the configurations of the implicit free surface, split RK3, the
+#: limiters and z-star: Δt and the steps of one measurement
+OPTION_CONFIGS = {"hydro_implicit": (HYDRO_DT, 20),
+                  "hydro_split_rk3": (HYDRO_DT, 20),
+                  "hydro_zstar": (HYDRO_DT, 10),
+                  "cs_global_implicit": (CS_GLOBAL_DT, 10)}
+
+
+def _options(name, trace_dir):
+    """One of :data:`OPTION_CONFIGS`: the alternated step times of both
+    paths where the configuration has a kernel path (``hydro_implicit``,
+    ``hydro_split_rk3``), else three runs of the plain path, then each
+    path's kernel time, launches and idle share under ``torch.profiler``
+    and, for the implicit solves, the CG iterations and host syncs of the
+    last solve."""
+    from torch.profiler import ProfilerActivity, profile
+    dt, steps = OPTION_CONFIGS[name]
+    if name in ("hydro_implicit", "hydro_split_rk3"):
+        make, init = ((hydro_implicit_model, hydro_initial_state)
+                      if name == "hydro_implicit" else
+                      (hydro_split_rk3_model, hydro_split_rk3_initial_state))
+        models = {k: make(fused) for k, fused in (("kernel", "auto"),
+                                                  ("plain", False))}
+        mk = models["kernel"]
+        if not (mk.fused_kernels and (mk.fused_tracer
+                                      or name == "hydro_split_rk3")):
+            raise RuntimeError(f"{name}: the kernel path must take its "
+                               "kernels")
+        states = {k: _run(m, m.update_state(init(m)), dt, 2)
+                  for k, m in models.items()}
+    elif name == "hydro_zstar":
+        m = hydro_zstar_model()
+        models = {"plain": m}
+        states = {"plain": _run(m, m.update_state(
+            hydro_latlon_initial_state(m, c=1.0)), dt, 2)}
+    else:
+        m, s = cs_global_implicit_model(48, 16)
+        models = {"plain": m}
+        states = {"plain": _run(m, s, dt, 2)}
+    print(f"configuration {name}: {next(iter(models.values()))!r}, dt {dt}",
+          flush=True)
+    if len(models) == 2:
+        _alternated(models, states, dt, steps)
+    else:
+        runs = []
+        for _ in range(3):
+            ms, states["plain"] = _step_ms(models["plain"], states["plain"],
+                                           dt, steps)
+            runs.append(ms)
+        print(f"[step] plain path ms/step over {steps} steps, 3 runs: "
+              f"{runs}; mean {sum(runs) / 3}", flush=True)
+    for k, model in models.items():
+        e0, e1 = _events(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            states[k] = _run(model, states[k], dt, 3)
+            e1.record()
+            e1.synchronize()
+        wall = e0.elapsed_time(e1) / 3
+        busy_us, rows = _kernel_time_us(prof)
+        busy = busy_us / 1e3 / 3
+        info = getattr(model, "free_surface_info", {})
+        cg = (f"; last CG solve {int(info['iterations'])} iterations, "
+              f"{info['host_syncs']} host syncs" if info else "")
+        print(f"[profile] {k} path, 3 steps: kernel time {busy} ms/step, "
+              f"{sum(r[1] for r in rows) / 3} launches/step, wall {wall} "
+              f"ms/step, idle share {1 - busy / wall}{cg}", flush=True)
+        if trace_dir is not None:
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace_dir / f"trace_{name}_{k}.json"))
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config",
                         choices=CONFIGS + tuple(SW_CONFIGS) + (HYDRO_CONFIG,)
-                        + PHYSICS_CONFIGS,
+                        + PHYSICS_CONFIGS + tuple(OPTION_CONFIGS),
                         default="default")
     parser.add_argument("--trace-dir", type=Path, default=None)
     args = parser.parse_args(argv)
@@ -895,6 +1066,9 @@ def main(argv=None):
         return
     if args.config in PHYSICS_CONFIGS:
         _physics(args.config, args.trace_dir)
+        return
+    if args.config in OPTION_CONFIGS:
+        _options(args.config, args.trace_dir)
         return
 
     N, dt, steps = 256, 1e-4, 100

@@ -1,5 +1,6 @@
 """Poisson solvers for the pressure projection, the batched tridiagonal
-solve and preconditioned conjugate gradient."""
+solve, preconditioned conjugate gradient and the stencil-matrix solver of
+the implicit free surface."""
 
 from oceananigans_torch.solvers.conjugate_gradient import conjugate_gradient
 from oceananigans_torch.solvers.fft_poisson import FFTPoissonSolver
@@ -7,8 +8,11 @@ from oceananigans_torch.solvers.fourier_tridiagonal import (
     FourierTridiagonalPoissonSolver,
 )
 from oceananigans_torch.solvers.matmul_poisson import MatmulPoissonSolver
+from oceananigans_torch.solvers.matrix_solver import (
+    HeptadiagonalIterativeSolver, StencilMatrix,
+)
 from oceananigans_torch.solvers.pressure_solver import make_pressure_solver
 
 __all__ = ["FFTPoissonSolver", "FourierTridiagonalPoissonSolver",
-           "MatmulPoissonSolver", "conjugate_gradient",
-           "make_pressure_solver"]
+           "HeptadiagonalIterativeSolver", "MatmulPoissonSolver",
+           "StencilMatrix", "conjugate_gradient", "make_pressure_solver"]

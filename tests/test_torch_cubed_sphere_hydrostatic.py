@@ -9,7 +9,7 @@ seawater buoyancy, convective adjustment, wind and heat fluxes),
 vertically implicit closure over the bathymetry (whose diffusive fluxes
 vanish through the bottom and coasts), prescribed velocities with WENO(5)
 tracers over an array bathymetry, and a ``Simulation`` run; and the
-``NotImplementedError`` of each part not ported, naming its ROADMAP item.
+``NotImplementedError`` of what is not ported, naming its ROADMAP item.
 
 Each group of fields (u and v, U and V, η, each tracer) is held within
 1e-12 of the group's largest value. The JAX references of the WENO
@@ -352,7 +352,9 @@ def test_not_ported_raises_with_its_item(what):
     bathymetry objects ``GridFittedBottom``, ``GridFittedBoundary`` and
     ``PartialCellBottom``, once refused, build the masks of the bottom they
     describe; CATKE, once refused, builds with its TKE tracer (an object
-    that is no closure raises a ``TypeError``)."""
+    that is no closure raises a ``TypeError``); the implicit free surface
+    and ``ZStar``, once refused, build where the JAX cube takes them and
+    raise its ``ValueError`` elsewhere."""
     _, tg = grids()
     if what == "CATKE":
         m = ot.CubedSphereHydrostaticModel(
@@ -378,20 +380,27 @@ def test_not_ported_raises_with_its_item(what):
             assert (m._wet_c >= bare._wet_c).all()
             assert 0.2 <= m._frac_c.min() < 1.0
         return
-    item = {"ImplicitFreeSurface": "item 15", "ZStar": "item 15",
-            "cubed_sphere_partition": "item 18"}[what]
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "ImplicitFreeSurface":
+    if what == "ImplicitFreeSurface":
+        # ported (item 15): CG across the panels builds, the spectral and
+        # matrix methods raise JAX's ValueError
+        m = ot.CubedSphereHydrostaticModel(
+            tg, free_surface=ot.ImplicitFreeSurface(solver_method="cg"))
+        assert not m._explicit_eta_grad
+        with pytest.raises(ValueError, match="solver_method='cg'"):
             ot.CubedSphereHydrostaticModel(
                 tg, free_surface=ot.ImplicitFreeSurface())
-        elif what == "ZStar":
-            ot.CubedSphereHydrostaticModel(tg, vertical_coordinate=ot.ZStar(),
-                                           timestepper="QuasiAdamsBashforth2")
-        elif what == "cubed_sphere_partition":
-            tcs.cubed_sphere_partition(R=1)
-        else:
-            ot.CubedSphereHydrostaticModel(
-                tg, bathymetry=getattr(ot, what)(two_continents))
+        return
+    if what == "ZStar":
+        # ported (item 15): builds under quasi-AB2, JAX's ValueError with RK3
+        m = ot.CubedSphereHydrostaticModel(
+            tg, vertical_coordinate=ot.ZStar(),
+            timestepper="QuasiAdamsBashforth2")
+        assert m.zstar
+        with pytest.raises(ValueError, match="QuasiAdamsBashforth2"):
+            ot.CubedSphereHydrostaticModel(tg, vertical_coordinate=ot.ZStar())
+        return
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tcs.cubed_sphere_partition(R=1)
     # a bathymetry object that is neither callable nor an array
     with pytest.raises(ValueError, match="bathymetry"):
         ot.CubedSphereHydrostaticModel(tg, bathymetry=object())

@@ -462,6 +462,32 @@ def test_gates_match_jax_under_new_physics(family, case):
         assert tm.fused_tracer == (family == "weno7" and not bg)
 
 
+#: the bound-preserving limiters, as advection of either package
+BOUNDED = {
+    "weno5_bounds": lambda p: p.WENO(5, bounds=(0.0, 1.0)),
+    "bound_preserving_weno5": lambda p: (
+        ot.advection if p is ot else oj.advection).BoundPreserving(
+            p.WENO(5)),
+    "bound_preserving_centered2": lambda p: (
+        ot.advection if p is ot else oj.advection).BoundPreserving(
+            p.Centered(2)),
+}
+
+
+@pytest.mark.parametrize("limiter", sorted(BOUNDED))
+def test_gates_match_jax_under_bounded_advection(limiter):
+    """A bound-preserving limiter as the advection turns off every kernel
+    of the nonhydrostatic model in both packages, with tracers and
+    without: the fused AB2 kernels (1, 5, 6, 8), the tendency kernels (2,
+    7, 9) and the any-order tracer kernel (11), on the layout where the
+    plain schemes take them."""
+    for tracers in ((), ("c", "P")):
+        jm, tm = gate_pair(BOUNDED[limiter], 3, tracers=tracers)
+        for gate in GATES:
+            assert bool(getattr(tm, gate)) == bool(getattr(jm, gate)) \
+                is False, gate
+
+
 def test_shallow_water_stage_kernel_refuses_a_forcing():
     """Kernel 10's gate refuses a forcing, as the JAX gate does (on a
     layout both packages' gates take: an x halo of 8, y halo-free and

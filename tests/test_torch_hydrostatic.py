@@ -89,10 +89,14 @@ def grids(**kw):
 
 def run_both(jmodels, tmodel, jstate, dt, steps, names):
     """Step the port and each JAX model from the same state and compare
-    after every step."""
+    after every step. A JAX model on its XLA path steps eagerly (quicker
+    than compiling these small cases), one that takes the Pallas kernels
+    (interpret mode) under ``jax.jit`` (quicker there)."""
     tg = tmodel.grid
     ts = state_from_numpy(tmodel, jax_state_arrays(jstate, names))
-    jsteps = [jax.jit(lambda s, m=m: m.step(s, dt)) for m in jmodels]
+    jsteps = [jax.jit(lambda s, m=m: m.step(s, dt)) if m.fused_kernels
+              or m.fused_tracer else (lambda s, m=m: m.step(s, dt))
+              for m in jmodels]
     jss = [jstate] * len(jmodels)
     for _ in range(steps):
         ts = tmodel.step(ts, dt)

@@ -1,7 +1,7 @@
 """Physics checks of oceananigans_torch's HydrostaticFreeSurfaceModel on the
 CPU, after ``tests/test_hydrostatic.py`` (the checks that need no unported
 feature), and the model's surface: its gates, its state's numpy bridge, the
-profiling script's phased step and the options not ported yet."""
+profiling script's phased step and its options."""
 
 import copy
 import math
@@ -219,9 +219,9 @@ def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 4), extent=(1.0, 1.0, 1.0),
                               dtype=F64)
     from oceananigans_torch.models import hydrostatic as hyd
-    for kw, item in ((dict(timestepper="split_rk3"), "item 15"),):
-        with pytest.raises(NotImplementedError, match=item):
-            ot.HydrostaticFreeSurfaceModel(grid=grid, **kw)
+    # item 15's time stepper is ported: it builds
+    assert ot.HydrostaticFreeSurfaceModel(
+        grid=grid, timestepper="split_rk3").timestepper == "split_rk3"
     # item 12's keywords and the ocean closures are ported: they build
     for kw in (dict(forcing={"u": 1.0}),
                dict(particles=ot.LagrangianParticles(0.5, 0.5, -0.5)),
@@ -232,10 +232,14 @@ def test_unported_options_raise():
         ot.HydrostaticFreeSurfaceModel(grid=grid, **kw)
     with pytest.raises(TypeError, match="AbstractClosure"):
         ot.HydrostaticFreeSurfaceModel(grid=grid, closure=object())
+    # and so are item 15's free surface, coordinate and data class
     for cls in (hyd.ImplicitFreeSurface, hyd.ZStar,
                 hyd.PrescribedVelocityFields):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            cls()
+        assert isinstance(cls(), cls)
+    m = ot.HydrostaticFreeSurfaceModel(
+        grid=grid, free_surface=hyd.ImplicitFreeSurface(),
+        vertical_coordinate=hyd.ZStar())
+    assert m.zstar and m.free_surface.solver_method == "fft"
     with pytest.raises(ValueError):
         ot.HydrostaticFreeSurfaceModel(grid=grid, timestepper="rk4")
     with pytest.raises(ValueError):

@@ -85,7 +85,10 @@ def run_jax(jg, arrays, timestepper, steps, fused):
     old = j_config.pallas_interpret
     j_config.pallas_interpret = fused
     try:
-        step = jax.jit(lambda s_: jm.step(s_, DT))
+        # the XLA path steps eagerly (quicker than compiling it), the
+        # interpreted kernels under jax.jit (quicker there)
+        step = (jax.jit(lambda s_: jm.step(s_, DT)) if fused
+                else (lambda s_: jm.step(s_, DT)))
         for _ in range(steps):
             s = step(s)
     finally:

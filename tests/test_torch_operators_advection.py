@@ -154,12 +154,12 @@ def test_shift_is_exact_roll():
 
 
 def test_unported_schemes_raise():
-    """The bound-preserving limiters are still unported; Centered(4),
-    UpwindBiased and FluxFormAdvection are ported now and build."""
+    """Every scheme is ported now and builds: the bound-preserving
+    limiters (their halo the wrapped scheme's), Centered(4), UpwindBiased
+    and FluxFormAdvection."""
     for make in (lambda: t_adv.WENO(5, bounds=(0.0, 1.0)),
                  lambda: t_adv.BoundPreserving(t_adv.WENO(5))):
-        with pytest.raises(NotImplementedError):
-            make()
+        assert t_adv.required_halo(make()) == 3
     assert t_adv.required_halo(t_adv.Centered(2)) == 1
     assert t_adv.required_halo(t_adv.WENO(5)) == 3
     assert t_adv.required_halo(t_adv.Centered(4)) == 2

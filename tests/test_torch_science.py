@@ -13,7 +13,6 @@ golden data is held at atol 1e-12, as the JAX package holds it.
 
 import pathlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,9 +181,8 @@ def run_jax(config, timestepper, steps, dt=1e-3):
             for n in ("u", "v", "w") + tuple(jm.tracer_names)}
     s = jm.initial_state(**init)
     start = jax_state_to_numpy(s)
-    step = jax.jit(lambda s_: jm.step(s_, dt))
     for _ in range(steps):
-        s = step(s)
+        s = jm.step(s, dt)
     return jm, start, jax_state_to_numpy(s)
 
 
@@ -287,7 +285,9 @@ def test_weno7_tracers_take_the_tracer_kernel(timestepper, steps,
     """WENO(7) tracers go through the any-order tracer kernel's route
     (``weno_tracer_tendencies``; on the CPU its plain version) as the JAX
     model's ``fused_tracer`` sends them through its Pallas kernel (here in
-    interpret mode), and the two runs agree to 1e-12."""
+    interpret mode), and the two runs agree to 1e-12. The JAX model steps
+    eagerly: compiling the interpreted kernel under ``jax.jit`` takes
+    longer than stepping it (3x for the three RK3 stages)."""
     from oceananigans_torch.models import nonhydrostatic as t_nh
     calls = []
     kernel = t_nh.weno_tracer_tendencies
@@ -310,9 +310,8 @@ def test_weno7_tracers_take_the_tracer_kernel(timestepper, steps,
     s = jm.initial_state(**{n: rng.standard_normal(jm.grid.N)
                             for n in ("u", "v", "w", "T", "S")})
     st = tm.fill_state_halos(state_from_numpy(tm, jax_state_to_numpy(s)))
-    step = jax.jit(lambda s_: jm.step(s_, 1e-3))
     for _ in range(steps):
-        s = step(s)
+        s = jm.step(s, 1e-3)
         st = tm.step(st, 1e-3, assume_filled=True)
     assert len(calls) == steps * (3 if timestepper == RK3 else 1)
     ref, got = jax_state_to_numpy(s), state_to_numpy(st)

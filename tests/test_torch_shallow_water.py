@@ -172,9 +172,8 @@ def run_pair(case, steps, fused=False):
             if k in set(vel) | {"h"} | set(jm.tracer_names)}
     s = jm.initial_state(**vals)
     start = jax_state_to_numpy(s)
-    step = jax.jit(lambda s_: jm.step(s_, dt))
     for _ in range(steps):
-        s = step(s)
+        s = jm.step(s, dt)
     tg = make_grid(ot, topology, halo, F64)
     tm = ot.ShallowWaterModel(grid=tg, fused_kernels=fused,
                               **kwargs(ot))

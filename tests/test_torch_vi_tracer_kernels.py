@@ -26,6 +26,7 @@ import torch
 
 import oceananigans_torch as ot
 import oceananigans_tpu as oj
+from oceananigans_torch import advection as t_adv
 from oceananigans_torch.ops import cuda_tracer as ctr
 from oceananigans_torch.ops import cuda_vi as cvi
 from oceananigans_tpu import advection as j_adv
@@ -848,3 +849,81 @@ def test_wrappers_check_operands():
     m = cvi.vi_metric_profiles(tg)
     assert m.shape == (len(cvi.METRICS), tg.shape[1]) and m.is_contiguous()
     assert ctr.tracer_metric_profiles(tg).shape == (4, tg.shape[1])
+
+
+#: the options of the hydrostatic model's second item-15 part and of item
+#: 11, as model keywords of either package (``hyd``: its hydrostatic
+#: module, ``adv``: its advection module)
+NEW_OPTIONS = {
+    "zstar": lambda pkg, hyd, adv: dict(vertical_coordinate=hyd.ZStar()),
+    "implicit_fft": lambda pkg, hyd, adv: dict(
+        free_surface=hyd.ImplicitFreeSurface()),
+    "implicit_cg": lambda pkg, hyd, adv: dict(
+        free_surface=hyd.ImplicitFreeSurface(solver_method="cg",
+                                             maxiter=3)),
+    "implicit_matrix": lambda pkg, hyd, adv: dict(
+        free_surface=hyd.ImplicitFreeSurface(solver_method="matrix",
+                                             maxiter=3)),
+    "split_rk3": lambda pkg, hyd, adv: dict(timestepper="split_rk3"),
+    "bound_preserving": lambda pkg, hyd, adv: dict(
+        tracer_advection=adv.BoundPreserving(adv.WENO(7))),
+    "weno_bounds": lambda pkg, hyd, adv: dict(
+        tracer_advection=adv.WENO(7, bounds=(0.0, 1.0))),
+}
+
+
+@pytest.mark.parametrize("option", sorted(NEW_OPTIONS))
+def test_gates_match_jax_under_new_options(option, monkeypatch):
+    """On the lat-lon grid of ``test_gates_match_jax_on_latlon`` with
+    ``WENOVectorInvariant()`` and WENO(7) tracers, forced on: one step of
+    each package calls kernels 11 and 12/13 exactly where the other does.
+    The JAX model runs them only on its own grid, so never under z-star
+    (whose tendencies are taken on the σ-scaled grid); neither takes the
+    tracer kernel under a limiter; the free surfaces and ``split_rk3``
+    leave both kernels on (once a stage)."""
+    from oceananigans_torch.models import hydrostatic as t_hyd_mod
+    from oceananigans_tpu.ops import pallas_tracer, pallas_vi
+    calls = {"jax": [], "port": []}
+
+    def spy(who, kind, real=None):
+        def f(grid, scheme, u, v, w, *rest, **kw):
+            calls[who].append(kind)
+            if real is not None:
+                return real(grid, scheme, u, v, w, *rest, **kw)
+            if kind == "vi":
+                return jnp.zeros_like(u), jnp.zeros_like(v)
+            return {n: jnp.zeros_like(c) for n, c in rest[0].items()}
+        return f
+
+    for name in ("vi_momentum_tendency", "vi_momentum_tendency_zyx"):
+        monkeypatch.setattr(pallas_vi, name, spy("jax", "vi"))
+    monkeypatch.setattr(pallas_tracer, "weno_tracer_tendencies",
+                        spy("jax", "tracer"))
+    monkeypatch.setattr(t_hyd_mod, "vi_momentum_tendency",
+                        spy("port", "vi", t_hyd_mod.vi_momentum_tendency))
+    monkeypatch.setattr(t_hyd_mod, "weno_tracer_tendencies", spy(
+        "port", "tracer", t_hyd_mod.weno_tracer_tendencies))
+    jg, tg = latlon_grids()
+    models = {}
+    for who, pkg, hyd, adv, grid in (("jax", oj, j_hyd, j_adv, jg),
+                                     ("port", ot, ot, t_adv, tg)):
+        kw = dict(momentum_advection=hyd.WENOVectorInvariant(),
+                  tracer_advection=adv.WENO(7), tracers=("T",),
+                  free_surface=hyd.ExplicitFreeSurface(),
+                  fused_kernels=True)
+        kw.update(NEW_OPTIONS[option](pkg, hyd, adv))
+        m = pkg.HydrostaticFreeSurfaceModel(grid=grid, **kw)
+        models[who] = m
+        s = m.initial_state(T=1.0)
+        calls[who].clear()
+        m.step(s, 1.0)
+    assert sorted(calls["port"]) == sorted(calls["jax"]), calls
+    stages = 3 if option == "split_rk3" else 1
+    assert calls["port"].count("vi") == (0 if option == "zstar"
+                                         else stages)
+    assert calls["port"].count("tracer") == (
+        0 if option in ("zstar", "bound_preserving", "weno_bounds")
+        else stages)
+    port = models["port"]
+    assert port.fused_kernels == ("vi" in calls["port"])
+    assert port.fused_tracer == ("tracer" in calls["port"])
