@@ -51,7 +51,7 @@ each of which raises on failure:
 7. the WENO-5 and science paths at 256³ in ``bench.py``'s configurations:
    ``weno`` (two tracers, the WENO science kernel) and ``science``
    (Centered(2), f-plane, BuoyancyTracer, tracers b and c: the Centered-2
-   science kernel) for 100 timed steps after a warm-up, and ``weno_mom``
+   science kernel) for 30 timed steps after a warm-up, and ``weno_mom``
    (the momentum AB2 kernel), the WENO science model (f-plane,
    BuoyancyTracer, tracers b and c), RK3 ``weno`` (the tendency and
    tracer kernels, 2 warm-up + 10 timed steps) and a WENO(7) model with
@@ -68,7 +68,7 @@ each of which raises on failure:
 9. the hydrostatic model in ``bench.py``'s ``hydro_vi`` configuration
    (360 x 160 x 60, WENOVectorInvariant, WENO(7) tracers T and S,
    split-explicit free surface, AB2, the VI and tracer kernels once a step)
-   on the kernel path and on the plain path for 2 + 50 steps, held against
+   on the kernel path and on the plain path for 2 + 20 steps, held against
    each other and timed, with the host's enqueue time and the device's idle
    share (``torch.profiler``'s device-busy time over 5 more steps, beside
    their wall time); the same model with ``WENOVectorInvariant(order=7)``
@@ -95,7 +95,7 @@ each of which raises on failure:
     ``examples/wind_mixing_and_convection.py`` on a regular z: WENO(5),
     linear seawater buoyancy with a constant salinity, SmagorinskyLilly, a
     T surface flux and deep gradient, a u surface stress; float32, Δt = 1
-    s): 2 + 20 steps on the kernel path (kernels 7 and 9 once a step, no
+    s): 2 + 10 steps on the kernel path (kernels 7 and 9 once a step, no
     fused AB2 kernel: the closure and the fluxes turn those off) and on the
     plain path, timed, with the host's enqueue time, the idle share, the
     kernel launches a step and the times of a step's phases (the closure's
@@ -107,7 +107,7 @@ each of which raises on failure:
     CPU;
 13. ``hydro_vi_closure``, ``hydro_vi`` with a horizontal Laplacian closure,
     a vertically implicit one, a callable zonal wind stress and an array T
-    surface flux: 2 + 20 steps on each path (kernels 11 and 12/13 once a
+    surface flux: 2 + 10 steps on each path (kernels 11 and 12/13 once a
     step), held against each other at phase 9's bounds and timed, with the
     host's enqueue time, the idle share and the launches of the implicit
     step's Thomas solves; and a float64 (48, 16, 6) run of the kernel path
@@ -115,7 +115,7 @@ each of which raises on failure:
 14. ``hydro_vi_latlon``, ``hydro_vi`` on a 1° near-global
     ``LatitudeLongitudeGrid`` (360 x 160 x 60, 80°S to 80°N, 4 km deep)
     with ``HydrostaticSphericalCoriolis`` and linear seawater buoyancy:
-    2 + 20 steps on each path (kernels 11 and 12/13 once a step through
+    2 + 10 steps on each path (kernels 11 and 12/13 once a step through
     their lat-lon gates), held against each other at phase 9's bounds,
     timed, with the host's enqueue time and the idle share, and the
     volume held to the float32 rounding of η's updates; 3 float64 steps
@@ -126,7 +126,7 @@ each of which raises on failure:
     ``TripolarGrid(size=(360, 170, 60))`` model, which no kernel takes,
     its volume held to 1e-12 (the zipper fold on the card);
 15. ``cs_w2``, Williamson 2 on a C192 ``ConformalCubedSphereGrid``
-    (``CubedSphereShallowWaterModel``, float32, Δt = 40 s): 2 + 20 steps,
+    (``CubedSphereShallowWaterModel``, float32, Δt = 40 s): 2 + 10 steps,
     timed, with the host's enqueue time, the idle share and the launches
     a step; held against a float64 card run of the same steps; the float64
     mass held to 1e-12 of itself; and a float64 C8 run of 10 steps on the
@@ -136,7 +136,7 @@ each of which raises on failure:
     convective adjustment, a split-explicit free surface of 20 substeps,
     wind and heat flux conditions, RK3, Δt = 300 s) at C48×16 and
     C192×32 in float32: Δt checked against the barotropic and advective
-    limits, 2 + 20 steps timed and profiled as in phase 15, the volume
+    limits, 2 + 10 steps timed and profiled as in phase 15, the volume
     held to the float32 rounding of η's substeps; 5 float64 steps at
     C48×16, the volume held to 1e-12 of the ocean's volume and the salt to
     1e-9; and a float64 C8×4 run on the card against the CPU to 1e-12.
@@ -169,7 +169,7 @@ each of which raises on failure:
 18. ``seamount``: the JAX package's ``examples/flow_over_seamount.py`` in
     3-D at 256 x 256 x 128 on an ``ImmersedBoundaryGrid`` with the bottom
     -2 + exp(-(x² + y²)/2) (WENO(5), BuoyancyTracer with N² = 1, u = 0.1,
-    Δt = 0.02, AB2, float32): 2 + 20 steps timed and profiled, the
+    Δt = 0.02, AB2, float32): 2 + 10 steps timed and profiled, the
     conjugate gradient's iterations and host reads of its convergence
     flag each step (and one step's synchronizing calls counted by
     ``torch.cuda.set_sync_debug_mode``), the velocities exactly zero on
@@ -195,7 +195,7 @@ each of which raises on failure:
     a ``UniformStokesDrift``, AMD, the u and b surface fluxes and the b
     bottom gradient), with a tracer P under ``SimpleBiogeochemistry``
     (growth (1/day)·exp(z/16 m), sinking 1e-4 m/s) and 2²⁰
-    ``LagrangianParticles`` tracking b; Δt = 0.5 s, 2 + 20 steps on the
+    ``LagrangianParticles`` tracking b; Δt = 0.5 s, 2 + 10 steps on the
     kernel path (kernels 7 and 9 once a step; the fused AB2 kernels and
     the any-order tracer kernel never) and on the plain path, timed, with
     the device-busy time, the host syncs of a step (torch's sync debug
@@ -212,7 +212,7 @@ each of which raises on failure:
     paths are equal bit for bit.
 22. ``hydro_catke``: phase 14's ``hydro_vi_latlon`` with
     ``CATKEVerticalDiffusivity()`` (its TKE e a third tracer) and a zonal
-    wind stress, 2 + 20 steps on each path (kernels 11, taking T, S and e,
+    wind stress, 2 + 10 steps on each path (kernels 11, taking T, S and e,
     and 12/13 once a step; the Thomas solves plain), held to each other at
     phase 14's bounds, timed, with the host syncs of a step; and
     ``examples/baroclinic_adjustment.py`` at its own (60, 60, 10) with a
@@ -220,7 +220,7 @@ each of which raises on failure:
     steps on the card against the CPU to 1e-12.
 23. ``hydro_implicit``: phase 9's ``hydro_vi`` with
     ``ImplicitFreeSurface()`` ("fft": DCT-II in y, FFT in x through cuFFT,
-    the eigenvalue denominator made in float64 and cast once), 2 + 20
+    the eigenvalue denominator made in float64 and cast once), 2 + 10
     steps on each path (kernels 11 and 12/13 once a step), held to each
     other at phase 9's bounds, timed, with the device-busy time, idle
     share and host syncs a step; 23b the "matrix" and "cg" methods at
@@ -234,7 +234,7 @@ each of which raises on failure:
     ``split_rk3`` (split-explicit, 30 substeps, no buoyancy) with a
     passive top-hat tracer c in a non-divergent zonal jet; 24a under
     ``WENO(7, bounds=(0, 1))``, 24b under ``BoundPreserving(WENO(5))``:
-    2 + 20 steps on each path (kernel 12/13 three times a step, kernel 11
+    2 + 10 steps on each path (kernel 12/13 three times a step, kernel 11
     never: the gates refuse the limiters), held to each other, c held to
     [0, 1] within its float32 rounding bound; float64 (48, 16, 6) runs on
     the card against the CPU to 1e-12, c within [−1e-12, 1 + 1e-12].
@@ -252,6 +252,27 @@ each of which raises on failure:
     the ocean's; float64 C8×4 runs of both on the card against the CPU to
     1e-12 (CG at a fixed iteration count). Phases 25 and 26 launch no port
     kernel.
+27. the distributed layer (``oceananigans_torch/parallel``): ranks
+    started by ``parallel.launch`` (spawn; the kernel library built once,
+    in phase 2), which gloo collectives take CUDA tensors (each tried in a
+    group of its own), then for each part a serial run (rank 0) and a
+    sharded run (every rank) from the same state, 2 warm-up + 10 timed
+    steps, CUDA events; the ranks share one card, so the times are no
+    scaling figure. 27a: ``weno`` at 256³ under RK3, ``Partition(4, 1)``,
+    4 gloo ranks on ``cuda:0`` with the pencil FFT solve (kernels 7 and 9
+    three times a step on every rank, held against their plain versions at
+    the block shape (70, 256, 256)); the Centered(2) RK3 model at 64³
+    (kernel 2 on every rank); ``weno`` at 64³ in float64 held to 1e-12;
+    the world-size-1 NCCL step at 256³. 27b: ``hydro_vi`` at 360 × 160 ×
+    60 under ``Partition(2, 2)``, 4 ranks (kernels 11 and 12/13 on every
+    rank, at the block shape (192, 92, 68)), with the 2-D (η and
+    transport) exchanges a step. 27c, float64: ``cs_w2`` C192 under
+    ``CubedSphereDistributedSW(R=1, panels=6)``, 6 ranks, and
+    ``cs_global`` C48×16 under ``CubedSphereDistributedHydrostatic(R=2,
+    panels=2)``, 8 ranks, held to the serial cube at 1e-12 with their
+    mass, volume and salt; no port kernel launches on the cube. The
+    sharded runs are held to the serial ones at phase 7's (27a) and phase
+    9's (27b) bounds. A rank's failure fails the run.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -262,8 +283,9 @@ model for the pressure and Poisson kernels, phase 7's ``weno``,
 phase 8's ``sw8192`` run for the stage kernel, phase 9's ``hydro_vi`` run
 for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
-launches that run makes. Phases 12 to 26 zero and check the counts of
-their own runs and print them on lines of their own. The line before
+launches that run makes. Phases 12 to 27 zero and check the counts of
+their own runs and print them on lines of their own; phase 27's per-rank
+launches of kernels 2, 7, 9, 11 and 12/13 are added to theirs. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
@@ -280,8 +302,15 @@ import time
 from pathlib import Path
 
 
+_STARTED = []
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print a line with the seconds since the first line."""
+    if not _STARTED:
+        _STARTED.append(time.perf_counter())
+    print(f"[{time.perf_counter() - _STARTED[0]:7.1f} s]", *args,
+          flush=True)
 
 
 def require(cond, what):
@@ -507,17 +536,17 @@ def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
 LES_QT = 200.0 / (1026.0 * 3991.0)
 LES_TAU = 6.2e-5
 LES_DT = 1.0
-LES_WARM, LES_STEPS = 2, 20
+LES_WARM, LES_STEPS = 2, 10
 #: the float64 run at 256³ that holds the paths to each other, and its
 #: bound (its rounding floor is ~1e-12 of the fields)
 LES_F64_STEPS, LES_F64_RTOL = 3, 1e-10
 #: phase 13: ``hydro_vi`` with closures; Δt = 60 s
-HYDRO_CLOSURE_WARM, HYDRO_CLOSURE_STEPS = 2, 20
+HYDRO_CLOSURE_WARM, HYDRO_CLOSURE_STEPS = 2, 10
 #: phase 14: ``hydro_vi_latlon``, the 1° near-global lat-lon ocean; Δt =
 #: 60 s. Its volume is held to 1e-12 of Σ|η|·Az in float64, as the JAX
 #: package's lat-lon test holds it; in float32 to the rounding of η's
 #: updates, one float32 epsilon a barotropic substep
-LATLON_WARM, LATLON_STEPS = 2, 20
+LATLON_WARM, LATLON_STEPS = 2, 10
 VOLUME_RTOL = 1e-12
 
 
@@ -584,7 +613,13 @@ def hydro_closure_model(torch, ot, fused, dtype=None, device="cuda",
         fused_kernels=fused)
 
 
-def device_profile(torch, fn, n):
+#: steps of each torch.profiler window: the host spends ~5 s on each
+#: profiled step of a host-paced model (its trace's events), so the windows
+#: stay short and the whole script well inside its time limit
+PROFILE_STEPS = 2
+
+
+def device_profile(torch, fn, n=PROFILE_STEPS):
     """Run ``fn`` ``n`` times under ``torch.profiler``: the device-busy ms
     and kernel launches per call, and the wall ms per call by CUDA
     events."""
@@ -700,10 +735,11 @@ def les_phase(torch, ot, wrappers, card):
             f"[{float(g.interior(state.tracers['T']).min()):.6f}, "
             f"{float(g.interior(state.tracers['T']).max()):.6f}]")
         busy, n_launch, wall = device_profile(
-            torch, lambda: model.step(state, LES_DT, assume_filled=True), 3)
+            torch, lambda: model.step(state, LES_DT, assume_filled=True), PROFILE_STEPS)
         require(busy > 0, f"les {path} path: the profiler saw device time")
         out[path].update(busy=busy, per_step_launches=n_launch)
-        log(f"[12] les {path} path under torch.profiler, 3 steps: "
+        log(f"[12] les {path} path under torch.profiler, "
+            f"{PROFILE_STEPS} steps: "
             f"device-busy {busy:.3f} ms/step in a wall of {wall:.3f} ms/step,"
             f" idle share {1 - busy / wall:.3f}; against the unprofiled "
             f"{ms:.3f} ms/step, idle share {1 - busy / ms:.3f}; "
@@ -862,14 +898,14 @@ def hydro_closure_phase(torch, ot, wrappers, card, rtol):
         xy = g.interior_slices[:2]
         busy, n_launch, wall = device_profile(
             torch, lambda: model.step(state, HYDRO_DT, assume_filled=True),
-            3)
+            PROFILE_STEPS)
         require(busy > 0, f"hydro_vi_closure {path} path: the profiler saw "
                 "device time")
         d = model.compute_diffusivities(state)
         _, n_thomas, thomas_wall = device_profile(
             torch, lambda: model._implicit_diffusion(state, d,
                                                      torch.tensor(HYDRO_DT)),
-            3)
+            PROFILE_STEPS)
         out[path] = {"ms": ms, "enqueue": enqueue, "busy": busy,
                      "launches": counts, "per_step_launches": n_launch,
                      "thomas_launches": n_thomas, "thomas_ms": thomas_wall}
@@ -878,8 +914,8 @@ def hydro_closure_phase(torch, ot, wrappers, card, rtol):
             f"enqueue {enqueue:.3f} ms/step; launches in {total} steps "
             f"{counts}; max|u| {float(g.interior(state.u).abs().max()):.4e}"
             f", max|eta| {float(state.eta[xy].abs().max()):.4e}")
-        log(f"[13] hydro_vi_closure {path} path under torch.profiler, 3 "
-            f"steps: device-busy {busy:.3f} ms/step in a wall of "
+        log(f"[13] hydro_vi_closure {path} path under torch.profiler, "
+            f"{PROFILE_STEPS} steps: device-busy {busy:.3f} ms/step in a wall of "
             f"{wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; against "
             f"the unprofiled {ms:.3f} ms/step, idle share "
             f"{1 - busy / ms:.3f}; {n_launch:.0f} kernel launches a step, "
@@ -1023,7 +1059,7 @@ def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
                 f"{tag} kernel vs plain path {rel}")
         return out, rel
 
-    # the main run: 2 + 20 steps on each path
+    # the main run: 2 + 10 steps on each path
     out, rel = paths(None, LATLON_WARM, LATLON_STEPS, "hydro_vi_latlon")
     total = LATLON_WARM + LATLON_STEPS
     for path in ("kernel", "plain"):
@@ -1032,7 +1068,7 @@ def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
         g = model.grid
         busy, n_launch, wall = device_profile(
             torch, lambda: model.step(state, HYDRO_DT, assume_filled=True),
-            3)
+            PROFILE_STEPS)
         require(busy > 0, f"hydro_vi_latlon {path} path: the profiler saw "
                 "device time")
         o.update(busy=busy, per_step_launches=n_launch)
@@ -1045,8 +1081,8 @@ def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
             f"{float(state.eta[xy].abs().max()):.4e}; volume drift "
             f"{o['drift']:.3e} of sum|eta| Az (float32 bound "
             f"{o['vbound']:.3e})")
-        log(f"[14] hydro_vi_latlon {path} path under torch.profiler, 3 "
-            f"steps: device-busy {busy:.3f} ms/step in a wall of "
+        log(f"[14] hydro_vi_latlon {path} path under torch.profiler, "
+            f"{PROFILE_STEPS} steps: device-busy {busy:.3f} ms/step in a wall of "
             f"{wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; against "
             f"the unprofiled {o['ms']:.3f} ms/step, idle share "
             f"{1 - busy / o['ms']:.3f}; {n_launch:.0f} kernel launches a "
@@ -1154,7 +1190,7 @@ def hydro_latlon_phase(torch, ot, wrappers, card, rtol):
 # ---------------------------------------------------------------------------
 
 #: warm-up and timed steps of each cubed-sphere run
-CS_WARM, CS_STEPS = 2, 20
+CS_WARM, CS_STEPS = 2, 10
 #: phase 15's size
 CS_W2_N = 192
 #: phase 15's float32 run against the float64 run of the same steps on the
@@ -1205,9 +1241,9 @@ def cube_run(torch, model, state, dt, warm, steps, wrappers, tag,
 
 def cube_profile(torch, model, state, dt, tag):
     """Device-busy ms, launches and wall ms of a step under
-    ``torch.profiler`` (3 steps from ``state``)."""
+    ``torch.profiler`` (``PROFILE_STEPS`` steps from ``state``)."""
     busy, n_launch, wall = device_profile(
-        torch, lambda: model.step(state, dt), 3)
+        torch, lambda: model.step(state, dt), PROFILE_STEPS)
     require(busy > 0, f"{tag}: the profiler saw device time")
     return busy, n_launch, wall
 
@@ -1220,7 +1256,7 @@ def cube_groups(grid, state, names):
 
 def cs_w2_phase(torch, wrappers, card):
     """Phase 15: ``cs_w2``, Williamson 2 at C192 (Δt = 40 s) in float32
-    for 2 + 20 steps, timed and profiled; held against a float64 card run
+    for 2 + 10 steps, timed and profiled; held against a float64 card run
     of the same steps; its float64 mass to 1e-12; and a float64 C8 run of
     the golden's 10 steps on the card against the CPU."""
     from oceananigans_torch.profile_step import CS_W2_DT, cs_w2_model
@@ -1238,7 +1274,8 @@ def cs_w2_phase(torch, wrappers, card):
                                         "cs_w2")
     log(f"[15] cs_w2 on {card}: {ms:.3f} ms/step (steps {CS_WARM + 1} to "
         f"{total} of RK3, CUDA events); host enqueue {enqueue:.3f} ms/step; "
-        f"under torch.profiler, 3 steps: device-busy {busy:.3f} ms/step in "
+        f"under torch.profiler, {PROFILE_STEPS} steps: device-busy "
+        f"{busy:.3f} ms/step in "
         f"a wall of {wall:.3f} ms/step, idle share {1 - busy / wall:.3f} "
         f"(against the unprofiled {ms:.3f} ms/step: {1 - busy / ms:.3f}); "
         f"{n_launch:.0f} kernel launches a step; port kernels launched: "
@@ -1286,7 +1323,7 @@ def cs_global_phase(torch, wrappers, card):
     """Phase 16: ``cs_global``, ``bench.py``'s ocean (continents, seawater
     buoyancy, convective adjustment, split-explicit free surface with 20
     substeps, wind and heat fluxes, RK3, Δt = 300 s) at C48×16 and
-    C192×32 in float32 for 2 + 20 steps, timed and profiled, Δt checked
+    C192×32 in float32 for 2 + 10 steps, timed and profiled, Δt checked
     against the gravity-wave and advective limits and the float32 volume
     held to its rounding bound; its float64 volume and salt at C48×16; and
     a float64 C8×4 run on the card against the CPU."""
@@ -1333,8 +1370,8 @@ def cs_global_phase(torch, wrappers, card):
         log(f"[16] {tag} on {card}: {ms:.3f} ms/step (steps {CS_WARM + 1} "
             f"to {CS_WARM + CS_STEPS} of RK3, CUDA events), "
             f"{cells / ms / 1e3:.2f} M cell-steps/s; host enqueue "
-            f"{enqueue:.3f} ms/step; under torch.profiler, 3 steps: device-"
-            f"busy {busy:.3f} ms/step in a wall of {wall:.3f} ms/step, idle "
+            f"{enqueue:.3f} ms/step; under torch.profiler, {PROFILE_STEPS} "
+            f"steps: device-busy {busy:.3f} ms/step in a wall of {wall:.3f} ms/step, idle "
             f"share {1 - busy / wall:.3f} (against the unprofiled {ms:.3f} "
             f"ms/step: {1 - busy / ms:.3f}); {n_launch:.0f} kernel launches "
             f"a step; port kernels launched: none; float32 volume drift "
@@ -1890,7 +1927,7 @@ def output_phase(torch, ot, wrappers, card, dev, ref):
 
 #: warm-up and timed steps of phases 18 (seamount), 19 (hydro_vi_bathy and
 #: its partial-cell ridge) and 20 (les_stretched)
-SEAMOUNT_WARM, SEAMOUNT_STEPS = 2, 20
+SEAMOUNT_WARM, SEAMOUNT_STEPS = 2, 10
 BATHY_WARM, BATHY_STEPS = 2, 10
 RIDGE_WARM, RIDGE_STEPS = 1, 3
 STRETCHED_WARM, STRETCHED_STEPS = 2, 10
@@ -1907,18 +1944,19 @@ def zero_launches(wrappers):
 
 def profile_line(torch, model, state, dt, tag):
     """Device-busy ms, launches and wall ms of a step under
-    ``torch.profiler`` (3 steps from ``state``), for a log line."""
+    ``torch.profiler`` (``PROFILE_STEPS`` steps from ``state``), for a log
+    line."""
     busy, n_launch, wall = cube_profile(torch, model, state, dt, tag)
     return busy, n_launch, wall, (
-        f"under torch.profiler, 3 steps: device-busy {busy:.3f} ms/step in "
-        f"a wall of {wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; "
+        f"under torch.profiler, {PROFILE_STEPS} steps: device-busy "
+        f"{busy:.3f} ms/step in a wall of {wall:.3f} ms/step, idle share {1 - busy / wall:.3f}; "
         f"{n_launch:.0f} kernel launches a step")
 
 
 def seamount_phase(torch, ot, wrappers, card):
     """Phase 18: ``seamount``, the JAX package's
     ``examples/flow_over_seamount.py`` in 3-D at 256 x 256 x 128 (WENO(5),
-    BuoyancyTracer with N² = 1, u = 0.1, Δt = 0.02, AB2, float32): 2 + 20
+    BuoyancyTracer with N² = 1, u = 0.1, Δt = 0.02, AB2, float32): 2 + 10
     steps timed and profiled, the CG iterations and host reads of the
     convergence flag of each step, no port kernel launched; finite fields,
     velocities exactly zero on solid faces, flow over the seamount
@@ -2230,7 +2268,7 @@ def les_stretched_phase(torch, ot, wrappers, card):
     poisson_ms = time_ms(torch, lambda: solver.solve(rhs), 5)
     enq_solve = (time.perf_counter() - t0) * 1e3 / 5
     solve_busy, solve_launches, solve_wall = device_profile(
-        torch, lambda: solver.solve(rhs), 3)
+        torch, lambda: solver.solve(rhs), PROFILE_STEPS)
     log(f"[20] les_stretched Poisson solve (Fourier-tridiagonal, {g.N[2]} "
         f"levels): {poisson_ms:.3f} ms (CUDA events, 5 calls; host "
         f"{enq_solve:.3f} ms a call); under torch.profiler device-busy "
@@ -2287,13 +2325,13 @@ def les_stretched_phase(torch, ot, wrappers, card):
 # ---------------------------------------------------------------------------
 
 #: phase 21: ``examples/langmuir_turbulence.py`` at 256³ with a sinking,
-#: growing tracer P and 2²⁰ particles tracking b; 2 + 20 steps a path
-LANGMUIR_WARM, LANGMUIR_TIMED, LANGMUIR_PARTICLES = 2, 20, 2 ** 20
+#: growing tracer P and 2²⁰ particles tracking b; 2 + 10 steps a path
+LANGMUIR_WARM, LANGMUIR_TIMED, LANGMUIR_PARTICLES = 2, 10, 2 ** 20
 #: 21b and 21c: ``bench.py``'s ``weno`` cell with a sponge, then with
 #: background fields, 1 + 3 steps a path at its Δt
 SPONGE_WARM, SPONGE_STEPS, SPONGE_DT = 1, 3, 1e-4
-#: phase 22: ``hydro_vi_latlon`` with CATKE, 2 + 20 steps a path
-CATKE_WARM, CATKE_STEPS = 2, 20
+#: phase 22: ``hydro_vi_latlon`` with CATKE, 2 + 10 steps a path
+CATKE_WARM, CATKE_STEPS = 2, 10
 
 
 def run_counted(torch, model, state, dt, warm, steps, wrappers, want, tag):
@@ -2382,7 +2420,7 @@ def langmuir_phase(torch, ot, wrappers, card):
         state, syncs = count_syncs(torch, lambda: model.step(
             state, dt, assume_filled=True))
         busy, n_launch, wall = device_profile(
-            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+            torch, lambda: model.step(state, dt, assume_filled=True), PROFILE_STEPS)
         require(busy > 0, f"langmuir {path} path: the profiler saw device "
                 "time")
         out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
@@ -2571,7 +2609,7 @@ def weno_physics_phase(torch, ot, wrappers, card, physics):
 
 def catke_phase(torch, ot, wrappers, card, rtol):
     """Phase 22: ``hydro_catke``, phase 14's ``hydro_vi_latlon`` with
-    ``CATKEVerticalDiffusivity()`` and a zonal wind stress: 2 + 20 steps on
+    ``CATKEVerticalDiffusivity()`` and a zonal wind stress: 2 + 10 steps on
     each path (kernels 11 and 12/13 once a step, the tracer kernel taking
     T, S and the TKE e; the Thomas solves plain), held to each other at
     phase 14's bounds, timed, with the host syncs of a step; and
@@ -2603,7 +2641,7 @@ def catke_phase(torch, ot, wrappers, card, rtol):
         state, syncs = count_syncs(torch, lambda: model.step(
             state, dt, assume_filled=True))
         busy, n_launch, wall = device_profile(
-            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+            torch, lambda: model.step(state, dt, assume_filled=True), PROFILE_STEPS)
         out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
                      "launches": counts}
         e = g.interior(state.tracers["e"])
@@ -2676,15 +2714,15 @@ def catke_phase(torch, ot, wrappers, card, rtol):
 # bound-preserving limiters, and z-star
 # ---------------------------------------------------------------------------
 
-#: phase 23: ``hydro_implicit``, 2 + 20 steps a path; 23b the "matrix" and
+#: phase 23: ``hydro_implicit``, 2 + 10 steps a path; 23b the "matrix" and
 #: "cg" methods beside "fft", 1 + 3 steps each
-IMPLICIT_WARM, IMPLICIT_STEPS, IMPLICIT_B_STEPS = 2, 20, 4
+IMPLICIT_WARM, IMPLICIT_STEPS, IMPLICIT_B_STEPS = 2, 10, 4
 #: the float64 card-against-CPU runs of the CG methods stop at a fixed
 #: iteration count (ROADMAP caveat 10: CG agrees across devices only to
 #: rounding, which a tolerance test turns into a different count)
 FIXED_CG_ITERATIONS = 20
-#: phase 24: ``hydro_split_rk3``, 2 + 20 steps a path of each limiter
-SPLIT_RK3_WARM, SPLIT_RK3_STEPS = 2, 20
+#: phase 24: ``hydro_split_rk3``, 2 + 10 steps a path of each limiter
+SPLIT_RK3_WARM, SPLIT_RK3_STEPS = 2, 10
 #: phase 25: ``hydro_zstar``, 2 + 10 steps; phase 26: the cube, 2 + 10
 ZSTAR_WARM, ZSTAR_STEPS = 2, 10
 CS_IMPLICIT_WARM, CS_IMPLICIT_STEPS = 2, 10
@@ -2733,7 +2771,7 @@ def path_rel(finals, scales=None):
 
 def implicit_phase(torch, ot, wrappers, card, rtol):
     """Phase 23: ``hydro_implicit``, phase 9's ``hydro_vi`` with the
-    implicit free surface ("fft": DCT-II in y, FFT in x, cuFFT): 2 + 20
+    implicit free surface ("fft": DCT-II in y, FFT in x, cuFFT): 2 + 10
     steps on each path (kernels 11 and 12/13 once a step), held to each
     other at phase 9's bounds, timed, with the device-busy time, idle
     share and host syncs a step; 23b the "matrix" (Jacobi-preconditioned
@@ -2764,7 +2802,7 @@ def implicit_phase(torch, ot, wrappers, card, rtol):
         state, syncs = count_syncs(torch, lambda: model.step(
             state, dt, assume_filled=True))
         busy, n_launch, wall = device_profile(
-            torch, lambda: model.step(state, dt, assume_filled=True), 3)
+            torch, lambda: model.step(state, dt, assume_filled=True), PROFILE_STEPS)
         out[path] = {"ms": ms, "busy": busy, "syncs": syncs,
                      "launches": n_launch, "counts": counts}
         g = model.grid
@@ -2885,7 +2923,7 @@ def split_rk3_phase(torch, ot, wrappers, card, rtol):
     ``split_rk3`` with the split-explicit free surface (30 substeps), no
     buoyancy, a passive tracer c (a top-hat band in x) in a non-divergent
     zonal jet; 24a under ``WENO(7, bounds=(0, 1))``, 24b under
-    ``BoundPreserving(WENO(5))``: 2 + 20 steps on each path (kernel 12/13
+    ``BoundPreserving(WENO(5))``: 2 + 10 steps on each path (kernel 12/13
     once a stage, three times a step; kernel 11 never, its gate refuses
     the limiters), held to each other at phase 9's bounds (η and w, flat
     to rounding in the jet, against the flow's own scales), c held to
@@ -2920,7 +2958,7 @@ def split_rk3_phase(torch, ot, wrappers, card, rtol):
             state, syncs = count_syncs(torch, lambda: model.step(
                 state, dt, assume_filled=True))
             busy, n_launch, wall = device_profile(
-                torch, lambda: model.step(state, dt, assume_filled=True), 3)
+                torch, lambda: model.step(state, dt, assume_filled=True), PROFILE_STEPS)
             g = model.grid
             c = g.interior(state.tracers["c"])
             cmin, cmax = float(c.min()), float(c.max())
@@ -3204,6 +3242,560 @@ def cs_implicit_phase(torch, wrappers, card):
         require(all(v <= 1e-12 for v in rel8.values()),
                 f"cs_global_implicit {tag} C8x4 card vs CPU {rel8}")
         out[tag + "64"] = rel8
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the distributed layer. The rank programs are module-level
+# functions: ``parallel.launch`` starts the ranks with the spawn method,
+# which imports this script again in each rank (``main`` stays unrun).
+# ---------------------------------------------------------------------------
+
+#: warm-up and timed steps of each serial and sharded run of phase 27
+DIST_WARM, DIST_TIMED = 2, 10
+#: the kernels against their plain versions at a rank's block shape:
+#: phase 3's bounds (8 float32 ulps for the Centered-2 tile, 1e-5 of the
+#: largest value for the WENO, vector-invariant and tracer tiles)
+DIST_KERNEL_RTOL = {"centered2_momentum_tendency": 8 * 2.0 ** -23,
+                    "weno5_momentum_tendency": 1e-5,
+                    "weno5_tracer_tendencies": 1e-5,
+                    "weno_tracer_tendencies": 1e-5,
+                    "vi_momentum_tendency": 1e-5}
+#: sharded against serial on the card after the 12 steps, relative to
+#: the largest value of each group: the nonhydrostatic runs solve the
+#: pressure through the pencil basis products where the serial run has its
+#: FFT solver, a float32 rounding that the WENO-Z weights carry on; phase
+#: 7's kernel-against-plain bound. The hydrostatic step has no global
+#: solve: phase 9's bounds
+DIST_NH_RTOL = 3e-5
+DIST_HY_RTOL = {"velocities": 1e-4, "eta": 1e-4, "tracers": 1e-5}
+#: float64 sharded against serial, on the card
+DIST_F64_RTOL = 1e-12
+
+
+def dist_wrappers():
+    """The launch-counting wrappers of every kernel, by name."""
+    from oceananigans_torch.ops import cuda_generic as cg
+    from oceananigans_torch.ops import cuda_kernels as ck
+    from oceananigans_torch.ops import cuda_poisson as cp
+    from oceananigans_torch.ops import cuda_sw as csw
+    from oceananigans_torch.ops import cuda_tracer as ctr
+    from oceananigans_torch.ops import cuda_vi as cvi
+    from oceananigans_torch.ops import cuda_weno as cw
+    return {"centered2_ab2_update": ck.centered2_ab2_update,
+            "centered2_momentum_tendency": ck.centered2_momentum_tendency,
+            "pressure_correction": ck.pressure_correction,
+            "fused_middle_solve": cp.fused_middle_solve,
+            "weno5_ab2_update": cw.weno5_ab2_update,
+            "weno5_momentum_tendency": cw.weno5_momentum_tendency,
+            "weno5_science_ab2_update": cw.weno5_science_ab2_update,
+            "weno5_tracer_tendencies": cw.weno5_tracer_tendencies,
+            "centered2_science_ab2_update": ck.centered2_science_ab2_update,
+            "sw_rk3_stage": csw.sw_rk3_stage,
+            "weno_tracer_tendencies": ctr.weno_tracer_tendencies,
+            "vi_momentum_tendency": cvi.vi_momentum_tendency,
+            "fused_momentum_tendency": cg.fused_momentum_tendency}
+
+
+def dist_config(spec, device):
+    """``(grid, make_model, dt, initial_state, per_step)`` of a phase-27
+    part: ``per_step`` the kernels each rank must launch a step."""
+    import torch
+
+    import oceananigans_torch as ot
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, hydro_generic_state, initial_state,
+    )
+    dtype = getattr(torch, spec["dtype"])
+    if spec["kind"] == "hydro":
+        grid = ot.RectilinearGrid(
+            size=spec["size"], extent=(4e7, 2e7, 4e3),
+            topology=(ot.Periodic, ot.Bounded, ot.Bounded), halo=(6, 6, 4),
+            dtype=dtype, device=device)
+
+        def make(g):
+            return ot.HydrostaticFreeSurfaceModel(
+                grid=g, momentum_advection=ot.WENOVectorInvariant(),
+                tracer_advection=ot.WENO(7), tracers=("T", "S"),
+                free_surface=ot.SplitExplicitFreeSurface(substeps=30))
+        return (grid, make, HYDRO_DT, hydro_generic_state,
+                {"vi_momentum_tendency": 1, "weno_tracer_tendencies": 1})
+    weno = spec["kind"] == "weno"
+    grid = ot.RectilinearGrid(
+        size=spec["size"], extent=(1.0, 1.0, 1.0),
+        topology=(ot.Bounded, ot.Periodic, ot.Periodic),
+        halo=(3, 0, 0) if weno else (1, 0, 0), dtype=dtype, device=device)
+
+    def make(g):
+        if weno:
+            return ot.NonhydrostaticModel(
+                grid=g, advection=ot.WENO(5), tracers=("T", "S"),
+                timestepper="RungeKutta3")
+        return ot.NonhydrostaticModel(grid=g, advection=ot.Centered(2),
+                                      timestepper="RungeKutta3")
+    per = ({"weno5_momentum_tendency": 3, "weno5_tracer_tendencies": 3}
+           if weno else {"centered2_momentum_tendency": 3})
+    return grid, make, 1e-4, initial_state, per
+
+
+def dist_groups(g, st, hydro):
+    """The compared interiors of a state, by group."""
+    if hydro:
+        xy = g.interior_slices[:2]
+        return {"velocities": [g.interior(st.u), g.interior(st.v)],
+                "eta": [st.eta[xy]],
+                "tracers": [g.interior(c) for c in st.tracers.values()]}
+    out = {"velocities": [g.interior(q) for q in (st.u, st.v, st.w)]}
+    if st.tracers:
+        out["tracers"] = [g.interior(c) for c in st.tracers.values()]
+    return out
+
+
+def dist_block_kernels(torch, ot, lg, kind, gen):
+    """Each kernel of the part against its plain version on random fields
+    of the rank's block shape: ``{name: (max|kernel − plain|, scale)}``."""
+    from oceananigans_torch.ops import cuda_kernels as ck
+    from oceananigans_torch.ops import cuda_tracer as ctr
+    from oceananigans_torch.ops import cuda_vi as cvi
+    from oceananigans_torch.ops import cuda_weno as cw
+    fs = []
+    for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C, ot.LOC_C):
+        a = torch.randn(lg.shape, generator=gen, device=lg.device,
+                        dtype=lg.dtype)
+        fs.append(ot.fill_halo_regions(a, lg, loc=loc))
+    u, v, w, T, S = fs
+    tr = {"T": T, "S": S}
+    pairs = {}
+    if kind == "weno":
+        pairs["weno5_momentum_tendency"] = (
+            cw.weno5_momentum_tendency(lg, u, v, w),
+            cw.weno5_momentum_tendency_plain(lg, u, v, w))
+        pairs["weno5_tracer_tendencies"] = (
+            list(cw.weno5_tracer_tendencies(lg, u, v, w, tr).values()),
+            list(cw.weno5_tracer_tendencies_plain(lg, u, v, w,
+                                                  tr).values()))
+    elif kind == "centered":
+        pairs["centered2_momentum_tendency"] = (
+            ck.centered2_momentum_tendency(lg, u, v, w),
+            ck.centered2_momentum_tendency_plain(lg, u, v, w))
+    else:
+        vi = ot.WENOVectorInvariant()
+        pairs["vi_momentum_tendency"] = (
+            cvi.vi_momentum_tendency(lg, vi, u, v, w),
+            cvi.vi_momentum_tendency_plain(lg, vi, u, v, w))
+        sch = ot.WENO(7)
+        pairs["weno_tracer_tendencies"] = (
+            list(ctr.weno_tracer_tendencies(lg, sch, u, v, w, tr).values()),
+            list(ctr.weno_tracer_tendencies_plain(lg, sch, u, v, w,
+                                                  tr).values()))
+    torch.cuda.synchronize()
+    return {name: (max(float((a - b).abs().max()) for a, b in zip(k, p)),
+                   max(float(b.abs().max()) for b in p))
+            for name, (k, p) in pairs.items()}
+
+
+def dist_part_rank(dist, spec):
+    """One phase-27 part on this rank: the kernels at the block shape (rank
+    0), the serial run (rank 0) and the sharded run (every rank), both from
+    the same state; returns this rank's report."""
+    import torch
+
+    import oceananigans_torch as ot
+    from oceananigans_torch.parallel import DistributedStep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = dist_wrappers()
+    grid, make, dt, init, per_step = dist_config(spec, dist.device)
+    hydro = spec["kind"] == "hydro"
+    dstep = DistributedStep(make, grid, dist)
+    lm, lg = dstep.lmodel, dstep.local_grid
+    rep = {"rank": dist.rank, "coords": dist.coords,
+           "block": tuple(lg.shape), "stage_p2p": dist.stage_p2p}
+    if hydro:
+        rep["gates"] = {"fused_kernels": lm.fused_kernels,
+                        "fused_tracer": lm.fused_tracer}
+        require(lm.fused_kernels and lm.fused_tracer,
+                f"rank {dist.rank}: the local hydro_vi model takes kernels "
+                f"11 and 12/13 ({rep['gates']})")
+    else:
+        rep["gates"] = {k: getattr(lm, k) for k in (
+            "fused_kernels", "fused_ab2", "fused_ab2_weno",
+            "fused_ab2_science", "fused_ab2_weno_science")}
+        want = "weno5" if spec["kind"] == "weno" else "centered2"
+        require(lm.fused_kernels == want
+                and not any(v for k, v in rep["gates"].items()
+                            if k != "fused_kernels"),
+                f"rank {dist.rank}: the local model takes the {want} "
+                f"tendency kernels and no fused AB2 kernel ({rep['gates']})")
+    s0 = init(dstep.gmodel) if dist.rank == 0 else None
+    if s0 is not None and hydro:
+        s0 = dstep.gmodel.update_state(s0)
+    local = dstep.to_local_state(s0)
+    steps = DIST_WARM + DIST_TIMED
+    serial = None
+    if dist.rank == 0:
+        if spec.get("check"):
+            gen = torch.Generator(device=dist.device).manual_seed(27)
+            rep["block_kernels"] = dist_block_kernels(
+                torch, ot, lg, spec["kind"], gen)
+        if spec.get("serial"):
+            gm = dstep.gmodel
+            st = s0
+            for _ in range(DIST_WARM):
+                st = gm.step(st, dt)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(DIST_TIMED):
+                st = gm.step(st, dt)
+            e1.record()
+            e1.synchronize()
+            rep["serial_ms"] = e0.elapsed_time(e1) / DIST_TIMED
+            serial = st
+    dist.barrier()
+    for fn in wrappers.values():
+        fn.launches = 0
+    dist.reset_counts()
+    for _ in range(DIST_WARM):
+        local = dstep.step(local, dt)
+    torch.cuda.synchronize()
+    dist.barrier()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(DIST_TIMED):
+        local = dstep.step(local, dt)
+    e1.record()
+    e1.synchronize()
+    dist.barrier()
+    rep["ms"] = e0.elapsed_time(e1) / DIST_TIMED
+    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
+    rep["launches"] = {k: fn.launches for k, fn in wrappers.items()
+                       if fn.launches}
+    rep["collectives_a_step"] = {k: v / steps
+                                 for k, v in dist.counts.items()}
+    for name, per in per_step.items():
+        require(rep["launches"].get(name, 0) == per * steps,
+                f"rank {dist.rank}: {name} launched "
+                f"{rep['launches'].get(name, 0)} times in {steps} steps "
+                f"(want {per} a step)")
+    others = [k for k in rep["launches"] if k not in per_step]
+    require(not others, f"rank {dist.rank}: unexpected launches {others}")
+    require(all(bool(torch.isfinite(q).all()) for q in (
+        local.u, local.v, *local.tracers.values())),
+        f"rank {dist.rank}: finite fields")
+    final = dstep.from_local_state(local)
+    if serial is not None:
+        g = grid
+        a = dist_groups(g, final, hydro)
+        b = dist_groups(g, serial, hydro)
+        rep["rel"] = {k: max(float((x - y).abs().max())
+                             for x, y in zip(a[k], b[k]))
+                      / max(float(y.abs().max()) for y in b[k])
+                      for k in b}
+    return rep
+
+
+def dist_parts_rank(dist, specs):
+    """Several phase-27 parts in one spawn of ranks, each over its own
+    partition (``spec["partition"]``): this rank's reports."""
+    from oceananigans_torch.parallel import Distributed, Partition
+    return [dist_part_rank(Distributed(Partition(*spec["partition"]),
+                                       device=dist.device), spec)
+            for spec in specs]
+
+
+def dist_nccl_rank(dist, spec):
+    """The world-size-1 NCCL rank: the sharded step at one rank (its
+    exchange the local fill, its pencils whole) against the serial step."""
+    rep = dist_part_rank(dist, spec)
+    rep["backend"] = dist.backend
+    return rep
+
+
+#: the distributed cube against the serial one, float64 on the card:
+#: tests/test_cubed_sphere_dist.py's tolerances (relative to the largest
+#: value; the mass of the shallow water to 1e-13, the volume and the salt
+#: of the ocean, which no flux changes, to 1e-12)
+DIST_CUBE_RTOL = 1e-12
+DIST_CUBE_MASS_RTOL = {"sw": 1e-13, "hydro": 1e-12}
+
+
+def dist_cube_rank(dist, spec):
+    """One phase-27c part on this rank: the serial cube (rank 0) and the
+    distributed one (every rank) from the same state, float64."""
+    import torch
+
+    from oceananigans_torch.parallel import (
+        CubedSphereDistributedHydrostatic, CubedSphereDistributedSW,
+    )
+    from oceananigans_torch.profile_step import (
+        CS_GLOBAL_DT, CS_W2_DT, cs_global_model, cs_w2_model,
+    )
+    wrappers = dist_wrappers()
+    f64 = torch.float64
+    if spec["kind"] == "sw":
+        # phase 15's Δt at C192
+        model, state = cs_w2_model(spec["N"], dtype=f64, device=dist.device)
+        dt, cls = CS_W2_DT, CubedSphereDistributedSW
+        groups = {"velocities": ("u", "v"), "h": ("h",)}
+    else:
+        model, state = cs_global_model(spec["N"], spec["Nz"], dtype=f64,
+                                       device=dist.device)
+        dt, cls = CS_GLOBAL_DT, CubedSphereDistributedHydrostatic
+        groups = {"velocities": ("u", "v"), "eta": ("eta",)}
+    t0 = time.perf_counter()
+    dm = cls(model, dist, R=spec["R"], panels=spec["panels"])
+    rep = {"rank": dist.rank, "coords": dm.coords,
+           "tables_s": time.perf_counter() - t0}
+    local = dm.to_local_state(state)
+    steps = DIST_WARM + DIST_TIMED
+    serial = None
+    if dist.rank == 0:
+        st = state
+        for _ in range(DIST_WARM):
+            st = model.step(st, dt)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(DIST_TIMED):
+            st = model.step(st, dt)
+        e1.record()
+        e1.synchronize()
+        rep["serial_ms"] = e0.elapsed_time(e1) / DIST_TIMED
+        serial = st
+    dist.barrier()
+    for fn in wrappers.values():
+        fn.launches = 0
+    dist.reset_counts()
+    for _ in range(DIST_WARM):
+        local = dm.step(local, dt)
+    torch.cuda.synchronize()
+    dist.barrier()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(DIST_TIMED):
+        local = dm.step(local, dt)
+    e1.record()
+    e1.synchronize()
+    dist.barrier()
+    rep["ms"] = e0.elapsed_time(e1) / DIST_TIMED
+    rep["launches"] = {k: fn.launches for k, fn in wrappers.items()
+                       if fn.launches}
+    rep["collectives_a_step"] = {k: v / steps
+                                 for k, v in dist.counts.items()}
+    require(not rep["launches"], f"rank {dist.rank}: the distributed cube "
+            f"launched {rep['launches']}")
+    final = dm.from_local_state(local)
+    if serial is not None:
+        g = model.grid
+
+        def interior(st, name):
+            return g.interior(getattr(st, name))
+
+        rep["rel"] = {k: max(float((interior(final, n) - interior(serial, n))
+                                   .abs().max()) for n in names)
+                      / max(float(interior(serial, n).abs().max())
+                            for n in names)
+                      for k, names in groups.items()}
+        if spec["kind"] == "sw":
+            m0, m1 = model.total_mass(state), model.total_mass(final)
+            rep["conservation"] = {"mass": abs(float(m1 / m0) - 1)}
+        else:
+            v0, v1 = model.total_volume(state), model.total_volume(final)
+            s0 = model.total_tracer(state, "S")
+            s1 = model.total_tracer(final, "S")
+            rep["conservation"] = {
+                "volume": abs(float(v1 - v0)) / float(model.ocean_volume()),
+                "salt": abs(float(s1 / s0) - 1)}
+    return rep
+
+
+#: the collectives the transport hands CUDA tensors under gloo
+#: (``parallel/distributed.py``: only point-to-point strips are staged
+#: through host buffers)
+GLOO_CUDA_OPS = ("all_reduce", "all_to_all")
+
+
+def dist_probe_rank(dist, ops):
+    """Which of ``ops`` the gloo backend takes on CUDA tensors in this
+    build of torch: each is tried once on a small CUDA tensor, unstaged,
+    with a barrier after it, and its result checked; ``{op: True | "what
+    went wrong"}``. A refused op may leave the group unusable, so a spawn
+    tries the ops expected to pass or a single other one."""
+    import torch
+    import torch.distributed as tdist
+    n, r = dist.world_size, dist.rank
+    dev = dist.device
+
+    def p2p():
+        send = torch.full((4,), float(r), device=dev)
+        recv = torch.empty(4, device=dev)
+        ops_ = [tdist.P2POp(tdist.isend, send, (r + 1) % n, tag=7),
+                tdist.P2POp(tdist.irecv, recv, (r - 1) % n, tag=7)]
+        for req in tdist.batch_isend_irecv(ops_):
+            req.wait()
+        return bool((recv == float((r - 1) % n)).all())
+
+    def all_reduce():
+        t = torch.ones(4, device=dev)
+        tdist.all_reduce(t)
+        return bool((t == float(n)).all())
+
+    def all_to_all():
+        send = torch.arange(n, dtype=torch.float32, device=dev) + 10 * r
+        recv = torch.empty(n, device=dev)
+        tdist.all_to_all_single(recv, send)
+        want = torch.arange(n, dtype=torch.float32, device=dev) * 10 + r
+        return bool((recv == want).all())
+
+    tries = {"p2p": p2p, "all_reduce": all_reduce, "all_to_all": all_to_all}
+    out = {}
+    for op in ops:
+        try:
+            ok = tries[op]()
+            tdist.barrier()
+            out[op] = True if ok else "wrong result"
+        except (RuntimeError, ValueError, TypeError) as err:
+            out[op] = f"{type(err).__name__}: {str(err).splitlines()[0]}"
+    return out
+
+
+def dist_phase(torch, wrappers, card, launches):
+    """Phase 27: the distributed layer on the card (see the docstring)."""
+    import tempfile
+
+    from oceananigans_torch.parallel import Partition, launch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(tag, n, fn, spec, partition, backend="gloo",
+                device="cuda:0"):
+            t0 = time.perf_counter()
+            reps = launch(n, fn, (spec,), rendezvous_dir=f"{tmp}/{tag}",
+                          backend=backend, device=device,
+                          partition=partition)
+            log(f"[27] {tag}: {n} {backend} rank(s) on {device} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            return reps
+
+        # which gloo collectives take CUDA tensors in this torch build: the
+        # ones the transport relies on in one group, point to point (which
+        # may abort its ranks) in another
+        probe = {}
+        for ops in (GLOO_CUDA_OPS, ("p2p",)):
+            try:
+                probe.update(run("probe_" + "_".join(ops), 2,
+                                 dist_probe_rank, ops, None)[0])
+            except RuntimeError as err:
+                probe.update({op: "a rank failed: " + str(err).strip()
+                              .splitlines()[-1] for op in ops})
+        log(f"[27] gloo on CUDA tensors: {probe}")
+        require(all(probe[op] is True for op in GLOO_CUDA_OPS),
+                f"gloo takes {sorted(GLOO_CUDA_OPS)} on CUDA tensors")
+        out["probe"] = probe
+
+        # 27a and 27b: the four-rank parts in one spawn
+        parts = {
+            "27a weno": dict(
+                kind="weno", size=(256, 256, 256), dtype="float32",
+                partition=(4, 1), check=True, serial=True),
+            "27a centered2": dict(
+                kind="centered", size=(64, 64, 64), dtype="float32",
+                partition=(4, 1), check=True, serial=True),
+            "27a weno float64": dict(
+                kind="weno", size=(64, 64, 64), dtype="float64",
+                partition=(4, 1), serial=True),
+            "27b hydro_vi": dict(
+                kind="hydro", size=(360, 160, 60), dtype="float32",
+                partition=(2, 2), check=True, serial=True),
+        }
+        n = 4
+        by_rank = run("27ab", n, dist_parts_rank, list(parts.values()),
+                      None)
+        for k, (tag, spec) in enumerate(parts.items()):
+            reps = [r[k] for r in by_rank]
+            r0 = reps[0]
+            per_rank = [r["launches"] for r in reps]
+            for name in per_rank[0]:
+                launches[name] = launches.get(name, 0) + sum(
+                    r["launches"].get(name, 0) for r in reps)
+            for name, (err, sc) in r0.get("block_kernels", {}).items():
+                tol = DIST_KERNEL_RTOL[name] * sc
+                log(f"[27] {tag}: {name} at the block shape {r0['block']}:"
+                    f" max|kernel - plain| {err:.3e} (tolerance {tol:.3e})")
+                require(err <= tol, f"{tag}: {name} at {r0['block']}")
+            rel = r0["rel"]
+            if spec["dtype"] == "float64":
+                bound = {k2: DIST_F64_RTOL for k2 in rel}
+            elif spec["kind"] == "hydro":
+                bound = DIST_HY_RTOL
+            else:
+                bound = {k2: DIST_NH_RTOL for k2 in rel}
+            log(f"[27] {tag} {spec['size']} {spec['dtype']}, Partition"
+                f"{spec['partition']}: serial {r0['serial_ms']:.3f} ms/step, "
+                "sharded " + ", ".join(f"rank {r['rank']} {r['coords']} "
+                                      f"{r['ms']:.3f}" for r in reps)
+                + f" ms/step (CUDA events; host wall "
+                f"{max(r['wall_ms'] for r in reps):.3f}) on {card}; the "
+                f"{n} ranks share one card, so these are no scaling figure;"
+                f" launches per rank {per_rank}; collectives a step on rank "
+                f"0 {r0['collectives_a_step']}; p2p staged through the host "
+                f"{r0['stage_p2p']}; sharded vs serial " + ", ".join(
+                    f"{k2} {v:.3e}" for k2, v in rel.items())
+                + f" of the largest value (tolerance {bound})")
+            require(all(rel[k2] <= bound[k2] for k2 in rel),
+                    f"{tag}: sharded vs serial {rel}")
+            out[tag] = reps
+
+        # 27c: the cube, float64, against the serial cube
+        cubes = {"27c cs_w2 C192": (6, dict(kind="sw", N=192, R=1,
+                                            panels=6)),
+                 "27c cs_global C48x16": (8, dict(kind="hydro", N=48, Nz=16,
+                                                  R=2, panels=2))}
+        for tag, (n, spec) in cubes.items():
+            reps = run(tag.replace(" ", "_"), n, dist_cube_rank, spec, None)
+            r0 = reps[0]
+            cons = DIST_CUBE_MASS_RTOL[spec["kind"]]
+            log(f"[27] {tag} float64, R={spec['R']}, panels="
+                f"{spec['panels']}, {n} ranks: serial {r0['serial_ms']:.3f} "
+                "ms/step, distributed " + ", ".join(
+                    f"rank {r['rank']} {r['coords']} {r['ms']:.3f}"
+                    for r in reps)
+                + f" ms/step (CUDA events) on {card}, no scaling figure "
+                f"(the ranks share one card); exchange tables built in "
+                f"{max(r['tables_s'] for r in reps):.1f} s; collectives a "
+                f"step on rank 0 {r0['collectives_a_step']}; no port kernel "
+                "launched; distributed vs serial " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in r0["rel"].items())
+                + f" of the largest value (tolerance {DIST_CUBE_RTOL}); "
+                + ", ".join(f"{k} drift {v:.3e}"
+                            for k, v in r0["conservation"].items())
+                + f" (tolerance {cons})")
+            require(all(v <= DIST_CUBE_RTOL for v in r0["rel"].values()),
+                    f"{tag}: distributed vs serial {r0['rel']}")
+            require(all(v <= cons for v in r0["conservation"].values()),
+                    f"{tag}: conservation {r0['conservation']}")
+            out[tag] = reps
+
+        # NCCL at world size 1: it initialises, sizes its pencils and steps
+        spec = dict(kind="weno", size=(256, 256, 256), dtype="float32",
+                    serial=True)
+        r0 = run("27a_nccl", 1, dist_nccl_rank, spec, Partition(1, 1),
+                 backend="nccl", device="cuda")[0]
+        require(r0["backend"] == "nccl", "the one-rank group is NCCL")
+        log(f"[27] 27a nccl world size 1: serial {r0['serial_ms']:.3f} "
+            f"ms/step, sharded {r0['ms']:.3f} ms/step on {card}; launches "
+            f"{r0['launches']}; sharded vs serial " + ", ".join(
+                f"{k} {v:.3e}" for k, v in r0["rel"].items())
+            + f" (tolerance {DIST_NH_RTOL})")
+        require(all(v <= DIST_NH_RTOL for v in r0["rel"].values()),
+                f"27a nccl: sharded vs serial {r0['rel']}")
+        for name, n in r0["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        out["27a nccl"] = r0
     return out
 
 
@@ -4236,15 +4828,16 @@ def main():
     #: differently every step, and the nonlinear WENO-Z weights carry the
     #: difference on; relative to the largest value of each group of
     #: fields. Two runs on an H100 read 8.724e-06 (velocities) and
-    #: 8.906e-06 (tracers) after the 105 `weno` steps, each time; the
+    #: 8.906e-06 (tracers) after 105 `weno` steps (5 + 100, the depth the
+    #: phase then ran), each time; the
     #: Centered-2 `science` path is held to the same bound (its default
     #: counterpart reads 8.361e-6 after 105 steps)
     WENO_PATH_RTOL = 3e-5
     weno_runs = {
         # name: (configuration, timestepper, warm-up, steps, kernels)
-        "weno": ("weno", "QuasiAdamsBashforth2", warm, steps,
+        "weno": ("weno", "QuasiAdamsBashforth2", warm, 30,
                  {"weno5_science_ab2_update": 1}),
-        "science": ("science", "QuasiAdamsBashforth2", warm, steps,
+        "science": ("science", "QuasiAdamsBashforth2", warm, 30,
                     {"centered2_science_ab2_update": 1}),
         "weno_mom": ("weno_mom", "QuasiAdamsBashforth2", 2, 20,
                      {"weno5_ab2_update": 1}),
@@ -4463,13 +5056,13 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 9: the hydrostatic model (hydro_vi) -----------------------
-    #: hydro_vi after 2 + 50 steps, kernel path against plain path,
+    #: hydro_vi after 2 + 20 steps, kernel path against plain path,
     #: relative to the largest value of each group: both paths share the
     #: free surface and the fills and their tendencies differ by float32
     #: rounding, which this stable, smooth flow carries on without growth
     #: (PERF.md states the bounds with the expected ~1e-6)
     HYDRO_PATH_RTOL = {"velocities": 1e-4, "eta": 1e-4, "tracers": 1e-5}
-    HYDRO_WARM, HYDRO_TIMED = 2, 50
+    HYDRO_WARM, HYDRO_TIMED = 2, 20
     hydro_ms, hydro_enqueue, hydro_cmp = {}, {}, {}
     hydro_kernels = ("weno_tracer_tendencies", "vi_momentum_tendency")
     for path, fused in (("kernel", "auto"), ("plain", False)):
@@ -4532,7 +5125,7 @@ def main():
         # against their wall time under the profiler and against the
         # unprofiled step
         from torch.profiler import ProfilerActivity, profile
-        n_prof = 5
+        n_prof = PROFILE_STEPS
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -4979,6 +5572,10 @@ def main():
         f"{zstar['ms']:.3f} ms/step; cs_global_implicit C48x16 "
         f"{cs_implicit['26a']['ms']:.3f} ms/step, with ZStar "
         f"{cs_implicit['26b']['ms']:.3f} ms/step")
+
+    # ---- phase 27: the distributed layer (kernels 2, 7, 9, 11, 12/13 on
+    # every rank's block) ----------------------------------------------------
+    dist_phase(torch, wrappers, card, launches)
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -129,8 +129,8 @@ from oceananigans_torch.operations import (
 )
 from oceananigans_torch.output import (
     Checkpointer, FieldDataset, FieldTimeSeries, FileSizeLimit, HDF5Writer,
-    InMemory, JLD2Writer, NetCDFWriter, OnDisk, WindowedTimeAverage,
-    load_field_time_series,
+    InMemory, JLD2Writer, NetCDFWriter, OnDisk, OrbaxCheckpointer,
+    WindowedTimeAverage, load_field_time_series,
 )
 from oceananigans_torch.ensemble import EnsembleModel
 from oceananigans_torch.simulation import (
@@ -157,6 +157,8 @@ from oceananigans_torch.utils.units import (
     meter, meters, minute, minutes, second, seconds, year, years,
 )
 
+from oceananigans_torch.parallel import Distributed, Partition
+
 __all__ = [
     "AbstractGrid", "Accumulation", "AdvectiveCFL", "AdvectiveForcing",
     "AndSchedule", "AnisotropicMinimumDissipation", "Average",
@@ -165,6 +167,7 @@ __all__ = [
     "BoundaryCondition", "Bounded", "BuoyancyField", "BuoyancyForce",
     "BuoyancyTracer", "CATKEVerticalDiffusivity", "CFL", "Callback", "Center",
     "CenterField", "Centered", "Checkpointer", "Clock", "ConditionalAverage",
+    "Distributed", "OrbaxCheckpointer", "Partition",
     "ConformalCubedSphereGrid", "ConservativeFormulation",
     "ConstantCartesianCoriolis", "ConstantField",
     "ConvectiveAdjustmentVerticalDiffusivity", "CrossAndSelfUpwinding",

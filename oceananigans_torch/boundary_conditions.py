@@ -14,9 +14,10 @@ clock time). On a lat-lon grid whose y faces reach a pole, center-located
 fields take the polar condition there: a value at the zonal mean of the
 polemost interior row, recomputed at each fill. On a tripolar grid the
 north y halo is the zipper fold (``grids/orthogonal.py:
-fill_zipper_north``). Communication halos, and the ``Connected`` topology
-that classifies as one, come with the distributed models (ROADMAP Queue 1
-item 18); the cubed sphere fills its panel halos with its own exchanges
+fill_zipper_north``). A communication condition, which a ``Connected``
+axis takes by default, leaves its halo to the distributed exchange
+(``parallel/halo_exchange.py``): the fill here does not touch it. The cubed
+sphere fills its panel halos with its own exchanges
 (``grids/cubed_sphere_grid.py``).
 
 Unlike the JAX package, ``fill_halo_regions`` and ``apply_flux_bcs`` write
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from oceananigans_torch.grids.base import (
-    AXIS_NAMES, Bounded, Center, Face, Flat, Periodic,
+    AXIS_NAMES, Bounded, Center, Connected, Face, Flat, Periodic,
 )
 
 # ---------------------------------------------------------------------------
@@ -47,9 +48,6 @@ OPEN = "open"            # wall-normal / open boundary
 COMMUNICATION = "communication"  # filled by a distributed halo exchange
 ZIPPER = "zipper"        # tripolar north fold
 POLAR = "polar"          # lat-lon pole row: a value at the zonal mean
-
-#: classifications not ported yet, and the ROADMAP Queue 1 item of each
-_LATER = {COMMUNICATION: "item 18 (distributed)"}
 
 
 @dataclasses.dataclass
@@ -140,26 +138,19 @@ class FieldBoundaryConditions:
 
 def default_bc(topo: str, loc: str, side: str) -> Optional[BoundaryCondition]:
     """Periodic axes -> periodic; Bounded + Center -> no-flux; Bounded +
-    Face (wall-normal) -> impenetrable; Flat -> nothing."""
+    Face (wall-normal) -> impenetrable; Connected -> communication; Flat ->
+    nothing."""
     if topo == Flat:
         return None
     if topo == Periodic:
         return PeriodicBC()
+    if topo == Connected:
+        return CommunicationBC()
     if topo != Bounded:
-        raise NotImplementedError(
-            f"topology {topo!r} is not ported yet (the Connected topology, "
-            "a communication halo, comes with ROADMAP Queue 1 item 18)")
+        raise ValueError(f"unknown topology {topo!r}")
     if loc == Face:
         return OpenBC(None)
     return FluxBC(None)
-
-
-def _check_ported(bc, name):
-    later = _LATER.get(bc.classification)
-    if later is not None:
-        raise NotImplementedError(
-            f"{name} boundary condition {bc} is not ported yet; ROADMAP "
-            f"Queue 1 {later} brings it")
 
 
 def _pole_sides(grid):
@@ -197,7 +188,6 @@ def regularize_field_boundary_conditions(bcs, grid, loc):
                 raise ValueError(
                     f"non-periodic BC on periodic axis {AXIS_NAMES[axis]}")
             if bc is not None:
-                _check_ported(bc, name)
                 bc = _on_grid(bc, grid)
             out[name] = bc
     out["immersed"] = bcs.immersed
@@ -337,6 +327,8 @@ def _fill_axis(a, grid, axis, loc_ax, left_bc, right_bc, left_val=None,
         rows(0, H).copy_(rows(N, H))
         rows(N + H, H).copy_(rows(H, H))
         return a
+    if topo == Connected:
+        return a    # filled by the distributed halo exchange
 
     # distances between mirrored point pairs, for gradient conditions
     name = AXIS_NAMES[axis]
@@ -345,7 +337,7 @@ def _fill_axis(a, grid, axis, loc_ax, left_bc, right_bc, left_val=None,
 
     for side, bc, val in (("left", left_bc, left_val),
                           ("right", right_bc, right_val)):
-        if bc is None:
+        if bc is None or bc.classification == COMMUNICATION:
             continue
         kind = bc.classification
         if kind == POLAR:

@@ -15,6 +15,10 @@ import torch
 Periodic = "periodic"
 Bounded = "bounded"
 Flat = "flat"
+#: a distributed axis whose halos a neighbour exchange fills (the
+#: reference's ``FullyConnected``): its boundary conditions classify as
+#: communication, and the ordinary fill leaves its halos to the exchange
+Connected = "connected"
 
 Center = "c"
 Face = "f"

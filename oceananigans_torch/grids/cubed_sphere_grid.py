@@ -762,6 +762,8 @@ def cubed_sphere_sync_edge_fluxes(Fx, Fy, grid):
     both panels' values become the (rotation-consistent) mean, so the flux
     leaving one panel is exactly the flux entering its neighbour (global
     conservation to rounding)."""
+    if getattr(grid, "distributed", None) is not None:
+        return grid.distributed.sync_edge_fluxes(Fx, Fy)
     e = grid._edge
     own = torch.where(e["own_u"], Fx[e["own"]], Fy[e["own"]])
     oth = torch.where(e["oth_u"], Fx[e["oth"]], Fy[e["oth"]])
@@ -777,6 +779,8 @@ def cubed_sphere_corner_vorticity(zeta, u, v, grid):
     """Overwrite the 4 cube-corner points of each panel of a stacked
     vorticity field with the exact 3-segment circulation
     (:func:`corner_circulation_tables`)."""
+    if getattr(grid, "distributed", None) is not None:
+        return grid.distributed.corner_vorticity(zeta, u, v)
     radius = grid.panel_grid.radius
     pp = grid._panels
     zeta = zeta.clone()
@@ -797,6 +801,8 @@ def cubed_sphere_velocity_exchange(u, v, grid):
     """Fill the x/y halos of stacked u (x-face) and v (y-face) with the
     cross-edge component rotation. Both destinations read the old u and v:
     every gather is done before either copy is written."""
+    if getattr(grid, "distributed", None) is not None:
+        return grid.distributed.velocity_exchange(u, v)
     vals = {}
     for comp, (DP, DI, DJ, SQ, SI, SJ, SGN, ISU) in grid._velocity.items():
         src = torch.where(ISU, u[SQ, SI, SJ], v[SQ, SI, SJ])
@@ -829,6 +835,8 @@ def cubed_sphere_halo_exchange(a, grid, width=None, fill_corners=True):
     """Fill the x/y halos of a stacked center-located field from the
     neighbouring panels: one gather and one scatter, then the corner
     blocks. Returns a new tensor."""
+    if getattr(grid, "distributed", None) is not None:
+        return grid.distributed.halo_exchange(a, width, fill_corners)
     g = grid.panel_grid
     H = g.H[0] if width is None else width
     dp, di, dj, sp, si, sj = grid._exchange_tables(H)

@@ -322,7 +322,7 @@ class _MaskedSystem(torch.nn.Module):
 
 
 def masked_cg_solve(grid, rhs_interior, fill_halos, precond_apply, maxiter,
-                    reltol, system=None, info=None):
+                    reltol, system=None, info=None, reduce_sum=None):
     """Solve the masked Poisson problem for an interior-shaped right-hand
     side: PCG on the volume-weighted system G p = V·rhs (symmetric for any
     cell volumes; V⁻¹G is the Laplacian), with the nullspace (constants on
@@ -332,7 +332,9 @@ def masked_cg_solve(grid, rhs_interior, fill_halos, precond_apply, maxiter,
     the Jacobi preconditioner. ``system``: the grid's
     :class:`_MaskedSystem`, built here when not given. Returns the
     interior-shaped solution; ``info`` receives the iterations (a 0-d
-    tensor) and the host reads of the convergence flag."""
+    tensor) and the host reads of the convergence flag. ``reduce_sum``
+    sums a tensor over the domain (default ``torch.sum``; on a rank's block
+    the all-reduced sum), for the means and the inner products."""
     # the solvers package reaches the kernels, whose gates import the
     # advection schemes, which import this module: imported here
     from oceananigans_torch.solvers.conjugate_gradient import (
@@ -343,13 +345,22 @@ def masked_cg_solve(grid, rhs_interior, fill_halos, precond_apply, maxiter,
     g = grid.underlying_grid
     ii = g.interior_slices
     fluid, Vw, nf = system.fluid, system.Vw, system.nf
+    dot = None
+    if reduce_sum is None:
+        reduce_sum = torch.sum
+    else:
+        nf = torch.clamp(reduce_sum(g.interior(fluid).to(torch.int64)),
+                         min=1)
+
+        def dot(x, y):
+            return reduce_sum(x * y)
 
     # CG iterates live on the interior fluid cells: every operator output
     # is zeroed elsewhere, or the dot products would pick up halo values
     rhs = torch.zeros(g.shape, dtype=rhs_interior.dtype, device=g.device)
     rhs[ii] = rhs_interior
     b = torch.where(fluid, rhs * Vw, 0.0)
-    b_mean = torch.sum(b[ii]) / nf
+    b_mean = reduce_sum(b[ii]) / nf
     b = torch.where(fluid, b - b_mean, 0.0)
 
     def A(p):
@@ -373,11 +384,11 @@ def masked_cg_solve(grid, rhs_interior, fill_halos, precond_apply, maxiter,
     stats = {}
     p, it, _ = conjugate_gradient(
         A, b, torch.zeros_like(b), preconditioner=M, maxiter=maxiter,
-        reltol=reltol, info=stats)
+        reltol=reltol, dot=dot, info=stats)
     if info is not None:
         info.update(stats, iterations=it)
     # gauge: zero fluid mean
-    p_mean = torch.sum(torch.where(fluid, p, 0.0)[ii]) / nf
+    p_mean = reduce_sum(torch.where(fluid, p, 0.0)[ii]) / nf
     p = torch.where(fluid, p - p_mean, 0.0)
     return p[ii]
 

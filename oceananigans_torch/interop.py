@@ -234,6 +234,74 @@ def state_to_numpy(state):
             else np.asarray(v) for k, v in flatten_state(state).items()}
 
 
+def _rank_window(a, dstep, layout):
+    """This rank's block of the numpy array ``a``: from the global layout
+    (the rank's window of the halo-extended array, its halo rings
+    included, z as it is) or from the JAX package's local-halos layout
+    (the rank's block with its halo slots, as they are)."""
+    rx, ry = dstep.dist.coords
+    nxl, nyl = dstep.nxl, dstep.nyl
+    Hx, Hy = dstep.global_grid.H[:2]
+    bx, by = nxl + 2 * Hx, nyl + 2 * Hy
+    if layout == "local":
+        return a[rx * bx:(rx + 1) * bx, ry * by:(ry + 1) * by]
+    return a[rx * nxl:rx * nxl + bx, ry * nyl:ry * nyl + by]
+
+
+def _is_field(a, shape2):
+    return np.ndim(a) == 3 and tuple(np.shape(a)[:2]) == tuple(shape2)
+
+
+def local_state_from_numpy(dstep, arrays, layout="global"):
+    """This rank's local-halos state of the ``DistributedStep`` ``dstep``
+    from numpy arrays keyed as :func:`state_from_numpy` takes them, given
+    on every rank: each field in the global layout (``layout="global"``,
+    the halo-extended arrays of the global grid) or in the JAX package's
+    local-halos layout (``layout="local"``, the ``(px·(nxl + 2Hx),
+    py·(nyl + 2Hy), ·)`` arrays of its ``DistributedStep.to_local_state``).
+    No rank sends anything: each takes its own block."""
+    g = dstep.global_grid
+    if layout == "global":
+        shape2 = g.shape[:2]
+    elif layout == "local":
+        shape2 = (dstep.px * (dstep.nxl + 2 * g.H[0]),
+                  dstep.py * (dstep.nyl + 2 * g.H[1]))
+    else:
+        raise ValueError(f"layout {layout!r}: 'global' or 'local'")
+    local = {k: _rank_window(np.asarray(a), dstep, layout)
+             if _is_field(a, shape2) else a for k, a in arrays.items()}
+    return state_from_numpy(dstep.lmodel, local)
+
+
+def local_state_to_numpy(dstep, state, layout="global"):
+    """The numpy arrays of the whole distributed state on rank 0, keyed as
+    :func:`state_to_numpy` keys them, in the global layout (the domain's
+    halo rings from the edge ranks') or the JAX package's local-halos
+    layout; None on the other ranks.
+    Every rank calls it together (it gathers)."""
+    dist = dstep.dist
+    if layout == "global":
+        gs = dstep.from_local_state(state)
+        return None if gs is None else state_to_numpy(gs)
+    if layout != "local":
+        raise ValueError(f"layout {layout!r}: 'global' or 'local'")
+    lshape = dstep.local_grid.shape[:2]
+    out = {}
+    for k, v in flatten_state(state).items():
+        if isinstance(v, torch.Tensor) and v.ndim == 3 and \
+                tuple(v.shape[:2]) == tuple(lshape):
+            blocks = dist.gather_blocks(v)
+            if blocks is not None:
+                py = dist.partition[1]
+                rows = [torch.cat(blocks[rx * py:(rx + 1) * py], dim=1)
+                        for rx in range(dist.partition[0])]
+                out[k] = torch.cat(rows, dim=0).cpu().numpy()
+        else:
+            out[k] = (v.detach().cpu().numpy()
+                      if isinstance(v, torch.Tensor) else np.asarray(v))
+    return out if dist.rank == 0 else None
+
+
 def grid_from_arguments(kind, **kwargs):
     """The port's grid ``kind`` ("RectilinearGrid", "LatitudeLongitudeGrid",
     "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
@@ -274,6 +342,7 @@ def orthogonal_grid_like(grid, **kwargs):
 __all__ = ["CLOCK", "CS_AB2_FIELDS", "CS_FIELDS_2D",
            "CS_HYDROSTATIC_FIELDS", "CS_SW_FIELDS", "FIELDS", "FIELDS_2D",
            "HYDROSTATIC_FIELDS", "SW_FIELDS", "cube_state_from_numpy",
-           "flatten_state", "grid_from_arguments", "orthogonal_grid_like",
+           "flatten_state", "grid_from_arguments",
+           "local_state_from_numpy", "local_state_to_numpy", "orthogonal_grid_like",
            "orthogonal_nodes", "state_from_numpy", "state_to_numpy",
            "tracer_keys", "unflatten_state"]

@@ -26,9 +26,9 @@ through the hydrostatic model's scaled-height view ``_ScaledZGrid``) or a
 split-explicit or implicit (one CG across the stacked panels,
 :func:`cs_implicit_free_surface`), and under quasi-AB2 its vertical
 coordinate may be ``ZStar``: the z-star σ composes with the partial cells'
-fractions in the same scaled panel view. Not ported:
-``cubed_sphere_partition`` (ROADMAP Queue 1 item 18, raising
-``NotImplementedError``).
+fractions in the same scaled panel view. ``cubed_sphere_partition``
+lays the stacked panels over the ranks of a distributed group; the
+distributed models are in ``parallel/cubed_sphere_shard.py``.
 """
 
 from __future__ import annotations
@@ -80,8 +80,6 @@ OMEGA_EARTH = 7.292115e-5
 #: (capped at ``corner_upwind_width``). The JAX package reads an override
 #: from the environment variable ``CS_KE_BAND``; the port keeps its default.
 CS_KE_BAND = 2
-
-_ITEM18 = "ROADMAP Queue 1 item 18 (distributed)"
 
 _replace = dataclasses.replace
 
@@ -203,8 +201,11 @@ def cs_implicit_free_surface(g, u_star, v_star, eta0, dt, fs, exchange_eta,
                                       sync_fluxes)
         return (div - eta / (dt * dt)) * mask_c
 
+    # on a distributed cube's blocks the sum runs over every rank
+    reduce_sum = getattr(g, "reduce_sum", torch.sum)
+
     def dot(x, y):
-        return torch.sum(Az * x * y)
+        return reduce_sum(torch.sum(Az * x * y))
 
     cg = {}
     eta, it, _ = conjugate_gradient(L, rhs, torch.zeros_like(eta0),
@@ -1793,7 +1794,52 @@ class CubedSphereHydrostaticModel(_OnDevice):
                 f"Nz={self.grid.panel_grid.N[2]})")
 
 
-def cubed_sphere_partition(*args, **kwargs):
-    """Distributing the panel axis over devices is not ported yet."""
-    raise NotImplementedError(f"cubed_sphere_partition is not ported yet; "
-                              f"{_ITEM18} brings it")
+def cubed_sphere_partition(dist=None, R=1, panels=6):
+    """The panel axis (and, with ``R > 1``, an ``R × R`` block grid within
+    each panel) over the ranks of a ``torch.distributed`` group (the
+    reference's ``CubedSpherePartition(R=...)``: R ranks a panel dimension,
+    ``panels · R²`` ranks). ``panels`` divides 6: how many ways the panel
+    axis is split. ``dist`` is the rank's ``parallel.Distributed`` (its
+    partition is not used), or None for the default group.
+
+    Returns ``(layout, shard_state)``: ``layout`` maps every rank to its
+    ``(panel group, bx, by)`` and gives this rank's ``coords``; ``shard_state``
+    takes a stacked state and returns this rank's even slab of every
+    leading-6 tensor (its panels, and its block of each halo-extended panel
+    frame), the layout the JAX package's ``("panel", "x", "y")`` sharding
+    gives. The explicit-halo distributed models, whose blocks carry their
+    own halo rings, are ``parallel.CubedSphereDistributedSW`` and
+    ``CubedSphereDistributedHydrostatic``."""
+    import torch.distributed as tdist
+
+    from oceananigans_torch.parallel.distributed import _map_tensors
+    need = panels * R * R
+    if 6 % panels:
+        raise ValueError(f"panels={panels} must divide 6")
+    if dist is not None:
+        rank, world = dist.rank, dist.world_size
+    elif tdist.is_available() and tdist.is_initialized():
+        rank, world = tdist.get_rank(), tdist.get_world_size()
+    else:
+        rank, world = 0, 1
+    if world != need:
+        raise ValueError(f"cubed_sphere_partition(R={R}, panels={panels}) "
+                         f"needs {need} ranks (got {world})")
+    coords = {r: (r // (R * R), (r // R) % R, r % R) for r in range(need)}
+    layout = {"R": R, "panels": panels, "ranks": coords,
+              "coords": coords[rank]}
+    pg, bx, by = coords[rank]
+    p_loc = 6 // panels
+
+    def shard_state(state):
+        def put(a):
+            if a.ndim < 1 or a.shape[0] != 6:
+                return a
+            a = a[pg * p_loc:(pg + 1) * p_loc]
+            if R > 1:
+                nx, ny = a.shape[1] // R, a.shape[2] // R
+                a = a[:, bx * nx:(bx + 1) * nx, by * ny:(by + 1) * ny]
+            return a
+        return _map_tensors(state, put)
+
+    return layout, shard_state

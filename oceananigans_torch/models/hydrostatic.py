@@ -627,6 +627,18 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                  particles=None, biogeochemistry=None, stokes_drift=None,
                  auxiliary_fields=None, fused_kernels="auto", device=None):
         super().__init__()
+        #: the constructor's arguments but the grid, for a rebuild on
+        #: another grid (``parallel.sharded_step_fn``)
+        self._init_kwargs = dict(
+            momentum_advection=momentum_advection,
+            tracer_advection=tracer_advection, free_surface=free_surface,
+            tracers=tracers, buoyancy=buoyancy, coriolis=coriolis,
+            closure=closure, forcing=forcing,
+            boundary_conditions=boundary_conditions,
+            vertical_coordinate=vertical_coordinate,
+            timestepper=timestepper, particles=particles,
+            biogeochemistry=biogeochemistry, stokes_drift=stokes_drift,
+            auxiliary_fields=auxiliary_fields, fused_kernels=fused_kernels)
         base = (grid.underlying_grid
                 if isinstance(grid, ImmersedBoundaryGrid) else grid)
         if not isinstance(base, GRIDS):
@@ -769,14 +781,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                                0.0)
         self.register_buffer("_zstar_below", frac)
         # wall and halo faces of the barotropic transports on Bounded axes
-        for name, axis in (("_U_walls", X), ("_V_walls", Y)):
-            walls = None
-            if grid.axis_topo(axis) == Bounded:
-                idx = torch.arange(shape2d[axis], device=grid.device)
-                idx = idx.reshape((-1, 1, 1) if axis == X else (1, -1, 1))
-                walls = ((idx <= grid.H[axis])
-                         | (idx >= grid.H[axis] + grid.N[axis]))
-            self.register_buffer(name, walls)
+        self._set_transport_walls()
         # the kernels' metric profiles, built once; under z-star the
         # tendencies are taken on the σ-scaled grid, which no kernel takes
         # (the JAX model runs its kernels only on its own grid)
@@ -802,6 +807,68 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
     @property
     def device(self) -> torch.device:
         return self.grid.device
+
+    #: the mesh context of a rank's LOCAL model in a ``DistributedStep``
+    #: (``parallel/shard_step.py``): its halo fills exchange strips with the
+    #: neighbouring ranks, its transports see only the domain's own walls
+    #: and its implicit free surface is CG with all-reduced inner products;
+    #: ``dist_topo`` is the global grid's topology
+    dist_halo = None
+    dist_topo = None
+
+    def set_dist_halo(self, ctx, topo):
+        """Route this (local) model's halo fills through the exchange of
+        ``ctx``, a ``DistHalo``, with the global topology ``topo``."""
+        self.dist_halo = ctx
+        self.dist_topo = tuple(topo)
+        self._set_transport_walls()
+
+    def _set_transport_walls(self):
+        """The wall faces (and beyond) of the barotropic transports on
+        each Bounded axis. A distributed rank's block has the domain's walls
+        only where it owns a domain edge: its other edge faces carry
+        exchanged data."""
+        grid = self.grid
+        ctx = self.dist_halo
+        for name, axis in (("_U_walls", X), ("_V_walls", Y)):
+            walls = None
+            if grid.axis_topo(axis) == Bounded:
+                idx = torch.arange(grid.shape[axis], device=grid.device)
+                idx = idx.reshape((-1, 1, 1) if axis == X else (1, -1, 1))
+                low = idx <= grid.H[axis]
+                high = idx >= grid.H[axis] + grid.N[axis]
+                mesh_axis = axis % 3       # X, Y count from the end
+                if ctx is not None and ctx.size(mesh_axis) > 1:
+                    i = ctx.index(mesh_axis)
+                    low = low & (i == 0)
+                    high = high & (i == ctx.size(mesh_axis) - 1)
+                walls = low | high
+            self.register_buffer(name, walls)
+
+    def _fill_field(self, a, bcs, loc, t, dt=None, g=None):
+        """Fill ``a``'s halos in place on ``g`` (default the grid):
+        through the distributed exchange under a ``dist_halo``, else the
+        ordinary fill."""
+        g = self.grid if g is None else g
+        if self.dist_halo is not None:
+            from oceananigans_torch.parallel.shard_step import (
+                dist_fill_halos,
+            )
+            return dist_fill_halos(a, g, bcs, loc, t, dt, self.dist_halo,
+                                   self.dist_topo)
+        return fill_halo_regions(a, g, bcs, loc, t, dt=dt)
+
+    def _fill_xy(self, a, bcs, loc):
+        """The x/y fill of a 2-D field without the conditions' values
+        (η, the transports), in place; distributed under a ``dist_halo``."""
+        if self.dist_halo is not None:
+            from oceananigans_torch.parallel.shard_step import dist_fill_xy
+            return dist_fill_xy(a, self.grid, bcs, loc, None, None,
+                                self.dist_halo, self.dist_topo,
+                                use_values=False)
+        for axis in (X, Y):
+            _fill_axis(a, self.grid, axis, loc[axis], *bcs.sides(axis))
+        return a
 
     def _on(self) -> bool:
         if self._fused == "auto":
@@ -872,18 +939,12 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
     def _fill_transport_halos(self, U, V):
         """x/y halo fill of the barotropic transports with the velocities'
         side conditions (in place)."""
-        g = self.grid
-        for axis in (X, Y):
-            _fill_axis(U, g, axis, LOC_U[axis], *self.bcs["u"].sides(axis))
-            _fill_axis(V, g, axis, LOC_V[axis], *self.bcs["v"].sides(axis))
-        return U, V
+        return (self._fill_xy(U, self.bcs["u"], LOC_U),
+                self._fill_xy(V, self.bcs["v"], LOC_V))
 
     def _fill_eta_halos(self, eta):
         """x/y halo fill of η (in place; η has no z extent)."""
-        for axis in (X, Y):
-            _fill_axis(eta, self.grid, axis, Center,
-                       *self.eta_bcs.sides(axis))
-        return eta
+        return self._fill_xy(eta, self.eta_bcs, LOC_C)
 
     def fill_state_halos(self, state):
         """Fill u, v, the tracers and η in place at the clock time (u and v
@@ -897,10 +958,10 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 tracers={n: mask_immersed_field(g, c, LOC_C)
                          for n, c in state.tracers.items()})
         t, dtl = state.clock.time, state.clock.last_dt
-        fill_halo_regions(state.u, g, self.bcs["u"], LOC_U, t, dt=dtl)
-        fill_halo_regions(state.v, g, self.bcs["v"], LOC_V, t, dt=dtl)
+        self._fill_field(state.u, self.bcs["u"], LOC_U, t, dt=dtl)
+        self._fill_field(state.v, self.bcs["v"], LOC_V, t, dt=dtl)
         for name, c in state.tracers.items():
-            fill_halo_regions(c, g, self.bcs[name], LOC_C, t)
+            self._fill_field(c, self.bcs[name], LOC_C, t)
         self._fill_eta_halos(state.eta)
         return state
 
@@ -920,7 +981,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                                                   keepdim=True)
         w[..., 0] = 0.0
         w = mask_immersed_field(self.grid, w, LOC_W)
-        fill_halo_regions(w, g, self.bcs["w"], LOC_W, state.clock.time)
+        self._fill_field(w, self.bcs["w"], LOC_W, state.clock.time, g=g)
         return _replace(state, w=w)
 
     def update_state(self, state):
@@ -1260,7 +1321,11 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         g = self.grid
         U, V = self._barotropic_mode(state.u, state.v, sigma_fc, sigma_cf)
         rhs = (self._div_transports(U, V) - state.eta / dtf) / dtf
-        if fs.solver_method == "fft":
+        if self.dist_halo is not None:
+            # a rank's block: the spectral and matrix solvers need global
+            # transforms, so CG with all-reduced inner products
+            eta = self._implicit_fs_cg(rhs, dtf, fs)
+        elif fs.solver_method == "fft":
             sx, sy, _ = g.interior_slices
             axes = [ax for ax in (0, 1) if g.N[ax] > 1]
             fft_axes = [ax for ax in axes if g.axis_topo(ax) == Periodic]
@@ -1337,9 +1402,15 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
 
         b = torch.where(inside, rhs, 0.0)
         info = {}
+        dot = None
+        if self.dist_halo is not None:
+            dist = self.dist_halo.dist
+
+            def dot(x, y):
+                return dist.all_reduce(torch.sum(x * y))
         eta, it, _ = conjugate_gradient(L, b, torch.zeros_like(b),
                                         maxiter=fs.maxiter, reltol=fs.reltol,
-                                        info=info)
+                                        dot=dot, info=info)
         self.free_surface_info = {"iterations": it,
                                   "host_syncs": info["host_syncs"]}
         return eta

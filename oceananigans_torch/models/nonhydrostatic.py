@@ -135,6 +135,15 @@ class NonhydrostaticModel(torch.nn.Module):
                  fused_kernels="auto", timestepper="RungeKutta3",
                  device=None):
         super().__init__()
+        #: the constructor's arguments but the grid, for a rebuild on
+        #: another grid (``parallel.sharded_step_fn``)
+        self._init_kwargs = dict(
+            advection=advection, tracers=tracers, buoyancy=buoyancy,
+            coriolis=coriolis, closure=closure, forcing=forcing,
+            boundary_conditions=boundary_conditions,
+            background_fields=background_fields, particles=particles,
+            stokes_drift=stokes_drift, biogeochemistry=biogeochemistry,
+            fused_kernels=fused_kernels, timestepper=timestepper)
         base = (grid.underlying_grid
                 if isinstance(grid, ImmersedBoundaryGrid) else grid)
         if not isinstance(base, RectilinearGrid):
@@ -246,6 +255,19 @@ class NonhydrostaticModel(torch.nn.Module):
     def device(self) -> torch.device:
         return self.grid.device
 
+    #: the mesh context of a rank's LOCAL model in a ``DistributedStep``
+    #: (``parallel/shard_step.py``): its halo fills exchange strips with the
+    #: neighbouring ranks, and no fused AB2 kernel runs, as in the JAX
+    #: package; ``dist_topo`` is the global grid's topology
+    dist_halo = None
+    dist_topo = None
+
+    def set_dist_halo(self, ctx, topo):
+        """Route this (local) model's halo fills through the exchange of
+        ``ctx``, a ``DistHalo``, with the global topology ``topo``."""
+        self.dist_halo = ctx
+        self.dist_topo = tuple(topo)
+
     # ------------------------------------------------------------------
     # Dispatch gates, the JAX model's. The tendency kernels run whatever
     # the closure, the boundary fluxes, the forcings, the Stokes drift and
@@ -289,8 +311,9 @@ class NonhydrostaticModel(torch.nn.Module):
         Stokes drift, no background field, no forcing, no advective
         forcing, no biogeochemistry, no flux condition with a value on u,
         v, w or a tracer, no immersed boundary condition and no tendency
-        callback."""
+        callback, and no distributed context."""
         return (self.timestepper == "QuasiAdamsBashforth2"
+                and self.dist_halo is None
                 and self.closure is None
                 and self.stokes_drift is None
                 and not self.background_fields
@@ -380,6 +403,17 @@ class NonhydrostaticModel(torch.nn.Module):
     # ------------------------------------------------------------------
     # Halo fills (in place)
     # ------------------------------------------------------------------
+    def _fill_field(self, a, bcs, loc, t, dt=None):
+        """Fill ``a``'s halos in place: through the distributed exchange
+        under a ``dist_halo``, else the ordinary fill."""
+        if self.dist_halo is not None:
+            from oceananigans_torch.parallel.shard_step import (
+                dist_fill_halos,
+            )
+            return dist_fill_halos(a, self.grid, bcs, loc, t, dt,
+                                   self.dist_halo, self.dist_topo)
+        return fill_halo_regions(a, self.grid, bcs, loc, t, dt=dt)
+
     def fill_state_halos(self, state):
         """Fill every field's halos in place at the clock time (the
         velocities also with the last Δt, which the radiation condition
@@ -391,17 +425,18 @@ class NonhydrostaticModel(torch.nn.Module):
                              w=mask_immersed_field(g, state.w, LOC_W))
         t, dtl = state.clock.time, state.clock.last_dt
         for name, field in state.fields().items():
-            fill_halo_regions(field, self.grid, self.bcs[name],
-                              self.locations[name], t,
-                              dt=dtl if name in ("u", "v", "w") else None)
+            self._fill_field(field, self.bcs[name], self.locations[name], t,
+                             dt=dtl if name in ("u", "v", "w") else None)
         return state
 
     def _fill_before_projection(self, state):
         """Fill only the halos the projection reads: the divergence shifts
         each velocity component along its own axis only, so u in x, v in y
         and w in z (halo-free periodic axes wrap exactly). An immersed grid
-        takes the full fill, with its masking."""
-        if isinstance(self.grid, ImmersedBoundaryGrid):
+        takes the full fill, with its masking, and so does a distributed
+        local model."""
+        if (isinstance(self.grid, ImmersedBoundaryGrid)
+                or self.dist_halo is not None):
             return self.fill_state_halos(state)
         t, dtl = state.clock.time, state.clock.last_dt
         for axis, name in enumerate(("u", "v", "w")):
@@ -593,7 +628,7 @@ class NonhydrostaticModel(torch.nn.Module):
         phi = self.pressure_solver.solve(g.interior(div) / dt)
         p = torch.zeros_like(div)   # batched where the state is (vmap)
         p[g.interior_slices] = phi
-        fill_halo_regions(p, g, self.pressure_bcs, LOC_C)
+        self._fill_field(p, self.pressure_bcs, LOC_C, None)
         if self.fused_correction:
             u, v, w = pressure_correction(g, p, state.u, state.v, state.w,
                                           dt)

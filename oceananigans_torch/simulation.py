@@ -33,7 +33,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from oceananigans_torch.output import Checkpointer, WindowedTimeAverage
+from oceananigans_torch.output import (
+    Checkpointer, OrbaxCheckpointer, WindowedTimeAverage,
+)
 from oceananigans_torch.utils.pretty import prettytime
 from oceananigans_torch.utils.schedules import (
     AveragedTimeInterval, IterationInterval, time_margin,
@@ -255,19 +257,58 @@ class Simulation:
                    and w.schedule.averaging(self.state.clock)
                    for w in self.output_writers.values())
 
+    def _check_checkpointers(self):
+        """Under a model that runs over several ranks (one with a ``dist``
+        of world size > 1) every rank's state is its own block, and a plain
+        ``Checkpointer`` would save all of them to one file: only the
+        sharded ``OrbaxCheckpointer`` is taken there."""
+        dist = getattr(self.model, "dist", None)
+        if dist is None or dist.world_size == 1:
+            return
+        for name, w in self.output_writers.items():
+            if isinstance(w, Checkpointer) and \
+                    not isinstance(w, OrbaxCheckpointer):
+                raise ValueError(
+                    f"output writer {name!r}: a Checkpointer would save "
+                    f"every one of the {dist.world_size} ranks' blocks to "
+                    "one file; use OrbaxCheckpointer, which saves a file a "
+                    "rank")
+
     def initialize(self):
         """Actuate everything once at iteration 0 (reference
         run.jl:203-252)."""
+        self._check_checkpointers()
         self._wire_tendency_callbacks()
         upd, ts = self._host_callbacks()
         for cb in upd + ts:
             cb.schedule.initialize(self.state.clock)
             if cb.schedule.actuates(self.state.clock):
                 cb(self)
+        views = self._writer_views()
         for w in self.output_writers.values():
             w.schedule.initialize(self.state.clock)
-            w.write(self)
+            target = views(w)
+            if target is not None:
+                w.write(target)
         self.initialized = True
+
+    def _writer_views(self):
+        """``view(writer)``: what ``writer`` writes from. A checkpointer
+        takes the simulation itself (the state the step runs on: under a
+        ``DistributedModel`` each rank's local block); the other writers
+        take the model's ``writer_sim`` view where it has one (the global,
+        halo-filled state, on rank 0 only: None elsewhere), built once on
+        first use, since it gathers."""
+        cache = []
+
+        def view(writer):
+            if isinstance(writer, Checkpointer) or \
+                    not hasattr(self.model, "writer_sim"):
+                return self
+            if not cache:
+                cache.append(self.model.writer_sim(self))
+            return cache[0]
+        return view
 
     def _should_stop(self):
         if self.stop_iteration is not None and (
@@ -290,6 +331,7 @@ class Simulation:
         ``pickup=True`` first restores the latest checkpoint of the first
         ``Checkpointer`` among the output writers (reference run.jl:66-98);
         ``pickup`` may also be a checkpoint's path."""
+        self._check_checkpointers()
         if pickup:
             ckpt = next((w for w in self.output_writers.values()
                          if isinstance(w, Checkpointer)), None)
@@ -316,22 +358,28 @@ class Simulation:
             for cb in upd + ts:
                 if cb.schedule.actuates(self.state.clock):
                     cb(self)
+            views = self._writer_views()
             for w in self.output_writers.values():
-                self._accumulate_averages(w)
+                self._accumulate_averages(w, views)
                 if w.schedule.actuates(self.state.clock):
-                    w.write(self)
+                    target = views(w)
+                    if target is not None:
+                        w.write(target)
         return self.state
 
-    def _accumulate_averages(self, writer):
+    def _accumulate_averages(self, writer, views):
         """Add the current state to ``writer``'s ``WindowedTimeAverage``
         outputs while its ``AveragedTimeInterval`` is averaging (reference
         windowed_time_average.jl)."""
         if not (isinstance(writer.schedule, AveragedTimeInterval)
                 and writer.schedule.averaging(self.state.clock)):
             return
+        target = views(writer)
+        if target is None:
+            return
         for out in getattr(writer, "outputs", {}).values():
             if isinstance(out, WindowedTimeAverage):
-                out.accumulate(self.model, self.state)
+                out.accumulate(target.model, target.state)
 
     def __repr__(self):
         return (f"Simulation(t={prettytime(float(self.state.clock.time))}, "

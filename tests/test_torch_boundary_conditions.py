@@ -286,10 +286,21 @@ def test_regularization_matches_jax():
         got = tbc.fill_halo_regions(torch.tensor(a), tg, tb, oj.LOC_C)
         assert np.abs(got.numpy() - np.asarray(ref)).max() <= RTOL * \
             np.abs(np.asarray(ref)).max()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tbc.regularize_field_boundary_conditions(
-            ot.FieldBoundaryConditions(
-                south=ot.BoundaryCondition("communication")), tg, oj.LOC_C)
+    # a communication condition (the distributed exchange's side) is kept,
+    # and the fill leaves its halo rows as they are, as the JAX fill does
+    bcs = [pkg.FieldBoundaryConditions(
+        south=pkg.BoundaryCondition("communication")) for pkg in (oj, ot)]
+    jb = jbc.regularize_field_boundary_conditions(bcs[0], jg, oj.LOC_C)
+    tb = tbc.regularize_field_boundary_conditions(bcs[1], tg, oj.LOC_C)
+    assert tb.south.classification == jb.south.classification == \
+        "communication"
+    a = np.random.default_rng(6).standard_normal(tg.shape)
+    ref = np.asarray(jbc.fill_halo_regions(jnp.asarray(a), jg, jb, oj.LOC_C))
+    got = tbc.fill_halo_regions(torch.tensor(a), tg, tb, oj.LOC_C).numpy()
+    sx, _, sz = tg.interior_slices
+    H = tg.H[1]
+    np.testing.assert_array_equal(got[sx, :H, sz], a[sx, :H, sz])
+    assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()
 
 
 def test_array_condition_moves_to_the_grid():

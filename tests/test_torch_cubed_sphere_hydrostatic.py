@@ -399,8 +399,14 @@ def test_not_ported_raises_with_its_item(what):
         with pytest.raises(ValueError, match="QuasiAdamsBashforth2"):
             ot.CubedSphereHydrostaticModel(tg, vertical_coordinate=ot.ZStar())
         return
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # ported (item 18): the rank layout and the slab of a stacked state;
+    # one process holds a one-rank layout, and six panels need six ranks
+    with pytest.raises(ValueError, match="needs 6 ranks"):
         tcs.cubed_sphere_partition(R=1)
+    layout, shard = tcs.cubed_sphere_partition(R=1, panels=1)
+    assert layout["coords"] == (0, 0, 0)
+    st = ot.CubedSphereHydrostaticModel(tg).initial_state()
+    assert shard(st).u.shape == st.u.shape
     # a bathymetry object that is neither callable nor an array
     with pytest.raises(ValueError, match="bathymetry"):
         ot.CubedSphereHydrostaticModel(tg, bathymetry=object())

@@ -130,22 +130,23 @@ def test_fill_halo_regions_axes_subset():
 
 
 def test_unported_boundary_conditions_raise():
-    """The communication classification waits for the distributed models;
-    the polar and zipper ones are ported and, on a Bounded y, fill as in
-    the JAX package."""
+    """The communication classification (the distributed exchange's
+    side), the polar and the zipper ones are ported and, on a Bounded y,
+    fill as in the JAX package; a Connected axis takes communication
+    conditions by default."""
     _, tg = grids(TOPOLOGIES["bpp"], 1)
     from oceananigans_torch.boundary_conditions import (
         regularize_field_boundary_conditions as t_regularize,
     )
-    # valued conditions are ported; the communication classification is not
+    # valued conditions are ported, and so is the communication one
     t_regularize(ot.FieldBoundaryConditions(west=ot.FluxBC(1.0)), tg,
                  ot.LOC_C)
-    bcs = ot.FieldBoundaryConditions(west=ot.BoundaryCondition(
-        "communication"))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        t_regularize(bcs, tg, ot.LOC_C)
+    from oceananigans_torch.boundary_conditions import default_bc
+    from oceananigans_torch.grids.base import Connected
+    assert default_bc(Connected, "c", "west").classification == \
+        "communication"
     jp, tp = grids(TOPOLOGIES["pbb"], 2)
-    for cls in ("polar", "zipper"):
+    for cls in ("polar", "zipper", "communication"):
         jb = regularize_field_boundary_conditions(
             oj.FieldBoundaryConditions(south=oj.BoundaryCondition(cls)), jp,
             oj.LOC_C)

@@ -673,14 +673,17 @@ def test_checkpoint_pickup(tmp_path, case):
     assert_close_to_jax(tm, sims[1].state, js)
 
 
-def test_pickup_needs_a_checkpointer():
+def test_pickup_needs_a_checkpointer(tmp_path):
     tg = ot.RectilinearGrid(dtype=torch.float64, **GRID)
     sim = ot.Simulation(ot.NonhydrostaticModel(grid=tg), dt=DT,
                         stop_iteration=1)
     with pytest.raises(ValueError, match="Checkpointer"):
         sim.run(pickup=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tout.OrbaxCheckpointer("x")
+    # the sharded checkpointer is a Checkpointer: one without checkpoints
+    # has nothing to pick up from
+    sim.output_writers["sharded"] = tout.OrbaxCheckpointer(tmp_path / "x")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        sim.run(pickup=True)
 
 
 # ---------------------------------------------------------------------------
