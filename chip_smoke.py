@@ -273,6 +273,29 @@ each of which raises on failure:
     mass, volume and salt; no port kernel launches on the cube. The
     sharded runs are held to the serial ones at phase 7's (27a) and phase
     9's (27b) bounds. A rank's failure fails the run.
+28. ``sharded_step_fn`` (the counterpart of the JAX package's GSPMD step:
+    the global state scattered from rank 0, every block stepped, gathered
+    back) at full width, 4 gloo ranks on ``cuda:0`` in one spawn; each
+    part 2 warm-up + 10 timed steps serial (rank 0) and sharded (every
+    rank) from the same state, CUDA events, with the transfers a step and
+    each rank's kernel launches, its kernels against their plain versions
+    at rank 0's block shape, and a float64 run at a small size held to
+    the serial one at 1e-12. 28a: phase 13's ``hydro_vi_closure`` (a
+    callable u stress, an array T flux cut to each block) at 360 × 160 ×
+    60 over ``Partition(2, 2)`` (kernels 11 and 12/13 once a rank a step);
+    28b: phase 21's ``langmuir`` at 256³ with 2²⁰ particles tracking b
+    (replicated, each rank interpolating the ones in its block) over (2,
+    2) (kernels 7 and 9 once a rank a step), the particles held too; 28c:
+    ``examples/multi_chip_scaling.py``'s model (WENO(5), BuoyancyTracer,
+    FPlane(1e-4), halo 3, RK3) at (250, 256, 256) with sponges of u and b
+    masked in x, over (4, 1): blocks of 63, 63, 62 and 62 cells and
+    uneven pencils (kernels 7 and 9 three times a rank a step); and
+    ``bench.py``'s ``default`` at 256³ over (1, 4), a halo-free periodic y
+    split through a local halo (kernel 2 once a rank a step); 28d:
+    ``sw8192`` over (4, 1), blocks of (2048, 8192) (kernel 10 three times
+    a rank a step), 12 steps from the initial state. Held sharded against
+    serial at the serial phases' kernel-against-plain bounds (phase 13's,
+    phase 7's 3e-5, phase 8's).
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -285,7 +308,8 @@ for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
 launches that run makes. Phases 12 to 27 zero and check the counts of
 their own runs and print them on lines of their own; phase 27's per-rank
-launches of kernels 2, 7, 9, 11 and 12/13 are added to theirs. The line before
+launches of kernels 2, 7, 9, 11 and 12/13 and phase 28's of kernels 2, 7,
+9, 10, 11 and 12/13 are added to theirs. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
@@ -616,7 +640,7 @@ def hydro_closure_model(torch, ot, fused, dtype=None, device="cuda",
 #: steps of each torch.profiler window: the host spends ~5 s on each
 #: profiled step of a host-paced model (its trace's events), so the windows
 #: stay short and the whole script well inside its time limit
-PROFILE_STEPS = 2
+PROFILE_STEPS = 1
 
 
 def device_profile(torch, fn, n=PROFILE_STEPS):
@@ -3799,6 +3823,368 @@ def dist_phase(torch, wrappers, card, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: ``sharded_step_fn``, the counterpart of the JAX package's GSPMD
+# step, at full width (the rank programs are module-level, as phase 27's)
+# ---------------------------------------------------------------------------
+
+#: warm-up and timed steps of each serial and sharded run of phase 28
+GSPMD_WARM, GSPMD_TIMED = 2, 10
+#: sharded against serial in float32, relative to the largest value of
+#: each group: the serial phase's bound of its kernel path against its
+#: plain path (phase 13's for ``hydro_vi_closure``, phase 8's for the
+#: shallow water, phase 7's for the WENO and Centered-2 models). The
+#: float32 Langmuir LES, whose velocities are the residual of its
+#: hydrostatic balance, is held as phase 21 holds its float32 paths, to
+#: the rounding of its projection: phase 21's bound on max|∇·u|,
+#: depth·eps32·Δt·max|p|/Δz², with the depth of its solve's sums,
+#: log2(Nx·Ny·Nz) for cuFFT's radix stages and Nx + Ny + Nz for the
+#: basis products of the pencil solver (and of the serial
+#: ``MatmulPoissonSolver``, whose bases they are), each a dense sum along
+#: a whole axis; every run at its solve's bound (given as the ratio to
+#: it, limit 1); the velocities of two runs apart by at most the sum of
+#: their floors, depth·eps32·Δt·max|p|/Δz (the ratio to that sum, limit
+#: 1); the tracers and particles at phase 7's 3e-5 of their largest value
+GSPMD_RTOL = {"hydro_vi_closure": DIST_HY_RTOL,
+              "langmuir": {"velocities": 1.0, "tracers": 3e-5,
+                           "particles": 3e-5, "div": 1.0,
+                           "div serial": 1.0, "div basis": 1.0,
+                           "basis velocities": 1.0},
+              "scaling": {"velocities": 3e-5, "tracers": 3e-5},
+              "default": {"velocities": 3e-5},
+              "sw": {"transports": 1e-2, "h": 1e-4}}
+
+
+def gspmd_config(spec, device):
+    """``(model, initial_state, dt, per_step)`` of a phase-28 part: the
+    model on its global grid, the initial state's builder, Δt and the
+    kernels each rank must launch a step."""
+    import torch
+
+    import oceananigans_torch as ot
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, LANGMUIR_DT, hydro_generic_state, initial_state,
+        langmuir_initial_state, langmuir_model, langmuir_particles,
+        sw_initial_state, sw_model,
+    )
+    dtype = getattr(torch, spec["dtype"])
+    kind, size = spec["kind"], spec["size"]
+    if kind == "hydro_vi_closure":
+        return (hydro_closure_model(torch, ot, "auto", dtype, device,
+                                    size=size),
+                hydro_generic_state, HYDRO_DT,
+                {"vi_momentum_tendency": 1, "weno_tracer_tendencies": 1})
+    if kind == "langmuir":
+        return (langmuir_model(size=size, dtype=dtype, device=device,
+                               particles=langmuir_particles(
+                                   spec["particles"])),
+                langmuir_initial_state, LANGMUIR_DT,
+                {"weno5_momentum_tendency": 1, "weno5_tracer_tendencies": 1})
+    if kind == "scaling":
+        # examples/multi_chip_scaling.py's model, with sponges of u and b
+        # masked in x (the blocks' true coordinates decide where they act),
+        # from bench.py's initial state: the example's own u = 0.01 sin 2πx
+        # is a gradient, which the initial projection removes whole, so
+        # its flow would be rounding noise
+        grid = ot.RectilinearGrid(
+            size=size, extent=(1.0, 1.0, 1.0),
+            topology=(ot.Periodic, ot.Periodic, ot.Bounded), halo=3,
+            dtype=dtype, device=device)
+        mask = ot.GaussianMask(0.9, 0.05, "x")
+        model = ot.NonhydrostaticModel(
+            grid=grid, advection=ot.WENO(5), tracers=("b",),
+            buoyancy=ot.BuoyancyTracer(), coriolis=ot.FPlane(f=1e-4),
+            forcing={"u": ot.Relaxation(rate=10.0, mask=mask),
+                     "b": ot.Relaxation(rate=10.0, mask=mask,
+                                        target=ot.LinearTarget(
+                                            0.0, 0.01, "z"))})
+        return (model, initial_state, 1e-3,
+                {"weno5_momentum_tendency": 3, "weno5_tracer_tendencies": 3})
+    if kind == "default":
+        # bench.py's default: Centered(2), quasi-AB2, halo (1, 0, 0)
+        grid = ot.RectilinearGrid(
+            size=size, extent=(1.0, 1.0, 1.0),
+            topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=(1, 0, 0),
+            dtype=dtype, device=device)
+        return (ot.NonhydrostaticModel(grid=grid,
+                                       timestepper="QuasiAdamsBashforth2"),
+                initial_state, 1e-4, {"centered2_momentum_tendency": 1})
+    if kind == "sw":
+        return (sw_model(size[0], dtype=dtype, device=device),
+                sw_initial_state, 1.0, {"sw_rk3_stage": 3})
+    raise ValueError(kind)
+
+
+def gspmd_rel(kind, g, a, b, dt, basis=None):
+    """Sharded state ``a`` against serial state ``b``, by group, relative
+    to the largest value of each group (the float32 Langmuir LES's
+    velocities and divergences as the ratio to its projections' rounding
+    bounds, with ``basis`` the serial run through the basis products; see
+    :data:`GSPMD_RTOL`)."""
+    import torch
+    if kind == "sw":
+        xy = [(g.interior(a.uh), g.interior(b.uh)),
+              (g.interior(a.vh), g.interior(b.vh))]
+        return {"transports": group_rel(xy),
+                "h": group_rel([(g.interior(a.h), g.interior(b.h))])}
+    if kind == "langmuir":
+        rel = les_compare_fields(g, a, b, dt, ("b", "P"))
+        out = {"velocities": rel["velocities"],
+               "tracers": max(rel["b"], rel["P"]),
+               "particles": particle_rel(a, b)}
+        if g.dtype == torch.float32:
+            from oceananigans_torch.ops.operators import divergence_ccc
+            dz = g.spacing(2)
+            pmax = float(g.interior(b.pressure).abs().max())
+            unit = torch.finfo(torch.float32).eps * dt * pmax / dz
+            fft = math.log2(g.N[0] * g.N[1] * g.N[2]) * unit
+            dense = (g.N[0] + g.N[1] + g.N[2]) * unit
+
+            def gap(p, q):
+                return max(float((g.interior(x) - g.interior(y)).abs().max())
+                           for x, y in ((p.u, q.u), (p.v, q.v), (p.w, q.w)))
+
+            def div(st):
+                return float(g.interior(divergence_ccc(
+                    g, st.u, st.v, st.w)).abs().max()) * dz
+            out["velocities"] = gap(a, b) / (fft + dense)
+            out["div"] = div(a) / dense
+            out["div serial"] = div(b) / fft
+            # phase 21's bound, to show what the basis products exceed
+            out["div at phase 21's bound"] = div(a) / fft
+            if basis is not None:
+                out["basis velocities"] = gap(basis, b) / (fft + dense)
+                out["div basis"] = div(basis) / dense
+                out["div basis at phase 21's bound"] = div(basis) / fft
+                out["velocities vs basis"] = gap(a, basis) / (2 * dense)
+        return out
+    ga = dist_groups(g, a, kind == "hydro_vi_closure")
+    gb = dist_groups(g, b, kind == "hydro_vi_closure")
+    return {k: group_rel(list(zip(ga[k], gb[k]))) for k in gb}
+
+
+def gspmd_block_kernels(torch, ot, lg, kind, gen):
+    """The part's kernels against their plain versions at the rank's block
+    shape: phase 27's, and the shallow-water stage kernel."""
+    if kind != "sw":
+        return dist_block_kernels(torch, ot, lg, {
+            "hydro_vi_closure": "hydro", "langmuir": "weno",
+            "scaling": "weno", "default": "centered"}[kind], gen)
+    from oceananigans_torch.ops import cuda_sw as csw
+    fs = [ot.fill_halo_regions(1000.0 + torch.randn(
+        lg.shape, generator=gen, device=lg.device, dtype=lg.dtype), lg,
+        loc=loc) for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_C)]
+    G = [torch.randn(lg.shape, generator=gen, device=lg.device,
+                     dtype=lg.dtype) for _ in range(3)]
+    # the stage writes over its operands: each call takes its own copies
+    k = csw.sw_rk3_stage(lg, *[q.clone() for q in fs + G], 0.5, -0.25,
+                         9.81)
+    p = csw.sw_rk3_stage_plain(lg, *[q.clone() for q in fs + G], 0.5,
+                               -0.25, 9.81)
+    torch.cuda.synchronize()
+    return {"sw_rk3_stage": (max(float((a - b).abs().max())
+                                     for a, b in zip(k, p)),
+                             max(float(b.abs().max()) for b in p))}
+
+
+def gspmd_part_rank(dist, spec):
+    """One phase-28 part on this rank: the model on its global grid
+    (every rank), ``sharded_step_fn`` of it, the serial run (rank 0) and
+    the sharded run (every rank, the global state in and out on rank 0)
+    from the same state; this rank's report."""
+    import torch
+
+    import oceananigans_torch as ot
+    from oceananigans_torch.parallel import sharded_step_fn
+    from oceananigans_torch.parallel.distributed import _map_tensors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = dist_wrappers()
+    model, init, dt, per_step = gspmd_config(spec, dist.device)
+    step = sharded_step_fn(model, dist, dt)
+    dstep = step.dstep
+    lg = dstep.local_grid
+    rep = {"rank": dist.rank, "coords": dist.coords, "block": tuple(lg.N),
+           "halo": tuple(lg.H)}
+    steps = GSPMD_WARM + GSPMD_TIMED
+    s0 = init(model) if dist.rank == 0 else None
+    serial = basis = None
+    if dist.rank == 0:
+        if spec.get("check"):
+            gen = torch.Generator(device=dist.device).manual_seed(28)
+            rep["block_kernels"] = gspmd_block_kernels(
+                torch, ot, lg, spec["kind"], gen)
+        st = _map_tensors(s0, lambda t: t.clone())
+        for _ in range(GSPMD_WARM):
+            st = model.step(st, dt)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(GSPMD_TIMED):
+            st = model.step(st, dt)
+        e1.record()
+        e1.synchronize()
+        rep["serial_ms"] = e0.elapsed_time(e1) / GSPMD_TIMED
+        serial = st
+        if spec.get("basis"):
+            # the serial run through the basis products of the pencil
+            # solver (the serial MatmulPoissonSolver's bases, unfused)
+            from oceananigans_torch.solvers.matmul_poisson import (
+                MatmulPoissonSolver,
+            )
+            fft = model.pressure_solver
+            model.pressure_solver = MatmulPoissonSolver(model.grid)
+            st = _map_tensors(s0, lambda t: t.clone())
+            for _ in range(steps):
+                st = model.step(st, dt)
+            model.pressure_solver = fft
+            basis = st
+    dist.barrier()
+    for fn in wrappers.values():
+        fn.launches = 0
+    dist.reset_counts()
+    st = s0
+    for _ in range(GSPMD_WARM):
+        st = step(st)
+    torch.cuda.synchronize()
+    dist.barrier()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(GSPMD_TIMED):
+        st = step(st)
+    e1.record()
+    e1.synchronize()
+    dist.barrier()
+    rep["ms"] = e0.elapsed_time(e1) / GSPMD_TIMED
+    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3 / GSPMD_TIMED
+    rep["launches"] = {k: fn.launches for k, fn in wrappers.items()
+                       if fn.launches}
+    rep["transfers_a_step"] = {k: v / steps for k, v in dist.counts.items()}
+    for name, per in per_step.items():
+        require(rep["launches"].get(name, 0) == per * steps,
+                f"{spec['kind']} rank {dist.rank}: {name} launched "
+                f"{rep['launches'].get(name, 0)} times in {steps} steps "
+                f"(want {per} a step)")
+    others = [k for k in rep["launches"] if k not in per_step]
+    require(not others, f"{spec['kind']} rank {dist.rank}: unexpected "
+            f"launches {others}")
+    if dist.rank == 0:
+        require(all(bool(torch.isfinite(q).all())
+                    for q in st.fields().values()),
+                f"{spec['kind']}: finite fields")
+        rep["rel"] = gspmd_rel(spec["kind"], model.grid, st, serial, dt,
+                               basis)
+    del model, step, dstep, st, s0, serial, basis
+    torch.cuda.empty_cache()
+    return rep
+
+
+def gspmd_parts_rank(dist, specs):
+    """Several phase-28 parts in one spawn of ranks, each over its own
+    partition (``spec["partition"]``): this rank's reports."""
+    from oceananigans_torch.parallel import Distributed, Partition
+    return [gspmd_part_rank(Distributed(Partition(*spec["partition"]),
+                                        device=dist.device), spec)
+            for spec in specs]
+
+
+#: the parts of phase 28, float32 at full width and float64 at a small
+#: size (uneven blocks where the full width has them)
+GSPMD_PARTS = {
+    "28a hydro_vi_closure": dict(
+        kind="hydro_vi_closure", size=(360, 160, 60), dtype="float32",
+        partition=(2, 2), check=True),
+    "28a hydro_vi_closure float64": dict(
+        kind="hydro_vi_closure", size=(48, 16, 6), dtype="float64",
+        partition=(2, 2)),
+    "28b langmuir": dict(
+        kind="langmuir", size=(256, 256, 256), dtype="float32",
+        particles=LANGMUIR_PARTICLES, partition=(2, 2), check=True,
+        basis=True),
+    "28b langmuir float64": dict(
+        kind="langmuir", size=(16, 16, 16), dtype="float64",
+        particles=4096, partition=(2, 2)),
+    "28c multi_chip_scaling": dict(
+        kind="scaling", size=(250, 256, 256), dtype="float32",
+        partition=(4, 1), check=True),
+    "28c multi_chip_scaling float64": dict(
+        kind="scaling", size=(26, 16, 16), dtype="float64",
+        partition=(4, 1)),
+    "28c default": dict(
+        kind="default", size=(256, 256, 256), dtype="float32",
+        partition=(1, 4), check=True),
+    "28c default float64": dict(
+        kind="default", size=(16, 16, 16), dtype="float64",
+        partition=(1, 4)),
+    "28d sw8192": dict(
+        kind="sw", size=(8192,), dtype="float32", partition=(4, 1),
+        check=True),
+    "28d sw8192 float64": dict(
+        kind="sw", size=(64,), dtype="float64", partition=(4, 1)),
+}
+
+
+def gspmd_phase(torch, card, launches):
+    """Phase 28: ``sharded_step_fn`` at full width on the card (see the
+    docstring)."""
+    import tempfile
+
+    from oceananigans_torch.parallel import launch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        by_rank = launch(4, gspmd_parts_rank, (list(GSPMD_PARTS.values()),),
+                         rendezvous_dir=f"{tmp}/28", backend="gloo",
+                         device="cuda:0")
+        log(f"[28] 4 gloo ranks on cuda:0 in {time.perf_counter() - t0:.1f}"
+            " s")
+    for k, (tag, spec) in enumerate(GSPMD_PARTS.items()):
+        reps = [r[k] for r in by_rank]
+        r0 = reps[0]
+        per_rank = [r["launches"] for r in reps]
+        for name in per_rank[0]:
+            launches[name] = launches.get(name, 0) + sum(
+                r["launches"].get(name, 0) for r in reps)
+        for name, (err, sc) in r0.get("block_kernels", {}).items():
+            tol = (DIST_KERNEL_RTOL.get(name, 1e-5)) * sc
+            log(f"[28] {tag}: {name} at the block shape {r0['block']} (halo "
+                f"{r0['halo']}): max|kernel - plain| {err:.3e} (tolerance "
+                f"{tol:.3e})")
+            require(err <= tol, f"{tag}: {name} at {r0['block']}")
+        rel = r0["rel"]
+        bound = ({g: DIST_F64_RTOL for g in rel}
+                 if spec["dtype"] == "float64"
+                 else GSPMD_RTOL[spec["kind"]])
+        log(f"[28] {tag} {spec['size']} {spec['dtype']}, Partition"
+            f"{spec['partition']}, blocks "
+            f"{[tuple(r['block'][:2]) for r in reps]}, local halos "
+            f"{r0['halo']}: serial {r0['serial_ms']:.3f} ms/step, "
+            "sharded_step_fn (scatter, step, gather) " + ", ".join(
+                f"rank {r['rank']} {r['ms']:.3f}" for r in reps)
+            + f" ms/step (CUDA events; host wall "
+            f"{max(r['wall_ms'] for r in reps):.3f}) on {card}; the 4 "
+            f"ranks share one card, so these are no scaling figure; "
+            f"launches per rank in {GSPMD_WARM + GSPMD_TIMED} steps "
+            f"{per_rank}; transfers a step on rank 0 "
+            f"{r0['transfers_a_step']}; sharded vs serial " + ", ".join(
+                f"{g} {v:.3e}" for g, v in rel.items())
+            + " of the largest value" + (
+                " (velocities and max|∇·u| as the ratio to the rounding "
+                "bounds of their projections: the serial run's cuFFT, "
+                "depth log2(N³), the sharded and the serial basis-product "
+                "run's dense sums, depth Nx + Ny + Nz, see GSPMD_RTOL; "
+                "the ratios 'at phase 21's bound' printed, not held)"
+                if "div" in rel else "")
+            + f" (tolerance {bound})")
+        require(all(rel[g] <= bound[g] for g in bound),
+                f"{tag}: sharded vs serial {rel}")
+        out[tag] = reps
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5576,6 +5962,10 @@ def main():
     # ---- phase 27: the distributed layer (kernels 2, 7, 9, 11, 12/13 on
     # every rank's block) ----------------------------------------------------
     dist_phase(torch, wrappers, card, launches)
+
+    # ---- phase 28: sharded_step_fn at full width (kernels 2, 7, 9, 10,
+    # 11, 12/13 on every rank's block) --------------------------------------
+    gspmd_phase(torch, card, launches)
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -237,15 +237,15 @@ def state_to_numpy(state):
 def _rank_window(a, dstep, layout):
     """This rank's block of the numpy array ``a``: from the global layout
     (the rank's window of the halo-extended array, its halo rings
-    included, z as it is) or from the JAX package's local-halos layout
-    (the rank's block with its halo slots, as they are)."""
+    included, z as it is: ``dstep.window``) or from the JAX package's
+    local-halos layout (the rank's block with its halo slots, as they
+    are; even blocks)."""
+    if layout == "global":
+        return dstep.window(a)
     rx, ry = dstep.dist.coords
-    nxl, nyl = dstep.nxl, dstep.nyl
     Hx, Hy = dstep.global_grid.H[:2]
-    bx, by = nxl + 2 * Hx, nyl + 2 * Hy
-    if layout == "local":
-        return a[rx * bx:(rx + 1) * bx, ry * by:(ry + 1) * by]
-    return a[rx * nxl:rx * nxl + bx, ry * nyl:ry * nyl + by]
+    bx, by = dstep.nxl + 2 * Hx, dstep.nyl + 2 * Hy
+    return a[rx * bx:(rx + 1) * bx, ry * by:(ry + 1) * by]
 
 
 def _is_field(a, shape2):

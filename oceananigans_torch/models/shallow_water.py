@@ -139,6 +139,15 @@ class ShallowWaterModel(torch.nn.Module):
                  forcing=None, boundary_conditions=None,
                  fused_kernels="auto", device=None):
         super().__init__()
+        #: the constructor's arguments but the grid, for a rebuild on
+        #: another grid (``parallel.sharded_step_fn``)
+        self._init_kwargs = dict(
+            gravitational_acceleration=gravitational_acceleration,
+            momentum_advection=momentum_advection,
+            tracer_advection=tracer_advection, coriolis=coriolis,
+            bathymetry=bathymetry, tracers=tracers, formulation=formulation,
+            forcing=forcing, boundary_conditions=boundary_conditions,
+            fused_kernels=fused_kernels)
         if not isinstance(grid, (RectilinearGrid, LatitudeLongitudeGrid,
                                  OrthogonalSphericalShellGrid)):
             raise NotImplementedError(
@@ -225,6 +234,19 @@ class ShallowWaterModel(torch.nn.Module):
     def device(self) -> torch.device:
         return self.grid.device
 
+    #: the mesh context of a rank's LOCAL model in a sharded step
+    #: (``parallel/shard_step.py``): its halo fills exchange strips with the
+    #: neighbouring ranks, and only the ranks on a domain edge fill that
+    #: edge's Bounded halos; ``dist_topo`` is the global grid's topology
+    dist_halo = None
+    dist_topo = None
+
+    def set_dist_halo(self, ctx, topo):
+        """Route this (local) model's halo fills through the exchange of
+        ``ctx``, a ``DistHalo``, with the global topology ``topo``."""
+        self.dist_halo = ctx
+        self.dist_topo = tuple(topo)
+
     @property
     def fused_rk3(self) -> bool:
         """Each RK3 stage runs as one kernel (``sw_rk3_stage``); "auto"
@@ -268,10 +290,18 @@ class ShallowWaterModel(torch.nn.Module):
         transports also with the last Δt, which the radiation condition
         reads)."""
         t, dtl = state.clock.time, state.clock.last_dt
+        fill = fill_halo_regions
+        if self.dist_halo is not None:
+            from oceananigans_torch.parallel.shard_step import (
+                dist_fill_halos,
+            )
+
+            def fill(a, grid, bcs, loc, time, dt=None):
+                return dist_fill_halos(a, grid, bcs, loc, time, dt,
+                                       self.dist_halo, self.dist_topo)
         for name, field in state.fields().items():
-            fill_halo_regions(field, self.grid, self.bcs[name],
-                              self.locations[name], t,
-                              dt=dtl if name in ("uh", "vh") else None)
+            fill(field, self.grid, self.bcs[name], self.locations[name], t,
+                 dt=dtl if name in ("uh", "vh") else None)
         return state
 
     # ------------------------------------------------------------------

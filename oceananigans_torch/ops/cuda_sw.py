@@ -78,7 +78,9 @@ def sw_fused_available(grid, model) -> bool:
     halo-free y) do not apply on the GPU. What the kernel needs instead: an
     x halo of at least 2 (the stencil reaches two rows back), more than one
     cell on x and y, and y either with a halo of at least 2 or periodic
-    without a halo."""
+    without a halo; and on a rank's block of a sharded step
+    (``model.dist_halo``) a y split over several ranks is never taken
+    without a halo, since the kernel would wrap y within the block."""
     from oceananigans_torch.advection import Centered
     from oceananigans_torch.grids.rectilinear import RectilinearGrid
     from oceananigans_torch.models.shallow_water import (
@@ -105,6 +107,9 @@ def sw_fused_available(grid, model) -> bool:
                 if (bc is not None and bc.classification == "flux"
                         and bc.condition is not None):
                     return False
+    ctx = getattr(model, "dist_halo", None)
+    if ctx is not None and ctx.size(1) > 1 and g.H[1] == 0:
+        return False
     return _layout_ok(g)
 
 

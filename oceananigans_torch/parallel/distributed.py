@@ -36,7 +36,8 @@ import torch.distributed as tdist
 
 from oceananigans_torch.config import config
 
-__all__ = ["Partition", "Distributed", "shard_state", "sharded_step_fn"]
+__all__ = ["Partition", "Distributed", "block_sizes", "shard_state",
+           "sharded_step_fn"]
 
 #: p2p tags: a strip moving to the lower or to the higher coordinate
 TAG_BACKWARD, TAG_FORWARD = 0, 1
@@ -200,34 +201,55 @@ class Distributed:
         tdist.all_reduce(out, op=op)
         return out
 
-    def all_to_all(self, t, axis, split_axis, concat_axis):
+    def all_to_all(self, t, axis, split_axis, concat_axis, split_sizes=None,
+                   concat_sizes=None):
         """The tiled ``jax.lax.all_to_all`` over the ranks of mesh ``axis``:
-        ``t`` is cut into equal chunks along ``split_axis``, chunk i goes to
-        the rank at coordinate i, and the chunks received are joined along
-        ``concat_axis`` in the senders' order."""
+        ``t`` is cut along ``split_axis`` into chunks of ``split_sizes``
+        (one a rank of the group, equal by default), chunk i goes to the
+        rank at coordinate i, and the chunks received are joined along
+        ``concat_axis`` in the senders' order; ``concat_sizes`` are the
+        senders' extents along ``concat_axis`` (each this rank's by
+        default), through ``all_to_all_single``'s split sizes."""
         n = self.partition[axis]
         if n == 1:
             return t
         self._count("all_to_all")
         group, _ = self._groups[axis]
-        chunks = t.chunk(n, dim=split_axis)
-        shape = chunks[0].shape
+        me = self.coords[axis]
+        if split_sizes is None:
+            split_sizes = [t.shape[split_axis] // n] * n
+        if concat_sizes is None:
+            concat_sizes = [t.shape[concat_axis]] * n
+        chunks = torch.split(t, list(split_sizes), dim=split_axis)
         send = torch.cat([c.reshape(-1) for c in chunks])
-        recv = torch.empty_like(send)
-        tdist.all_to_all_single(recv, send, group=group)
-        return torch.cat(list(recv.reshape(n, *shape).unbind(0)),
-                         dim=concat_axis)
+        shapes = []
+        for size in concat_sizes:
+            shape = list(t.shape)
+            shape[split_axis] = split_sizes[me]
+            shape[concat_axis] = size
+            shapes.append(shape)
+        counts = [math.prod(s) for s in shapes]
+        recv = torch.empty(sum(counts), dtype=t.dtype, device=t.device)
+        tdist.all_to_all_single(
+            recv, send, output_split_sizes=counts,
+            input_split_sizes=[c.numel() for c in chunks], group=group)
+        return torch.cat([piece.reshape(shape) for piece, shape in
+                          zip(recv.split(counts), shapes)], dim=concat_axis)
 
-    def gather_blocks(self, block, root=0):
-        """Every rank's ``block`` (equal shapes), in rank order, on
-        ``root`` (on ``block``'s device); None elsewhere."""
+    def gather_blocks(self, block, root=0, shapes=None):
+        """Every rank's ``block``, in rank order, on ``root`` (on
+        ``block``'s device); None elsewhere. ``shapes`` gives each rank's
+        block shape where they differ (default: all ``block``'s)."""
         if self.world_size == 1:
             return [block]
         self._count("gather")
         if self.rank != root:
             self.p2p([(root, block, TAG_FORWARD)], [], key="g")
             return None
-        got = self.p2p([], [(r, block, TAG_FORWARD)
+        likes = [block if shapes is None or tuple(shapes[r]) == tuple(
+            block.shape) else block.new_empty(shapes[r])
+            for r in range(self.world_size)]
+        got = self.p2p([], [(r, likes[r], TAG_FORWARD)
                             for r in range(self.world_size) if r != root],
                        key="g")
         got.insert(root, block.contiguous())
@@ -235,7 +257,8 @@ class Distributed:
 
     def scatter_blocks(self, blocks, like, root=0):
         """This rank's entry of ``blocks`` (a list in rank order, given on
-        ``root``), as a tensor like ``like``."""
+        ``root``; the blocks may differ in shape), as a tensor like
+        ``like``, this rank's own block's shape."""
         if self.world_size == 1:
             return blocks[0]
         self._count("scatter")
@@ -304,34 +327,54 @@ def _map_tensors(state, f):
     return state
 
 
-#: what only the JAX package's GSPMD path takes (ROADMAP Queue 1 item 19)
-ITEM_19 = "ROADMAP Queue 1 item 19 (the GSPMD-only configurations)"
+def block_sizes(n, parts):
+    """``n`` cells over ``parts`` ranks in blocks that differ by at most
+    one cell, the larger first (26 over 4: 7, 7, 6, 6)."""
+    q, r = divmod(int(n), int(parts))
+    return [q + (1 if i < r else 0) for i in range(parts)]
+
+
+def block_offsets(sizes):
+    """The first cell of each block of ``sizes``."""
+    out, o = [], 0
+    for n in sizes:
+        out.append(o)
+        o += n
+    return out
+
+
+#: what the port's sharded step does not take yet
+ITEM_20 = ("ROADMAP Queue 1 item 20 (the tripolar north fold across mirror "
+           "ranks, and blocks narrower than their halo)")
 
 
 def sharded_step_fn(model, dist: Distributed, dt, make_model=None):
-    """A step ``global_state -> global_state`` over the mesh. PyTorch has
-    no compiler that partitions a step, so this is :class:`~oceananigans_
-    torch.parallel.shard_step.DistributedStep` between a scatter of the
-    global state from rank 0 and a gather back to it (None on the other
-    ranks). ``make_model(grid)`` builds the model on a grid (default: the
-    model's class with the constructor arguments it was built with, where
-    the model recorded them). The configurations only the JAX package's
-    GSPMD path takes (particles, background fields, position-dependent
-    forcings or boundary functions on a plain rectilinear grid) raise
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 19."""
-    from oceananigans_torch.parallel.shard_step import (
-        DistributedStep, GSPMDOnly,
-    )
+    """A step ``global_state -> global_state`` over the mesh, the
+    counterpart of the JAX package's GSPMD step. PyTorch has no compiler
+    that partitions a step, so this is :class:`~oceananigans_torch.
+    parallel.shard_step.DistributedStep` (built with ``gspmd=True``)
+    between a scatter of the global state from rank 0 and a gather back to
+    it (None on the other ranks). ``make_model(grid)`` builds the model on
+    a grid (default: the model itself on its grid, and on a rank's grid
+    the model's class with the constructor arguments it recorded, each
+    horizontal field among them cut to the rank's block).
+
+    It takes the nonhydrostatic, hydrostatic and shallow-water models on a
+    ``RectilinearGrid``, ``LatitudeLongitudeGrid`` or
+    ``ImmersedBoundaryGrid``, with forcings, callable or array boundary
+    conditions, background fields and particles (replicated on every rank,
+    as the GSPMD path keeps them), any interior whose halo-extended size
+    divides the mesh (blocks that differ by one cell), split axes with a
+    halo and split periodic axes without one. An
+    ``OrthogonalSphericalShellGrid`` and blocks narrower than their halo
+    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 20; a split
+    Bounded axis without a halo raises ``ValueError`` (the serial operators
+    wrap across its walls, which no halo cell of a block holds)."""
+    from oceananigans_torch.parallel.shard_step import DistributedStep
 
     dist.validate_grid(model.grid)
-    if make_model is None:
-        make_model = _model_maker(model)
-    try:
-        dstep = DistributedStep(make_model, model.grid, dist)
-    except GSPMDOnly as err:
-        raise NotImplementedError(
-            f"{err} — this configuration runs only on the JAX package's "
-            f"GSPMD path; its port is {ITEM_19}") from err
+    dstep = DistributedStep(make_model, model.grid, dist, gspmd=True,
+                            model=model)
 
     def step(global_state):
         local = dstep.to_local_state(global_state)
@@ -340,17 +383,3 @@ def sharded_step_fn(model, dist: Distributed, dt, make_model=None):
 
     step.dstep = dstep
     return step
-
-
-def _model_maker(model):
-    """``make_model(grid)`` from a model that recorded its constructor
-    arguments (``model._init_kwargs``)."""
-    kwargs = getattr(model, "_init_kwargs", None)
-    if kwargs is None:
-        raise ValueError("pass make_model(grid): this model did not record "
-                         "its constructor arguments")
-
-    def make(grid):
-        return type(model)(grid=grid, **kwargs)
-    return make
-

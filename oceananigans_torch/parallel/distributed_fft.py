@@ -6,6 +6,11 @@ by the eigenvalues, and back; the transposes are ``all_to_all_single``
 calls over the ranks of one mesh row or column
 (:meth:`~oceananigans_torch.parallel.distributed.Distributed.all_to_all`),
 where the JAX package has ``jax.lax.all_to_all`` inside ``shard_map``.
+Every pencil is cut into blocks that differ by at most one cell
+(:func:`~oceananigans_torch.parallel.distributed.block_sizes`), so any
+interior size goes through; uneven cuts take the split sizes of
+``all_to_all_single``, and each rank takes the eigenvalues of its own
+slice.
 
 The transforms are products with the orthonormal bases of the serial
 ``MatmulPoissonSolver`` (real-Fourier rows on Periodic axes, DCT-II rows
@@ -22,7 +27,9 @@ import numpy as np
 import torch
 
 from oceananigans_torch.grids.base import Bounded, Flat, Periodic
-from oceananigans_torch.parallel.distributed import Distributed
+from oceananigans_torch.parallel.distributed import (
+    Distributed, block_offsets, block_sizes,
+)
 from oceananigans_torch.solvers.matmul_poisson import (
     _bounded_basis, _periodic_basis,
 )
@@ -57,9 +64,11 @@ def _apply(a, T, axis, transpose):
 
 class DistributedFFTPoissonSolver(torch.nn.Module):
     """∇²φ = rhs on a fully regular grid; ``rhs`` is this rank's interior
-    block ``(Nx/px, Ny/py, Nz)``.
+    block ``(nx[rx], ny[ry], Nz)`` (``block_sizes`` of Nx over px and Ny
+    over py).
 
-    Pencils (local shapes, mesh (px, py)):
+    Pencils (local shapes, mesh (px, py); ``a/p`` a block of ``a`` cut
+    into p):
         (Nx/px, Ny/py, Nz)  --Tz (local)-->  same
         --all_to_all over y (split z, join y)--> (Nx/px, Ny, Nz/py)
         --Ty--> --all_to_all over x (split y, join x)--> (Nx, Ny/px, Nz/py)
@@ -74,10 +83,11 @@ class DistributedFFTPoissonSolver(torch.nn.Module):
         self.dist = dist
         self.px, self.py = dist.partition
         Nx, Ny, Nz = grid.N
-        if Nx % self.px or Ny % self.py or Nz % self.py or Ny % self.px:
-            raise ValueError(
-                f"interior sizes {grid.N} must divide the pencil layouts "
-                f"of mesh ({self.px}, {self.py})")
+        #: the blocks of x and y (the interiors), of z over the y ranks and
+        #: of y over the x ranks (the pencils)
+        self.nx, self.ny = block_sizes(Nx, self.px), block_sizes(Ny, self.py)
+        self.nz_p, self.ny_p = (block_sizes(Nz, self.py),
+                                block_sizes(Ny, self.px))
         self.topo = tuple(grid.axis_topo(ax) for ax in range(3))
         dtype, device = grid.dtype, dist.device
         self.T = []
@@ -91,9 +101,9 @@ class DistributedFFTPoissonSolver(torch.nn.Module):
         # this rank's eigenvalues in the (Nx, Ny/px, Nz/py) pencil, formed
         # in float64 and cast once
         ix, iy = dist.coords
-        ny_l, nz_l = Ny // self.px, Nz // self.py
-        ly = lam_y[ix * ny_l:(ix + 1) * ny_l] if lam_y.size > 1 else lam_y
-        lz = lam_z[iy * nz_l:(iy + 1) * nz_l] if lam_z.size > 1 else lam_z
+        oy, oz = block_offsets(self.ny_p)[ix], block_offsets(self.nz_p)[iy]
+        ly = (lam_y[oy:oy + self.ny_p[ix]] if lam_y.size > 1 else lam_y)
+        lz = (lam_z[oz:oz + self.nz_p[iy]] if lam_z.size > 1 else lam_z)
         lam = (lam_x.reshape(-1, 1, 1) + ly.reshape(1, -1, 1)
                + lz.reshape(1, 1, -1))
         inv = np.where(lam == 0, 0.0, 1.0 / np.where(lam == 0, 1.0, lam))
@@ -105,16 +115,21 @@ class DistributedFFTPoissonSolver(torch.nn.Module):
         inside the CG)."""
         dist = self.dist
         Tx, Ty, Tz = self.T
+        nx, ny, nz_p, ny_p = self.nx, self.ny, self.nz_p, self.ny_p
         r = _apply(r, Tz, 2, False)
-        r = dist.all_to_all(r, 1, split_axis=2, concat_axis=1)
+        r = dist.all_to_all(r, 1, split_axis=2, concat_axis=1,
+                            split_sizes=nz_p, concat_sizes=ny)
         r = _apply(r, Ty, 1, False)
-        r = dist.all_to_all(r, 0, split_axis=1, concat_axis=0)
+        r = dist.all_to_all(r, 0, split_axis=1, concat_axis=0,
+                            split_sizes=ny_p, concat_sizes=nx)
         r = _apply(r, Tx, 0, False)
         r = r * self.inv.to(r.dtype)
         r = _apply(r, Tx, 0, True)
-        r = dist.all_to_all(r, 0, split_axis=0, concat_axis=1)
+        r = dist.all_to_all(r, 0, split_axis=0, concat_axis=1,
+                            split_sizes=nx, concat_sizes=ny_p)
         r = _apply(r, Ty, 1, True)
-        r = dist.all_to_all(r, 1, split_axis=1, concat_axis=2)
+        r = dist.all_to_all(r, 1, split_axis=1, concat_axis=2,
+                            split_sizes=ny, concat_sizes=nz_p)
         return _apply(r, Tz, 2, True)
 
     def solve(self, rhs):
@@ -128,13 +143,13 @@ class DistributedFourierTridiagonalSolver(torch.nn.Module):
     every rank, then a batched Thomas solve for each horizontal mode, as
     the serial ``FourierTridiagonalPoissonSolver``.
 
-    Pencils (local shapes, mesh (px, py)):
+    Pencils (local shapes, mesh (px, py); ``a/p`` a block of ``a`` cut
+    into p):
         (Nx/px, Ny/py, Nz)
-        --all_to_all over y (split x, join y)--> (Nx/(px·py), Ny, Nz)
+        --all_to_all over y (split x, join y)--> (Nx/px/py, Ny, Nz)
         --Ty--> --back-->
-        --all_to_all over x (split y, join x)--> (Nx, Ny/(px·py), Nz)
+        --all_to_all over x (split y, join x)--> (Nx, Ny/py/px, Nz)
         --Tx--> tridiagonal in z --> everything in reverse.
-    Needs Nx/px divisible by py and Ny/py divisible by px.
     """
 
     def __init__(self, grid, dist: Distributed):
@@ -147,12 +162,12 @@ class DistributedFourierTridiagonalSolver(torch.nn.Module):
         self.dist = dist
         self.px, self.py = dist.partition
         Nx, Ny, Nz = grid.N
-        if (Nx % self.px or Ny % self.py
-                or (Nx // self.px) % max(self.py, 1)
-                or (Ny // self.py) % max(self.px, 1)):
-            raise ValueError(
-                f"interior sizes {grid.N} must divide the pencil layouts "
-                f"of mesh ({self.px}, {self.py})")
+        ix, iy = dist.coords
+        #: the interiors' blocks, this rank's x block over the y ranks and
+        #: its y block over the x ranks
+        self.nx, self.ny = block_sizes(Nx, self.px), block_sizes(Ny, self.py)
+        self.nx_p = block_sizes(self.nx[ix], self.py)
+        self.ny_p = block_sizes(self.ny[iy], self.px)
         dtype, device = grid.dtype, dist.device
         self.T = []
         lams = []
@@ -172,11 +187,9 @@ class DistributedFourierTridiagonalSolver(torch.nn.Module):
         c = np.zeros(Nz)
         a[1:] = 1.0 / dzf[1:Nz]
         c[:-1] = 1.0 / dzf[1:Nz]
-        # this rank's modes in the (Nx, Ny/(px·py), Nz) pencil
-        ix, iy = dist.coords
-        ny_l = Ny // self.py
-        ny_ll = ny_l // self.px
-        off_y = iy * ny_l + ix * ny_ll
+        # this rank's modes in the (Nx, Ny/py/px, Nz) pencil
+        off_y = block_offsets(self.ny)[iy] + block_offsets(self.ny_p)[ix]
+        ny_ll = self.ny_p[ix]
         ly = (lam_y[off_y:off_y + ny_ll] if lam_y.size > 1 else lam_y)
 
         def t(x):
@@ -197,10 +210,14 @@ class DistributedFourierTridiagonalSolver(torch.nn.Module):
         dist = self.dist
         Tx, Ty = self.T
         rdt = rhs.dtype
-        r = dist.all_to_all(rhs, 1, split_axis=0, concat_axis=1)
+        nx, ny, nx_p, ny_p = self.nx, self.ny, self.nx_p, self.ny_p
+        r = dist.all_to_all(rhs, 1, split_axis=0, concat_axis=1,
+                            split_sizes=nx_p, concat_sizes=ny)
         r = _apply(r, Ty, 1, False)
-        r = dist.all_to_all(r, 1, split_axis=1, concat_axis=0)
-        r = dist.all_to_all(r, 0, split_axis=1, concat_axis=0)
+        r = dist.all_to_all(r, 1, split_axis=1, concat_axis=0,
+                            split_sizes=ny, concat_sizes=nx_p)
+        r = dist.all_to_all(r, 0, split_axis=1, concat_axis=0,
+                            split_sizes=ny_p, concat_sizes=nx)
         r = _apply(r, Tx, 0, False)
         dzc = self.dzc
         col_mean = torch.sum(r * dzc, dim=2, keepdim=True) / torch.sum(dzc)
@@ -208,12 +225,16 @@ class DistributedFourierTridiagonalSolver(torch.nn.Module):
         d = torch.where(self.pin, 0.0, r * dzc)
         phi = tridiagonal_solve(self.az, self.b, self.czs, d, axis=2)
         phi = _apply(phi, Tx, 0, True)
-        phi = dist.all_to_all(phi, 0, split_axis=0, concat_axis=1)
-        phi = dist.all_to_all(phi, 1, split_axis=0, concat_axis=1)
+        phi = dist.all_to_all(phi, 0, split_axis=0, concat_axis=1,
+                              split_sizes=nx, concat_sizes=ny_p)
+        phi = dist.all_to_all(phi, 1, split_axis=0, concat_axis=1,
+                              split_sizes=nx_p, concat_sizes=ny)
         phi = _apply(phi, Ty, 1, True)
-        phi = dist.all_to_all(phi, 1, split_axis=1, concat_axis=0)
-        # the volume mean (the gauge), over every rank
+        phi = dist.all_to_all(phi, 1, split_axis=1, concat_axis=0,
+                              split_sizes=ny, concat_sizes=nx_p)
+        # the volume mean (the gauge), over every rank: each rank's sum
+        # over its cells, divided by the global count
         w = dzc / torch.sum(dzc)
-        local = torch.sum(torch.mean(phi, dim=(0, 1), keepdim=True) * w)
-        gmean = dist.all_reduce(local) / dist.world_size
+        local = torch.sum(torch.sum(phi, dim=(0, 1), keepdim=True) * w)
+        gmean = dist.all_reduce(local) / (self.grid.N[0] * self.grid.N[1])
         return (phi - gmean).to(rdt)

@@ -60,11 +60,12 @@ def _ranks(dist, dtype):
 
 
 def dryrun_multichip(n_devices: int, backend: str = "gloo",
-                     device: str = "cpu", dtype="float32"):
+                     device: str = None, dtype="float32"):
     """Start ``n_devices`` ranks (``backend`` "gloo" or "nccl" on
     ``device``, as :func:`~oceananigans_torch.parallel.launch.launch`
-    takes them), run one WENO-5 nonhydrostatic and one split-explicit
-    hydrostatic step over the mesh that factors ``n_devices`` most
+    takes them; by default ``config.device`` of the caller), run one
+    WENO-5 nonhydrostatic and one split-explicit hydrostatic step over the
+    mesh that factors ``n_devices`` most
     squarely, and raise unless every rank's fields are finite. Returns the
     ranks' reports."""
     from oceananigans_torch.parallel.launch import launch

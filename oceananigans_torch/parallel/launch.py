@@ -18,9 +18,11 @@ files in ``rendezvous_dir``); an exception
 in any rank is raised again in the caller, with that rank's traceback, and
 the other ranks are stopped.
 
-``device`` is explicit: "cpu", one device for every rank ("cuda:0": ranks
-that share one card, as gloo ranks may), or "cuda" for one card a rank
-(rank r on ``cuda:r``, as NCCL needs). Before it spawns CUDA ranks the
+``device`` is "cpu", one device for every rank ("cuda:0": ranks that
+share one card, as gloo ranks may), or "cuda" for one card a rank (rank r
+on ``cuda:r``, as NCCL needs); by default ``config.device`` of the
+caller's process, read when ``launch`` is called (the card, unless the
+caller asked for the CPU). Before it spawns CUDA ranks the
 launcher builds the kernel library once, so the ranks load it instead of
 compiling it side by side.
 """
@@ -73,11 +75,16 @@ def _rank_main(rank, n, fn, rendezvous_dir, backend, device, partition):
 
 
 def launch(n, fn, args=(), *, rendezvous_dir, backend="gloo",
-           device="cpu", partition=None):
+           device=None, partition=None):
     """Run ``fn(dist, *args)`` on ``n`` ranks; returns their results in rank
     order. ``rendezvous_dir`` must be an empty directory of the caller's
-    (the rendezvous file and the results go there)."""
+    (the rendezvous file and the results go there); ``device`` defaults to
+    ``config.device``."""
     import torch.multiprocessing as mp
+
+    from oceananigans_torch.config import config
+    if device is None:
+        device = config.device
 
     rendezvous_dir = os.path.abspath(str(rendezvous_dir))
     os.makedirs(rendezvous_dir, exist_ok=True)

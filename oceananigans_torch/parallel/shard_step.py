@@ -7,55 +7,71 @@ Nz)`` grid with its own halo rings, so a rank's LOCAL model is an ordinary
 single-device model and every operator and kernel of the port runs on it
 unchanged. Communication happens only in the halo fills
 (:func:`dist_fill_halos`, two paired transfers for each distributed axis
-and field), in the pencil transposes of the pressure solve and in the
-all-reduced inner products of the CG solvers.
+and field), in the pencil transposes of the pressure solve, in the
+all-reduced inner products of the CG solvers and, with particles, in the
+all-reduce of their interpolated values.
 
-Scope, as in the JAX package: ``NonhydrostaticModel`` (regular or
-stretched-z ``RectilinearGrid``, an ``ImmersedBoundaryGrid`` over one, x/y
-Periodic or Bounded, quasi-AB2 or RK3) and ``HydrostaticFreeSurfaceModel``
-(explicit, split-explicit or implicit free surface, the last as a
-rank-local CG with all-reduced inner products; ``RectilinearGrid``,
-``LatitudeLongitudeGrid`` and immersed grids, whose local grids are the
-rank's windows of the global coordinates, metrics and masks; z-star;
-constant-coefficient and the ocean closures). The local model decides its
-kernels when it is built, on its own block: the tendency kernels engage
-where their gates hold, and no fused AB2 kernel runs (``dist_halo`` is set,
-as the JAX step refuses them). Particles, background fields and
-position-dependent forcings or boundary functions on plain rectilinear
-grids are refused, as in the JAX package, whose GSPMD path takes them
-(ROADMAP Queue 1 item 19).
+Every local grid is the rank's window of the global grid: its coordinate,
+metric and mask tensors are the halo-extended windows of the global ones,
+so forcings, boundary functions and background fields evaluate at the
+block's true coordinates. The local model decides its kernels when it is
+built, on its own block: the tendency kernels engage where their gates
+hold, and no fused AB2 kernel runs (``dist_halo`` is set, as the JAX step
+refuses them).
 
-An axis split over several ranks must carry a halo: a halo-free periodic
-axis wraps by rolling the array, which on a block would wrap each rank onto
-itself (the JAX package's exchange skips such an axis, ``h == 0``, and
-its step then differs from the serial one); such a partition raises here.
+Scope of ``DistributedStep(make_model, grid, dist)``, as in the JAX
+package: ``NonhydrostaticModel`` (regular or stretched-z
+``RectilinearGrid``, an ``ImmersedBoundaryGrid`` over one, x/y Periodic or
+Bounded, quasi-AB2 or RK3) and ``HydrostaticFreeSurfaceModel`` (explicit,
+split-explicit or implicit free surface, the last as a rank-local CG with
+all-reduced inner products; ``RectilinearGrid``, ``LatitudeLongitudeGrid``
+and immersed grids; z-star; constant-coefficient and the ocean closures),
+on interiors that divide the mesh. It refuses what the JAX
+``DistributedStep`` refuses, in its words (particles, background fields,
+forcings and boundary functions on plain rectilinear grids), and a split
+axis without a halo: a halo-free periodic axis wraps by rolling the array,
+which on a block would wrap each rank onto itself.
+
+``DistributedStep(..., gspmd=True)``, which only
+:func:`~oceananigans_torch.parallel.distributed.sharded_step_fn` builds,
+takes what the JAX package's GSPMD path takes on these grids: the
+shallow-water model too; forcings, callable and array boundary conditions,
+background fields, hydrostatic models on stretched x/y; particles,
+replicated on every rank (each rank interpolates the particles it owns, an
+all-reduce gives every rank all of them); interiors that do not divide the
+mesh, in blocks that differ by one cell; and split periodic axes without a
+halo, which the local grids carry a halo on (the global grid's largest),
+filled by the exchange. Without a ``make_model`` the local model is the
+global one's class built from its recorded arguments, each horizontal
+field among them cut to the block (:func:`_localize`). An
+``OrthogonalSphericalShellGrid`` and blocks narrower than their halo raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 20; a split Bounded
+axis without a halo stays refused (the serial operators wrap across its
+walls, which no halo cell of a block holds).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from oceananigans_torch.boundary_conditions import (
     FLUX, _bc_value, _fill_axis, fill_halo_regions,
     regularize_field_boundary_conditions,
 )
-from oceananigans_torch.fields import LOC_C
-from oceananigans_torch.grids.base import Bounded, Flat, Periodic
+from oceananigans_torch.fields import LOC_C, location_coords
+from oceananigans_torch.grids.base import AXIS_NAMES, Bounded, Flat, Periodic
 from oceananigans_torch.parallel.distributed import (
-    Distributed, _map_tensors,
+    ITEM_20, Distributed, _map_tensors, block_offsets, block_sizes,
 )
 from oceananigans_torch.parallel.halo_exchange import _exchange_axis
 
 __all__ = ["DistributedStep", "dist_fill_halos", "dist_fill_xy", "DistHalo",
            "DistributedModel", "DistributedImmersedPoissonSolver"]
-
-
-class GSPMDOnly(ValueError):
-    """A configuration the explicit-halo step refuses and the JAX
-    package's GSPMD path takes (ROADMAP Queue 1 item 19)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,12 +155,65 @@ def _local_sizes(grid, dist):
     return px, py, Nx // px, Ny // py
 
 
+def _cut(a, axis, start, length):
+    """``a[..., start:start + length, ...]`` along ``axis`` (a tensor or a
+    numpy array)."""
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(start, start + length)
+    return a[tuple(idx)]
+
+
+def _wrap_pad(a, axis, h):
+    """``a`` with ``h`` periodic images of its ends on either side along
+    ``axis`` (a tensor or a numpy array)."""
+    n = a.shape[axis]
+    parts = (_cut(a, axis, n - h, h), a, _cut(a, axis, 0, h))
+    if isinstance(a, np.ndarray):
+        return np.concatenate(parts, axis=axis)
+    return torch.cat(parts, dim=axis)
+
+
+def _pad_grid(grid, pads):
+    """A copy of ``grid`` with a halo of ``pads[axis]`` cells on each
+    halo-free x/y axis that has one: the metric and mask tensors take the
+    periodic images of their ends, the axis's own coordinates those images
+    shifted by the axis's extent."""
+    pg = copy.deepcopy(grid)
+    for axis, h in enumerate(pads):
+        if not h:
+            continue
+        N = grid.N[axis]
+        L = (grid.Lx, grid.Ly)[axis]
+        coords = {f"{AXIS_NAMES[axis]}F", f"{AXIS_NAMES[axis]}C",
+                  *(("lamF", "lamC"), ("phiF", "phiC"))[axis]}
+        for mod in pg.modules():
+            for name, buf in list(mod._buffers.items()):
+                if buf is None or buf.ndim < 3 or buf.shape[axis - 3] != N:
+                    continue
+                d = buf.ndim - 3 + axis
+                out = _wrap_pad(buf, d, h)
+                if name in coords:
+                    shift = torch.zeros(N + 2 * h, dtype=buf.dtype,
+                                        device=buf.device)
+                    shift[:h], shift[h + N:] = -L, L
+                    view = [1] * out.ndim
+                    view[d] = -1
+                    out = out + shift.reshape(view)
+                mod._buffers[name] = out.contiguous()
+            if "H" in mod.__dict__:
+                H = list(mod.H)
+                H[axis] = h
+                mod.H = tuple(H)
+    return pg
+
+
 def _window_grid(grid, device, x0, y0, nxl, nyl):
     """A copy of ``grid`` whose coordinate, metric and mask tensors are the
     halo-extended windows starting at ``(x0, y0)`` of the global ones (the
     JAX package's stacked grid leaves), with the local sizes ``(nxl,
-    nyl)``, on ``device``: the local model sees the TRUE metrics of its own
-    block (a latitude band's, a bathymetry's masks, a cube block's)."""
+    nyl)``, on ``device``: the local model sees the TRUE coordinates and
+    metrics of its own block (a latitude band's, a bathymetry's masks, a
+    cube block's)."""
     (gx, gy, _), (Hx, Hy) = grid.shape, grid.H[:2]
     lg = copy.deepcopy(grid)
     for mod in lg.modules():
@@ -167,9 +236,81 @@ def _window_grid(grid, device, x0, y0, nxl, nyl):
     return lg.to(device)
 
 
+def _cut_field(a, window):
+    """The horizontal field ``a`` (a tensor or a numpy array that broadcasts
+    against the grid's ``(x, y, z)`` shape) cut by ``window``."""
+    if a.ndim > 3:
+        raise ValueError(f"a {a.ndim}-dimensional array where a field or "
+                         "a boundary slab was expected")
+    lead = (1,) * (3 - a.ndim)
+    out = window(a.reshape(lead + tuple(a.shape)))
+    return out.reshape(tuple(out.shape)[len(lead):])
+
+
+def _is_array(a):
+    return isinstance(a, (torch.Tensor, np.ndarray)) and a.ndim >= 1
+
+
+def _localize(kwargs, window):
+    """A model's recorded constructor arguments ``kwargs`` with each
+    horizontal field among them cut to a rank's block by ``window``
+    (:meth:`DistributedStep.window`): the array conditions of the boundary
+    conditions (a boundary slab, or the immersed nodes), the array
+    diffusivities of the closures, array background and auxiliary fields
+    and a shallow-water bathymetry. Everything else is passed as it is:
+    the port takes arrays of x and y nowhere else (a time series keeps its
+    global snapshots, which the model's shape check refuses on a
+    block)."""
+    kw = dict(kwargs)
+
+    def fields(d):
+        return None if d is None else {
+            k: _cut_field(v, window) if _is_array(v) else v
+            for k, v in dict(d).items()}
+
+    for name in ("background_fields", "auxiliary_fields"):
+        if kw.get(name) is not None:
+            kw[name] = fields(kw[name])
+    if _is_array(kw.get("bathymetry")):
+        kw["bathymetry"] = _cut_field(kw["bathymetry"], window)
+    if kw.get("boundary_conditions") is not None:
+        bcs = {}
+        for name, fbcs in dict(kw["boundary_conditions"]).items():
+            if fbcs is not None and dataclasses.is_dataclass(fbcs):
+                fbcs = dataclasses.replace(fbcs, **{
+                    f.name: dataclasses.replace(
+                        bc, condition=_cut_field(bc.condition, window))
+                    for f in dataclasses.fields(fbcs)
+                    for bc in (getattr(fbcs, f.name),)
+                    if _is_array(getattr(bc, "condition", None))})
+            bcs[name] = fbcs
+        kw["boundary_conditions"] = bcs
+    closure = kw.get("closure")
+    if closure is not None:
+        def local(c):
+            cut = {}
+            for attr in ("nu", "kappa"):
+                v = getattr(c, attr, None)
+                if _is_array(v):
+                    cut[attr] = _cut_field(v, window)
+                elif isinstance(v, dict) and any(map(_is_array,
+                                                     v.values())):
+                    cut[attr] = fields(v)
+            if not cut:
+                return c
+            c = copy.copy(c)
+            c.__dict__.pop("_on_grid", None)
+            for attr, v in cut.items():
+                setattr(c, attr, v)
+            return c
+        kw["closure"] = (tuple(local(c) for c in closure)
+                         if isinstance(closure, (tuple, list))
+                         else local(closure))
+    return kw
+
+
 class DistributedStep:
-    """The explicit-halo distributed step of a nonhydrostatic or
-    hydrostatic model configuration::
+    """The explicit-halo distributed step of a model configuration::
 
         dstep = DistributedStep(make_model, grid, dist)
         state = dstep.to_local_state(global_state)   # once
@@ -180,15 +321,23 @@ class DistributedStep:
     (the validation, the conversions and the writers' view) and on this
     rank's local grid (the model the rank runs). ``dist`` is the rank's
     :class:`~oceananigans_torch.parallel.distributed.Distributed`; the
-    local grid lives on ``dist.device``.
+    local grid lives on ``dist.device``. ``gspmd=True`` widens the scope to
+    that of the JAX package's GSPMD path (see the module's docstring), and
+    then ``make_model`` may be None with ``model``, the model on ``grid``:
+    the local model is rebuilt from its recorded arguments
+    (:func:`_localize`).
     """
 
-    def __init__(self, make_model, grid, dist: Distributed):
+    def __init__(self, make_model, grid, dist: Distributed, gspmd=False,
+                 model=None):
         from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
-        from oceananigans_torch.grids.rectilinear import RectilinearGrid
+        from oceananigans_torch.grids.orthogonal import (
+            OrthogonalSphericalShellGrid,
+        )
         from oceananigans_torch.immersed import ImmersedBoundaryGrid
         from oceananigans_torch.models import (
             HydrostaticFreeSurfaceModel, NonhydrostaticModel,
+            ShallowWaterModel,
         )
         from oceananigans_torch.parallel.distributed_fft import (
             DistributedFFTPoissonSolver, DistributedFourierTridiagonalSolver,
@@ -196,43 +345,138 @@ class DistributedStep:
 
         self.dist = dist
         self.global_grid = grid
-        gmodel = make_model(grid)
-        if not isinstance(gmodel, (NonhydrostaticModel,
-                                   HydrostaticFreeSurfaceModel)):
+        self.gspmd = gspmd
+        immersed = isinstance(grid, ImmersedBoundaryGrid)
+        base_grid = grid.underlying_grid if immersed else grid
+        if gspmd and isinstance(base_grid, OrthogonalSphericalShellGrid):
+            raise NotImplementedError(
+                "an OrthogonalSphericalShellGrid needs the tripolar north "
+                "fold across mirror ranks, which the sharded step does not "
+                f"exchange yet: {ITEM_20}")
+        gmodel = make_model(grid) if make_model is not None else model
+        kinds = (NonhydrostaticModel, HydrostaticFreeSurfaceModel)
+        if gspmd:
+            kinds += (ShallowWaterModel,)
+        if not isinstance(gmodel, kinds):
             raise ValueError("DistributedStep supports Nonhydrostatic and "
                              "HydrostaticFreeSurface models")
         self.hydrostatic = isinstance(gmodel, HydrostaticFreeSurfaceModel)
+        self.shallow_water = isinstance(gmodel, ShallowWaterModel)
+        self.global_solve = not (self.hydrostatic or self.shallow_water)
         # Hydrostatic notes: implicit free surfaces run via CG on this
         # path regardless of solver_method (the spectral/matrix variants
         # need global transforms) — shard-local operator applications
         # with exchanged halos + psum-reduced inner products. Bounded
         # distributed axes are fine: the wall-transport zeroing and η
         # boundary fills are shard-index-guarded.
-        immersed = isinstance(grid, ImmersedBoundaryGrid)
-        base_grid = grid.underlying_grid if immersed else grid
         self.latlon = isinstance(base_grid, LatitudeLongitudeGrid)
         self.stacked = self.latlon or immersed
-        if self.latlon and not self.hydrostatic:
-            raise GSPMDOnly("lat-lon on the explicit-halo path is "
+        if self.latlon and not self.hydrostatic and not self.shallow_water:
+            raise ValueError("lat-lon on the explicit-halo path is "
                              "supported for the hydrostatic model (the "
                              "nonhydrostatic pressure solve needs a "
                              "global transform; use the GSPMD path)")
         if not self.latlon:
-            if not (base_grid.x_regular and base_grid.y_regular):
+            if not (base_grid.x_regular and base_grid.y_regular) \
+                    and not gspmd:
                 raise ValueError("DistributedStep needs regular x/y "
                                  "spacings (z may be stretched)")
             if not base_grid.regular and grid.axis_topo(2) != Bounded \
-                    and not self.hydrostatic:
+                    and self.global_solve:
                 raise ValueError(
                     "stretched z must be Bounded (the distributed "
                     "Fourier-tridiagonal solver's assumption)")
+        if not gspmd:
+            self._refuse_as_jax(gmodel)
+        self.gmodel = gmodel
+
+        px, py = dist.partition
+        if not gspmd:
+            _local_sizes(grid, dist)
+        self.px, self.py = px, py
+        #: each mesh axis's block sizes and first cells, in rank order
+        self.sizes = (block_sizes(grid.N[0], px), block_sizes(grid.N[1], py))
+        self.offsets = tuple(block_offsets(s) for s in self.sizes)
+        rx, ry = dist.coords
+        self.nxl, self.nyl = self.sizes[0][rx], self.sizes[1][ry]
+        topo = tuple(grid.axis_topo(ax) for ax in range(3))
+        self.topo = topo
+        # under gspmd a split periodic axis without a halo gets one on the
+        # local grids, as wide as the global grid's largest (at least one
+        # cell)
+        pad = max(max(grid.H), 1)
+        self.pads = tuple(pad if gspmd and dist.size(axis) > 1
+                          and grid.H[axis] == 0 and topo[axis] == Periodic
+                          else 0 for axis in (0, 1))
+        for axis in (0, 1):
+            if dist.size(axis) == 1 or grid.H[axis] or self.pads[axis]:
+                continue
+            if not gspmd:
+                raise ValueError(
+                    f"axis {axis} is split over {dist.size(axis)} ranks but "
+                    "has no halo: a halo-free periodic axis wraps each "
+                    "rank's block onto itself; build the grid with a halo "
+                    "on every distributed axis or partition another axis")
+            raise ValueError(
+                f"axis {axis} is {topo[axis].capitalize()} and split over "
+                f"{dist.size(axis)} ranks but has no halo: the serial "
+                "operators wrap across its walls, which no halo cell of a "
+                "block holds; build the grid with a halo on every "
+                "distributed Bounded axis or partition another axis")
+        #: the local grids' x/y halos
+        self.halo = tuple(grid.H[axis] or self.pads[axis] for axis in (0, 1))
+        for axis in (0, 1):
+            if gspmd and dist.size(axis) > 1 and \
+                    min(self.sizes[axis]) < self.halo[axis]:
+                raise NotImplementedError(
+                    f"blocks of {min(self.sizes[axis])} cells along axis "
+                    f"{axis} are narrower than their halo of "
+                    f"{self.halo[axis]}: the exchange would need a "
+                    f"neighbour's neighbour; {ITEM_20}")
+        pgrid = _pad_grid(grid, self.pads) if any(self.pads) else grid
+        lgrid = _window_grid(pgrid, dist.device, self.offsets[0][rx],
+                             self.offsets[1][ry], self.nxl, self.nyl)
+        self.local_grid = lgrid
+        if make_model is not None:
+            lmodel = make_model(lgrid)
+        else:
+            kwargs = getattr(gmodel, "_init_kwargs", None)
+            if kwargs is None:
+                raise ValueError("pass make_model(grid): this model did not "
+                                 "record its constructor arguments")
+            lmodel = type(gmodel)(grid=lgrid,
+                                  **_localize(kwargs, self.window))
+        # route the local model's halo fills through the exchange
+        lmodel.set_dist_halo(DistHalo(dist), topo)
+        self.lmodel = lmodel
+        if getattr(lmodel, "particles", None) is not None:
+            lmodel.particles = self._sharded_particles(lmodel.particles)
+        # the local model's own step is the whole step: its fills go
+        # through the exchange, and its projection through a
+        # distribution-aware solver (the hydrostatic free surfaces are
+        # rank-local apart from their exchanges and all-reduced CG dots)
+        if immersed and self.global_solve:
+            # masked CG on each rank's block, FFT-preconditioned when the
+            # underlying grid admits the pencil solver
+            precond = None
+            if base_grid.regular and grid.dz_sigma is None:
+                precond = DistributedFFTPoissonSolver(base_grid, dist)
+            lmodel.pressure_solver = DistributedImmersedPoissonSolver(
+                lgrid, lmodel.dist_halo, topo, preconditioner=precond)
+        elif self.global_solve:
+            lmodel.pressure_solver = (
+                DistributedFFTPoissonSolver(grid, dist) if grid.z_regular
+                else DistributedFourierTridiagonalSolver(grid, dist))
+
+    def _refuse_as_jax(self, gmodel):
+        """The JAX ``DistributedStep``'s refusals, in its words."""
         if getattr(gmodel, "particles", None) is not None or \
                 getattr(gmodel, "background_fields", None):
-            raise GSPMDOnly("particles/background fields are not "
+            raise ValueError("particles/background fields are not "
                              "supported on the explicit-halo path")
         if any(f is not None for f in gmodel.forcings.values()) \
                 and not self.stacked:
-            raise GSPMDOnly(
+            raise ValueError(
                 "forcings need per-shard coordinates: supported on "
                 "stacked (lat-lon / immersed) grids, whose local grids "
                 "carry true coordinates; use the GSPMD path "
@@ -248,69 +492,83 @@ class DistributedStep:
                     bc = getattr(fbcs, side, None)
                     if bc is not None and callable(
                             getattr(bc, "condition", None)):
-                        raise GSPMDOnly(
+                        raise ValueError(
                             f"boundary condition {name}.{side} is a "
                             "function of position: on the explicit-halo "
                             "path this needs per-shard coordinates — "
                             "use a stacked (lat-lon/immersed) grid, a "
                             "constant/array value, or the GSPMD path")
-        self.gmodel = gmodel
 
-        px, py, nxl, nyl = _local_sizes(grid, dist)
-        self.px, self.py, self.nxl, self.nyl = px, py, nxl, nyl
-        topo = tuple(grid.axis_topo(ax) for ax in range(3))
-        self.topo = topo
+    def _sharded_particles(self, particles):
+        """``particles`` as the local model steps them: replicated, each
+        rank interpolating the ones in its block (the half-open interval
+        between the global faces at its block's edges, open to ±∞ at the
+        domain's), their values summed over the ranks."""
+        from oceananigans_torch.particles import ShardedParticles
+        g, dist = self.global_grid, self.dist
+        owned, clamps = [], []
         for axis in (0, 1):
-            if dist.size(axis) > 1 and grid.H[axis] == 0:
-                raise ValueError(
-                    f"axis {axis} is split over {dist.size(axis)} ranks but "
-                    "has no halo: a halo-free periodic axis wraps each "
-                    "rank's block onto itself; build the grid with a halo "
-                    "on every distributed axis or partition another axis")
-        if self.stacked:
-            rx, ry = dist.coords
-            lgrid = _window_grid(grid, dist.device, rx * nxl, ry * nyl, nxl,
-                                 nyl)
-        else:
-            zF = grid.zF.reshape(-1).detach().cpu().double()
-            if grid.z_regular:
-                z0 = float(zF[grid.H[2]])
-                zspec = (z0, z0 + grid.Lz)
-            else:
-                # z is never distributed: every rank carries the full
-                # (stretched) column
-                zspec = zF[grid.H[2]:grid.H[2] + grid.N[2] + 1].numpy()
-            lgrid = RectilinearGrid(
-                size=(nxl, nyl, grid.N[2]),
-                x=(0.0, grid.Lx / px), y=(0.0, grid.Ly / py), z=zspec,
-                topology=topo, halo=tuple(grid.H), dtype=grid.dtype,
-                device=dist.device)
-        self.local_grid = lgrid
-        lmodel = make_model(lgrid)
-        # route the local model's halo fills through the exchange
-        lmodel.set_dist_halo(DistHalo(dist), topo)
-        self.lmodel = lmodel
-        # the local model's own step is the whole step: its fills go
-        # through the exchange, and its projection through a
-        # distribution-aware solver (the hydrostatic free surfaces are
-        # rank-local apart from their exchanges and all-reduced CG dots)
-        if immersed and not self.hydrostatic:
-            # masked CG on each rank's block, FFT-preconditioned when the
-            # underlying grid admits the pencil solver
-            precond = None
-            if base_grid.regular and grid.dz_sigma is None:
-                try:
-                    precond = DistributedFFTPoissonSolver(base_grid, dist)
-                except ValueError:
-                    precond = None   # pencil divisibility not met
-            lmodel.pressure_solver = DistributedImmersedPoissonSolver(
-                lgrid, lmodel.dist_halo, topo, preconditioner=precond)
-        elif not self.hydrostatic:
-            lmodel.pressure_solver = (
-                DistributedFFTPoissonSolver(grid, dist) if grid.z_regular
-                else DistributedFourierTridiagonalSolver(grid, dist))
+            c, n = dist.coords[axis], dist.size(axis)
+            faces = getattr(g, f"{AXIS_NAMES[axis]}F").reshape(-1)
+            H = g.H[axis]
+            lo = -math.inf if c == 0 else float(
+                faces[H + self.offsets[axis][c]])
+            hi = math.inf if c == n - 1 else float(
+                faces[H + self.offsets[axis][c + 1]])
+            owned.append((lo, hi))
+            # a halo-free global axis interpolates within its interior
+            # nodes, which a padded block must keep to
+            clamp = None
+            if self.pads[axis]:
+                clamp = {}
+                for loc in ("c", "f"):
+                    full = (LOC_C if loc == "c" else
+                            tuple("f" if a == axis else "c"
+                                  for a in range(3)))
+                    q = location_coords(g, full)[axis].reshape(-1)
+                    clamp[loc] = (float(q[0]), float(q[-1]))
+            clamps.append(clamp)
+        return ShardedParticles(
+            particles, g, tuple(owned),
+            lambda t: dist.all_reduce(t), tuple(clamps))
 
     # ---- layout conversions ------------------------------------------------
+    def _coords_of(self, rank):
+        return divmod(rank, self.py)
+
+    def _block_shape(self, rank, rest):
+        rx, ry = self._coords_of(rank)
+        return (self.sizes[0][rx] + 2 * self.halo[0],
+                self.sizes[1][ry] + 2 * self.halo[1]) + tuple(rest)
+
+    def window(self, a, rank=None):
+        """Rank ``rank``'s (default this rank's) window of the global array
+        ``a`` (a tensor or a numpy array whose first two axes are x and y;
+        a copy): of a halo-extended extent, the block with its halo rings
+        (a halo-free split axis wrapped periodically to the local halo
+        first); of an interior extent, the block's interior; of extent 1,
+        whole. Any other extent on a split axis raises ``ValueError``."""
+        g = self.global_grid
+        coords = self.dist.coords if rank is None else self._coords_of(rank)
+        for axis in (0, 1):
+            if a.ndim <= axis or self.dist.size(axis) == 1:
+                continue
+            n, N, full = a.shape[axis], g.N[axis], g.shape[axis]
+            off = self.offsets[axis][coords[axis]]
+            nl = self.sizes[axis][coords[axis]]
+            if n == full:
+                if self.pads[axis]:
+                    a = _wrap_pad(a, axis, self.pads[axis])
+                a = _cut(a, axis, off, nl + 2 * self.halo[axis])
+            elif n == N:
+                a = _cut(a, axis, off, nl)
+            elif n != 1:
+                raise ValueError(
+                    f"an array of extent {n} along axis {axis}, which is "
+                    f"split over {self.dist.size(axis)} ranks: neither the "
+                    f"interior ({N}) nor the halo-extended extent ({full})")
+        return a.copy() if isinstance(a, np.ndarray) else a.clone()
+
     def _is_global(self, t):
         g = self.global_grid
         return (isinstance(t, torch.Tensor) and t.ndim == 3
@@ -321,30 +579,11 @@ class DistributedStep:
         return (isinstance(t, torch.Tensor) and t.ndim == 3
                 and tuple(t.shape[:2]) == tuple(lg.shape[:2]))
 
-    def _blocks(self, a):
-        """The ranks' windows of the global halo-extended ``a`` (each
-        block's interior with the halo rings around it: the neighbours'
-        edge cells, or the domain's halos at its edges; z whole), in rank
-        order."""
-        Hx, Hy = self.global_grid.H[:2]
-        nxl, nyl = self.nxl, self.nyl
-        return [a[rx * nxl:rx * nxl + nxl + 2 * Hx,
-                  ry * nyl:ry * nyl + nyl + 2 * Hy].clone()
-                for rx in range(self.px) for ry in range(self.py)]
-
-    def _spans(self, b, n, H, nl):
-        """The part of block ``b`` of ``n`` along an axis that the global
-        layout takes from it: its interior, and the domain's halo ring
-        where it is an edge block."""
-        lo = 0 if b == 0 else H
-        hi = nl + 2 * H if b == n - 1 else H + nl
-        return lo, hi
-
     def to_local_state(self, state):
         """This rank's local-halos state from the global-layout ``state``
         held on rank 0 (the other ranks may pass None): the 3-D fields are
         scattered as the ranks' windows of the halo-extended arrays, the
-        rest is broadcast.
+        rest (the clock, particles) is broadcast.
         Rank 0 broadcasts the state's structure with each field's place
         taken by its z extent and dtype, and every rank then walks it in
         the same order, so the scatters pair up."""
@@ -355,13 +594,15 @@ class DistributedStep:
             skeleton = _map_tensors(
                 state, lambda t: (("block", t.shape[2], t.dtype)
                                   if self._is_global(t)
-                                  else ("whole", t.detach().cpu())))
+                                  else ("whole", t.detach().cpu(),
+                                        t.device.type == "cpu")))
         skeleton = dist.broadcast_object(skeleton)
         if dist.rank == 0:
             def place(t):
                 if not self._is_global(t):
                     return t.detach().clone()
-                blocks = self._blocks(t)
+                blocks = [self.window(t, rank=r)
+                          for r in range(dist.world_size)]
                 return dist.scatter_blocks(blocks, blocks[0]).to(
                     dist.device)
             return _map_tensors(state, place)
@@ -373,7 +614,8 @@ class DistributedStep:
                                    dtype=dtype, device=dist.device)
                 return dist.scatter_blocks(None, like)
             if isinstance(obj, tuple) and obj and obj[0] == "whole":
-                return obj[1]
+                # host tensors (the clock) stay on the host
+                return obj[1] if obj[2] else obj[1].to(dist.device)
             if isinstance(obj, dict):
                 return {k: walk(v) for k, v in obj.items()}
             if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -392,23 +634,32 @@ class DistributedStep:
         gives every rank its block back as it was); None on the other
         ranks."""
         dist, g = self.dist, self.global_grid
-        Hx, Hy = g.H[0], g.H[1]
-        nxl, nyl = self.nxl, self.nyl
 
         def gather(t):
             if not self._is_local(t):
                 return t
-            blocks = dist.gather_blocks(t, root=root)
+            shapes = [self._block_shape(r, t.shape[2:])
+                      for r in range(dist.world_size)]
+            blocks = dist.gather_blocks(t, root=root, shapes=shapes)
             if blocks is None:
                 return t
             out = torch.zeros((g.shape[0], g.shape[1], t.shape[2]),
                               dtype=t.dtype, device=t.device)
             for r, b in enumerate(blocks):
-                rx, ry = divmod(r, self.py)
-                x0, x1 = self._spans(rx, self.px, Hx, nxl)
-                y0, y1 = self._spans(ry, self.py, Hy, nyl)
-                out[rx * nxl + x0:rx * nxl + x1,
-                    ry * nyl + y0:ry * nyl + y1] = b[x0:x1, y0:y1]
+                dst, src = [], []
+                for axis, c in enumerate(self._coords_of(r)):
+                    n, off = self.sizes[axis][c], self.offsets[axis][c]
+                    h = self.halo[axis]
+                    if self.pads[axis]:
+                        # the global axis has no halo: the interior only
+                        src.append(slice(h, h + n))
+                        dst.append(slice(off, off + n))
+                        continue
+                    lo = 0 if c == 0 else h
+                    hi = n + 2 * h if c == dist.size(axis) - 1 else h + n
+                    src.append(slice(lo, hi))
+                    dst.append(slice(off + lo, off + hi))
+                out[tuple(dst)] = b[tuple(src)]
             return out
 
         out = _map_tensors(state, gather)

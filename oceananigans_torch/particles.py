@@ -103,17 +103,26 @@ class LagrangianParticles:
         q = torch.where(q < lo, lo + r * (lo - q), q)
         return torch.clamp(q, lo, hi)
 
+    def _domain(self, grid):
+        """The grid whose bounds and solid mask hold the particles."""
+        return grid
+
+    def _values(self, grid, pairs, x, y, z):
+        """The fields of ``pairs`` ``(field, location)`` interpolated at the
+        particles at ``(x, y, z)``: one 1-D tensor each."""
+        return [interpolate(grid, a, loc, x, y, z) for a, loc in pairs]
+
     def advect(self, grid, particles: ParticleState, u, v, w, dt):
         """Forward Euler from the velocities interpolated at the
         particles."""
         px, py, pz = particles.x, particles.y, particles.z
-        up = interpolate(grid, u, LOC_U, px, py, pz)
-        vp = interpolate(grid, v, LOC_V, px, py, pz)
-        wp = interpolate(grid, w, LOC_W, px, py, pz)
-        x = self._enforce_boundaries(grid, px + dt * up, 0)
-        y = self._enforce_boundaries(grid, py + dt * vp, 1)
-        z = self._enforce_boundaries(grid, pz + dt * wp, 2)
-        x, y, z = self._bounce_immersed(grid, particles, x, y, z)
+        up, vp, wp = self._values(
+            grid, ((u, LOC_U), (v, LOC_V), (w, LOC_W)), px, py, pz)
+        dom = self._domain(grid)
+        x = self._enforce_boundaries(dom, px + dt * up, 0)
+        y = self._enforce_boundaries(dom, py + dt * vp, 1)
+        z = self._enforce_boundaries(dom, pz + dt * wp, 2)
+        x, y, z = self._bounce_immersed(dom, particles, x, y, z)
         return dataclasses.replace(particles, x=x, y=y, z=z)
 
     def _bounce_immersed(self, grid, prev, x, y, z):
@@ -150,10 +159,11 @@ class LagrangianParticles:
     def update_properties(self, grid, particles: ParticleState, fields):
         """Each tracked property interpolated from its field at the
         particles."""
-        props = {prop: interpolate(grid, fields[name], LOC_C, particles.x,
-                                   particles.y, particles.z)
-                 for prop, name in self.tracked_fields.items()}
-        return dataclasses.replace(particles, properties=props)
+        names = list(self.tracked_fields.items())
+        vals = self._values(grid, [(fields[name], LOC_C) for _, name in names],
+                            particles.x, particles.y, particles.z)
+        return dataclasses.replace(particles, properties={
+            prop: vals[k] for k, (prop, _) in enumerate(names)})
 
     def step(self, grid, particles, u, v, w, fields, dt):
         particles = self.advect(grid, particles, u, v, w, dt)
@@ -167,4 +177,59 @@ class LagrangianParticles:
                 f"tracked_fields={self.tracked_fields})")
 
 
-__all__ = ["LagrangianParticles", "ParticleState"]
+class ShardedParticles(LagrangianParticles):
+    """``particles`` as a rank's LOCAL model steps them in a sharded step
+    (``parallel.sharded_step_fn``): every rank holds every particle, as the
+    JAX package's GSPMD path replicates them, and moves them alike within
+    the bounds and solid mask of ``global_grid``. Only the interpolation
+    differs from the serial step: each rank interpolates the particles it
+    owns, those whose (x, y) lies in its block's half-open intervals
+    ``owned`` (taken from the global face coordinates, open to ±∞ at the
+    domain's edges, so each particle has exactly one owner), and writes
+    zero for the others; ``reduce_sum`` (the ranks' all-reduce) then gives
+    every rank the serial values exactly: once for the velocities at the
+    old positions and once for the tracked fields at the new ones.
+    ``clamps`` holds, for an axis that the global grid has no halo on, the
+    first and last interior node at centers (``"c"``) and faces (``"f"``):
+    the serial interpolation stays within them, and so does the block's."""
+
+    def __init__(self, particles, global_grid, owned, reduce_sum,
+                 clamps=(None, None)):
+        self.restitution = particles.restitution
+        self.tracked_fields = particles.tracked_fields
+        self.initial = particles.initial
+        self.global_grid = global_grid
+        self.owned = owned
+        self.reduce_sum = reduce_sum
+        self.clamps = clamps
+
+    def owns(self, x, y):
+        """Which of the particles at (x, y) this rank owns."""
+        (xlo, xhi), (ylo, yhi) = self.owned
+        return (x >= xlo) & (x < xhi) & (y >= ylo) & (y < yhi)
+
+    def _domain(self, grid):
+        return self.global_grid
+
+    def _values(self, grid, pairs, x, y, z):
+        """The serial values, a ``(len(pairs), n)`` tensor: interpolated
+        by each particle's owner (zero at the others) and summed over the
+        ranks."""
+        own = self.owns(x, y)
+        q = [x, y]
+        rows = []
+        for a, loc in pairs:
+            for axis in (0, 1):
+                clamp = self.clamps[axis]
+                q[axis] = (torch.clamp((x, y)[axis], *clamp[loc[axis]])
+                           if clamp is not None else (x, y)[axis])
+            val = interpolate(grid, a, loc, q[0], q[1], z)
+            rows.append(torch.where(own, val, torch.zeros_like(val)))
+        return self.reduce_sum(torch.stack(rows))
+
+    def __repr__(self):
+        return (f"ShardedParticles({len(self)} particles, "
+                f"owned={self.owned})")
+
+
+__all__ = ["LagrangianParticles", "ParticleState", "ShardedParticles"]

@@ -21,6 +21,18 @@ the pencil FFT and Fourier-tridiagonal solves, ``Simulation`` driving a
 ``Checkpointer`` refused there), the local model's
 kernel choices against the JAX local model's with the kernels forced on,
 a split halo-free periodic axis refused, and ``dryrun_multichip``.
+
+``sharded_step_fn`` (the counterpart of the JAX package's GSPMD step) runs
+the configurations only that path takes, held against the JAX serial
+step: ``tests/test_parallel.py``'s (26, 10, 8) model over four uneven
+blocks and ``tests/test_orbax_checkpoint.py``'s halo-free grid at the
+JAX package's 1e-13; forcings, a callable boundary flux, background
+fields and particles, phase 13's ``hydro_vi_closure`` configuration, a
+hydrostatic model with particles on a stretched x, and the shallow-water
+model split in x and in a halo-free y, at 1e-12; and its
+``NotImplementedError`` naming ROADMAP Queue 1 item 20 for a tripolar
+grid and for blocks narrower than their halo. The ranks start on the
+device of ``config.device`` (``launch``'s default).
 """
 
 import dataclasses
@@ -56,7 +68,12 @@ def jax_arrays(state):
         v = getattr(state, f.name)
         if v is None:
             continue
-        if f.name == "clock":
+        if f.name == "particles":
+            out.update({f"particles/{k}": np.asarray(getattr(v, k))
+                        for k in ("x", "y", "z")})
+            out.update({f"particles/properties/{k}": np.asarray(a)
+                        for k, a in v.properties.items()})
+        elif f.name == "clock":
             out["time"] = np.asarray(v.time)
             out["iteration"] = np.asarray(v.iteration)
             out["last_dt"] = np.asarray(v.last_dt)
@@ -82,13 +99,24 @@ def jax_state(model, arrays):
     """The JAX model's state holding ``arrays`` (``interop``'s keys)."""
     from oceananigans_tpu.models.hydrostatic import HydrostaticState
     from oceananigans_tpu.models.nonhydrostatic import NonhydrostaticState
+    from oceananigans_tpu.models.shallow_water import ShallowWaterState
+    from oceananigans_tpu.particles import ParticleState
     from oceananigans_tpu.timesteppers import Clock
     cls = (HydrostaticState
            if isinstance(model, oj.HydrostaticFreeSurfaceModel)
+           else ShallowWaterState
+           if isinstance(model, oj.ShallowWaterModel)
            else NonhydrostaticState)
     kw = {}
     for f in dataclasses.fields(cls):
-        if f.name == "clock":
+        if f.name == "particles" and "particles/x" in arrays:
+            kw[f.name] = ParticleState(
+                **{k: jnp.asarray(arrays[f"particles/{k}"])
+                   for k in ("x", "y", "z")},
+                properties={k: jnp.asarray(arrays[
+                    f"particles/properties/{k}"])
+                    for k in model.particles.tracked_fields})
+        elif f.name == "clock":
             kw["clock"] = Clock(
                 time=jnp.asarray(arrays["time"]),
                 iteration=jnp.asarray(arrays["iteration"], jnp.int32),
@@ -264,6 +292,94 @@ REFUSED = {
                   (3, 0, 3), extent=(1.0, 1.0, 1.0)), model={}),
 }
 
+#: what only ``sharded_step_fn`` takes, held against the JAX serial step
+SHARDED_CASES = {
+    # tests/test_parallel.py::test_sharded_step_matches_serial, letter for
+    # letter over (4, 1): blocks of 7, 7, 6 and 6 cells, uneven pencils
+    "jax_sharded_serial": dict(
+        kind="nonhydrostatic",
+        grid=rect((26, 10, 8), PPB, 3, extent=(1.0, 1.0, 1.0)),
+        model={"advection": ("WENO", 5), "tracers": ("b",),
+               "buoyancy": "BuoyancyTracer",
+               "coriolis": ("FPlane", {"f": 1e-4})},
+        ic="stretched", dt=1e-3, steps=5, partition=(4, 1)),
+    # tests/test_orbax_checkpoint.py: both split axes without a halo
+    "orbax_halo_free": dict(
+        kind="nonhydrostatic",
+        grid=rect((16, 16, 8), ("Periodic",) * 3, (0, 0, 1), x=(0, 1),
+                  y=(0, 1), z=(0, 1)),
+        model={}, ic="orbax", dt=0.01, steps=3, partition=(2, 2)),
+    # a sponge masked in x, a forcing of (x, y), a callable top flux of
+    # (x, y, t), background fields of x and y, and particles on the block
+    # boundaries and across them, walls with restitution 0.5
+    "nh_forced_particles": dict(
+        kind="nonhydrostatic",
+        grid=rect((16, 12, 6), ("Periodic", "Bounded", "Bounded"), 3,
+                  x=(0, 2.0), y=(0, 1.0), z=(-1.0, 0.0)),
+        model={"advection": ("WENO", 5), "tracers": ("b",),
+               "buoyancy": "BuoyancyTracer", "forcing": "xy",
+               "boundary_conditions": "stress_xy",
+               "background_fields": "xy",
+               "timestepper": "QuasiAdamsBashforth2",
+               "particles": dict(n=300, seed=3, restitution=0.5,
+                                 tracked={"b": "b"})},
+        ic="forced", dt=0.05, steps=4, partition=(2, 2)),
+    # phase 13's hydro_vi_closure at (48, 16, 6): the closures, a callable
+    # u stress and an array T flux, kernels 11 and 12/13's configuration
+    "hydro_vi_closure": dict(
+        kind="hydrostatic",
+        grid=rect((48, 16, 6), ("Periodic", "Bounded", "Bounded"),
+                  (6, 6, 4), extent=(4e7, 2e7, 4e3)),
+        model={"momentum_advection": ("WENOVectorInvariant",),
+               "tracer_advection": ("WENO", 7), "tracers": ("T", "S"),
+               "free_surface": ("SplitExplicitFreeSurface",
+                                {"substeps": 30}),
+               "closure": "hydro_closure",
+               "boundary_conditions": "closure"},
+        ic="generic", dt=60.0, steps=3, partition=(2, 2)),
+    # particles in a hydrostatic model on a stretched x with walls, and a
+    # forcing of (x, y)
+    "hydro_particles": dict(
+        kind="hydrostatic",
+        grid=rect((20, 12, 5), ("Bounded", "Periodic", "Bounded"), 3,
+                  x=list(np.cumsum(np.concatenate([[0.0], 2e4 * (
+                      1 + 0.3 * np.sin(np.arange(20.0)))]))),
+                  y=(0, 1e5), z=(-500.0, 0.0)),
+        model={"tracers": ("T",), "forcing": "T_xy",
+               "particles": dict(n=200, seed=4, restitution=0.5,
+                                 tracked={"T": "T"})},
+        ic="hydro_particles", dt=300.0, steps=4, partition=(2, 2)),
+    # the shallow-water model over (4, 1), kernel 10's code path forced
+    # (whose plain version takes its spacings from coordinate differences:
+    # spacings exact in binary keep it to the JAX step's rounding)
+    "sw_x": dict(
+        kind="shallow_water",
+        grid=rect((28, 16), ("Periodic", "Periodic", "Flat"), (2, 0, 0),
+                  x=(0.0, 28 * 2.0 ** 15), y=(0.0, 2.0 ** 20)),
+        model={"gravitational_acceleration": 9.81}, fused=True,
+        ic="sw", dt=100.0, steps=3, partition=(4, 1)),
+    # and over (1, 4): the halo-free periodic y split, with a local halo
+    "sw_y": dict(
+        kind="shallow_water",
+        grid=rect((28, 16), ("Periodic", "Periodic", "Flat"), (2, 0, 0),
+                  x=(0.0, 28 * 2.0 ** 15), y=(0.0, 2.0 ** 20)),
+        model={"gravitational_acceleration": 9.81}, fused=True,
+        ic="sw", dt=100.0, steps=3, partition=(1, 4)),
+}
+#: the sharded cases' tolerances: 1e-13 for the JAX package's own
+SHARDED_TOL = {"jax_sharded_serial": 1e-13, "orbax_halo_free": 1e-13}
+#: blocks narrower than their halo: 10 cells over 4 ranks, halo 3
+NARROW = dict(kind="nonhydrostatic",
+              grid=rect((10, 8, 4), PPB, 3, extent=(1.0, 1.0, 1.0)),
+              model={}, partition=(4, 1), program="gspmd_refusal")
+#: a split Bounded axis without a halo: the serial operators wrap across
+#: its walls, which no halo cell of a block holds
+BOUNDED_HALO_FREE = dict(
+    kind="hydrostatic",
+    grid=rect((16, 16, 8), ("Bounded", "Periodic", "Bounded"), (0, 0, 1),
+              x=(0, 1e5), y=(0, 1e5), z=(-500.0, 0.0)),
+    model={"tracers": ("T",)}, partition=(2, 2), program="gspmd_refusal")
+
 EXCHANGE = dict(grid=rect((32, 16, 8), PPB, 2, extent=(1.0, 1.0, 1.0)),
                 partition=(2, 2))
 FFT = dict(grid=rect((32, 16, 8), PPB, 1, extent=(1.0, 1.0, 1.0)),
@@ -323,12 +439,27 @@ def ranks(tmp_path_factory):
     cases["simulation"] = (sim, arrays)
     inputs["simulation"] = (grid, model, jax_state(model, arrays),
                             sim["dir"])
+    widened = dict(REFUSED["background_fields"], ic="pallas", dt=1e-3,
+                   steps=3, partition=(2, 2))
+    grid, model = jax_model(widened)
+    arrays = initial_arrays(widened)
+    inputs["widened"] = (grid, model, jax_state(model, arrays))
     gspmd = dict(STEP_CASES["hydro_split"], program="gspmd",
-                 refused=REFUSED["background_fields"])
-    cases["gspmd"] = (gspmd, cases["hydro_split"][1])
+                 widened=widened,
+                 tripolar={"size": (16, 10, 2), "halo": 2})
+    cases["gspmd"] = (gspmd, {"state": cases["hydro_split"][1],
+                              "widened": arrays})
+    for name, case in SHARDED_CASES.items():
+        grid, model = jax_model(case)
+        arrays = initial_arrays(case)
+        inputs[name] = (grid, model, jax_state(model, arrays))
+        cases[name] = (dict(case, program="sharded"), arrays)
+    cases["narrow"] = (NARROW, {})
+    cases["bounded_halo_free"] = (BOUNDED_HALO_FREE, {})
+    # the ranks' device: launch's default, config.device (the CPU here)
     results = launch(4, tr.run_cases, (cases,),
                      rendezvous_dir=tmp_path_factory.mktemp("rdzv"),
-                     backend="gloo", device="cpu")[0]
+                     backend="gloo")[0]
     return inputs, results
 
 
@@ -430,23 +561,189 @@ def test_kernel_gates_match_jax_local_model(ranks):
 def test_sharded_step_fn_global_in_global_out(ranks):
     """``sharded_step_fn`` takes and returns the global layout (on rank
     0) and runs the explicit-halo step between, matching the JAX serial
-    step as ``hydro_split`` does; what only the JAX package's GSPMD path
-    takes raises ``NotImplementedError`` naming ROADMAP Queue 1 item
-    19."""
+    step as ``hydro_split`` does; a background field, which the
+    explicit-halo step refuses, steps there too and matches the JAX
+    serial step; a tripolar grid raises ``NotImplementedError`` naming
+    ROADMAP Queue 1 item 20."""
     inputs, results = ranks
+    out = results["gspmd"]
     grid, model, state = inputs["hydro_split"]
     ref = jax_arrays(serial_run(model, state, STEP_CASES["hydro_split"]))
-    got = results["gspmd"]["state"]
     for key, tol in TOLERANCES["hydro_split"].items():
-        np.testing.assert_allclose(interior(grid, got[key]),
+        np.testing.assert_allclose(interior(grid, out["state"][key]),
                                    interior(grid, ref[key]), rtol=0,
                                    atol=tol, err_msg=key)
-    assert "item 19" in results["gspmd"]["refusal"]
+    grid, model, state = inputs["widened"]
+    ref = jax_arrays(serial_run(model, state, dict(steps=3, dt=1e-3)))
+    for key in ("u", "v", "w"):
+        np.testing.assert_allclose(interior(grid, out["widened"][key]),
+                                   interior(grid, ref[key]), rtol=0,
+                                   atol=1e-12, err_msg=key)
+    assert "item 20" in out["refusal"]
+    assert "OrthogonalSphericalShellGrid" in out["refusal"]
     # shard_state: each rank's even slab of the halo-extended arrays, the
     # layout of the JAX package's P("x", "y", None) sharding
-    gx, gy, gz = results["gspmd"]["global"]
-    assert results["gspmd"]["slab"] == (gx // 2, gy // 2, gz)
-    assert "particles/background fields" in results["gspmd"]["refusal"]
+    gx, gy, gz = out["global"]
+    assert out["slab"] == (gx // 2, gy // 2, gz)
+
+
+@pytest.mark.parametrize("name", SHARDED_CASES)
+def test_sharded_step_fn_matches_jax_serial(ranks, name):
+    """What only the JAX package's GSPMD path took, through the port's
+    ``sharded_step_fn``, against the JAX serial step: every field of the
+    state, and the particles' positions (to the tolerance of the domain's
+    length) and tracked properties."""
+    inputs, results = ranks
+    case = SHARDED_CASES[name]
+    grid, model, state = inputs[name]
+    ref = jax_arrays(serial_run(model, state, case))
+    got = results[name]["state"]
+    tol = SHARDED_TOL.get(name, 1e-12)
+    assert int(got["iteration"]) == case["steps"]
+    # every field of the state; of the shallow water the prognostic ones,
+    # as tests/test_torch_shallow_water.py compares them (its tendencies
+    # are the difference of ~1e4-sized terms)
+    fields = (["uh", "vh", "h"] if case["kind"] == "shallow_water" else
+              [k for k in ref if not k.startswith((
+                  "particles", "time", "iteration", "last_dt"))
+               and np.ndim(ref[k]) == 3])
+    assert fields
+    for key in fields:
+        want = interior(grid, ref[key])
+        # the shallow water's h ~ 1e3 and uh ~ 1e2: relative to each
+        # field's largest value, as tests/test_torch_shallow_water.py
+        # holds the port's serial step to the JAX package's
+        scale = (np.abs(want).max() if case["kind"] == "shallow_water"
+                 else 1.0)
+        np.testing.assert_allclose(interior(grid, got[key]), want, rtol=0,
+                                   atol=tol * scale, err_msg=f"{name}: {key}")
+    if "particles" in case["model"]:
+        for key, L in zip(("x", "y", "z"), (grid.Lx, grid.Ly, grid.Lz)):
+            np.testing.assert_allclose(got[f"particles/{key}"],
+                                       ref[f"particles/{key}"], rtol=0,
+                                       atol=1e-12 * L, err_msg=key)
+        for prop in case["model"]["particles"]["tracked"]:
+            key = f"particles/properties/{prop}"
+            np.testing.assert_allclose(got[key], ref[key], rtol=0,
+                                       atol=tol, err_msg=key)
+
+
+@pytest.mark.parametrize("name", [n for n, c in SHARDED_CASES.items()
+                                  if "particles" in c["model"]])
+def test_particle_owner_rule(ranks, name):
+    """Every particle has exactly one owner, those exactly on a block
+    boundary (a global face between two blocks) and at a corner of four
+    blocks included: the ranks' owned intervals are half-open, from the
+    global faces, open to ±∞ at the domain's edges."""
+    _, results = ranks
+    case = SHARDED_CASES[name]
+    out = results[name]
+    x, y, _ = tr.particle_positions(case)
+    assert (out["owners"] == 1).all()
+    (xlo, xhi), (ylo, yhi) = out["owned"]
+    assert xlo == -np.inf and ylo == -np.inf
+    on_x, on_y = x == xhi, y == yhi
+    assert on_x.any() and on_y.any() and (on_x & on_y).any()
+
+
+def test_sharded_local_grids_and_gates(ranks):
+    """The local grids of a sharded step: uneven blocks of the (26, 10, 8)
+    grid (7, 7, 6, 6 cells), a halo of the global grid's largest on each
+    split halo-free axis, and the shallow-water stage kernel's gate: it
+    holds on every block of the x split and of the halo-free y split,
+    whose blocks carry a y halo; the kernels of the other sharded cases
+    as their gates decide on the blocks, with no fused AB2 kernel."""
+    _, results = ranks
+    blocks = [r["block"][0] for r in results["jax_sharded_serial"][
+        "locals"]]
+    assert blocks == [7, 7, 6, 6]
+    assert all(r["halo"] == (1, 1, 1)
+               for r in results["orbax_halo_free"]["locals"])
+    for name in ("sw_x", "sw_y"):
+        for r in results[name]["locals"]:
+            assert r["gates"]["fused_rk3"], name
+    assert all(r["halo"][1] == 2 for r in results["sw_y"]["locals"])
+    for name in SHARDED_CASES:
+        for r in results[name]["locals"]:
+            assert not any(r["gates"].get(k) for k in (
+                "fused_ab2", "fused_ab2_weno", "fused_ab2_science",
+                "fused_ab2_weno_science")), name
+
+
+def test_sw_gate_refuses_halo_free_split_y():
+    """The stage kernel wraps a halo-free periodic y within its block: on
+    a rank's block of a y split over several ranks its gate holds only
+    with a y halo (which the sharded step always gives such a block)."""
+    from oceananigans_torch.ops.cuda_sw import sw_fused_available
+    from oceananigans_torch.parallel.distributed import Partition as P
+
+    class Ctx:
+        def __init__(self, partition):
+            self.partition = partition
+
+        def size(self, axis):
+            return self.partition[axis]
+
+    for halo, ctx, want in (((2, 0, 0), None, True),
+                            ((2, 0, 0), Ctx((1, 4)), False),
+                            ((2, 0, 0), Ctx((4, 1)), True),
+                            ((2, 2, 0), Ctx((1, 4)), True)):
+        grid = ot.RectilinearGrid(size=(8, 8), x=(0.0, 1.0), y=(0.0, 1.0),
+                                  topology=(ot.Periodic, ot.Periodic,
+                                            ot.Flat), halo=halo,
+                                  dtype="float64")
+        model = ot.ShallowWaterModel(grid=grid, fused_kernels=True)
+        if ctx is not None:
+            model.set_dist_halo(ctx, grid.topology)
+        assert sw_fused_available(grid, model) == want, (halo, ctx)
+    assert P(1, 4).resolve(4) == (1, 4)
+
+
+def test_sharded_step_fn_refuses_narrow_blocks(ranks):
+    """Blocks narrower than their halo would need a neighbour's neighbour:
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 20."""
+    _, results = ranks
+    out = results["narrow"]
+    assert out["error"] == "NotImplementedError"
+    assert "item 20" in out["message"] and "narrower" in out["message"]
+
+
+def test_sharded_step_fn_refuses_halo_free_bounded_split(ranks):
+    """A split Bounded axis without a halo is refused with ``ValueError``:
+    the serial operators wrap across its walls, which the halo of a block
+    cannot hold (a split halo-free Periodic axis is padded instead)."""
+    _, results = ranks
+    out = results["bounded_halo_free"]
+    assert out["error"] == "ValueError"
+    assert "axis 0 is Bounded" in out["message"]
+    assert "no halo" in out["message"]
+
+
+def test_sharded_local_arrays_cut_to_the_block(ranks):
+    """The default model maker cuts an array boundary condition to the
+    rank's block (``hydro_vi_closure``'s T flux over the top slab), and
+    ``DistributedStep.window`` refuses an array whose extent on a split
+    axis is neither the interior's nor the halo-extended one's."""
+    _, results = ranks
+    for r in results["hydro_vi_closure"]["locals"]:
+        assert r["slabs"] == {"T.top": r["shape"][:2] + (1,)}
+    for name in SHARDED_CASES:
+        for r in results[name]["locals"]:
+            assert "neither the interior" in r["odd_extent"], name
+
+
+def test_launch_device_defaults_to_config_device(ranks):
+    """``launch`` and ``dryrun_multichip`` take ``device=None``, resolved
+    from ``config.device`` in the caller's process: the ranks of the
+    module's spawn, started without a device, run on the CPU that the
+    module's fixture set."""
+    import inspect
+
+    from oceananigans_torch.parallel import dryrun_multichip
+    _, results = ranks
+    assert results["narrow"]["device"] == "cpu"
+    for fn in (launch, dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default is None
 
 
 def test_partition_resolve():

@@ -73,6 +73,13 @@ def model_of(pkg, m, case, grid, fused=None):
             kw[key] = getattr(pkg, val[0])(*val[1:])
         elif key == "free_surface":
             kw[key] = getattr(pkg, val[0])(**val[1])
+        elif key == "closure" and val == "hydro_closure":
+            kw[key] = (pkg.HorizontalScalarDiffusivity(nu=1e4, kappa=1e3),
+                       pkg.VerticalScalarDiffusivity(
+                           nu=1e-3, kappa=1e-5, time_discretization=(
+                               pkg.VerticallyImplicitTimeDiscretization)))
+        elif key == "coriolis" and isinstance(val, tuple):
+            kw[key] = getattr(pkg, val[0])(**val[1])
         elif key in ("buoyancy", "coriolis", "closure",
                      "vertical_coordinate"):
             if val == "SeawaterLinear":
@@ -80,21 +87,87 @@ def model_of(pkg, m, case, grid, fused=None):
                     equation_of_state=pkg.LinearEquationOfState())
             else:
                 kw[key] = getattr(pkg, val)()
+        elif key == "forcing" and val == "xy":
+            # a sponge masked in x, and a forcing of (x, y)
+            kw[key] = {
+                "b": pkg.Relaxation(rate=2.0, mask=pkg.GaussianMask(
+                    1.5, 0.2, "x"), target=pkg.LinearTarget(0.0, 0.01, "z")),
+                "u": pkg.Forcing(lambda x, y, z, t: 0.01 * m.sin(PI * x)
+                                 * m.cos(PI * y))}
+        elif key == "forcing" and val == "T_xy":
+            kw[key] = {"T": pkg.Forcing(
+                lambda x, y, z, t: 1e-6 * m.cos(2 * PI * y / 1e5)
+                + 1e-11 * x)}
         elif key == "forcing":
             kw[key] = {case["model"]["tracers"][0]: pkg.Forcing(
                 lambda lam, phi, z, t: 1e-7 * m.cos(m.deg2rad(phi)))}
+        elif key == "background_fields" and val == "xy":
+            kw[key] = {"u": lambda x, y, z: 0.05 * y + 0.01 * x,
+                       "b": lambda x, y, z: 0.001 * x + 0.002 * y}
         elif key == "background_fields":
             kw[key] = {"u": lambda x, y, z: 0.1 * z + 0 * x}
+        elif key == "boundary_conditions" and val == "stress_xy":
+            kw[key] = {"u": pkg.FieldBoundaryConditions(
+                top=pkg.FluxBC(lambda x, y, t: 1e-3 * m.sin(PI * x) * y))}
+        elif key == "boundary_conditions" and val == "closure":
+            # phase 13's: a callable wind stress on u, an array T flux
+            # over the halo-extended top slab (zero halo)
+            N, H = case["grid"]["size"], case["grid"]["halo"]
+            flux = np.zeros((N[0] + 2 * H[0], N[1] + 2 * H[1], 1))
+            flux[H[0]:-H[0], H[1]:-H[1], 0] = 1e-5 * \
+                np.random.default_rng(0).standard_normal(N[:2])
+            kw[key] = {
+                "u": pkg.FieldBoundaryConditions(top=pkg.FluxBC(
+                    lambda x, y, t: -1e-4 * m.cos(PI * y / 2e7))),
+                "T": pkg.FieldBoundaryConditions(top=pkg.FluxBC(flux))}
         elif key == "boundary_conditions":
             kw[key] = {"u": pkg.FieldBoundaryConditions(
                 top=pkg.FluxBC(lambda x, y, t: 1e-5 + 0 * x))}
+        elif key == "particles":
+            x, y, z = particle_positions(case)
+            kw[key] = pkg.LagrangianParticles(
+                x=x, y=y, z=z, restitution=val["restitution"],
+                tracked_fields=val["tracked"])
         else:
             kw[key] = val
     if fused is not None:
         kw["fused_kernels"] = fused
-    cls = (pkg.HydrostaticFreeSurfaceModel if case["kind"] == "hydrostatic"
-           else pkg.NonhydrostaticModel)
+    cls = {"hydrostatic": pkg.HydrostaticFreeSurfaceModel,
+           "shallow_water": pkg.ShallowWaterModel}.get(
+               case["kind"], pkg.NonhydrostaticModel)
     return cls(grid=grid, **kw)
+
+
+def particle_positions(case):
+    """A case's particles: ``n`` from ``default_rng(seed)`` over the
+    domain; then particles exactly on the inner block boundaries of the
+    case's partition (the global faces between blocks) and at their
+    crossings, where the owner rule decides, and the same just short of
+    them, which the flow may carry across."""
+    from oceananigans_torch.parallel.distributed import (
+        block_offsets, block_sizes,
+    )
+    spec = case["model"]["particles"]
+    g = grid_of(ot, torch, case)
+    ends, inner = [], []
+    for axis, name in enumerate("xyz"):
+        f = getattr(g, f"{name}F").reshape(-1).numpy()
+        H, N = g.H[axis], g.N[axis]
+        lo = f[H]
+        ends.append((lo, lo + (g.Lx, g.Ly, g.Lz)[axis]))
+        if axis < 2:
+            offs = block_offsets(block_sizes(N, case["partition"][axis]))
+            inner.append([f[H + o] for o in offs[1:]]
+                         + [lo + 0.3 * (ends[-1][1] - lo)])
+    rng = np.random.default_rng(spec["seed"])
+    n = spec["n"]
+    x, y, z = (a + (b - a) * rng.random(n) for a, b in ends)
+    X, Y = (q.ravel() for q in np.meshgrid(*inner, indexing="ij"))
+    near = 1e-3 * min(ends[0][1] - ends[0][0], ends[1][1] - ends[1][0])
+    (z0, z1) = ends[2]
+    return (np.concatenate([x, X, X - near]),
+            np.concatenate([y, Y, Y - near]),
+            np.concatenate([z, np.full(2 * X.size, 0.5 * (z0 + z1))]))
 
 
 def fields_of(m, case):
@@ -160,6 +233,23 @@ def fields_of(m, case):
                     e=1e-6)
     if name == "flow":
         return dict(u=lambda x, y, z: 0.1 + 0 * x)
+    if name == "forced":
+        return dict(u=lambda x, y, z: 0.3 * m.sin(PI * x) * m.cos(PI * y),
+                    v=lambda x, y, z: 0.3 * m.cos(PI * x) * m.sin(PI * y),
+                    b=lambda x, y, z: 0.01 * z + 0 * x)
+    if name == "orbax":
+        return dict(u=lambda x, y, z: m.sin(2 * PI * x) * m.cos(2 * PI * y)
+                    + 0 * z)
+    if name == "hydro_particles":
+        return dict(u=lambda x, y, z: 0.5 * m.sin(2 * PI * y / 1e5) + 0 * x,
+                    v=lambda x, y, z: 0.3 * m.sin(PI * x / 2e5) + 0 * y,
+                    T=lambda x, y, z: 10.0 + 5e-3 * z + 1e-5 * x + 0 * y,
+                    eta=lambda x, y: 0.05 * m.sin(2 * PI * y / 1e5) + 0 * x)
+    if name == "sw":
+        return dict(h=lambda x, y, z: 1000.0 + m.sin(2 * PI * x / 1e6)
+                    * m.cos(2 * PI * y / 1e6),
+                    uh=lambda x, y, z: 100.0 * m.cos(2 * PI * y / 1e6)
+                    + 0 * x)
     if name == "simulation":
         return dict(u=lambda x, y, z: 0.1 * m.sin(2 * PI * x / 2e5) + 0 * y,
                     T=lambda x, y, z: 10.0 + 5e-3 * z + 0 * x)
@@ -338,38 +428,109 @@ def _simulation_case(dist, case, arrays):
             "bitwise": bitwise, "plain_checkpointer": refusal}
 
 
-def _gspmd_case(dist, case, arrays):
-    """``sharded_step_fn``: the global state in and out (rank 0), the
-    explicit-halo step between; and its NotImplementedError for a
-    configuration only the JAX package's GSPMD path takes."""
+def _sharded_run(d, case, arrays):
+    """A case stepped through ``sharded_step_fn`` from the global state
+    ``arrays`` (rank 0): the step function and the global numpy state on
+    rank 0 (None elsewhere)."""
     from oceananigans_torch.interop import state_from_numpy, state_to_numpy
     from oceananigans_torch.parallel import sharded_step_fn
-    d = _dist(case, dist)
     grid = grid_of(ot, torch, case)
-    model = model_of(ot, torch, case, grid)
+    model = model_of(ot, torch, case, grid, case.get("fused"))
     step = sharded_step_fn(model, d, case["dt"])
     state = state_from_numpy(model, arrays) if d.rank == 0 else None
     for _ in range(case["steps"]):
         state = step(state)
-    refused = case["refused"]
-    rmodel = model_of(ot, torch, refused, grid_of(ot, torch, refused))
+    return step, (None if state is None else state_to_numpy(state))
+
+
+def _gspmd_case(dist, case, arrays):
+    """``sharded_step_fn``: the global state in and out (rank 0), the
+    explicit-halo step between, for a configuration the explicit-halo step
+    takes and one that only the sharded step takes (``arrays`` holds each
+    one's initial state); its NotImplementedError for a tripolar grid;
+    and ``shard_state``'s slab."""
+    from oceananigans_torch.parallel import shard_state, sharded_step_fn
+    d = _dist(case, dist)
+    out = {}
+    for key, sub in (("state", case), ("widened", case["widened"])):
+        _, out[key] = _sharded_run(d, sub, arrays[key])
+    tri = case["tripolar"]
+    grid = ot.TripolarGrid(size=tri["size"], z=(-1000.0, 0.0),
+                           halo=tri["halo"], dtype="float64")
     try:
-        sharded_step_fn(rmodel, d, case["dt"])
+        sharded_step_fn(ot.HydrostaticFreeSurfaceModel(grid=grid), d, 60.0)
     except NotImplementedError as err:
-        message = str(err)
+        out["refusal"] = str(err)
     else:
-        message = None
-    from oceananigans_torch.parallel import shard_state
+        out["refusal"] = None
+    grid = grid_of(ot, torch, case)
+    model = model_of(ot, torch, case, grid)
     slab = shard_state(d, model.initial_state())
-    if d.rank != 0:
-        return None
-    return {"state": state_to_numpy(state), "refusal": message,
-            "slab": tuple(slab.u.shape), "global": tuple(grid.shape)}
+    out["slab"], out["global"] = tuple(slab.u.shape), tuple(grid.shape)
+    return out if d.rank == 0 else None
 
 
-CASES = {"gspmd": _gspmd_case, "step": _step_case, "spy": _spy_case, "exchange": _exchange_case,
-         "solver": _solver_case, "refusal": _refusal_case,
-         "simulation": _simulation_case}
+def _sharded_case(dist, case, arrays):
+    """A case through ``sharded_step_fn``: the global numpy state on rank
+    0, the local grid's halos and the local model's kernel gates of every
+    rank, and, with particles, how many ranks own each initial particle
+    (the owners' count summed over the ranks)."""
+    d = _dist(case, dist)
+    step, state = _sharded_run(d, case, arrays)
+    dstep = step.dstep
+    lm = dstep.lmodel
+    gates = {k: getattr(lm, k) for k in (
+        "fused_kernels", "fused_tracer", "fused_rk3", "fused_ab2",
+        "fused_ab2_weno", "fused_ab2_science", "fused_ab2_weno_science")
+        if hasattr(lm, k)}
+    lg = dstep.local_grid
+    # the array conditions as the local model holds them, cut to the block
+    slabs = {f"{name}.{side}": tuple(bc.condition.shape)
+             for name, fbcs in getattr(lm, "bcs", {}).items()
+             for side in ("west", "east", "south", "north", "bottom", "top")
+             for bc in (getattr(fbcs, side, None),)
+             if hasattr(getattr(bc, "condition", None), "shape")}
+    try:
+        dstep.window(np.zeros((grid_of(ot, torch, case).N[0] + 1,
+                               grid_of(ot, torch, case).N[1] + 1, 1)))
+    except ValueError as err:
+        odd = str(err)
+    else:
+        odd = None
+    local = {"halo": tuple(lg.H), "block": tuple(lg.N), "gates": gates,
+             "shape": tuple(lg.shape), "slabs": slabs, "odd_extent": odd}
+    locals_ = [None] * d.world_size
+    torch.distributed.all_gather_object(locals_, local)
+    out = {"state": state, "locals": locals_}
+    particles = getattr(lm, "particles", None)
+    if particles is not None:
+        x, y, _ = particle_positions(case)
+        own = particles.owns(torch.as_tensor(x), torch.as_tensor(y))
+        out["owners"] = d.all_reduce(own.to(torch.int64)).numpy()
+        out["owned"] = particles.owned
+    return out if d.rank == 0 else None
+
+
+def _gspmd_refusal_case(dist, case, arrays):
+    """What ``sharded_step_fn`` refuses: its error's type and message
+    (None when it takes the case)."""
+    from oceananigans_torch.parallel import sharded_step_fn
+    d = _dist(case, dist)
+    grid = grid_of(ot, torch, case)
+    try:
+        sharded_step_fn(model_of(ot, torch, case, grid), d, 1e-3)
+    except (NotImplementedError, ValueError) as err:
+        error, message = type(err).__name__, str(err)
+    else:
+        error = message = None
+    return {"error": error, "message": message,
+            "device": str(dist.device)} if d.rank == 0 else None
+
+
+CASES = {"gspmd": _gspmd_case, "step": _step_case, "spy": _spy_case,
+         "exchange": _exchange_case, "solver": _solver_case,
+         "refusal": _refusal_case, "simulation": _simulation_case,
+         "sharded": _sharded_case, "gspmd_refusal": _gspmd_refusal_case}
 
 
 def run_cases(dist, cases):
