@@ -296,6 +296,22 @@ each of which raises on failure:
     a rank a step), 12 steps from the initial state. Held sharded against
     serial at the serial phases' kernel-against-plain bounds (phase 13's,
     phase 7's 3e-5, phase 8's).
+29. ``sharded_step_fn`` where a rank needs cells beyond its neighbour, 4
+    gloo ranks on ``cuda:0`` in one spawn, as phase 28. 29a: phase 14's
+    tripolar ocean (``TripolarGrid`` 360 × 170 × 60, halo (6, 6, 4),
+    ``WENOVectorInvariant``, WENO(7) T and S, split-explicit with 30
+    substeps) in float32 at Δt = 20 s (``FOLD_DT``: the barotropic
+    substeps' Courant number at the cells beside the north poles, printed,
+    stays below 1) over ``Partition(4, 1)`` (every rank folds against
+    another) and ``(2, 2)`` (the top row folds), 2 + 10 steps serial and
+    sharded, the fold's transfers a step on a line of their own and
+    whether sharded equals serial bit for bit, held at phase 14's bounds
+    with no kernel launched (as in the JAX package); one float64 step at
+    full width and a float64 (48, 20, 6) run, each at 1e-12. 29b: ``examples/multi_chip_scaling.py``'s
+    model at (10, 256, 256) over (4, 1), x blocks of 3, 3, 2 and 2 cells
+    under a halo of 3 (kernels 7 and 9 three times a rank a step, held
+    against their plain versions at every rank's block shape), held at
+    phase 7's 3e-5; a float64 (10, 16, 16) run at 1e-12.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -308,8 +324,9 @@ for the tracer and vector-invariant kernels, phase 10's call of each
 scheme for the generic kernel) and read just after it; each must equal the
 launches that run makes. Phases 12 to 27 zero and check the counts of
 their own runs and print them on lines of their own; phase 27's per-rank
-launches of kernels 2, 7, 9, 11 and 12/13 and phase 28's of kernels 2, 7,
-9, 10, 11 and 12/13 are added to theirs. The line before
+launches of kernels 2, 7, 9, 11 and 12/13, phase 28's of kernels 2, 7,
+9, 10, 11 and 12/13 and phase 29's of kernels 7 and 9 are added to
+theirs. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
@@ -3383,10 +3400,13 @@ def dist_block_kernels(torch, ot, lg, kind, gen):
     from oceananigans_torch.ops import cuda_vi as cvi
     from oceananigans_torch.ops import cuda_weno as cw
     fs = []
+    # the block's own fill, on the axes at least as wide as their halo (a
+    # periodic fill of a narrower block would copy over itself)
+    axes = tuple(ax for ax in range(3) if lg.N[ax] >= lg.H[ax])
     for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W, ot.LOC_C, ot.LOC_C):
         a = torch.randn(lg.shape, generator=gen, device=lg.device,
                         dtype=lg.dtype)
-        fs.append(ot.fill_halo_regions(a, lg, loc=loc))
+        fs.append(ot.fill_halo_regions(a, lg, loc=loc, axes=axes))
     u, v, w, T, S = fs
     tr = {"T": T, "S": S}
     pairs = {}
@@ -3845,7 +3865,7 @@ GSPMD_WARM, GSPMD_TIMED = 2, 10
 #: it, limit 1); the velocities of two runs apart by at most the sum of
 #: their floors, depth·eps32·Δt·max|p|/Δz (the ratio to that sum, limit
 #: 1); the tracers and particles at phase 7's 3e-5 of their largest value
-GSPMD_RTOL = {"hydro_vi_closure": DIST_HY_RTOL,
+GSPMD_RTOL = {"hydro_vi_closure": DIST_HY_RTOL, "tripolar": DIST_HY_RTOL,
               "langmuir": {"velocities": 1.0, "tracers": 3e-5,
                            "particles": 3e-5, "div": 1.0,
                            "div serial": 1.0, "div basis": 1.0,
@@ -3874,6 +3894,23 @@ def gspmd_config(spec, device):
                                     size=size),
                 hydro_generic_state, HYDRO_DT,
                 {"vi_momentum_tendency": 1, "weno_tracer_tendencies": 1})
+    if kind == "tripolar":
+        # phase 14's tripolar ocean, which no kernel takes (as in the JAX
+        # package), from hydro_vi's fields without their exact zeros, at
+        # FOLD_DT
+        from oceananigans_torch.profile_step import (
+            hydro_latlon_initial_state,
+        )
+        grid = ot.TripolarGrid(size=size, z=(-4000.0, 0.0), halo=(6, 6, 4),
+                               dtype=dtype, device=device)
+        model = ot.HydrostaticFreeSurfaceModel(
+            grid=grid, momentum_advection=ot.WENOVectorInvariant(),
+            tracer_advection=ot.WENO(7), tracers=("T", "S"),
+            buoyancy=ot.SeawaterBuoyancy(
+                equation_of_state=ot.LinearEquationOfState()),
+            free_surface=ot.SplitExplicitFreeSurface(substeps=30))
+        return (model, lambda m: m.update_state(
+            hydro_latlon_initial_state(m, generic=True)), FOLD_DT, {})
     if kind == "langmuir":
         return (langmuir_model(size=size, dtype=dtype, device=device,
                                particles=langmuir_particles(
@@ -3958,8 +3995,9 @@ def gspmd_rel(kind, g, a, b, dt, basis=None):
                 out["div basis at phase 21's bound"] = div(basis) / fft
                 out["velocities vs basis"] = gap(a, basis) / (2 * dense)
         return out
-    ga = dist_groups(g, a, kind == "hydro_vi_closure")
-    gb = dist_groups(g, b, kind == "hydro_vi_closure")
+    hydro = kind in ("hydro_vi_closure", "tripolar")
+    ga = dist_groups(g, a, hydro)
+    gb = dist_groups(g, b, hydro)
     return {k: group_rel(list(zip(ga[k], gb[k]))) for k in gb}
 
 
@@ -4006,25 +4044,27 @@ def gspmd_part_rank(dist, spec):
     lg = dstep.local_grid
     rep = {"rank": dist.rank, "coords": dist.coords, "block": tuple(lg.N),
            "halo": tuple(lg.H)}
-    steps = GSPMD_WARM + GSPMD_TIMED
+    warm, timed = spec.get("steps", (GSPMD_WARM, GSPMD_TIMED))
+    steps = warm + timed
     s0 = init(model) if dist.rank == 0 else None
     serial = basis = None
+    if spec.get("check") == "every rank" or (spec.get("check")
+                                             and dist.rank == 0):
+        gen = torch.Generator(device=dist.device).manual_seed(28)
+        rep["block_kernels"] = gspmd_block_kernels(
+            torch, ot, lg, spec["kind"], gen)
     if dist.rank == 0:
-        if spec.get("check"):
-            gen = torch.Generator(device=dist.device).manual_seed(28)
-            rep["block_kernels"] = gspmd_block_kernels(
-                torch, ot, lg, spec["kind"], gen)
         st = _map_tensors(s0, lambda t: t.clone())
-        for _ in range(GSPMD_WARM):
+        for _ in range(warm):
             st = model.step(st, dt)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(GSPMD_TIMED):
+        for _ in range(timed):
             st = model.step(st, dt)
         e1.record()
         e1.synchronize()
-        rep["serial_ms"] = e0.elapsed_time(e1) / GSPMD_TIMED
+        rep["serial_ms"] = e0.elapsed_time(e1) / timed
         serial = st
         if spec.get("basis"):
             # the serial run through the basis products of the pencil
@@ -4044,7 +4084,7 @@ def gspmd_part_rank(dist, spec):
         fn.launches = 0
     dist.reset_counts()
     st = s0
-    for _ in range(GSPMD_WARM):
+    for _ in range(warm):
         st = step(st)
     torch.cuda.synchronize()
     dist.barrier()
@@ -4052,13 +4092,13 @@ def gspmd_part_rank(dist, spec):
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     e0.record()
-    for _ in range(GSPMD_TIMED):
+    for _ in range(timed):
         st = step(st)
     e1.record()
     e1.synchronize()
     dist.barrier()
-    rep["ms"] = e0.elapsed_time(e1) / GSPMD_TIMED
-    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3 / GSPMD_TIMED
+    rep["ms"] = e0.elapsed_time(e1) / timed
+    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3 / timed
     rep["launches"] = {k: fn.launches for k, fn in wrappers.items()
                        if fn.launches}
     rep["transfers_a_step"] = {k: v / steps for k, v in dist.counts.items()}
@@ -4074,8 +4114,15 @@ def gspmd_part_rank(dist, spec):
         require(all(bool(torch.isfinite(q).all())
                     for q in st.fields().values()),
                 f"{spec['kind']}: finite fields")
+        if spec["kind"] == "tripolar":
+            rep["courant"] = barotropic_courant(model, dt)
+            rep["umax"] = [float(model.grid.interior(q.u).abs().max())
+                           for q in (s0, serial)]
         rep["rel"] = gspmd_rel(spec["kind"], model.grid, st, serial, dt,
                                basis)
+        fields, ref = st.fields(), serial.fields()
+        rep["bitwise"] = all(torch.equal(q, ref[k])
+                             for k, q in fields.items())
     del model, step, dstep, st, s0, serial, basis
     torch.cuda.empty_cache()
     return rep
@@ -4126,39 +4173,106 @@ GSPMD_PARTS = {
 }
 
 
-def gspmd_phase(torch, card, launches):
-    """Phase 28: ``sharded_step_fn`` at full width on the card (see the
-    docstring)."""
+#: Δt of phase 29a's tripolar ocean. The cells beside the grid's two
+#: north poles are about a hundredth as wide as the median cell, and there
+#: the split-explicit substeps' gravity waves cross nearly a cell a
+#: substep at phase 14's 60 s, and their velocities grow every step: the
+#: phase prints the largest Courant number (:func:`barotropic_courant`)
+#: and max|u| before and after its steps
+FOLD_DT = 20.0
+
+
+def barotropic_courant(model, dt):
+    """The largest Courant number c Δτ √(1/Δx² + 1/Δy²) of a split-explicit
+    free surface's substeps over the cells of a hydrostatic model's grid,
+    at their centre spacings: c = √(g Lz) the gravity waves' speed over
+    the grid's full depth, Δτ the substep (Δt times its fraction)."""
+    g, fs = model.grid, model.free_surface
+    c = math.sqrt(fs.g * g.Lz)
+    dtau = dt * fs.fractional_step
+    xy = g.interior_slices[:2]
+    dx, dy = g.dx()[xy], g.dy()[xy]
+    return float((c * dtau * (dx ** -2 + dy ** -2).sqrt()).max())
+
+
+#: the parts of phase 29: phase 14's tripolar ocean over (4, 1), every
+#: rank folding against another, and (2, 2), the top row folding (no
+#: kernel), at :data:`FOLD_DT`; ``examples/multi_chip_scaling.py``'s model
+#: on x blocks of 3, 3, 2 and 2 cells under a halo of 3 (kernels 7 and 9
+#: three times a rank a step, held against their plain versions on every
+#: rank's block); each with a float64 run at a small size, and the
+#: tripolar ocean with one float64 step at full width
+FOLD_PARTS = {
+    "29a tripolar (4, 1)": dict(
+        kind="tripolar", size=(360, 170, 60), dtype="float32",
+        partition=(4, 1)),
+    "29a tripolar (2, 2)": dict(
+        kind="tripolar", size=(360, 170, 60), dtype="float32",
+        partition=(2, 2)),
+    "29a tripolar float64 one step": dict(
+        kind="tripolar", size=(360, 170, 60), dtype="float64",
+        partition=(4, 1), steps=(0, 1)),
+    "29a tripolar float64": dict(
+        kind="tripolar", size=(48, 20, 6), dtype="float64",
+        partition=(2, 2)),
+    "29b narrow multi_chip_scaling": dict(
+        kind="scaling", size=(10, 256, 256), dtype="float32",
+        partition=(4, 1), check="every rank"),
+    "29b narrow multi_chip_scaling float64": dict(
+        kind="scaling", size=(10, 16, 16), dtype="float64",
+        partition=(4, 1)),
+}
+
+
+def gspmd_phase(torch, card, launches, parts=None, phase="28"):
+    """Phase 28 (``parts`` None: :data:`GSPMD_PARTS`) or 29
+    (:data:`FOLD_PARTS`): ``sharded_step_fn`` at full width on the card in
+    one spawn of four gloo ranks (see the docstring)."""
     import tempfile
 
     from oceananigans_torch.parallel import launch
 
+    from oceananigans_torch.profile_step import HYDRO_DT
+
+    parts = GSPMD_PARTS if parts is None else parts
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        by_rank = launch(4, gspmd_parts_rank, (list(GSPMD_PARTS.values()),),
-                         rendezvous_dir=f"{tmp}/28", backend="gloo",
+        by_rank = launch(4, gspmd_parts_rank, (list(parts.values()),),
+                         rendezvous_dir=f"{tmp}/{phase}", backend="gloo",
                          device="cuda:0")
-        log(f"[28] 4 gloo ranks on cuda:0 in {time.perf_counter() - t0:.1f}"
-            " s")
-    for k, (tag, spec) in enumerate(GSPMD_PARTS.items()):
+        log(f"[{phase}] 4 gloo ranks on cuda:0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+    for k, (tag, spec) in enumerate(parts.items()):
         reps = [r[k] for r in by_rank]
         r0 = reps[0]
         per_rank = [r["launches"] for r in reps]
         for name in per_rank[0]:
             launches[name] = launches.get(name, 0) + sum(
                 r["launches"].get(name, 0) for r in reps)
-        for name, (err, sc) in r0.get("block_kernels", {}).items():
-            tol = (DIST_KERNEL_RTOL.get(name, 1e-5)) * sc
-            log(f"[28] {tag}: {name} at the block shape {r0['block']} (halo "
-                f"{r0['halo']}): max|kernel - plain| {err:.3e} (tolerance "
-                f"{tol:.3e})")
-            require(err <= tol, f"{tag}: {name} at {r0['block']}")
+        for r in reps:
+            for name, (err, sc) in r.get("block_kernels", {}).items():
+                tol = (DIST_KERNEL_RTOL.get(name, 1e-5)) * sc
+                log(f"[{phase}] {tag}: rank {r['rank']}'s {name} at its "
+                    f"block shape {r['block']} (halo {r['halo']}): "
+                    f"max|kernel - plain| {err:.3e} (tolerance {tol:.3e})")
+                require(err <= tol, f"{tag}: {name} at {r['block']}")
         rel = r0["rel"]
         bound = ({g: DIST_F64_RTOL for g in rel}
                  if spec["dtype"] == "float64"
                  else GSPMD_RTOL[spec["kind"]])
-        log(f"[28] {tag} {spec['size']} {spec['dtype']}, Partition"
+        if spec["kind"] == "tripolar":
+            log(f"[{phase}] {tag} fold transfers a step by rank: "
+                + ", ".join(f"rank {r['rank']} " + str({
+                    k2: v for k2, v in r["transfers_a_step"].items()
+                    if k2.startswith("fold")}) for r in reps)
+                + f"; sharded bitwise equal to serial: {r0['bitwise']}; "
+                f"the substeps' largest Courant number {r0['courant']:.3f} "
+                f"(phase 14's Δt {HYDRO_DT:g} s: "
+                f"{r0['courant'] * HYDRO_DT / FOLD_DT:.3f}); serial max|u| "
+                f"{r0['umax'][0]:.4e} at the start, {r0['umax'][1]:.4e} "
+                "after the steps")
+        log(f"[{phase}] {tag} {spec['size']} {spec['dtype']}, Partition"
             f"{spec['partition']}, blocks "
             f"{[tuple(r['block'][:2]) for r in reps]}, local halos "
             f"{r0['halo']}: serial {r0['serial_ms']:.3f} ms/step, "
@@ -4167,7 +4281,8 @@ def gspmd_phase(torch, card, launches):
             + f" ms/step (CUDA events; host wall "
             f"{max(r['wall_ms'] for r in reps):.3f}) on {card}; the 4 "
             f"ranks share one card, so these are no scaling figure; "
-            f"launches per rank in {GSPMD_WARM + GSPMD_TIMED} steps "
+            f"launches per rank in "
+            f"{sum(spec.get('steps', (GSPMD_WARM, GSPMD_TIMED)))} steps "
             f"{per_rank}; transfers a step on rank 0 "
             f"{r0['transfers_a_step']}; sharded vs serial " + ", ".join(
                 f"{g} {v:.3e}" for g, v in rel.items())
@@ -5966,6 +6081,10 @@ def main():
     # ---- phase 28: sharded_step_fn at full width (kernels 2, 7, 9, 10,
     # 11, 12/13 on every rank's block) --------------------------------------
     gspmd_phase(torch, card, launches)
+
+    # ---- phase 29: the tripolar fold across ranks (no kernel) and blocks
+    # narrower than their halo (kernels 7 and 9 on blocks of 3 and 2) ------
+    gspmd_phase(torch, card, launches, FOLD_PARTS, "29")
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

@@ -447,11 +447,10 @@ def fill_halo_regions(a, grid, bcs=None, loc=(Center, Center, Center), time=None
             # the north halo the fold, with horizontal velocity components
             # flipping sign
             from oceananigans_torch.grids.orthogonal import (
-                fill_zipper_north,
+                fill_zipper_north, fold_sign,
             )
             _fill_axis(a, grid, axis, loc[axis], lbc, None, lval, None)
-            sign = -1.0 if (loc[0] == Face or loc[1] == Face) else 1.0
-            fill_zipper_north(a, grid, loc, sign)
+            fill_zipper_north(a, grid, loc, fold_sign(loc))
             continue
         _fill_axis(a, grid, axis, loc[axis], lbc, rbc, lval, rval, dt=dt)
     return a

@@ -452,6 +452,21 @@ def _velocity_maps(N: int, H: int):
     return maps
 
 
+def _closest_pair(P, Q, reach=4):
+    """The indices ``(i, j)`` of the least |P_i − Q_j| over unit vectors
+    ``P`` and ``Q``, as ``np.argmin`` of the whole table of distances gives
+    them: the largest P_i·Q_j finds the pair, and the distances themselves
+    are taken over the pairs within ``reach`` of it, where rounding alone
+    could move the least, the first of equal ones winning, as in
+    ``np.argmin``."""
+    i0, j0 = np.unravel_index(np.argmax(P @ Q.T), (len(P), len(Q)))
+    i1, j1 = max(i0 - reach, 0), max(j0 - reach, 0)
+    dm = np.linalg.norm(P[i1:i0 + reach + 1, None, :]
+                        - Q[None, j1:j0 + reach + 1, :], axis=2)
+    a, b = np.unravel_index(np.argmin(dm), dm.shape)
+    return i1 + a, j1 + b
+
+
 @lru_cache(None)
 def corner_circulation_tables(N: int, H: int):
     """Exact 3-segment circulation stencils for the vertical vorticity at
@@ -588,9 +603,7 @@ def corner_circulation_tables(N: int, H: int):
                     (rs - 0.5) / 1.0)[:, None] / 1.0
                 E = _panel_xyz(p, exy[:, 0], exy[:, 1])
                 E /= np.linalg.norm(E, axis=1, keepdims=True)
-                dm = np.linalg.norm(chord[:, None, :] - E[None, :, :],
-                                    axis=2)
-                ic, ie = np.unravel_index(np.argmin(dm), dm.shape)
+                ic, ie = _closest_pair(chord, E)
                 X = E[ie]
                 s0 = arcd(P0, Pv)
                 s1 = arcd(P1, Pv)

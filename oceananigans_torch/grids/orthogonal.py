@@ -125,13 +125,9 @@ class OrthogonalSphericalShellGrid(AbstractGrid):
                           ("dzF_", dzF)):
             self.register_buffer(name, torch.as_tensor(
                 arr, dtype=dtype, device=device).reshape(bshape(2, len(arr))))
-        # the fold's column masks (fill_zipper_north): the x-Face column
-        # that wraps, and the second half of the duplicated row
-        i_int = (np.arange(nx) - Hx) % Nx
-        for name, mask in (("fold_wrap", i_int == 0),
-                           ("fold_half", i_int >= Nx // 2)):
-            self.register_buffer(name, torch.as_tensor(
-                mask.reshape(-1, 1), device=device), persistent=False)
+        for name, mask in zip(("fold_wrap", "fold_half"),
+                              fold_masks(Nx, Hx, device)):
+            self.register_buffer(name, mask, persistent=False)
         self.topology = topology
         self.zipper = bool(zipper)
         self.radius = float(radius)
@@ -294,6 +290,21 @@ def TripolarGrid(size, southernmost_latitude=-80.0, z=(-1000.0, 0.0),
 # The zipper north-fold halo fill
 # ---------------------------------------------------------------------------
 
+def fold_masks(Nx, Hx, device=None):
+    """The fold's column masks over a halo-extended x axis of ``Nx + 2Hx``
+    columns, ``(nx, 1)`` boolean tensors: the x-Face column that wraps
+    (interior column 0), and the second half of the duplicated row."""
+    i_int = (np.arange(Nx + 2 * Hx) - Hx) % Nx
+    return tuple(torch.as_tensor(m.reshape(-1, 1), device=device)
+                 for m in (i_int == 0, i_int >= Nx // 2))
+
+
+def fold_sign(loc):
+    """The fold's sign at ``loc``: −1 for a horizontal velocity component
+    (an x- or y-Face location), +1 otherwise."""
+    return -1.0 if (loc[0] == Face or loc[1] == Face) else 1.0
+
+
 def fill_zipper_north(a, grid, loc, sign):
     """Fill the north y halo of a tripolar field by the fold, in place, and
     return ``a``: the halo row Ny + h takes the interior row on the other
@@ -383,5 +394,6 @@ def extrinsic_vector(grid, u_i, v_i):
 
 __all__ = ["NODE_KEYS", "OrthogonalSphericalShellGrid",
            "RotatedLatitudeLongitudeGrid", "TripolarGrid",
-           "extrinsic_vector", "fill_zipper_north", "intrinsic_vector",
+           "extrinsic_vector", "fill_zipper_north", "fold_masks",
+           "fold_sign", "intrinsic_vector",
            "rotation_angles"]

@@ -826,23 +826,23 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
     def _set_transport_walls(self):
         """The wall faces (and beyond) of the barotropic transports on
         each Bounded axis. A distributed rank's block has the domain's walls
-        only where it owns a domain edge: its other edge faces carry
-        exchanged data."""
+        where its faces, halo included, are the domain's wall faces or lie
+        beyond them: its other faces carry exchanged data."""
         grid = self.grid
         ctx = self.dist_halo
         for name, axis in (("_U_walls", X), ("_V_walls", Y)):
             walls = None
             if grid.axis_topo(axis) == Bounded:
+                H, N = grid.H[axis], grid.N[axis]
                 idx = torch.arange(grid.shape[axis], device=grid.device)
                 idx = idx.reshape((-1, 1, 1) if axis == X else (1, -1, 1))
-                low = idx <= grid.H[axis]
-                high = idx >= grid.H[axis] + grid.N[axis]
+                # the faces' global indices
+                face, total = idx - H, N
                 mesh_axis = axis % 3       # X, Y count from the end
                 if ctx is not None and ctx.size(mesh_axis) > 1:
-                    i = ctx.index(mesh_axis)
-                    low = low & (i == 0)
-                    high = high & (i == ctx.size(mesh_axis) - 1)
-                walls = low | high
+                    face = face + ctx.offset(mesh_axis)
+                    total = ctx.extent(mesh_axis)
+                walls = (face <= 0) | (face >= total)
             self.register_buffer(name, walls)
 
     def _fill_field(self, a, bcs, loc, t, dt=None, g=None):

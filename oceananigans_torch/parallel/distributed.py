@@ -11,6 +11,9 @@ carries the collectives the distributed step uses:
 - ``jax.lax.ppermute`` of edge strips -> :meth:`Distributed.p2p`, a paired
   ``batch_isend_irecv``;
 - ``psum`` -> :meth:`Distributed.all_reduce`;
+- a gather of disjoint parts into one array on every rank (the tripolar
+  fold's rows) -> :meth:`Distributed.merge_disjoint`, an ``all_reduce`` of
+  the floats' bits;
 - the pencil ``all_to_all`` -> :meth:`Distributed.all_to_all`, an
   ``all_to_all_single`` over the ranks of one mesh row or column on
   contiguous packed buffers;
@@ -41,6 +44,8 @@ __all__ = ["Partition", "Distributed", "block_sizes", "shard_state",
 
 #: p2p tags: a strip moving to the lower or to the higher coordinate
 TAG_BACKWARD, TAG_FORWARD = 0, 1
+#: the integer type of a float's bits (:meth:`Distributed.merge_disjoint`)
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +206,16 @@ class Distributed:
         tdist.all_reduce(out, op=op)
         return out
 
+    def merge_disjoint(self, t, kind):
+        """Every rank's ``t`` merged in place, each rank having written the
+        cells it owns into zeros: an all-reduce that sums the integers of
+        the floats' bits, so that each cell keeps its owner's value bit for
+        bit (a −0.0 too). Counted as ``kind``."""
+        self._count(kind)
+        if self.world_size > 1:
+            tdist.all_reduce(t.view(_BITS[t.dtype]))
+        return t
+
     def all_to_all(self, t, axis, split_axis, concat_axis, split_sizes=None,
                    concat_sizes=None):
         """The tiled ``jax.lax.all_to_all`` over the ranks of mesh ``axis``:
@@ -343,11 +358,6 @@ def block_offsets(sizes):
     return out
 
 
-#: what the port's sharded step does not take yet
-ITEM_20 = ("ROADMAP Queue 1 item 20 (the tripolar north fold across mirror "
-           "ranks, and blocks narrower than their halo)")
-
-
 def sharded_step_fn(model, dist: Distributed, dt, make_model=None):
     """A step ``global_state -> global_state`` over the mesh, the
     counterpart of the JAX package's GSPMD step. PyTorch has no compiler
@@ -360,16 +370,18 @@ def sharded_step_fn(model, dist: Distributed, dt, make_model=None):
     horizontal field among them cut to the rank's block).
 
     It takes the nonhydrostatic, hydrostatic and shallow-water models on a
-    ``RectilinearGrid``, ``LatitudeLongitudeGrid`` or
-    ``ImmersedBoundaryGrid``, with forcings, callable or array boundary
-    conditions, background fields and particles (replicated on every rank,
-    as the GSPMD path keeps them), any interior whose halo-extended size
-    divides the mesh (blocks that differ by one cell), split axes with a
-    halo and split periodic axes without one. An
-    ``OrthogonalSphericalShellGrid`` and blocks narrower than their halo
-    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 20; a split
-    Bounded axis without a halo raises ``ValueError`` (the serial operators
-    wrap across its walls, which no halo cell of a block holds)."""
+    ``RectilinearGrid``, ``LatitudeLongitudeGrid``,
+    ``OrthogonalSphericalShellGrid`` (a ``TripolarGrid``'s north fold
+    across the ranks that hold its mirror columns, a
+    ``RotatedLatitudeLongitudeGrid``) or ``ImmersedBoundaryGrid``, with
+    forcings, callable or array boundary conditions, background fields
+    and particles (replicated on every rank, as the GSPMD path keeps
+    them), any interior whose halo-extended size divides the mesh (blocks
+    that differ by one cell, of any width: a block narrower than its halo
+    too), split axes with a halo and split periodic axes without one. A
+    split Bounded axis without a halo raises ``ValueError`` (the serial
+    operators wrap across its walls, which no halo cell of a block
+    holds)."""
     from oceananigans_torch.parallel.shard_step import DistributedStep
 
     dist.validate_grid(model.grid)

@@ -41,13 +41,16 @@ replicated on every rank (each rank interpolates the particles it owns, an
 all-reduce gives every rank all of them); interiors that do not divide the
 mesh, in blocks that differ by one cell; and split periodic axes without a
 halo, which the local grids carry a halo on (the global grid's largest),
-filled by the exchange. Without a ``make_model`` the local model is the
-global one's class built from its recorded arguments, each horizontal
-field among them cut to the block (:func:`_localize`). An
-``OrthogonalSphericalShellGrid`` and blocks narrower than their halo raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 20; a split Bounded
-axis without a halo stays refused (the serial operators wrap across its
-walls, which no halo cell of a block holds).
+filled by the exchange; blocks narrower than their halo, whose halo
+cells take the cells they image from whichever block owns them, in a
+second round where they lie past a wall; and the grids of
+``OrthogonalSphericalShellGrid``, the tripolar north fold across the
+ranks that hold mirror columns among them (:class:`NorthFold`). Without a
+``make_model`` the local model is the global one's class built from its
+recorded arguments, each horizontal field among them cut to the block
+(:func:`_localize`). A split Bounded axis without a halo stays refused
+(the serial operators wrap across its walls, which no halo cell of a
+block holds).
 """
 
 from __future__ import annotations
@@ -55,31 +58,43 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import types
 
 import numpy as np
 import torch
 
 from oceananigans_torch.boundary_conditions import (
-    FLUX, _bc_value, _fill_axis, fill_halo_regions,
-    regularize_field_boundary_conditions,
+    COMMUNICATION, FLUX, OPEN, VALUE, _bc_value, _fill_axis,
+    fill_halo_regions, regularize_field_boundary_conditions,
 )
 from oceananigans_torch.fields import LOC_C, location_coords
-from oceananigans_torch.grids.base import AXIS_NAMES, Bounded, Flat, Periodic
-from oceananigans_torch.parallel.distributed import (
-    ITEM_20, Distributed, _map_tensors, block_offsets, block_sizes,
+from oceananigans_torch.grids.base import (
+    AXIS_NAMES, Bounded, Face, Flat, Periodic,
 )
-from oceananigans_torch.parallel.halo_exchange import _exchange_axis
+from oceananigans_torch.grids.orthogonal import (
+    fill_zipper_north, fold_masks, fold_sign,
+)
+from oceananigans_torch.parallel.distributed import (
+    Distributed, _map_tensors, block_offsets, block_sizes,
+)
+from oceananigans_torch.parallel.halo_exchange import (
+    _exchange_axis, exchange_runs, ghost_runs,
+)
 
 __all__ = ["DistributedStep", "dist_fill_halos", "dist_fill_xy", "DistHalo",
-           "DistributedModel", "DistributedImmersedPoissonSolver"]
-
+           "DistributedModel", "DistributedImmersedPoissonSolver",
+           "NorthFold"]
 
 @dataclasses.dataclass(frozen=True)
 class DistHalo:
     """The mesh decomposition a LOCAL model carries, so that its halo
-    fills go through the exchange: the rank's :class:`Distributed`."""
+    fills go through the exchange: the rank's :class:`Distributed`, the
+    blocks' sizes along each mesh axis and the grid's :class:`NorthFold`
+    (None without one)."""
 
     dist: Distributed
+    sizes: tuple
+    fold: object = None
 
     def size(self, axis):
         return self.dist.partition[axis]
@@ -87,6 +102,81 @@ class DistHalo:
     def index(self, axis):
         """This rank's coordinate along mesh ``axis`` (``axis_index``)."""
         return self.dist.coords[axis]
+
+    def offset(self, axis):
+        """The global index of this rank's first cell along mesh
+        ``axis``."""
+        return block_offsets(self.sizes[axis])[self.index(axis)]
+
+    def extent(self, axis):
+        """The global interior's extent along mesh ``axis``."""
+        return sum(self.sizes[axis])
+
+
+class NorthFold:
+    """The tripolar north fold (``fill_zipper_north``) of a sharded grid.
+    The rows the fold reads, the top ``Hy + 1`` interior rows, are
+    gathered into one strip of the global width on every rank (each rank
+    writes the cells it owns into zeros, merged by
+    :meth:`~oceananigans_torch.parallel.distributed.Distributed.
+    merge_disjoint`), the
+    strip's x halo takes its periodic images, and the serial fold folds it;
+    each rank then writes its window of the folded rows, the north halo
+    rows and, of a y-Center field, the second half of row ``Ny − 1``,
+    wherever they lie in its block, halo included. So no rank needs
+    another's folded rows, and the fill is the serial one bit for bit.
+    ``grid`` is the global grid, ``sizes`` the blocks' sizes along x and y
+    and ``hx`` the local grids' x halo."""
+
+    def __init__(self, grid, sizes, hx, device):
+        (Nx, Ny), Hy = grid.N[:2], grid.H[1]
+        if Ny < Hy + 1:
+            raise ValueError(f"a north fold of {Ny} rows needs more than "
+                             f"its halo of {Hy}")
+        self.Nx, self.Ny, self.hx, self.Hy = Nx, Ny, hx, Hy
+        self.sizes = sizes
+        self.offsets = tuple(block_offsets(s) for s in sizes)
+        # fill_zipper_north's view of the strip: Hy + 1 "interior" rows
+        # between Hy rows below and the Hy halo rows above
+        wrap, half = fold_masks(Nx, hx, device)
+        self.strip_grid = types.SimpleNamespace(
+            Ny=Hy + 1, H=(hx, Hy, 0), fold_wrap=wrap, fold_half=half)
+
+    def _block(self, dist):
+        (rx, ry), (ox, oy) = dist.coords, (self.offsets[0][dist.coords[0]],
+                                           self.offsets[1][dist.coords[1]])
+        return ox, oy, self.sizes[0][rx], self.sizes[1][ry]
+
+    def folded(self, a, loc, dist):
+        """The folded strip of the LOCAL block ``a`` at ``loc`` (every
+        rank calls it together): rows ``2Hy`` on hold global rows ``Ny −
+        1`` on."""
+        Hy, hx, R0 = self.Hy, self.hx, self.Ny - 1 - self.Hy
+        ox, oy, nxl, nyl = self._block(dist)
+        strip = a.new_zeros((self.Nx, Hy + 1) + tuple(a.shape[2:]))
+        lo, hi = max(R0, oy), min(self.Ny, oy + nyl)
+        if lo < hi:
+            strip[ox:ox + nxl, lo - R0:hi - R0] = \
+                a[hx:hx + nxl, lo - oy + Hy:hi - oy + Hy]
+        dist.merge_disjoint(strip,
+                            "fold_2d" if a.shape[-1] == 1 else "fold_3d")
+        full = a.new_zeros((self.Nx + 2 * hx, 3 * Hy + 1)
+                           + tuple(a.shape[2:]))
+        full[:, Hy:2 * Hy + 1] = _wrap_pad(strip, 0, hx)
+        return fill_zipper_north(full, self.strip_grid, loc, fold_sign(loc))
+
+    def write(self, a, full, loc, dist):
+        """Write the rows of the folded strip ``full`` that fall in the
+        LOCAL block ``a`` (halo rows included), in place."""
+        Hy, Ny = self.Hy, self.Ny
+        ox, oy, nxl, nyl = self._block(dist)
+        first = Ny if loc[1] == Face else Ny - 1
+        lo, hi = max(first, oy - Hy), min(Ny + Hy, oy + nyl + Hy)
+        if lo < hi:
+            a[:, lo - oy + Hy:hi - oy + Hy] = full[
+                ox:ox + nxl + 2 * self.hx,
+                lo - Ny + 2 * Hy + 1:hi - Ny + 2 * Hy + 1]
+        return a
 
 
 def _values(lbc, rbc, grid, axis, loc, time, use_values):
@@ -102,8 +192,14 @@ def _values(lbc, rbc, grid, axis, loc, time, use_values):
     return one(lbc), one(rbc)
 
 
+def _writes(bc):
+    """Whether a wall fill writes past the wall by ``bc`` (None and a
+    communication condition leave the halo)."""
+    return bc is not None and bc.classification != COMMUNICATION
+
+
 def dist_fill_xy(a, grid, bcs, loc, time, dt, ctx, global_topo,
-                 use_values=True):
+                 use_values=True, fold=False):
     """The distributed x/y halo fill of a LOCAL block, in place: the
     neighbour exchange along each distributed axis (the ring wraps where
     the domain is periodic), and the physical boundary fill only on the
@@ -111,38 +207,60 @@ def dist_fill_xy(a, grid, bcs, loc, time, dt, ctx, global_topo,
     skips the conditions' values (the η and transport fills take none, as
     their serial counterparts). Unlike the JAX package, whose edge shard
     keeps only the halo strips of its physical fill, the edge rank's fill
-    also imposes the left wall-face value, as the serial fill does."""
+    also imposes the left wall-face value, as the serial fill does.
+
+    Where a block is narrower than its halo, the halo cells of other
+    blocks that image what the edge fills write (the ghosts past a wall,
+    and the wall face itself) take them in a second round. ``fold`` (the
+    3-D fills') folds the north y halo of a grid with a :class:`NorthFold`
+    as ``fill_halo_regions`` does; the 2-D fills, like their serial
+    counterpart, take the north wall's condition."""
     for axis in (0, 1):
         n_shards = ctx.size(axis)
         topo = global_topo[axis]
         if topo == Flat:
             continue
         lbc, rbc = bcs.sides(axis)
+        zipper = (fold and axis == 1 and ctx.fold is not None
+                  and a.shape[1] == grid.shape[1])
+        if zipper:
+            # as fill_halo_regions folds: the south side's fill alone,
+            # without the last step's Δt
+            rbc, dt = None, None
+        lval, rval = _values(lbc, rbc, grid, axis, loc, time, use_values)
         if n_shards == 1:
-            lval, rval = _values(lbc, rbc, grid, axis, loc, time,
-                                 use_values)
             _fill_axis(a, grid, axis, loc[axis], lbc, rbc, lval, rval,
                        dt=dt)
-            continue
-        periodic = topo == Periodic
-        _exchange_axis(a, ctx.dist, axis, grid.H[axis], periodic)
-        if periodic:
-            continue
-        i = ctx.index(axis)
-        first, last = i == 0, i == n_shards - 1
-        if first or last:
-            lval, rval = _values(lbc, rbc, grid, axis, loc, time,
-                                 use_values)
-            _fill_axis(a, grid, axis, loc[axis], lbc if first else None,
-                       rbc if last else None, lval, rval, dt=dt)
+        else:
+            H = grid.H[axis]
+            sizes = tuple(ctx.sizes[axis])
+            _exchange_axis(a, ctx.dist, axis, H, topo == Periodic, sizes)
+            if topo == Periodic:
+                continue
+            i = ctx.index(axis)
+            first, last = i == 0, i == n_shards - 1
+            if first or last:
+                _fill_axis(a, grid, axis, loc[axis], lbc if first else None,
+                           rbc if last else None, lval, rval, dt=dt)
+        if zipper:
+            ctx.fold.write(a, ctx.fold.folded(a, loc, ctx.dist), loc,
+                           ctx.dist)
+        if n_shards > 1:
+            low = -H
+            if _writes(lbc):
+                low = 1 if loc[axis] == Face and lbc.classification in (
+                    OPEN, VALUE) else 0
+            runs = ghost_runs(sizes, H, low, H if _writes(rbc) else 0)
+            if runs is not None:
+                exchange_runs(a, ctx.dist, axis, runs, "ghosts")
     return a
 
 
 def dist_fill_halos(a, grid, bcs, loc, time, dt, ctx, global_topo):
     """Fill every halo ring of a LOCAL block in place: x/y through
-    :func:`dist_fill_xy`, z with the ordinary local fill (z is never
-    distributed)."""
-    dist_fill_xy(a, grid, bcs, loc, time, dt, ctx, global_topo)
+    :func:`dist_fill_xy` with the north fold, z with the ordinary local
+    fill (z is never distributed)."""
+    dist_fill_xy(a, grid, bcs, loc, time, dt, ctx, global_topo, fold=True)
     return fill_halo_regions(a, grid, bcs, loc, time, dt=dt, axes=(2,))
 
 
@@ -331,9 +449,6 @@ class DistributedStep:
     def __init__(self, make_model, grid, dist: Distributed, gspmd=False,
                  model=None):
         from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
-        from oceananigans_torch.grids.orthogonal import (
-            OrthogonalSphericalShellGrid,
-        )
         from oceananigans_torch.immersed import ImmersedBoundaryGrid
         from oceananigans_torch.models import (
             HydrostaticFreeSurfaceModel, NonhydrostaticModel,
@@ -348,11 +463,6 @@ class DistributedStep:
         self.gspmd = gspmd
         immersed = isinstance(grid, ImmersedBoundaryGrid)
         base_grid = grid.underlying_grid if immersed else grid
-        if gspmd and isinstance(base_grid, OrthogonalSphericalShellGrid):
-            raise NotImplementedError(
-                "an OrthogonalSphericalShellGrid needs the tripolar north "
-                "fold across mirror ranks, which the sharded step does not "
-                f"exchange yet: {ITEM_20}")
         gmodel = make_model(grid) if make_model is not None else model
         kinds = (NonhydrostaticModel, HydrostaticFreeSurfaceModel)
         if gspmd:
@@ -425,14 +535,6 @@ class DistributedStep:
                 "distributed Bounded axis or partition another axis")
         #: the local grids' x/y halos
         self.halo = tuple(grid.H[axis] or self.pads[axis] for axis in (0, 1))
-        for axis in (0, 1):
-            if gspmd and dist.size(axis) > 1 and \
-                    min(self.sizes[axis]) < self.halo[axis]:
-                raise NotImplementedError(
-                    f"blocks of {min(self.sizes[axis])} cells along axis "
-                    f"{axis} are narrower than their halo of "
-                    f"{self.halo[axis]}: the exchange would need a "
-                    f"neighbour's neighbour; {ITEM_20}")
         pgrid = _pad_grid(grid, self.pads) if any(self.pads) else grid
         lgrid = _window_grid(pgrid, dist.device, self.offsets[0][rx],
                              self.offsets[1][ry], self.nxl, self.nyl)
@@ -446,8 +548,13 @@ class DistributedStep:
                                  "record its constructor arguments")
             lmodel = type(gmodel)(grid=lgrid,
                                   **_localize(kwargs, self.window))
-        # route the local model's halo fills through the exchange
-        lmodel.set_dist_halo(DistHalo(dist), topo)
+        # route the local model's halo fills through the exchange, with
+        # the blocks' sizes and the grid's fold
+        fold = None
+        if getattr(base_grid, "zipper", False):
+            fold = NorthFold(base_grid, self.sizes, self.halo[0],
+                             dist.device)
+        lmodel.set_dist_halo(DistHalo(dist, self.sizes, fold), topo)
         self.lmodel = lmodel
         if getattr(lmodel, "particles", None) is not None:
             lmodel.particles = self._sharded_particles(lmodel.particles)

@@ -11,7 +11,9 @@ case advects with WENO of order 7 or more on stratified fields, since
 jitting it reorders XLA's evaluation by ~1e-12 (ROADMAP Queue 3, caveat 5).
 ``run_both`` also serves ``test_torch_closure_physics.py`` and
 ``test_torch_hydrostatic_closures.py``, whose small cases step JAX eagerly
-because that is quicker than compiling them.
+because that is quicker than compiling them. Its JAX steps run the JAX
+package's Thomas solve jitted (:func:`jitted_thomas`), which gives the
+eager solve's bits.
 
 Also here: the Rayleigh-Bénard golden of ``tests/test_regression.py``
 through the port at the golden's 1e-12, and the dispatch gates: with a
@@ -19,6 +21,7 @@ closure or a valued flux condition the fused AB2 kernels (TPU kernels 1, 5,
 6 and 8) do not run and the tendency kernels (2, 7, 9 and 11) still do.
 """
 
+import contextlib
 from pathlib import Path
 
 import jax
@@ -29,10 +32,14 @@ import torch
 
 import oceananigans_torch as ot
 import oceananigans_tpu as oj
+import oceananigans_tpu.closures as jclosures
 from oceananigans_torch.interop import (
     FIELDS, HYDROSTATIC_FIELDS, state_from_numpy, state_to_numpy,
 )
 from oceananigans_torch.ops import cuda_sw
+from oceananigans_tpu.solvers.tridiagonal import (
+    tridiagonal_solve as eager_thomas,
+)
 
 RTOL = 1e-12
 F64 = torch.float64
@@ -51,6 +58,25 @@ def on_cpu():
     yield
     ot.config.device = old[0]
     torch.set_num_threads(old[1])
+
+
+#: the JAX package's batched Thomas solve under ``jax.jit``
+JIT_THOMAS = jax.jit(eager_thomas, static_argnames="axis")
+
+
+@contextlib.contextmanager
+def jitted_thomas():
+    """The JAX package's vertically implicit closures solve with
+    :data:`JIT_THOMAS` while the block runs. Called eagerly, each solve
+    traces and compiles its two ``lax.scan`` bodies anew; the bodies
+    compile to the same loops either way, so the solve gives the eager
+    solve's bits (``test_jitted_thomas_is_eager_thomas``) in a fraction of
+    the time. Nothing in the JAX package changes."""
+    jclosures.tridiagonal_solve = JIT_THOMAS
+    try:
+        yield
+    finally:
+        jclosures.tridiagonal_solve = eager_thomas
 
 
 def jax_arrays(state, fields, names):
@@ -124,7 +150,8 @@ def run_both(jmodel, tmodel, jstate, dt, steps, eager=False,
     js = jstate
     for _ in range(steps):
         ts = tmodel.step(ts, dt)
-        js = step(js)
+        with jitted_thomas():
+            js = step(js)
         ref = jax_arrays(js, fields, names)
         vs = balance_scale(tmodel.grid, ref, dt) if balanced else 0.0
         assert_close(tmodel.grid, ts, ref, fields, names, velocity_scale=vs)
@@ -134,6 +161,21 @@ def run_both(jmodel, tmodel, jstate, dt, steps, eager=False,
 def grids(**kw):
     return (oj.RectilinearGrid(dtype="float64", **kw),
             ot.RectilinearGrid(dtype=F64, **kw))
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_jitted_thomas_is_eager_thomas(axis):
+    """:func:`jitted_thomas`'s premise: the jitted Thomas solve gives the
+    eager one's bits, on a seeded diagonally dominant system along either
+    end axis."""
+    rng = np.random.default_rng(5)
+    shape = (6, 5, 9)
+    a, c = (jnp.asarray(-rng.random(shape)) for _ in range(2))
+    b = jnp.asarray(2.5 + rng.random(shape))
+    d = jnp.asarray(rng.standard_normal(shape))
+    np.testing.assert_array_equal(
+        np.asarray(JIT_THOMAS(a, b, c, d, axis=axis)),
+        np.asarray(eager_thomas(a, b, c, d, axis=axis)))
 
 
 # ---------------------------------------------------------------------------

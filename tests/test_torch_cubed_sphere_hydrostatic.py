@@ -15,8 +15,9 @@ Each group of fields (u and v, U and V, η, each tracer) is held within
 1e-12 of the group's largest value. The JAX references of the WENO
 tracer case and of the global ocean step eagerly: under ``jax.jit``
 XLA's evaluation order moves the WENO weights, and the convective
-adjustment's switch on the sign of N², past 1e-12. The JAX runs are
-shared through a module-scoped fixture.
+adjustment's switch on the sign of N², past 1e-12; their Thomas solves
+run jitted (``test_torch_closure_models.jitted_thomas``: the eager
+solve's bits). The JAX runs are shared through a module-scoped fixture.
 """
 
 import dataclasses
@@ -41,6 +42,7 @@ from oceananigans_tpu.boundary_conditions import FluxBC as JFluxBC
 from oceananigans_tpu.grids import cubed_sphere_grid as jcg
 from oceananigans_tpu.models import cubed_sphere as jcs
 from oceananigans_tpu.models import hydrostatic as jhyd
+from test_torch_closure_models import jitted_thomas
 
 RTOL = 1e-12
 A = 6.37122e6
@@ -149,7 +151,7 @@ CASES = ("explicit_rk3", "split_rk3", "ab2_forcing_filter", "global_ocean",
 #: order moves WENO tracers and the convective adjustment's N² < 0 switch
 #: by more than 1e-12
 EAGER = ("global_ocean", "prescribed_weno_tracer")
-#: steps of each case (the eager global ocean takes ~9 s a JAX step)
+#: steps of each case (the eager global ocean takes ~3 s a JAX step)
 STEPS = {case: 2 if case == "global_ocean" else 3 for case in CASES}
 
 
@@ -206,8 +208,9 @@ def runs():
             st = mt.fill_state_halos(state_from_numpy(mt, arrays))
         st0 = st
         if case in EAGER:
-            for _ in range(STEPS[case]):
-                sj = mj.step(sj, dt)
+            with jitted_thomas():
+                for _ in range(STEPS[case]):
+                    sj = mj.step(sj, dt)
         else:
             step = jax.jit(lambda s, m=mj, d=dt: m.step(s, d))
             for _ in range(STEPS[case]):

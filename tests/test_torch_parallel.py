@@ -29,12 +29,18 @@ blocks and ``tests/test_orbax_checkpoint.py``'s halo-free grid at the
 JAX package's 1e-13; forcings, a callable boundary flux, background
 fields and particles, phase 13's ``hydro_vi_closure`` configuration, a
 hydrostatic model with particles on a stretched x, and the shallow-water
-model split in x and in a halo-free y, at 1e-12; and its
-``NotImplementedError`` naming ROADMAP Queue 1 item 20 for a tripolar
-grid and for blocks narrower than their halo. The ranks start on the
+model split in x and in a halo-free y, at 1e-12; the tripolar model of
+``tests/test_orthogonal_grids.py::test_distributed_tripolar_fold_matches_serial``
+over (4, 1) and (2, 2), a tripolar grid whose top block is narrower than
+its halo over (1, 4) and a rotated lat-lon model over (2, 2), at 1e-12 of
+each field's largest value, with the tripolar fill bit for bit against
+the JAX serial fill on every rank's block; and blocks narrower than their
+halo, a nonhydrostatic x split at 1e-13 and a hydrostatic split of a
+Bounded y, whose halos reach past the wall. The ranks start on the
 device of ``config.device`` (``launch``'s default).
 """
 
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -48,6 +54,8 @@ import oceananigans_tpu as oj
 from oceananigans_torch.parallel import Partition, launch
 
 import torch_parallel_ranks as tr
+from test_torch_closure_models import jitted_thomas
+
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
@@ -135,6 +143,19 @@ def rect(size, topology, halo, **kw):
 
 
 PPB = ("Periodic", "Periodic", "Bounded")
+#: tests/test_orthogonal_grids.py::test_distributed_tripolar_fold_matches_
+#: serial's model (its default halo of 3), 3 steps of 300 s: u, v and η
+#: held at 1e-12 of each one's largest value, as there, the other fields
+#: at 1e-12
+TRIPOLAR = dict(
+    kind="hydrostatic", grid_kind="TripolarGrid",
+    grid={"size": (26, 8, 4), "southernmost_latitude": -75.0,
+          "z": (-1000.0, 0.0)},
+    model={"momentum_advection": ("VectorInvariant",), "tracers": ("b",),
+           "buoyancy": "BuoyancyTracer",
+           "free_surface": ("SplitExplicitFreeSurface", {"substeps": 10})},
+    ic="tripolar", dt=300.0, steps=3, ref="tripolar",
+    relative=("u", "v", "eta"))
 
 #: the model cases: the grid, the model, the initial fields, Δt and steps,
 #: the partition, and the JAX package's tolerances for them
@@ -365,13 +386,55 @@ SHARDED_CASES = {
                   x=(0.0, 28 * 2.0 ** 15), y=(0.0, 2.0 ** 20)),
         model={"gravitational_acceleration": 9.81}, fused=True,
         ic="sw", dt=100.0, steps=3, partition=(1, 4)),
+    # tests/test_orthogonal_grids.py::test_distributed_tripolar_fold_
+    # matches_serial's model over (4, 1), every rank folding against
+    # another, and over (2, 2), the top row folding; one JAX reference
+    "tripolar_x": dict(TRIPOLAR, partition=(4, 1)),
+    "tripolar_xy": dict(TRIPOLAR, partition=(2, 2)),
+    # y blocks of 3, 3, 2 and 2 rows under a halo of 3: the fold's rows
+    # span two ranks, and the top block is narrower than its halo
+    "tripolar_narrow": dict(TRIPOLAR, grid=dict(TRIPOLAR["grid"],
+                                                size=(24, 10, 4)),
+                            partition=(1, 4), ref="tripolar_narrow"),
+    # an OrthogonalSphericalShellGrid without a fold
+    "rotated": dict(
+        kind="hydrostatic", grid_kind="RotatedLatitudeLongitudeGrid",
+        grid={"size": (16, 10, 4), "longitude": (-30.0, 30.0),
+              "latitude": (-20.0, 20.0), "z": (-100.0, 0.0),
+              "north_pole": (30.0, 50.0), "halo": 3},
+        model={"momentum_advection": ("VectorInvariant",),
+               "tracers": ("T", "S"), "buoyancy": "SeawaterLinear",
+               "free_surface": ("SplitExplicitFreeSurface",
+                                {"substeps": 10})},
+        ic="rotated", dt=120.0, steps=3, partition=(2, 2),
+        relative=("u", "v", "eta")),
 }
-#: the sharded cases' tolerances: 1e-13 for the JAX package's own
-SHARDED_TOL = {"jax_sharded_serial": 1e-13, "orbax_halo_free": 1e-13}
-#: blocks narrower than their halo: 10 cells over 4 ranks, halo 3
-NARROW = dict(kind="nonhydrostatic",
-              grid=rect((10, 8, 4), PPB, 3, extent=(1.0, 1.0, 1.0)),
-              model={}, partition=(4, 1), program="gspmd_refusal")
+#: blocks narrower than their halo: 10 cells over 4 ranks under a halo of
+#: 3 (blocks of 3, 3, 2 and 2); and a Bounded y so split, whose blocks'
+#: halos reach past its walls, where the edge ranks' fills write
+NARROW_CASES = {
+    "narrow": dict(kind="nonhydrostatic",
+                   grid=rect((10, 8, 4), PPB, 3, extent=(1.0, 1.0, 1.0)),
+                   model={}, ic="pallas", dt=1e-3, steps=3,
+                   partition=(4, 1)),
+    "narrow_bounded": dict(
+        kind="hydrostatic",
+        grid=rect((16, 10, 4), ("Periodic", "Bounded", "Bounded"), 3,
+                  x=(0, 1e5), y=(0, 5e4), z=(-500.0, 0.0)),
+        model={"free_surface": ("SplitExplicitFreeSurface",
+                                {"substeps": 12}),
+               "tracers": ("T", "S"), "buoyancy": "SeawaterLinear"},
+        ic="hydro", dt=30.0, steps=3, partition=(1, 4)),
+}
+#: the sharded cases' tolerances: 1e-13 for the JAX package's own, and
+#: for the narrow blocks of its uneven (26, 10, 8) case's configuration
+SHARDED_TOL = {"jax_sharded_serial": 1e-13, "orbax_halo_free": 1e-13,
+               "narrow": 1e-13}
+#: the fold's fills, bit for bit: the JAX test's TripolarGrid (26, 8, 4)
+#: over (4, 1) (blocks of 7, 7, 6 and 6) and (2, 2), and the narrow
+#: (24, 10, 4) over (1, 4)
+FOLD_FILLS = {"x": ((26, 8, 4), (4, 1)), "xy": ((26, 8, 4), (2, 2)),
+              "narrow": ((24, 10, 4), (1, 4))}
 #: a split Bounded axis without a halo: the serial operators wrap across
 #: its walls, which no halo cell of a block holds
 BOUNDED_HALO_FREE = dict(
@@ -401,8 +464,9 @@ def jax_model(case, fused=None):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every case's inputs (the JAX model and the port's initial state in
-    it), every rank program run in one spawn of four gloo ranks;
-    ``(inputs, results)`` by case name."""
+    it), every rank program run in one spawn of four gloo ranks, and,
+    while the ranks run, every case's JAX serial state
+    (:func:`sharded_reference`); ``(inputs, results)`` by case name."""
     cases, inputs = {}, {}
     for name, case in {**STEP_CASES, **SPY_CASES}.items():
         grid, model = jax_model(case)
@@ -445,31 +509,66 @@ def ranks(tmp_path_factory):
     arrays = initial_arrays(widened)
     inputs["widened"] = (grid, model, jax_state(model, arrays))
     gspmd = dict(STEP_CASES["hydro_split"], program="gspmd",
-                 widened=widened,
-                 tripolar={"size": (16, 10, 2), "halo": 2})
+                 widened=widened)
     cases["gspmd"] = (gspmd, {"state": cases["hydro_split"][1],
                               "widened": arrays})
-    for name, case in SHARDED_CASES.items():
-        grid, model = jax_model(case)
-        arrays = initial_arrays(case)
-        inputs[name] = (grid, model, jax_state(model, arrays))
+    built = {}
+    for name, case in {**SHARDED_CASES, **NARROW_CASES}.items():
+        # the cases of one reference share its model and initial state
+        ref = case.get("ref", name)
+        if ref not in built:
+            grid, model = jax_model(case)
+            arrays = initial_arrays(case)
+            built[ref] = (grid, model, jax_state(model, arrays)), arrays
+        inputs[name], arrays = built[ref]
         cases[name] = (dict(case, program="sharded"), arrays)
-    cases["narrow"] = (NARROW, {})
+    rng = np.random.default_rng(0)
+    for tag, (size, partition) in FOLD_FILLS.items():
+        fill = dict(grid=dict(TRIPOLAR["grid"], size=size),
+                    grid_kind="TripolarGrid", partition=partition,
+                    program="fold_fill")
+        shape = tuple(tr.grid_of(ot, torch, fill).shape)
+        arrays = {loc: rng.standard_normal(shape) for loc in tr.FILL_LOCS}
+        cases[f"fold_{tag}"] = (fill, arrays)
+        inputs[f"fold_{tag}"] = (fill, arrays)
     cases["bounded_halo_free"] = (BOUNDED_HALO_FREE, {})
-    # the ranks' device: launch's default, config.device (the CPU here)
-    results = launch(4, tr.run_cases, (cases,),
-                     rendezvous_dir=tmp_path_factory.mktemp("rdzv"),
-                     backend="gloo")[0]
+    # the ranks' device: launch's default, config.device (the CPU here);
+    # this process only waits for them, so it steps the JAX references
+    # meanwhile
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        spawn = pool.submit(launch, 4, tr.run_cases, (cases,),
+                            rendezvous_dir=tmp_path_factory.mktemp("rdzv"),
+                            backend="gloo")
+        for name, case in {**STEP_CASES, **SPY_CASES, **SHARDED_CASES,
+                           **NARROW_CASES, "widened": dict(steps=3, dt=1e-3),
+                           "simulation": dict(SIMULATION, steps=6)}.items():
+            sharded_reference(inputs, name, case)
+        results = spawn.result()[0]
     return inputs, results
+
+
+#: the JAX serial states of the cases, by reference
+REFERENCES = {}
+
+
+def sharded_reference(inputs, name, case):
+    """The JAX serial state of a case (the cases of one reference share
+    it, and every test that holds a case to it)."""
+    ref = case.get("ref", name)
+    if ref not in REFERENCES:
+        model, state = inputs[name][1:3]
+        REFERENCES[ref] = jax_arrays(serial_run(model, state, case))
+    return REFERENCES[ref]
 
 
 def serial_run(model, state, case):
     """The JAX package's serial steps (jitted, or eager where the case
-    says so)."""
+    says so, its Thomas solves jitted: the eager solves' bits)."""
     step = ((lambda s: model.step(s, case["dt"])) if case.get("eager")
             else jax.jit(lambda s: model.step(s, case["dt"])))
-    for _ in range(case["steps"]):
-        state = step(state)
+    with jitted_thomas():
+        for _ in range(case["steps"]):
+            state = step(state)
     return state
 
 
@@ -513,8 +612,8 @@ def test_sharded_step_matches_jax_serial(ranks, name):
     the tolerances of the JAX package's own sharded-vs-serial test."""
     inputs, results = ranks
     case = {**STEP_CASES, **SPY_CASES}[name]
-    grid, model, state = inputs[name]
-    ref = jax_arrays(serial_run(model, state, case))
+    grid = inputs[name][0]
+    ref = sharded_reference(inputs, name, case)
     got = results[name]["state"]
     assert int(got["iteration"]) == case["steps"]
     for key, tol in TOLERANCES[name].items():
@@ -563,24 +662,29 @@ def test_sharded_step_fn_global_in_global_out(ranks):
     0) and runs the explicit-halo step between, matching the JAX serial
     step as ``hydro_split`` does; a background field, which the
     explicit-halo step refuses, steps there too and matches the JAX
-    serial step; a tripolar grid raises ``NotImplementedError`` naming
-    ROADMAP Queue 1 item 20."""
+    serial step; a tripolar grid steps there too, its global state in and
+    out, each field of its global shape."""
     inputs, results = ranks
     out = results["gspmd"]
-    grid, model, state = inputs["hydro_split"]
-    ref = jax_arrays(serial_run(model, state, STEP_CASES["hydro_split"]))
+    grid = inputs["hydro_split"][0]
+    ref = sharded_reference(inputs, "hydro_split", STEP_CASES["hydro_split"])
     for key, tol in TOLERANCES["hydro_split"].items():
         np.testing.assert_allclose(interior(grid, out["state"][key]),
                                    interior(grid, ref[key]), rtol=0,
                                    atol=tol, err_msg=key)
-    grid, model, state = inputs["widened"]
-    ref = jax_arrays(serial_run(model, state, dict(steps=3, dt=1e-3)))
+    grid = inputs["widened"][0]
+    ref = sharded_reference(inputs, "widened", dict(steps=3, dt=1e-3))
     for key in ("u", "v", "w"):
         np.testing.assert_allclose(interior(grid, out["widened"][key]),
                                    interior(grid, ref[key]), rtol=0,
                                    atol=1e-12, err_msg=key)
-    assert "item 20" in out["refusal"]
-    assert "OrthogonalSphericalShellGrid" in out["refusal"]
+    tri = tr.grid_of(ot, torch, TRIPOLAR)
+    for name in ("tripolar_x", "tripolar_xy"):
+        got = results[name]["state"]
+        assert int(got["iteration"]) == TRIPOLAR["steps"]
+        for key in ("u", "v", "tracers/b"):
+            assert got[key].shape == tuple(tri.shape), (name, key)
+        assert got["eta"].shape == tuple(tri.shape[:2]) + (1,)
     # shard_state: each rank's even slab of the halo-extended arrays, the
     # layout of the JAX package's P("x", "y", None) sharding
     gx, gy, gz = out["global"]
@@ -593,10 +697,14 @@ def test_sharded_step_fn_matches_jax_serial(ranks, name):
     ``sharded_step_fn``, against the JAX serial step: every field of the
     state, and the particles' positions (to the tolerance of the domain's
     length) and tracked properties."""
+    check_sharded(ranks, name, SHARDED_CASES[name])
+
+
+def check_sharded(ranks, name, case):
+    """A sharded case's state against the JAX serial step's."""
     inputs, results = ranks
-    case = SHARDED_CASES[name]
-    grid, model, state = inputs[name]
-    ref = jax_arrays(serial_run(model, state, case))
+    grid = inputs[name][0]
+    ref = sharded_reference(inputs, name, case)
     got = results[name]["state"]
     tol = SHARDED_TOL.get(name, 1e-12)
     assert int(got["iteration"]) == case["steps"]
@@ -612,9 +720,11 @@ def test_sharded_step_fn_matches_jax_serial(ranks, name):
         want = interior(grid, ref[key])
         # the shallow water's h ~ 1e3 and uh ~ 1e2: relative to each
         # field's largest value, as tests/test_torch_shallow_water.py
-        # holds the port's serial step to the JAX package's
-        scale = (np.abs(want).max() if case["kind"] == "shallow_water"
-                 else 1.0)
+        # holds the port's serial step to the JAX package's; so too the
+        # shells' u, v and η, as tests/test_orthogonal_grids.py holds them
+        scale = (np.abs(want).max()
+                 if case["kind"] == "shallow_water"
+                 or key in case.get("relative", ()) else 1.0)
         np.testing.assert_allclose(interior(grid, got[key]), want, rtol=0,
                                    atol=tol * scale, err_msg=f"{name}: {key}")
     if "particles" in case["model"]:
@@ -700,12 +810,94 @@ def test_sw_gate_refuses_halo_free_split_y():
 
 
 def test_sharded_step_fn_refuses_narrow_blocks(ranks):
-    """Blocks narrower than their halo would need a neighbour's neighbour:
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 20."""
+    """Blocks narrower than their halo, whose halo cells reach past the
+    neighbour (and, on a Bounded axis, past the wall), step through
+    ``sharded_step_fn`` and match the JAX serial step: the nonhydrostatic
+    x split at the 1e-13 of the JAX package's uneven case, the Bounded y
+    split at 1e-12; its blocks as cut."""
     _, results = ranks
-    out = results["narrow"]
-    assert out["error"] == "NotImplementedError"
-    assert "item 20" in out["message"] and "narrower" in out["message"]
+    for name, case in NARROW_CASES.items():
+        check_sharded(ranks, name, case)
+        axis = 0 if case["partition"][0] > 1 else 1
+        blocks = [r["block"][axis] for r in results[name]["locals"]]
+        assert blocks == [3, 3, 2, 2] and all(
+            r["halo"][axis] == 3 for r in results[name]["locals"]), name
+
+
+def test_halo_runs_image_every_halo_cell():
+    """The exchange's runs (``halo_runs``) give every halo cell of every
+    block the cell it images, on blocks of any width, whatever the
+    periodicity (past a wall: no source); the second round's
+    (``ghost_runs``) the wall's ghosts, and the left wall face where the
+    fill writes it, in the other blocks' halos only; where every block is
+    at least as wide as its halo, no second round but for that face."""
+    from oceananigans_torch.parallel.distributed import (
+        block_offsets, block_sizes,
+    )
+    from oceananigans_torch.parallel.halo_exchange import (
+        ghost_runs, halo_runs,
+    )
+    for N, parts, h in ((10, 4, 3), (26, 4, 3), (5, 2, 3), (16, 4, 2),
+                        (7, 3, 4), (12, 2, 6)):
+        sizes = tuple(block_sizes(N, parts))
+        offs = block_offsets(sizes)
+        for periodic in (True, False):
+            got = {}
+            for dst, ds, src, ss, n in halo_runs(sizes, h, periodic):
+                for k in range(n):
+                    got[dst, ds + k] = (None if src is None else
+                                        offs[src] - h + ss + k)
+            for b, (nb, off) in enumerate(zip(sizes, offs)):
+                for L in list(range(h)) + list(range(nb + h, nb + 2 * h)):
+                    g = off - h + L
+                    want = (g % N if periodic
+                            else g if 0 <= g < N else None)
+                    assert got.pop((b, L)) == want, (sizes, periodic, b, L)
+            assert not got
+        for low in (0, 1):
+            runs = ghost_runs(sizes, h, low, h) or ()
+            cells = set()
+            for dst, ds, src, ss, n in runs:
+                assert src in (0, parts - 1) and dst != src
+                for k in range(n):
+                    g = offs[dst] - h + ds + k
+                    assert g == offs[src] - h + ss + k
+                    cells.add((dst, ds + k))
+            assert cells == {
+                (b, L) for b, (nb, off) in enumerate(zip(sizes, offs))
+                for L in list(range(h)) + list(range(nb + h, nb + 2 * h))
+                if (b != 0 and -h <= off - h + L < low)
+                or (b != parts - 1 and N <= off - h + L < N + h)}
+            if min(sizes) >= h and sizes[0] > h:
+                assert not runs
+
+
+@pytest.mark.parametrize("tag", FOLD_FILLS)
+def test_sharded_tripolar_fill_is_the_serial_fill(ranks, tag):
+    """The sharded step's halo fill of a tripolar field (the fold across
+    the ranks that hold the mirror columns) is bit for bit the JAX serial
+    fill on every rank's block, halos included, at (C, C, C), (F, C, C)
+    and (C, F, C); each 3-D fill folds once."""
+    from oceananigans_tpu.boundary_conditions import fill_halo_regions
+    from oceananigans_torch.parallel.distributed import (
+        block_offsets, block_sizes,
+    )
+    inputs, results = ranks
+    case, arrays = inputs[f"fold_{tag}"]
+    grid = tr.grid_of(oj, jnp, case)
+    out = results[f"fold_{tag}"]
+    sizes = [block_sizes(n, p) for n, p in zip(grid.N, case["partition"])]
+    offs = [block_offsets(s) for s in sizes]
+    for name, a in arrays.items():
+        loc = tuple(getattr(oj, c) for c in tr.FILL_LOCS[name])
+        want = np.asarray(fill_halo_regions(jnp.asarray(a), grid, loc=loc))
+        for rank, blocks in enumerate(out["blocks"]):
+            rx, ry = divmod(rank, case["partition"][1])
+            win = want[offs[0][rx]:offs[0][rx] + sizes[0][rx] + 2 * grid.Hx,
+                       offs[1][ry]:offs[1][ry] + sizes[1][ry] + 2 * grid.Hy]
+            np.testing.assert_array_equal(blocks[name], win,
+                                          err_msg=f"{tag} {name} {rank}")
+    assert out["counts"]["fold_3d"] == len(arrays)
 
 
 def test_sharded_step_fn_refuses_halo_free_bounded_split(ranks):
@@ -825,10 +1017,10 @@ def test_simulation_drives_distributed_model_with_sharded_pickup(ranks):
     bit for bit where the first did."""
     import h5py
     inputs, results = ranks
-    grid, model, state, path = inputs["simulation"]
+    grid, path = inputs["simulation"][0], inputs["simulation"][3]
     out = results["simulation"]
     assert out["iteration"] == 6 and out["bitwise"]
-    ref = jax_arrays(serial_run(model, state, dict(SIMULATION, steps=6)))
+    ref = sharded_reference(inputs, "simulation", dict(SIMULATION, steps=6))
     for key, tol in (("u", 1e-12), ("v", 1e-12), ("tracers/T", 1e-11)):
         np.testing.assert_allclose(interior(grid, out["state"][key]),
                                    interior(grid, ref[key]), rtol=0,

@@ -50,7 +50,8 @@ def bottom_of(m, kind):
 def grid_of(pkg, m, case):
     """The case's global grid in ``pkg`` (float64)."""
     kw = dict(case["grid"])
-    kw["topology"] = tuple(getattr(pkg, t) for t in kw["topology"])
+    if "topology" in kw:
+        kw["topology"] = tuple(getattr(pkg, t) for t in kw["topology"])
     if "z_power" in kw:
         n, p = kw.pop("z_power")
         kw["z"] = -(1.0 - np.linspace(0, 1, n + 1) ** p)
@@ -219,6 +220,20 @@ def fields_of(m, case):
         return dict(u=lambda x, y, z: 0.1 + 0 * x,
                     T=lambda x, y, z: 10.0 + 5e-3 * z + 0 * x,
                     eta=lambda x, y: 0.02 * m.sin(2 * PI * x / 2e5) + 0 * y)
+    if name == "tripolar":
+        # tests/test_orthogonal_grids.py's distributed tripolar state
+        return dict(b=lambda lam, phi, z: 1e-5 * z + 0 * lam,
+                    eta=lambda lam, phi: 0.1 * m.exp(
+                        -((lam - 200) / 40) ** 2 - ((phi - 10) / 20) ** 2))
+    if name == "rotated":
+        return dict(u=lambda lam, phi, z: 0.1 * m.sin(m.deg2rad(lam) + 0.3)
+                    * m.cos(m.deg2rad(phi)) + 0 * z,
+                    v=lambda lam, phi, z: 0.05 * m.cos(m.deg2rad(lam))
+                    + 0 * z,
+                    T=lambda lam, phi, z: 20.0 + 1e-3 * z
+                    + 0.05 * m.cos(m.deg2rad(phi)),
+                    S=lambda lam, phi, z: 35.0 + 1e-3 * phi + 0 * z,
+                    eta=lambda lam, phi: 0.02 * m.sin(m.deg2rad(lam)) + 0 * phi)
     if name == "latlon":
         return dict(u=lambda lam, phi, z: 0.1 * m.cos(m.deg2rad(phi))
                     + 0 * lam,
@@ -447,22 +462,12 @@ def _gspmd_case(dist, case, arrays):
     """``sharded_step_fn``: the global state in and out (rank 0), the
     explicit-halo step between, for a configuration the explicit-halo step
     takes and one that only the sharded step takes (``arrays`` holds each
-    one's initial state); its NotImplementedError for a tripolar grid;
-    and ``shard_state``'s slab."""
-    from oceananigans_torch.parallel import shard_state, sharded_step_fn
+    one's initial state); and ``shard_state``'s slab."""
+    from oceananigans_torch.parallel import shard_state
     d = _dist(case, dist)
     out = {}
     for key, sub in (("state", case), ("widened", case["widened"])):
         _, out[key] = _sharded_run(d, sub, arrays[key])
-    tri = case["tripolar"]
-    grid = ot.TripolarGrid(size=tri["size"], z=(-1000.0, 0.0),
-                           halo=tri["halo"], dtype="float64")
-    try:
-        sharded_step_fn(ot.HydrostaticFreeSurfaceModel(grid=grid), d, 60.0)
-    except NotImplementedError as err:
-        out["refusal"] = str(err)
-    else:
-        out["refusal"] = None
     grid = grid_of(ot, torch, case)
     model = model_of(ot, torch, case, grid)
     slab = shard_state(d, model.initial_state())
@@ -501,7 +506,7 @@ def _sharded_case(dist, case, arrays):
              "shape": tuple(lg.shape), "slabs": slabs, "odd_extent": odd}
     locals_ = [None] * d.world_size
     torch.distributed.all_gather_object(locals_, local)
-    out = {"state": state, "locals": locals_}
+    out = {"state": state, "locals": locals_, "device": str(dist.device)}
     particles = getattr(lm, "particles", None)
     if particles is not None:
         x, y, _ = particle_positions(case)
@@ -509,6 +514,41 @@ def _sharded_case(dist, case, arrays):
         out["owners"] = d.all_reduce(own.to(torch.int64)).numpy()
         out["owned"] = particles.owned
     return out if d.rank == 0 else None
+
+
+#: the locations of the fold's fills, by name
+FILL_LOCS = {"ccc": ("Center", "Center", "Center"),
+             "fcc": ("Face", "Center", "Center"),
+             "cfc": ("Center", "Face", "Center")}
+
+
+def _fold_fill_case(dist, case, arrays):
+    """The sharded step's halo fill (``dist_fill_halos``, the local
+    model's own) of each global array in ``arrays`` at its location, each
+    rank filling its window of it: every rank's filled block on rank 0,
+    in rank order, with the fills' transfers by kind."""
+    from oceananigans_torch.boundary_conditions import (
+        regularize_field_boundary_conditions,
+    )
+    from oceananigans_torch.parallel import sharded_step_fn
+    from oceananigans_torch.parallel.shard_step import dist_fill_halos
+    d = _dist(case, dist)
+    grid = grid_of(ot, torch, case)
+    dstep = sharded_step_fn(ot.HydrostaticFreeSurfaceModel(grid=grid), d,
+                            1.0).dstep
+    lm, lg = dstep.lmodel, dstep.local_grid
+    blocks = {}
+    d.reset_counts()
+    for name, a in arrays.items():
+        loc = tuple(getattr(ot, c) for c in FILL_LOCS[name])
+        block = dstep.window(torch.as_tensor(a))
+        dist_fill_halos(block, lg, regularize_field_boundary_conditions(
+            None, lg, loc), loc, None, None, lm.dist_halo, lm.dist_topo)
+        blocks[name] = block.numpy()
+    every = [None] * d.world_size
+    torch.distributed.all_gather_object(every, blocks)
+    return {"blocks": every, "counts": dict(d.counts)} \
+        if d.rank == 0 else None
 
 
 def _gspmd_refusal_case(dist, case, arrays):
@@ -530,7 +570,8 @@ def _gspmd_refusal_case(dist, case, arrays):
 CASES = {"gspmd": _gspmd_case, "step": _step_case, "spy": _spy_case,
          "exchange": _exchange_case, "solver": _solver_case,
          "refusal": _refusal_case, "simulation": _simulation_case,
-         "sharded": _sharded_case, "gspmd_refusal": _gspmd_refusal_case}
+         "sharded": _sharded_case, "gspmd_refusal": _gspmd_refusal_case,
+         "fold_fill": _fold_fill_case}
 
 
 def run_cases(dist, cases):
