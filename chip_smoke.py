@@ -293,9 +293,15 @@ each of which raises on failure:
     ``bench.py``'s ``default`` at 256³ over (1, 4), a halo-free periodic y
     split through a local halo (kernel 2 once a rank a step); 28d:
     ``sw8192`` over (4, 1), blocks of (2048, 8192) (kernel 10 three times
-    a rank a step), 12 steps from the initial state. Held sharded against
-    serial at the serial phases' kernel-against-plain bounds (phase 13's,
-    phase 7's 3e-5, phase 8's).
+    a rank a step), 12 steps from the initial state; 28e: phase 22's
+    ``hydro_catke`` (CATKE, its callable u wind stress) under ``ZStar()``
+    at 360 × 160 × 60 over (2, 2), no kernel (the σ-scaled grid takes
+    none, as in the JAX package), with the all-reduces a step of CATKE's
+    surface cell height (every block takes the global halo corner's σ·Δz,
+    as the serial step does) on a line of their own, and its float64 run
+    at (24, 12, 4). Held sharded against serial at the serial phases'
+    kernel-against-plain bounds (phase 13's, phase 7's 3e-5, phase 8's;
+    phase 9's for 28e).
 29. ``sharded_step_fn`` where a rank needs cells beyond its neighbour, 4
     gloo ranks on ``cuda:0`` in one spawn, as phase 28. 29a: phase 14's
     tripolar ocean (``TripolarGrid`` 360 × 170 × 60, halo (6, 6, 4),
@@ -3853,7 +3859,10 @@ GSPMD_WARM, GSPMD_TIMED = 2, 10
 #: sharded against serial in float32, relative to the largest value of
 #: each group: the serial phase's bound of its kernel path against its
 #: plain path (phase 13's for ``hydro_vi_closure``, phase 8's for the
-#: shallow water, phase 7's for the WENO and Centered-2 models). The
+#: shallow water, phase 7's for the WENO and Centered-2 models; the
+#: hydrostatic bounds of phase 9 for the z-star CATKE ocean too, whose
+#: phase 25 holds no float32 pair of paths, and whose w, the small
+#: difference of two terms under z-star, no hydrostatic part compares). The
 #: float32 Langmuir LES, whose velocities are the residual of its
 #: hydrostatic balance, is held as phase 21 holds its float32 paths, to
 #: the rounding of its projection: phase 21's bound on max|∇·u|,
@@ -3866,6 +3875,7 @@ GSPMD_WARM, GSPMD_TIMED = 2, 10
 #: their floors, depth·eps32·Δt·max|p|/Δz (the ratio to that sum, limit
 #: 1); the tracers and particles at phase 7's 3e-5 of their largest value
 GSPMD_RTOL = {"hydro_vi_closure": DIST_HY_RTOL, "tripolar": DIST_HY_RTOL,
+              "hydro_zstar_catke": DIST_HY_RTOL,
               "langmuir": {"velocities": 1.0, "tracers": 3e-5,
                            "particles": 3e-5, "div": 1.0,
                            "div serial": 1.0, "div basis": 1.0,
@@ -3894,6 +3904,21 @@ def gspmd_config(spec, device):
                                     size=size),
                 hydro_generic_state, HYDRO_DT,
                 {"vi_momentum_tendency": 1, "weno_tracer_tendencies": 1})
+    if kind == "hydro_zstar_catke":
+        # phase 22's hydro_catke (CATKE, its callable u wind stress) under
+        # ZStar(), from hydro_vi's fields without their exact zeros: the
+        # σ-scaled grid takes no kernel (as in the JAX package), and
+        # CATKE's surface cell height is the global halo corner's σ·Δz on
+        # every block, one all-reduce of a number each time the closure
+        # runs
+        from oceananigans_torch.profile_step import (
+            HYDRO_CATKE_DT, hydro_catke_model, hydro_latlon_initial_state,
+        )
+        return (hydro_catke_model("auto", dtype, device, size=size,
+                                  vertical_coordinate=ot.ZStar()),
+                lambda m: m.update_state(
+                    hydro_latlon_initial_state(m, generic=True)),
+                HYDRO_CATKE_DT, {})
     if kind == "tripolar":
         # phase 14's tripolar ocean, which no kernel takes (as in the JAX
         # package), from hydro_vi's fields without their exact zeros, at
@@ -3995,7 +4020,7 @@ def gspmd_rel(kind, g, a, b, dt, basis=None):
                 out["div basis at phase 21's bound"] = div(basis) / fft
                 out["velocities vs basis"] = gap(a, basis) / (2 * dense)
         return out
-    hydro = kind in ("hydro_vi_closure", "tripolar")
+    hydro = kind in ("hydro_vi_closure", "tripolar", "hydro_zstar_catke")
     ga = dist_groups(g, a, hydro)
     gb = dist_groups(g, b, hydro)
     return {k: group_rel(list(zip(ga[k], gb[k]))) for k in gb}
@@ -4170,6 +4195,12 @@ GSPMD_PARTS = {
         check=True),
     "28d sw8192 float64": dict(
         kind="sw", size=(64,), dtype="float64", partition=(4, 1)),
+    "28e hydro_zstar_catke": dict(
+        kind="hydro_zstar_catke", size=(360, 160, 60), dtype="float32",
+        partition=(2, 2)),
+    "28e hydro_zstar_catke float64": dict(
+        kind="hydro_zstar_catke", size=(24, 12, 4), dtype="float64",
+        partition=(2, 2)),
 }
 
 
@@ -4261,6 +4292,17 @@ def gspmd_phase(torch, card, launches, parts=None, phase="28"):
         bound = ({g: DIST_F64_RTOL for g in rel}
                  if spec["dtype"] == "float64"
                  else GSPMD_RTOL[spec["kind"]])
+        if spec["kind"] == "hydro_zstar_catke":
+            # CATKE's surface cell height: the block at mesh (0, 0) holds
+            # the global halo corner, and every rank takes its value
+            surface = [r["transfers_a_step"].get("surface_dz", 0.0)
+                       for r in reps]
+            log(f"[{phase}] {tag}: all-reduces of CATKE's surface cell "
+                f"height a step by rank {surface} (one each time the "
+                "closure runs); sharded bitwise equal to serial: "
+                f"{r0['bitwise']}")
+            require(min(surface) >= 1 and len(set(surface)) == 1,
+                    f"{tag}: surface-height all-reduces a step {surface}")
         if spec["kind"] == "tripolar":
             log(f"[{phase}] {tag} fold transfers a step by rank: "
                 + ", ".join(f"rank {r['rank']} " + str({

@@ -106,7 +106,29 @@ def _tables_of(grid, offsets):
             for axis in _stretched_axes(grid) for o in (0, 1)}
 
 
-class Centered:
+class AdvectionScheme:
+    """The base of the reconstruction schemes: a symmetric scheme provides
+    ``reconstruct``, a biased one ``biased``, which the flux assemblies
+    combine with the sign of the advecting velocity. Two schemes are equal
+    when their type and order are."""
+
+    symmetric = False
+    order: int = 2
+
+    @property
+    def required_halo(self):
+        # a centered scheme of order p = 2B, an upwind or WENO one of
+        # p = 2B − 1, needs a halo of B
+        return (self.order + 1) // 2
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.order == other.order
+
+    def __hash__(self):
+        return hash((type(self).__name__, self.order))
+
+
+class Centered(AdvectionScheme):
     """Even-order centered reconstruction, orders 2 to 12 (coefficients
     generated exactly); Centered(2) gives ``(a[i-1] + a[i]) / 2`` at face
     i."""
@@ -119,10 +141,6 @@ class Centered:
                              f"got {order}")
         self.order = order
         self._stencil = face_reconstruction_coefficients(order, "centered")
-
-    @property
-    def required_halo(self):
-        return (self.order + 1) // 2
 
     def reconstruct(self, a, axis, o):
         """Face value (o = 0) or center value (o = 1) of ``a``; the same
@@ -141,22 +159,14 @@ class Centered:
         new._tables = _tables_of(grid, sorted(self._stencil))
         return new
 
-    def __eq__(self, other):
-        return type(self) is type(other) and self.order == other.order
-
-    def __hash__(self):
-        return hash(("Centered", self.order))
-
     def __repr__(self):
         return f"Centered(order={self.order})"
 
 
-class UpwindBiased:
+class UpwindBiased(AdvectionScheme):
     """Odd-order upwind-biased reconstruction, orders 1 to 11
     (coefficients generated exactly); the right-biased stencil mirrors the
     left one about the face."""
-
-    symmetric = False
 
     def __init__(self, order: int = 3):
         if order % 2 == 0 or not 1 <= order <= 11:
@@ -164,10 +174,6 @@ class UpwindBiased:
                              f"got {order}")
         self.order = order
         self._left = face_reconstruction_coefficients(order, "left")
-
-    @property
-    def required_halo(self):
-        return (self.order + 1) // 2
 
     def biased(self, a, axis, o):
         """The left- and right-biased reconstructions of ``a`` at faces
@@ -190,12 +196,6 @@ class UpwindBiased:
         right = _tables_of(grid, sorted(_mirror(self._left)))
         new._tables = {key: (left[key], right[key]) for key in left}
         return new
-
-    def __eq__(self, other):
-        return type(self) is type(other) and self.order == other.order
-
-    def __hash__(self):
-        return hash(("UpwindBiased", self.order))
 
     def __repr__(self):
         return f"UpwindBiased(order={self.order})"
@@ -273,12 +273,10 @@ def _apply_stencil_shifted(shifts, stencil):
     return out
 
 
-class WENO:
+class WENO(AdvectionScheme):
     """WENO-Z reconstruction (Borges et al. 2008), orders 3 to 11. Orders
     3/5/7 use the classic hand-derived smoothness indicators, orders 9/11
     the generated quadratic forms."""
-
-    symmetric = False
 
     def __init__(self, order: int = 5, epsilon: float = 1e-8, bounds=None):
         if order % 2 == 0 or not 3 <= order <= 11:
@@ -301,10 +299,6 @@ class WENO:
             self._beta_forms = tuple(
                 [[float(x) for x in row] for row in M]
                 for M in weno_beta_forms(order))
-
-    @property
-    def required_halo(self):
-        return (self.order + 1) // 2
 
     def _betas_of(self, s):
         if self._beta_forms is None:
@@ -458,7 +452,7 @@ class FluxFormAdvection:
         return f"FluxFormAdvection({self.x}, {self.y}, {self.z})"
 
 
-class BoundPreserving:
+class BoundPreserving(AdvectionScheme):
     """A wrapper that clips the scheme's face reconstructions to the range
     of the two cells adjacent to the face, so advection adds no new
     extremum there (with an SSP time stepper)."""
@@ -798,7 +792,8 @@ def multi_dimensional_filter(q, axis):
     return q1 / 6 + 2 * q2 / 3 + q3 / 6
 
 
-__all__ = ["BoundPreserving", "Centered", "FluxFormAdvection",
-           "UpwindBiased", "WENO", "adapt_advection_order", "bind_grid",
-           "cell_advection_timescale", "div_Uc", "div_vu", "div_vv",
-           "div_vw", "multi_dimensional_filter", "required_halo"]
+__all__ = ["AdvectionScheme", "BoundPreserving", "Centered",
+           "FluxFormAdvection", "UpwindBiased", "WENO",
+           "adapt_advection_order", "bind_grid", "cell_advection_timescale",
+           "div_Uc", "div_vu", "div_vv", "div_vw", "multi_dimensional_filter",
+           "required_halo"]

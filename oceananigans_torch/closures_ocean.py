@@ -43,6 +43,22 @@ def _shear_squared_ccf(grid, u, v):
     return uz * uz + vz * vz
 
 
+def _surface_cell_height(grid):
+    """The surface cell height that scales CATKE's surface TKE flux and
+    its w_δ³: as the JAX package takes it, the flat element ``Hz + Nz −
+    1`` of ``grid.dz(Center)``, the top cell of the metric's column (0, 0)
+    (under ``ZStar`` σ·Δz of the halo corner, used for every column). A
+    rank's block in a distributed step holds another column (0, 0): its
+    grid carries ``dist_surface_cell_height``, which gives the global
+    array's value (``parallel/shard_step.py: DistHalo``). The cube's
+    models pass CATKE no surface fluxes, so there the height scales a flux
+    of zero, serially or sharded."""
+    hook = getattr(grid, "dist_surface_cell_height", None)
+    if hook is not None:
+        return hook(grid)
+    return grid.dz(Center).reshape(-1)[grid.H[2] + grid.N[2] - 1]
+
+
 def _interior_faces(grid, device):
     """True on the z-faces strictly between the bottom and the top."""
     k = torch.arange(grid.shape[2], device=device).reshape(1, 1, -1)
@@ -284,7 +300,7 @@ class CATKEVerticalDiffusivity(AbstractClosure):
         tx = _value_on(top_fluxes.get("u", 0.0), e)
         ty = _value_on(top_fluxes.get("v", 0.0), e)
         u_star = (tx ** 2 + ty ** 2) ** 0.25
-        dz_top = grid.dz(Center).reshape(-1)[grid.H[2] + grid.N[2] - 1]
+        dz_top = _surface_cell_height(grid)
         wdelta3 = torch.clamp(Jb, min=0.0) * dz_top
         J_e = -(te.CW_ustar * u_star ** 3 + te.CW_wdelta * wdelta3)
 

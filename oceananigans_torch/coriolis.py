@@ -205,10 +205,6 @@ class HydrostaticSphericalCoriolis(AbstractCoriolis):
                 f"{self.scheme})")
 
 
-#: the formulations the models accept
-FORMULATIONS = (FPlane, ConstantCartesianCoriolis, BetaPlane,
-                NonTraditionalBetaPlane, HydrostaticSphericalCoriolis)
-
 __all__ = ["BetaPlane", "ConstantCartesianCoriolis", "FPlane",
            "HydrostaticSphericalCoriolis", "NonTraditionalBetaPlane",
            "Omega_Earth"]

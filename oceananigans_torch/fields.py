@@ -66,6 +66,13 @@ def interior(grid, a):
     return grid.interior(a)
 
 
+def interior_xy(grid, a):
+    """Interior view of a reduced ``(nx, ny, 1)`` field (the free
+    surface)."""
+    sx, sy, _ = grid.interior_slices
+    return a[..., sx, sy, :]
+
+
 def with_interior(grid, a, values):
     """A copy of ``a`` with its interior set to ``values``."""
     out = a.clone()
@@ -285,6 +292,6 @@ __all__ = ["BackgroundField", "CenterField", "ConstantField", "Field",
            "FunctionField", "LOC_C", "LOC_U", "LOC_V", "LOC_W", "XFaceField",
            "YFaceField", "ZFaceField", "ZeroField", "field_abs_max",
            "field_integral", "field_max", "field_mean", "field_min",
-           "field_sum", "interior", "interpolate",
+           "field_sum", "interior", "interior_xy", "interpolate",
            "location_coords", "new_field", "regrid", "regrid_x", "regrid_y",
            "regrid_z", "set_field", "with_interior"]

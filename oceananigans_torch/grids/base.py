@@ -96,6 +96,14 @@ def bshape(axis: int, n: int):
     return tuple(shape)
 
 
+def broadcastable(a, axis: int, device=None):
+    """A 1-D per-axis array (a tensor or a numpy array) as a tensor of its
+    ``(n, 1, 1)``, ``(1, n, 1)`` or ``(1, 1, n)`` shape, on ``device``
+    (default: a tensor's own device, the CPU for a numpy array)."""
+    return torch.as_tensor(a, device=device).reshape(bshape(axis,
+                                                            a.shape[0]))
+
+
 def interior_slices(N, H):
     """Per-axis slices of the interior cells of a halo-extended array."""
     return tuple(slice(h, h + n) for n, h in zip(N, H))

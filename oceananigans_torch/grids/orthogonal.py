@@ -23,6 +23,10 @@ from oceananigans_torch.grids.latlon import R_EARTH
 #: the staggerings of the node dicts: x location, then y location
 NODE_KEYS = ("ff", "fc", "cf", "cc")
 
+#: marker of the y-axis "topology" of grids whose north edge is a tripolar
+#: fold (the halo filled by the fold, not a wall)
+ZIPPER_NORTH = "zipper_north"
+
 
 def _haversine(lam1, phi1, lam2, phi2, radius):
     """Great-circle distance (in the units of ``radius``) between points
@@ -393,7 +397,7 @@ def extrinsic_vector(grid, u_i, v_i):
 
 
 __all__ = ["NODE_KEYS", "OrthogonalSphericalShellGrid",
-           "RotatedLatitudeLongitudeGrid", "TripolarGrid",
+           "RotatedLatitudeLongitudeGrid", "TripolarGrid", "ZIPPER_NORTH",
            "extrinsic_vector", "fill_zipper_north", "fold_masks",
            "fold_sign", "intrinsic_vector",
            "rotation_angles"]

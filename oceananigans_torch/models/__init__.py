@@ -28,6 +28,17 @@ def PressureField(model, state):
                      "field; use BuoyancyField or the free-surface height")
 
 
+def fields(state):
+    """The state's prognostic and diagnostic fields by name: whichever of
+    u, v, w, η, h, uh, vh and the pressure it has, then its tracers."""
+    out = {}
+    for name in ("u", "v", "w", "eta", "h", "uh", "vh", "pressure"):
+        if hasattr(state, name):
+            out[name] = getattr(state, name)
+    out.update(getattr(state, "tracers", {}))
+    return out
+
+
 __all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
            "CubedSphereHydrostaticModel", "CubedSphereHydrostaticState",
            "CubedSphereShallowWaterModel", "CubedSphereState",
@@ -37,4 +48,4 @@ __all__ = ["ConservativeFormulation", "CrossAndSelfUpwinding",
            "PrescribedVelocityFields", "PressureField", "ShallowWaterModel",
            "ShallowWaterState", "SplitExplicitFreeSurface", "VectorInvariant",
            "VectorInvariantFormulation", "WENOVectorInvariant", "ZCoordinate",
-           "ZStar", "panel_vector_components"]
+           "ZStar", "fields", "panel_vector_components"]

@@ -77,7 +77,6 @@ from oceananigans_torch.boundary_conditions import (
     regularize_field_boundary_conditions, top_flux_values,
 )
 from oceananigans_torch.buoyancy import g_Earth, regularize_buoyancy
-from oceananigans_torch.coriolis import FORMULATIONS
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
@@ -681,19 +680,20 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
                 gravitational_acceleration=free_surface.g,
                 solver_method="cg", maxiter=free_surface.maxiter,
                 reltol=free_surface.reltol)
-        if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
-            raise NotImplementedError(
-                f"coriolis {coriolis!r} is not ported yet; the port has "
-                + ", ".join(c.__name__ for c in FORMULATIONS))
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
         buoyancy = regularize_buoyancy(buoyancy)
-        # the required tracers in the JAX model's order
-        for required in ((buoyancy,) + closures_mod._as_tuple(closure)
-                         + (biogeochemistry,)):
-            tracers += tuple(t for t in getattr(required, "required_tracers",
-                                                ())
+        # the required tracers in the JAX model's order (a buoyancy
+        # formulation and a biogeochemistry must name theirs, a closure may)
+        if buoyancy is not None:
+            tracers += tuple(t for t in buoyancy.required_tracers
+                             if t not in tracers)
+        for cl in closures_mod._as_tuple(closure):
+            tracers += tuple(t for t in getattr(cl, "required_tracers", ())
+                             if t not in tracers)
+        if biogeochemistry is not None:
+            tracers += tuple(t for t in biogeochemistry.required_tracers
                              if t not in tracers)
 
         self.grid = grid

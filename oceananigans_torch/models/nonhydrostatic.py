@@ -59,9 +59,9 @@ from oceananigans_torch.boundary_conditions import (
     regularize_field_boundary_conditions, top_flux_values,
 )
 from oceananigans_torch.buoyancy import (
-    BuoyancyTracer, SeawaterBuoyancy, regularize_buoyancy,
+    BuoyancyTracer, regularize_buoyancy,
 )
-from oceananigans_torch.coriolis import FORMULATIONS, FPlane
+from oceananigans_torch.coriolis import FPlane
 from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, BackgroundField, location_coords, new_field,
     set_field,
@@ -155,26 +155,21 @@ class NonhydrostaticModel(torch.nn.Module):
             advection = Centered(2)
         if not isinstance(advection, SCHEMES):
             raise ValueError(f"unknown advection {advection!r}")
-        if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
-            raise NotImplementedError(
-                f"coriolis {coriolis!r} is not ported yet; the port has "
-                + ", ".join(c.__name__ for c in FORMULATIONS))
         buoyancy = regularize_buoyancy(buoyancy)
-        if buoyancy is not None and not isinstance(
-                buoyancy.formulation, (BuoyancyTracer, SeawaterBuoyancy)):
-            raise NotImplementedError(
-                f"buoyancy {buoyancy.formulation!r} is not ported yet")
         if timestepper not in TIMESTEPPERS:
             raise ValueError(f"unknown timestepper {timestepper!r}")
         closures_mod.check_closure(closure, "NonhydrostaticModel")
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        # the required tracers in the JAX model's order
-        for required in ((biogeochemistry, buoyancy)
-                         + closures_mod._as_tuple(closure)):
-            tracers += tuple(t for t in getattr(required, "required_tracers",
-                                                ())
+        # the required tracers in the JAX model's order (a biogeochemistry
+        # and a buoyancy formulation must name theirs, a closure may)
+        for required in (biogeochemistry, buoyancy):
+            if required is not None:
+                tracers += tuple(t for t in required.required_tracers
+                                 if t not in tracers)
+        for cl in closures_mod._as_tuple(closure):
+            tracers += tuple(t for t in getattr(cl, "required_tracers", ())
                              if t not in tracers)
         needed = max(required_halo(advection),
                      closures_mod.closure_required_halo(closure))

@@ -42,7 +42,6 @@ from oceananigans_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions,
 )
 from oceananigans_torch.buoyancy import g_Earth
-from oceananigans_torch.coriolis import FORMULATIONS
 from oceananigans_torch.fields import LOC_C, LOC_U, LOC_V, new_field, set_field
 from oceananigans_torch.forcings import materialize_forcing
 from oceananigans_torch.grids.base import Center, Face, Flat, Periodic
@@ -130,7 +129,8 @@ def _mass_tendency(grid, U, V):
 
 class ShallowWaterModel(torch.nn.Module):
     """Configuration and step functions; mirrors the JAX constructor's
-    keywords and raises ``NotImplementedError`` on the ones not ported."""
+    keywords. ``coriolis`` is any object with ``x_f_cross_U`` and
+    ``y_f_cross_U``, as the JAX model takes it."""
 
     def __init__(self, grid, gravitational_acceleration=g_Earth,
                  momentum_advection=None, tracer_advection=None,
@@ -172,10 +172,6 @@ class ShallowWaterModel(torch.nn.Module):
             raise ValueError(f"unknown advection {momentum_advection!r}")
         if not isinstance(tracer_advection, SCHEMES):
             raise ValueError(f"unknown advection {tracer_advection!r}")
-        if coriolis is not None and not isinstance(coriolis, FORMULATIONS):
-            raise NotImplementedError(
-                f"coriolis {coriolis!r} is not ported yet; the port has "
-                + ", ".join(c.__name__ for c in FORMULATIONS))
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)

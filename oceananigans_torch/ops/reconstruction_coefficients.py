@@ -140,6 +140,19 @@ def weno_beta_forms(order: int):
     return tuple(forms)
 
 
+def validate_k3():
+    """The generated forms of WENO(5) reproduce the classic Jiang-Shu
+    indicator of its centred sub-stencil (offsets −2, −1, 0): 13/12 (s₀ −
+    2s₁ + s₂)² + 1/4 (s₀ − s₂)². Returns True, or raises
+    ``AssertionError``."""
+    _, M1, _ = weno_beta_forms(5)
+    ref = (13 / 12) * np.outer([1, -2, 1], [1, -2, 1]) \
+        + 0.25 * np.outer([1, 0, -1], [1, 0, -1])
+    if not np.allclose(M1, ref):
+        raise AssertionError((M1, ref))
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Stretched-grid (nonuniform) reconstruction tables
 # ---------------------------------------------------------------------------
@@ -229,4 +242,5 @@ def weno_stretched_tables(edges, order, side="left"):
 
 __all__ = ["face_reconstruction_coefficients",
            "stretched_reconstruction_tables", "weno_beta_forms",
-           "weno_ideal_weights", "weno_stretched_tables", "weno_substencils"]
+           "validate_k3", "weno_ideal_weights", "weno_stretched_tables",
+           "weno_substencils"]

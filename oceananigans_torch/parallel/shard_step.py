@@ -69,7 +69,7 @@ from oceananigans_torch.boundary_conditions import (
 )
 from oceananigans_torch.fields import LOC_C, location_coords
 from oceananigans_torch.grids.base import (
-    AXIS_NAMES, Bounded, Face, Flat, Periodic,
+    AXIS_NAMES, Bounded, Center, Face, Flat, Periodic,
 )
 from oceananigans_torch.grids.orthogonal import (
     fill_zipper_north, fold_masks, fold_sign,
@@ -89,12 +89,34 @@ __all__ = ["DistributedStep", "dist_fill_halos", "dist_fill_xy", "DistHalo",
 class DistHalo:
     """The mesh decomposition a LOCAL model carries, so that its halo
     fills go through the exchange: the rank's :class:`Distributed`, the
-    blocks' sizes along each mesh axis and the grid's :class:`NorthFold`
-    (None without one)."""
+    blocks' sizes along each mesh axis, the grid's :class:`NorthFold`
+    (None without one) and ``corner``, the local column of the global
+    array's column (0, 0) on the block at mesh position (0, 0) (not (0, 0)
+    where a halo-free axis was padded)."""
 
     dist: Distributed
     sizes: tuple
     fold: object = None
+    corner: tuple = (0, 0)
+
+    def surface_cell_height(self, grid):
+        """CATKE's surface cell height on this rank's block ``grid`` (the
+        local grid, or its σ-scaled view): the serial step's, the top
+        interior cell of the GLOBAL metric's column (0, 0)
+        (``closures_ocean._surface_cell_height``). Where the heights vary
+        by column (σ-scaled or partial cells) only the block at mesh
+        position (0, 0) holds that column: it writes the value and every
+        other rank zero, merged over the ranks (one all-reduce of one
+        number, counted as ``"surface_dz"``). Where they do not, every
+        block's own column is the same."""
+        dz = grid.dz(Center)
+        k = grid.H[2] + grid.N[2] - 1
+        if dz.shape[0] == dz.shape[1] == 1:
+            return dz.reshape(-1)[k]
+        value = dz.new_zeros(1)
+        if tuple(self.dist.coords) == (0, 0):
+            value[0] = dz[self.corner[0], self.corner[1], k]
+        return self.dist.merge_disjoint(value, "surface_dz").reshape(())
 
     def size(self, axis):
         return self.dist.partition[axis]
@@ -554,7 +576,13 @@ class DistributedStep:
         if getattr(base_grid, "zipper", False):
             fold = NorthFold(base_grid, self.sizes, self.halo[0],
                              dist.device)
-        lmodel.set_dist_halo(DistHalo(dist, self.sizes, fold), topo)
+        ctx = DistHalo(dist, self.sizes, fold, tuple(
+            self.halo[axis] - grid.H[axis] for axis in (0, 1)))
+        lmodel.set_dist_halo(ctx, topo)
+        # CATKE's surface cell height is the global column (0, 0)'s on
+        # every block (a plain function: a deep copy of the grid keeps it)
+        lmodel.grid.dist_surface_cell_height = \
+            lambda g: ctx.surface_cell_height(g)
         self.lmodel = lmodel
         if getattr(lmodel, "particles", None) is not None:
             lmodel.particles = self._sharded_particles(lmodel.particles)

@@ -18,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from oceananigans_torch.grids.base import Bounded, Flat, Periodic
+from oceananigans_torch.grids.base import (
+    Bounded, Connected, Flat, Periodic,
+)
 from oceananigans_torch.ops.cuda_poisson import fused_middle_solve
 
 
@@ -56,6 +58,15 @@ def _periodic_basis(N, d):
 
 
 _SUBSCRIPTS = ("ai,ijk->ajk", "aj,ijk->iak", "ak,ijk->ija")
+
+
+def _product(T, x, axis, transpose):
+    """``x`` transformed along ``axis`` by the basis ``T`` (by its
+    transpose, the inverse, where ``transpose``); ``x`` itself where ``T``
+    is None (a Flat axis)."""
+    if T is None:
+        return x
+    return torch.einsum(_SUBSCRIPTS[axis], T.T if transpose else T, x)
 
 
 class MatmulPoissonSolver(torch.nn.Module):
@@ -103,10 +114,7 @@ class MatmulPoissonSolver(torch.nn.Module):
         self.fused = fused
 
     def _apply(self, x, axis, transpose):
-        T = getattr(self, f"T{axis}")
-        if T is None:
-            return x
-        return torch.einsum(_SUBSCRIPTS[axis], T.T if transpose else T, x)
+        return _product(getattr(self, f"T{axis}"), x, axis, transpose)
 
     def solve(self, rhs):
         """rhs: interior-shaped (Nx, Ny, Nz) -> φ with zero mean."""
@@ -128,4 +136,46 @@ class MatmulPoissonSolver(torch.nn.Module):
         return x
 
 
-__all__ = ["MatmulPoissonSolver"]
+class MatmulHorizontalBasis(torch.nn.Module):
+    """The horizontal eigen-transform of the implicit free surface's
+    Helmholtz solve as matrix products, as the JAX package builds it for
+    its TPU backend (the port's "fft" method solves through cuFFT and takes
+    no basis): :meth:`forward` and :meth:`inverse` transform the first two
+    axes of an interior-shaped ``(Nx, Ny, 1)`` tensor, and ``lam2d`` holds
+    the horizontal Laplacian's eigenvalues, ``(Nx, Ny, 1)`` in float64.
+
+    Buffers: the bases ``T0`` and ``T1`` (None on a Flat axis or one of a
+    single cell) in the grid's dtype."""
+
+    def __init__(self, grid):
+        super().__init__()
+        lams = []
+        for axis in (0, 1):
+            topo = grid.axis_topo(axis)
+            N = grid.N[axis]
+            T = None
+            lam = np.zeros(max(N, 1))
+            if topo != Flat and N > 1:
+                d = (grid.Lx / grid.Nx, grid.Ly / grid.Ny)[axis]
+                if topo in (Periodic, Connected):
+                    T, lam = _periodic_basis(N, d)
+                elif topo == Bounded:
+                    T, lam = _bounded_basis(N, d)
+                else:
+                    raise ValueError(f"unsupported topology {topo}")
+            self.register_buffer(f"T{axis}", None if T is None else
+                                 torch.as_tensor(T, dtype=grid.dtype,
+                                                 device=grid.device))
+            lams.append(lam)
+        self.register_buffer("lam2d", torch.as_tensor(
+            lams[0][:, None, None] + lams[1][None, :, None],
+            dtype=torch.float64, device=grid.device))
+
+    def forward(self, x):
+        return _product(self.T1, _product(self.T0, x, 0, False), 1, False)
+
+    def inverse(self, x):
+        return _product(self.T1, _product(self.T0, x, 0, True), 1, True)
+
+
+__all__ = ["MatmulHorizontalBasis", "MatmulPoissonSolver"]

@@ -213,8 +213,11 @@ def test_gates_and_unported_arguments():
     assert model.fused_correction is False
     assert isinstance(model.pressure_solver, ot.FFTPoissonSolver)
     assert "grid.xF" in dict(model.named_buffers())
-    with pytest.raises(NotImplementedError):
-        ot.NonhydrostaticModel(grid=tg, coriolis=object())
+    # any Coriolis object builds, as in the JAX package; its step calls
+    # the object's x_f_cross_U
+    model = ot.NonhydrostaticModel(grid=tg, coriolis=object())
+    with pytest.raises(AttributeError, match="x_f_cross_U"):
+        model.step(model.initial_state(), 1e-3)
     with pytest.raises(TypeError):
         ot.NonhydrostaticModel(grid=tg, closure=object())
     # forcings are ported: one builds, off the fused AB2 kernel's path

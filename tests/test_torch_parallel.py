@@ -11,7 +11,11 @@ half a minute for these cases, are spared) and holds the port's sharded result t
 tolerance of the matching case in ``tests/test_parallel.py`` or
 ``tests/test_dist_pallas.py``. The JAX step is jitted as there, and run
 eagerly for CATKE (whose sign switches move jitted JAX past 1e-12,
-ROADMAP Queue 3, caveat 9). Meshes are (2, 2) and (4, 1) where the JAX
+ROADMAP Queue 3, caveat 9). CATKE under z-star with a u surface flux,
+whose surface cell height every block takes from the global halo corner,
+runs in both distributed steps on a rectilinear grid and in
+``sharded_step_fn`` on its lat-lon twin, at ``hydro_catke``'s
+tolerances. Meshes are (2, 2) and (4, 1) where the JAX
 tests take (4, 2): four ranks keep the module quick.
 
 Also here: ``Partition.resolve``, the step's refusals word for word
@@ -157,6 +161,24 @@ TRIPOLAR = dict(
     ic="tripolar", dt=300.0, steps=3, ref="tripolar",
     relative=("u", "v", "eta"))
 
+#: CATKE under z-star with a u surface flux: the surface cell height that
+#: scales its surface TKE flux is σ·Δz of the global halo corner on every
+#: block, as in the serial step; 3 steps of 300 s, held against the eager
+#: JAX serial step as hydro_catke
+ZSTAR_CATKE = dict(
+    kind="hydrostatic",
+    grid=rect((24, 12, 4), ("Periodic", "Bounded", "Bounded"), 4,
+              x=(0, 2e5), y=(0, 1e5), z=(-400.0, 0.0)),
+    model={"momentum_advection": ("WENOVectorInvariant", None, 5),
+           "tracer_advection": ("WENO", 5), "tracers": ("T", "S"),
+           "buoyancy": "SeawaterLinear",
+           "free_surface": ("SplitExplicitFreeSurface", {"substeps": 10}),
+           "vertical_coordinate": "ZStar",
+           "closure": "CATKEVerticalDiffusivity",
+           "boundary_conditions": "u_flux"},
+    ic="zstar_catke", dt=300.0, steps=3, partition=(2, 2), eager=True,
+    ref="hydro_zstar_catke", atol={"tracers": 1e-11})
+
 #: the model cases: the grid, the model, the initial fields, Δt and steps,
 #: the partition, and the JAX package's tolerances for them
 STEP_CASES = {
@@ -258,6 +280,7 @@ STEP_CASES = {
                "tracers": ("b", "e"), "buoyancy": "BuoyancyTracer",
                "closure": "CATKEVerticalDiffusivity"},
         ic="catke", dt=30.0, steps=3, partition=(2, 2), eager=True),
+    "hydro_zstar_catke": ZSTAR_CATKE,
     # test_explicit_halo_nonhydrostatic_immersed_matches_serial
     "nh_immersed": dict(
         kind="nonhydrostatic",
@@ -408,6 +431,15 @@ SHARDED_CASES = {
                                 {"substeps": 10})},
         ic="rotated", dt=120.0, steps=3, partition=(2, 2),
         relative=("u", "v", "eta")),
+    # CATKE under z-star with a u surface flux, the explicit-halo case's
+    # model (one JAX reference), and its twin on a lat-lon grid
+    "zstar_catke": ZSTAR_CATKE,
+    "zstar_catke_latlon": dict(
+        ZSTAR_CATKE, grid_kind="LatitudeLongitudeGrid",
+        grid={"size": (24, 12, 4), "longitude": (0.0, 360.0),
+              "latitude": (15.0, 55.0), "z": (-400.0, 0.0), "halo": 4,
+              "topology": ("Periodic", "Bounded", "Bounded")},
+        ic="zstar_catke_latlon", ref="zstar_catke_latlon"),
 }
 #: blocks narrower than their halo: 10 cells over 4 ranks under a halo of
 #: 3 (blocks of 3, 3, 2 and 2); and a Bounded y so split, whose blocks'
@@ -516,6 +548,9 @@ def ranks(tmp_path_factory):
     for name, case in {**SHARDED_CASES, **NARROW_CASES}.items():
         # the cases of one reference share its model and initial state
         ref = case.get("ref", name)
+        if ref in STEP_CASES:
+            # an explicit-halo case's model and initial state
+            built[ref] = inputs[ref], cases[ref][1]
         if ref not in built:
             grid, model = jax_model(case)
             arrays = initial_arrays(case)
@@ -597,6 +632,8 @@ TOLERANCES = {
     "hydro_zstar": {"u": 1e-12, "v": 1e-12, "tracers/T": 1e-11},
     "hydro_catke": {"u": 1e-12, "v": 1e-12, "tracers/b": 1e-11,
                     "tracers/e": 1e-11},
+    "hydro_zstar_catke": {"u": 1e-12, "v": 1e-12, "tracers/T": 1e-11,
+                          "tracers/S": 1e-11, "tracers/e": 1e-11},
     "nh_immersed": {"u": 5e-7, "w": 5e-7},
     "nh_partial_cell": {"u": 5e-7, "w": 5e-7},
     "pallas_centered2": {"u": 2e-13, "v": 2e-13, "w": 2e-13},
@@ -706,7 +743,6 @@ def check_sharded(ranks, name, case):
     grid = inputs[name][0]
     ref = sharded_reference(inputs, name, case)
     got = results[name]["state"]
-    tol = SHARDED_TOL.get(name, 1e-12)
     assert int(got["iteration"]) == case["steps"]
     # every field of the state; of the shallow water the prognostic ones,
     # as tests/test_torch_shallow_water.py compares them (its tendencies
@@ -717,6 +753,9 @@ def check_sharded(ranks, name, case):
                and np.ndim(ref[k]) == 3])
     assert fields
     for key in fields:
+        # a case's own tolerance of a group (its "atol"), else the case's
+        tol = case.get("atol", {}).get(key.split("/")[0],
+                                       SHARDED_TOL.get(name, 1e-12))
         want = interior(grid, ref[key])
         # the shallow water's h ~ 1e3 and uh ~ 1e2: relative to each
         # field's largest value, as tests/test_torch_shallow_water.py
@@ -735,7 +774,8 @@ def check_sharded(ranks, name, case):
         for prop in case["model"]["particles"]["tracked"]:
             key = f"particles/properties/{prop}"
             np.testing.assert_allclose(got[key], ref[key], rtol=0,
-                                       atol=tol, err_msg=key)
+                                       atol=SHARDED_TOL.get(name, 1e-12),
+                                       err_msg=key)
 
 
 @pytest.mark.parametrize("name", [n for n, c in SHARDED_CASES.items()

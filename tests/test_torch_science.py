@@ -8,11 +8,15 @@ with ``oceananigans_torch.interop``. The port runs its fused code paths
 held to the JAX XLA path at 1e-12 of each field's largest value: both
 evaluate the same formulas up to rounding (the fused AB2 update forms
 a·G + b·G⁻ where the XLA path forms Δt·(c₁G + c₂G⁻)). The thermal bubble
-golden data is held at atol 1e-12, as the JAX package holds it.
+golden data is held at atol 1e-12, as the JAX package holds it. A
+buoyancy formulation and a Coriolis object of neither package, duck-typed
+as the JAX models take them, step all three models of both packages alike
+and leave the gates deciding alike.
 """
 
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -322,9 +326,18 @@ def test_weno7_tracers_take_the_tracer_kernel(timestepper, steps,
 def test_unported_arguments_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                               topology=BPP, halo=(3, 0, 0), dtype=F64)
-    for kw in (dict(coriolis=object()), dict(buoyancy=object())):
-        with pytest.raises(NotImplementedError):
-            ot.NonhydrostaticModel(grid=grid, **kw)
+    jgrid = oj.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
+                               topology=BPP, halo=(3, 0, 0), dtype="float64")
+    # a buoyancy formulation without its tracers' names raises in both
+    # packages' constructors alike; a Coriolis object is called only by the
+    # step, so any object builds in both
+    errors = []
+    for pkg, g in ((oj, jgrid), (ot, grid)):
+        with pytest.raises(AttributeError) as err:
+            pkg.NonhydrostaticModel(grid=g, buoyancy=object())
+        errors.append(str(err.value))
+        pkg.NonhydrostaticModel(grid=g, coriolis=object())
+    assert errors[0] == errors[1] and "required_tracers" in errors[0]
     with pytest.raises(TypeError):
         ot.NonhydrostaticModel(grid=grid, closure=object())
     # the physics of ROADMAP Queue 1 item 12 is ported: each builds
@@ -355,6 +368,163 @@ def test_unported_arguments_raise():
     m = ot.NonhydrostaticModel(grid=grid, tracers="c",
                                buoyancy=ot.BuoyancyTracer())
     assert m.tracer_names == ("c", "b")
+
+
+# ---------------------------------------------------------------------------
+# Buoyancy formulations and Coriolis objects of neither package, duck-typed
+# as the JAX models take them
+# ---------------------------------------------------------------------------
+
+def _operators(a):
+    """The interpolation operators of the package whose array ``a`` is."""
+    from oceananigans_torch.ops import operators as t_ops
+    from oceananigans_tpu.ops import operators as j_ops
+    return t_ops if isinstance(a, torch.Tensor) else j_ops
+
+
+class DuckBuoyancy:
+    """A nonlinear equation of state in T alone, b = 2e-3 (T − 10) − 5e-5
+    (T − 10)², with nothing but ``required_tracers`` and ``buoyancy_ccc``."""
+
+    required_tracers = ("T",)
+
+    def buoyancy_ccc(self, grid, tracers):
+        d = tracers["T"] - 10.0
+        return 2e-3 * d - 5e-5 * d * d
+
+
+class DuckCoriolis:
+    """A β-plane f = 1e-4 + 1e-10 y with a constant horizontal component
+    3e-5 about y, with nothing but the three ``*_f_cross_U`` methods."""
+
+    f0, beta, fy = 1e-4, 1e-10, 3e-5
+
+    def _f(self, grid):
+        return self.f0 + self.beta * grid.yC
+
+    def x_f_cross_U(self, grid, u, v, w):
+        o = _operators(u)
+        return (-o.ix_f(self._f(grid) * o.iy_c(v))
+                + self.fy * o.ix_f(o.iz_c(w)))
+
+    def y_f_cross_U(self, grid, u, v, w):
+        o = _operators(u)
+        return o.iy_f(self._f(grid) * o.ix_c(u))
+
+    def z_f_cross_U(self, grid, u, v, w):
+        o = _operators(u)
+        return -self.fy * o.iz_f(o.ix_c(u))
+
+
+def test_duck_typed_physics_steps_as_in_jax():
+    """The duck-typed buoyancy and Coriolis objects build and step the
+    nonhydrostatic and hydrostatic models (both objects) and the
+    shallow-water model (the Coriolis object) in both packages, equal to
+    1e-12 of each field's largest value after each of 3 steps in
+    float64 (the JAX steps jitted: quicker than eager at these sizes)."""
+    from test_torch_closure_models import grids, run_both
+    from test_torch_forcings import jax_state_from
+    from oceananigans_torch.interop import SW_FIELDS
+    from test_torch_closure_models import jax_arrays as arrays_of
+    physics = dict(buoyancy=DuckBuoyancy(), coriolis=DuckCoriolis())
+    jg, tg = grids(size=(8, 8, 8), extent=(1e4, 1e4, 100.0),
+                   topology=(oj.Periodic, oj.Bounded, oj.Bounded), halo=1)
+    jm, tm = (pkg.NonhydrostaticModel(grid=g, timestepper=AB2, **physics,
+                                      **kw)
+              for pkg, g, kw in ((oj, jg, dict(fused_kernels=False)),
+                                 (ot, tg, dict(fused_kernels=True))))
+    assert tm.tracer_names == jm.tracer_names == ("T",)
+    init = dict(u=lambda x, y, z: 0.1 * torch.sin(2 * np.pi * x / 1e4)
+                * torch.cos(np.pi * z / 100.0),
+                v=lambda x, y, z: 0.05 * torch.cos(2 * np.pi * y / 1e4)
+                + 0 * x,
+                T=lambda x, y, z: 10.0 + 0.05 * z + torch.sin(
+                    2 * np.pi * x / 1e4) * torch.cos(np.pi * y / 1e4))
+    run_both(jm, tm, jax_state_from(jm, tm.initial_state(**init)), 20.0, 3)
+
+    jg, tg = grids(size=(8, 8, 4), extent=(1e5, 1e5, 400.0),
+                   topology=(oj.Periodic, oj.Bounded, oj.Bounded), halo=1)
+    jm, tm = (pkg.HydrostaticFreeSurfaceModel(
+        grid=g, free_surface=pkg.SplitExplicitFreeSurface(substeps=8),
+        **physics, **kw)
+        for pkg, g, kw in ((oj, jg, dict(fused_kernels=False)),
+                           (ot, tg, dict(fused_kernels=True))))
+    assert tm.tracer_names == jm.tracer_names == ("T",)
+    init = dict(u=lambda x, y, z: 0.1 * torch.sin(2 * np.pi * x / 1e5)
+                + 0 * z,
+                T=lambda x, y, z: 15.0 + 0.01 * z + 0.1 * torch.cos(
+                    2 * np.pi * y / 1e5) + 0 * x,
+                eta=lambda x, y: 0.05 * torch.sin(2 * np.pi * x / 1e5)
+                + 0 * y)
+    run_both(jm, tm, jax_state_from(jm, tm.initial_state(**init)), 300.0,
+             3)
+
+    kw = dict(size=(16, 12), extent=(1e6, 1e6),
+              topology=(oj.Periodic, oj.Bounded, oj.Flat), halo=(2, 2, 0))
+    jg, tg = grids(**kw)
+    jm = oj.ShallowWaterModel(grid=jg, coriolis=DuckCoriolis())
+    tm = ot.ShallowWaterModel(grid=tg, coriolis=DuckCoriolis(),
+                              fused_kernels=True)
+    js = jm.initial_state(h=lambda x, y, z: 100.0 + jnp.exp(
+        -((x - 5e5) ** 2 + (y - 5e5) ** 2) / 1e10),
+        uh=lambda x, y, z: 10.0 * jnp.cos(2 * np.pi * y / 1e6) + 0 * x)
+    ts = state_from_numpy(tm, arrays_of(js, SW_FIELDS, ()))
+    ii = tg.interior_slices
+    step = jax.jit(lambda s: jm.step(s, 100.0))
+    for _ in range(3):
+        js = step(js)
+        ts = tm.step(ts, 100.0)
+        ref = arrays_of(js, SW_FIELDS, ())
+        for k in ("uh", "vh", "h"):
+            r = ref[k][ii]
+            got = getattr(ts, k).numpy()[ii]
+            assert np.abs(got - r).max() <= RTOL * np.abs(r).max(), k
+
+
+def test_gates_match_jax_under_duck_typed_physics():
+    """Under the duck-typed objects every gate decides as JAX's: the
+    nonhydrostatic tendency kernels stay on and the fused AB2 kernels turn
+    off (JAX's science kernels take only an ``FPlane`` and a
+    ``BuoyancyTracer``), in both families, with the science configuration's
+    tracers and without; the hydrostatic kernels as without them; the
+    shallow-water stage kernel off."""
+    from test_torch_forcings import GATES, gate_pair
+    from test_torch_vi_tracer_kernels import latlon_grids
+    from oceananigans_torch.ops.cuda_sw import sw_fused_available
+    from oceananigans_tpu.ops.pallas_sw import (
+        sw_fused_available as j_sw_fused_available,
+    )
+    physics = {"buoyancy": lambda p: DuckBuoyancy(),
+               "coriolis": lambda p: DuckCoriolis()}
+    for adv, halo in ((lambda p: p.Centered(2), 1),
+                      (lambda p: p.WENO(5), 3)):
+        for extra in (dict(coriolis=physics["coriolis"]), physics):
+            for tracers in ((), ("c",)):
+                jm, tm = gate_pair(adv, halo, tracers=tracers, **extra)
+                for gate in GATES:
+                    assert getattr(tm, gate) == getattr(jm, gate), gate
+                assert tm.fused_kernels in ("centered2", "weno5")
+                assert not any(getattr(tm, g) for g in GATES[1:5])
+    jg, tg = latlon_grids()
+    for fused in (True, False):
+        jm, tm = (pkg.HydrostaticFreeSurfaceModel(
+            grid=g, momentum_advection=hyd.WENOVectorInvariant(),
+            tracer_advection=pkg.WENO(7), tracers=("c",),
+            buoyancy=DuckBuoyancy(), coriolis=DuckCoriolis(),
+            fused_kernels=fused)
+            for pkg, hyd, g in ((oj, oj, jg), (ot, ot, tg)))
+        assert tm.fused_kernels == jm.fused_kernels == fused
+        assert tm.fused_tracer == jm.fused_tracer == fused
+    kw = dict(size=(16, 128), extent=(1.0, 1.0),
+              topology=(oj.Periodic, oj.Periodic, oj.Flat), halo=(8, 0, 0))
+    jg = oj.RectilinearGrid(dtype="float64", **kw)
+    tg = ot.RectilinearGrid(dtype=F64, **kw)
+    for coriolis in (None, DuckCoriolis()):
+        jm = oj.ShallowWaterModel(grid=jg, coriolis=coriolis)
+        tm = ot.ShallowWaterModel(grid=tg, coriolis=coriolis,
+                                  fused_kernels=True)
+        assert sw_fused_available(tg, tm) == j_sw_fused_available(jg, jm) \
+            == (coriolis is None)
 
 
 def test_default_device_is_the_gpu():

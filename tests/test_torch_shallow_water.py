@@ -471,8 +471,11 @@ def test_unported_arguments_raise():
     # forcings are ported: one builds, off the stage kernel's path
     assert not ot.ShallowWaterModel(grid=grid, forcing={"uh": 1.0},
                                     fused_kernels=True).fused_rk3
-    with pytest.raises(NotImplementedError):
-        ot.ShallowWaterModel(grid=grid, coriolis=object())
+    # any Coriolis object builds, as in the JAX package; its step calls
+    # the object's x_f_cross_U
+    model = ot.ShallowWaterModel(grid=grid, coriolis=object())
+    with pytest.raises(AttributeError, match="x_f_cross_U"):
+        model.step(model.initial_state(h=1.0), 1e-3)
     # the scheme-valued VectorInvariant options are ported now (with the
     # hydrostatic model); they build as in the JAX package
     from oceananigans_tpu import WENO as JWENO

@@ -121,6 +121,9 @@ def model_of(pkg, m, case, grid, fused=None):
                 "u": pkg.FieldBoundaryConditions(top=pkg.FluxBC(
                     lambda x, y, t: -1e-4 * m.cos(PI * y / 2e7))),
                 "T": pkg.FieldBoundaryConditions(top=pkg.FluxBC(flux))}
+        elif key == "boundary_conditions" and val == "u_flux":
+            kw[key] = {"u": pkg.FieldBoundaryConditions(
+                top=pkg.FluxBC(-1e-4))}
         elif key == "boundary_conditions":
             kw[key] = {"u": pkg.FieldBoundaryConditions(
                 top=pkg.FluxBC(lambda x, y, t: 1e-5 + 0 * x))}
@@ -245,6 +248,25 @@ def fields_of(m, case):
         return dict(u=lambda x, y, z: 0.05 * m.sin(2 * PI * x / 1e4) + 0 * y,
                     b=lambda x, y, z: 1e-5 * z
                     + 1e-7 * m.cos(2 * PI * y / 1e4),
+                    e=1e-6)
+    if name == "zstar_catke":
+        return dict(u=lambda x, y, z: 0.1 * m.sin(2 * PI * x / 2e5) + 0 * y,
+                    v=lambda x, y, z: 0.05 * m.cos(2 * PI * x / 2e5)
+                    * m.sin(PI * y / 1e5) + 0 * z,
+                    T=lambda x, y, z: 10.0 + 5e-3 * z
+                    + 0.2 * m.cos(2 * PI * y / 1e5),
+                    S=lambda x, y, z: 35.0 + 1e-6 * x + 0 * z,
+                    eta=lambda x, y: 0.1 * m.sin(2 * PI * x / 2e5)
+                    * m.cos(PI * y / 1e5),
+                    e=1e-6)
+    if name == "zstar_catke_latlon":
+        return dict(u=lambda lam, phi, z: 0.1 * m.cos(m.deg2rad(phi))
+                    * m.sin(m.deg2rad(lam) * 2.0) + 0 * z,
+                    T=lambda lam, phi, z: 10.0 + 5e-3 * z
+                    + 0.3 * m.sin(m.deg2rad(lam) * 3.0),
+                    S=lambda lam, phi, z: 35.0 + 1e-3 * phi + 0 * z,
+                    eta=lambda lam, phi: 0.1 * m.sin(m.deg2rad(lam) * 2.0)
+                    * m.cos(m.deg2rad(phi)),
                     e=1e-6)
     if name == "flow":
         return dict(u=lambda x, y, z: 0.1 + 0 * x)
