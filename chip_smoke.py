@@ -318,6 +318,30 @@ each of which raises on failure:
     under a halo of 3 (kernels 7 and 9 three times a rank a step, held
     against their plain versions at every rank's block shape), held at
     phase 7's 3e-5; a float64 (10, 16, 16) run at 1e-12.
+30. ``EnsembleModel`` on the card, every kernel a custom operator that
+    ``torch.func.vmap`` batches one launch per member
+    (``oceananigans_torch/ops/library.py``), and the conjugate gradient
+    batched over members. 30a: phases 4 to 9's models at full width,
+    ``default`` (quasi-AB2, kernel 1, and RK3, kernel 2), ``science``
+    (kernel 5), ``weno`` (quasi-AB2, kernel 8, and RK3, kernels 7 and 9),
+    ``weno_mom`` (kernel 6) and ``hydro_vi`` (kernels 11 and 12/13) with 4
+    members and ``sw8192`` (kernel 10) with 2, from states whose velocities
+    (transports) are scaled by seeded amplitudes: 3 batched steps (the last
+    two timed) and each member's serial run of the same steps, each run's
+    launches (each row's count a member-step times members times steps),
+    each member held to its serial run at 1e-5 of each field's largest
+    value, the batched ms against the members' serial ms. 30b: phase 6's
+    opt-in path (kernels 1, 3 and 4) with 2 members, and kernel 14 under
+    ``torch.func.vmap`` over 2 members at phase 10's WENO(5) shape, bit for
+    bit against two direct calls. 30c: ``hydro_implicit`` with
+    ``solver_method="cg"`` at JAX's defaults with 4 members (the members
+    held at phase 23's bounds) and phase 18's ``seamount`` at 256 x 256 x
+    128 with 2 (at phase 18's 10·reltol), each member's CG iterations and
+    the host reads of the flag printed each step. 30d: a gradient through
+    one AB2 step of the 256³ default model raises a ``RuntimeError`` on
+    the kernel path (no autograd formula, as ``jax.grad`` through a
+    ``pallas_call`` raises) and is finite on the plain path. Every row
+    launches in phase 30; its launches are added to the kernels line.
 
 Each kernel's launch count is zeroed just before the run of the main path
 that goes through it (phase 4's kernel path for the Centered-2 AB2 kernel,
@@ -331,8 +355,8 @@ scheme for the generic kernel) and read just after it; each must equal the
 launches that run makes. Phases 12 to 27 zero and check the counts of
 their own runs and print them on lines of their own; phase 27's per-rank
 launches of kernels 2, 7, 9, 11 and 12/13, phase 28's of kernels 2, 7,
-9, 10, 11 and 12/13 and phase 29's of kernels 7 and 9 are added to
-theirs. The line before
+9, 10, 11 and 12/13, phase 29's of kernels 7 and 9 and phase 30's of
+every kernel are added to theirs. The line before
 the last is the JSON summary of
 the fourteen TPU kernels, with those counts (the one vector-invariant
 kernel stands for both TPU kernels it replaces; kernel 14's times are its
@@ -4342,6 +4366,317 @@ def gspmd_phase(torch, card, launches, parts=None, phase="28"):
     return out
 
 
+#: phase 30: ``EnsembleModel`` on the card. Steps of each run (the first
+#: untimed), and the bound of a member against its serial run with the
+#: same kernels, relative to each field's largest value: the kernels'
+#: outputs are the serial ones bit for bit (the same kernel per member);
+#: the batched FFTs and reductions of the plain parts round otherwise
+#: (~1e-16 of the velocities in float64 on the CPU,
+#: ``tests/test_torch_ensemble.py``), so a few float32 ulps
+ENS30_STEPS = 3
+ENS30_RTOL = 1e-5
+#: the nonhydrostatic models' N³ (phases 4 to 7)
+ENS30_N = 256
+#: 30a: phases 4-9's models; name: (configuration, timestepper, members,
+#: kernel launches a member-step)
+ENS30_RUNS = {
+    "default": ("default", "QuasiAdamsBashforth2", 4,
+                {"centered2_ab2_update": 1}),
+    "default_rk3": ("default", "RungeKutta3", 4,
+                    {"centered2_momentum_tendency": 3}),
+    "science": ("science", "QuasiAdamsBashforth2", 4,
+                {"centered2_science_ab2_update": 1}),
+    "weno": ("weno", "QuasiAdamsBashforth2", 4,
+             {"weno5_science_ab2_update": 1}),
+    "weno_rk3": ("weno", "RungeKutta3", 4,
+                 {"weno5_momentum_tendency": 3,
+                  "weno5_tracer_tendencies": 3}),
+    "weno_mom": ("weno_mom", "QuasiAdamsBashforth2", 4,
+                 {"weno5_ab2_update": 1}),
+    "sw8192": ("sw8192", None, 2, {"sw_rk3_stage": 3}),
+    "hydro_vi": ("hydro_vi", None, 4, {"weno_tracer_tendencies": 1,
+                                       "vi_momentum_tendency": 1}),
+}
+
+
+def member_state(state, amp, keys):
+    """``state`` with the fields ``keys`` scaled by ``amp``; every tensor a
+    copy (the AB2 kernels write G⁻ in place)."""
+    from oceananigans_torch.interop import flatten_state, unflatten_state
+    flat = flatten_state(state)
+    return unflatten_state(state, {
+        k: (v * amp if k in keys else v.clone()) if hasattr(v, "clone")
+        else v for k, v in flat.items()})
+
+
+def field_interiors(grid, state):
+    """The interior of each of the state's fields (η over its x-y
+    interior)."""
+    xy = grid.interior_slices[:2]
+    return {k: grid.interior(q) if tuple(q.shape) == tuple(grid.shape)
+            else q[xy] for k, q in state.fields().items()}
+
+
+def hydro_groups30(bound):
+    """The groups of phase 9's comparisons (``hydro_groups``), each at
+    ``bound``, for :func:`ensemble_run`."""
+    return {"velocities": (["u", "v"], bound), "w": (["w"], bound),
+            "eta": (["eta"], bound), "tracers": (["T", "S"], bound)}
+
+
+def ensemble_run(torch, ot, wrappers, card, tag, model, s0, dt, n, keys,
+                 per_step, bounds=None, each=None):
+    """``n`` members of ``model`` from ``s0`` with the fields ``keys``
+    scaled by seeded amplitudes: :data:`ENS30_STEPS` batched steps (the
+    last ones timed, CUDA events) with the kernels' launches counted, then
+    each member's serial run of the same steps, and member 0's serial run
+    once more (the serial runs' own spread). Each field's largest
+    difference relative to its largest value is printed; ``bounds``: group
+    -> (its fields, bound), held relative to the group's largest value
+    (default: every field alone at :data:`ENS30_RTOL`). ``each(key)`` is
+    called after every step (``key`` "batched" or the member's index) and
+    its results logged."""
+    gen = torch.Generator().manual_seed(30)
+    amps = (1.0 + 0.5 * torch.rand(n, generator=gen,
+                                   dtype=torch.float64)).tolist()
+    states = [member_state(s0, a, keys) for a in amps]
+    again = member_state(s0, amps[0], keys)
+    ens = ot.EnsembleModel(model, n=n)
+    S = ens.stack(states)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    seen = {}
+
+    def steps(state, step, key):
+        state = step(state, dt)
+        if each:
+            seen.setdefault(key, []).append(each(key))
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(ENS30_STEPS - 1):
+            state = step(state, dt)
+            if each:
+                seen[key].append(each(key))
+        e1.record()
+        e1.synchronize()
+        return state, e0.elapsed_time(e1) / (ENS30_STEPS - 1)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    S, batched_ms = steps(S, ens.step, "batched")
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    want = {k: per * n * ENS30_STEPS for k, per in per_step.items()}
+    g = model.grid
+    groups = bounds or {k: ([k], ENS30_RTOL) for k in s0.fields()}
+    serial_ms, rel, rel_grp = [], [], []
+    for m, s in enumerate(states):
+        s, ms = steps(s, model.step, m)
+        serial_ms.append(ms)
+        got, ref = field_interiors(g, ens.member(S, m)), field_interiors(g, s)
+        require(all(bool(torch.isfinite(q).all()) for q in got.values()),
+                f"30 {tag}: member {m} finite")
+        rel.append({k: group_rel([(got[k], ref[k])]) for k in ref})
+        rel_grp.append({grp: group_rel([(got[k], ref[k]) for k in names])
+                        for grp, (names, _) in groups.items()})
+        if m == 0:
+            first = ref
+    for _ in range(ENS30_STEPS):
+        again = model.step(again, dt)
+    spread = max(group_rel([(q, first[k])])
+                 for k, q in field_interiors(g, again).items())
+    worst = {grp: max(r[grp] for r in rel_grp) for grp in groups}
+    limit = {grp: b for grp, (_, b) in groups.items()}
+    log(f"[30] {tag}: {n} members (amplitudes {[round(a, 4) for a in amps]})"
+        f" x {ENS30_STEPS} steps by EnsembleModel on {card}: batched "
+        f"{batched_ms:.3f} ms/step against {n} x serial "
+        f"{sum(serial_ms):.3f} ms/step ({[round(x, 3) for x in serial_ms]});"
+        f" kernel launches {counts} (want {want}); each member against its "
+        f"serial run with the same kernels, each field's largest difference "
+        f"relative to its largest value: "
+        + "; ".join(f"member {m} " + ", ".join(
+            f"{k} {v:.3e}" for k, v in r.items())
+            for m, r in enumerate(rel))
+        + f"; member 0's serial run repeated: {spread:.3e}; held by group "
+        f"{list(groups)}: worst {worst} (bounds {limit})"
+        + (f"; per step {seen}" if each else ""))
+    require(counts == want, f"30 {tag}: launches {counts}, want {want}")
+    require(all(worst[k] <= limit[k] for k in worst),
+            f"30 {tag}: members against serial runs {worst}")
+    return {"ms": batched_ms, "serial_ms": serial_ms, "rel": worst,
+            "launches": counts, "seen": seen}
+
+
+def ensemble_phase(torch, ot, wrappers, card, dev, launches, hydro_rtol):
+    """Phase 30: ``EnsembleModel`` on the card through the kernels' custom
+    operators (one launch per member) and the batched conjugate gradient;
+    see the docstring. Adds its launches to ``launches``."""
+    from oceananigans_torch.ensemble import member_values
+    from oceananigans_torch.ops import cuda_generic as cg
+    from oceananigans_torch.profile_step import (
+        HYDRO_DT, SEAMOUNT_DT, config_kwargs, hydro_implicit_model,
+        hydro_initial_state, hydro_model, initial_state,
+        seamount_initial_state, seamount_model, sw_initial_state, sw_model,
+    )
+    out, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def full_grid(halo):
+        return ot.RectilinearGrid(
+            size=(ENS30_N,) * 3, extent=(1.0, 1.0, 1.0),
+            topology=(ot.Bounded, ot.Periodic, ot.Periodic), halo=halo,
+            dtype=torch.float32, device=dev)
+
+    # 30a: phases 4 to 9's models at full width
+    for tag, (config, ts, n, per_step) in ENS30_RUNS.items():
+        if config == "sw8192":
+            model = sw_model(8192)
+            s0, dt, keys = sw_initial_state(model), 1.0, ("uh", "vh")
+            require(model.fused_rk3, "30 sw8192 takes kernel 10")
+        elif config == "hydro_vi":
+            model = hydro_model("auto")
+            s0 = model.update_state(hydro_initial_state(model))
+            # the barotropic transports too, or the split-explicit step
+            # takes the depth mean of u and v back to the unscaled U and V
+            dt, keys = HYDRO_DT, ("u", "v", "U", "V")
+            require(model.fused_kernels and model.fused_tracer,
+                    "30 hydro_vi takes kernels 11 and 12/13")
+        else:
+            kwargs, halo = config_kwargs(config)
+            model = ot.NonhydrostaticModel(grid=full_grid(halo),
+                                           timestepper=ts, **kwargs)
+            s0, dt, keys = initial_state(model), 1e-4, ("u", "v", "w")
+            require(model.fused_kernels, f"30 {tag} takes the kernels")
+        out[tag] = ensemble_run(
+            torch, ot, wrappers, card, f"30a {tag}", model, s0, dt, n, keys,
+            per_step, bounds=hydro_groups30(ENS30_RTOL) if config == "hydro_vi"
+            else None)
+        add(out[tag]["launches"])
+        del model, s0
+        torch.cuda.empty_cache()
+
+    # 30b: rows 3 and 4 through phase 6's opt-in path; row 14 under vmap
+    model = ot.NonhydrostaticModel(grid=full_grid((1, 0, 0)),
+                                   timestepper="QuasiAdamsBashforth2")
+    model.fused_correction = True
+    model.pressure_solver = ot.MatmulPoissonSolver(model.grid, fused=True)
+    out["opt_in"] = ensemble_run(
+        torch, ot, wrappers, card, "30b opt-in", model,
+        initial_state(model), 1e-4, 2, ("u", "v", "w"),
+        {"centered2_ab2_update": 1, "pressure_correction": 1,
+         "fused_middle_solve": 1})
+    add(out["opt_in"]["launches"])
+    del model
+    torch.cuda.empty_cache()
+    sch = ot.WENO(5)
+    g10 = full_grid((sch.required_halo, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(30)
+    members = [[ot.fill_halo_regions(
+        torch.randn(g10.shape, generator=gen, device=dev), g10, loc=loc)
+        for loc in (ot.LOC_U, ot.LOC_V, ot.LOC_W)] for _ in range(2)]
+    stacked = [torch.stack(q) for q in zip(*members)]
+    for fn in wrappers.values():
+        fn.launches = 0
+    batched = torch.func.vmap(
+        lambda u, v, w: cg.fused_momentum_tendency(g10, sch, u, v, w))(
+            *stacked)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    require(counts == {"fused_momentum_tendency": 2},
+            f"30b row 14 under vmap launched {counts}")
+    add(counts)
+    equal = all(torch.equal(batched[i][m], ref)
+                for m in range(2) for i, ref in enumerate(
+                    cg.fused_momentum_tendency(g10, sch, *members[m])))
+    log(f"[30] 30b fused_momentum_tendency (WENO(5), {tuple(g10.shape)}) "
+        f"under torch.func.vmap over 2 members on {card}: launches {counts};"
+        f" bit for bit against two direct calls: {equal}")
+    require(equal, "30b row 14 under vmap equals two direct calls")
+    del members, stacked, batched
+    torch.cuda.empty_cache()
+
+    # 30c: the batched conjugate gradient
+    model = hydro_implicit_model("auto", solver_method="cg")
+    fs = model.free_surface
+
+    def implicit_each(key):
+        i = model.free_surface_info
+        return ([int(x) for x in member_values(i["iterations"]).reshape(-1)],
+                i["host_syncs"])
+
+    groups = {k: (names, hydro_rtol["velocities" if k == "w" else k])
+              for k, (names, _) in hydro_groups30(None).items()}
+    out["implicit_cg"] = ensemble_run(
+        torch, ot, wrappers, card, f"30c hydro_implicit cg (maxiter "
+        f"{fs.maxiter}, reltol {fs.reltol:g}; per step: [each member's CG "
+        "iterations], host reads of the flag)", model,
+        model.update_state(hydro_initial_state(model)), HYDRO_DT, 4,
+        ("u", "v", "U", "V"),
+        {"weno_tracer_tendencies": 1, "vi_momentum_tendency": 1},
+        bounds=groups, each=implicit_each)
+    add(out["implicit_cg"]["launches"])
+    del model
+    torch.cuda.empty_cache()
+    model = seamount_model()
+    solver = model.pressure_solver
+
+    def seamount_each(key):
+        return ([int(x) for x in member_values(solver.iterations).reshape(-1)],
+                solver.host_syncs)
+
+    cg_rtol = 10 * solver.reltol
+    out["seamount"] = ensemble_run(
+        torch, ot, wrappers, card, f"30c seamount {tuple(model.grid.N)} "
+        f"(reltol {solver.reltol:g}, FFT preconditioner; per step: [each "
+        "member's CG iterations], host reads of the flag)", model,
+        seamount_initial_state(model), SEAMOUNT_DT, 2, ("u", "v", "w"), {},
+        bounds={"velocities": (["u", "v", "w"], cg_rtol),
+                "b": (["b"], cg_rtol)}, each=seamount_each)
+    del model, solver
+    torch.cuda.empty_cache()
+
+    # 30d: no gradient through a kernel
+    grads = {}
+    for path, fused in (("kernel", "auto"), ("plain", False)):
+        model = ot.NonhydrostaticModel(grid=full_grid((1, 0, 0)),
+                                       timestepper="QuasiAdamsBashforth2",
+                                       fused_kernels=fused)
+        s0 = initial_state(model)
+        u0 = s0.u.clone().requires_grad_(True)
+        for fn in wrappers.values():
+            fn.launches = 0
+        # the step fills u's halos in place: a copy of the leaf
+        s1 = model.step(dataclasses.replace(s0, u=u0.clone()), 1e-4)
+        loss = (s1.u ** 2).sum()
+        counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        try:
+            (g,) = torch.autograd.grad(loss, u0)
+            grads[path] = ("finite" if bool(torch.isfinite(g).all())
+                           else "not finite", float(g.abs().max()), counts)
+        except RuntimeError as err:
+            grads[path] = ("RuntimeError", str(err).splitlines()[0], counts)
+        del model, s0, s1, u0, loss
+        torch.cuda.empty_cache()
+    log(f"[30] 30d torch.autograd.grad of Σu'² through one AB2 step of the "
+        f"{ENS30_N}^3 default model with u requiring grad, on {card}: {grads}")
+    require(grads["kernel"][0] == "RuntimeError"
+            and "autograd" in grads["kernel"][1]
+            and grads["kernel"][2] == {"centered2_ab2_update": 1},
+            "30d the kernel path's gradient raises")
+    require(grads["plain"][0] == "finite" and grads["plain"][1] > 0
+            and not grads["plain"][2], "30d the plain path's gradient")
+    rows = sorted(total)
+    require(set(rows) == set(wrappers), f"30: rows launched under vmap "
+            f"{rows}, every row wanted")
+    for k, v in total.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[30] every kernel launched under vmap: {total}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6127,6 +6462,10 @@ def main():
     # ---- phase 29: the tripolar fold across ranks (no kernel) and blocks
     # narrower than their halo (kernels 7 and 9 on blocks of 3 and 2) ------
     gspmd_phase(torch, card, launches, FOLD_PARTS, "29")
+
+    # ---- phase 30: ensembles through the kernels (every row under vmap)
+    # and the batched conjugate gradient -----------------------------------
+    ensemble_phase(torch, ot, wrappers, card, dev, launches, HYDRO_PATH_RTOL)
 
     sources = {"centered2_ab2_update": ("oceananigans_torch/csrc/centered2.cu",
                                         "oceananigans_tpu/ops/pallas_kernels.py:628"),

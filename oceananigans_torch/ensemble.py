@@ -6,11 +6,26 @@ ensemble of column models batched over the horizontal plane). The JAX
 package ``jax.vmap``s ``model.step`` over a leading axis of the state;
 here ``torch.func.vmap`` does: each tensor of the members' states is
 stacked on a leading axis, and one call of the batched step advances every
-member with whole-ensemble launches. The clock is shared: every member
-steps with the same Δt from the same time. A step that reads a device value
-on the host or launches one of the package's hand-written kernels has no
-batching rule, so such a model (a fused-kernel path) cannot be batched; the
-column models this mode is for take neither.
+member. The clock is shared: every member steps with the same Δt from the
+same time.
+
+Any model the JAX ``EnsembleModel`` batches is batched here, on the CPU
+and on the card, including those whose step runs:
+
+- the hand-written kernels: each is a custom operator with a batching
+  rule (``ops/library.py``), as ``pallas_call`` has one under ``jax.vmap``;
+  a batched model takes the same kernels as the model stepped alone, one
+  launch per member, and each member's kernel outputs are those of its
+  serial step;
+- the conjugate gradient (immersed pressure solves, the implicit free
+  surface's "cg" and "matrix" methods): the loop runs until every member
+  has converged, the converged members frozen, as JAX's batched
+  ``lax.while_loop`` does; each member keeps its own iteration count.
+
+Batched FFTs and reductions may round differently from the serial ones
+(the nonhydrostatic pressure solve's FFT, by an ulp of the velocities). A
+tensor that a step leaves on the model, such as a solver's ``iterations``,
+is read per member with :func:`member_values`.
 """
 
 from __future__ import annotations
@@ -22,7 +37,7 @@ import torch
 from oceananigans_torch.interop import CLOCK, flatten_state, unflatten_state
 from oceananigans_torch.timesteppers import tick
 
-__all__ = ["EnsembleModel"]
+__all__ = ["EnsembleModel", "member_values"]
 
 
 class EnsembleModel:
@@ -54,6 +69,13 @@ class EnsembleModel:
                 else:
                     kw[name] = val[m]
             states.append(self.model.initial_state(**kw))
+        return self.stack(states)
+
+    def stack(self, states):
+        """The ensemble state of the member states ``states`` (one a
+        member, on one clock), stacked on a leading axis."""
+        if len(states) != self.n:
+            raise ValueError(f"{len(states)} states for {self.n} members")
         flats = [flatten_state(s) for s in states]
         stacked = {k: (torch.stack([f[k] for f in flats])
                        if k not in CLOCK else v)
@@ -82,3 +104,14 @@ class EnsembleModel:
         return unflatten_state(states, {
             k: v if k in CLOCK else v[m] for k, v in flat.items()})
 
+
+def member_values(t):
+    """The members' values, stacked on a leading axis, of a tensor that the
+    batched step left on a model (``model.free_surface_info
+    ["iterations"]``, an ``ImmersedPoissonSolver``'s ``iterations``);
+    any other tensor as it is."""
+    from torch._C import _functorch
+    while _functorch.is_batchedtensor(t):
+        t = torch.movedim(_functorch.get_unwrapped(t),
+                          _functorch.maybe_get_bdim(t), 0)
+    return t

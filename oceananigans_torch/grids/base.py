@@ -109,6 +109,17 @@ def interior_slices(N, H):
     return tuple(slice(h, h + n) for n, h in zip(N, H))
 
 
+def pad_interior(a, H):
+    """An interior-shaped tensor ``a`` (its last three axes) in the
+    halo-extended frame of halos ``H``, zero in the halos. Out of place, so
+    a batched ``a`` under ``torch.func.vmap`` stays batched (an in-place
+    write into a fresh ``torch.zeros`` cannot be)."""
+    pads = []
+    for h in reversed(tuple(H)):
+        pads += [int(h), int(h)]
+    return torch.nn.functional.pad(a, pads)
+
+
 def halo_per_axis(halo):
     """A halo given as one width or a per-axis triple, as a triple."""
     if isinstance(halo, (tuple, list)):

@@ -27,7 +27,9 @@ from oceananigans_torch.boundary_conditions import (
     regularize_field_boundary_conditions,
 )
 from oceananigans_torch.fields import LOC_C, location_coords
-from oceananigans_torch.grids.base import AbstractGrid, Center, Face
+from oceananigans_torch.grids.base import (
+    AbstractGrid, Center, Face, pad_interior,
+)
 from oceananigans_torch.ops.operators import (
     X, Y, Z, dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, shift,
 )
@@ -357,8 +359,7 @@ def masked_cg_solve(grid, rhs_interior, fill_halos, precond_apply, maxiter,
 
     # CG iterates live on the interior fluid cells: every operator output
     # is zeroed elsewhere, or the dot products would pick up halo values
-    rhs = torch.zeros(g.shape, dtype=rhs_interior.dtype, device=g.device)
-    rhs[ii] = rhs_interior
+    rhs = pad_interior(rhs_interior, g.H)
     b = torch.where(fluid, rhs * Vw, 0.0)
     b_mean = reduce_sum(b[ii]) / nf
     b = torch.where(fluid, b - b_mean, 0.0)

@@ -81,7 +81,9 @@ from oceananigans_torch.fields import (
     LOC_C, LOC_U, LOC_V, LOC_W, new_field, set_field,
 )
 from oceananigans_torch.forcings import materialize_forcings
-from oceananigans_torch.grids.base import Bounded, Center, Face, Periodic
+from oceananigans_torch.grids.base import (
+    Bounded, Center, Face, Periodic, pad_interior,
+)
 from oceananigans_torch.grids.latlon import LatitudeLongitudeGrid
 from oceananigans_torch.grids.orthogonal import OrthogonalSphericalShellGrid
 from oceananigans_torch.grids.rectilinear import RectilinearGrid
@@ -1381,9 +1383,7 @@ class HydrostaticFreeSurfaceModel(torch.nn.Module):
         x, it, _ = solver.solve(Az * rhs[sx, sy, :])
         self.free_surface_info = {"iterations": it,
                                   "host_syncs": solver.host_syncs}
-        eta = torch.zeros(shape2d, dtype=rhs.dtype, device=rhs.device)
-        eta[sx, sy, :] = x
-        return eta
+        return pad_interior(x, (g.H[0], g.H[1], 0))
 
     def _implicit_fs_cg(self, rhs, dtf, fs):
         """Matrix-free CG on the 2-D Helmholtz operator over the interior,

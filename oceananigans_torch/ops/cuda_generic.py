@@ -28,8 +28,11 @@ JAX package's models, the port's models do not call this kernel; it is an
 entry point of its own.
 
 The wrapper takes its plain version for tensors on the CPU and launches the
-kernel for tensors on a CUDA device; there is no fallback from one to the
-other. It counts its launches in its ``launches`` attribute (one a call).
+kernel for tensors on a CUDA device through its custom operator
+(``ops/library.py``, batched by ``torch.func.vmap`` one launch per member;
+``fused_momentum_tendency_op`` takes it on either device); there is no
+fallback from one to the other. It counts its launches in its
+``launches`` attribute (one a call, one a member under ``vmap``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from oceananigans_torch.ops.cuda_kernels import (
     check_operands, on_cuda, sm_count,
 )
 from oceananigans_torch.ops.cuda_tracer import axes_reachable
+from oceananigans_torch.ops.library import KernelOp
 from oceananigans_torch.ops.march import march_plan
 
 #: the kernel's scheme kinds; a scheme's code is kind * 16 + order
@@ -214,24 +218,44 @@ def fused_momentum_tendency(grid, scheme, u, v, w, tile_x=1):
     if u.shape[1] * u.shape[2] >= 2 ** 31:
         raise ValueError(f"{name}: x-planes of {u.shape[1] * u.shape[2]} "
                          "points exceed the kernel's 32-bit plane offsets")
+    return fused_momentum_tendency_op(grid, scheme, u, v, w)
+
+
+def _launch_generic(fields, state, ints, floats):
+    u, v, w = fields
+    h, *codes, bps = ints
+    G = [u.new_empty(u.shape) for _ in range(3)]
+    nx, ny, nz = u.shape
+    # momentum_plan, with the schemes' blocks per SM passed as ``bps``
+    plan = march_plan((nx - 2 * h, ny, nz), 1, sm_count(u.device),
+                      u.element_size(), (1, 1), bps)
+    _build.launch("ot_generic_momentum", u.dtype, u.device,
+                  *(t.data_ptr() for t in (u, v, w, *G)), *u.shape, h,
+                  *codes, *floats, *plan)
+    fused_momentum_tendency.launches += 1
+    return G
+
+
+MOMENTUM = KernelOp("generic_momentum", _launch_generic)
+
+
+def fused_momentum_tendency_op(grid, scheme, u, v, w):
+    """:func:`fused_momentum_tendency` through its operator, on either
+    device."""
     schemes = axis_schemes(scheme)
     m = RegularMetricProxy(grid)
-    G = [u.new_empty(u.shape) for _ in range(3)]
-    plan = momentum_plan(u.shape, grid.H[0], schemes, sm_count(u.device),
-                         u.element_size())
-    _build.launch("ot_generic_momentum", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  *(g.data_ptr() for g in G), *u.shape, grid.H[0],
-                  *(scheme_code(s) for s in schemes),
-                  m.Ax(), m.Ay(), m.Az(), m.V(),
-                  *(float(getattr(s, "epsilon", 0.0)) for s in schemes),
-                  *plan)
-    fused_momentum_tendency.launches += 1
-    return tuple(G)
+    return tuple(MOMENTUM(
+        lambda f, s: list(fused_momentum_tendency_plain(grid, scheme, *f)),
+        (u, v, w),
+        ints=(grid.H[0], *(scheme_code(s) for s in schemes),
+              blocks_per_sm(schemes, u.element_size())),
+        floats=(m.Ax(), m.Ay(), m.Az(), m.V(),
+                *(getattr(s, "epsilon", 0.0) for s in schemes))))
 
 
 fused_momentum_tendency.launches = 0
 
 __all__ = ["KINDS", "RegularMetricProxy", "fused_momentum_tendency",
-           "fused_momentum_tendency_plain", "generic_available",
+           "fused_momentum_tendency_op", "fused_momentum_tendency_plain",
+           "generic_available",
            "momentum_plan", "scheme_code", "tile_smem_bytes"]

@@ -17,7 +17,11 @@ Counterpart of ``oceananigans_tpu/ops/pallas_kernels.py``:
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; there is no fallback from one to
-the other. Each counts its kernel launches in its ``launches`` attribute.
+the other. On the card it calls its kernel's custom operator
+(``ops/library.py``), which ``torch.func.vmap`` batches one launch per
+member and through which no gradient flows; its ``*_op`` function takes
+that operator on either device (the CPU's implementation is the plain
+version). Each counts its kernel launches in its ``launches`` attribute.
 All fields are halo-extended ``(nx, ny, nz)`` tensors whose halos are
 filled; output x-rows are ``[1, nx-1)``, and y/z neighbours wrap modulo the
 full extent (exact on a halo-free periodic axis, landing in halo rows on a
@@ -34,6 +38,7 @@ from oceananigans_torch.advection import (
     Centered, div_Uc, div_vu, div_vv, div_vw,
 )
 from oceananigans_torch.ops import _build
+from oceananigans_torch.ops.library import KernelOp
 from oceananigans_torch.ops.march import march_plan
 
 _FLOATS = (torch.float32, torch.float64)
@@ -255,6 +260,59 @@ def pressure_correction_plain(grid, p, u, v, w, dt):
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _launch_c2_tendency(fields, state, ints, floats):
+    u, v, w = fields
+    G = [torch.empty_like(u) for _ in range(3)]
+    plan = tendency_plan(u.shape, sm_count(u.device), u.element_size())
+    _build.launch("ot_c2_tendency", u.dtype, u.device,
+                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  *(g.data_ptr() for g in G), *u.shape, *floats, *plan)
+    centered2_momentum_tendency.launches += 1
+    return G
+
+
+def _launch_c2_ab2(fields, state, ints, floats):
+    u, v, w = fields
+    news = [torch.empty_like(u) for _ in range(3)]
+    _build.launch("ot_c2_ab2", u.dtype, u.device,
+                  *(t.data_ptr() for t in (*fields, *state, *news)),
+                  *u.shape, *floats)
+    centered2_ab2_update.launches += 1
+    return news
+
+
+def _launch_c2_science_ab2(fields, state, ints, floats):
+    u, v, w, *cs = fields
+    news = [torch.empty_like(u) for _ in range(3 + len(cs))]
+    c_ptrs, g_ptrs, n_ptrs = (pointers(cs), pointers(state[3:]),
+                              pointers(news[3:]))
+    _build.launch("ot_c2_science_ab2", u.dtype, u.device,
+                  *(t.data_ptr() for t in (u, v, w, *state[:3], *news[:3])),
+                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                  ctypes.addressof(n_ptrs), len(cs), *u.shape, *floats,
+                  *ints)
+    centered2_science_ab2_update.launches += 1
+    return news
+
+
+def _launch_pressure_correction(fields, state, ints, floats):
+    p, u, v, w = fields
+    out = [torch.empty_like(u) for _ in range(3)]
+    _build.launch("ot_pressure_correction", u.dtype, u.device,
+                  *(t.data_ptr() for t in (*fields, *out)), *u.shape,
+                  *floats)
+    pressure_correction.launches += 1
+    return out
+
+
+C2_TENDENCY = KernelOp("c2_tendency", _launch_c2_tendency)
+C2_AB2 = KernelOp("c2_ab2", _launch_c2_ab2, mutates=True)
+C2_SCIENCE_AB2 = KernelOp("c2_science_ab2", _launch_c2_science_ab2,
+                          mutates=True)
+PRESSURE_CORRECTION = KernelOp("pressure_correction",
+                               _launch_pressure_correction)
+
+
 def centered2_momentum_tendency(grid, u, v, w):
     """(Gu, Gv, Gw) = -∇·(𝐯 ⊗ 𝐯) with Centered(2) fluxes on x-rows
     [1, nx-1). The outputs' x-halo rows are zero, their y/z halo rows junk
@@ -264,14 +322,15 @@ def centered2_momentum_tendency(grid, u, v, w):
     check_operands(name, (u, v, w), grid.shape)
     if not on_cuda(u):
         return centered2_momentum_tendency_plain(grid, u, v, w)
-    G = tuple(torch.empty_like(u) for _ in range(3))
-    plan = tendency_plan(u.shape, sm_count(u.device), u.element_size())
-    _build.launch("ot_c2_tendency", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  *(g.data_ptr() for g in G), *u.shape, *_inv_spacings(grid),
-                  *plan)
-    centered2_momentum_tendency.launches += 1
-    return G
+    return centered2_momentum_tendency_op(grid, u, v, w)
+
+
+def centered2_momentum_tendency_op(grid, u, v, w):
+    """:func:`centered2_momentum_tendency` through its operator, on either
+    device."""
+    return tuple(C2_TENDENCY(
+        lambda f, s: list(centered2_momentum_tendency_plain(grid, *f)),
+        (u, v, w), floats=_inv_spacings(grid)))
 
 
 def centered2_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b):
@@ -291,13 +350,18 @@ def centered2_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b):
     if not on_cuda(u):
         return centered2_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev,
                                           Gw_prev, a, b)
-    news = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("ot_c2_ab2", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
-                  *(q.data_ptr() for q in news), *u.shape,
-                  *_inv_spacings(grid), float(a), float(b))
-    centered2_ab2_update.launches += 1
+    return centered2_ab2_update_op(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev,
+                                   a, b)
+
+
+def centered2_ab2_update_op(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b):
+    """:func:`centered2_ab2_update` through its operator, on either
+    device."""
+    news = C2_AB2(
+        lambda f, s: list(centered2_ab2_update_plain(grid, *f, *s, a,
+                                                     b)[:3]),
+        (u, v, w), (Gu_prev, Gv_prev, Gw_prev),
+        floats=(*_inv_spacings(grid), a, b))
     return (*news, Gu_prev, Gv_prev, Gw_prev)
 
 
@@ -315,6 +379,21 @@ def science_operands(name, tracers, Gc_prev, buoyancy_tracer):
     b_idx = -1 if buoyancy_tracer is None else names.index(buoyancy_tracer)
     return (names, b_idx, [tracers[n] for n in names],
             [Gc_prev[n] for n in names])
+
+
+def science_op(op, plain, names, u, v, w, cs, Gu_prev, Gv_prev, Gw_prev,
+               gcs, ints, floats):
+    """Run a science kernel's operator ``op``; ``plain(fields, state)``
+    returns the plain version's ``(u', v', w', {c'}, ...)``. Returns the
+    wrapper's ``(u', v', w', {c'}, Gu, Gv, Gw, {Gc})``."""
+    def plain_news(f, s):
+        out = plain(f, s)
+        return [*out[:3], *(out[3][n] for n in names)]
+
+    news = op(plain_news, (u, v, w, *cs), (Gu_prev, Gv_prev, Gw_prev, *gcs),
+              ints, floats)
+    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
+            Gw_prev, dict(zip(names, gcs)))
 
 
 def centered2_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
@@ -337,18 +416,27 @@ def centered2_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
         return centered2_science_ab2_update_plain(
             grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b,
             f, buoyancy_tracer)
-    news = [torch.empty_like(u) for _ in range(3 + len(names))]
-    c_ptrs, g_ptrs, n_ptrs = pointers(cs), pointers(gcs), pointers(news[3:])
-    _build.launch("ot_c2_science_ab2", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
-                  *(q.data_ptr() for q in news[:3]),
-                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
-                  ctypes.addressof(n_ptrs), len(names), *u.shape,
-                  *_inv_spacings(grid), float(a), float(b), float(f), b_idx)
-    centered2_science_ab2_update.launches += 1
-    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
-            Gw_prev, dict(zip(names, gcs)))
+    return centered2_science_ab2_update_op(
+        grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b, f,
+        buoyancy_tracer)
+
+
+def centered2_science_ab2_update_op(grid, u, v, w, tracers, Gu_prev,
+                                    Gv_prev, Gw_prev, Gc_prev, a, b, f=0.0,
+                                    buoyancy_tracer=None):
+    """:func:`centered2_science_ab2_update` through its operator, on either
+    device."""
+    names, b_idx, cs, gcs = science_operands(
+        "centered2_science_ab2_update", tracers, Gc_prev, buoyancy_tracer)
+
+    def plain(fs, ss):
+        return centered2_science_ab2_update_plain(
+            grid, *fs[:3], dict(zip(names, fs[3:])), *ss[:3],
+            dict(zip(names, ss[3:])), a, b, f, buoyancy_tracer)
+
+    return science_op(C2_SCIENCE_AB2, plain, names, u, v, w, cs, Gu_prev,
+                      Gv_prev, Gw_prev, gcs, (b_idx,),
+                      (*_inv_spacings(grid), a, b, f))
 
 
 def pressure_correction(grid, p, u, v, w, dt):
@@ -359,13 +447,15 @@ def pressure_correction(grid, p, u, v, w, dt):
     check_operands(name, (p, u, v, w), grid.shape)
     if not on_cuda(u):
         return pressure_correction_plain(grid, p, u, v, w, dt)
-    out = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("ot_pressure_correction", u.dtype, u.device,
-                  p.data_ptr(), u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  *(q.data_ptr() for q in out), *u.shape,
-                  *_inv_spacings(grid), float(dt))
-    pressure_correction.launches += 1
-    return out
+    return pressure_correction_op(grid, p, u, v, w, dt)
+
+
+def pressure_correction_op(grid, p, u, v, w, dt):
+    """:func:`pressure_correction` through its operator, on either
+    device."""
+    return tuple(PRESSURE_CORRECTION(
+        lambda f, s: list(pressure_correction_plain(grid, *f, dt)),
+        (p, u, v, w), floats=(*_inv_spacings(grid), dt)))
 
 
 centered2_momentum_tendency.launches = 0
@@ -374,9 +464,10 @@ centered2_science_ab2_update.launches = 0
 pressure_correction.launches = 0
 
 __all__ = ["MAX_TRACERS", "centered2_ab2_update",
-           "centered2_ab2_update_plain", "centered2_momentum_tendency",
+           "centered2_ab2_update_op", "centered2_ab2_update_plain",
+           "centered2_momentum_tendency", "centered2_momentum_tendency_op",
            "centered2_momentum_tendency_plain",
-           "centered2_science_ab2_update",
+           "centered2_science_ab2_update", "centered2_science_ab2_update_op",
            "centered2_science_ab2_update_plain", "fused_available",
-           "pressure_correction", "pressure_correction_plain",
-           "tendency_plan", "tile_smem_bytes"]
+           "pressure_correction", "pressure_correction_op",
+           "pressure_correction_plain", "tendency_plan", "tile_smem_bytes"]

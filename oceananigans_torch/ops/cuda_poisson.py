@@ -7,7 +7,10 @@ the x-transformed right-hand side it applies the forward y and z
 transforms, the 1/λ scale and the inverse z and y transforms in one pass;
 the x-axis contractions need the full x extent and stay outside. The
 wrapper takes the plain version for CPU tensors and launches the kernel
-for CUDA tensors, and counts launches in ``fused_middle_solve.launches``.
+for CUDA tensors through its custom operator (``ops/library.py``: batched
+by ``torch.func.vmap`` one launch per member, the bases and eigenvalues
+unbatched; ``fused_middle_solve_op`` takes it on either device), and
+counts launches in ``fused_middle_solve.launches``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from oceananigans_torch.ops import _build
 from oceananigans_torch.ops.cuda_kernels import check_operands, on_cuda
+from oceananigans_torch.ops.library import KernelOp
 
 
 def _inv_lambda(lamx, lamy, lamz, dtype):
@@ -58,16 +62,30 @@ def fused_middle_solve(x, Ey, Ez, lamx, lamy, lamz):
                 f"{t.device} does not match {shape}, {dtype} on {x.device}")
     if not on_cuda(x):
         return fused_middle_solve_plain(x, Ey, Ez, lamx, lamy, lamz)
-    out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
+    return fused_middle_solve_op(x, Ey, Ez, lamx, lamy, lamz)
+
+
+def _launch_middle(fields, state, ints, floats):
+    x = fields[0]
+    out, scratch = torch.empty_like(x), torch.empty_like(x)
     _build.launch("ot_poisson_middle", x.dtype, x.device,
                   x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                  Ey.data_ptr(), Ez.data_ptr(), lamx.data_ptr(),
-                  lamy.data_ptr(), lamz.data_ptr(), Nx, Ny, Nz)
+                  *(t.data_ptr() for t in fields[1:]), *x.shape)
     fused_middle_solve.launches += 1
-    return out
+    return [out]
+
+
+MIDDLE = KernelOp("poisson_middle", _launch_middle)
+
+
+def fused_middle_solve_op(x, Ey, Ez, lamx, lamy, lamz):
+    """:func:`fused_middle_solve` through its operator, on either
+    device."""
+    return MIDDLE(lambda f, s: [fused_middle_solve_plain(*f)],
+                  (x, Ey, Ez, lamx, lamy, lamz))[0]
 
 
 fused_middle_solve.launches = 0
 
-__all__ = ["fused_middle_solve", "fused_middle_solve_plain"]
+__all__ = ["fused_middle_solve", "fused_middle_solve_op",
+           "fused_middle_solve_plain"]

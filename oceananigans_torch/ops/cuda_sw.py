@@ -13,8 +13,11 @@ upward. :func:`stage_plan` sizes the segments from the grid and the card's
 SM count, and the wrapper passes that plan to the kernel.
 
 The wrapper takes the plain version for tensors on the CPU and launches
-the kernel for tensors on a CUDA device; there is no fallback from one to
-the other. It counts its launches in its ``launches`` attribute. Fields are
+the kernel for tensors on a CUDA device through its custom operator
+(``ops/library.py``, batched by ``torch.func.vmap`` one launch per
+member; ``sw_rk3_stage_op`` takes it on either device); there is no
+fallback from one to the other. It counts its launches in its
+``launches`` attribute. Fields are
 halo-extended ``(nx, ny, 1)`` tensors whose halos are filled; outputs cover
 the interior x-rows ``[H, nx-H)`` with ``H`` the x halo, and y neighbours
 wrap modulo the full extent.
@@ -28,6 +31,7 @@ from oceananigans_torch.ops import _build
 from oceananigans_torch.ops.cuda_kernels import (
     check_operands, on_cuda, sm_count,
 )
+from oceananigans_torch.ops.library import KernelOp
 
 #: x-rows each side that the stencil reads (i-2 .. i+1)
 REACH = 2
@@ -173,22 +177,40 @@ def sw_rk3_stage(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
     if not on_cuda(uh):
         return sw_rk3_stage_plain(grid, uh, vh, h, Guh_prev, Gvh_prev,
                                   Gh_prev, a, b, gravitational_acceleration)
-    news = tuple(torch.empty_like(uh) for _ in range(3))
+    return sw_rk3_stage_op(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
+                           gravitational_acceleration)
+
+
+def _launch_stage(fields, state, ints, floats):
+    uh = fields[0]
+    news = [torch.empty_like(uh) for _ in range(3)]
     nx, ny, _ = uh.shape
-    x0 = grid.H[0]
+    x0 = ints[0]
     _, seg_len, nseg = stage_plan(nx, ny, x0, sm_count(uh.device),
                                   uh.element_size())
     _build.launch("ot_sw_rk3_stage", uh.dtype, uh.device,
-                  uh.data_ptr(), vh.data_ptr(), h.data_ptr(),
-                  Guh_prev.data_ptr(), Gvh_prev.data_ptr(), Gh_prev.data_ptr(),
-                  *(q.data_ptr() for q in news), nx, ny, x0, STRIP, seg_len,
-                  nseg, float(grid.Nx / grid.Lx), float(grid.Ny / grid.Ly),
-                  float(gravitational_acceleration), float(a), float(b))
+                  *(t.data_ptr() for t in (*fields, *state, *news)), nx, ny,
+                  x0, STRIP, seg_len, nseg, *floats)
     sw_rk3_stage.launches += 1
+    return news
+
+
+STAGE = KernelOp("sw_rk3_stage", _launch_stage, mutates=True)
+
+
+def sw_rk3_stage_op(grid, uh, vh, h, Guh_prev, Gvh_prev, Gh_prev, a, b,
+                    gravitational_acceleration):
+    """:func:`sw_rk3_stage` through its operator, on either device."""
+    news = STAGE(
+        lambda f, s: list(sw_rk3_stage_plain(
+            grid, *f, *s, a, b, gravitational_acceleration)[:3]),
+        (uh, vh, h), (Guh_prev, Gvh_prev, Gh_prev), (grid.H[0],),
+        (grid.Nx / grid.Lx, grid.Ny / grid.Ly, gravitational_acceleration,
+         a, b))
     return (*news, Guh_prev, Gvh_prev, Gh_prev)
 
 
 sw_rk3_stage.launches = 0
 
 __all__ = ["STRIP", "stage_plan", "sw_fused_available", "sw_rk3_stage",
-           "sw_rk3_stage_plain"]
+           "sw_rk3_stage_op", "sw_rk3_stage_plain"]

@@ -27,8 +27,11 @@ tiles: the panel each block owns and the x-segments it marches over; the
 kernels refuse a plan that misses an x-row.
 
 The wrapper takes its plain version for tensors on the CPU and launches
-the kernel for tensors on a CUDA device; there is no fallback from one to
-the other. It counts its launches in its ``launches`` attribute.
+the kernel for tensors on a CUDA device through its custom operator
+(``ops/library.py``, batched by ``torch.func.vmap`` one launch per member,
+the metric profiles unbatched; ``weno_tracer_tendencies_op`` takes it on
+either device); there is no fallback from one to the other. It counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from oceananigans_torch.ops import _build
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, check_operands, on_cuda, pointers, sm_count,
 )
+from oceananigans_torch.ops.library import KernelOp
 from oceananigans_torch.ops.march import (  # noqa: F401 (re-exported)
     MAX_THREADS, PANEL_Z, SEGMENT_START, blocks_per_sm, march_plan,
 )
@@ -147,26 +151,51 @@ def weno_tracer_tendencies(grid, scheme, u, v, w, tracers, metrics=None):
     if metrics.device != u.device or metrics.dtype != u.dtype:
         raise ValueError(f"{name}: metrics differ from the fields in device "
                          "or dtype")
-    out = {n: torch.empty_like(u) for n in names}
+    return weno_tracer_tendencies_op(grid, scheme, u, v, w, tracers, metrics)
+
+
+def _launch_march(fields, state, ints, floats):
+    u, v, w, metrics, *cs = fields
+    out = [torch.empty_like(u) for _ in cs]
     sms = sm_count(u.device)
-    for lo in range(0, len(names), MAX_TRACERS):
-        chunk = names[lo:lo + MAX_TRACERS]
-        cs = pointers([tracers[n] for n in chunk])
-        gs = pointers([out[n] for n in chunk])
+    for lo in range(0, len(cs), MAX_TRACERS):
+        chunk = cs[lo:lo + MAX_TRACERS]
+        c_ptrs, g_ptrs = pointers(chunk), pointers(out[lo:lo + MAX_TRACERS])
         roles = -(-len(chunk) // TRACERS_PER_BLOCK)
         plan = march_plan(u.shape, roles, sms, u.element_size(),
                           TRACER_EXTRA)
         _build.launch("ot_weno_tracer_march", u.dtype, u.device,
                       u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                      ctypes.addressof(cs), ctypes.addressof(gs), len(chunk),
-                      *u.shape, metrics.data_ptr(), scheme.order, *plan,
-                      float(scheme.epsilon))
+                      ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                      len(chunk), *u.shape, metrics.data_ptr(), ints[0],
+                      *plan, *floats)
         weno_tracer_tendencies.launches += 1
     return out
+
+
+MARCH = KernelOp("weno_tracer_march", _launch_march)
+
+
+def weno_tracer_tendencies_op(grid, scheme, u, v, w, tracers, metrics=None):
+    """:func:`weno_tracer_tendencies` through its operator, on either
+    device (the metric profiles are built here when not given)."""
+    names = list(tracers)
+    if metrics is None:
+        metrics = tracer_metric_profiles(grid)
+
+    def plain(f, s):
+        out = weno_tracer_tendencies_plain(grid, scheme, *f[:3],
+                                           dict(zip(names, f[4:])))
+        return [out[n] for n in names]
+
+    out = MARCH(plain, (u, v, w, metrics, *tracers.values()),
+                ints=(scheme.order,), floats=(scheme.epsilon,))
+    return dict(zip(names, out))
 
 
 weno_tracer_tendencies.launches = 0
 
 __all__ = ["METRICS", "ORDERS", "grid_ok", "march_plan",
            "tracer_fusion_available", "tracer_metric_profiles",
-           "weno_tracer_tendencies", "weno_tracer_tendencies_plain"]
+           "weno_tracer_tendencies", "weno_tracer_tendencies_op",
+           "weno_tracer_tendencies_plain"]

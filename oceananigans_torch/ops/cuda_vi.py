@@ -33,8 +33,11 @@ regular rectilinear grid, functions of latitude on an x-regular lat-lon
 grid (its Az and volumes from Δsinφ, not Δx·Δy).
 
 The wrapper takes its plain version for tensors on the CPU and launches
-the kernel for tensors on a CUDA device; there is no fallback from one to
-the other. It counts its launches in its ``launches`` attribute.
+the kernel for tensors on a CUDA device through its custom operator
+(``ops/library.py``, batched by ``torch.func.vmap`` one launch per member,
+the metric profiles unbatched; ``vi_momentum_tendency_op`` takes it on
+either device); there is no fallback from one to the other. It counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from oceananigans_torch.ops.cuda_kernels import (
 from oceananigans_torch.ops.cuda_tracer import (
     axes_reachable, grid_ok, metric_profile,
 )
+from oceananigans_torch.ops.library import KernelOp
 from oceananigans_torch.ops.march import march_plan
 
 #: the (vorticity, rest) WENO orders the kernel is instantiated for as
@@ -153,21 +157,40 @@ def vi_momentum_tendency(grid, vi, u, v, w, metrics=None):
     if metrics.device != u.device or metrics.dtype != u.dtype:
         raise ValueError(f"{name}: metrics differ from the fields in device "
                          "or dtype")
+    return vi_momentum_tendency_op(grid, vi, u, v, w, metrics)
+
+
+def _launch_vi(fields, state, ints, floats):
+    u, v, w, metrics = fields
     Gu, Gv = torch.empty_like(u), torch.empty_like(u)
     plan = march_plan(u.shape, 2, sm_count(u.device), u.element_size())
-    s = schemes(vi)
     _build.launch("ot_vi_march", u.dtype, u.device,
                   u.data_ptr(), v.data_ptr(), w.data_ptr(), Gu.data_ptr(),
-                  Gv.data_ptr(), *u.shape, metrics.data_ptr(),
-                  *(x.order for x in s),
-                  int(vi.vorticity_stencil == "velocity"), *plan,
-                  *(float(x.epsilon) for x in s))
+                  Gv.data_ptr(), *u.shape, metrics.data_ptr(), *ints, *plan,
+                  *floats)
     vi_momentum_tendency.launches += 1
-    return Gu, Gv
+    return [Gu, Gv]
+
+
+VI_MARCH = KernelOp("vi_march", _launch_vi)
+
+
+def vi_momentum_tendency_op(grid, vi, u, v, w, metrics=None):
+    """:func:`vi_momentum_tendency` through its operator, on either device
+    (the metric profiles are built here when not given)."""
+    if metrics is None:
+        metrics = vi_metric_profiles(grid)
+    s = schemes(vi)
+    return tuple(VI_MARCH(
+        lambda f, _: list(vi_momentum_tendency_plain(grid, vi, *f[:3])),
+        (u, v, w, metrics),
+        ints=(*(x.order for x in s), int(vi.vorticity_stencil == "velocity")),
+        floats=tuple(x.epsilon for x in s)))
 
 
 vi_momentum_tendency.launches = 0
 
 __all__ = ["METRICS", "ORDER_PAIRS", "schemes", "vi_available",
            "vi_metric_profiles", "vi_momentum_tendency",
-           "vi_momentum_tendency_plain", "vi_reach"]
+           "vi_momentum_tendency_op", "vi_momentum_tendency_plain",
+           "vi_reach"]

@@ -21,7 +21,10 @@ face flux once.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; there is no fallback from one to
-the other. Each counts its kernel launches in its ``launches`` attribute.
+the other. On the card it calls its kernel's custom operator
+(``ops/library.py``, batched by ``torch.func.vmap`` one launch per member);
+its ``*_op`` function takes that operator on either device. Each counts
+its kernel launches in its ``launches`` attribute.
 Fields are halo-extended ``(nx, ny, nz)`` tensors whose halos are filled;
 outputs cover x-rows ``[3, nx-3)``, and y/z neighbours wrap modulo the
 full extent. The plain versions are the port's own whole-tensor operators
@@ -42,8 +45,9 @@ from oceananigans_torch.advection import (
 from oceananigans_torch.ops import _build
 from oceananigans_torch.ops.cuda_kernels import (
     MAX_TRACERS, ab2_rows, check_operands, on_cuda, pointers,
-    science_ab2_plain, science_operands,
+    science_ab2_plain, science_op, science_operands,
 )
+from oceananigans_torch.ops.library import KernelOp
 
 #: rows each side that a WENO-5 stencil reads
 H = 3
@@ -141,6 +145,60 @@ def weno5_science_ab2_update_plain(grid, u, v, w, tracers, Gu_prev, Gv_prev,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _launch_tendency(fields, state, ints, floats):
+    u, v, w = fields
+    G = [torch.empty_like(u) for _ in range(3)]
+    _build.launch("ot_weno5_tendency", u.dtype, u.device,
+                  *(t.data_ptr() for t in (u, v, w, *G)), *u.shape, *floats)
+    weno5_momentum_tendency.launches += 1
+    return G
+
+
+def _launch_tracers(fields, state, ints, floats):
+    u, v, w, *cs = fields
+    out = [torch.empty_like(u) for _ in cs]
+    for lo in range(0, len(cs), MAX_TRACERS):
+        c_ptrs = pointers(cs[lo:lo + MAX_TRACERS])
+        g_ptrs = pointers(out[lo:lo + MAX_TRACERS])
+        _build.launch("ot_weno5_tracers", u.dtype, u.device,
+                      u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                      ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                      len(cs[lo:lo + MAX_TRACERS]), *u.shape, *floats)
+        weno5_tracer_tendencies.launches += 1
+    return out
+
+
+def _launch_ab2(fields, state, ints, floats):
+    u, v, w = fields
+    news = [torch.empty_like(u) for _ in range(3)]
+    _build.launch("ot_weno5_ab2", u.dtype, u.device,
+                  *(t.data_ptr() for t in (*fields, *state, *news)),
+                  *u.shape, *floats)
+    weno5_ab2_update.launches += 1
+    return news
+
+
+def _launch_science_ab2(fields, state, ints, floats):
+    u, v, w, *cs = fields
+    news = [torch.empty_like(u) for _ in range(3 + len(cs))]
+    c_ptrs, g_ptrs, n_ptrs = (pointers(cs), pointers(state[3:]),
+                              pointers(news[3:]))
+    _build.launch("ot_weno5_science_ab2", u.dtype, u.device,
+                  *(t.data_ptr() for t in (u, v, w, *state[:3], *news[:3])),
+                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
+                  ctypes.addressof(n_ptrs), len(cs), *u.shape, *floats,
+                  *ints)
+    weno5_science_ab2_update.launches += 1
+    return news
+
+
+TENDENCY = KernelOp("weno5_tendency", _launch_tendency)
+TRACERS = KernelOp("weno5_tracers", _launch_tracers)
+AB2 = KernelOp("weno5_ab2", _launch_ab2, mutates=True)
+SCIENCE_AB2 = KernelOp("weno5_science_ab2", _launch_science_ab2,
+                       mutates=True)
+
+
 def weno5_momentum_tendency(grid, u, v, w, epsilon=1e-8):
     """(Gu, Gv, Gw) = -∇·(𝐯 ⊗ 𝐯) with WENO-5 fluxes on x-rows [3, nx-3).
     The outputs' x-halo rows are zero, their y/z halo rows junk that the
@@ -150,13 +208,15 @@ def weno5_momentum_tendency(grid, u, v, w, epsilon=1e-8):
     check_operands(name, (u, v, w), grid.shape)
     if not on_cuda(u):
         return weno5_momentum_tendency_plain(grid, u, v, w, epsilon)
-    G = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("ot_weno5_tendency", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  *(g.data_ptr() for g in G), *u.shape, *_inv_spacings(grid),
-                  float(epsilon))
-    weno5_momentum_tendency.launches += 1
-    return G
+    return weno5_momentum_tendency_op(grid, u, v, w, epsilon)
+
+
+def weno5_momentum_tendency_op(grid, u, v, w, epsilon=1e-8):
+    """:func:`weno5_momentum_tendency` through its operator, on either
+    device."""
+    return tuple(TENDENCY(
+        lambda f, s: list(weno5_momentum_tendency_plain(grid, *f, epsilon)),
+        (u, v, w), floats=(*_inv_spacings(grid), epsilon)))
 
 
 def weno5_tracer_tendencies(grid, u, v, w, tracers, epsilon=1e-8):
@@ -164,24 +224,28 @@ def weno5_tracer_tendencies(grid, u, v, w, tracers, epsilon=1e-8):
     tracer of the dict ``tracers``, zero on the other x-rows. One launch
     takes up to :data:`MAX_TRACERS` tracers."""
     name = "weno5_tracer_tendencies"
-    names = list(tracers)
     _check_grid(name, grid, u)
     check_operands(name, (u, v, w, *tracers.values()), grid.shape)
-    if not names:
+    if not tracers:
         return {}
     if not on_cuda(u):
         return weno5_tracer_tendencies_plain(grid, u, v, w, tracers, epsilon)
-    out = {n: torch.empty_like(u) for n in names}
-    for lo in range(0, len(names), MAX_TRACERS):
-        chunk = names[lo:lo + MAX_TRACERS]
-        cs = pointers([tracers[n] for n in chunk])
-        gs = pointers([out[n] for n in chunk])
-        _build.launch("ot_weno5_tracers", u.dtype, u.device,
-                      u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                      ctypes.addressof(cs), ctypes.addressof(gs), len(chunk),
-                      *u.shape, *_inv_spacings(grid), float(epsilon))
-        weno5_tracer_tendencies.launches += 1
-    return out
+    return weno5_tracer_tendencies_op(grid, u, v, w, tracers, epsilon)
+
+
+def weno5_tracer_tendencies_op(grid, u, v, w, tracers, epsilon=1e-8):
+    """:func:`weno5_tracer_tendencies` through its operator, on either
+    device."""
+    names = list(tracers)
+
+    def plain(f, s):
+        out = weno5_tracer_tendencies_plain(
+            grid, *f[:3], dict(zip(names, f[3:])), epsilon)
+        return [out[n] for n in names]
+
+    out = TRACERS(plain, (u, v, w, *tracers.values()),
+                  floats=(*_inv_spacings(grid), epsilon))
+    return dict(zip(names, out))
 
 
 def weno5_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
@@ -200,13 +264,18 @@ def weno5_ab2_update(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
     if not on_cuda(u):
         return weno5_ab2_update_plain(grid, u, v, w, Gu_prev, Gv_prev,
                                       Gw_prev, a, b, epsilon)
-    news = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("ot_weno5_ab2", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
-                  *(q.data_ptr() for q in news), *u.shape,
-                  *_inv_spacings(grid), float(epsilon), float(a), float(b))
-    weno5_ab2_update.launches += 1
+    return weno5_ab2_update_op(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a,
+                               b, epsilon)
+
+
+def weno5_ab2_update_op(grid, u, v, w, Gu_prev, Gv_prev, Gw_prev, a, b,
+                        epsilon=1e-8):
+    """:func:`weno5_ab2_update` through its operator, on either device."""
+    news = AB2(
+        lambda f, s: list(weno5_ab2_update_plain(grid, *f, *s, a, b,
+                                                 epsilon)[:3]),
+        (u, v, w), (Gu_prev, Gv_prev, Gw_prev),
+        floats=(*_inv_spacings(grid), epsilon, a, b))
     return (*news, Gu_prev, Gv_prev, Gw_prev)
 
 
@@ -230,20 +299,27 @@ def weno5_science_ab2_update(grid, u, v, w, tracers, Gu_prev, Gv_prev,
         return weno5_science_ab2_update_plain(
             grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b,
             f, buoyancy_tracer, epsilon)
-    news = [torch.empty_like(u) for _ in range(3 + len(names))]
-    c_ptrs, g_ptrs, n_ptrs = (pointers(cs), pointers(gcs),
-                              pointers(news[3:]))
-    _build.launch("ot_weno5_science_ab2", u.dtype, u.device,
-                  u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  Gu_prev.data_ptr(), Gv_prev.data_ptr(), Gw_prev.data_ptr(),
-                  *(q.data_ptr() for q in news[:3]),
-                  ctypes.addressof(c_ptrs), ctypes.addressof(g_ptrs),
-                  ctypes.addressof(n_ptrs), len(names), *u.shape,
-                  *_inv_spacings(grid), float(epsilon), float(a), float(b),
-                  float(f), b_idx)
-    weno5_science_ab2_update.launches += 1
-    return (*news[:3], dict(zip(names, news[3:])), Gu_prev, Gv_prev,
-            Gw_prev, dict(zip(names, gcs)))
+    return weno5_science_ab2_update_op(
+        grid, u, v, w, tracers, Gu_prev, Gv_prev, Gw_prev, Gc_prev, a, b, f,
+        buoyancy_tracer, epsilon)
+
+
+def weno5_science_ab2_update_op(grid, u, v, w, tracers, Gu_prev, Gv_prev,
+                                Gw_prev, Gc_prev, a, b, f=0.0,
+                                buoyancy_tracer=None, epsilon=1e-8):
+    """:func:`weno5_science_ab2_update` through its operator, on either
+    device."""
+    names, b_idx, cs, gcs = science_operands(
+        "weno5_science_ab2_update", tracers, Gc_prev, buoyancy_tracer)
+
+    def plain(fs, ss):
+        return weno5_science_ab2_update_plain(
+            grid, *fs[:3], dict(zip(names, fs[3:])), *ss[:3],
+            dict(zip(names, ss[3:])), a, b, f, buoyancy_tracer, epsilon)
+
+    return science_op(SCIENCE_AB2, plain, names, u, v, w, cs, Gu_prev,
+                      Gv_prev, Gw_prev, gcs, (b_idx,),
+                      (*_inv_spacings(grid), epsilon, a, b, f))
 
 
 weno5_momentum_tendency.launches = 0
@@ -251,8 +327,10 @@ weno5_tracer_tendencies.launches = 0
 weno5_ab2_update.launches = 0
 weno5_science_ab2_update.launches = 0
 
-__all__ = ["MAX_TRACERS", "weno5_ab2_update", "weno5_ab2_update_plain",
-           "weno5_available", "weno5_momentum_tendency",
+__all__ = ["MAX_TRACERS", "weno5_ab2_update", "weno5_ab2_update_op",
+           "weno5_ab2_update_plain", "weno5_available",
+           "weno5_momentum_tendency", "weno5_momentum_tendency_op",
            "weno5_momentum_tendency_plain", "weno5_science_ab2_update",
-           "weno5_science_ab2_update_plain", "weno5_tracer_tendencies",
+           "weno5_science_ab2_update_op", "weno5_science_ab2_update_plain",
+           "weno5_tracer_tendencies", "weno5_tracer_tendencies_op",
            "weno5_tracer_tendencies_plain"]

@@ -12,11 +12,19 @@ loop when it is false, so a solve does at most ``CHECK_EVERY − 1`` frozen
 iterations and one host synchronization per ``CHECK_EVERY`` iterations.
 The divisions are the JAX package's breakdown-safe ones: a zero ``p·Ap``
 or ``r·z`` gives a zero step instead of inf or NaN.
+
+Under ``torch.func.vmap`` (an ``EnsembleModel``) every member carries its
+own flag and count, and the host reads the flag of any member
+(``ops/library.py: any_member``): the loop runs until every member has
+converged, the converged ones frozen, as JAX's ``lax.while_loop`` does
+under ``jax.vmap``. A serial solve reads its own flag.
 """
 
 from __future__ import annotations
 
 import torch
+
+from oceananigans_torch.ops.library import any_member
 
 #: iterations between two host reads of the convergence flag
 CHECK_EVERY = 4
@@ -55,7 +63,7 @@ def conjugate_gradient(A, b, x0, *, preconditioner=None, maxiter=100,
     for k in range(maxiter):
         if k % check_every == 0:
             syncs += 1
-            if not bool(active):
+            if not bool(any_member(active)):
                 break
         Ap = A(p)
         pAp = dot(p, Ap)
